@@ -1,0 +1,53 @@
+"""global_lvba_tpu_torch — the PyTorch / CUDA port of global_lvba_tpu.
+
+The LiDAR bundle adjustment (BALM plane-eigenvalue factors solved by
+Nielsen-damped LM) on one NVIDIA H100, with the per-voxel aggregation +
+eigensolve, the linearization chain and the Gram SYRK as hand-written
+CUDA kernels (csrc/, built at first use by kernels/build.py).  The JAX
+package stays beside it as the reference; this package imports nothing of
+it and nothing of JAX.
+
+Layer map (the JAX package's names, so each counterpart is easy to find):
+  geometry/  SO(3) exp/log, the pose box-plus of the LM
+  map/       host numpy voxelization into per-(voxel, frame) moments
+  models/    synthetic plane scenes, pose perturbation, ATE
+  ops/       closed-form 3x3 eigensolve (plain torch)
+  factors/   frame-aligned factor arrays, plane-eigen cost/grad/Hessian
+  kernels/   CUDA kernel wrappers, their plain versions, the builder
+  solver/    damped LM, LU and block-Jacobi PCG reduced solves
+  pipeline/  window -> anchors -> two-stage global LiDAR BA
+
+Device policy: entry points take `device=` and default to "cuda"; the CPU
+runs only when a caller asks for it (the parity tests do, in float64).
+On the card the solve runs in float32 with TF32 off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch device an entry point runs on.  A CUDA device must exist —
+    nothing carries on on the CPU when no card is found.  On CUDA, float32
+    matmuls and convolutions are pinned to full float32 (TF32 off): the
+    Gauss-Newton Hessian and the damped solve need the full mantissa."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU"
+            )
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def solve_dtype(name: str) -> torch.dtype:
+    """Torch dtype of a `solver.dtype` config string."""
+    return {"float32": torch.float32, "float64": torch.float64}[name]

@@ -1,0 +1,104 @@
+// Kernel 1: per-voxel aggregation of the plane factor + fused 3x3
+// eigensolve (replaces global_lvba_tpu/ops/pallas/soa_fused.py:61
+// `_agg_kernel` and the XLA `_soa_eig` beside it).
+//
+// One block per voxel.  Pass 1 reduces N and Σ n·(R μ + p) over the K
+// entries, pass 2 the world scatter in parallel-axis form
+// Σ mask·R Pc Rᵀ + n·d dᵀ with d = R μ + p − v̄.  Each thread walks the
+// entries k = t, t+T, ... in order and the block sums in a fixed tree
+// (block_sum), so the result is bitwise repeatable.  Pass 2 re-reads the
+// voxel's cells (26 KB at W = 512, from L1/L2) instead of holding them.
+// Thread 0 then runs the eigensolve and writes
+//   residv[v] = N > 0 ? λ0 : 0
+//   pv[v]     = [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0]
+// with B_i = sqrt(2 / max(λi − λ0, 1e-9·max(|λ2|, 1e-20)))·u_i.
+//
+// Entry (v, k) takes pose k (aligned layout) or pose frame[v, k] when a
+// frame-id array is given.
+#include "soa_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
+               const float* __restrict__ Pc, const float* __restrict__ pose12,
+               const int* __restrict__ frame, int K,
+               float* __restrict__ residv, float* __restrict__ pv) {
+  using namespace lvba;
+  __shared__ float red[6][kThreads];
+  const int v = blockIdx.x;
+  const int t = threadIdx.x;
+  const int64_t row = (int64_t)v * K;
+
+  float s1[4] = {0.f, 0.f, 0.f, 0.f};  // N, Σ n·wm (3)
+  for (int k = t; k < K; k += kThreads) {
+    const Cell e = load_cell(n, mu, Pc, row + k);
+    const Pose P = load_pose(pose12, frame ? frame[row + k] : k);
+    float Rm1, Rm2, Rm3;
+    rot_mean(P, e, Rm1, Rm2, Rm3);
+    s1[0] += e.n;
+    s1[1] += e.n * (Rm1 + P.p1);
+    s1[2] += e.n * (Rm2 + P.p2);
+    s1[3] += e.n * (Rm3 + P.p3);
+  }
+  block_sum<kThreads, 4>(s1, red);
+  const float N = s1[0];
+  const float invN = 1.0f / (N > 0.f ? N : 1.0f);
+  const float vb1 = s1[1] * invN, vb2 = s1[2] * invN, vb3 = s1[3] * invN;
+
+  float S[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int k = t; k < K; k += kThreads) {
+    const Cell e = load_cell(n, mu, Pc, row + k);
+    const Pose P = load_pose(pose12, frame ? frame[row + k] : k);
+    float Rm1, Rm2, Rm3, RP[9];
+    rot_mean(P, e, Rm1, Rm2, Rm3);
+    rot_scatter(P, e, RP);
+    const float d1 = Rm1 + P.p1 - vb1;
+    const float d2 = Rm2 + P.p2 - vb2;
+    const float d3 = Rm3 + P.p3 - vb3;
+    const float S11e = RP[0] * P.R11 + RP[1] * P.R12 + RP[2] * P.R13;
+    const float S12e = RP[0] * P.R21 + RP[1] * P.R22 + RP[2] * P.R23;
+    const float S13e = RP[0] * P.R31 + RP[1] * P.R32 + RP[2] * P.R33;
+    const float S22e = RP[3] * P.R21 + RP[4] * P.R22 + RP[5] * P.R23;
+    const float S23e = RP[3] * P.R31 + RP[4] * P.R32 + RP[5] * P.R33;
+    const float S33e = RP[6] * P.R31 + RP[7] * P.R32 + RP[8] * P.R33;
+    S[0] += e.mask * S11e + e.n * d1 * d1;
+    S[1] += e.mask * S12e + e.n * d1 * d2;
+    S[2] += e.mask * S13e + e.n * d1 * d3;
+    S[3] += e.mask * S22e + e.n * d2 * d2;
+    S[4] += e.mask * S23e + e.n * d2 * d3;
+    S[5] += e.mask * S33e + e.n * d3 * d3;
+  }
+  block_sum<kThreads, 6>(S, red);
+
+  if (t == 0) {
+    float cov[6], lam[3], u[3], e1[3], e2[3];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) cov[i] = S[i] * invN;
+    eigh3(cov, lam, u, e1, e2);
+    residv[v] = N > 0.f ? lam[0] : 0.0f;
+    const float scale = fmaxf(fabsf(lam[2]), 1e-20f);
+    const float sc1 = sqrtf(2.0f / fmaxf(lam[1] - lam[0], 1e-9f * scale));
+    const float sc2 = sqrtf(2.0f / fmaxf(lam[2] - lam[0], 1e-9f * scale));
+    float* o = pv + 16 * (int64_t)v;
+    o[0] = u[0]; o[1] = u[1]; o[2] = u[2];
+    o[3] = sc1 * e1[0]; o[4] = sc1 * e1[1]; o[5] = sc1 * e1[2];
+    o[6] = sc2 * e2[0]; o[7] = sc2 * e2[1]; o[8] = sc2 * e2[2];
+    o[9] = vb1; o[10] = vb2; o[11] = vb3;
+    o[12] = invN; o[13] = 0.f; o[14] = 0.f; o[15] = 0.f;
+  }
+}
+
+}  // namespace
+
+// frame may be null (aligned layout: entry k takes pose k); the wrapper
+// checks that frame ids index the pose table.
+extern "C" int lvba_soa_agg(const float* n, const float* mu, const float* Pc,
+                            const float* pose12, const int* frame, int V,
+                            int K, float* residv, float* pv, void* stream) {
+  soa_agg_kernel<<<V, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, mu, Pc, pose12, frame, K, residv, pv);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,131 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each csrc/<name>.cu is compiled by its own `nvcc` process, all started
+together, into a shared library with a plain C interface
+(build/torch_ext/lib<name>-<digest>.so, next to the package; `.gitignore`
+lists build/).  The digest covers the source, the shared header and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: the first wrapper call on a CUDA tensor
+builds.  A build that fails raises with the compiler's output; there is no
+fallback.
+
+A plain C interface keeps PyTorch's headers out of the build (a source
+that includes them takes minutes to compile, this one seconds).  Each
+launcher takes tensor pointers and the stream as integers and returns
+cudaGetLastError() after the launch.  Its ctypes signature is bound once,
+when the library loads; `launcher(name)` is a dictionary lookup after the
+first call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+SOURCES = ("soa_agg", "soa_chain", "syrk")
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's launcher: C name and argument types (it returns an int)
+SIGNATURES = {
+    "soa_agg": ("lvba_soa_agg", [_P] * 5 + [_I] * 2 + [_P] * 3),
+    "soa_chain": ("lvba_soa_chain", [_P] * 5 + [_I] * 3 + [_P] * 3),
+    "syrk": ("lvba_syrk", [_P, _I, _I, _P, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+_launchers: dict = {}
+_logs: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build_all():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in SOURCES:
+        out = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+        if out.exists():
+            _logs[name] = "(reused)"
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        _logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in SOURCES:
+        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest(name)}.so"))
+        cname, argtypes = SIGNATURES[name]
+        fn = getattr(lib, cname)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        lib.lvba_error_string.argtypes = [ctypes.c_int]
+        lib.lvba_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+        _launchers[name] = fn
+
+
+def launcher(name: str):
+    """The bound launcher of csrc/<name>.cu, building every kernel on the
+    first call."""
+    fn = _launchers.get(name)
+    if fn is None:
+        with _lock:
+            if not _libs:
+                _build_all()
+        fn = _launchers[name]
+    return fn
+
+
+def build_logs() -> dict:
+    """nvcc's output per source (ptxas register / spill report) of the
+    build this process made, "(reused)" for a library found built."""
+    with _lock:
+        return dict(_logs)
+
+
+def check(name: str, err: int):
+    """Raise if the launcher of csrc/<name>.cu returned a CUDA error code
+    (every library exports lvba_error_string, cudaGetErrorString behind a
+    C name)."""
+    if err != 0:
+        msg = _libs[name].lvba_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

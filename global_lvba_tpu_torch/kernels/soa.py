@@ -1,0 +1,184 @@
+"""Plane-factor evaluation kernels 1 and 2: per-voxel aggregation with the
+fused 3x3 eigensolve, and the per-entry linearization chain.
+
+soa_agg (csrc/soa_agg.cu) replaces the Pallas kernel
+global_lvba_tpu/ops/pallas/soa_fused.py:61 `_agg_kernel` and the XLA
+eigensolve beside it (`_soa_eig`): CUDA has acosf, so the eigensolve that
+the TPU had to split out runs in the same kernel.  One block per voxel
+reduces its W entries in a fixed tree order (no atomics).  Bound: bytes —
+it reads the 13 floats of every (voxel, frame) cell once (54.5 MB at
+V=2048, W=512) and does ~150 flops per cell, far below the card's
+FLOP/byte balance; the design reads each cell with neighbouring threads
+on neighbouring cells and keeps the per-voxel results (N, v̄, the
+covariance, the eigenvectors) in registers and shared memory.
+
+soa_chain (csrc/soa_chain.cu) replaces global_lvba_tpu/ops/pallas/
+soa_fused.py:73 `_chain_kernel` and, on the aligned layout, the voxel-axis
+g/Hd sums after it: one thread per frame walks a tile of voxels, so the
+jjt6 and the 24 distinct diagonal-extras channels are summed in registers
+(partials per voxel tile, summed in a fixed order by torch.sum) and only
+the factor rows reach device memory — written straight into the Gram
+operand layout A (3V, 6W), row (v, r) contiguous.  Bound: bytes (13 floats
+in, 18 out per cell; ~400 flops per cell).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+LAUNCHES = {"soa_agg": 0, "soa_chain": 0}
+
+_CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
+_D24_TO_36_ON: dict = {}
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _check_operands(n, mu, Pc, pose12):
+    V, K = n.shape
+    if mu.shape != (V, K, 3) or Pc.shape != (V, K, 3, 3) or pose12.dim() != 2 \
+            or pose12.shape[1] != 12:
+        raise ValueError(
+            f"bad operand shapes n {tuple(n.shape)} mu {tuple(mu.shape)} "
+            f"Pc {tuple(Pc.shape)} pose12 {tuple(pose12.shape)}")
+    for name, t in (("n", n), ("mu", mu), ("Pc", Pc), ("pose12", pose12)):
+        if t.device != n.device:
+            raise ValueError(f"{name} is on {t.device}, n on {n.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def soa_agg(n, mu, Pc, pose12, frame=None):
+    """Aggregation + eigensolve -> (residv (V,), pv (V, 16)), pv =
+    [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0].
+
+    n (V, K), mu (V, K, 3), Pc (V, K, 3, 3), pose12 (P, 12).  Entry (v, k)
+    takes pose k (aligned layout, K == P) or pose frame[v, k] when a
+    (V, K) int32 `frame` is given."""
+    if n.device.type == "cpu":
+        return soa_agg_plain(n, mu, Pc, pose12, frame)
+    if n.device.type != "cuda":
+        raise ValueError(f"soa_agg: unsupported device {n.device}")
+    _check_operands(n, mu, Pc, pose12)
+    V, K = n.shape
+    P = pose12.shape[0]
+    if frame is None:
+        if K != P:
+            raise ValueError(f"aligned layout needs K == poses, got {K} != {P}")
+    elif frame.shape != (V, K) or frame.dtype != torch.int32 \
+            or frame.device != n.device or not frame.is_contiguous():
+        raise ValueError("frame must be a contiguous (V, K) int32 tensor "
+                         "on the operands' device")
+    elif frame.numel() and (int(frame.min()) < 0 or int(frame.max()) >= P):
+        raise ValueError(f"frame ids outside the {P}-pose table")
+    residv = torch.empty((V,), dtype=n.dtype, device=n.device)
+    pv = torch.empty((V, 16), dtype=n.dtype, device=n.device)
+    launch = build.launcher("soa_agg")
+    with torch.cuda.device(n.device):
+        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12),
+                     _ptr(frame) if frame is not None else None,
+                     V, K, _ptr(residv), _ptr(pv), _stream(n.device))
+    build.check("soa_agg", err)
+    LAUNCHES["soa_agg"] += 1
+    return residv, pv
+
+
+def soa_agg_plain(n, mu, Pc, pose12, frame=None):
+    """Plain torch version of soa_agg: _soa_agg + _soa_eig."""
+    from ..factors.plane_eigen import (
+        _moment_channels, _pose_channels, _soa_agg, _soa_eig)
+
+    mu3, P6 = _moment_channels(mu, Pc)
+    R9, p3 = _pose_channels(pose12, frame)
+    _, _, N, invN, vb, _, _, cov6 = _soa_agg(n, mu3, P6, R9, p3)
+    residv, u, B1, B2 = _soa_eig(cov6, N)
+    zero = torch.zeros_like(invN)
+    pv = torch.stack(u + B1 + B2 + vb + (invN, zero, zero, zero), dim=-1)
+    return residv, pv
+
+
+def soa_chain(n, mu, Pc, pose12, pv):
+    """Linearization chain on the aligned layout -> (A (3V, 6W), g (W, 6),
+    Hd (W, 6, 6)): A row (v, r) holds factor row r of voxel v at columns
+    6k..6k+5 for every frame k (the Gram operand; H -= AᵀA), g and Hd are
+    the voxel sums of the per-entry gradient and diagonal extras."""
+    if n.device.type == "cpu":
+        return soa_chain_plain(n, mu, Pc, pose12, pv)
+    if n.device.type != "cuda":
+        raise ValueError(f"soa_chain: unsupported device {n.device}")
+    _check_operands(n, mu, Pc, pose12)
+    V, W = n.shape
+    if pose12.shape[0] != W:
+        raise ValueError(f"aligned layout needs W == poses, got {W} != "
+                         f"{pose12.shape[0]}")
+    if pv.shape != (V, 16) or pv.dtype != torch.float32 \
+            or pv.device != n.device or not pv.is_contiguous():
+        raise ValueError("pv must be a contiguous (V, 16) float32 tensor "
+                         "on the operands' device")
+    nblk = -(-V // _CHAIN_VOXEL_TILE)
+    if nblk > 65535:
+        raise ValueError(f"too many voxels for one launch: {V}")
+    A = torch.empty((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    part = torch.empty((nblk, 30, W), dtype=n.dtype, device=n.device)
+    launch = build.launcher("soa_chain")
+    with torch.cuda.device(n.device):
+        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12), _ptr(pv),
+                     V, W, _CHAIN_VOXEL_TILE, _ptr(A), _ptr(part),
+                     _stream(n.device))
+    build.check("soa_chain", err)
+    LAUNCHES["soa_chain"] += 1
+    return (A,) + _reduce_partials(part, W)
+
+
+def _d24_to_36(device):
+    """The 24 -> 36 channel index on `device`, copied there once (a copy
+    from host memory on every call would sync the stream)."""
+    idx = _D24_TO_36_ON.get(device)
+    if idx is None:
+        from ..factors.plane_eigen import _D24_TO_36
+
+        idx = _D24_TO_36_ON[device] = torch.as_tensor(_D24_TO_36,
+                                                      device=device)
+    return idx
+
+
+def _reduce_partials(part, W):
+    s = part.sum(dim=0)                                  # (30, W)
+    g = s[:6].T.contiguous()
+    Hd = s[6:].T[:, _d24_to_36(part.device)].reshape(W, 6, 6)
+    return g, Hd
+
+
+def soa_chain_plain(n, mu, Pc, pose12, pv):
+    """Plain torch version of soa_chain: _soa_chain + voxel-axis sums, the
+    rows relaid out to the Gram operand (3V, 6W)."""
+    from ..factors.plane_eigen import (
+        _moment_channels, _pose_channels, _soa_agg, _soa_chain)
+
+    V, W = n.shape
+    mu3, P6 = _moment_channels(mu, Pc)
+    R9, p3 = _pose_channels(pose12)
+    mask, nm, _, _, _, Rm, RP, _ = _soa_agg(n, mu3, P6, R9, p3)
+    u = (pv[:, 0], pv[:, 1], pv[:, 2])
+    B1 = (pv[:, 3], pv[:, 4], pv[:, 5])
+    B2 = (pv[:, 6], pv[:, 7], pv[:, 8])
+    vb = (pv[:, 9], pv[:, 10], pv[:, 11])
+    invN = pv[:, 12]
+    rows_ch, jjt_ch, d36_ch = _soa_chain(
+        mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
+    g = torch.stack([c.sum(dim=0) for c in jjt_ch], dim=-1)
+    Hd = torch.stack([c.sum(dim=0) for c in d36_ch], dim=-1).reshape(W, 6, 6)
+    A = torch.stack(rows_ch, dim=-1).reshape(V, W, 3, 6)
+    return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), g, Hd

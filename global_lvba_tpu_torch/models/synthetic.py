@@ -1,0 +1,141 @@
+"""Synthetic LiDAR scenes for tests and benchmarks (the port's own copy of
+the plane-scene part of global_lvba_tpu.models.synthetic, numpy only).
+
+The reference repo ships no tests and no benchmark data (SURVEY.md §4/§6);
+ground-truth validation therefore runs on generated scenes: a room of
+planes observed from a smooth trajectory, with known poses, so BA accuracy
+(pose recovery / ATE) is checkable exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class PlaneScene:
+    points_body: np.ndarray   # (N, 3) f32 — per-point body-frame coords
+    frame_ids: np.ndarray     # (N,) i32
+    R_true: np.ndarray        # (W, 3, 3) f64
+    p_true: np.ndarray        # (W, 3) f64
+    planes_n: np.ndarray      # (P, 3) plane unit normals
+    planes_d: np.ndarray      # (P,) plane offsets (n·x + d = 0)
+    times: np.ndarray         # (W,) f64 frame timestamps
+
+
+def _rot_z(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=np.float64)
+
+
+def _small_rotation(rng, scale):
+    w = rng.normal(scale=scale, size=3)
+    theta = np.linalg.norm(w)
+    if theta < 1e-12:
+        return np.eye(3)
+    k = w / theta
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+
+def make_plane_scene(
+    num_frames: int = 10,
+    points_per_frame: int = 2000,
+    num_planes: int = 6,
+    extent: float = 8.0,
+    noise: float = 0.005,
+    traj_radius: float = 2.0,
+    seed: int = 0,
+    dt: float = 0.1,
+) -> PlaneScene:
+    """A box-room of planes scanned from a circular arc trajectory."""
+    rng = np.random.default_rng(seed)
+    e = extent / 2.0
+    # 6 axis-aligned walls of a box, plus extra tilted planes if requested
+    normals = [
+        np.array([1.0, 0, 0]), np.array([-1.0, 0, 0]),
+        np.array([0, 1.0, 0]), np.array([0, -1.0, 0]),
+        np.array([0, 0, 1.0]), np.array([0, 0, -1.0]),
+    ]
+    offsets = [e, e, e, e, e, e]
+    for _ in range(max(0, num_planes - 6)):
+        n = rng.normal(size=3)
+        n /= np.linalg.norm(n)
+        normals.append(n)
+        offsets.append(rng.uniform(1.0, e))
+    normals = np.stack(normals[:num_planes])
+    offsets = np.array(offsets[:num_planes])
+
+    R_true = np.zeros((num_frames, 3, 3))
+    p_true = np.zeros((num_frames, 3))
+    for i in range(num_frames):
+        ang = 0.15 * i
+        R_true[i] = _rot_z(ang) @ _small_rotation(rng, 0.02)
+        p_true[i] = np.array(
+            [traj_radius * np.cos(ang) - traj_radius, traj_radius * np.sin(ang), 0.05 * np.sin(0.5 * i)]
+        )
+
+    pts_body = []
+    fids = []
+    per_plane = points_per_frame // num_planes
+    for i in range(num_frames):
+        pw_all = []
+        for pi in range(num_planes):
+            n = normals[pi]
+            d = offsets[pi]
+            # orthonormal basis of the plane
+            a = np.array([1.0, 0, 0]) if abs(n[0]) < 0.9 else np.array([0, 1.0, 0])
+            t1 = np.cross(n, a); t1 /= np.linalg.norm(t1)
+            t2 = np.cross(n, t1)
+            uv = rng.uniform(-e, e, size=(per_plane, 2))
+            X = (-d) * n[None, :] + uv[:, 0:1] * t1[None, :] + uv[:, 1:2] * t2[None, :]
+            pw_all.append(X)
+        pw = np.concatenate(pw_all)
+        pb = (R_true[i].T @ (pw - p_true[i]).T).T
+        pb += rng.normal(scale=noise, size=pb.shape)
+        pts_body.append(pb.astype(np.float32))
+        fids.append(np.full(pb.shape[0], i, dtype=np.int32))
+
+    return PlaneScene(
+        points_body=np.concatenate(pts_body),
+        frame_ids=np.concatenate(fids),
+        R_true=R_true,
+        p_true=p_true,
+        planes_n=normals,
+        planes_d=offsets,
+        times=np.arange(num_frames, dtype=np.float64) * dt,
+    )
+
+
+def perturb_poses(
+    R: np.ndarray, p: np.ndarray, rot_scale: float, trans_scale: float, seed: int = 1
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Apply random right-multiplicative rotation + translation noise."""
+    rng = np.random.default_rng(seed)
+    W = R.shape[0]
+    R_out = np.array(R, copy=True)
+    p_out = np.array(p, copy=True)
+    for i in range(W):
+        R_out[i] = R[i] @ _small_rotation(rng, rot_scale)
+        p_out[i] = p[i] + rng.normal(scale=trans_scale, size=3)
+    return R_out, p_out
+
+
+def ate_rmse(p_est: np.ndarray, p_ref: np.ndarray, align: bool = True) -> float:
+    """Absolute trajectory error RMSE after optional SE(3) (Umeyama) alignment."""
+    a = np.asarray(p_est, dtype=np.float64)
+    b = np.asarray(p_ref, dtype=np.float64)
+    if align:
+        ca, cb = a.mean(0), b.mean(0)
+        A, B = a - ca, b - cb
+        U, _, Vt = np.linalg.svd(A.T @ B)
+        S = np.eye(3)
+        if np.linalg.det(U @ Vt) < 0:
+            S[2, 2] = -1
+        Rali = (U @ S @ Vt).T
+        a = (Rali @ A.T).T + cb
+        b = B + cb
+    return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=1))))

@@ -1,0 +1,50 @@
+"""The port imports nothing of JAX and nothing of the JAX package, and
+builds no kernel at import time."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "global_lvba_tpu_torch"
+BANNED = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|global_lvba_tpu(?!_torch))\b", re.M)
+
+
+def _port_modules():
+    names = ["global_lvba_tpu_torch"]
+    for m in pkgutil.walk_packages([str(PKG)], prefix="global_lvba_tpu_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'global_lvba_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import importlib\n"
+        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "from global_lvba_tpu_torch.kernels import build\n"
+        "assert not build._libs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'global_lvba_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py"])
+def test_source_has_no_jax_import(path):
+    assert not BANNED.search((ROOT / path).read_text()), path

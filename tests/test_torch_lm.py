@@ -1,0 +1,117 @@
+"""Damped LM of the PyTorch port against the JAX package (float64, CPU):
+poses at the 1e-8 of tests/test_aligned_layout.py on both reduced-solve
+branches, and the zero-observation frame of tests/test_lm.py."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from global_lvba_tpu.factors import padding as jpad
+from global_lvba_tpu.map.voxelize import build_voxel_map
+from global_lvba_tpu.models.synthetic import ate_rmse, make_plane_scene, perturb_poses
+from global_lvba_tpu.solver import dist_solve as jds, lm as jlm
+from global_lvba_tpu_torch.factors.padding import from_jax_arrays
+from global_lvba_tpu_torch.solver import dist_solve, lm
+
+F64 = torch.float64
+
+
+def _problem(W, ppf, seed, extra_frame=False):
+    scene = make_plane_scene(num_frames=W, points_per_frame=ppf, seed=seed)
+    vm = build_voxel_map(
+        scene.points_body, scene.frame_ids, scene.R_true, scene.p_true,
+        voxel_size=1.0, eigen_ratios=(0.2,) * 4,
+    )
+    R0, p0 = scene.R_true, scene.p_true
+    if extra_frame:     # a frame that observes nothing
+        R0 = np.concatenate([R0, np.eye(3)[None]])
+        p0 = np.concatenate([p0, np.array([[50.0, 50.0, 50.0]])])
+    Wt = R0.shape[0]
+    Rp, pp = perturb_poses(R0, p0, 0.004, 0.012, seed=seed + 1)
+    ja = jpad.aligned_to_device(vm.buckets, Wt, dtype=jnp.float64)
+    fa = from_jax_arrays(ja.n, ja.mu, ja.Pc, device="cpu", dtype=F64)
+    return scene, ja, fa, Rp, pp
+
+
+@pytest.fixture(scope="module")
+def w64():
+    return _problem(64, 400, 0)
+
+
+@pytest.mark.parametrize("solver", ["auto", "cg"])
+def test_lm_matches_jax(w64, solver):
+    scene, ja, fa, Rp, pp = w64
+    ref = jlm.lm_damping_iter([ja], jnp.asarray(Rp), jnp.asarray(pp),
+                              max_iters=6, reduced_solver=solver)
+    got = lm.lm_damping_iter([fa], torch.as_tensor(Rp), torch.as_tensor(pp),
+                             max_iters=6, reduced_solver=solver)
+    assert got.iters == int(ref.iters)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.R.numpy(), np.asarray(ref.R), rtol=0, atol=1e-8)
+    assert np.isclose(float(got.residual), float(ref.residual), rtol=1e-8)
+    assert ate_rmse(got.p.numpy(), scene.p_true) < 0.6 * ate_rmse(pp, scene.p_true)
+
+
+@pytest.mark.parametrize("solver", ["lu", "cg"])
+def test_unconstrained_frame_stays_fixed(solver):
+    scene, ja, fa, Rp, pp = _problem(10, 1500, 2, extra_frame=True)
+    got = lm.lm_damping_iter([fa], torch.as_tensor(Rp), torch.as_tensor(pp),
+                             max_iters=8, reduced_solver=solver)
+    p = got.p.numpy()
+    assert np.isfinite(p).all()
+    assert ate_rmse(p[:10], scene.p_true) < 0.5 * ate_rmse(pp[:10], scene.p_true)
+    np.testing.assert_allclose(p[10], pp[10], rtol=0, atol=1e-9)
+    ref = jlm.lm_damping_iter([ja], jnp.asarray(Rp), jnp.asarray(pp),
+                              max_iters=8, reduced_solver=solver)
+    np.testing.assert_allclose(p, np.asarray(ref.p), rtol=0, atol=1e-8)
+
+
+def test_nielsen_update_matches_jax():
+    for res1, res2, q1, u, v in [(1.0, 0.5, 0.6, 0.01, 2.0),
+                                 (1.0, 1.2, 0.6, 0.01, 4.0),
+                                 (2.0, 2.0, 0.0, 0.1, 2.0)]:
+        args = [torch.tensor(x, dtype=F64) for x in (res1, res2, q1, u, v)]
+        got = lm._nielsen_update(*args, 1e-6)
+        ref = jlm._nielsen_update(*[jnp.asarray(x) for x in (res1, res2, q1, u, v)],
+                                  1e-6)
+        for a, b in zip(got, ref):
+            assert float(a) == float(b)
+
+
+def test_block_inverse_and_cg_match_jax():
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(60, 60))
+    H = X @ X.T + 60 * np.eye(60)
+    g = rng.normal(size=60)
+    D = H.reshape(10, 6, 10, 6)[np.arange(10), :, np.arange(10), :]
+    np.testing.assert_allclose(dist_solve.inv_blocks_6x6(torch.as_tensor(D)).numpy(),
+                               np.linalg.inv(D), rtol=1e-10, atol=1e-12)
+    got = dist_solve.solve_damped_cg(torch.as_tensor(H), torch.as_tensor(g),
+                                     torch.tensor(0.01, dtype=F64))
+    ref = jds.solve_damped_cg(jnp.asarray(H), jnp.asarray(g), jnp.asarray(0.01))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-12)
+
+
+def test_bucketed_input_raises(w64):
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        lm.lm_damping_iter([object()], torch.eye(3, dtype=F64)[None],
+                           torch.zeros(1, 3, dtype=F64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_zero_gradient_stops_at_once(dtype):
+    H = torch.eye(12, dtype=dtype) * 2.0
+    trips = []
+
+    def matvec(x):
+        trips.append(1)
+        return H @ x
+
+    x = dist_solve._pcg(matvec, lambda r: r, torch.zeros(12, dtype=dtype),
+                        max_iters=48, tol=1e-10)
+    assert len(trips) == 1 and torch.equal(x, torch.zeros(12, dtype=dtype))
+    dx = dist_solve.solve_damped_cg(H, torch.zeros(12, dtype=dtype),
+                                    torch.tensor(0.01, dtype=dtype),
+                                    max_iters=48)
+    assert torch.equal(dx, torch.zeros(12, dtype=dtype))

@@ -1,0 +1,180 @@
+"""Aligned plane-factor evaluation of the PyTorch port against the JAX
+package (float64, CPU): r/g/H at the 1e-9 of tests/test_aligned_layout.py,
+the plain versions of the three CUDA kernels against the JAX functions they
+transcribe, the Gram-operand layout, and the aligned factor arrays."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from global_lvba_tpu.factors import padding as jpad
+from global_lvba_tpu.factors import plane_eigen as jpe
+from global_lvba_tpu.map.voxelize import PlaneFactorBucket
+from global_lvba_tpu.map.voxelize import build_voxel_map as jbuild
+from global_lvba_tpu.models.synthetic import make_plane_scene, perturb_poses
+from global_lvba_tpu_torch import resolve_device
+from global_lvba_tpu_torch.factors import padding, plane_eigen as pe
+from global_lvba_tpu_torch.kernels import gram, soa
+from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+
+F64 = torch.float64
+
+
+@pytest.fixture(scope="module")
+def prob():
+    W = 8
+    scene = make_plane_scene(num_frames=W, points_per_frame=1500, seed=0)
+    args = (scene.points_body, scene.frame_ids, scene.R_true, scene.p_true, 1.0)
+    vm = jbuild(*args, eigen_ratios=(0.2,) * 4)
+    ja = jpad.aligned_to_device(vm.buckets, W, dtype=jnp.float64)
+    fa = padding.from_jax_arrays(ja.n, ja.mu, ja.Pc, device="cpu", dtype=F64)
+    Rp, pp = perturb_poses(scene.R_true, scene.p_true, 0.004, 0.01, seed=1)
+    return dict(W=W, vm=vm, ja=ja, fa=fa, Rp=Rp, pp=pp, args=args,
+                R=torch.as_tensor(Rp), p=torch.as_tensor(pp))
+
+
+def _jax_channels(prob):
+    ja = prob["ja"]
+    Rj, pj = jnp.asarray(prob["Rp"]), jnp.asarray(prob["pp"])
+    mu3, P6 = jpe._moment_channels(ja)
+    R9, p3 = jpe._pose_channels(ja, Rj, pj)
+    agg = jpe._soa_agg(ja.n, mu3, P6, R9, p3)
+    return mu3, P6, R9, p3, agg
+
+
+def test_cost_grad_hess_matches_jax(prob):
+    W = prob["W"]
+    r, g, H = pe.plane_cost_grad_hess(prob["fa"], prob["R"], prob["p"], W)
+    rj, gj, Hj = jpe.plane_cost_grad_hess(
+        prob["ja"], jnp.asarray(prob["Rp"]), jnp.asarray(prob["pp"]), W)
+    assert np.isclose(float(r), float(rj), rtol=1e-12)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=1e-9, atol=1e-10)
+    Hm = H.reshape(6 * W, 6 * W).numpy()
+    np.testing.assert_allclose(Hm, Hm.T, rtol=1e-13, atol=1e-12)
+
+
+def test_plane_cost_matches_jax(prob):
+    c = pe.plane_cost(prob["fa"], prob["R"], prob["p"])
+    cj = jpe.plane_cost(prob["ja"], jnp.asarray(prob["Rp"]), jnp.asarray(prob["pp"]))
+    assert np.isclose(float(c), float(cj), rtol=1e-12)
+
+
+@pytest.mark.parametrize("chunk_bytes", [64 * 1024, 300 * 1024])
+def test_voxel_chunking_is_exact_reassociation(prob, chunk_bytes):
+    W = prob["W"]
+    assert len(pe.voxel_chunks(prob["fa"].n.shape[0], W, chunk_bytes)) > 1
+    whole = pe.plane_cost_grad_hess(prob["fa"], prob["R"], prob["p"], W)
+    parts = pe.plane_cost_grad_hess(prob["fa"], prob["R"], prob["p"], W,
+                                    chunk_bytes=chunk_bytes)
+    for a, b in zip(whole, parts):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-14)
+
+
+def test_soa_agg_plain_matches_jax(prob):
+    fa = prob["fa"]
+    residv, pv = soa.soa_agg_plain(fa.n, fa.mu, fa.Pc,
+                                   pe.pose_table(prob["R"], prob["p"]))
+    *_, agg = _jax_channels(prob)
+    _, _, N, invN, vb, _, _, cov6 = agg
+    rj, u, B1, B2 = jpe._soa_eig(cov6, N)
+    np.testing.assert_allclose(residv.numpy(), np.asarray(rj), rtol=1e-10, atol=1e-18)
+    ref = np.stack([np.asarray(x) for x in u + B1 + B2 + vb + (invN,)], -1)
+    np.testing.assert_allclose(pv[:, :13].numpy(), ref, rtol=1e-10, atol=1e-12)
+    assert (pv[:, 13:] == 0).all()
+
+
+def test_soa_agg_plain_frame_gather_equals_aligned(prob):
+    fa = prob["fa"]
+    V, W = fa.n.shape
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    frame = torch.arange(W, dtype=torch.int32).expand(V, W).contiguous()
+    a = soa.soa_agg(fa.n, fa.mu, fa.Pc, pose12)
+    b = soa.soa_agg(fa.n, fa.mu, fa.Pc, pose12, frame=frame)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+def test_soa_chain_plain_matches_jax_and_gram_layout(prob):
+    fa, W = prob["fa"], prob["W"]
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    _, pv = soa.soa_agg_plain(fa.n, fa.mu, fa.Pc, pose12)
+    A, g, Hd = soa.soa_chain_plain(fa.n, fa.mu, fa.Pc, pose12, pv)
+    mu3, P6, R9, p3, agg = _jax_channels(prob)
+    mask, n, N, invN, vb, Rm, RP, cov6 = agg
+    _, u, B1, B2 = jpe._soa_eig(cov6, N)
+    rows, jjt, d36 = jpe._soa_chain(mask, n, invN, vb, Rm, RP, mu3, P6, R9,
+                                    p3, u, B1, B2)
+    np.testing.assert_allclose(
+        g.numpy(), np.stack([np.asarray(c).sum(0) for c in jjt], -1),
+        rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(
+        Hd.reshape(W, 36).numpy(),
+        np.stack([np.asarray(c).sum(0) for c in d36], -1), rtol=1e-9, atol=1e-12)
+    # the kernel layout (3V, 6W) is JAX's M (V, W, 3, 6) with rows outermost
+    _, _, _, M = jpe._chunk_eval_soa(prob["ja"], jnp.asarray(prob["Rp"]),
+                                     jnp.asarray(prob["pp"]), W)
+    V = fa.n.shape[0]
+    Mt = np.asarray(M).transpose(0, 2, 1, 3).reshape(3 * V, 6 * W)
+    np.testing.assert_allclose(A.numpy(), Mt, rtol=1e-10, atol=1e-12)
+    # the 24 distinct diagonal-extras channels rebuild all 36
+    np.testing.assert_array_equal(
+        Hd.reshape(W, 36).numpy(),
+        Hd.reshape(W, 36).numpy()[:, list(pe._D_UNIQUE)][:, pe._D24_TO_36])
+
+
+def test_syrk_plain_matches_jax_dot():
+    A = np.random.default_rng(5).normal(size=(90, 48))
+    G = gram.syrk_(torch.zeros(48, 48, dtype=F64), torch.as_tensor(A))
+    np.testing.assert_allclose(G.numpy(), np.asarray(jnp.dot(A.T, A)),
+                               rtol=1e-13, atol=1e-12)
+    G2 = gram.syrk_(G.clone(), torch.as_tensor(A))
+    np.testing.assert_allclose(G2.numpy(), 2 * G.numpy(), rtol=1e-14)
+
+
+def test_aligned_arrays_match_jax(prob):
+    W, vm = prob["W"], prob["vm"]
+    ja = prob["ja"]
+    fa = padding.aligned_to_device(vm.buckets, W, dtype=F64, device="cpu")
+    for x, y in zip(fa, (ja.n, ja.mu, ja.Pc)):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert fa.n.shape[0] == 1 << (fa.n.shape[0] - 1).bit_length()
+
+
+def test_duplicate_cells_raise(prob):
+    b = prob["vm"].buckets[0]
+    dup = PlaneFactorBucket(n=b.n.copy(), mu=b.mu, Pc=b.Pc, frame=b.frame.copy())
+    dup.frame[0, 1] = dup.frame[0, 0]
+    dup.n[0, :2] = 5.0
+    with pytest.raises(ValueError, match="duplicate"):
+        padding.aligned_to_device([dup], prob["W"], dtype=F64, device="cpu")
+
+
+def test_density_gate(prob):
+    W = prob["W"]
+    vm = build_voxel_map(*prob["args"], eigen_ratios=(0.2,) * 4)
+    assert not padding.picks_aligned(vm, W)          # W = 8 < 64
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        padding.buckets_to_device(vm, W=W, dtype=F64, device="cpu")
+
+
+def test_width_mismatch_raises(prob):
+    with pytest.raises(ValueError, match="aligned bucket width"):
+        pe.plane_cost_grad_hess(prob["fa"], prob["R"][:-1], prob["p"][:-1],
+                                prob["W"] - 1)
+
+
+def test_no_fallback_off_cpu(prob, monkeypatch):
+    fa = prob["fa"]
+    meta = [t.to("meta") for t in (fa.n, fa.mu, fa.Pc)]
+    pose = torch.zeros(prob["W"], 12, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        soa.soa_agg(*meta, pose)
+    with pytest.raises(ValueError, match="unsupported device"):
+        soa.soa_chain(*meta, pose, torch.zeros(fa.n.shape[0], 16, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        gram.syrk_(torch.zeros(6, 6, device="meta"), torch.zeros(3, 6, device="meta"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
