@@ -28,7 +28,29 @@ Phases (any failure raises, so the exit code is non-zero):
      true poses, lm_damping_iter from the perturbed ones) on the card: the
      ATE must reach <= 1 mm (the JAX package's figure is 0.00067 m); a
      second run under torch.profiler gives the device's busy and idle share.
-The line before the last lists the kernels as JSON; the last line is
+Slice 2, the bucketed layout:
+  6. kernels at path 2b's shapes (the corridor below: every tier and every
+     voxel chunk of one evaluation): table_select bitwise equal to its
+     plain version; soa_agg on per-entry pose rows and soa_chain_entries
+     under slice 1's tolerances and well-conditioned-voxel rule;
+     entry_reduce relative to max |.|, two calls bitwise equal; each timed
+     beside its plain version, its library call and its bound;
+  7. the bucketed evaluation over the corridor's five buckets: kernels
+     against the plain steps (r, g, H), H bitwise repeatable, device ms,
+     each kernel's own device time under torch.profiler;
+  8. path 2a: run_lidar_ba with the window stage on (ladder 3's LiDAR
+     settings, 200 frames / 2.0 M points; 20 windows at W=10, two anchor
+     stages at W=20, every solve bucketed): every bucketed kernel must have
+     run, the ATE must fall and land within 10% of the float64 CPU run;
+  9. path 2b: run_lidar_ba with the window stage off on the corridor
+     (make_corridor_scene(512, 2000), five tiers at W=512): every bucketed
+     kernel must have run, the poses must be finite; the ATE is printed
+     beside the float64 CPU run's.  Stage 1's LM alone on the card must
+     lower the residual and land within 1e-4 of the float64 CPU LM's
+     residual; ms per LM iteration and the device's idle share under
+     torch.profiler.
+The line before the last lists the kernels as JSON (launches summed over
+the three paths' runs, each counted from 0); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -82,7 +104,26 @@ TOL_SUM_REL = 1e-3       # g, Hd: voxel sums, relative to their max |.|
 TOL_GRAM_REL = 1e-4      # AᵀA over 3V = 4,095 rows, relative to max |AᵀA|
 TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
 KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
-                  "syrk": "syrk_kernel"}
+                  "syrk": "syrk_kernel", "table_select": "table_select_kernel",
+                  "soa_chain_entries": "soa_chain_entries_kernel",
+                  "entry_reduce": "entry_reduce_kernel"}
+ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk")
+BUCKETED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
+                         "syrk", "entry_reduce")
+
+# slice 2.  Path 2a: the window pipeline at ladder 3's scale
+# (BASELINE.md:102), 2.0 M points
+WINDOW_FRAMES = 200
+WINDOW_PPF = 10_000
+# the JAX package's float32 pipeline on the CPU at path 2a's settings and
+# scene: ATE before -> after, m (a reference figure, not measured here)
+JAX_2A_ATE = (0.01710, 0.00667)
+# path 2b: the sparse corridor at full width, 1.02 M points
+CORRIDOR_FRAMES = 512
+CORRIDOR_PPF = 2000
+# path 2b's stage-1 LM: final residual, card float32 vs CPU float64 (the
+# card lands 4e-7 from float64 there in this script's runs)
+TOL_RESID_LM_REL = 1e-4
 
 
 def _fail(msg):
@@ -114,7 +155,7 @@ def _timed(torch, fn, reps=REPS):
     fn()
     torch.cuda.synchronize()
     spin = SPIN_CYCLES
-    for _ in range(4):
+    for _ in range(6):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
@@ -192,6 +233,441 @@ def _device_ms(prof):
     return out
 
 
+def _window_config(dtype):
+    """Path 2a's configuration: ladder 3's LiDAR settings
+    (scripts/ladder3_e2e.py:100-106): 10-frame windows re-aligned to
+    odometry, anchors downsampled at 0.02 m, stage 1 at voxel 1.0 / eigen
+    ratio 0.2, stage 2 at 0.5 / 0.08."""
+    from global_lvba_tpu_torch.config import LvbaConfig
+
+    cfg = LvbaConfig()
+    cfg.window_ba.size = 10
+    cfg.window_ba.anchor_leaf_size = 0.02
+    cfg.window_ba.use_window_ba_rel = True
+    cfg.BALM_stage1.root_voxel_size = 1.0
+    cfg.BALM_stage1.eigen_ratio_array = [0.2] * 4
+    cfg.BALM_stage2.root_voxel_size = 0.5
+    cfg.BALM_stage2.eigen_ratio_array = [0.08] * 4
+    cfg.solver.dtype = dtype
+    return cfg
+
+
+def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2):
+    """soa_agg kernel vs plain (both float32 on the card) under the
+    well-conditioned-voxel rule above; raises on disagreement.  Returns
+    residv's max abs error."""
+    line_like = live & ~wc
+
+    def r_err(a, b, where):
+        d = (a.double() - b.double()).abs()[where] / lam2[where].abs()
+        return float(d.max()) if d.numel() else 0.0
+
+    err_r = float((rk - rp).abs()[live].max())
+    err_r_rel = r_err(rk, rp, wc)
+    err_r_line = r_err(rk, rp, line_like)
+    line64 = (r_err(rk, lam0, line_like), r_err(rp, lam0, line_like))
+    err_u, err_bb, err_vn = _pv_errors(torch, pvk[wc], pvp[wc])
+    dead_ok = bool((rk[~live] == 0).all())
+    finite = bool(torch.isfinite(rk).all() and torch.isfinite(pvk).all())
+    print(f"[{name}] residv max abs err {err_r:.3e} on all live voxels; "
+          f"err / λ_max {err_r_rel:.3e} on well-conditioned voxels (tol "
+          f"{TOL_RESIDV_REL}), {err_r_line:.3e} on line-like voxels (tol "
+          f"{TOL_RESIDV_REL_LINE:.3e}; there kernel vs float64 "
+          f"{line64[0]:.3e}, plain vs float64 {line64[1]:.3e}); "
+          f"well-conditioned voxels: u abs err {err_u:.3e}, BᵀB rel err "
+          f"{err_bb:.3e}, v̄/(1/N) rel err {err_vn:.3e} (tol {TOL_PV}); all "
+          f"voxels finite: {finite}; padded voxels residv == 0: {dead_ok}",
+          flush=True)
+    if not (err_r_rel <= TOL_RESIDV_REL and err_r_line <= TOL_RESIDV_REL_LINE
+            and max(err_u, err_bb, err_vn) <= TOL_PV and dead_ok and finite):
+        _fail(f"{name}: soa_agg disagrees with soa_agg_plain")
+    return err_r
+
+
+def _stage_lines(tag, stats):
+    w = stats["window"]
+    print(f"[{tag}] window stage: {w['windows']} windows, {w['skipped']} "
+          f"skipped, {w['lm_iters']} LM iterations in {w['lm_s']:.3f} s",
+          flush=True)
+    for s in stats["global"]:
+        print(f"[{tag}] global stage {s['stage']}: {s['planes']} planes, "
+              f"{s.get('lm_iters', 0)} LM iterations in "
+              f"{s.get('lm_s', 0.0):.3f} s, {s['time_s']:.3f} s", flush=True)
+
+
+def _slice2(torch, np, dev, kern, results, paths):
+    """Slice 2, the bucketed layout: kernels 4-5 and the per-entry chain
+    at path 2b's shapes, the bucketed evaluation, and paths 2a and 2b
+    through run_lidar_ba (phases 6-9 of the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.__main__ import slice_config
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        KERNEL_STEPS, PLAIN_STEPS, PlaneFactorArrays, _cost_grad_hess,
+        frame_gather_table, plane_cost, pose_table, voxel_chunks)
+    from global_lvba_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from global_lvba_tpu_torch.kernels.selection import (
+        entry_reduce, entry_reduce_plain, table_select, table_select_plain)
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg, soa_agg_plain, soa_chain_entries, soa_chain_entries_plain)
+    from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+    from global_lvba_tpu_torch.models.synthetic import (
+        ate_rmse, make_corridor_scene, make_plane_scene, perturb_poses)
+    from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter
+
+    # ---- path 2b's problem: the corridor at W=512, stage-1 voxelization ----
+    W = CORRIDOR_FRAMES
+    cfg = slice_config("float32")
+    scene = make_corridor_scene(W, CORRIDOR_PPF, seed=0)
+    Rp, pp = perturb_poses(scene.R_true, scene.p_true, 0.003, 0.01, seed=1)
+    vm = build_voxel_map(
+        scene.points_body, scene.frame_ids, Rp, pp, VOXEL,
+        eigen_ratios=[RATIO] * 4, min_ps=cfg.solver.min_ps,
+        layer_limit=cfg.solver.layer_limit)
+    bs = buckets_to_device(vm, W=W, dtype=torch.float32, device=dev)
+    if not all(isinstance(fa, PlaneFactorArrays) for fa in bs):
+        _fail("the density gate does not pick the bucketed layout on the "
+              "corridor")
+    R = torch.as_tensor(Rp, dtype=torch.float32, device=dev)
+    p = torch.as_tensor(pp, dtype=torch.float32, device=dev)
+    pose12 = pose_table(R, p)
+    tbls = [frame_gather_table(fa, W) for fa in bs]
+    frames = [fa.frame.reshape(-1) for fa in bs]
+    frames64 = [f.long() for f in frames]
+    live_e = sum(int((fa.n > 0).sum()) for fa in bs)
+    VK = sum(f.numel() for f in frames)
+    Vs = sum(fa.n.shape[0] for fa in bs)
+    chunks = [(b, lo, hi) for b, fa in enumerate(bs)
+              for lo, hi in voxel_chunks(fa.n.shape[0], W, K=fa.n.shape[1])]
+    info = dict(points=int(scene.points_body.shape[0]),
+                voxels=vm.num_planes,
+                tiers=[[int(b.n.shape[0]), int(b.n.shape[1])]
+                       for b in vm.buckets],
+                padded=[list(fa.n.shape) for fa in bs], entries=live_e,
+                slots=VK, gram_rows=3 * Vs, gram_cols=6 * W,
+                chunks=[hi - lo for _, lo, hi in chunks],
+                table_widths=[int(t.shape[1]) for t in tbls])
+    print(f"[2b] corridor W={W}: {info}", flush=True)
+    results["corridor"] = info
+
+    # ---- 6a. table_select: bitwise equal (it is a copy) ----
+    sel_k = [table_select(f, pose12) for f in frames]
+    sel_p = [table_select_plain(f, pose12) for f in frames]
+    sel_l = [torch.index_select(pose12, 0, f) for f in frames64]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(sel_k, sel_p, sel_l))
+    print(f"[table_select] bitwise equal to the plain version and to "
+          f"torch.index_select (tol 0: a copy): {same}", flush=True)
+    if not same:
+        _fail("table_select disagrees with table_select_plain")
+    kern["table_select"] = dict(
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(sel_k, sel_p)),
+        **_times(torch, "table_select",
+                 lambda: [table_select(f, pose12) for f in frames],
+                 lambda: [table_select_plain(f, pose12) for f in frames],
+                 lambda: [torch.index_select(pose12, 0, f)
+                          for f in frames64]),
+        bound=_bound(VK * 4 + len(bs) * W * 48 + VK * 48, 0),
+    )
+    poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
+             for s, fa in zip(sel_k, bs)]
+
+    # ---- 6b. soa_agg on the per-entry pose rows ----
+    ops = [(bs[b].n[lo:hi], bs[b].mu[lo:hi], bs[b].Pc[lo:hi],
+            poses[b][lo:hi]) for b, lo, hi in chunks]
+    agg_k = [soa_agg(*o) for o in ops]
+    agg_p = [soa_agg_plain(*o) for o in ops]
+    torch.cuda.synchronize()
+    spec = [_spectrum(torch, fa, ps) for fa, ps in zip(bs, poses)]
+    gap, lam0, lam2 = (torch.cat([s[i] for s in spec]) for i in range(3))
+    live = torch.cat([fa.n.sum(dim=1) > 0 for fa in bs])
+    wc = live & (gap >= WELL_CONDITIONED_GAP)
+    n_ill = int((live & ~wc).sum())
+    print(f"[2b] {n_ill} of {int(live.sum())} voxels line-like", flush=True)
+    results["corridor"]["line_like_voxels"] = n_ill
+
+    def cat(xs, i):
+        return torch.cat([x[i] for x in xs])
+
+    err_r = _agg_check(torch, "soa_agg 2b", cat(agg_k, 0), cat(agg_p, 0),
+                       cat(agg_k, 1), cat(agg_p, 1), live, wc, lam0, lam2)
+    results["soa_agg_2b"] = dict(
+        max_abs_err=err_r,
+        **_times(torch, "soa_agg 2b", lambda: [soa_agg(*o) for o in ops],
+                 lambda: [soa_agg_plain(*o) for o in ops]),
+        bound=_bound(VK * (13 + 12) * 4 + Vs * 17 * 4,
+                     VK * AGG_FLOPS_PER_CELL + Vs * AGG_FLOPS_PER_VOXEL))
+
+    # ---- 6c. soa_chain_entries (both versions take the kernel's pv) ----
+    chain_args = [o + (bs[b].frame[lo:hi], a[1], W)
+                  for o, a, (b, lo, hi) in zip(ops, agg_k, chunks)]
+    ch_k = [soa_chain_entries(*a) for a in chain_args]
+    ch_p = [soa_chain_entries_plain(*a) for a in chain_args]
+    torch.cuda.synchronize()
+    err_A = max(_rel(a[0], b[0]) for a, b in zip(ch_k, ch_p))
+    vk, vp = cat(ch_k, 1), cat(ch_p, 1)
+    err_j, err_d = _rel(vk[:, :6], vp[:, :6]), _rel(vk[:, 6:], vp[:, 6:])
+    live_s = torch.cat([fa.n.reshape(-1) > 0 for fa in bs])
+    dead_ok = bool((vk[~live_s] == 0).all())
+    print(f"[soa_chain_entries] rows rel err {err_A:.3e}, per-entry jjt "
+          f"{err_j:.3e} and diagonal extras {err_d:.3e} (tol "
+          f"{TOL_ROWS_REL}, relative to each one's max |.|); dead entries' "
+          f"channels == 0: {dead_ok}", flush=True)
+    if not (err_A <= TOL_ROWS_REL and err_j <= TOL_ROWS_REL
+            and err_d <= TOL_ROWS_REL and dead_ok):
+        _fail("soa_chain_entries disagrees with soa_chain_entries_plain")
+    kern["soa_chain_entries"] = dict(
+        max_abs_err=max(float((a[0] - b[0]).abs().max())
+                        for a, b in zip(ch_k, ch_p)),
+        **_times(torch, "soa_chain_entries",
+                 lambda: [soa_chain_entries(*a) for a in chain_args],
+                 lambda: [soa_chain_entries_plain(*a) for a in chain_args]),
+        bound=_bound(VK * 26 * 4 + Vs * 16 * 4 + VK * 30 * 4
+                     + 3 * Vs * 6 * W * 4, VK * CHAIN_FLOPS_PER_CELL),
+    )
+    del ch_p
+
+    # ---- 6d. entry_reduce: relative to max |.|, two calls bitwise equal ----
+    vals, off = [], 0
+    for fa in bs:
+        vals.append(vk[off:off + fa.n.numel()].contiguous())
+        off += fa.n.numel()
+    red_k = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
+    red_k2 = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
+    red_p = [entry_reduce_plain(v, t) for v, t in zip(vals, tbls)]
+    red_l = [torch.zeros((W, 30), device=dev).index_add_(0, f, v)
+             for v, f in zip(vals, frames64)]
+    torch.cuda.synchronize()
+    err_red = max(_rel(a, b) for a, b in zip(red_k, red_p))
+    err_lib = max(_rel(a, b) for a, b in zip(red_k, red_l))
+    rep = all(torch.equal(a, b) for a, b in zip(red_k, red_k2))
+    print(f"[entry_reduce] rel err vs entry_reduce_plain {err_red:.3e}, vs "
+          f"index_add_ {err_lib:.3e} (tol {TOL_SUM_REL}, relative to max "
+          f"|.|: float32 sums in another order); two calls bitwise equal: "
+          f"{rep}", flush=True)
+    if not (err_red <= TOL_SUM_REL and err_lib <= TOL_SUM_REL and rep):
+        _fail("entry_reduce disagrees with entry_reduce_plain or is not "
+              "repeatable")
+    kw = sum(int(t.numel()) for t in tbls)
+    kern["entry_reduce"] = dict(
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(red_k, red_p)),
+        **_times(torch, "entry_reduce",
+                 lambda: [entry_reduce(v, t) for v, t in zip(vals, tbls)],
+                 lambda: [entry_reduce_plain(v, t)
+                          for v, t in zip(vals, tbls)],
+                 lambda: [torch.zeros((W, 30), device=dev).index_add_(0, f, v)
+                          for v, f in zip(vals, frames64)]),
+        bound=_bound(live_e * 30 * 4 + kw * 4 + len(bs) * W * 30 * 4,
+                     live_e * 30),
+    )
+    del ch_k, vk, vp, vals, agg_k, agg_p, ops, chain_args
+
+    # ---- 7. the bucketed evaluation over the corridor's buckets ----
+    def cgh(steps, fas, tables):
+        out = [_cost_grad_hess(steps, fa, R, p, W, tbl=t)
+               for fa, t in zip(fas, tables)]
+        return tuple(sum(o[i] for o in out) for i in range(3))
+
+    r1, g1, H1 = cgh(KERNEL_STEPS, bs, tbls)
+    r2, g2, H2 = cgh(KERNEL_STEPS, bs, tbls)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(r1, r2) and torch.equal(g1, g2)
+                and torch.equal(H1, H2) and torch.isfinite(H1).all()
+                and torch.isfinite(g1).all())
+    rq = cgh(PLAIN_STEPS, bs, tbls)[0]
+    line_like = live & ~wc
+    r_slack = TOL_RESIDV_REL_LINE * float(lam2[line_like].abs().sum())
+    e_r = max(0.0, abs(float(r1) - float(rq)) - r_slack) / abs(float(rq))
+    wcs = torch.split(wc, [fa.n.shape[0] for fa in bs])
+    bs_wc = [fa._replace(n=fa.n * w[:, None].to(fa.n.dtype))
+             for fa, w in zip(bs, wcs)]
+    tb_wc = [frame_gather_table(fa, W) for fa in bs_wc]
+    _, gk_, Hk_ = cgh(KERNEL_STEPS, bs_wc, tb_wc)
+    _, gq, Hq = cgh(PLAIN_STEPS, bs_wc, tb_wc)
+    e_g, e_H = _rel(gk_, gq), _rel(Hk_, Hq)
+    del gk_, Hk_, gq, Hq, bs_wc, tb_wc
+    # no step of the evaluation may wait on the device (the frame tables
+    # are built once per solve, outside it)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    cgh(KERNEL_STEPS, bs, tbls)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    eval_ms, ahead_e = _timed(torch, lambda: cgh(KERNEL_STEPS, bs, tbls))
+    plain_eval_ms, ahead_pe = _timed(torch,
+                                     lambda: cgh(PLAIN_STEPS, bs, tbls))
+    print(f"[eval 2b] kernels vs plain over the {len(bs)} buckets: r rel err "
+          f"{e_r:.3e} (beyond the line-like voxels' {r_slack:.3e}), g "
+          f"{e_g:.3e}, H {e_H:.3e} (well-conditioned voxels) (tol "
+          f"{TOL_EVAL_REL}); H finite and bitwise repeatable: {same}; eval "
+          f"{eval_ms:.4f} ms device time (queued ahead {ahead_e}), plain "
+          f"{plain_eval_ms:.4f} ms (queued ahead {ahead_pe}); one evaluation "
+          f"queued in {host_ms:.3f} ms of host time with no synchronizing "
+          f"call (torch.cuda sync debug mode)", flush=True)
+    if not (e_r <= TOL_EVAL_REL and e_g <= TOL_EVAL_REL
+            and e_H <= TOL_EVAL_REL and same):
+        _fail("the bucketed kernel evaluation disagrees with the plain one "
+              "or is not repeatable")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cgh(KERNEL_STEPS, bs, tbls)
+        torch.cuda.synchronize()
+    prof_eval = _device_ms(prof)
+    per_kernel = {}
+    for name, sym in KERNEL_SYMBOLS.items():
+        hits = [v for k, v in prof_eval.items() if sym in k]
+        if hits:
+            per_kernel[name] = hits[0]
+            if name in kern and "kernel_device_ms" not in kern[name]:
+                kern[name]["kernel_device_ms"] = hits[0][0]
+    print(f"[eval 2b] profiler, (device ms, launches) per evaluation by "
+          f"kernel: {per_kernel}", flush=True)
+    N, kr = 6 * W, 3 * Vs
+    syrk_bound = _bound(kr * N * 4 + len(chunks) * 2 * N * N * 4,
+                        kr * N * (N + 1))
+    syrk_ms = per_kernel.get("syrk", (float("nan"), 0))[0]
+    print(f"[eval 2b] syrk over {kr} rows x {N} columns: "
+          f"{kr * N * (N + 1) / 1e9:.1f} GFLOP per evaluation, bound "
+          f"{syrk_bound[0]:.4f} ms ({syrk_bound[1]}), "
+          f"{kr * N * (N + 1) / syrk_ms / 1e9:.1f} TFLOP/s at its profiled "
+          f"{syrk_ms:.4f} ms", flush=True)
+    results["eval_2b"] = dict(ms=eval_ms, plain_ms=plain_eval_ms,
+                              host_queue_ms=host_ms, r_rel=e_r,
+                              g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
+                              queued_ahead=ahead_e, per_kernel=per_kernel,
+                              syrk_bound=syrk_bound,
+                              profiler_device_ms=prof_eval)
+    del r1, g1, H1, r2, g2, H2, rq
+
+    # ---- 8. path 2a: the window pipeline at 2.0 M points ----
+    F = WINDOW_FRAMES
+    sc_a = make_plane_scene(num_frames=F, points_per_frame=WINDOW_PPF, seed=0)
+    Ra, pa = perturb_poses(sc_a.R_true, sc_a.p_true, 0.003, 0.01, seed=1)
+    clouds = [sc_a.points_body[sc_a.frame_ids == i] for i in range(F)]
+    reset_launch_counts()
+    t0 = time.time()
+    res = run_lidar_ba(clouds, Ra, pa, _window_config("float32"),
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["2a"] = launch_counts()
+    ate0, ate = ate_rmse(pa, sc_a.p_true), ate_rmse(res.p_opt, sc_a.p_true)
+    print(f"[2a] run_lidar_ba {F} frames / {sc_a.points_body.shape[0]} "
+          f"points: ATE {ate0:.6f} -> {ate:.6f} m, wall {wall:.2f} s, "
+          f"launches {counts}; the JAX package's float32 CPU run at these "
+          f"settings: {JAX_2A_ATE[0]} -> {JAX_2A_ATE[1]} m", flush=True)
+    _stage_lines("2a", res.stats)
+    if not all(counts[k] > 0 for k in BUCKETED_PATH_KERNELS):
+        _fail(f"a kernel of path 2a was never launched: {counts}")
+    t0 = time.time()
+    ref = run_lidar_ba(clouds, Ra, pa, _window_config("float64"), device="cpu")
+    ate_ref = ate_rmse(ref.p_opt, sc_a.p_true)
+    print(f"[2a] float64 reference on the CPU: ATE {ate_ref:.6f} m "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    _stage_lines("2a float64 CPU", ref.stats)
+    results["path_2a"] = dict(ate0=ate0, ate=ate, ate_float64_cpu=ate_ref,
+                              wall_s=wall, stats=res.stats,
+                              stats_float64_cpu=ref.stats, launches=counts)
+    if not (np.isfinite(res.p_opt).all() and ate < ate0
+            and abs(ate - ate_ref) <= 0.1 * ate_ref):
+        _fail(f"2a: ATE {ate0} -> {ate} (float64 reference {ate_ref})")
+    del clouds, sc_a, res, ref
+
+    # ---- 9. path 2b: the sparse corridor at W=512 ----
+    clouds = [scene.points_body[scene.frame_ids == i] for i in range(W)]
+    reset_launch_counts()
+    t0 = time.time()
+    res = run_lidar_ba(clouds, Rp, pp, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["2b"] = launch_counts()
+    ate0, ate = ate_rmse(pp, scene.p_true), ate_rmse(res.p_opt, scene.p_true)
+    st = res.stats["global"]
+    iters = sum(s.get("lm_iters", 0) for s in st)
+    lm_s = sum(s.get("lm_s", 0.0) for s in st)
+    print(f"[2b] run_lidar_ba {W} frames / {scene.points_body.shape[0]} "
+          f"points: ATE {ate0:.6f} -> {ate:.6f} m, wall {wall:.2f} s, {iters} "
+          f"LM iterations in {lm_s:.3f} s ({lm_s / max(iters, 1) * 1e3:.2f} "
+          f"ms/iter), launches {counts}", flush=True)
+    _stage_lines("2b", res.stats)
+    if not all(counts[k] > 0 for k in BUCKETED_PATH_KERNELS):
+        _fail(f"a kernel of path 2b was never launched: {counts}")
+    if not (np.isfinite(res.p_opt).all()
+            and all(s.get("lm_iters", 0) > 0 for s in st)):
+        _fail("2b: the pipeline gave non-finite poses or a stage ran no LM")
+    t0 = time.time()
+    ref = run_lidar_ba(clouds, Rp, pp, slice_config("float64"), device="cpu")
+    ate_ref = ate_rmse(ref.p_opt, scene.p_true)
+    print(f"[2b] float64 reference on the CPU: ATE {ate_ref:.6f} m "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    _stage_lines("2b float64 CPU", ref.stats)
+    results["path_2b"] = dict(ate0=ate0, ate=ate, ate_float64_cpu=ate_ref,
+                              wall_s=wall, lm_iters=iters, lm_s=lm_s,
+                              stats=res.stats, stats_float64_cpu=ref.stats,
+                              launches=counts)
+    del clouds, res, ref
+
+    # stage 1 of path 2b alone (the same voxel map on every device): the
+    # card's float32 LM against the CPU's float64 one, by the final LM
+    # residual.  The corridor's ATE moves along near-flat bending modes of
+    # the cost (BASELINE.md:71), so float32 and float64 runs that agree on
+    # the residual to 1e-6 land at different ATEs; the pipeline's ATE is no
+    # measure of agreement there.
+    lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lm = lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+    torch.cuda.synchronize()
+    lm_wall = time.time() - t0
+    g_size = sum(fa.n.shape[0] for fa in bs)
+    res0 = float(sum(plane_cost(fa, R, p) for fa in bs)) / g_size
+    bs64 = buckets_to_device(vm, W=W, dtype=torch.float64, device="cpu")
+    t0 = time.time()
+    lm64 = lm_damping_iter(bs64, torch.as_tensor(Rp), torch.as_tensor(pp),
+                           max_iters=LM_ITERS)
+    cpu_s = time.time() - t0
+    e_res = abs(float(lm.residual) - float(lm64.residual)) / float(
+        lm64.residual)
+    ate_c = ate_rmse(lm.p.double().cpu().numpy(), scene.p_true)
+    ate_c64 = ate_rmse(lm64.p.numpy(), scene.p_true)
+    print(f"[2b-lm] lm_damping_iter on stage 1's map ({len(bs)} buckets, "
+          f"W={W}): residual {res0:.9g} -> {float(lm.residual):.9g} in "
+          f"{lm.iters} iterations, {lm_wall * 1e3:.1f} ms "
+          f"({lm_wall / max(lm.iters, 1) * 1e3:.2f} ms/iter incl. the "
+          f"initial evaluation and the frame tables); float64 CPU residual "
+          f"{float(lm64.residual):.9g} in {lm64.iters} iterations "
+          f"({cpu_s:.1f} s): rel diff {e_res:.3e} (tol {TOL_RESID_LM_REL}); "
+          f"ATE {ate_c:.6f} m, float64 {ate_c64:.6f} m", flush=True)
+    if not (float(lm.residual) < res0 and e_res <= TOL_RESID_LM_REL):
+        _fail(f"2b stage-1 LM: residual {res0} -> {float(lm.residual)}, "
+              f"float64 {float(lm64.residual)}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy = sum(v[0] for v in _device_ms(prof).values())
+    idle = 1.0 - busy / (prof_wall * 1e3)
+    print(f"[2b-lm] under torch.profiler: {prof_wall * 1e3:.1f} ms wall, "
+          f"{busy:.1f} ms device busy, idle share {idle:.3f}", flush=True)
+    results["path_2b"]["stage1_lm"] = dict(
+        residual0=res0, residual=float(lm.residual),
+        residual_float64_cpu=float(lm64.residual), rel_diff=e_res,
+        iters=lm.iters, iters_float64_cpu=lm64.iters, wall_ms=lm_wall * 1e3,
+        ms_per_iter=lm_wall / max(lm.iters, 1) * 1e3, ate=ate_c,
+        ate_float64_cpu=ate_c64, profiled_wall_ms=prof_wall * 1e3,
+        device_busy_ms=busy, idle_share=idle)
+
+
 def main() -> int:
     import torch
 
@@ -220,6 +696,7 @@ def main() -> int:
     from global_lvba_tpu_torch.kernels.gram import syrk_, syrk_plain_
     from global_lvba_tpu_torch.kernels.soa import (
         soa_agg, soa_agg_plain, soa_chain, soa_chain_plain)
+    from global_lvba_tpu_torch.kernels.selection import table_select
     from global_lvba_tpu_torch.map.voxelize import build_voxel_map
     from global_lvba_tpu_torch.models.synthetic import (
         ate_rmse, make_plane_scene, perturb_poses)
@@ -228,6 +705,7 @@ def main() -> int:
     from global_lvba_tpu_torch.solver.lm import LIDAR_CG_ITERS, lm_damping_iter
 
     results = {}
+    paths = {}      # the launch counts of each path's run
 
     # ---- 1. set-up ----
     card = _card_line()
@@ -240,7 +718,7 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32}); torch {torch.__version__} "
           f"CUDA {torch.version.cuda}", flush=True)
     t0 = time.time()
-    for name in build.SOURCES:
+    for name in build.SIGNATURES:
         build.launcher(name)
     results["build_s"] = time.time() - t0
     print(f"[setup] kernels built in {results['build_s']:.1f} s", flush=True)
@@ -296,38 +774,19 @@ def main() -> int:
     pvp = torch.cat([a[1] for a in agg_p])
     torch.cuda.synchronize()
     line_like = live & ~wc
-
-    def r_err(a, b, where):
-        d = (a.double() - b.double()).abs()[where] / lam2[where].abs()
-        return float(d.max()) if d.numel() else 0.0
-
-    err_r = float((rk - rp).abs()[live].max())
-    err_r_rel = r_err(rk, rp, wc)
-    err_r_line = r_err(rk, rp, line_like)
-    line64 = (r_err(rk, lam0, line_like), r_err(rp, lam0, line_like))
-    err_u, err_bb, err_vn = _pv_errors(torch, pvk[wc], pvp[wc])
-    dead_ok = bool((rk[~live] == 0).all())
-    finite = bool(torch.isfinite(rk).all() and torch.isfinite(pvk).all())
-    # the frame-id path (the bucketed layout's pose gather) with frame k at
-    # slot k must give the aligned result bit for bit
+    err_r = _agg_check(torch, "soa_agg", rk, rp, pvk, pvp, live, wc, lam0,
+                       lam2)
+    # the per-entry pose operand (the bucketed layout's table_select rows)
+    # with frame k at slot k must give the aligned result bit for bit
     n0, mu0, Pc0 = ops[0]
     frame = torch.arange(W, dtype=torch.int32, device=dev).expand(
         n0.shape[0], W).contiguous()
+    rows0 = table_select(frame.reshape(-1), pose12).reshape(n0.shape[0], W, 12)
     same_frame = all(torch.equal(a, b) for a, b in zip(
-        soa_agg(n0, mu0, Pc0, pose12, frame=frame), agg_k[0]))
-    print(f"[soa_agg] residv max abs err {err_r:.3e} on all live voxels; "
-          f"err / λ_max {err_r_rel:.3e} on well-conditioned voxels (tol "
-          f"{TOL_RESIDV_REL}), {err_r_line:.3e} on line-like voxels (tol "
-          f"{TOL_RESIDV_REL_LINE:.3e}; there kernel vs float64 "
-          f"{line64[0]:.3e}, plain vs float64 {line64[1]:.3e}); "
-          f"well-conditioned voxels: u abs err {err_u:.3e}, BᵀB rel err "
-          f"{err_bb:.3e}, v̄/(1/N) rel err {err_vn:.3e} (tol {TOL_PV}); all "
-          f"voxels finite: {finite}; padded voxels residv == 0: {dead_ok}; "
-          f"frame-id path equal: {same_frame}", flush=True)
-    if not (err_r_rel <= TOL_RESIDV_REL and err_r_line <= TOL_RESIDV_REL_LINE
-            and max(err_u, err_bb, err_vn) <= TOL_PV
-            and dead_ok and finite and same_frame):
-        _fail("soa_agg disagrees with soa_agg_plain")
+        soa_agg(n0, mu0, Pc0, rows0), agg_k[0]))
+    print(f"[soa_agg] per-entry pose operand equal: {same_frame}", flush=True)
+    if not same_frame:
+        _fail("soa_agg on per-entry pose rows differs from the aligned one")
     nb = sum(o[0].shape[0] for o in ops)
     kern["soa_agg"] = dict(
         max_abs_err=err_r,
@@ -473,7 +932,7 @@ def main() -> int:
     res = run_lidar_ba(clouds, Rp, pp, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = launch_counts()
+    counts = paths["aligned"] = launch_counts()
     ate0 = ate_rmse(pp, scene.p_true)
     ate = ate_rmse(res.p_opt, scene.p_true)
     stages = res.stats["global"]
@@ -488,7 +947,7 @@ def main() -> int:
     results["slice"] = dict(ate0=ate0, ate=ate, wall_s=wall, lm_iters=iters,
                             lm_s=lm_s, ms_per_iter=ms_iter, stages=stages,
                             launches=counts)
-    if not all(counts[k] > 0 for k in ("soa_agg", "soa_chain", "syrk")):
+    if not all(counts[k] > 0 for k in ALIGNED_PATH_KERNELS):
         _fail(f"a kernel of the path was never launched: {counts}")
     t0 = time.time()
     ref = run_lidar_ba(clouds, Rp, pp, slice_config("float64"), device="cpu")
@@ -535,15 +994,29 @@ def main() -> int:
     results["bench_problem"].update(profiled_wall_ms=prof_wall * 1e3,
                                     device_busy_ms=busy, idle_share=idle)
 
+    # ---- 6-9. slice 2: the bucketed layout ----
+    _slice2(torch, np, dev, kern, results, paths)
+    launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in kern}
+    if not all(launches.values()):
+        _fail(f"a kernel was never launched on a path: {paths}")
+
     src = "global_lvba_tpu_torch/csrc/"
+    sources = {"soa_agg": "soa_agg.cu", "soa_chain": "soa_chain.cu",
+               "syrk": "syrk.cu", "table_select": "selection.cu",
+               "soa_chain_entries": "soa_chain.cu",
+               "entry_reduce": "selection.cu"}
     replaces = {
         "soa_agg": "global_lvba_tpu/ops/pallas/soa_fused.py:61",
         "soa_chain": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
         "syrk": "global_lvba_tpu/ops/pallas/gram.py:41",
+        "table_select": "global_lvba_tpu/ops/pallas/selection.py:44",
+        "soa_chain_entries": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
+        "entry_reduce": "global_lvba_tpu/ops/pallas/selection.py:84",
     }
+    results["launches_by_path"] = paths
     line = {"kernels": [
-        dict(name=k, route="cuda", source=f"{src}{k}.cu",
-             replaces=replaces[k], launches=counts[k],
+        dict(name=k, route="cuda", source=f"{src}{sources[k]}",
+             replaces=replaces[k], launches=launches[k],
              max_abs_err=v["max_abs_err"], ms=v["ms"],
              plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
              bound_by=v["bound"][1], library_ms=v["library_ms"])

@@ -1,18 +1,20 @@
 """global_lvba_tpu_torch — the PyTorch / CUDA port of global_lvba_tpu.
 
 The LiDAR bundle adjustment (BALM plane-eigenvalue factors solved by
-Nielsen-damped LM) on one NVIDIA H100, with the per-voxel aggregation +
-eigensolve, the linearization chain and the Gram SYRK as hand-written
-CUDA kernels (csrc/, built at first use by kernels/build.py).  The JAX
+Nielsen-damped LM) on one NVIDIA H100, on both factor layouts (frame-
+aligned and bucketed), with hand-written CUDA kernels (csrc/, built at
+first use by kernels/build.py): the per-voxel aggregation + eigensolve,
+the linearization chain (aligned and per-entry), the Gram SYRK, the
+pose-table selection and the frame segment-sum.  The JAX
 package stays beside it as the reference; this package imports nothing of
 it and nothing of JAX.
 
 Layer map (the JAX package's names, so each counterpart is easy to find):
   geometry/  SO(3) exp/log, the pose box-plus of the LM
   map/       host numpy voxelization into per-(voxel, frame) moments
-  models/    synthetic plane scenes, pose perturbation, ATE
+  models/    synthetic plane and corridor scenes, pose perturbation, ATE
   ops/       closed-form 3x3 eigensolve (plain torch)
-  factors/   frame-aligned factor arrays, plane-eigen cost/grad/Hessian
+  factors/   aligned and bucketed factor arrays, plane-eigen cost/grad/Hessian
   kernels/   CUDA kernel wrappers, their plain versions, the builder
   solver/    damped LM, LU and block-Jacobi PCG reduced solves
   pipeline/  window -> anchors -> two-stage global LiDAR BA

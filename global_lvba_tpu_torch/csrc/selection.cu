@@ -1,0 +1,100 @@
+// Kernels 4 and 5: the selections of the bucketed factor layout.
+//
+// table_select_kernel replaces global_lvba_tpu/ops/pallas/selection.py:44
+// `_table_select_kernel`: out[e, c] = tbl[frame[e], c], a zero row for an
+// id outside [0, P).  The TPU kernel built a one-hot tile in VMEM and
+// multiplied three bf16 mantissa splits of the table to stay exact; on the
+// card the selection is a plain copy, exact by construction.  Bound: bytes
+// — 4 B of id in and 4·C B out per entry, no arithmetic.  One thread per
+// output float (grid-stride): neighbouring threads write neighbouring
+// floats (coalesced stores) and read the same or the next id; the small
+// table is read through the read-only cache (__ldg).
+//
+// entry_reduce_kernel replaces selection.py:84 `_entry_reduce_kernel`:
+// out[w, c] = Σ_j vals[tbl[w, j], c] over the frame-major (W, Kf) table of
+// plane_eigen.frame_gather_table.  The TPU kernel accumulated over a
+// sequential grid in VMEM; blocks here run in no order, so each block owns
+// one frame w.  Its kLanes lanes of 32 threads take the table's entries
+// j = lane, lane + kLanes, ... in order, thread c of a lane one channel
+// (a lane reads an entry's C contiguous floats together), and a fixed
+// shared-memory tree adds the lanes: no atomics, bitwise repeatable.  An
+// index outside [0, E) — the sentinel E — adds nothing.  Bound: bytes —
+// every live entry's C floats read once, the table and the output.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "lvba_error.cuh"
+
+namespace {
+
+constexpr int kSelectThreads = 256;
+constexpr int kLanes = 4;
+constexpr int kReduceThreads = 32 * kLanes;
+
+__global__ void __launch_bounds__(kSelectThreads)
+table_select_kernel(const int* __restrict__ frame,
+                    const float* __restrict__ tbl, int64_t E, int P, int C,
+                    float* __restrict__ out) {
+  const int64_t total = E * C;
+  for (int64_t i = (int64_t)blockIdx.x * kSelectThreads + threadIdx.x;
+       i < total; i += (int64_t)gridDim.x * kSelectThreads) {
+    const int64_t e = i / C;
+    const int c = static_cast<int>(i - e * C);
+    const int f = __ldg(frame + e);
+    out[i] = (f >= 0 && f < P) ? __ldg(tbl + (int64_t)f * C + c) : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+entry_reduce_kernel(const float* __restrict__ vals,
+                    const int* __restrict__ tbl, int64_t E, int C, int Kf,
+                    float* __restrict__ out) {
+  __shared__ float red[kLanes][32];
+  const int w = blockIdx.x;
+  const int lane = threadIdx.x / 32;
+  const int t = threadIdx.x % 32;
+  const int* row = tbl + (int64_t)w * Kf;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + t;
+    float s = 0.0f;
+    if (c < C) {
+      for (int j = lane; j < Kf; j += kLanes) {
+        const int idx = __ldg(row + j);
+        if (idx >= 0 && idx < E) s += vals[(int64_t)idx * C + c];
+      }
+    }
+    red[lane][t] = s;
+    __syncthreads();
+#pragma unroll
+    for (int h = kLanes / 2; h > 0; h >>= 1) {
+      if (lane < h) red[lane][t] += red[lane + h][t];
+      __syncthreads();
+    }
+    if (lane == 0 && c < C) out[(int64_t)w * C + c] = red[0][t];
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int lvba_table_select(const int* frame, const float* tbl, int64_t E,
+                                 int P, int C, float* out, void* stream) {
+  const int64_t total = E * C;
+  if (total == 0) return 0;
+  int64_t blocks = (total + kSelectThreads - 1) / kSelectThreads;
+  if (blocks > 65536) blocks = 65536;  // grid-stride beyond
+  table_select_kernel<<<static_cast<unsigned>(blocks), kSelectThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(frame, tbl, E,
+                                                             P, C, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int lvba_entry_reduce(const float* vals, const int* tbl, int64_t E,
+                                 int C, int W, int Kf, float* out,
+                                 void* stream) {
+  if (W == 0 || C == 0) return 0;
+  entry_reduce_kernel<<<W, kReduceThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(vals, tbl, E, C,
+                                                             Kf, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,8 +13,10 @@
 //   pv[v]     = [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0]
 // with B_i = sqrt(2 / max(λi − λ0, 1e-9·max(|λ2|, 1e-20)))·u_i.
 //
-// Entry (v, k) takes pose k (aligned layout) or pose frame[v, k] when a
-// frame-id array is given.
+// The pose operand is read at poses + v·vstride + 12·k: the (K, 12) pose
+// table with vstride 0 on the aligned layout (entry (v, k) takes pose k),
+// per-entry pose rows (V, K, 12) with vstride K·12 on the bucketed layout
+// (table_select's output).
 #include "soa_common.cuh"
 
 namespace {
@@ -23,19 +25,20 @@ constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
 soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
-               const float* __restrict__ Pc, const float* __restrict__ pose12,
-               const int* __restrict__ frame, int K,
-               float* __restrict__ residv, float* __restrict__ pv) {
+               const float* __restrict__ Pc, const float* __restrict__ poses,
+               int64_t vstride, int K, float* __restrict__ residv,
+               float* __restrict__ pv) {
   using namespace lvba;
   __shared__ float red[6][kThreads];
   const int v = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t row = (int64_t)v * K;
+  const float* __restrict__ pose_row = poses + v * vstride;
 
   float s1[4] = {0.f, 0.f, 0.f, 0.f};  // N, Σ n·wm (3)
   for (int k = t; k < K; k += kThreads) {
     const Cell e = load_cell(n, mu, Pc, row + k);
-    const Pose P = load_pose(pose12, frame ? frame[row + k] : k);
+    const Pose P = load_pose(pose_row, k);
     float Rm1, Rm2, Rm3;
     rot_mean(P, e, Rm1, Rm2, Rm3);
     s1[0] += e.n;
@@ -51,7 +54,7 @@ soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
   float S[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int k = t; k < K; k += kThreads) {
     const Cell e = load_cell(n, mu, Pc, row + k);
-    const Pose P = load_pose(pose12, frame ? frame[row + k] : k);
+    const Pose P = load_pose(pose_row, k);
     float Rm1, Rm2, Rm3, RP[9];
     rot_mean(P, e, Rm1, Rm2, Rm3);
     rot_scatter(P, e, RP);
@@ -93,12 +96,11 @@ soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
 
 }  // namespace
 
-// frame may be null (aligned layout: entry k takes pose k); the wrapper
-// checks that frame ids index the pose table.
 extern "C" int lvba_soa_agg(const float* n, const float* mu, const float* Pc,
-                            const float* pose12, const int* frame, int V,
-                            int K, float* residv, float* pv, void* stream) {
+                            const float* poses, int vstride, int V, int K,
+                            float* residv, float* pv, void* stream) {
+  if (V == 0) return 0;
   soa_agg_kernel<<<V, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, mu, Pc, pose12, frame, K, residv, pv);
+      n, mu, Pc, poses, vstride, K, residv, pv);
   return static_cast<int>(cudaGetLastError());
 }

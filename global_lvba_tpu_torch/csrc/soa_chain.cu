@@ -1,9 +1,9 @@
-// Kernel 2: the per-entry linearization chain of the plane factor on the
-// frame-aligned layout (replaces global_lvba_tpu/ops/pallas/
-// soa_fused.py:73 `_chain_kernel` and the voxel-axis g/Hd sums of
-// plane_eigen.py:1361-1381).
+// Kernel 2: the per-entry linearization chain of the plane factor
+// (replaces global_lvba_tpu/ops/pallas/soa_fused.py:73 `_chain_kernel`),
+// in two launchers sharing chain_entry below.
 //
-// Grid (ceil(W / 128), ceil(V / vtile)); thread k of block (bx, by) owns
+// soa_chain_kernel, the frame-aligned layout (with the voxel-axis g/Hd
+// sums of plane_eigen.py:1361-1381).  Grid (ceil(W / 128), ceil(V / vtile)); thread k of block (bx, by) owns
 // frame k = 128·bx + threadIdx.x and walks voxels by·vtile ... in order.
 // Per entry it recomputes R μ and R Pc (cheaper than storing them), runs
 // the chain with the voxel's u, B1, B2, v̄, 1/N from pv, and
@@ -13,6 +13,25 @@
 //     register accumulators, written once per thread to
 //     part[by, ch, k] (channel-major, coalesced).  The caller sums part
 //     over by in a fixed order: no atomics, bitwise repeatable.
+//
+// soa_chain_entries_kernel, the bucketed layout: `_chain_kernel` on its
+// native layout (poses pre-gathered per entry, plane_eigen.py:1388-1390),
+// one thread per (voxel, slot) entry e = v·K + k.  It reads the entry's
+// moments, its pose row (table_select's output) and its voxel's pv, and
+//   * writes the 30 unique g/Hd channels (jjt 6 | d36 at _D_UNIQUE 24) to
+//     vals[e, :] — zeros for a dead entry (n == 0) — for the frame
+//     segment-sum (selection.cu entry_reduce_kernel);
+//   * scatters its three factor rows into the zero-filled Gram operand
+//     A (3V, 6W) at A[3v + r, 6·frame[e] + c]: the one-hot M expansion of
+//     plane_eigen.py:1485-1489 as an exact store.  A voxel observes a
+//     frame at most once, so no two entries write one cell; a dead entry,
+//     or one whose frame id lies outside [0, W), writes nothing (its
+//     one-hot column is zero in the JAX expansion).
+// Bound: bytes — 13 moment + 12 pose + 1 id floats in and 30 + 18 floats
+// out per entry, plus the memset of A that the wrapper makes; ~560 flops
+// per entry stay far below the card's FLOP/byte balance.  The entry's
+// values live in registers; the stores of a thread are strided (30
+// contiguous floats, 3 runs of 6), which the L2 merges.
 #include "soa_common.cuh"
 
 namespace {
@@ -227,6 +246,47 @@ soa_chain_kernel(const float* __restrict__ n, const float* __restrict__ mu,
   for (int i = 0; i < 30; ++i) o[(int64_t)i * W] = acc[i];
 }
 
+__global__ void __launch_bounds__(kThreads)
+soa_chain_entries_kernel(const float* __restrict__ n,
+                         const float* __restrict__ mu,
+                         const float* __restrict__ Pc,
+                         const float* __restrict__ poses,
+                         const int* __restrict__ frame,
+                         const float* __restrict__ pv, int K, int W,
+                         int64_t E, float* __restrict__ A,
+                         float* __restrict__ vals) {
+  using namespace lvba;
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= E) return;
+  const int64_t v = e / K;
+  const Cell c = load_cell(n, mu, Pc, e);
+  float* o = vals + 30 * e;
+  if (c.mask == 0.f) {
+#pragma unroll
+    for (int i = 0; i < 30; ++i) o[i] = 0.f;
+    return;
+  }
+  const Pose P = load_pose(poses, e);
+  float acc[30];
+#pragma unroll
+  for (int i = 0; i < 30; ++i) acc[i] = 0.f;
+  float Rm1, Rm2, Rm3, RP[9], rows[18];
+  rot_mean(P, c, Rm1, Rm2, Rm3);
+  rot_scatter(P, c, RP);
+  chain_entry(c, P, Rm1, Rm2, Rm3, RP, pv + 16 * v, rows, acc);
+#pragma unroll
+  for (int i = 0; i < 30; ++i) o[i] = acc[i];
+  const int f = frame[e];
+  if (f < 0 || f >= W) return;
+  const int64_t ld = 6 * (int64_t)W;  // row stride of A
+  float* out = A + 3 * v * ld + 6 * (int64_t)f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int cc = 0; cc < 6; ++cc) out[r * ld + cc] = rows[r * 6 + cc];
+  }
+}
+
 }  // namespace
 
 extern "C" int lvba_soa_chain(const float* n, const float* mu, const float* Pc,
@@ -236,5 +296,20 @@ extern "C" int lvba_soa_chain(const float* n, const float* mu, const float* Pc,
   const dim3 grid((W + kThreads - 1) / kThreads, (V + vtile - 1) / vtile);
   soa_chain_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n, mu, Pc, pose12, pv, V, W, vtile, A, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A must be zero-filled (3V, 6W); vals is (V·K, 30).
+extern "C" int lvba_soa_chain_entries(const float* n, const float* mu,
+                                      const float* Pc, const float* poses,
+                                      const int* frame, const float* pv,
+                                      int V, int K, int W, float* A,
+                                      float* vals, void* stream) {
+  const int64_t E = (int64_t)V * K;
+  if (E == 0) return 0;
+  const int64_t blocks = (E + kThreads - 1) / kThreads;
+  soa_chain_entries_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      n, mu, Pc, poses, frame, pv, K, W, E, A, vals);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,26 +1,43 @@
-"""Batched BALM planar eigenvalue factor on the frame-ALIGNED layout: cost,
-gradient, Gauss-Newton Hessian (port of global_lvba_tpu.factors.plane_eigen,
-aligned subset).
+"""Batched BALM planar eigenvalue factor: cost, gradient, Gauss-Newton
+Hessian (port of global_lvba_tpu.factors.plane_eigen, dense-Gram path).
 
 Same math as VOX_HESS::acc_evaluate2 / evaluate_only_residual
 (include/BALM/bavoxel.hpp:68-203) restated as one batched computation:
-every vector/matrix component is its own (V, W) plane, the per-voxel 3x3
+every vector/matrix component is its own (V, K) plane, the per-voxel 3x3
 eigensolve is closed form, and the full cross-pose block Hessian is one
 negative Gram -AᵀA over three factor rows per voxel
 (B·A_k and √2/N·[w; n·u]).
 
-On the aligned layout slot k IS frame k, so no frame selection exists:
-pose channels broadcast over voxels, g/Hd are voxel-axis sums and the
-factor rows already sit in the Gram layout.  The evaluation runs three
-steps per voxel chunk, each a CUDA kernel on the card (kernels/soa.py,
-kernels/gram.py) and its plain torch version on the CPU:
+Two factor layouts, chosen per solve by the density gate
+(factors/padding.py):
 
-  1. soa_agg    aggregation + eigensolve    -> residv (V,), pv (V, 16)
-  2. soa_chain  linearization chain          -> A (3V, 6W), g (W, 6), Hd
-  3. syrk_      gram += AᵀA
+* frame-ALIGNED (AlignedPlaneFactorArrays, (V, W)): slot k IS frame k, so
+  pose channels broadcast over voxels, g/Hd are voxel-axis sums and the
+  factor rows already sit in the Gram layout.  Three steps per voxel
+  chunk:
+    1. soa_agg    aggregation + eigensolve    -> residv (V,), pv (V, 16)
+    2. soa_chain  linearization chain          -> A (3V, 6W), g (W, 6), Hd
+    3. syrk_      gram += AᵀA
+* BUCKETED (PlaneFactorArrays, (V, K) slots with a frame id each): per
+  bucket and evaluation
+    0. table_select        pose table -> per-entry pose rows (V, K, 12)
+  then per voxel chunk
+    1. soa_agg             on the per-entry pose rows
+    2. soa_chain_entries   rows scattered into A (3V, 6W) at column
+                           6·frame (the M expansion, exact: a voxel
+                           observes a frame at most once), the 30 unique
+                           g/Hd channels per entry -> vals (V·K, 30)
+    3. syrk_               gram += AᵀA
+  and once per bucket
+    4. entry_reduce        frame segment-sum of vals through the (W, Kf)
+                           frame table -> g (W, 6), Hd (W, 6, 6).
+  The frame table is built on the host once per solve
+  (frame_gather_table) and reused by every evaluation.
 
-The componentwise functions below (_soa_agg, _soa_eig, _soa_chain) are the
-transcriptions of the JAX ones the plain versions are built from.
+Each step is a CUDA kernel on the card (kernels/) and its plain torch
+version on the CPU.  The componentwise functions below (_soa_agg,
+_soa_eig, _soa_chain) are the transcriptions of the JAX ones the plain
+versions are built from.
 """
 
 from __future__ import annotations
@@ -32,8 +49,20 @@ import numpy as np
 import torch
 
 from ..kernels import gram as _gram
+from ..kernels import selection as _sel
 from ..kernels import soa as _soa
 from ..ops.eigh3 import eigh3_soa
+
+
+class PlaneFactorArrays(NamedTuple):
+    """Bucketed factor layout, the device mirror of a PlaneFactorBucket:
+    slot k of voxel v holds the moments it observed in frame frame[v, k].
+    Padded slots and voxels carry n == 0 and contribute exactly zero."""
+
+    n: torch.Tensor      # (V, K)
+    mu: torch.Tensor     # (V, K, 3)
+    Pc: torch.Tensor     # (V, K, 3, 3)
+    frame: torch.Tensor  # (V, K) int32
 
 
 class AlignedPlaneFactorArrays(NamedTuple):
@@ -59,11 +88,21 @@ def _moment_channels(mu: torch.Tensor, Pc: torch.Tensor):
     return mu3, P6
 
 
-def _pose_channels(pose12: torch.Tensor, frame: torch.Tensor = None):
-    """Per-entry pose planes R9 (9,), p3 (3,).  Aligned (frame None): a
-    (1, W) broadcast of the pose table columns, no gather.  With a (V, K)
-    frame-id array: the row gather of the bucketed layout."""
-    cols = pose12[frame] if frame is not None else pose12[None]
+def bucket_to_device(b, dtype=torch.float32, device="cpu") -> PlaneFactorArrays:
+    """PlaneFactorArrays of a host PlaneFactorBucket on `device`."""
+    def put(x, dt):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
+
+    return PlaneFactorArrays(n=put(b.n, dtype), mu=put(b.mu, dtype),
+                             Pc=put(b.Pc, dtype), frame=put(b.frame, torch.int32))
+
+
+def _pose_channels(poses: torch.Tensor):
+    """Per-entry pose planes R9 (9,), p3 (3,) from the pose operand of
+    soa_agg: a (W, 12) pose table on the aligned layout (a (1, W)
+    broadcast of its columns) or per-entry pose rows (V, K, 12) on the
+    bucketed layout (table_select's output)."""
+    cols = poses[None] if poses.dim() == 2 else poses
     return (tuple(cols[..., i] for i in range(9)),
             tuple(cols[..., 9 + i] for i in range(3)))
 
@@ -320,26 +359,75 @@ _D24_TO_36 = np.array(
 )
 
 
-def voxel_chunks(V: int, W: int, chunk_bytes: int = 256 * 1024 * 1024):
-    """(lo, hi) voxel ranges of the chunked evaluation: per voxel the
-    (W, 18) factor rows, their Gram-layout copy and the 60 per-entry output
-    channels, bounded by `chunk_bytes` (the JAX package's budget)."""
-    per_vox_bytes = (W * 18 * 2 + W * 60) * 4
+def voxel_chunks(V: int, W: int, chunk_bytes: int = 256 * 1024 * 1024,
+                 K: int = None):
+    """(lo, hi) voxel ranges of the chunked evaluation, bounded by
+    `chunk_bytes` with the JAX package's per-voxel budget
+    (plane_eigen.py:387-391): the (W, 18) factor rows and their
+    Gram-layout copy, plus the 60 per-entry output channels on the aligned
+    layout (K None) or the (K, W) selection operand on the bucketed one."""
+    per_vox_bytes = (W * 18 * 2 + (W * 60 if K is None else K * W)) * 4
     chunk = max(1, min(V, chunk_bytes // per_vox_bytes))
     return [(lo, min(V, lo + chunk)) for lo in range(0, V, chunk)]
 
 
+def _frame_table_np(frame: np.ndarray, n: np.ndarray, W: int) -> np.ndarray:
+    """(W, Kf) frame-major index table over the FLAT (v, k) entries: row w
+    lists every valid entry observing frame w, padded with the sentinel
+    index V*K (which gathers an all-zero row).  Kf = max entries per
+    frame, rounded up to 8."""
+    flat_f = frame.reshape(-1).astype(np.int64)
+    valid = n.reshape(-1) > 0
+    sel = np.flatnonzero(valid)
+    fsel = flat_f[sel]
+    order = np.argsort(fsel, kind="stable")
+    sel = sel[order]
+    fsel = fsel[order]
+    counts = np.bincount(fsel, minlength=W)
+    Kf = max(int(counts.max()), 1)
+    Kf = (Kf + 7) // 8 * 8
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    idx = np.full((W, Kf), flat_f.size, np.int32)
+    if fsel.size:
+        pos = np.arange(fsel.size) - starts[fsel]
+        idx[fsel, pos] = sel.astype(np.int32)
+    return idx
+
+
+def frame_gather_table(fa: PlaneFactorArrays, W: int) -> torch.Tensor:
+    """(W, Kf) int32 frame table of a bucket on its device, built on the
+    host from the bucket's frame ids and counts (one copy each way per
+    solve).  The operand of entry_reduce; every evaluation of a solve
+    reuses it."""
+    tbl = _frame_table_np(fa.frame.cpu().numpy(), fa.n.cpu().numpy(), W)
+    return torch.as_tensor(tbl).to(fa.n.device)
+
+
+def segsum_table(z: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
+    """Frame-indexed segment sum of flat per-entry values z (VK, C) through
+    the frame table: a (W, Kf, C) row gather and a sum over Kf.  The
+    sentinel index VK gathers an all-zero row."""
+    zpad = torch.cat([z, z.new_zeros((1,) + tuple(z.shape[1:]))])
+    return zpad[tbl.long()].sum(dim=1)
+
+
 class EvalSteps(NamedTuple):
-    """The three evaluation steps (see the module docstring)."""
+    """The evaluation steps (see the module docstring)."""
 
     agg: object
     chain: object
     syrk_: object
+    select: object
+    chain_entries: object
+    reduce: object
 
 
-KERNEL_STEPS = EvalSteps(_soa.soa_agg, _soa.soa_chain, _gram.syrk_)
+KERNEL_STEPS = EvalSteps(_soa.soa_agg, _soa.soa_chain, _gram.syrk_,
+                         _sel.table_select, _soa.soa_chain_entries,
+                         _sel.entry_reduce)
 PLAIN_STEPS = EvalSteps(_soa.soa_agg_plain, _soa.soa_chain_plain,
-                        _gram.syrk_plain_)
+                        _gram.syrk_plain_, _sel.table_select_plain,
+                        _soa.soa_chain_entries_plain, _sel.entry_reduce_plain)
 
 
 def _check_width(fa: AlignedPlaneFactorArrays, W: int):
@@ -350,43 +438,73 @@ def _check_width(fa: AlignedPlaneFactorArrays, W: int):
         )
 
 
-def plane_cost(fa: AlignedPlaneFactorArrays, R: torch.Tensor,
-               p: torch.Tensor) -> torch.Tensor:
+def _pose_operand(steps: EvalSteps, fa, pose12: torch.Tensor, W: int,
+                  chunk_bytes: int = 256 * 1024 * 1024):
+    """soa_agg's pose operand for the whole bucket and the bucket's voxel
+    chunks: the pose table itself on the aligned layout, the
+    table_select'ed per-entry rows (V, K, 12) on the bucketed one."""
+    V, K = fa.n.shape
+    if isinstance(fa, PlaneFactorArrays):
+        poses = steps.select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
+        return poses, voxel_chunks(V, W, chunk_bytes, K=K)
+    _check_width(fa, W)
+    return pose12, voxel_chunks(V, W, chunk_bytes)
+
+
+def plane_cost(fa, R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Sum over voxels of λ_min (evaluate_only_residual, bavoxel.hpp:176-203)."""
-    _check_width(fa, R.shape[0])
-    pose12 = pose_table(R, p)
+    poses, chunks = _pose_operand(KERNEL_STEPS, fa, pose_table(R, p),
+                                  R.shape[0])
+    bucketed = poses.dim() == 3
     return sum(
-        _soa.soa_agg(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi], pose12)[0].sum()
-        for lo, hi in voxel_chunks(fa.n.shape[0], R.shape[0])
+        _soa.soa_agg(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
+                     poses[lo:hi] if bucketed else poses)[0].sum()
+        for lo, hi in chunks
     )
 
 
 def plane_cost_grad_hess(
-    fa: AlignedPlaneFactorArrays,
+    fa,
     R: torch.Tensor,
     p: torch.Tensor,
     num_frames: int,
     chunk_bytes: int = 256 * 1024 * 1024,
+    tbl: torch.Tensor = None,
 ):
-    """Total (residual, gradient (W, 6), Hessian (W, 6, W, 6)).
+    """Total (residual, gradient (W, 6), Hessian (W, 6, W, 6)) of one
+    factor-array set, aligned or bucketed.
 
     H = diag-blocks(Hd) - Σ_chunks A_cᵀ A_c, chunked over voxels so the
-    (3V, 6W) factor rows stay within `chunk_bytes`.  On CUDA tensors every
-    step is a kernel launch; on CPU tensors the plain versions run."""
-    return _cost_grad_hess(KERNEL_STEPS, fa, R, p, num_frames, chunk_bytes)
+    (3V, 6W) factor rows stay within `chunk_bytes`.  tbl: the bucketed
+    layout's frame_gather_table(fa, W), built here when not given (a
+    solve builds it once).  On CUDA tensors every step is a kernel
+    launch; on CPU tensors the plain versions run."""
+    return _cost_grad_hess(KERNEL_STEPS, fa, R, p, num_frames, chunk_bytes,
+                           tbl)
 
 
 def _cost_grad_hess(steps: EvalSteps, fa, R, p, num_frames: int,
-                    chunk_bytes: int = 256 * 1024 * 1024):
+                    chunk_bytes: int = 256 * 1024 * 1024, tbl=None):
     W = num_frames
-    _check_width(fa, W)
     pose12 = pose_table(R, p)
     dev, dt = R.device, R.dtype
+    gram = torch.zeros((6 * W, 6 * W), dtype=dt, device=dev)
+    if isinstance(fa, PlaneFactorArrays):
+        resid, g, Hd = _bucketed_pass(steps, fa, pose12, W, gram,
+                                      chunk_bytes, tbl)
+    else:
+        resid, g, Hd = _aligned_pass(steps, fa, pose12, W, gram, chunk_bytes)
+    H = add_block_diag(gram.neg_().reshape(W, 6, W, 6), Hd, W)
+    return resid, g, H
+
+
+def _aligned_pass(steps, fa, pose12, W, gram, chunk_bytes):
+    _, chunks = _pose_operand(steps, fa, pose12, W, chunk_bytes)
+    dev, dt = pose12.device, pose12.dtype
     resid = torch.zeros((), dtype=dt, device=dev)
     g = torch.zeros((W, 6), dtype=dt, device=dev)
     Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
-    gram = torch.zeros((6 * W, 6 * W), dtype=dt, device=dev)
-    for lo, hi in voxel_chunks(fa.n.shape[0], W, chunk_bytes):
+    for lo, hi in chunks:
         n, mu, Pc = fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi]
         residv, pv = steps.agg(n, mu, Pc, pose12)
         A, g_c, Hd_c = steps.chain(n, mu, Pc, pose12, pv)
@@ -394,8 +512,28 @@ def _cost_grad_hess(steps: EvalSteps, fa, R, p, num_frames: int,
         resid = resid + residv.sum()
         g = g + g_c
         Hd = Hd + Hd_c
-    H = add_block_diag(gram.neg_().reshape(W, 6, W, 6), Hd, W)
-    return resid, g, H
+    return resid, g, Hd
+
+
+def _bucketed_pass(steps, fa, pose12, W, gram, chunk_bytes, tbl):
+    V, K = fa.n.shape
+    dev, dt = pose12.device, pose12.dtype
+    if tbl is None:
+        tbl = frame_gather_table(fa, W)
+    poses, chunks = _pose_operand(steps, fa, pose12, W, chunk_bytes)
+    vals = torch.empty((V * K, 30), dtype=dt, device=dev)
+    resid = torch.zeros((), dtype=dt, device=dev)
+    for lo, hi in chunks:
+        n, mu, Pc, pc = fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi], poses[lo:hi]
+        residv, pv = steps.agg(n, mu, Pc, pc)
+        A, _ = steps.chain_entries(n, mu, Pc, pc, fa.frame[lo:hi], pv, W,
+                                   vals[lo * K:hi * K])
+        steps.syrk_(gram, A)
+        resid = resid + residv.sum()
+    gHd = steps.reduce(vals, tbl)                               # (W, 30)
+    g = gHd[:, :6].contiguous()
+    Hd = gHd[:, 6:][:, _soa.d24_to_36(dev)].reshape(W, 6, 6)
+    return resid, g, Hd
 
 
 def add_block_diag(H: torch.Tensor, Hd: torch.Tensor, W: int) -> torch.Tensor:

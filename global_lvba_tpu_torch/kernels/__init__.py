@@ -5,14 +5,16 @@ it launches its kernel or raises.  Each launch adds one to the wrapper's
 count (launch_counts), so a run can show that its path went through the
 kernels."""
 
-from . import gram, soa
+from . import gram, selection, soa
+
+_COUNTS = (soa.LAUNCHES, gram.LAUNCHES, selection.LAUNCHES)
 
 
 def launch_counts() -> dict:
-    return {**soa.LAUNCHES, **gram.LAUNCHES}
+    return {k: v for d in _COUNTS for k, v in d.items()}
 
 
 def reset_launch_counts():
-    for d in (soa.LAUNCHES, gram.LAUNCHES):
+    for d in _COUNTS:
         for k in d:
             d[k] = 0

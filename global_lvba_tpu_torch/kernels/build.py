@@ -14,7 +14,9 @@ that includes them takes minutes to compile, this one seconds).  Each
 launcher takes tensor pointers and the stream as integers and returns
 cudaGetLastError() after the launch.  Its ctypes signature is bound once,
 when the library loads; `launcher(name)` is a dictionary lookup after the
-first call.
+first call.  A source may hold several launchers (soa_chain.cu: the
+aligned and the per-entry chain; selection.cu: table_select and
+entry_reduce).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-SOURCES = ("soa_agg", "soa_chain", "syrk")
+SOURCES = ("soa_agg", "soa_chain", "syrk", "selection")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -35,12 +37,19 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# each library's launcher: C name and argument types (it returns an int)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# each launcher: its source, C name and argument types (it returns an int)
 SIGNATURES = {
-    "soa_agg": ("lvba_soa_agg", [_P] * 5 + [_I] * 2 + [_P] * 3),
-    "soa_chain": ("lvba_soa_chain", [_P] * 5 + [_I] * 3 + [_P] * 3),
-    "syrk": ("lvba_syrk", [_P, _I, _I, _P, _P]),
+    "soa_agg": ("soa_agg", "lvba_soa_agg", [_P] * 4 + [_I] * 3 + [_P] * 3),
+    "soa_chain": ("soa_chain", "lvba_soa_chain",
+                  [_P] * 5 + [_I] * 3 + [_P] * 3),
+    "soa_chain_entries": ("soa_chain", "lvba_soa_chain_entries",
+                          [_P] * 6 + [_I] * 3 + [_P] * 3),
+    "syrk": ("syrk", "lvba_syrk", [_P, _I, _I, _P, _P]),
+    "table_select": ("selection", "lvba_table_select",
+                     [_P, _P, _L, _I, _I, _P, _P]),
+    "entry_reduce": ("selection", "lvba_entry_reduce",
+                     [_P, _P, _L, _I, _I, _I, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -94,18 +103,18 @@ def _build_all():
         raise RuntimeError("\n".join(failed))
     for name in SOURCES:
         lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest(name)}.so"))
-        cname, argtypes = SIGNATURES[name]
-        fn = getattr(lib, cname)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
         lib.lvba_error_string.argtypes = [ctypes.c_int]
         lib.lvba_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
+    for name, (src, cname, argtypes) in SIGNATURES.items():
+        fn = getattr(_libs[src], cname)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
         _launchers[name] = fn
 
 
 def launcher(name: str):
-    """The bound launcher of csrc/<name>.cu, building every kernel on the
-    first call."""
+    """The bound launcher `name` (a key of SIGNATURES), building every
+    kernel on the first call."""
     fn = _launchers.get(name)
     if fn is None:
         with _lock:
@@ -123,9 +132,9 @@ def build_logs() -> dict:
 
 
 def check(name: str, err: int):
-    """Raise if the launcher of csrc/<name>.cu returned a CUDA error code
-    (every library exports lvba_error_string, cudaGetErrorString behind a
-    C name)."""
+    """Raise if the launcher `name` returned a CUDA error code (every
+    library exports lvba_error_string, cudaGetErrorString behind a C
+    name)."""
     if err != 0:
-        msg = _libs[name].lvba_error_string(err).decode()
+        msg = _libs[SIGNATURES[name][0]].lvba_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

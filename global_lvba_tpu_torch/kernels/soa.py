@@ -20,6 +20,20 @@ jjt6 and the 24 distinct diagonal-extras channels are summed in registers
 the factor rows reach device memory — written straight into the Gram
 operand layout A (3V, 6W), row (v, r) contiguous.  Bound: bytes (13 floats
 in, 18 out per cell; ~400 flops per cell).
+
+soa_chain_entries (csrc/soa_chain.cu) is the same `_chain_kernel` on its
+own, bucketed layout (poses pre-gathered per entry, plane_eigen.py:
+1388-1390): one thread per (voxel, slot) entry.  It scatters the entry's
+factor rows into the zero-filled A at columns 6·frame (the one-hot M
+expansion of plane_eigen.py:1485-1489, exact: no two entries of a voxel
+share a frame) and writes the 30 unique g/Hd channels per entry for the
+frame segment-sum (kernels/selection.py).  Bound: bytes (25 floats in,
+30 + 18 out per entry, plus the memset of A).
+
+soa_agg's pose operand is a (K, 12) pose table read with voxel stride 0
+(aligned: entry (v, k) takes pose k) or per-entry pose rows (V, K, 12)
+with voxel stride K·12 (bucketed: table_select's output), so the pose
+expansion happens in one place and no wrapper reads ids back to the host.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import torch
 
 from . import build
 
-LAUNCHES = {"soa_agg": 0, "soa_chain": 0}
+LAUNCHES = {"soa_agg": 0, "soa_chain": 0, "soa_chain_entries": 0}
 
 _CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
 _D24_TO_36_ON: dict = {}
@@ -44,14 +58,19 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _check_operands(n, mu, Pc, pose12):
+def _check_operands(n, mu, Pc, poses, *more):
+    """Shapes of the moments and the pose operand (a (P, 12) table or
+    (V, K, 12) per-entry rows); device, float32 and contiguity of every
+    tensor, `more` as (name, tensor) pairs."""
     V, K = n.shape
-    if mu.shape != (V, K, 3) or Pc.shape != (V, K, 3, 3) or pose12.dim() != 2 \
-            or pose12.shape[1] != 12:
+    if mu.shape != (V, K, 3) or Pc.shape != (V, K, 3, 3) or not (
+            (poses.dim() == 2 and poses.shape[1] == 12)
+            or poses.shape == (V, K, 12)):
         raise ValueError(
             f"bad operand shapes n {tuple(n.shape)} mu {tuple(mu.shape)} "
-            f"Pc {tuple(Pc.shape)} pose12 {tuple(pose12.shape)}")
-    for name, t in (("n", n), ("mu", mu), ("Pc", Pc), ("pose12", pose12)):
+            f"Pc {tuple(Pc.shape)} poses {tuple(poses.shape)}")
+    for name, t in (("n", n), ("mu", mu), ("Pc", Pc), ("poses", poses),
+                    *more):
         if t.device != n.device:
             raise ValueError(f"{name} is on {t.device}, n on {n.device}")
         if t.dtype != torch.float32:
@@ -60,48 +79,45 @@ def _check_operands(n, mu, Pc, pose12):
             raise ValueError(f"{name} must be contiguous")
 
 
-def soa_agg(n, mu, Pc, pose12, frame=None):
+def soa_agg(n, mu, Pc, poses):
     """Aggregation + eigensolve -> (residv (V,), pv (V, 16)), pv =
     [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0].
 
-    n (V, K), mu (V, K, 3), Pc (V, K, 3, 3), pose12 (P, 12).  Entry (v, k)
-    takes pose k (aligned layout, K == P) or pose frame[v, k] when a
-    (V, K) int32 `frame` is given."""
+    n (V, K), mu (V, K, 3), Pc (V, K, 3, 3).  poses: the (K, 12) pose table
+    on the aligned layout (entry (v, k) takes pose k: voxel stride 0) or
+    per-entry pose rows (V, K, 12) on the bucketed layout (table_select's
+    output: voxel stride K·12)."""
     if n.device.type == "cpu":
-        return soa_agg_plain(n, mu, Pc, pose12, frame)
+        return soa_agg_plain(n, mu, Pc, poses)
     if n.device.type != "cuda":
         raise ValueError(f"soa_agg: unsupported device {n.device}")
-    _check_operands(n, mu, Pc, pose12)
     V, K = n.shape
-    P = pose12.shape[0]
-    if frame is None:
-        if K != P:
-            raise ValueError(f"aligned layout needs K == poses, got {K} != {P}")
-    elif frame.shape != (V, K) or frame.dtype != torch.int32 \
-            or frame.device != n.device or not frame.is_contiguous():
-        raise ValueError("frame must be a contiguous (V, K) int32 tensor "
-                         "on the operands' device")
-    elif frame.numel() and (int(frame.min()) < 0 or int(frame.max()) >= P):
-        raise ValueError(f"frame ids outside the {P}-pose table")
+    _check_operands(n, mu, Pc, poses)
+    if poses.dim() == 2:
+        if poses.shape[0] != K:
+            raise ValueError(f"aligned layout needs K == poses, got {K} != "
+                             f"{poses.shape[0]}")
+        vstride = 0
+    else:
+        vstride = K * 12
     residv = torch.empty((V,), dtype=n.dtype, device=n.device)
     pv = torch.empty((V, 16), dtype=n.dtype, device=n.device)
     launch = build.launcher("soa_agg")
     with torch.cuda.device(n.device):
-        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12),
-                     _ptr(frame) if frame is not None else None,
+        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), vstride,
                      V, K, _ptr(residv), _ptr(pv), _stream(n.device))
     build.check("soa_agg", err)
     LAUNCHES["soa_agg"] += 1
     return residv, pv
 
 
-def soa_agg_plain(n, mu, Pc, pose12, frame=None):
+def soa_agg_plain(n, mu, Pc, poses):
     """Plain torch version of soa_agg: _soa_agg + _soa_eig."""
     from ..factors.plane_eigen import (
         _moment_channels, _pose_channels, _soa_agg, _soa_eig)
 
     mu3, P6 = _moment_channels(mu, Pc)
-    R9, p3 = _pose_channels(pose12, frame)
+    R9, p3 = _pose_channels(poses)
     _, _, N, invN, vb, _, _, cov6 = _soa_agg(n, mu3, P6, R9, p3)
     residv, u, B1, B2 = _soa_eig(cov6, N)
     zero = torch.zeros_like(invN)
@@ -120,7 +136,7 @@ def soa_chain(n, mu, Pc, pose12, pv):
         raise ValueError(f"soa_chain: unsupported device {n.device}")
     _check_operands(n, mu, Pc, pose12)
     V, W = n.shape
-    if pose12.shape[0] != W:
+    if pose12.dim() != 2 or pose12.shape[0] != W:
         raise ValueError(f"aligned layout needs W == poses, got {W} != "
                          f"{pose12.shape[0]}")
     if pv.shape != (V, 16) or pv.dtype != torch.float32 \
@@ -142,7 +158,7 @@ def soa_chain(n, mu, Pc, pose12, pv):
     return (A,) + _reduce_partials(part, W)
 
 
-def _d24_to_36(device):
+def d24_to_36(device):
     """The 24 -> 36 channel index on `device`, copied there once (a copy
     from host memory on every call would sync the stream)."""
     idx = _D24_TO_36_ON.get(device)
@@ -157,7 +173,7 @@ def _d24_to_36(device):
 def _reduce_partials(part, W):
     s = part.sum(dim=0)                                  # (30, W)
     g = s[:6].T.contiguous()
-    Hd = s[6:].T[:, _d24_to_36(part.device)].reshape(W, 6, 6)
+    Hd = s[6:].T[:, d24_to_36(part.device)].reshape(W, 6, 6)
     return g, Hd
 
 
@@ -182,3 +198,75 @@ def soa_chain_plain(n, mu, Pc, pose12, pv):
     Hd = torch.stack([c.sum(dim=0) for c in d36_ch], dim=-1).reshape(W, 6, 6)
     A = torch.stack(rows_ch, dim=-1).reshape(V, W, 3, 6)
     return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), g, Hd
+
+
+def soa_chain_entries(n, mu, Pc, poses, frame, pv, W, vals=None):
+    """Linearization chain on the bucketed layout -> (A (3V, 6W), vals
+    (V·K, 30)).  Entry (v, k) writes its three factor rows into A row
+    block v at columns 6·frame[v, k] (the M expansion; A is zero
+    elsewhere) and its 30 unique g/Hd channels (jjt 6 | the _D_UNIQUE
+    diagonal extras 24) into vals row v·K + k.  Dead entries (n == 0)
+    write zero channels and no rows, and so does a live entry whose
+    frame id lies outside [0, W) (the JAX one-hot drops it likewise).
+    poses: per-entry pose rows (V, K, 12); frame (V, K) int32; pv the
+    voxels' soa_agg output.  vals, when given, is the (V·K, 30) output
+    (a slice of a bucket-wide buffer)."""
+    V, K = n.shape
+    if vals is None:
+        vals = torch.empty((V * K, 30), dtype=n.dtype, device=n.device)
+    if n.device.type == "cpu":
+        return soa_chain_entries_plain(n, mu, Pc, poses, frame, pv, W, vals)
+    if n.device.type != "cuda":
+        raise ValueError(f"soa_chain_entries: unsupported device {n.device}")
+    if poses.shape != (V, K, 12):
+        raise ValueError(f"poses must be (V, K, 12) per-entry rows, got "
+                         f"{tuple(poses.shape)}")
+    _check_operands(n, mu, Pc, poses, ("pv", pv), ("vals", vals))
+    if frame.shape != (V, K) or frame.dtype != torch.int32 \
+            or frame.device != n.device or not frame.is_contiguous():
+        raise ValueError("frame must be a contiguous (V, K) int32 tensor "
+                         "on the operands' device")
+    if pv.shape != (V, 16) or vals.shape != (V * K, 30):
+        raise ValueError(f"pv {tuple(pv.shape)} / vals {tuple(vals.shape)} "
+                         f"do not fit {V} voxels of {K} slots")
+    A = torch.zeros((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    launch = build.launcher("soa_chain_entries")
+    with torch.cuda.device(n.device):
+        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), _ptr(frame),
+                     _ptr(pv), V, K, W, _ptr(A), _ptr(vals),
+                     _stream(n.device))
+    build.check("soa_chain_entries", err)
+    LAUNCHES["soa_chain_entries"] += 1
+    return A, vals
+
+
+def soa_chain_entries_plain(n, mu, Pc, poses, frame, pv, W, vals=None):
+    """Plain torch version of soa_chain_entries: _soa_chain on every
+    entry, the rows scattered into A by index_put_."""
+    from ..factors.plane_eigen import (
+        _D_UNIQUE, _moment_channels, _pose_channels, _soa_agg, _soa_chain)
+
+    V, K = n.shape
+    mu3, P6 = _moment_channels(mu, Pc)
+    R9, p3 = _pose_channels(poses)
+    mask, nm, _, _, _, Rm, RP, _ = _soa_agg(n, mu3, P6, R9, p3)
+    u = (pv[:, 0], pv[:, 1], pv[:, 2])
+    B1 = (pv[:, 3], pv[:, 4], pv[:, 5])
+    B2 = (pv[:, 6], pv[:, 7], pv[:, 8])
+    vb = (pv[:, 9], pv[:, 10], pv[:, 11])
+    invN = pv[:, 12]
+    rows_ch, jjt_ch, d36_ch = _soa_chain(
+        mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
+    uniq = torch.stack(jjt_ch + tuple(d36_ch[i] for i in _D_UNIQUE), dim=-1)
+    if vals is None:
+        vals = torch.empty((V * K, 30), dtype=n.dtype, device=n.device)
+    vals.copy_(uniq.reshape(V * K, 30))
+    f = frame.long()
+    vi, ki = torch.nonzero((n > 0) & (f >= 0) & (f < W), as_tuple=True)
+    rows = torch.stack(rows_ch, dim=-1).reshape(V, K, 3, 6)
+    A = torch.zeros((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    # A row block v, column block f, seen as (V, W, 3, 6): one cell per
+    # live entry, never two (a voxel observes a frame at most once)
+    A.view(V, 3, W, 6).permute(0, 2, 1, 3).index_put_((vi, f[vi, ki]),
+                                                      rows[vi, ki])
+    return A, vals

@@ -1,5 +1,6 @@
 """Synthetic LiDAR scenes for tests and benchmarks (the port's own copy of
-the plane-scene part of global_lvba_tpu.models.synthetic, numpy only).
+the plane-scene and corridor parts of global_lvba_tpu.models.synthetic,
+numpy only).
 
 The reference repo ships no tests and no benchmark data (SURVEY.md §4/§6);
 ground-truth validation therefore runs on generated scenes: a room of
@@ -93,6 +94,93 @@ def make_plane_scene(
             uv = rng.uniform(-e, e, size=(per_plane, 2))
             X = (-d) * n[None, :] + uv[:, 0:1] * t1[None, :] + uv[:, 1:2] * t2[None, :]
             pw_all.append(X)
+        pw = np.concatenate(pw_all)
+        pb = (R_true[i].T @ (pw - p_true[i]).T).T
+        pb += rng.normal(scale=noise, size=pb.shape)
+        pts_body.append(pb.astype(np.float32))
+        fids.append(np.full(pb.shape[0], i, dtype=np.int32))
+
+    return PlaneScene(
+        points_body=np.concatenate(pts_body),
+        frame_ids=np.concatenate(fids),
+        R_true=R_true,
+        p_true=p_true,
+        planes_n=normals,
+        planes_d=offsets,
+        times=np.arange(num_frames, dtype=np.float64) * dt,
+    )
+
+
+def make_corridor_scene(
+    num_frames: int = 512,
+    points_per_frame: int = 2000,
+    speed: float = 0.12,
+    sensor_range: float = 3.0,
+    width: float = 3.0,
+    height: float = 2.5,
+    noise: float = 0.005,
+    seed: int = 0,
+    dt: float = 0.1,
+) -> PlaneScene:
+    """A long corridor scanned by a forward-moving trajectory.
+
+    Each frame only sees the corridor walls/floor/ceiling within
+    `sensor_range` of its position, so a voxel is observed by just the
+    ~2*sensor_range/speed nearby frames: SPARSE factor coupling
+    (K ≪ W), the opposite regime from make_plane_scene's box room where
+    every frame couples with every other.  This is the regime of real
+    long trajectories; the density gate sends it to the bucketed layout.
+
+    Transverse "bulkhead" planes (door frames / pillars) every
+    `bulkhead_every` meters constrain the along-corridor direction —
+    without them x-translation is a per-frame gauge freedom and BA
+    diverges.  The same numpy random stream as the JAX package's copy, so
+    a seed gives the same scene in both."""
+    rng = np.random.default_rng(seed)
+    bulkhead_every = 2.0
+    # 4 corridor planes: walls y = ±width/2, floor z = 0, ceiling z = height
+    normals = np.array([
+        [0.0, 1.0, 0.0], [0.0, -1.0, 0.0],
+        [0.0, 0.0, 1.0], [0.0, 0.0, -1.0],
+    ])
+    offsets = np.array([-width / 2.0, -width / 2.0, 0.0, height])
+
+    R_true = np.zeros((num_frames, 3, 3))
+    p_true = np.zeros((num_frames, 3))
+    for i in range(num_frames):
+        R_true[i] = _rot_z(0.02 * np.sin(0.11 * i)) @ _small_rotation(rng, 0.01)
+        p_true[i] = np.array([
+            speed * i, 0.25 * np.sin(0.05 * i), 1.2 + 0.05 * np.sin(0.3 * i)
+        ])
+
+    pts_body = []
+    fids = []
+    per_plane = points_per_frame // 5
+    for i in range(num_frames):
+        x0 = p_true[i][0]
+        xs = rng.uniform(x0 - sensor_range, x0 + sensor_range,
+                         size=(4, per_plane))
+        pw_all = [
+            np.stack([xs[0], np.full(per_plane, width / 2.0),
+                      rng.uniform(0, height, per_plane)], axis=1),
+            np.stack([xs[1], np.full(per_plane, -width / 2.0),
+                      rng.uniform(0, height, per_plane)], axis=1),
+            np.stack([xs[2], rng.uniform(-width / 2, width / 2, per_plane),
+                      np.zeros(per_plane)], axis=1),
+            np.stack([xs[3], rng.uniform(-width / 2, width / 2, per_plane),
+                      np.full(per_plane, height)], axis=1),
+        ]
+        # bulkheads within range: transverse planes spanning the full
+        # cross-section (partition walls with doorways, shelving faces)
+        b_lo = int(np.ceil((x0 - sensor_range) / bulkhead_every))
+        b_hi = int(np.floor((x0 + sensor_range) / bulkhead_every))
+        bxs = [b * bulkhead_every for b in range(b_lo, b_hi + 1)]
+        if bxs:
+            nb = max(1, per_plane // len(bxs))
+            for bx in bxs:
+                yy = rng.uniform(-width / 2, width / 2, nb)
+                zz = rng.uniform(0, height, nb)
+                pw_all.append(np.stack([np.full(nb, bx), yy, zz], axis=1))
         pw = np.concatenate(pw_all)
         pb = (R_true[i].T @ (pw - p_true[i]).T).T
         pb += rng.normal(scale=noise, size=pb.shape)

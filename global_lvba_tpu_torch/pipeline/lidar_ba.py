@@ -19,11 +19,12 @@ Replicates the stage structure of runWindowBA / runLidarBA
 
 Host numpy handles the once-per-stage binning; all per-iteration math runs
 on `device` through factors/plane_eigen.py + solver/lm.py.  Each solve's
-layout comes from the density gate (factors/padding.py); only the
-frame-aligned layout is ported, so a solve the gate sends to the bucketed
-layout (the default 10-frame windows among them) raises
-NotImplementedError.  Each stage's stats add the LM's iteration count and
-solve time (`lm_iters`, `lm_s`) to the JAX package's keys.
+layout comes from the density gate (factors/padding.py): the window
+stage's solves (W = window size < 64) are bucketed, with the occupancy
+tiers merged into one (V, K_max) bucket per window (merge="always", as in
+the JAX package); a global stage is aligned or bucketed per its density.
+Each stage's stats add the LM's iteration count and solve time
+(`lm_iters`, `lm_s`) to the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -68,12 +69,14 @@ def _build_vm(pts_body, fids, R, p, voxel_size, eigen_ratios, cfg: LvbaConfig):
     )
 
 
-def _solve_from_vm(vm, R, p, cfg: LvbaConfig, device, min_voxels: int = 0):
+def _solve_from_vm(vm, R, p, cfg: LvbaConfig, device, min_voxels: int = 0,
+                   merge: str = "auto"):
     """LM-solve one voxel map -> (R, p, num_planes, lm stats)."""
     if vm.num_planes < min_voxels or vm.num_planes == 0:
         return None, None, vm.num_planes, {}
     dtype = solve_dtype(cfg.solver.dtype)
-    buckets = buckets_to_device(vm, W=len(R), dtype=dtype, device=device)
+    buckets = buckets_to_device(vm, W=len(R), dtype=dtype, device=device,
+                                merge=merge)
     t0 = time.time()
     res = lm_damping_iter(
         buckets,
@@ -121,7 +124,8 @@ def run_window_ba(
     anchor_index = np.full(F, -1, dtype=np.int64)
     rel_R = np.tile(np.eye(3), (F, 1, 1))
     rel_p = np.zeros((F, 3))
-    stats = {"windows": 0, "skipped": 0, "time_s": 0.0}
+    stats = {"windows": 0, "skipped": 0, "time_s": 0.0, "lm_iters": 0,
+             "lm_s": 0.0}
 
     if not wcfg.enable:
         for i in range(F):
@@ -173,10 +177,15 @@ def run_window_ba(
             p_win = p_full[start:end].copy()
             R_odom, p_odom = R_win.copy(), p_win.copy()
             vm = futures.pop(start).result()
-            R_sol, p_sol, n_planes, _ = _solve_from_vm(
+            # merge="always": ONE (V_pow2, K_max) bucket per window, the
+            # JAX package's choice for the window stage
+            R_sol, p_sol, n_planes, lm = _solve_from_vm(
                 vm, R_win, p_win, cfg, device,
                 min_voxels=cfg.solver.min_window_factor_ratio * win,
+                merge="always",
             )
+            stats["lm_iters"] += lm.get("lm_iters", 0)
+            stats["lm_s"] += lm.get("lm_s", 0.0)
             if R_sol is None:
                 stats["skipped"] += 1
                 continue

@@ -1,5 +1,6 @@
 """Levenberg-Marquardt driver for the LiDAR plane-eigen BA (port of
-global_lvba_tpu.solver.lm, frame-aligned dense-Gram loop).
+global_lvba_tpu.solver.lm, the dense-Gram loop on aligned and bucketed
+factor arrays).
 
 Replicates BALM2::damping_iter (include/BALM/bavoxel.hpp:662-767):
   * Nielsen damping: u = 0.01, v = 2; on acceptance
@@ -13,6 +14,11 @@ Replicates BALM2::damping_iter (include/BALM/bavoxel.hpp:662-767):
 One factor evaluation per iteration, at the trial point.  The JAX loop is
 a fixed-trip fori_loop that freezes the state once converged; this loop
 stops there instead, which returns the same poses, residual and `iters`.
+
+Where the JAX package leaves the dense-Gram loop — a bucketed solve at
+W >= 1024 (its banded probe and split LM) or reduced_solver="cg_mf" (its
+matrix-free rows path) — this port raises NotImplementedError (ROADMAP
+A3) and never substitutes the dense loop.
 """
 
 from __future__ import annotations
@@ -21,13 +27,18 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..factors.plane_eigen import AlignedPlaneFactorArrays, plane_cost_grad_hess
+from ..factors.plane_eigen import (
+    AlignedPlaneFactorArrays, PlaneFactorArrays, frame_gather_table,
+    plane_cost_grad_hess)
 from ..geometry.se3 import boxplus_pose
 from .dist_solve import solve_damped_cg
 
 # CG trips of the damped solve in the LM loop (solver/lm.py:316-325 of the
 # JAX package: twice the measured convergence at W = 512)
 LIDAR_CG_ITERS = 48
+# the JAX package engages its banded probe on bucketed solves from here
+# (solver/lm.py:245)
+BANDED_MIN_W = 1024
 
 
 class LMResult(NamedTuple):
@@ -37,12 +48,12 @@ class LMResult(NamedTuple):
     residual: torch.Tensor
 
 
-def _total_cgh(buckets, R, p, W):
+def _total_cgh(buckets, tables, R, p, W):
     resid = torch.zeros((), dtype=R.dtype, device=R.device)
     g = torch.zeros((W, 6), dtype=R.dtype, device=R.device)
     H = torch.zeros((W, 6, W, 6), dtype=R.dtype, device=R.device)
-    for fa in buckets:
-        r_, g_, H_ = plane_cost_grad_hess(fa, R, p, W)
+    for fa, tbl in zip(buckets, tables):
+        r_, g_, H_ = plane_cost_grad_hess(fa, R, p, W, tbl=tbl)
         resid, g, H = resid + r_, g + g_, H + H_
     return resid, g.reshape(W * 6), H.reshape(W * 6, W * 6)
 
@@ -78,7 +89,7 @@ def _solve_damped(H, g, u, refine: bool = True):
 
 
 def lm_damping_iter(
-    buckets: Sequence[AlignedPlaneFactorArrays],
+    buckets: Sequence,
     R0: torch.Tensor,
     p0: torch.Tensor,
     max_iters: int = 10,
@@ -87,22 +98,38 @@ def lm_damping_iter(
     rel_tol: float = 1e-6,
     reduced_solver: str = "auto",
 ) -> LMResult:
-    """Damped LM over frame-aligned plane-eigen factor arrays.
+    """Damped LM over plane-eigen factor arrays (aligned and/or bucketed,
+    as buckets_to_device gives them).
 
     reduced_solver: "lu" (dense LU), "cg" (block-Jacobi PCG, 48 trips) or
-    "auto" (CG once 6W >= 1536, else LU)."""
-    if not all(isinstance(fa, AlignedPlaneFactorArrays) for fa in buckets):
-        raise NotImplementedError("bucketed layout: ROADMAP A, slice 2")
+    "auto" (CG once 6W >= 1536, else LU).  A bucketed solve builds each
+    bucket's frame table once (frame_gather_table) for all its
+    evaluations."""
+    kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
+    if not all(isinstance(fa, kinds) for fa in buckets):
+        raise TypeError("buckets must be AlignedPlaneFactorArrays or "
+                        "PlaneFactorArrays")
     W = R0.shape[0]
+    aligned = any(isinstance(fa, AlignedPlaneFactorArrays) for fa in buckets)
+    if reduced_solver == "cg_mf":
+        raise NotImplementedError(
+            "reduced_solver='cg_mf' (the matrix-free rows path) is not "
+            "ported: ROADMAP A3")
+    if not aligned and W >= BANDED_MIN_W:
+        raise NotImplementedError(
+            f"a bucketed solve at W={W} >= {BANDED_MIN_W} takes the banded "
+            f"Hessian / split LM in the JAX package, not ported: ROADMAP A3")
     solver = reduced_solver
     if solver == "auto":
         solver = "cg" if 6 * W >= 1536 else "lu"
     if solver not in ("lu", "cg"):
         raise ValueError(f"unknown reduced_solver {reduced_solver!r}")
     g_size = float(max(sum(int(fa.n.shape[0]) for fa in buckets), 1))
+    tables = [frame_gather_table(fa, W) if isinstance(fa, PlaneFactorArrays)
+              else None for fa in buckets]
 
     def cgh(R, p):
-        r, g, H = _total_cgh(buckets, R, p, W)
+        r, g, H = _total_cgh(buckets, tables, R, p, W)
         return r / g_size, g, H
 
     R, p = R0, p0

@@ -1,8 +1,8 @@
-"""run_lidar_ba of the PyTorch port against the JAX package (float64, CPU)
-at F=64 with the window stage off, voxel 1.0, eigen ratio 0.2: the density
-gate picks the aligned layout and the poses agree at 1e-8.  The default
-10-frame windows need the bucketed layout, which the port does not have
-yet: they raise."""
+"""run_lidar_ba of the PyTorch port against the JAX package (float64, CPU):
+at F=64 with the window stage off, voxel 1.0, eigen ratio 0.2, the density
+gate picks the aligned layout; with the window stage on (24 frames,
+windows of 6, the setting of tests/test_parity_oracle.py) every solve is
+bucketed.  The poses agree at 1e-8 on both."""
 
 import json
 
@@ -66,13 +66,36 @@ def test_run_lidar_ba_matches_jax(scene):
     assert ate_rmse(got.p_opt, sc.p_true) < 0.5 * ate_rmse(pp, sc.p_true)
 
 
-def test_default_windows_raise(scene):
-    _, Rp, pp, clouds = scene
-    cfg = LvbaConfig()                      # 10-frame windows
+def _window_cfg(cfg):
+    cfg.window_ba.size = 6
+    cfg.window_ba.enable = True
+    cfg.window_ba.use_window_ba_rel = True
+    cfg.window_ba.anchor_leaf_size = 0.05
+    cfg.BALM_stage1.root_voxel_size = 1.0
+    cfg.BALM_stage2.root_voxel_size = 1.0
     cfg.solver.dtype = "float64"
-    cfg.BALM_stage1.root_voxel_size = 1.0   # planes enough to solve a window
-    with pytest.raises(NotImplementedError, match="bucketed layout"):
-        run_lidar_ba(clouds, Rp, pp, cfg, device="cpu")
+    return cfg
+
+
+def test_default_windows_raise():
+    """The window stage (bucketed, one merged bucket per window) and the
+    bucketed anchor stages match the JAX pipeline.  (Before the bucketed
+    layout was ported, this stage raised.)"""
+    sc = make_plane_scene(num_frames=24, points_per_frame=3000, seed=7)
+    Rp, pp = perturb_poses(sc.R_true, sc.p_true, 0.004, 0.015, seed=8)
+    clouds = [sc.points_body[sc.frame_ids == i] for i in range(24)]
+    got = run_lidar_ba(clouds, Rp, pp, _window_cfg(LvbaConfig()), device="cpu")
+    ref = jax_run_lidar_ba(clouds, Rp, pp, _window_cfg(JaxConfig()))
+    np.testing.assert_allclose(got.p_opt, ref.p_opt, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.R_opt, ref.R_opt, rtol=0, atol=1e-8)
+    for key in ("windows", "skipped"):
+        assert got.stats["window"][key] == ref.stats["window"][key]
+    assert got.stats["window"]["windows"] == 4
+    assert got.stats["window"]["lm_iters"] > 0
+    assert [s["planes"] for s in got.stats["global"]] == \
+        [s["planes"] for s in ref.stats["global"]]
+    np.testing.assert_array_equal(got.anchor_index, ref.anchor_index)
+    assert ate_rmse(got.p_opt, sc.p_true) < 0.5 * ate_rmse(pp, sc.p_true)
 
 
 def test_cli_lidar_on_cpu(capsys):

@@ -1,6 +1,8 @@
 """Damped LM of the PyTorch port against the JAX package (float64, CPU):
 poses at the 1e-8 of tests/test_aligned_layout.py on both reduced-solve
-branches, and the zero-observation frame of tests/test_lm.py."""
+branches and on both layouts (aligned; bucketed on a box room and a
+corridor), the zero-observation frame of tests/test_lm.py, and the solves
+the port refuses (ROADMAP A3)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,9 +11,11 @@ import torch
 
 from global_lvba_tpu.factors import padding as jpad
 from global_lvba_tpu.map.voxelize import build_voxel_map
-from global_lvba_tpu.models.synthetic import ate_rmse, make_plane_scene, perturb_poses
+from global_lvba_tpu.models.synthetic import (
+    ate_rmse, make_corridor_scene, make_plane_scene, perturb_poses)
 from global_lvba_tpu.solver import dist_solve as jds, lm as jlm
 from global_lvba_tpu_torch.factors.padding import from_jax_arrays
+from global_lvba_tpu_torch.factors.plane_eigen import PlaneFactorArrays
 from global_lvba_tpu_torch.solver import dist_solve, lm
 
 F64 = torch.float64
@@ -93,8 +97,48 @@ def test_block_inverse_and_cg_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("scene", ["plane", "corridor"])
+def test_bucketed_lm_matches_jax(scene):
+    if scene == "plane":
+        W, sc = 24, make_plane_scene(num_frames=24, points_per_frame=600,
+                                     seed=3)
+    else:
+        W, sc = 48, make_corridor_scene(num_frames=48, points_per_frame=2000,
+                                        seed=0)
+    vm = build_voxel_map(sc.points_body, sc.frame_ids, sc.R_true, sc.p_true,
+                         voxel_size=1.0, eigen_ratios=(0.2,) * 4)
+    Rp, pp = perturb_poses(sc.R_true, sc.p_true, 0.004, 0.015, seed=1)
+    ja = jpad.buckets_to_device(vm, dtype=jnp.float64, W=W)
+    fas = [from_jax_arrays(b.n, b.mu, b.Pc, device="cpu", dtype=F64,
+                           frame=b.frame) for b in ja]
+    assert all(isinstance(fa, PlaneFactorArrays) for fa in fas)
+    ref = jlm.lm_damping_iter(ja, jnp.asarray(Rp), jnp.asarray(pp),
+                              max_iters=6)
+    got = lm.lm_damping_iter(fas, torch.as_tensor(Rp), torch.as_tensor(pp),
+                             max_iters=6)
+    assert got.iters == int(ref.iters)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.R.numpy(), np.asarray(ref.R), rtol=0, atol=1e-8)
+    assert np.isclose(float(got.residual), float(ref.residual), rtol=1e-8)
+    assert ate_rmse(got.p.numpy(), sc.p_true) < 0.6 * ate_rmse(pp, sc.p_true)
+
+
 def test_bucketed_input_raises(w64):
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    """Where the JAX package leaves the dense-Gram loop, the port raises
+    (a tiny synthetic bucket: the check comes before any evaluation)."""
+    fa = PlaneFactorArrays(
+        n=torch.ones(1, 2, dtype=F64), mu=torch.zeros(1, 2, 3, dtype=F64),
+        Pc=torch.zeros(1, 2, 3, 3, dtype=F64),
+        frame=torch.tensor([[0, 1]], dtype=torch.int32))
+    W = lm.BANDED_MIN_W
+    R0 = torch.eye(3, dtype=F64).expand(W, 3, 3)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        lm.lm_damping_iter([fa], R0, torch.zeros(W, 3, dtype=F64))
+    _, _, fa_al, Rp, pp = w64
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        lm.lm_damping_iter([fa_al], torch.as_tensor(Rp), torch.as_tensor(pp),
+                           reduced_solver="cg_mf")
+    with pytest.raises(TypeError):
         lm.lm_damping_iter([object()], torch.eye(3, dtype=F64)[None],
                            torch.zeros(1, 3, dtype=F64))
 

@@ -15,7 +15,7 @@ from global_lvba_tpu.map.voxelize import build_voxel_map as jbuild
 from global_lvba_tpu.models.synthetic import make_plane_scene, perturb_poses
 from global_lvba_tpu_torch import resolve_device
 from global_lvba_tpu_torch.factors import padding, plane_eigen as pe
-from global_lvba_tpu_torch.kernels import gram, soa
+from global_lvba_tpu_torch.kernels import gram, selection, soa
 from global_lvba_tpu_torch.map.voxelize import build_voxel_map
 
 F64 = torch.float64
@@ -86,12 +86,16 @@ def test_soa_agg_plain_matches_jax(prob):
 
 
 def test_soa_agg_plain_frame_gather_equals_aligned(prob):
+    """The per-entry pose operand (table_select'ed rows, the bucketed
+    layout's) with frame k at slot k gives the aligned result bit for
+    bit."""
     fa = prob["fa"]
     V, W = fa.n.shape
     pose12 = pe.pose_table(prob["R"], prob["p"])
     frame = torch.arange(W, dtype=torch.int32).expand(V, W).contiguous()
+    poses = selection.table_select(frame.reshape(-1), pose12).reshape(V, W, 12)
     a = soa.soa_agg(fa.n, fa.mu, fa.Pc, pose12)
-    b = soa.soa_agg(fa.n, fa.mu, fa.Pc, pose12, frame=frame)
+    b = soa.soa_agg(fa.n, fa.mu, fa.Pc, poses)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
@@ -155,8 +159,9 @@ def test_density_gate(prob):
     W = prob["W"]
     vm = build_voxel_map(*prob["args"], eigen_ratios=(0.2,) * 4)
     assert not padding.picks_aligned(vm, W)          # W = 8 < 64
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        padding.buckets_to_device(vm, W=W, dtype=F64, device="cpu")
+    got = padding.buckets_to_device(vm, W=W, dtype=F64, device="cpu")
+    assert len(got) == len(vm.buckets)
+    assert all(isinstance(fa, pe.PlaneFactorArrays) for fa in got)
 
 
 def test_width_mismatch_raises(prob):
@@ -175,6 +180,17 @@ def test_no_fallback_off_cpu(prob, monkeypatch):
         soa.soa_chain(*meta, pose, torch.zeros(fa.n.shape[0], 16, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         gram.syrk_(torch.zeros(6, 6, device="meta"), torch.zeros(3, 6, device="meta"))
+    V, W = fa.n.shape
+    frame = torch.zeros(V, W, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        selection.table_select(frame.reshape(-1), pose)
+    with pytest.raises(ValueError, match="unsupported device"):
+        selection.entry_reduce(torch.zeros(V * W, 30, device="meta"),
+                               torch.zeros(W, 8, dtype=torch.int32,
+                                           device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        soa.soa_chain_entries(*meta, torch.zeros(V, W, 12, device="meta"),
+                              frame, torch.zeros(V, 16, device="meta"), W)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")

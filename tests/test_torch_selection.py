@@ -1,0 +1,100 @@
+"""Selection kernels 4 and 5 of the PyTorch port: their plain versions
+against the JAX package's Pallas kernels in interpret mode, on the
+bf16-split packing the TPU path feeds them (as tests/test_exact_dots.py
+runs them), and the port's frame table against the JAX one."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from global_lvba_tpu.factors import padding as jpad
+from global_lvba_tpu.factors import plane_eigen as jpe
+from global_lvba_tpu.map.voxelize import build_voxel_map
+from global_lvba_tpu.models.synthetic import make_plane_scene, perturb_poses
+from global_lvba_tpu.ops.pallas.selection import entry_reduce, table_select
+from global_lvba_tpu_torch.factors import plane_eigen as pe
+from global_lvba_tpu_torch.kernels import selection as sel
+
+
+@pytest.fixture(scope="module")
+def scene_buckets():
+    W = 24
+    scene = make_plane_scene(num_frames=W, points_per_frame=600, seed=3)
+    vm = build_voxel_map(
+        scene.points_body, scene.frame_ids, scene.R_true, scene.p_true,
+        voxel_size=1.0, eigen_ratios=(0.2, 0.2, 0.2, 0.2),
+    )
+    Rp, pp = perturb_poses(scene.R_true, scene.p_true, 0.004, 0.015, seed=1)
+    return W, jpad.buckets_to_device(vm, dtype=jnp.float32), Rp, pp
+
+
+def test_table_select_plain_matches_pallas_bit_exact(scene_buckets):
+    W, buckets, Rp, pp = scene_buckets
+    tbl = np.concatenate([Rp.reshape(W, 9), pp], axis=1).astype(np.float32)
+    tbl3 = jnp.concatenate(jpe._split3_bf16(jnp.asarray(tbl)), axis=1)
+    for fa in buckets:
+        frame = np.asarray(fa.frame).reshape(-1).copy()
+        frame[::7] = W + 3                        # ids >= W select nothing
+        g = np.asarray(table_select(jnp.asarray(frame), tbl3, W,
+                                    interpret=True))
+        want = (g[:12] + g[12:24] + g[24:36]).T   # (VK, 12)
+        got = sel.table_select_plain(torch.as_tensor(frame),
+                                     torch.as_tensor(tbl)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert (got[::7] == 0).all()
+        np.testing.assert_array_equal(got[1::7], tbl[frame[1::7]])
+
+
+def _entry_vals(fa, seed, dtype):
+    """Random per-entry channels, zero on dead entries (as the chain
+    writes them)."""
+    n = np.asarray(fa.n).reshape(-1)
+    vals = np.random.default_rng(seed).normal(size=(n.size, 30))
+    vals[n <= 0] = 0.0
+    return vals.astype(dtype)
+
+
+def test_entry_reduce_plain_matches_pallas(scene_buckets):
+    W, buckets, _, _ = scene_buckets
+    for i, fa in enumerate(buckets):
+        vals = _entry_vals(fa, i, np.float32)
+        frame = np.asarray(fa.frame).reshape(-1)
+        vals3 = jnp.concatenate(jpe._split3_bf16(jnp.asarray(vals)), axis=1)
+        g = np.asarray(entry_reduce(jnp.asarray(frame), vals3, W,
+                                    interpret=True))
+        want = g[:, :30] + g[:, 30:60] + g[:, 60:90]
+        tbl = pe._frame_table_np(frame, np.asarray(fa.n), W)
+        got = sel.entry_reduce_plain(torch.as_tensor(vals),
+                                     torch.as_tensor(tbl)).numpy()
+        # float32 sums over the same entries in another order
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-6)
+
+
+def test_entry_reduce_plain_matches_add_at(scene_buckets):
+    W, buckets, _, _ = scene_buckets
+    for i, fa in enumerate(buckets):
+        vals = _entry_vals(fa, 10 + i, np.float64)
+        frame = np.asarray(fa.frame).reshape(-1)
+        want = np.zeros((W, 30))
+        np.add.at(want, frame, vals)
+        tbl = pe._frame_table_np(frame, np.asarray(fa.n), W)
+        got = sel.entry_reduce_plain(torch.as_tensor(vals),
+                                     torch.as_tensor(tbl)).numpy()
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                                   atol=1e-12)
+
+
+def test_frame_table_matches_jax(scene_buckets):
+    W, buckets, _, _ = scene_buckets
+    for fa in buckets:
+        frame, n = np.asarray(fa.frame), np.asarray(fa.n)
+        np.testing.assert_array_equal(pe._frame_table_np(frame, n, W),
+                                      jpe._frame_table_np(frame, n, W))
+        t = pe.frame_gather_table(pe.PlaneFactorArrays(
+            torch.tensor(n), None, None, torch.tensor(frame)), W)
+        assert t.dtype == torch.int32 and t.shape[0] == W
+        # entries index the flat (v, k) grid; the sentinel V*K pads rows
+        assert int(t.max()) <= n.size and (t.shape[1] % 8) == 0
