@@ -49,8 +49,27 @@ Slice 2, the bucketed layout:
      lower the residual and land within 1e-4 of the float64 CPU LM's
      residual; ms per LM iteration and the device's idle share under
      torch.profiler.
+Slice 3, the SIFT frontend:
+ 10. path 3: 48 renders of the box room (640 x 512, the reference camera)
+     through extract_images (default SiftParams, batches of 4) and
+     match_and_compact (all 1,128 pairs through top2_similarity, kernel 6),
+     then build_components, with the launch counts set to 0 just before;
+     device ms per image, ms per pair, the kernel's own device time under
+     torch.profiler.  Checks: kernel 6 against its plain version on one
+     chunk of pairs (values 1e-5, argmax identical except at top-2 gaps
+     <= 1e-5), planted masks (leading, scattered, empty) under the same
+     rule, a pair index outside the stack (-1 and NaN, no read), planted
+     exact ties and a ragged tail bit for bit, the match sets through the
+     kernel and the plain matcher over all pairs (every difference within
+     1e-5 of a threshold or a tie, at most 0.1%), the transfer error of
+     consecutive pairs through the render's depth (median < 2 px, inlier
+     share > 0.8), extraction on the card against the CPU in float32 (99%
+     of each side's keypoints within 1e-2 px of one on the other, and 99%
+     of those pairs with descriptors within 1e-3), and a second
+     extraction bitwise equal to the first.  The kernel's bound counts
+     the valid products of the timed chunk.
 The line before the last lists the kernels as JSON (launches summed over
-the three paths' runs, each counted from 0); the last line is
+the four paths' runs, each counted from 0); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -106,7 +125,8 @@ TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
 KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
                   "syrk": "syrk_kernel", "table_select": "table_select_kernel",
                   "soa_chain_entries": "soa_chain_entries_kernel",
-                  "entry_reduce": "entry_reduce_kernel"}
+                  "entry_reduce": "entry_reduce_kernel",
+                  "top2_similarity": "top2_pass_kernel"}
 ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk")
 BUCKETED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
                          "syrk", "entry_reduce")
@@ -124,6 +144,29 @@ CORRIDOR_PPF = 2000
 # path 2b's stage-1 LM: final residual, card float32 vs CPU float64 (the
 # card lands 4e-7 from float64 there in this script's runs)
 TOL_RESID_LM_REL = 1e-4
+
+# path 3, the SIFT frontend: views of the box room through the reference
+# camera (CamConfig x scale 0.5: 640 x 512), default SiftParams (5 octaves,
+# first octave -1, max_kp 2,048, two orientations), extraction in batches
+# of 4, all pairs in chunks of 16 (match_all_pairs' default)
+FRONTEND_VIEWS = 48
+# value-noise texture at 16 cycles/m (6 cm features at the walls' 3.4-4.6 m,
+# about 1,500 valid keypoints a view; the renderer's default 4.0 leaves
+# about 100 above SiftGPU's contrast threshold)
+FRONTEND_TEXTURE = 16.0
+FRONTEND_BATCH = 4
+FRONTEND_CHUNK = 16
+FRONTEND_DISTMAX, FRONTEND_RATIOMAX = 0.7, 0.8   # SiftGPU's defaults
+TOL_TOP2 = 1e-5            # fp32 dots of unit vectors, another order
+MATCH_DIFF_SHARE = 1e-3    # kernel vs plain match sets
+TOL_POS_PX = 1e-2          # extraction, card vs CPU keypoint positions
+# descriptors of keypoints paired by position, card vs CPU float32: max
+# abs difference per descriptor.  Entries are clipped at 0.2 before the
+# last normalization; a keypoint that keeps its orientation moves its
+# descriptor by ~1e-5 through fp32 blur sums in another order, one whose
+# orientation peak flips between near-equal bins moves it by ~0.1
+TOL_DESC = 1e-3
+EXTRACT_SHARE = 0.99       # both directions, and descriptors
 
 
 def _fail(msg):
@@ -191,6 +234,24 @@ def _bound(nbytes, flops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = flops / FP32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _top2_compare(torch, out_k, out_p, d, v, ia, ib):
+    """top2_similarity's outputs against its plain version's on the pairs
+    (d[ia], d[ib]) with masks v: (max abs value error, rows and columns
+    whose argmax differs, those of them with a top-2 gap > TOL_TOP2)."""
+    a, b = ia.long(), ib.long()
+    sim = torch.bmm(d[a], d[b].transpose(1, 2))
+    sim = torch.where(v[a][:, :, None] & v[b][:, None, :], sim,
+                      torch.full_like(sim, -2.0))
+    col2 = torch.topk(sim, 2, dim=1).values
+    row_gap = out_p[0][..., 0] - out_p[0][..., 1]
+    col_gap = col2[:, 0] - col2[:, 1]
+    row_diff = out_k[1] != out_p[1]
+    col_diff = out_k[2] != out_p[2]
+    return (float((out_k[0] - out_p[0]).abs().max()), int(row_diff.sum()),
+            int(col_diff.sum()), int((row_diff & (row_gap > TOL_TOP2)).sum()),
+            int((col_diff & (col_gap > TOL_TOP2)).sum()))
 
 
 def _pv_errors(torch, k, p):
@@ -668,6 +729,420 @@ def _slice2(torch, np, dev, kern, results, paths):
         device_busy_ms=busy, idle_share=idle)
 
 
+def _frontend_views(np):
+    """Path 3's input: FRONTEND_VIEWS renders of make_plane_scene's box room
+    (walls at ±4 m) through the reference camera at its configured scale,
+    from a yaw sweep of 7.5° steps around the room's centre (camera centres
+    on a 0.6 m circle): neighbouring views overlap, views more than about
+    60° apart see other walls.  Returns (cam, Rcw, tcw, images, depths)."""
+    from global_lvba_tpu_torch.config import LvbaConfig
+    from global_lvba_tpu_torch.geometry.camera import CameraModel
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_plane_scene, render_textured_views)
+
+    cm = LvbaConfig().cam_model
+    cam = CameraModel(fx=cm.cam_fx, fy=cm.cam_fy, cx=cm.cam_cx, cy=cm.cam_cy,
+                      k1=cm.cam_d0, k2=cm.cam_d1, p1=cm.cam_d2, p2=cm.cam_d3,
+                      width=cm.cam_width, height=cm.cam_height).scaled(cm.scale)
+    scene = make_plane_scene(num_frames=2, points_per_frame=60, seed=0)
+    R0 = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    Rcw, tcw = [], []
+    for k in range(FRONTEND_VIEWS):
+        a = 2 * np.pi * k / FRONTEND_VIEWS
+        c, s = np.cos(a), np.sin(a)
+        Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        C = np.array([0.6 * c, 0.6 * s, 0.15 * np.sin(3 * a)])
+        Rcw.append(R0 @ Rz.T)
+        tcw.append(-(R0 @ Rz.T) @ C)
+    Rcw, tcw = np.stack(Rcw), np.stack(tcw)
+    imgs, depths = render_textured_views(scene, cam, Rcw, tcw,
+                                         base_scale=FRONTEND_TEXTURE,
+                                         return_depth=True)
+    return cam, Rcw, tcw, imgs, depths
+
+
+def _transfer(torch, cam, depth_i, xy_i, Rcw, tcw, i, j):
+    """Keypoints xy_i (n, 2) of view i (SIFT coordinates: pixel k centred
+    at k) moved into view j through view i's rendered depth (bilinear) and
+    the camera model; float64 on the CPU.  Returns (uv in view j in SIFT
+    coordinates, ok)."""
+    from global_lvba_tpu_torch.geometry.camera import (
+        back_project_pixel_depth, cam_to_world, fetch_depth_bilinear,
+        project_world_to_pixel)
+
+    d = torch.float64
+    xy = torch.as_tensor(xy_i, dtype=d)
+    z, okz = fetch_depth_bilinear(torch.as_tensor(depth_i, dtype=d), xy)
+    # the render's camera puts pixel k's centre at k + 0.5
+    Xc, okb = back_project_pixel_depth(cam, xy + 0.5, z)
+    R = torch.as_tensor(Rcw, dtype=d)
+    t = torch.as_tensor(tcw, dtype=d)
+    Xw = cam_to_world(Xc, R[i], t[i])
+    uv, zj, okp = project_world_to_pixel(cam, R[j], t[j], Xw)
+    return uv - 0.5, okz & okb & okp & (z > 0.1) & (zj > 0.1)
+
+
+def _frontend(torch, np, dev, kern, results, paths):
+    """Path 3, the SIFT frontend (phase 10 of the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.frontend.matching import accept_matches
+    from global_lvba_tpu_torch.frontend.sift import (
+        SiftParams, extract_sift, extract_sift_batch)
+    from global_lvba_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from global_lvba_tpu_torch.kernels.matcher import (
+        top2_similarity, top2_similarity_plain)
+    from global_lvba_tpu_torch.pipeline.sift_frontend import (
+        extract_images, match_and_compact)
+    from global_lvba_tpu_torch.tracks.build import build_components
+
+    params = SiftParams()
+    t0 = time.time()
+    cam, Rcw, tcw, imgs, depths = _frontend_views(np)
+    N = len(imgs)
+    print(f"[frontend] {N} renders of {cam.width} x {cam.height} (fx "
+          f"{cam.fx:.2f}) in {time.time() - t0:.1f} s; {params}", flush=True)
+    info = dict(views=N, width=cam.width, height=cam.height, fx=cam.fx,
+                params=params._asdict(), render_s=time.time() - t0)
+
+    # ---- the main path: extraction in batches, all pairs, tracks ----
+    # (one batch first: the blur operands are built and cached per shape)
+    extract_images(list(imgs[:FRONTEND_BATCH]), params, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    kps, descs, valids = extract_images(list(imgs), params,
+                                        batch=FRONTEND_BATCH, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    kps_c, matches = match_and_compact(kps, descs, valids, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    counts = paths["frontend"] = launch_counts()
+    tracks = build_components(kps_c, matches)
+    t3 = time.time()
+    n_pairs = N * (N - 1) // 2
+    n_kp = [k.shape[0] for k in kps_c]
+    print(f"[frontend] extract_images {N} views: {t1 - t0:.2f} s wall; "
+          f"match_and_compact {n_pairs} pairs: {(t2 - t1) * 1e3:.1f} ms wall "
+          f"({(t2 - t1) * 1e3 / n_pairs:.3f} ms/pair); build_components "
+          f"{t3 - t2:.2f} s: {tracks.stats}; launches {counts}", flush=True)
+    if counts.get("top2_similarity", 0) <= 0:
+        _fail(f"top2_similarity was never launched on the frontend path: "
+              f"{counts}")
+    info.update(extract_wall_s=t1 - t0, match_wall_ms=(t2 - t1) * 1e3,
+                match_ms_per_pair=(t2 - t1) * 1e3 / n_pairs,
+                tracks_s=t3 - t2, tracks=tracks.stats, launches=counts,
+                mean_valid_kp=float(np.mean(n_kp)))
+
+    # device time: extraction of one batch, the matcher under the profiler
+    stack = torch.as_tensor(np.stack(imgs[:FRONTEND_BATCH])).to(dev)
+    ext_ms, ahead_x = _timed(
+        torch, lambda: extract_sift_batch(stack, params, dev), reps=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        extract_sift_batch(stack, params, dev)
+        torch.cuda.synchronize()
+        ext_wall = (time.perf_counter() - tp) * 1e3
+    ext_busy = sum(v[0] for v in _device_ms(prof).values())
+    # the device's busy share while matching all pairs, and the kernel's
+    # own time per launch among the launches the profiler saw (in a long
+    # process it misses records: 70 of 71 seen in this script's runs)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        tp = time.perf_counter()
+        match_and_compact(kps, descs, valids, device=dev)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - tp) * 1e3
+    prof_m = _device_ms(prof)
+    hits = [v for k, v in prof_m.items() if "top2_pass_kernel" in k]
+    top2_all = hits[0] if hits else (float("nan"), 0)
+    busy = sum(v[0] for v in prof_m.values())
+    print(f"[frontend] extraction: device ms per image "
+          f"{ext_busy / FRONTEND_BATCH:.3f} (one batch of {FRONTEND_BATCH} "
+          f"under torch.profiler: {ext_busy:.3f} ms device busy in "
+          f"{ext_wall:.1f} ms wall); {ext_ms / FRONTEND_BATCH:.3f} ms per "
+          f"image in calls queued back to back (queued ahead of the card: "
+          f"{ahead_x}; if not, host-paced); all pairs under "
+          f"torch.profiler: {prof_wall:.1f} ms wall, top2_pass_kernel "
+          f"{top2_all[0]:.3f} ms device time in the {top2_all[1]} of "
+          f"{counts['top2_similarity']} launches it saw "
+          f"({top2_all[0] / max(top2_all[1], 1):.4f} ms each), device busy "
+          f"{busy:.1f} ms, idle share {1 - busy / prof_wall:.3f}", flush=True)
+    info.update(extract_device_ms_per_image=ext_busy / FRONTEND_BATCH,
+                extract_queued_ms_per_image=ext_ms / FRONTEND_BATCH,
+                extract_profiled_wall_ms=ext_wall,
+                extract_queued_ahead=ahead_x, match_profiled_wall_ms=prof_wall,
+                top2_kernel_profiled_ms=top2_all[0],
+                top2_kernel_profiled_launches=top2_all[1],
+                match_device_busy_ms=busy,
+                match_idle_share=1 - busy / prof_wall)
+
+    # ---- the kernel against its plain version, one chunk of pairs ----
+    d_all = torch.stack(list(descs)).contiguous()
+    v_all = torch.stack(list(valids)).contiguous()
+    pairs = [(i, j) for i in range(N) for j in range(i + 1, N)]
+    pidx = torch.as_tensor(np.asarray(pairs, np.int32).T.copy()).to(dev)
+    ia, ib = pidx[0, :FRONTEND_CHUNK], pidx[1, :FRONTEND_CHUNK]
+    out_k = top2_similarity(d_all, d_all, v_all, v_all, ia, ib)
+    out_p = top2_similarity_plain(d_all, d_all, v_all, v_all, ia, ib)
+    A, B = d_all[ia.long()], d_all[ib.long()]
+    err_v, row_diff, col_diff, row_bad, col_bad = _top2_compare(
+        torch, out_k, out_p, d_all, v_all, ia, ib)
+    print(f"[top2_similarity] one chunk of {FRONTEND_CHUNK} pairs: values "
+          f"max abs err {err_v:.3e} vs top2_similarity_plain (tol {TOL_TOP2}: "
+          f"fp32 sums of 128 products in another order); row argmax differs "
+          f"at {row_diff}, column argmax at {col_diff} slots, of which "
+          f"{row_bad} / {col_bad} with a top-2 gap > {TOL_TOP2}", flush=True)
+    if not (err_v <= TOL_TOP2 and row_bad == 0 and col_bad == 0):
+        _fail("top2_similarity disagrees with top2_similarity_plain")
+
+    # planted cases: exact ties and a ragged tail, bit for bit
+    rng = np.random.default_rng(0)
+
+    def unit(n):
+        x = rng.normal(size=(n, 128)).astype(np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    # masks the block skip must honour: valid slots leading (1,300 of
+    # 2,000: the last 4 column tiles and row tiles skipped), valid slots
+    # scattered, no valid slot; then a pair index outside the stack
+    d3 = torch.as_tensor(np.stack([unit(2000) for _ in range(3)])).to(dev)
+    v3 = np.zeros((3, 2000), bool)
+    v3[0, :1300] = True
+    v3[1] = rng.uniform(size=2000) > 0.5
+    v3 = torch.as_tensor(v3).to(dev)
+    ia3 = torch.tensor([0, 0, 1, 2, 1, 0], dtype=torch.int32, device=dev)
+    ib3 = torch.tensor([1, 2, 0, 1, 1, 0], dtype=torch.int32, device=dev)
+    mk = top2_similarity(d3, d3, v3, v3, ia3, ib3)
+    mp = top2_similarity_plain(d3, d3, v3, v3, ia3, ib3)
+    m_err, m_rd, m_cd, m_rb, m_cb = _top2_compare(torch, mk, mp, d3, v3,
+                                                  ia3, ib3)
+    m_inv = bool(((mk[0] == -2.0) == (mp[0] == -2.0)).all())
+    bad = top2_similarity(d3, d3, v3, v3, ia3[:2].clone(),
+                          torch.tensor([1, 3], dtype=torch.int32, device=dev))
+    ranged = (bool(torch.equal(bad[1][0], mk[1][0])
+                   and torch.equal(bad[2][0], mk[2][0]))
+              and bool((bad[1][1] == -1).all() and (bad[2][1] == -1).all()
+                       and torch.isnan(bad[0][1]).all()))
+    print(f"[top2_similarity] planted masks (leading 1,300 of 2,000, "
+          f"scattered, none; 6 pairs): values max abs err {m_err:.3e}, "
+          f"argmax differs at {m_rd} rows / {m_cd} columns ({m_rb} / {m_cb} "
+          f"with a top-2 gap > {TOL_TOP2}), -2 entries in the same places: "
+          f"{m_inv}; a pair index outside the stack gives -1 and NaN, the "
+          f"other pair unchanged: {ranged}", flush=True)
+    if not (m_err <= TOL_TOP2 and m_rb == 0 and m_cb == 0 and m_inv
+            and ranged):
+        _fail("top2_similarity mishandles masks or an out-of-range pair")
+    del d3, v3, mk, mp, bad
+
+    d1, d2 = unit(300), unit(2000)          # 2000 = 15 tiles of 128 + 80
+    d2[[40, 1000, 1999]] = d1[5]            # three identical best columns
+    d1[[9, 260]] = d2[11]                   # two identical best rows
+    d2[1990], d2[1950] = d1[3], d1[77]      # best matches in the tail tile
+    g1, g2 = (torch.as_tensor(x).to(dev) for x in (d1, d2))
+    pk = top2_similarity(g1, g2)
+    pp = top2_similarity_plain(g1, g2)
+    planted = (int(pk[1][5]) == 40 and bool(pk[0][5, 0] == pk[0][5, 1])
+               and int(pk[2][11]) == 9 and int(pk[1][3]) == 1990
+               and int(pk[1][77]) == 1950 and int(pk[2][1990]) == 3
+               and torch.equal(pk[1], pp[1]) and torch.equal(pk[2], pp[2]))
+    print(f"[top2_similarity] planted ties (lowest index, second == best) "
+          f"and tail-tile winners (K1 = 300, K2 = 2000) equal to the plain "
+          f"version: {planted}", flush=True)
+    if not planted:
+        _fail("top2_similarity breaks a tie or misses the ragged tail")
+
+    chunk_lib = lambda: torch.bmm(A, B.transpose(1, 2))
+    # the bound counts the products this chunk's masks need: valid rows x
+    # valid columns per pair, each once; bytes: the valid descriptors in,
+    # every slot's results out (12 B a row, 4 B a column)
+    P, K, D = int(ia.shape[0]), d_all.shape[1], d_all.shape[2]
+    vh = v_all.cpu()
+    nv = vh.sum(1).double()
+    last = torch.where(vh.any(1), K - torch.flip(vh, [1]).int().argmax(1),
+                       torch.zeros(vh.shape[0], dtype=torch.long))
+    walk = ((last.clamp(min=1) + 127) // 128 * 128).clamp(max=K).double()
+    a_h, b_h = ia.long().cpu(), ib.long().cpu()
+    useful = float((nv[a_h] * nv[b_h]).sum())
+    walked = float((walk[a_h] * walk[b_h]).sum())
+    flops = 2 * D * useful
+    nbytes = 4 * D * float(nv[a_h].sum() + nv[b_h].sum()) + P * K * 16
+    print(f"[top2_similarity] bound of the chunk: {useful:.0f} valid "
+          f"products of {P * K * K} slot pairs (share {useful / (P * K * K):.4f}"
+          f"); the kernel's tiles cover {walked:.0f} (share "
+          f"{walked / (P * K * K):.4f})", flush=True)
+    info.update(top2_useful_products=useful, top2_walked_products=walked,
+                top2_slot_products=P * K * K)
+    kern["top2_similarity"] = dict(
+        max_abs_err=err_v,
+        **_times(torch, "top2_similarity",
+                 lambda: top2_similarity(d_all, d_all, v_all, v_all, ia, ib),
+                 lambda: top2_similarity_plain(d_all, d_all, v_all, v_all,
+                                               ia, ib), chunk_lib),
+        bound=_bound(nbytes, flops),
+        kernel_device_ms=top2_all[0] / max(top2_all[1], 1),   # per chunk
+    )
+
+    del A, B, out_k, out_p
+
+    # ---- match sets through the kernel and through the plain version ----
+    total = diff = unexplained = 0
+    cmax, rmax = np.cos(FRONTEND_DISTMAX), FRONTEND_RATIOMAX
+    for s in range(0, len(pairs), FRONTEND_CHUNK):
+        a_, b_ = pidx[0, s:s + FRONTEND_CHUNK], pidx[1, s:s + FRONTEND_CHUNK]
+        va = v_all[a_.long()]
+        jk, okk = accept_matches(*top2_similarity(
+            d_all, d_all, v_all, v_all, a_, b_), va)
+        jp, okp = accept_matches(*top2_similarity_plain(
+            d_all, d_all, v_all, v_all, a_, b_), va)
+        total += int(okk.sum())
+        dm = (okk != okp) | (okk & okp & (jk != jp))
+        nd = int(dm.sum())
+        if nd == 0:
+            continue
+        diff += nd
+        # explain each difference in float64: a top-2 tie of the row or of
+        # either candidate column, or a best dot at the angle or ratio
+        # threshold
+        pi_all, ri_all = torch.nonzero(dm, as_tuple=True)
+        for lo in range(0, nd, 256):
+            pi_, ri = pi_all[lo:lo + 256], ri_all[lo:lo + 256]
+            ai, bi = a_.long()[pi_], b_.long()[pi_]
+            bset = d_all[bi].double()                           # (n, K, D)
+            srow = torch.einsum("nd,nkd->nk", d_all[ai, ri].double(), bset)
+            srow = torch.where(v_all[bi], srow, torch.full_like(srow, -2.0))
+            t2 = torch.topk(srow, 2, dim=1).values
+            best, second = t2[:, 0], t2[:, 1]
+            near = ((best - second) <= TOL_TOP2) \
+                | ((best - cmax).abs() <= TOL_TOP2) \
+                | ((best - torch.cos(rmax * torch.arccos(
+                    second.clamp(-1, 1)))).abs() <= TOL_TOP2)
+            aset = d_all[ai].double()
+            for jc in (jk[pi_, ri], jp[pi_, ri]):
+                col = bset[torch.arange(len(jc), device=dev), jc]
+                scol = torch.einsum("nd,nkd->nk", col, aset)
+                scol = torch.where(v_all[ai], scol,
+                                   torch.full_like(scol, -2.0))
+                c2 = torch.topk(scol, 2, dim=1).values
+                near |= (c2[:, 0] - c2[:, 1]) <= TOL_TOP2
+            unexplained += int((~near).sum())
+    share = diff / max(total, 1)
+    print(f"[frontend] match sets over all {len(pairs)} pairs, kernel vs "
+          f"plain on the card: {total} matches, {diff} differ (share "
+          f"{share:.2e}, limit {MATCH_DIFF_SHARE}), {unexplained} of them "
+          f"not within {TOL_TOP2} of a threshold or a top-2 tie", flush=True)
+    info.update(matches=total, match_set_diffs=diff,
+                match_set_unexplained=unexplained)
+    if share > MATCH_DIFF_SHARE or unexplained:
+        _fail("the kernel's match sets differ from the plain matcher's")
+
+    # ---- matches on overlapping and on disjoint pairs; tracks ----
+    gy, gx = np.meshgrid(np.linspace(8, cam.height - 9, 16),
+                         np.linspace(8, cam.width - 9, 20), indexing="ij")
+    grid = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    overlap = np.zeros((N, N))
+    for i in range(N):
+        for j in range(N):
+            if i != j:
+                uv, ok = _transfer(torch, cam, depths[i], grid, Rcw, tcw, i, j)
+                inb = ok & (uv[:, 0] >= 0) & (uv[:, 1] >= 0) \
+                    & (uv[:, 0] <= cam.width - 1) & (uv[:, 1] <= cam.height - 1)
+                overlap[i, j] = float(inb.double().mean())
+    m_over = [len(matches.get(p, ())) for p in pairs if overlap[p] >= 0.2]
+    m_none = [len(matches.get(p, ())) for p in pairs if overlap[p] == 0]
+    print(f"[frontend] mean valid keypoints {np.mean(n_kp):.1f} (min "
+          f"{min(n_kp)}); mean matches {np.mean(m_over):.1f} on "
+          f"{len(m_over)} overlapping pairs (view overlap >= 0.2), "
+          f"{np.mean(m_none):.2f} on {len(m_none)} disjoint pairs (no "
+          f"overlap); {tracks.stats['kept_components']} tracks", flush=True)
+    info.update(mean_matches_overlapping=float(np.mean(m_over)),
+                overlapping_pairs=len(m_over),
+                mean_matches_disjoint=float(np.mean(m_none)),
+                disjoint_pairs=len(m_none),
+                track_count=tracks.stats["kept_components"])
+
+    # ---- geometry: consecutive pairs through the render's depth ----
+    errs = []
+    for i in range(N - 1):
+        m = matches.get((i, i + 1))
+        if m is None:
+            continue
+        uv, ok = _transfer(torch, cam, depths[i], kps_c[i][m[:, 0]], Rcw, tcw,
+                           i, i + 1)
+        e = (uv - torch.as_tensor(kps_c[i + 1][m[:, 1]],
+                                  dtype=torch.float64)).norm(dim=1)
+        errs.append(e[ok].numpy())
+    errs = np.concatenate(errs)
+    med, inl = float(np.median(errs)), float(np.mean(errs < 3.0))
+    print(f"[frontend] geometry over the {N - 1} consecutive pairs: "
+          f"{errs.size} matches, transfer error median {med:.3f} px (limit 2), "
+          f"inlier share (< 3 px) {inl:.4f} (limit 0.8)", flush=True)
+    info.update(transfer_median_px=med, transfer_inlier_share=inl)
+    if not (med < 2.0 and inl > 0.8):
+        _fail("the frontend's matches do not follow the scene's geometry")
+
+    # ---- extraction on the card against the CPU, and determinism ----
+    two = np.stack(imgs[:2])
+    cmp = {}
+    for dt in (torch.float32, torch.float64):
+        t0 = time.time()
+        f = extract_sift_batch(torch.as_tensor(two, dtype=dt), params,
+                               device="cpu")
+        secs = time.time() - t0
+        n_card = n_cpu = hit_card = hit_cpu = 0
+        dd = []
+        for b in range(2):
+            vb = valids[b].cpu()
+            card = torch.as_tensor(kps[b])[vb].double()
+            ref = f.xy[b][f.valid[b]].double()
+            near = torch.cdist(card, ref) <= TOL_POS_PX
+            n_card += card.shape[0]
+            n_cpu += ref.shape[0]
+            hit_card += int(near.any(1).sum())
+            hit_cpu += int(near.any(0).sum())
+            # descriptors of the pairs by position; of a keypoint's two
+            # orientations at one position, the nearer descriptor
+            i, j = torch.nonzero(near, as_tuple=True)
+            dk = descs[b].cpu()[vb].double()[i]
+            dr = f.desc[b][f.valid[b]].double()[j]
+            e = (dk - dr).abs().amax(1)
+            best = torch.full((card.shape[0],), float("inf"), dtype=e.dtype)
+            best = best.scatter_reduce(0, i, e, reduce="amin")
+            dd.append(best[near.any(1)])
+        dd = torch.cat(dd)
+        cmp[str(dt)] = dict(
+            card_kp=n_card, cpu_kp=n_cpu, card_share=hit_card / n_card,
+            cpu_share=hit_cpu / n_cpu,
+            desc_share=float((dd <= TOL_DESC).double().mean()),
+            desc_max=float(dd.max()), desc_p99=float(dd.quantile(0.99)),
+            desc_median=float(dd.median()), cpu_s=secs)
+    c32 = cmp[str(torch.float32)]
+    f1 = extract_sift(imgs[0], params, dev)
+    f2 = extract_sift(imgs[0], params, dev)
+    same = all(torch.equal(a, b) for a, b in zip(f1, f2))
+    for k, c in cmp.items():
+        print(f"[frontend] extraction card vs CPU {k} on 2 views: valid "
+              f"keypoints {c['card_kp']} / {c['cpu_kp']}; within "
+              f"{TOL_POS_PX} px of one on the other side: card's "
+              f"{c['card_share']:.4f}, CPU's {c['cpu_share']:.4f}; their "
+              f"descriptors' max abs difference: median "
+              f"{c['desc_median']:.3e}, 99th percentile {c['desc_p99']:.3e}, "
+              f"max {c['desc_max']:.3e}, share <= {TOL_DESC} "
+              f"{c['desc_share']:.4f}; CPU {c['cpu_s']:.1f} s", flush=True)
+    print(f"[frontend] limits on float32: each share >= {EXTRACT_SHARE}; a "
+          f"second extraction of view 0 bitwise equal: {same}", flush=True)
+    info.update(card_vs_cpu=cmp, extraction_repeatable=same)
+    if not (min(c32["card_share"], c32["cpu_share"], c32["desc_share"])
+            >= EXTRACT_SHARE and same):
+        _fail("extraction on the card disagrees with the CPU or is not "
+              "repeatable")
+    results["frontend"] = info
+
+
 def main() -> int:
     import torch
 
@@ -913,7 +1388,7 @@ def main() -> int:
             kern[name]["kernel_device_ms"] = ms_k
             print(f"[eval] profiler: {sym} {ms_k:.4f} ms device time in "
                   f"{calls} launches per evaluation", flush=True)
-        else:
+        elif name in kern:
             print(f"[eval] profiler: {sym}: device time not measured",
                   flush=True)
     top = sorted(prof_eval.items(), key=lambda kv: -kv[1][0])[:8]
@@ -996,6 +1471,8 @@ def main() -> int:
 
     # ---- 6-9. slice 2: the bucketed layout ----
     _slice2(torch, np, dev, kern, results, paths)
+    # ---- 10. slice 3: the SIFT frontend ----
+    _frontend(torch, np, dev, kern, results, paths)
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in kern}
     if not all(launches.values()):
         _fail(f"a kernel was never launched on a path: {paths}")
@@ -1004,7 +1481,8 @@ def main() -> int:
     sources = {"soa_agg": "soa_agg.cu", "soa_chain": "soa_chain.cu",
                "syrk": "syrk.cu", "table_select": "selection.cu",
                "soa_chain_entries": "soa_chain.cu",
-               "entry_reduce": "selection.cu"}
+               "entry_reduce": "selection.cu",
+               "top2_similarity": "matcher.cu"}
     replaces = {
         "soa_agg": "global_lvba_tpu/ops/pallas/soa_fused.py:61",
         "soa_chain": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
@@ -1012,6 +1490,7 @@ def main() -> int:
         "table_select": "global_lvba_tpu/ops/pallas/selection.py:44",
         "soa_chain_entries": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
         "entry_reduce": "global_lvba_tpu/ops/pallas/selection.py:84",
+        "top2_similarity": "global_lvba_tpu/ops/pallas/matcher.py:30",
     }
     results["launches_by_path"] = paths
     line = {"kernels": [

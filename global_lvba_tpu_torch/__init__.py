@@ -2,22 +2,29 @@
 
 The LiDAR bundle adjustment (BALM plane-eigenvalue factors solved by
 Nielsen-damped LM) on one NVIDIA H100, on both factor layouts (frame-
-aligned and bucketed), with hand-written CUDA kernels (csrc/, built at
-first use by kernels/build.py): the per-voxel aggregation + eigensolve,
-the linearization chain (aligned and per-entry), the Gram SYRK, the
-pose-table selection and the frame segment-sum.  The JAX
+aligned and bucketed), and the SIFT frontend (extraction, all-pairs
+matching, track components), with hand-written CUDA kernels (csrc/,
+built at first use by kernels/build.py): the per-voxel aggregation +
+eigensolve, the linearization chain (aligned and per-entry), the Gram
+SYRK, the pose-table selection, the frame segment-sum and the matcher's
+running top-2 similarity.  The JAX
 package stays beside it as the reference; this package imports nothing of
 it and nothing of JAX.
 
 Layer map (the JAX package's names, so each counterpart is easy to find):
-  geometry/  SO(3) exp/log, the pose box-plus of the LM
+  geometry/  SO(3) exp/log, the pose box-plus of the LM, the camera model
   map/       host numpy voxelization into per-(voxel, frame) moments
-  models/    synthetic plane and corridor scenes, pose perturbation, ATE
+  models/    synthetic plane and corridor scenes, textured renders, pose
+             perturbation, ATE
+  frontend/  SIFT extraction and descriptor matching
   ops/       closed-form 3x3 eigensolve (plain torch)
   factors/   aligned and bucketed factor arrays, plane-eigen cost/grad/Hessian
   kernels/   CUDA kernel wrappers, their plain versions, the builder
   solver/    damped LM, LU and block-Jacobi PCG reduced solves
-  pipeline/  window -> anchors -> two-stage global LiDAR BA
+  pipeline/  window -> anchors -> two-stage global LiDAR BA; the SIFT
+             frontend stage (load, extract, match all pairs)
+  tracks/    match-graph components -> padded track arrays
+  utils/     logging, progress bar
 
 Device policy: entry points take `device=` and default to "cuda"; the CPU
 runs only when a caller asks for it (the parity tests do, in float64).

@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..kernels import gram as _gram
 from ..kernels import selection as _sel
 from ..kernels import soa as _soa
@@ -88,8 +89,10 @@ def _moment_channels(mu: torch.Tensor, Pc: torch.Tensor):
     return mu3, P6
 
 
-def bucket_to_device(b, dtype=torch.float32, device="cpu") -> PlaneFactorArrays:
+def bucket_to_device(b, dtype=torch.float32, device="cuda") -> PlaneFactorArrays:
     """PlaneFactorArrays of a host PlaneFactorBucket on `device`."""
+    device = resolve_device(device)
+
     def put(x, dt):
         return torch.as_tensor(np.ascontiguousarray(x)).to(device, dt)
 

@@ -5,9 +5,10 @@ it launches its kernel or raises.  Each launch adds one to the wrapper's
 count (launch_counts), so a run can show that its path went through the
 kernels."""
 
-from . import gram, selection, soa
+from . import gram, matcher, selection, soa
 
-_COUNTS = (soa.LAUNCHES, gram.LAUNCHES, selection.LAUNCHES)
+_COUNTS = (soa.LAUNCHES, gram.LAUNCHES, selection.LAUNCHES,
+           matcher.LAUNCHES)
 
 
 def launch_counts() -> dict:

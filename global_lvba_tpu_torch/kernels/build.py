@@ -16,7 +16,8 @@ cudaGetLastError() after the launch.  Its ctypes signature is bound once,
 when the library loads; `launcher(name)` is a dictionary lookup after the
 first call.  A source may hold several launchers (soa_chain.cu: the
 aligned and the per-entry chain; selection.cu: table_select and
-entry_reduce).
+entry_reduce); matcher.cu's launcher runs its two kernels (the
+similarity pass and the column reduction).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-SOURCES = ("soa_agg", "soa_chain", "syrk", "selection")
+SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -50,6 +51,9 @@ SIGNATURES = {
                      [_P, _P, _L, _I, _I, _P, _P]),
     "entry_reduce": ("selection", "lvba_entry_reduce",
                      [_P, _P, _L, _I, _I, _I, _P, _P]),
+    "top2_similarity": ("matcher", "lvba_top2_similarity",
+                        [_P, _P, _P, _I, _P, _P, _P, _I] + [_I] * 4
+                        + [_P] * 6),
 }
 
 _lock = threading.Lock()

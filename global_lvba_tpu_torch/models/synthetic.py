@@ -1,6 +1,6 @@
-"""Synthetic LiDAR scenes for tests and benchmarks (the port's own copy of
-the plane-scene and corridor parts of global_lvba_tpu.models.synthetic,
-numpy only).
+"""Synthetic scenes for tests and benchmarks (the port's own copy of
+the plane-scene, corridor and textured-render parts of
+global_lvba_tpu.models.synthetic, numpy only).
 
 The reference repo ships no tests and no benchmark data (SURVEY.md §4/§6);
 ground-truth validation therefore runs on generated scenes: a room of
@@ -227,3 +227,121 @@ def ate_rmse(p_est: np.ndarray, p_ref: np.ndarray, align: bool = True) -> float:
         a = (Rali @ A.T).T + cb
         b = B + cb
     return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=1))))
+
+
+# ---------------------------------------------------------------------------
+# Textured ray-cast rendering (the SIFT frontend's fixture)
+# ---------------------------------------------------------------------------
+# Each pixel ray-casts the scene's planes through the full distorted camera
+# model and samples a multi-octave value-noise texture at the world hit
+# point: high-entropy imagery whose geometry is known exactly.  numpy, with
+# the same uint32 lattice hash as the JAX package's copy, so a seed gives
+# the same image in both.
+
+
+def _hash01(ix, iy, iz, seed):
+    """Deterministic lattice hash -> [0, 1) (uint32 wrap-around math)."""
+    n = (
+        ix * np.uint32(374761393)
+        + iy * np.uint32(668265263)
+        + iz * np.uint32(2246822519)
+        + np.uint32(seed) * np.uint32(974711)
+    )
+    n = (n ^ (n >> np.uint32(13))) * np.uint32(1274126177)
+    return ((n ^ (n >> np.uint32(16))) & np.uint32(0xFFFFFF)).astype(
+        np.float32
+    ) / np.float32(1 << 24)
+
+
+def _value_noise(X, scale, seed):
+    """Smooth trilinear value noise over an integer lattice at `scale`."""
+    Xs = X * scale
+    i0 = np.floor(Xs)
+    f = (Xs - i0).astype(np.float32)
+    f = f * f * (3.0 - 2.0 * f)                       # smoothstep
+    iu = (i0.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+    ix, iy, iz = iu[..., 0], iu[..., 1], iu[..., 2]
+    one = np.uint32(1)
+    acc = np.zeros(X.shape[:-1], np.float32)
+    for dx in (0, 1):
+        wx = f[..., 0] if dx else 1.0 - f[..., 0]
+        for dy in (0, 1):
+            wy = f[..., 1] if dy else 1.0 - f[..., 1]
+            for dz in (0, 1):
+                wz = f[..., 2] if dz else 1.0 - f[..., 2]
+                h = _hash01(ix + (one if dx else 0), iy + (one if dy else 0),
+                            iz + (one if dz else 0), seed)
+                acc += wx * wy * wz * h
+    return acc
+
+
+def _multi_octave_noise(X, octaves, base_scale, seed):
+    acc = np.zeros(X.shape[:-1], np.float32)
+    wsum = 0.0
+    for o in range(octaves):
+        w = 0.5 ** o
+        acc += w * _value_noise(X, base_scale * (2.0 ** o), seed + o)
+        wsum += w
+    return acc / wsum
+
+
+def render_textured_views(
+    scene: PlaneScene,
+    cam,
+    Rcw: np.ndarray,
+    tcw: np.ndarray,
+    octaves: int = 5,
+    base_scale: float = 4.0,
+    seed: int = 0,
+    return_depth: bool = False,
+):
+    """Ray-cast grayscale renders (M, H, W) float32 in [0, 1] of the
+    scene's planes through the distorted camera model `cam` (a
+    geometry.camera.CameraModel).
+
+    Per-pixel rays come from undistort_pixel_to_normalized (float64 on the
+    CPU), so rendered keypoints are consistent with the projection model.
+    With return_depth, also returns the (M, H, W) z-depth of each hit."""
+    import torch
+
+    from ..geometry.camera import undistort_pixel_to_normalized
+
+    H, W = cam.height, cam.width
+    uu, vv = np.meshgrid(
+        np.arange(W, dtype=np.float64) + 0.5,
+        np.arange(H, dtype=np.float64) + 0.5,
+    )
+    uv = np.stack([uu.ravel(), vv.ravel()], axis=-1)
+    xy, ok = undistort_pixel_to_normalized(cam, torch.as_tensor(uv))
+    xy = xy.numpy()
+    ok = ok.numpy()
+    d_c = np.concatenate([xy, np.ones((xy.shape[0], 1))], axis=-1)
+    n = np.asarray(scene.planes_n, np.float64)
+    d0 = np.asarray(scene.planes_d, np.float64)
+    M = len(Rcw)
+    imgs = np.zeros((M, H, W), np.float32)
+    depths = np.zeros((M, H, W), np.float32) if return_depth else None
+    for m in range(M):
+        C = -np.asarray(Rcw[m]).T @ np.asarray(tcw[m])
+        dw = d_c @ np.asarray(Rcw[m])                  # Rcwᵀ · d_c per pixel
+        denom = dw @ n.T                               # (N, P)
+        tnum = -(C @ n.T + d0)                         # (P,)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = tnum[None, :] / denom
+        t = np.where(t > 1e-6, t, np.inf)
+        pi = np.argmin(t, axis=1)
+        tmin = t[np.arange(t.shape[0]), pi]
+        hit = np.isfinite(tmin) & ok
+        X = C[None, :] + dw * np.where(hit, tmin, 0.0)[:, None]
+        val = _multi_octave_noise(X, octaves, base_scale, seed)
+        # mild per-plane albedo so plane borders carry edges too
+        shade = 0.75 + 0.25 * (((pi.astype(np.uint32) * np.uint32(2654435761))
+                                % np.uint32(97)).astype(np.float32) / 97.0)
+        img = np.where(hit, (0.25 + 0.6 * val) * shade, 0.05)
+        imgs[m] = img.reshape(H, W).astype(np.float32)
+        if return_depth:
+            z = np.where(hit, tmin, 0.0)  # d_c has unit z: ray t is z-depth
+            depths[m] = z.reshape(H, W).astype(np.float32)
+    if return_depth:
+        return imgs, depths
+    return imgs

@@ -16,7 +16,8 @@ from global_lvba_tpu.map.voxelize import build_voxel_map as jbuild
 from global_lvba_tpu.models import synthetic as jsyn
 from global_lvba_tpu_torch.factors import padding, plane_eigen as pe
 from global_lvba_tpu_torch.kernels import selection as sel, soa
-from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+from global_lvba_tpu_torch.map.voxelize import (
+    PlaneFactorBucket, build_voxel_map)
 from global_lvba_tpu_torch.models import synthetic
 
 F64 = torch.float64
@@ -144,3 +145,22 @@ def test_bucketed_matches_oracle(prob):
                                    atol=1e-10)
         np.testing.assert_allclose(H.reshape(6 * W, 6 * W).numpy(), Ho,
                                    rtol=1e-8, atol=1e-9)
+
+
+def test_bucket_to_device_defaults_to_the_card():
+    """bucket_to_device resolves `device` like every entry point: an
+    explicit "cpu" runs the plain path; the default is "cuda", which
+    raises where no card exists instead of carrying on on the CPU."""
+    rng = np.random.default_rng(0)
+    b = PlaneFactorBucket(
+        n=rng.integers(0, 5, (4, 3)).astype(np.float64),
+        mu=rng.normal(size=(4, 3, 3)), Pc=rng.normal(size=(4, 3, 3, 3)),
+        frame=rng.integers(0, 8, (4, 3)).astype(np.int32))
+    fa = pe.bucket_to_device(b, dtype=F64, device="cpu")
+    assert fa.n.device.type == "cpu" and fa.frame.dtype == torch.int32
+    np.testing.assert_array_equal(fa.mu.numpy(), b.mu)
+    if torch.cuda.is_available():
+        assert pe.bucket_to_device(b).n.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pe.bucket_to_device(b)
