@@ -14,6 +14,11 @@ Phases (any failure raises, so the exit code is non-zero):
      behind a spin kernel so host time between launches does not show)
      beside its plain version, the one PyTorch call that computes the same
      function where there is one, and its bound on this card;
+     syrk (3xTF32 on the tensor cores) is also checked on ragged operands
+     (N = 270 and 60 over 1,001 seeded rows) and at Kr = 0: its tf32 split
+     bitwise equal to the plain split, the Gram within 1e-4 of syrk_plain_
+     and torch.matmul, exactly symmetric and bitwise repeatable; its bound
+     is the 3xTF32 one (3·Kr·N·(N+1) flops at 495 TFLOP/s TF32);
   3. evaluation: plane_cost_grad_hess through the kernels against the same
      evaluation through the plain versions; the Hessian of two kernel
      evaluations must be bitwise equal; one evaluation under
@@ -34,7 +39,9 @@ Slice 2, the bucketed layout:
      plain version; soa_agg on per-entry pose rows and soa_chain_entries
      under slice 1's tolerances and well-conditioned-voxel rule;
      entry_reduce relative to max |.|, two calls bitwise equal; each timed
-     beside its plain version, its library call and its bound;
+     beside its plain version, its library call and its bound; syrk on the
+     corridor's Gram operands, checked as in phase 2 and timed in turns
+     with torch.matmul(A.T, A);
   7. the bucketed evaluation over the corridor's five buckets: kernels
      against the plain steps (r, g, H), H bitwise repeatable, device ms,
      each kernel's own device time under torch.profiler;
@@ -77,6 +84,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -93,6 +101,7 @@ SPIN_CYCLES = 10_000_000   # ~5 ms at 1.98 GHz; _timed raises it as needed
 # published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12   # syrk's 3xTF32 products run at this rate
 # flops per (voxel, frame) cell, counted from csrc/soa_agg.cu (two passes)
 # and csrc/soa_chain.cu (R·μ, R·Pc and the chain); per-voxel eigensolve
 AGG_FLOPS_PER_CELL = 151
@@ -121,15 +130,19 @@ TOL_ROWS_REL = 1e-3      # factor rows A, relative to max |A|: the chain
                          # float32-vs-float64 departure is printed beside it
 TOL_SUM_REL = 1e-3       # g, Hd: voxel sums, relative to their max |.|
 TOL_GRAM_REL = 1e-4      # AᵀA over 3V = 4,095 rows, relative to max |AᵀA|
+# syrk's checks beyond the main path's operands: W = 45 (odd: N = 270) and a
+# path-2a window's N = 60, both over 1,001 seeded rows (not a multiple of 32)
+SYRK_RAGGED = ((1001, 270), (1001, 60))
 TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
 KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
-                  "syrk": "syrk_kernel", "table_select": "table_select_kernel",
+                  "syrk": "syrk_kernel", "syrk_split": "syrk_split_kernel",
+                  "table_select": "table_select_kernel",
                   "soa_chain_entries": "soa_chain_entries_kernel",
                   "entry_reduce": "entry_reduce_kernel",
                   "top2_similarity": "top2_pass_kernel"}
-ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk")
+ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk", "syrk_split")
 BUCKETED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
-                         "syrk", "entry_reduce")
+                         "syrk", "syrk_split", "entry_reduce")
 
 # slice 2.  Path 2a: the window pipeline at ladder 3's scale
 # (BASELINE.md:102), 2.0 M points
@@ -230,10 +243,82 @@ def _times(torch, name, kernel, plain, library=None):
     return out
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rate=FP32_FLOP_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = flops / FP32_FLOP_PER_S * 1e3
+    to = flops / rate * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _syrk_bounds(As, N):
+    """syrk's bound over the operands As (Kr_i, N), each into its own gram
+    read and written: 3·Kr·N·(N+1) flops at the TF32 rate (3xTF32), and the
+    fp32 bound it replaced (Kr·N·(N+1) at the fp32 rate), with the
+    fp32-equivalent flops Kr·N·(N+1)."""
+    kr = sum(A.shape[0] for A in As)
+    nbytes = kr * N * 4 + len(As) * 2 * N * N * 4
+    flops = kr * N * (N + 1)
+    return (_bound(nbytes, 3 * flops, TF32_FLOP_PER_S), _bound(nbytes, flops),
+            flops)
+
+
+def _split_bound(As):
+    """tf32_split's bound: A read once, hi and lo (Np, Krp) written."""
+    from global_lvba_tpu_torch.kernels.gram import padded_shape
+    nbytes = sum(A.numel() * 4 + 2 * 4 * math.prod(padded_shape(*A.shape))
+                 for A in As)
+    return _bound(nbytes, 0)
+
+
+def _syrk_check(torch, label, As, N):
+    """syrk_ over the operands As into one gram: the tf32 split bitwise
+    equal to its plain version; the Gram within TOL_GRAM_REL of
+    syrk_plain_ and of torch.matmul (relative to max |AᵀA|), exactly
+    symmetric, and bitwise equal over two runs.  Returns the max abs
+    difference to syrk_plain_."""
+    from global_lvba_tpu_torch.kernels.gram import (
+        syrk_, syrk_plain_, tf32_split, tf32_split_plain)
+    split_same = True
+    for A in As:
+        for k, p in zip(tf32_split(A), tf32_split_plain(A)):
+            split_same &= bool(torch.equal(k.view(torch.int32),
+                                           p.view(torch.int32)))
+    dev = As[0].device
+    gk = torch.zeros((N, N), dtype=torch.float32, device=dev)
+    gk2, gp = torch.zeros_like(gk), torch.zeros_like(gk)
+    for A in As:
+        syrk_(gk, A)
+        syrk_(gk2, A)
+        syrk_plain_(gp, A)
+    gl = sum(torch.matmul(A.T, A) for A in As)
+    torch.cuda.synchronize()
+    err_p, err_l = _rel(gk, gp), _rel(gk, gl)
+    sym, rep = bool(torch.equal(gk, gk.T)), bool(torch.equal(gk, gk2))
+    print(f"[syrk] {label}, {sum(A.shape[0] for A in As)} rows x {N} "
+          f"columns: tf32 split bitwise equal to tf32_split_plain: "
+          f"{split_same}; rel err vs syrk_plain_ {err_p:.3e}, vs "
+          f"torch.matmul {err_l:.3e} (tol {TOL_GRAM_REL}); exactly "
+          f"symmetric: {sym}; two runs bitwise equal: {rep}", flush=True)
+    if not (split_same and err_p <= TOL_GRAM_REL and err_l <= TOL_GRAM_REL
+            and sym and rep):
+        _fail(f"syrk_ disagrees with AᵀA on the {label} operand")
+    return float((gk - gp).abs().max())
+
+
+def _times_in_turns(torch, name, kernel, plain, library):
+    """_times, with the kernel and the library call timed again in the
+    reverse order (kernel, plain, library, library, kernel); ms and
+    library_ms are the means of their two readings."""
+    out = _times(torch, name, kernel, plain, library)
+    lib2, ahead_l = _timed(torch, library)
+    ms2, ahead_k = _timed(torch, kernel)
+    out["readings"] = dict(ms=[out["ms"], ms2],
+                           library_ms=[out["library_ms"], lib2])
+    out["ms"] = (out["ms"] + ms2) / 2
+    out["library_ms"] = (out["library_ms"] + lib2) / 2
+    out["queued_ahead"].update(ms_2=ahead_k, library_ms_2=ahead_l)
+    print(f"[{name}] in turns (kernel, library, library, kernel): "
+          f"{out['readings']}", flush=True)
+    return out
 
 
 def _top2_compare(torch, out_k, out_p, d, v, ia, ib):
@@ -368,6 +453,8 @@ def _slice2(torch, np, dev, kern, results, paths):
         KERNEL_STEPS, PLAIN_STEPS, PlaneFactorArrays, _cost_grad_hess,
         frame_gather_table, plane_cost, pose_table, voxel_chunks)
     from global_lvba_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from global_lvba_tpu_torch.kernels.gram import (
+        syrk_, syrk_plain_, tf32_split, tf32_split_plain)
     from global_lvba_tpu_torch.kernels.selection import (
         entry_reduce, entry_reduce_plain, table_select, table_select_plain)
     from global_lvba_tpu_torch.kernels.soa import (
@@ -526,6 +613,29 @@ def _slice2(torch, np, dev, kern, results, paths):
         bound=_bound(live_e * 30 * 4 + kw * 4 + len(bs) * W * 30 * 4,
                      live_e * 30),
     )
+    # ---- 6e. syrk on the corridor's Gram operands (every tier and chunk
+    # of one evaluation, into one gram), timed with its library call ----
+    As = [a[0] for a in ch_k]
+    N = 6 * W
+    err_g2 = _syrk_check(torch, "corridor W=512", As, N)
+    scratch = torch.zeros((N, N), dtype=torch.float32, device=dev)
+    bound, bound_fp32, flops = _syrk_bounds(As, N)
+    t2 = _times_in_turns(torch, "syrk 2b",
+                         lambda: [syrk_(scratch, A) for A in As],
+                         lambda: [syrk_plain_(scratch, A) for A in As],
+                         lambda: [torch.matmul(A.T, A) for A in As])
+    t2s = _times(torch, "syrk_split 2b", lambda: [tf32_split(A) for A in As],
+                 lambda: [tf32_split_plain(A) for A in As])
+    print(f"[syrk 2b] {len(As)} operands, {sum(A.shape[0] for A in As)} "
+          f"rows: {flops / 1e9:.1f} GFLOP (fp32-equivalent); bound "
+          f"{bound[0]:.4f} ms ({bound[1]}, 3xTF32; fp32 bound "
+          f"{bound_fp32[0]:.4f} ms); {flops / t2['ms'] / 1e9:.1f} TFLOP/s "
+          f"fp32-equivalent at the wrapper's {t2['ms']:.4f} ms, of which the "
+          f"split {t2s['ms']:.4f} ms; torch.matmul(A.T, A) "
+          f"{t2['library_ms']:.4f} ms", flush=True)
+    results["syrk_2b"] = dict(max_abs_err=err_g2, bound=bound,
+                              bound_fp32=bound_fp32, split=t2s, **t2)
+    del scratch, As
     del ch_k, vk, vp, vals, agg_k, agg_p, ops, chain_args
 
     # ---- 7. the bucketed evaluation over the corridor's buckets ----
@@ -591,14 +701,15 @@ def _slice2(torch, np, dev, kern, results, paths):
     print(f"[eval 2b] profiler, (device ms, launches) per evaluation by "
           f"kernel: {per_kernel}", flush=True)
     N, kr = 6 * W, 3 * Vs
-    syrk_bound = _bound(kr * N * 4 + len(chunks) * 2 * N * N * 4,
-                        kr * N * (N + 1))
     syrk_ms = per_kernel.get("syrk", (float("nan"), 0))[0]
+    split_ms = per_kernel.get("syrk_split", (float("nan"), 0))[0]
+    syrk_bound = results["syrk_2b"]["bound"]
     print(f"[eval 2b] syrk over {kr} rows x {N} columns: "
           f"{kr * N * (N + 1) / 1e9:.1f} GFLOP per evaluation, bound "
-          f"{syrk_bound[0]:.4f} ms ({syrk_bound[1]}), "
-          f"{kr * N * (N + 1) / syrk_ms / 1e9:.1f} TFLOP/s at its profiled "
-          f"{syrk_ms:.4f} ms", flush=True)
+          f"{syrk_bound[0]:.4f} ms ({syrk_bound[1]}, 3xTF32), "
+          f"{kr * N * (N + 1) / (syrk_ms + split_ms) / 1e9:.1f} TFLOP/s "
+          f"fp32-equivalent at its profiled {syrk_ms:.4f} ms + the split's "
+          f"{split_ms:.4f} ms", flush=True)
     results["eval_2b"] = dict(ms=eval_ms, plain_ms=plain_eval_ms,
                               host_queue_ms=host_ms, r_rel=e_r,
                               g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
@@ -1168,7 +1279,8 @@ def main() -> int:
         voxel_chunks)
     from global_lvba_tpu_torch.kernels import (
         build, launch_counts, reset_launch_counts)
-    from global_lvba_tpu_torch.kernels.gram import syrk_, syrk_plain_
+    from global_lvba_tpu_torch.kernels.gram import (
+        syrk_, syrk_plain_, tf32_split, tf32_split_plain)
     from global_lvba_tpu_torch.kernels.soa import (
         soa_agg, soa_agg_plain, soa_chain, soa_chain_plain)
     from global_lvba_tpu_torch.kernels.selection import table_select
@@ -1307,35 +1419,50 @@ def main() -> int:
                      nb * W * CHAIN_FLOPS_PER_CELL),
     )
 
-    # ---- 2c. syrk ----
+    # ---- 2c. syrk (3xTF32): the tf32 split, then the Gram ----
+    # on the main path's operands (every voxel chunk into one gram), then
+    # on ragged ones; Kr = 0 returns at once
     As = [a[0] for a in ch_k]
     N = 6 * W
-    gram_k = torch.zeros((N, N), dtype=torch.float32, device=dev)
-    gram_p = torch.zeros_like(gram_k)
-    for A in As:
-        syrk_(gram_k, A)
-        syrk_plain_(gram_p, A)
-    gram_l = sum(torch.matmul(A.T, A) for A in As)
+    err_gram = _syrk_check(torch, "aligned W=512", As, N)
+    rng = np.random.default_rng(5)
+    for kr_, n_ in SYRK_RAGGED:
+        A_ = torch.as_tensor(rng.normal(size=(kr_, n_)).astype(np.float32),
+                             device=dev)
+        _syrk_check(torch, f"ragged N={n_}", [A_], n_)
+    before = launch_counts()
+    g0 = torch.zeros((N, N), dtype=torch.float32, device=dev)
+    out0 = syrk_(g0, torch.empty((0, N), dtype=torch.float32, device=dev))
     torch.cuda.synchronize()
-    err_gram = _rel(gram_k, gram_p)
-    err_lib = _rel(gram_k, gram_l)
-    sym = bool(torch.equal(gram_k, gram_k.T))
-    print(f"[syrk] rel err vs syrk_plain_ {err_gram:.3e}, vs torch.matmul "
-          f"{err_lib:.3e} (tol {TOL_GRAM_REL}); exactly symmetric: {sym}",
-          flush=True)
-    if not (err_gram <= TOL_GRAM_REL and err_lib <= TOL_GRAM_REL and sym):
-        _fail("syrk_ disagrees with AᵀA")
-    scratch = torch.zeros_like(gram_k)
-    kr = sum(A.shape[0] for A in As)
+    empty_ok = (out0 is g0 and launch_counts() == before
+                and not bool(g0.any()))
+    print(f"[syrk] Kr = 0: returns gram unchanged with no launch: "
+          f"{empty_ok}", flush=True)
+    if not empty_ok:
+        _fail("syrk_ launched or changed gram on an empty operand")
+    scratch = torch.zeros((N, N), dtype=torch.float32, device=dev)
+    bound, bound_fp32, flops = _syrk_bounds(As, N)
     kern["syrk"] = dict(
-        max_abs_err=float((gram_k - gram_p).abs().max()),
-        **_times(torch, "syrk",
-                 lambda: [syrk_(scratch, A) for A in As],
-                 lambda: [syrk_plain_(scratch, A) for A in As],
-                 lambda: [torch.matmul(A.T, A) for A in As]),
-        bound=_bound(kr * N * 4 + len(As) * 2 * N * N * 4, kr * N * (N + 1)),
-    )
-    del scratch, gram_k, gram_p, gram_l, As, ch_k, ch_p
+        max_abs_err=err_gram,
+        **_times_in_turns(torch, "syrk",
+                          lambda: [syrk_(scratch, A) for A in As],
+                          lambda: [syrk_plain_(scratch, A) for A in As],
+                          lambda: [torch.matmul(A.T, A) for A in As]),
+        bound=bound)
+    kern["syrk_split"] = dict(
+        max_abs_err=0.0,
+        **_times(torch, "syrk_split",
+                 lambda: [tf32_split(A) for A in As],
+                 lambda: [tf32_split_plain(A) for A in As]),
+        bound=_split_bound(As))
+    print(f"[syrk] aligned: {flops / 1e9:.1f} GFLOP (fp32-equivalent) per "
+          f"evaluation; bound {bound[0]:.4f} ms ({bound[1]}, 3xTF32 at "
+          f"{TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s; the fp32 bound it replaces "
+          f"{bound_fp32[0]:.4f} ms); {flops / kern['syrk']['ms'] / 1e9:.1f} "
+          f"TFLOP/s fp32-equivalent at the wrapper's {kern['syrk']['ms']:.4f} "
+          f"ms, of which the split {kern['syrk_split']['ms']:.4f} ms",
+          flush=True)
+    del scratch, g0, As, ch_k, ch_p
 
     # ---- 3. evaluation ----
     r1, g1, H1 = plane_cost_grad_hess(fa, R, p, W)
@@ -1479,7 +1606,8 @@ def main() -> int:
 
     src = "global_lvba_tpu_torch/csrc/"
     sources = {"soa_agg": "soa_agg.cu", "soa_chain": "soa_chain.cu",
-               "syrk": "syrk.cu", "table_select": "selection.cu",
+               "syrk": "syrk.cu", "syrk_split": "syrk.cu",
+               "table_select": "selection.cu",
                "soa_chain_entries": "soa_chain.cu",
                "entry_reduce": "selection.cu",
                "top2_similarity": "matcher.cu"}
@@ -1487,6 +1615,7 @@ def main() -> int:
         "soa_agg": "global_lvba_tpu/ops/pallas/soa_fused.py:61",
         "soa_chain": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
         "syrk": "global_lvba_tpu/ops/pallas/gram.py:41",
+        "syrk_split": "global_lvba_tpu/ops/pallas/gram.py:41",
         "table_select": "global_lvba_tpu/ops/pallas/selection.py:44",
         "soa_chain_entries": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
         "entry_reduce": "global_lvba_tpu/ops/pallas/selection.py:84",

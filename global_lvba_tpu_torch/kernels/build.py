@@ -16,8 +16,8 @@ cudaGetLastError() after the launch.  Its ctypes signature is bound once,
 when the library loads; `launcher(name)` is a dictionary lookup after the
 first call.  A source may hold several launchers (soa_chain.cu: the
 aligned and the per-entry chain; selection.cu: table_select and
-entry_reduce); matcher.cu's launcher runs its two kernels (the
-similarity pass and the column reduction).
+entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's launcher
+runs its two kernels (the similarity pass and the column reduction).
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ SIGNATURES = {
                   [_P] * 5 + [_I] * 3 + [_P] * 3),
     "soa_chain_entries": ("soa_chain", "lvba_soa_chain_entries",
                           [_P] * 6 + [_I] * 3 + [_P] * 3),
-    "syrk": ("syrk", "lvba_syrk", [_P, _I, _I, _P, _P]),
+    "syrk_split": ("syrk", "lvba_syrk_split", [_P] + [_I] * 4 + [_P] * 3),
+    "syrk": ("syrk", "lvba_syrk", [_P] * 2 + [_I] * 5 + [_P] * 4),
     "table_select": ("selection", "lvba_table_select",
                      [_P, _P, _L, _I, _I, _P, _P]),
     "entry_reduce": ("selection", "lvba_entry_reduce",

@@ -2,15 +2,26 @@
 
 syrk_ (csrc/syrk.cu) replaces the Pallas kernel global_lvba_tpu/ops/
 pallas/gram.py:41 `_syrk_kernel` — on the aligned main path the XLA Gram
-`H -= Σ_chunks MᵀM` (plane_eigen.py:416-420) it stands for.  One block per
-lower-triangle 64x64 output tile loops over the whole contraction in a
-fixed order (no split-K, no atomics: the Hessian is bitwise repeatable),
-fp32 FMA from shared-memory tiles, and writes its tile and the mirrored
-transpose itself, so the full symmetric matrix comes out of one launch.
-Bound: operations — Kr·N·(N+1) flops (4095·3072·3073 ≈ 38.7 GFLOP for the
-first voxel chunk at W=512) at the card's float32 rate, against ~126 MB of
-traffic.  Precision is plain fp32 (no TF32, no tensor cores) in this
-version.
+`H -= Σ_chunks MᵀM` (plane_eigen.py:416-420) it stands for.
+
+Precision: 3xTF32 on the tensor cores, the counterpart of the TPU kernel's
+default precision="highest" (fp32-faithful).  Each entry is split as
+a = hi + lo, hi = tf32(a), lo = tf32(a − hi), rounded to nearest with ties
+away from zero, and AᵀA ≈ loᵀhi + hiᵀlo + hiᵀhi in fp32 accumulators.
+
+Design: two launches.  tf32_split (syrk_split_kernel) reads A once and
+writes hi and lo transposed, (Np, Krp), zero-padded to the kernel's tiles
+(wgmma takes TF32 operands K-major only; the padding keeps every TMA row
+stride a multiple of 16 B).  syrk_kernel computes each 128 x 128 tile of
+the lower triangle with wgmma from a TMA ring in shared memory, one block
+a tile, the tiles of the last, partial wave in parts of the contraction
+(tile_schedule), and writes the tile and its mirror, so the full
+symmetric matrix comes out of one launch.  The contraction runs in a fixed
+order with no atomics on the sums: the Hessian is bitwise repeatable.
+
+Bound on the card: operations — 3·Kr·N·(N+1) flops at 495 TFLOP/s TF32
+(0.35 ms for the W=512 aligned evaluation's 6,144 rows x 3,072 columns),
+against the bytes of A once and the gram read and written.
 """
 
 from __future__ import annotations
@@ -21,7 +32,95 @@ import torch
 
 from . import build
 
-LAUNCHES = {"syrk": 0}
+LAUNCHES = {"syrk": 0, "syrk_split": 0}
+TILE = 128     # syrk_kernel's output tile (kBM in csrc/syrk.cu)
+KTILE = 32     # its k-tile: one 128-byte row of fp32 (kBK)
+MAX_SPLITS = 4
+
+
+def padded_shape(Kr: int, N: int) -> tuple:
+    """(Np, Krp): N padded to TILE, Kr to KTILE — the split's layout."""
+    return -(-N // TILE) * TILE, -(-Kr // KTILE) * KTILE
+
+
+def check_args(gram, A: torch.Tensor) -> tuple:
+    """The kernels' argument checks, run before any launch: A (Kr, N) and
+    gram (N, N) (None for the split alone) float32, contiguous, on one
+    device.  Returns (Kr, N, Np, Krp)."""
+    if A.dim() != 2:
+        raise ValueError(f"A must be (Kr, N), got {tuple(A.shape)}")
+    Kr, N = A.shape
+    if gram is not None and gram.shape != (N, N):
+        raise ValueError(f"gram is {tuple(gram.shape)}, A is {tuple(A.shape)}")
+    for name, t in (("A", A), ("gram", gram)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.device != A.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {A.device}")
+    return (Kr, N) + padded_shape(Kr, N)
+
+
+def tile_schedule(tiles: int, ktiles: int, sms: int) -> tuple:
+    """(full, splits): the blocks of syrk_kernel at one block per SM.  The
+    first `full` tiles, whole waves of `sms`, take one block each; each tile
+    of the last, partial wave takes `splits` blocks over parts of the
+    contraction, as many as fill that wave (at most MAX_SPLITS, at most one
+    per k-tile)."""
+    tail = tiles % sms
+    splits = min(sms // tail, MAX_SPLITS, ktiles) if tail else 1
+    if splits < 2:
+        return tiles, 1
+    return tiles - tail, splits
+
+
+def _stream(A):
+    return ctypes.c_void_p(torch.cuda.current_stream(A.device).cuda_stream)
+
+
+def tf32_split(A: torch.Tensor) -> tuple:
+    """(hi, lo), each (Np, Krp) float32: A's tf32 split, transposed and
+    zero-padded (syrk_split_kernel on a CUDA tensor)."""
+    if A.device.type == "cpu":
+        return tf32_split_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"tf32_split: unsupported device {A.device}")
+    Kr, N, Np, Krp = check_args(None, A)
+    hi = torch.empty((Np, Krp), dtype=torch.float32, device=A.device)
+    lo = torch.empty_like(hi)
+    if Np == 0 or Krp == 0:
+        return hi, lo
+    launch = build.launcher("syrk_split")
+    with torch.cuda.device(A.device):
+        err = launch(ctypes.c_void_p(A.data_ptr()), Kr, N, Np, Krp,
+                     ctypes.c_void_p(hi.data_ptr()),
+                     ctypes.c_void_p(lo.data_ptr()), _stream(A))
+    build.check("syrk_split", err)
+    LAUNCHES["syrk_split"] += 1
+    return hi, lo
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the int32 view: the magnitude rounded to 10
+    explicit mantissa bits, ties away from zero; NaN kept."""
+    b = x.view(torch.int32)
+    mag = b & 0x7FFFFFFF
+    r = ((mag + 0x1000) & -0x2000) | (b & -0x80000000)
+    return torch.where(mag > 0x7F800000, b, r).view(torch.float32)
+
+
+def tf32_split_plain(A: torch.Tensor) -> tuple:
+    """Plain torch version of tf32_split."""
+    Kr, N, Np, Krp = check_args(None, A)
+    hi = _tf32_rna(A)
+    lo = _tf32_rna(A - hi)
+    out = []
+    for x in (hi, lo):
+        t = A.new_zeros((Np, Krp))
+        t[:N, :Kr] = x.T
+        out.append(t)
+    return tuple(out)
 
 
 def syrk_(gram: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -30,20 +129,27 @@ def syrk_(gram: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         return syrk_plain_(gram, A)
     if A.device.type != "cuda":
         raise ValueError(f"syrk_: unsupported device {A.device}")
-    Kr, N = A.shape
-    if gram.shape != (N, N):
-        raise ValueError(f"gram is {tuple(gram.shape)}, A is {tuple(A.shape)}")
-    for name, t in (("A", A), ("gram", gram)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-        if t.device != A.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {A.device}")
+    Kr, N, Np, Krp = check_args(gram, A)
+    if Kr == 0 or N == 0:
+        return gram
+    hi, lo = tf32_split(A)
+    nt = Np // TILE
+    tiles = nt * (nt + 1) // 2
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    full, splits = tile_schedule(tiles, Krp // KTILE, sms)
+    parts = (tiles - full) * splits
+    part = torch.empty((max(parts, 1) * TILE * TILE,), dtype=torch.float32,
+                       device=A.device)
+    count = torch.zeros((max(tiles - full, 1),), dtype=torch.int32,
+                        device=A.device)
     launch = build.launcher("syrk")
     with torch.cuda.device(A.device):
-        err = launch(
-            ctypes.c_void_p(A.data_ptr()), Kr, N,
-            ctypes.c_void_p(gram.data_ptr()),
-            ctypes.c_void_p(torch.cuda.current_stream(A.device).cuda_stream))
+        err = launch(ctypes.c_void_p(hi.data_ptr()),
+                     ctypes.c_void_p(lo.data_ptr()), Np, Krp, N, full,
+                     splits,
+                     ctypes.c_void_p(gram.data_ptr()),
+                     ctypes.c_void_p(part.data_ptr()),
+                     ctypes.c_void_p(count.data_ptr()), _stream(A))
     build.check("syrk", err)
     LAUNCHES["syrk"] += 1
     return gram
