@@ -19,20 +19,36 @@ Phases (any failure raises, so the exit code is non-zero):
      bitwise equal to the plain split, the Gram within 1e-4 of syrk_plain_
      and torch.matmul, exactly symmetric and bitwise repeatable; its bound
      is the 3xTF32 one (3·Kr·N·(N+1) flops at 495 TFLOP/s TF32);
+ 2d. the float64 instances of kernels 1-3 (soa_agg_f64, soa_chain_f64,
+     syrk_f64) on the same operands in float64 against their plain
+     versions in float64 (the TOL64_* limits), timed beside them; the
+     bounds at 8 B a value and the data sheet's fp64 rates;
   3. evaluation: plane_cost_grad_hess through the kernels against the same
      evaluation through the plain versions; the Hessian of two kernel
      evaluations must be bitwise equal; one evaluation under
-     torch.profiler gives each kernel's own device time;
+     torch.profiler gives each kernel's own device time; the LM's damped
+     CG solve on that H (48 done-masked trips captured as one CUDA graph,
+     the capture timed once): one solve queued under sync debug mode
+     "error", two solves bitwise equal and within 1e-6 of the same trips
+     run eagerly, device ms of both;
   4. slice: run_lidar_ba on 512 frames / 1.02 M points (window stage off,
      both global stages at voxel size 1.0, eigen ratio 0.2, float32) with
      the launch counts set to 0 just before and read just after; every
      kernel must have run, the ATE must fall at least 5x and land within
      10% of the same run in float64 on the CPU (the port's plain path,
      which the CPU tests hold to the JAX package at 1e-8);
+ 4b. float64: the same run_lidar_ba with solver.dtype float64 on the card:
+     every aligned kernel's float64 instance must have run and no float32
+     kernel, and its ATE must land within 1e-6 relative of the float64
+     CPU run's;
   5. the JAX bench's W=512 problem (bench.py bench_w512: voxel map at the
      true poses, lm_damping_iter from the perturbed ones) on the card: the
-     ATE must reach <= 1 mm (the JAX package's figure is 0.00067 m); a
-     second run under torch.profiler gives the device's busy and idle share.
+     ATE must reach <= 1 mm (the JAX package's figure is 0.00067 m); ms
+     per LM iteration; a run under sync debug mode "warn" must make as many
+     synchronizing calls as iterations (one read of `converged` each); a
+     run under torch.profiler gives the device's busy and idle share in
+     one window (the same busy time over the unprofiled run's wall is
+     printed beside it as a cross-run estimate).
 Slice 2, the bucketed layout:
   6. kernels at path 2b's shapes (the corridor below: every tier and every
      voxel chunk of one evaluation): table_select bitwise equal to its
@@ -42,6 +58,9 @@ Slice 2, the bucketed layout:
      beside its plain version, its library call and its bound; syrk on the
      corridor's Gram operands, checked as in phase 2 and timed in turns
      with torch.matmul(A.T, A);
+ 6f. the float64 instances of table_select, soa_agg, soa_chain_entries and
+     entry_reduce on the same operands in float64, checked and timed as
+     in 2d;
   7. the bucketed evaluation over the corridor's five buckets: kernels
      against the plain steps (r, g, H), H bitwise repeatable, device ms,
      each kernel's own device time under torch.profiler;
@@ -49,13 +68,18 @@ Slice 2, the bucketed layout:
      settings, 200 frames / 2.0 M points; 20 windows at W=10, two anchor
      stages at W=20, every solve bucketed): every bucketed kernel must have
      run, the ATE must fall and land within 10% of the float64 CPU run;
+     then the same pipeline in float64 on the card: every bucketed
+     kernel's float64 instance must have run, and the ATE must land within
+     1e-6 relative of the float64 CPU run's;
   9. path 2b: run_lidar_ba with the window stage off on the corridor
      (make_corridor_scene(512, 2000), five tiers at W=512): every bucketed
      kernel must have run, the poses must be finite; the ATE is printed
      beside the float64 CPU run's.  Stage 1's LM alone on the card must
      lower the residual and land within 1e-4 of the float64 CPU LM's
-     residual; ms per LM iteration and the device's idle share under
-     torch.profiler.
+     residual; ms per LM iteration (building its frame tables included),
+     the synchronizing calls equal to the iterations plus those of
+     building the frame tables, the damped CG solve on the corridor's H as
+     in phase 3, and the device's idle share under torch.profiler.
 Slice 3, the SIFT frontend:
  10. path 3: 48 renders of the box room (640 x 512, the reference camera)
      through extract_images (default SiftParams, batches of 4) and
@@ -64,19 +88,25 @@ Slice 3, the SIFT frontend:
      device ms per image, ms per pair, the kernel's own device time under
      torch.profiler.  Checks: kernel 6 against its plain version on one
      chunk of pairs (values 1e-5, argmax identical except at top-2 gaps
-     <= 1e-5), planted masks (leading, scattered, empty) under the same
-     rule, a pair index outside the stack (-1 and NaN, no read), planted
-     exact ties and a ragged tail bit for bit, the match sets through the
-     kernel and the plain matcher over all pairs (every difference within
-     1e-5 of a threshold or a tie, at most 0.1%), the transfer error of
-     consecutive pairs through the render's depth (median < 2 px, inlier
-     share > 0.8), extraction on the card against the CPU in float32 (99%
-     of each side's keypoints within 1e-2 px of one on the other, and 99%
-     of those pairs with descriptors within 1e-3), and a second
-     extraction bitwise equal to the first.  The kernel's bound counts
-     the valid products of the timed chunk.
+     <= 1e-5), two calls bitwise equal, pairs alone bitwise equal to
+     their outputs in the chunk, planted masks (leading, scattered,
+     empty) under the same rule, a pair index outside the stack (-1 and
+     NaN, no read), planted exact ties and a ragged tail bit for bit, the
+     4-byte load path (D = 130 and D = 7 under the chunk's rules, and the
+     chunk from a stack off 16-byte alignment bitwise equal to it), the
+     match sets through the kernel and the plain matcher over all pairs
+     (every difference within 1e-5 of a threshold or a tie, at most
+     0.1%), the transfer error of consecutive pairs through the render's
+     depth (median < 2 px, inlier share > 0.8), extraction on the card
+     against the CPU in float32 (99% of each side's keypoints within 1e-2
+     px of one on the other, and 99% of those pairs with descriptors
+     within 1e-3), and a second extraction bitwise equal to the first.  The kernel (3xTF32 on the
+     tensor cores) is timed in turns with torch.bmm of the chunk's
+     product; its bound counts the valid products of the timed chunk,
+     three TF32 products each at 495 TFLOP/s, the fp32 bound beside it.
 The line before the last lists the kernels as JSON (launches summed over
-the four paths' runs, each counted from 0); the last line is
+the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
+2b, frontend); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -102,6 +132,8 @@ SPIN_CYCLES = 10_000_000   # ~5 ms at 1.98 GHz; _timed raises it as needed
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12   # syrk's 3xTF32 products run at this rate
+FP64_FLOP_PER_S = 34e12    # fp64 outside the tensor cores (same data sheet)
+FP64_TC_FLOP_PER_S = 67e12  # fp64 on the tensor cores: the Gram's bound
 # flops per (voxel, frame) cell, counted from csrc/soa_agg.cu (two passes)
 # and csrc/soa_chain.cu (R·μ, R·Pc and the chain); per-voxel eigensolve
 AGG_FLOPS_PER_CELL = 151
@@ -134,15 +166,31 @@ TOL_GRAM_REL = 1e-4      # AᵀA over 3V = 4,095 rows, relative to max |AᵀA|
 # path-2a window's N = 60, both over 1,001 seeded rows (not a multiple of 32)
 SYRK_RAGGED = ((1001, 270), (1001, 60))
 TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
+# The float64 instances against their plain float64 versions: the float32
+# limits above scaled down by eps64 / eps32 = 2^-29 leave 1e-14 to 1e-12;
+# these are ~1,000x wider, still 1e-5 of the float32 ones.  On line-like
+# voxels λ_min keeps sqrt(eps64)·λ_max, as it keeps sqrt(eps32)·λ_max in
+# float32.
+TOL64_RESIDV_REL = 1e-11
+TOL64_RESIDV_REL_LINE = 2 * 2.0 ** -26
+TOL64_PV = 1e-9
+TOL64_ROWS_REL = 1e-9     # factor rows and the per-entry channels
+TOL64_SUM_REL = 1e-9      # g, Hd, entry_reduce
+TOL64_GRAM_REL = 1e-11    # AᵀA relative to max |AᵀA|
 KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
                   "syrk": "syrk_kernel", "syrk_split": "syrk_split_kernel",
                   "table_select": "table_select_kernel",
                   "soa_chain_entries": "soa_chain_entries_kernel",
                   "entry_reduce": "entry_reduce_kernel",
-                  "top2_similarity": "top2_pass_kernel"}
+                  "top2_similarity": "top2_unit_kernel"}
 ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk", "syrk_split")
 BUCKETED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
                          "syrk", "syrk_split", "entry_reduce")
+# a float64 solve: each kernel's double instance (no tf32 split)
+ALIGNED_F64_KERNELS = ("soa_agg_f64", "soa_chain_f64", "syrk_f64")
+BUCKETED_F64_KERNELS = ("table_select_f64", "soa_agg_f64",
+                        "soa_chain_entries_f64", "syrk_f64",
+                        "entry_reduce_f64")
 
 # slice 2.  Path 2a: the window pipeline at ladder 3's scale
 # (BASELINE.md:102), 2.0 M points
@@ -304,6 +352,93 @@ def _syrk_check(torch, label, As, N):
     return float((gk - gp).abs().max())
 
 
+def _cg_check(torch, tag, H, g, u, capture=False):
+    """The LM's damped CG solve (LIDAR_CG_ITERS done-masked trips, one
+    CUDA graph replay on the card).  With capture, the graph cache is
+    emptied first and the capture timed.  One solve is queued under sync
+    debug mode "error", so a read to the host raises; two solves must be
+    bitwise equal, finite, and within 1e-6 of the same trips run eagerly
+    (relative to max |x|).  Device ms per solve, graph and eager."""
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import LIDAR_CG_ITERS
+
+    out = {}
+    n, it = H.shape[0], LIDAR_CG_ITERS
+    if capture:
+        dist_solve._GRAPHS.clear()
+        torch.cuda.synchronize()
+        out["capture_s"] = dist_solve.cg_graph(n, H.dtype, H.device,
+                                               max_iters=it).capture_s
+    x1 = dist_solve.solve_damped_cg(H, g, u, max_iters=it)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        x2 = dist_solve.solve_damped_cg(H, g, u, max_iters=it)
+        out["host_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    x_e = dist_solve._damped_cg(H, g, u, 6, it, 1e-10)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(x1, x2) and torch.isfinite(x1).all())
+    err = _rel(x1, x_e)
+    out["ms"], ahead = _timed(torch, lambda: dist_solve.solve_damped_cg(
+        H, g, u, max_iters=it))
+    out["eager_ms"], ahead_e = _timed(
+        torch, lambda: dist_solve._damped_cg(H, g, u, 6, it, 1e-10))
+    out.update(repeatable=same, eager_rel=err,
+               eager_bitwise=bool(torch.equal(x1, x_e)))
+    cap = (f"graph captured in {out['capture_s'] * 1e3:.1f} ms; "
+           if capture else "")
+    print(f"[{tag}] damped block-Jacobi CG solve (6W = {n}, {it} "
+          f"done-masked trips, one CUDA graph replay): {cap}"
+          f"{out['ms']:.3f} ms device time (queued ahead {ahead}), the same "
+          f"trips run eagerly {out['eager_ms']:.3f} ms (queued ahead "
+          f"{ahead_e}); one solve queued in {out['host_ms']:.3f} ms of host "
+          f"time under sync debug mode \"error\"; two solves bitwise equal "
+          f"and finite: {same}; graph vs eager rel diff {err:.3e} (bitwise "
+          f"{out['eager_bitwise']})", flush=True)
+    if not (same and err <= 1e-6):
+        _fail(f"{tag}: the damped CG solve is not repeatable or departs "
+              f"from its eager trips")
+    return out
+
+
+def _count_syncs(torch, run):
+    """(run()'s result, the synchronizing calls it made): run under sync
+    debug mode "warn" with the warnings recorded ("always": repeats from
+    one line count too)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return res, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _lm_syncs(torch, tag, run, tables=None):
+    """run() (an lm_damping_iter call) under sync debug mode "warn": the
+    LM reads `converged` once per iteration and nothing else, but for
+    building its buckets' frame tables when `tables` (a function that
+    builds them) is given; its synchronizing calls must equal its
+    iterations plus those of tables().  Returns the count."""
+    extra = _count_syncs(torch, tables)[1] if tables is not None else 0
+    res, syncs = _count_syncs(torch, run)
+    print(f"[{tag}] lm_damping_iter under sync debug mode \"warn\": "
+          f"{syncs} synchronizing calls in {res.iters} iterations (one "
+          f"read of `converged` each) + {extra} of building the frame "
+          f"tables", flush=True)
+    if syncs != res.iters + extra:
+        _fail(f"{tag}: the LM synchronized {syncs} times in {res.iters} "
+              f"iterations, with {extra} for its frame tables")
+    return syncs
+
+
 def _times_in_turns(torch, name, kernel, plain, library):
     """_times, with the kernel and the library call timed again in the
     reverse order (kernel, plain, library, library, kernel); ms and
@@ -398,10 +533,13 @@ def _window_config(dtype):
     return cfg
 
 
-def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2):
-    """soa_agg kernel vs plain (both float32 on the card) under the
-    well-conditioned-voxel rule above; raises on disagreement.  Returns
-    residv's max abs error."""
+def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
+               tols=(TOL_RESIDV_REL, TOL_RESIDV_REL_LINE, TOL_PV)):
+    """soa_agg kernel vs plain (both of one dtype on the card) under the
+    well-conditioned-voxel rule above, with the limits `tols` (residv on
+    well-conditioned and on line-like voxels, pv); raises on
+    disagreement.  Returns residv's max abs error."""
+    tol_r, tol_line, tol_pv = tols
     line_like = live & ~wc
 
     def r_err(a, b, where):
@@ -417,17 +555,222 @@ def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2):
     finite = bool(torch.isfinite(rk).all() and torch.isfinite(pvk).all())
     print(f"[{name}] residv max abs err {err_r:.3e} on all live voxels; "
           f"err / λ_max {err_r_rel:.3e} on well-conditioned voxels (tol "
-          f"{TOL_RESIDV_REL}), {err_r_line:.3e} on line-like voxels (tol "
-          f"{TOL_RESIDV_REL_LINE:.3e}; there kernel vs float64 "
+          f"{tol_r}), {err_r_line:.3e} on line-like voxels (tol "
+          f"{tol_line:.3e}; there kernel vs float64 "
           f"{line64[0]:.3e}, plain vs float64 {line64[1]:.3e}); "
           f"well-conditioned voxels: u abs err {err_u:.3e}, BᵀB rel err "
-          f"{err_bb:.3e}, v̄/(1/N) rel err {err_vn:.3e} (tol {TOL_PV}); all "
+          f"{err_bb:.3e}, v̄/(1/N) rel err {err_vn:.3e} (tol {tol_pv}); all "
           f"voxels finite: {finite}; padded voxels residv == 0: {dead_ok}",
           flush=True)
-    if not (err_r_rel <= TOL_RESIDV_REL and err_r_line <= TOL_RESIDV_REL_LINE
-            and max(err_u, err_bb, err_vn) <= TOL_PV and dead_ok and finite):
+    if not (err_r_rel <= tol_r and err_r_line <= tol_line
+            and max(err_u, err_bb, err_vn) <= tol_pv and dead_ok and finite):
         _fail(f"{name}: soa_agg disagrees with soa_agg_plain")
     return err_r
+
+
+def _aligned_f64(torch, kern, ops, pose12, live, wc, lam0, lam2, W):
+    """Phase 2d: the float64 instances of kernels 1-3 (soa_agg_f64,
+    soa_chain_f64, syrk_f64) against their plain versions in float64 on
+    the main path's operands, timed beside them and their bounds (bytes
+    at 8 B a value; operations at the fp64 rates)."""
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg, soa_agg_plain, soa_chain, soa_chain_plain)
+
+    d = torch.float64
+    ops = [tuple(x.to(d) for x in o) for o in ops]
+    pose12 = pose12.to(d)
+    agg_k = [soa_agg(*o, pose12) for o in ops]
+    agg_p = [soa_agg_plain(*o, pose12) for o in ops]
+    torch.cuda.synchronize()
+    err_r = _agg_check(
+        torch, "soa_agg_f64", *(torch.cat([a[i] for a in x])
+                                for i in (0, 1) for x in (agg_k, agg_p)),
+        live, wc, lam0, lam2,
+        tols=(TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV))
+    nb = sum(o[0].shape[0] for o in ops)
+    kern["soa_agg_f64"] = dict(
+        max_abs_err=err_r,
+        **_times(torch, "soa_agg_f64",
+                 lambda: [soa_agg(*o, pose12) for o in ops],
+                 lambda: [soa_agg_plain(*o, pose12) for o in ops]),
+        bound=_bound((nb * W * 13 + len(ops) * W * 12 + nb * 17) * 8,
+                     nb * W * AGG_FLOPS_PER_CELL + nb * AGG_FLOPS_PER_VOXEL,
+                     FP64_FLOP_PER_S))
+    pvs = [a[1] for a in agg_k]
+    ch_k = [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)]
+    ch_p = [soa_chain_plain(*o, pose12, q) for o, q in zip(ops, pvs)]
+    torch.cuda.synchronize()
+    err_A = max(_rel(a[0], b[0]) for a, b in zip(ch_k, ch_p))
+    err_g = _rel(sum(a[1] for a in ch_k), sum(b[1] for b in ch_p))
+    err_hd = _rel(sum(a[2] for a in ch_k), sum(b[2] for b in ch_p))
+    print(f"[soa_chain_f64] rows rel err {err_A:.3e} (tol {TOL64_ROWS_REL}); "
+          f"g rel err {err_g:.3e}, Hd rel err {err_hd:.3e} (tol "
+          f"{TOL64_SUM_REL})", flush=True)
+    if not (err_A <= TOL64_ROWS_REL and err_g <= TOL64_SUM_REL
+            and err_hd <= TOL64_SUM_REL):
+        _fail("soa_chain_f64 disagrees with soa_chain_plain in float64")
+    kern["soa_chain_f64"] = dict(
+        max_abs_err=max(float((a[0] - b[0]).abs().max())
+                        for a, b in zip(ch_k, ch_p)),
+        **_times(torch, "soa_chain_f64",
+                 lambda: [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)],
+                 lambda: [soa_chain_plain(*o, pose12, q)
+                          for o, q in zip(ops, pvs)]),
+        bound=_bound((nb * W * 13 + len(ops) * W * 12 + nb * 16
+                      + nb * W * 18 + W * 42) * 8,
+                     nb * W * CHAIN_FLOPS_PER_CELL, FP64_FLOP_PER_S))
+    As = [a[0] for a in ch_k]
+    del ch_k, ch_p, agg_k, agg_p
+    kern["syrk_f64"] = _syrk_f64_check(torch, "aligned W=512", As, 6 * W)
+
+
+def _syrk_f64_check(torch, label, As, N):
+    """syrk_ on float64 operands As into one gram: within TOL64_GRAM_REL of
+    syrk_plain_ and torch.matmul, exactly symmetric, two runs bitwise
+    equal; timed in turns with torch.matmul(A.T, A).  Its bound:
+    Kr·N·(N+1) flops at the fp64 tensor-core rate."""
+    from global_lvba_tpu_torch.kernels.gram import syrk_, syrk_plain_
+
+    gk = torch.zeros((N, N), dtype=torch.float64, device=As[0].device)
+    gk2, gp = torch.zeros_like(gk), torch.zeros_like(gk)
+    for A in As:
+        syrk_(gk, A)
+        syrk_(gk2, A)
+        syrk_plain_(gp, A)
+    gl = sum(torch.matmul(A.T, A) for A in As)
+    torch.cuda.synchronize()
+    err_p, err_l = _rel(gk, gp), _rel(gk, gl)
+    sym, rep = bool(torch.equal(gk, gk.T)), bool(torch.equal(gk, gk2))
+    kr = sum(A.shape[0] for A in As)
+    print(f"[syrk_f64] {label}, {kr} rows x {N} columns: rel err vs "
+          f"syrk_plain_ {err_p:.3e}, vs torch.matmul {err_l:.3e} (tol "
+          f"{TOL64_GRAM_REL}); exactly symmetric: {sym}; two runs bitwise "
+          f"equal: {rep}", flush=True)
+    if not (err_p <= TOL64_GRAM_REL and err_l <= TOL64_GRAM_REL and sym
+            and rep):
+        _fail(f"syrk_ disagrees with AᵀA on the float64 {label} operand")
+    out = dict(max_abs_err=float((gk - gp).abs().max()))
+    del gk2, gp, gl
+    out.update(_times_in_turns(torch, "syrk_f64",
+                               lambda: [syrk_(gk, A) for A in As],
+                               lambda: [syrk_plain_(gk, A) for A in As],
+                               lambda: [torch.matmul(A.T, A) for A in As]))
+    flops = kr * N * (N + 1)
+    out["bound"] = _bound(kr * N * 8 + len(As) * 2 * N * N * 8, flops,
+                          FP64_TC_FLOP_PER_S)
+    print(f"[syrk_f64] {label}: {flops / 1e9:.1f} GFLOP; bound "
+          f"{out['bound'][0]:.4f} ms ({out['bound'][1]}, fp64 at "
+          f"{FP64_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s on the tensor cores, "
+          f"{flops / FP64_FLOP_PER_S * 1e3:.4f} ms at the "
+          f"{FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s of the fp64 units the kernel "
+          f"uses); {flops / out['ms'] / 1e9:.1f} TFLOP/s at the wrapper's "
+          f"{out['ms']:.4f} ms; torch.matmul {out['library_ms']:.4f} ms",
+          flush=True)
+    return out
+
+
+def _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
+                  lam2, pose12, W):
+    """Phase 6f: the float64 instances of the bucketed kernels
+    (table_select_f64, soa_agg_f64 on per-entry pose rows,
+    soa_chain_entries_f64, entry_reduce_f64) against their plain versions
+    in float64 on path 2b's operands, timed beside them, their library
+    calls and their bounds."""
+    from global_lvba_tpu_torch.kernels.selection import (
+        entry_reduce, entry_reduce_plain, table_select, table_select_plain)
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg, soa_agg_plain, soa_chain_entries, soa_chain_entries_plain)
+
+    d, dev = torch.float64, pose12.device
+    pose12 = pose12.to(d)
+    bs = [fa._replace(n=fa.n.to(d), mu=fa.mu.to(d), Pc=fa.Pc.to(d))
+          for fa in bs]
+    frames64 = [f.long() for f in frames]
+    VK = sum(f.numel() for f in frames)
+    Vs = sum(fa.n.shape[0] for fa in bs)
+    live_e = sum(int((fa.n > 0).sum()) for fa in bs)
+    sel_k = [table_select(f, pose12) for f in frames]
+    same = all(torch.equal(a, table_select_plain(f, pose12))
+               and torch.equal(a, torch.index_select(pose12, 0, g))
+               for a, f, g in zip(sel_k, frames, frames64))
+    print(f"[table_select_f64] bitwise equal to the plain version and to "
+          f"torch.index_select: {same}", flush=True)
+    if not same:
+        _fail("table_select_f64 disagrees with table_select_plain")
+    kern["table_select_f64"] = dict(
+        max_abs_err=0.0,
+        **_times(torch, "table_select_f64",
+                 lambda: [table_select(f, pose12) for f in frames],
+                 lambda: [table_select_plain(f, pose12) for f in frames],
+                 lambda: [torch.index_select(pose12, 0, f)
+                          for f in frames64]),
+        bound=_bound(VK * 4 + len(bs) * W * 96 + VK * 96, 0))
+    poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
+             for s, fa in zip(sel_k, bs)]
+    ops = [(bs[b].n[lo:hi], bs[b].mu[lo:hi], bs[b].Pc[lo:hi],
+            poses[b][lo:hi]) for b, lo, hi in chunks]
+    agg_k = [soa_agg(*o) for o in ops]
+    agg_p = [soa_agg_plain(*o) for o in ops]
+    torch.cuda.synchronize()
+    _agg_check(torch, "soa_agg_f64 2b",
+               *(torch.cat([a[i] for a in x]) for i in (0, 1)
+                 for x in (agg_k, agg_p)), live, wc, lam0, lam2,
+               tols=(TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV))
+    chain_args = [o + (bs[b].frame[lo:hi], a[1], W)
+                  for o, a, (b, lo, hi) in zip(ops, agg_k, chunks)]
+    ch_k = [soa_chain_entries(*a) for a in chain_args]
+    ch_p = [soa_chain_entries_plain(*a) for a in chain_args]
+    torch.cuda.synchronize()
+    vk = torch.cat([a[1] for a in ch_k])
+    vp = torch.cat([b[1] for b in ch_p])
+    err_A = max(_rel(a[0], b[0]) for a, b in zip(ch_k, ch_p))
+    err_v = _rel(vk, vp)
+    print(f"[soa_chain_entries_f64] rows rel err {err_A:.3e}, per-entry "
+          f"channels {err_v:.3e} (tol {TOL64_ROWS_REL})", flush=True)
+    if not (err_A <= TOL64_ROWS_REL and err_v <= TOL64_ROWS_REL):
+        _fail("soa_chain_entries_f64 disagrees with its plain version")
+    kern["soa_chain_entries_f64"] = dict(
+        max_abs_err=max(float((a[0] - b[0]).abs().max())
+                        for a, b in zip(ch_k, ch_p)),
+        **_times(torch, "soa_chain_entries_f64",
+                 lambda: [soa_chain_entries(*a) for a in chain_args],
+                 lambda: [soa_chain_entries_plain(*a) for a in chain_args]),
+        bound=_bound(VK * 25 * 8 + VK * 4 + Vs * 16 * 8 + VK * 30 * 8
+                     + 3 * Vs * 6 * W * 8, VK * CHAIN_FLOPS_PER_CELL,
+                     FP64_FLOP_PER_S))
+    del ch_k, ch_p, agg_k, agg_p
+    vals, off = [], 0
+    for fa in bs:
+        vals.append(vk[off:off + fa.n.numel()].contiguous())
+        off += fa.n.numel()
+    red_k = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
+    red_k2 = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
+    red_p = [entry_reduce_plain(v, t) for v, t in zip(vals, tbls)]
+    red_l = [torch.zeros((W, 30), dtype=d, device=dev).index_add_(0, f, v)
+             for v, f in zip(vals, frames64)]
+    torch.cuda.synchronize()
+    err_red = max(_rel(a, b) for a, b in zip(red_k, red_p))
+    err_lib = max(_rel(a, b) for a, b in zip(red_k, red_l))
+    rep = all(torch.equal(a, b) for a, b in zip(red_k, red_k2))
+    print(f"[entry_reduce_f64] rel err vs entry_reduce_plain {err_red:.3e}, "
+          f"vs index_add_ {err_lib:.3e} (tol {TOL64_SUM_REL}); two calls "
+          f"bitwise equal: {rep}", flush=True)
+    if not (err_red <= TOL64_SUM_REL and err_lib <= TOL64_SUM_REL and rep):
+        _fail("entry_reduce_f64 disagrees with entry_reduce_plain or is not "
+              "repeatable")
+    kw = sum(int(t.numel()) for t in tbls)
+    kern["entry_reduce_f64"] = dict(
+        max_abs_err=max(float((a - b).abs().max())
+                        for a, b in zip(red_k, red_p)),
+        **_times(torch, "entry_reduce_f64",
+                 lambda: [entry_reduce(v, t) for v, t in zip(vals, tbls)],
+                 lambda: [entry_reduce_plain(v, t)
+                          for v, t in zip(vals, tbls)],
+                 lambda: [torch.zeros((W, 30), dtype=d, device=dev)
+                          .index_add_(0, f, v)
+                          for v, f in zip(vals, frames64)]),
+        bound=_bound(live_e * 30 * 8 + kw * 4 + len(bs) * W * 30 * 8,
+                     live_e * 30, FP64_FLOP_PER_S))
 
 
 def _stage_lines(tag, stats):
@@ -637,6 +980,9 @@ def _slice2(torch, np, dev, kern, results, paths):
                               bound_fp32=bound_fp32, split=t2s, **t2)
     del scratch, As
     del ch_k, vk, vp, vals, agg_k, agg_p, ops, chain_args
+    # ---- 6f. the float64 instances of the bucketed kernels ----
+    _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
+                  lam2, pose12, W)
 
     # ---- 7. the bucketed evaluation over the corridor's buckets ----
     def cgh(steps, fas, tables):
@@ -750,7 +1096,29 @@ def _slice2(torch, np, dev, kern, results, paths):
     if not (np.isfinite(res.p_opt).all() and ate < ate0
             and abs(ate - ate_ref) <= 0.1 * ate_ref):
         _fail(f"2a: ATE {ate0} -> {ate} (float64 reference {ate_ref})")
-    del clouds, sc_a, res, ref
+    # the same pipeline in float64 on the card: every bucketed kernel's
+    # double instance, and the float64 CPU run's ATE within 1e-6
+    reset_launch_counts()
+    t0 = time.time()
+    res64 = run_lidar_ba(clouds, Ra, pa, _window_config("float64"),
+                         device="cuda")
+    torch.cuda.synchronize()
+    wall64 = time.time() - t0
+    counts64 = paths["2a-float64"] = launch_counts()
+    ate64 = ate_rmse(res64.p_opt, sc_a.p_true)
+    e64 = abs(ate64 - ate_ref) / ate_ref
+    print(f"[2a-float64] run_lidar_ba in float64 on the card: ATE {ate0:.6f} "
+          f"-> {ate64:.9f} m, wall {wall64:.2f} s; the float64 CPU run's "
+          f"{ate_ref:.9f} m: rel diff {e64:.3e} (tol 1e-6); launches "
+          f"{counts64}", flush=True)
+    results["path_2a"].update(ate_float64_card=ate64, rel_diff_float64=e64,
+                              wall_s_float64=wall64, launches_float64=counts64)
+    f64_only = all(counts64[k] > 0 for k in BUCKETED_F64_KERNELS) and not any(
+        v for k, v in counts64.items() if not k.endswith("_f64"))
+    if not (np.isfinite(res64.p_opt).all() and e64 <= 1e-6 and f64_only):
+        _fail(f"2a in float64 on the card: ATE {ate64} vs the CPU's "
+              f"{ate_ref}, launches {counts64}")
+    del clouds, sc_a, res, ref, res64
 
     # ---- 9. path 2b: the sparse corridor at W=512 ----
     clouds = [scene.points_body[scene.frame_ids == i] for i in range(W)]
@@ -791,13 +1159,24 @@ def _slice2(torch, np, dev, kern, results, paths):
     # residual.  The corridor's ATE moves along near-flat bending modes of
     # the cost (BASELINE.md:71), so float32 and float64 runs that agree on
     # the residual to 1e-6 land at different ATEs; the pipeline's ATE is no
-    # measure of agreement there.
-    lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+    # measure of agreement there.  The LM builds its frame tables (reading
+    # the buckets' ids to the host), inside its timed run, and then reads
+    # only its `converged`s.
+    def lm_2b():
+        return lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+
+    lm_2b()
     torch.cuda.synchronize()
     t0 = time.time()
-    lm = lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+    lm = lm_2b()
     torch.cuda.synchronize()
     lm_wall = time.time() - t0
+    syncs = _lm_syncs(torch, "2b-lm", lm_2b, tables=lambda: [
+        frame_gather_table(fa, W) for fa in bs])
+    _, g_c, H_c = cgh(KERNEL_STEPS, bs, tbls)
+    cg_2b = _cg_check(torch, "2b-lm", H_c.reshape(6 * W, 6 * W),
+                      g_c.reshape(-1), torch.full((), 0.01, device=dev))
+    del g_c, H_c
     g_size = sum(fa.n.shape[0] for fa in bs)
     res0 = float(sum(plane_cost(fa, R, p) for fa in bs)) / g_size
     bs64 = buckets_to_device(vm, W=W, dtype=torch.float64, device="cpu")
@@ -813,7 +1192,7 @@ def _slice2(torch, np, dev, kern, results, paths):
           f"W={W}): residual {res0:.9g} -> {float(lm.residual):.9g} in "
           f"{lm.iters} iterations, {lm_wall * 1e3:.1f} ms "
           f"({lm_wall / max(lm.iters, 1) * 1e3:.2f} ms/iter incl. the "
-          f"initial evaluation and the frame tables); float64 CPU residual "
+          f"frame tables and the initial evaluation); float64 CPU residual "
           f"{float(lm64.residual):.9g} in {lm64.iters} iterations "
           f"({cpu_s:.1f} s): rel diff {e_res:.3e} (tol {TOL_RESID_LM_REL}); "
           f"ATE {ate_c:.6f} m, float64 {ate_c64:.6f} m", flush=True)
@@ -824,20 +1203,24 @@ def _slice2(torch, np, dev, kern, results, paths):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lm_damping_iter(bs, R, p, max_iters=LM_ITERS)
+        lm_2b()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     busy = sum(v[0] for v in _device_ms(prof).values())
     idle = 1.0 - busy / (prof_wall * 1e3)
+    idle_w = 1.0 - busy / (lm_wall * 1e3)
     print(f"[2b-lm] under torch.profiler: {prof_wall * 1e3:.1f} ms wall, "
-          f"{busy:.1f} ms device busy, idle share {idle:.3f}", flush=True)
+          f"{busy:.1f} ms device busy, idle share {idle:.3f} (one window); "
+          f"a cross-run estimate, that device time over the unprofiled "
+          f"run's {lm_wall * 1e3:.1f} ms wall: {idle_w:.3f}", flush=True)
     results["path_2b"]["stage1_lm"] = dict(
         residual0=res0, residual=float(lm.residual),
         residual_float64_cpu=float(lm64.residual), rel_diff=e_res,
         iters=lm.iters, iters_float64_cpu=lm64.iters, wall_ms=lm_wall * 1e3,
         ms_per_iter=lm_wall / max(lm.iters, 1) * 1e3, ate=ate_c,
         ate_float64_cpu=ate_c64, profiled_wall_ms=prof_wall * 1e3,
-        device_busy_ms=busy, idle_share=idle)
+        device_busy_ms=busy, idle_share=idle,
+        idle_share_cross_run_estimate=idle_w, host_reads=syncs, cg=cg_2b)
 
 
 def _frontend_views(np):
@@ -902,7 +1285,7 @@ def _frontend(torch, np, dev, kern, results, paths):
         SiftParams, extract_sift, extract_sift_batch)
     from global_lvba_tpu_torch.kernels import launch_counts, reset_launch_counts
     from global_lvba_tpu_torch.kernels.matcher import (
-        top2_similarity, top2_similarity_plain)
+        COL_TILE, ROW_TILE, top2_similarity, top2_similarity_plain)
     from global_lvba_tpu_torch.pipeline.sift_frontend import (
         extract_images, match_and_compact)
     from global_lvba_tpu_torch.tracks.build import build_components
@@ -969,7 +1352,8 @@ def _frontend(torch, np, dev, kern, results, paths):
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - tp) * 1e3
     prof_m = _device_ms(prof)
-    hits = [v for k, v in prof_m.items() if "top2_pass_kernel" in k]
+    hits = [v for k, v in prof_m.items()
+            if KERNEL_SYMBOLS["top2_similarity"] in k]
     top2_all = hits[0] if hits else (float("nan"), 0)
     busy = sum(v[0] for v in prof_m.values())
     print(f"[frontend] extraction: device ms per image "
@@ -978,7 +1362,7 @@ def _frontend(torch, np, dev, kern, results, paths):
           f"{ext_wall:.1f} ms wall); {ext_ms / FRONTEND_BATCH:.3f} ms per "
           f"image in calls queued back to back (queued ahead of the card: "
           f"{ahead_x}; if not, host-paced); all pairs under "
-          f"torch.profiler: {prof_wall:.1f} ms wall, top2_pass_kernel "
+          f"torch.profiler: {prof_wall:.1f} ms wall, top2_unit_kernel "
           f"{top2_all[0]:.3f} ms device time in the {top2_all[1]} of "
           f"{counts['top2_similarity']} launches it saw "
           f"({top2_all[0] / max(top2_all[1], 1):.4f} ms each), device busy "
@@ -1010,6 +1394,21 @@ def _frontend(torch, np, dev, kern, results, paths):
           f"{row_bad} / {col_bad} with a top-2 gap > {TOL_TOP2}", flush=True)
     if not (err_v <= TOL_TOP2 and row_bad == 0 and col_bad == 0):
         _fail("top2_similarity disagrees with top2_similarity_plain")
+    # determinism: a second call, and each of three pairs alone, bitwise
+    # equal to the chunk's outputs
+    again = top2_similarity(d_all, d_all, v_all, v_all, ia, ib)
+    repeat = all(torch.equal(a, b) for a, b in zip(out_k, again))
+    alone = True
+    for q in (0, 7, FRONTEND_CHUNK - 1):
+        one = top2_similarity(d_all, d_all, v_all, v_all, ia[q:q + 1].clone(),
+                              ib[q:q + 1].clone())
+        alone &= all(torch.equal(a[q:q + 1], b) for a, b in zip(out_k, one))
+    print(f"[top2_similarity] two calls bitwise equal: {repeat}; pairs 0, 7 "
+          f"and {FRONTEND_CHUNK - 1} alone bitwise equal to their outputs in "
+          f"the chunk: {alone}", flush=True)
+    if not (repeat and alone):
+        _fail("top2_similarity is not repeatable or depends on its chunk")
+    del again, one
 
     # planted cases: exact ties and a ragged tail, bit for bit
     rng = np.random.default_rng(0)
@@ -1067,6 +1466,39 @@ def _frontend(torch, np, dev, kern, results, paths):
     if not planted:
         _fail("top2_similarity breaks a tie or misses the ragged tail")
 
+    # the 4-byte load path (D % 4 != 0, or a stack not 16-byte aligned):
+    # D = 130 and D = 7 under the chunk's rules; D = 128 from a stack one
+    # float off alignment bitwise equal to the same values aligned
+    odd = {}
+    for Dx in (130, 7):
+        x = rng.normal(size=(3, 700, Dx)).astype(np.float32)
+        dx = torch.as_tensor(x / np.linalg.norm(x, axis=2, keepdims=True))
+        dx = dx.to(dev)
+        vx = torch.as_tensor(rng.uniform(size=(3, 700)) > 0.3).to(dev)
+        iax = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+        ibx = torch.tensor([1, 2, 0], dtype=torch.int32, device=dev)
+        odd[Dx] = _top2_compare(
+            torch, top2_similarity(dx, dx, vx, vx, iax, ibx),
+            top2_similarity_plain(dx, dx, vx, vx, iax, ibx), dx, vx, iax, ibx)
+    buf = torch.empty(d_all.numel() + 1, dtype=torch.float32, device=dev)
+    d_off = buf[1:].view(d_all.shape)
+    d_off.copy_(d_all)
+    off_k = top2_similarity(d_off, d_off, v_all, v_all, ia, ib)
+    aligned_off = d_off.data_ptr() % 16 != 0
+    off_same = all(torch.equal(a, b) for a, b in zip(off_k, out_k))
+    print(f"[top2_similarity] 4-byte load path: D = 130 (3 pairs of 700): "
+          f"values max abs err {odd[130][0]:.3e}, argmax differs at "
+          f"{odd[130][1]} rows / {odd[130][2]} columns ({odd[130][3]} / "
+          f"{odd[130][4]} with a top-2 gap > {TOL_TOP2}); D = 7: "
+          f"{odd[7][0]:.3e}, {odd[7][1]} / {odd[7][2]} ({odd[7][3]} / "
+          f"{odd[7][4]}); the chunk from a stack off 16-byte alignment "
+          f"({aligned_off}) bitwise equal to the aligned one: {off_same}",
+          flush=True)
+    if not (all(o[0] <= TOL_TOP2 and o[3] == 0 and o[4] == 0
+                for o in odd.values()) and aligned_off and off_same):
+        _fail("top2_similarity's 4-byte load path disagrees")
+    del buf, d_off, off_k
+
     chunk_lib = lambda: torch.bmm(A, B.transpose(1, 2))
     # the bound counts the products this chunk's masks need: valid rows x
     # valid columns per pair, each once; bytes: the valid descriptors in,
@@ -1076,25 +1508,34 @@ def _frontend(torch, np, dev, kern, results, paths):
     nv = vh.sum(1).double()
     last = torch.where(vh.any(1), K - torch.flip(vh, [1]).int().argmax(1),
                        torch.zeros(vh.shape[0], dtype=torch.long))
-    walk = ((last.clamp(min=1) + 127) // 128 * 128).clamp(max=K).double()
+    # the kernel's units compute the row and column tiles up to the last
+    # valid slot of each set (csrc/matcher.cu, kernels/matcher.unit_plan)
+    def walk(tile):
+        return (-(-last // tile) * tile).clamp(max=K).double()
+
     a_h, b_h = ia.long().cpu(), ib.long().cpu()
     useful = float((nv[a_h] * nv[b_h]).sum())
-    walked = float((walk[a_h] * walk[b_h]).sum())
+    walked = float((walk(ROW_TILE)[a_h] * walk(COL_TILE)[b_h]).sum())
     flops = 2 * D * useful
     nbytes = 4 * D * float(nv[a_h].sum() + nv[b_h].sum()) + P * K * 16
+    bound = _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    bound_fp32 = _bound(nbytes, flops)
     print(f"[top2_similarity] bound of the chunk: {useful:.0f} valid "
           f"products of {P * K * K} slot pairs (share {useful / (P * K * K):.4f}"
           f"); the kernel's tiles cover {walked:.0f} (share "
-          f"{walked / (P * K * K):.4f})", flush=True)
+          f"{walked / (P * K * K):.4f}); bound {bound[0]:.4f} ms ({bound[1]}, "
+          f"3xTF32 at {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s), the fp32 bound "
+          f"{bound_fp32[0]:.4f} ms ({bound_fp32[1]})", flush=True)
     info.update(top2_useful_products=useful, top2_walked_products=walked,
-                top2_slot_products=P * K * K)
+                top2_slot_products=P * K * K, top2_bound_fp32=bound_fp32)
     kern["top2_similarity"] = dict(
         max_abs_err=err_v,
-        **_times(torch, "top2_similarity",
-                 lambda: top2_similarity(d_all, d_all, v_all, v_all, ia, ib),
-                 lambda: top2_similarity_plain(d_all, d_all, v_all, v_all,
-                                               ia, ib), chunk_lib),
-        bound=_bound(nbytes, flops),
+        **_times_in_turns(
+            torch, "top2_similarity",
+            lambda: top2_similarity(d_all, d_all, v_all, v_all, ia, ib),
+            lambda: top2_similarity_plain(d_all, d_all, v_all, v_all, ia, ib),
+            chunk_lib),
+        bound=bound,
         kernel_device_ms=top2_all[0] / max(top2_all[1], 1),   # per chunk
     )
 
@@ -1288,8 +1729,7 @@ def main() -> int:
     from global_lvba_tpu_torch.models.synthetic import (
         ate_rmse, make_plane_scene, perturb_poses)
     from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
-    from global_lvba_tpu_torch.solver.dist_solve import solve_damped_cg
-    from global_lvba_tpu_torch.solver.lm import LIDAR_CG_ITERS, lm_damping_iter
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter
 
     results = {}
     paths = {}      # the launch counts of each path's run
@@ -1463,6 +1903,8 @@ def main() -> int:
           f"ms, of which the split {kern['syrk_split']['ms']:.4f} ms",
           flush=True)
     del scratch, g0, As, ch_k, ch_p
+    # ---- 2d. the float64 instances of kernels 1-3 ----
+    _aligned_f64(torch, kern, ops, pose12, live, wc, lam0, lam2, W)
 
     # ---- 3. evaluation ----
     r1, g1, H1 = plane_cost_grad_hess(fa, R, p, W)
@@ -1497,11 +1939,9 @@ def main() -> int:
         _fail("the kernel evaluation disagrees with the plain one or is "
               "not repeatable")
     Hf, gf = H1.reshape(6 * W, 6 * W), g1.reshape(-1)
-    u0 = torch.tensor(0.01, dtype=Hf.dtype, device=dev)
-    cg_ms, _ = _timed(torch, lambda: solve_damped_cg(
-        Hf, gf, u0, max_iters=LIDAR_CG_ITERS))
-    print(f"[eval] damped block-Jacobi CG solve (6W = {6 * W}, at most "
-          f"{LIDAR_CG_ITERS} trips): {cg_ms:.3f} ms", flush=True)
+    u0 = torch.full((), 0.01, dtype=Hf.dtype, device=dev)
+    cg = _cg_check(torch, "eval", Hf, gf, u0, capture=True)
+    cg_ms = cg["ms"]
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1523,7 +1963,7 @@ def main() -> int:
           f"{[(k[:48], round(v[0], 4), v[1]) for k, v in top]}", flush=True)
     results["eval"] = dict(ms=eval_ms, plain_ms=plain_eval_ms, r_rel=e_r,
                            g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
-                           cg_solve_ms=cg_ms, queued_ahead=ahead_e,
+                           cg_solve_ms=cg_ms, cg=cg, queued_ahead=ahead_e,
                            profiler_device_ms=prof_eval)
     del r1, g1, H1, r2, g2, H2, rq, gq, Hq, fa, Hf, gf
 
@@ -1561,6 +2001,34 @@ def main() -> int:
             and abs(ate - ate_ref) <= 0.1 * ate_ref):
         _fail(f"ATE {ate0} -> {ate} (float64 reference {ate_ref})")
 
+    # ---- 4b. float64 on the card: the kernels' double instances ----
+    reset_launch_counts()
+    t0 = time.time()
+    res64 = run_lidar_ba(clouds, Rp, pp, slice_config("float64"),
+                         device="cuda")
+    torch.cuda.synchronize()
+    wall64 = time.time() - t0
+    counts64 = paths["float64"] = launch_counts()
+    ate64 = ate_rmse(res64.p_opt, scene.p_true)
+    e64 = abs(ate64 - ate_ref) / ate_ref
+    st64 = res64.stats["global"]
+    done64 = bool(st64) and all(s.get("lm_iters", 0) > 0 for s in st64)
+    print(f"[float64] run_lidar_ba {W} frames, solver.dtype float64 on the "
+          f"card: ATE {ate0:.6f} -> {ate64:.9f} m in {wall64:.2f} s, "
+          f"{sum(s.get('lm_iters', 0) for s in st64)} LM iterations; the "
+          f"float64 CPU run's {ate_ref:.9f} m: rel diff {e64:.3e} (tol "
+          f"1e-6); launches {counts64}", flush=True)
+    results["float64"] = dict(ate=ate64, ate_float64_cpu=ate_ref,
+                              rel_diff=e64, wall_s=wall64, stages=st64,
+                              launches=counts64)
+    f64_only = all(counts64[k] > 0 for k in ALIGNED_F64_KERNELS) and not any(
+        v for k, v in counts64.items() if not k.endswith("_f64"))
+    if not (np.isfinite(res64.p_opt).all() and done64 and e64 <= 1e-6
+            and f64_only):
+        _fail(f"float64 on the card: ATE {ate64} vs the CPU's {ate_ref}, "
+              f"launches {counts64}")
+    del res64
+
     # ---- 5. the bench's W=512 problem: voxel map at the true poses ----
     vm_t = build_voxel_map(
         scene.points_body, scene.frame_ids, scene.R_true, scene.p_true,
@@ -1572,13 +2040,17 @@ def main() -> int:
     lm = lm_damping_iter(fa_t, R, p, max_iters=LM_ITERS)
     torch.cuda.synchronize()
     lm_wall = time.time() - t0
+    syncs = _lm_syncs(torch, "bench-problem", lambda: lm_damping_iter(
+        fa_t, R, p, max_iters=LM_ITERS))
     ate_b = ate_rmse(lm.p.double().cpu().numpy(), scene.p_true)
     print(f"[bench-problem] lm_damping_iter W={W}: ATE {ate0:.6f} -> "
           f"{ate_b:.6f} m in {lm.iters} iterations, {lm_wall * 1e3:.1f} ms "
           f"({lm_wall / max(lm.iters, 1) * 1e3:.2f} ms/iter incl. the "
           f"initial evaluation)", flush=True)
     results["bench_problem"] = dict(ate=ate_b, iters=lm.iters,
-                                    wall_ms=lm_wall * 1e3)
+                                    wall_ms=lm_wall * 1e3,
+                                    ms_per_iter=lm_wall / max(lm.iters, 1)
+                                    * 1e3, host_reads=syncs)
     if not ate_b <= 1e-3:
         _fail(f"bench problem ATE {ate_b} > 1 mm")
     with profile(activities=[ProfilerActivity.CPU,
@@ -1590,11 +2062,18 @@ def main() -> int:
         prof_wall = time.perf_counter() - t0
     busy = sum(v[0] for v in _device_ms(prof).values())
     idle = 1.0 - busy / (prof_wall * 1e3)
+    # the profiler's own host cost per launch lengthens the wall it sees;
+    # a cross-run estimate sets the same device time against the
+    # unprofiled run's wall (two windows: not a measured share)
+    idle_w = 1.0 - busy / (lm_wall * 1e3)
     print(f"[bench-problem] under torch.profiler: {prof_wall * 1e3:.1f} ms "
-          f"wall, {busy:.1f} ms device busy, idle share {idle:.3f}",
+          f"wall, {busy:.1f} ms device busy, idle share {idle:.3f} (one "
+          f"window); a cross-run estimate, that device time over the "
+          f"unprofiled run's {lm_wall * 1e3:.1f} ms wall: {idle_w:.3f}",
           flush=True)
     results["bench_problem"].update(profiled_wall_ms=prof_wall * 1e3,
-                                    device_busy_ms=busy, idle_share=idle)
+                                    device_busy_ms=busy, idle_share=idle,
+                                    idle_share_cross_run_estimate=idle_w)
 
     # ---- 6-9. slice 2: the bucketed layout ----
     _slice2(torch, np, dev, kern, results, paths)
@@ -1611,6 +2090,9 @@ def main() -> int:
                "soa_chain_entries": "soa_chain.cu",
                "entry_reduce": "selection.cu",
                "top2_similarity": "matcher.cu"}
+    # a float64 instance lives in its float32 kernel's source and replaces
+    # the same TPU kernel
+    base = {k: k[:-len("_f64")] if k.endswith("_f64") else k for k in kern}
     replaces = {
         "soa_agg": "global_lvba_tpu/ops/pallas/soa_fused.py:61",
         "soa_chain": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
@@ -1623,8 +2105,8 @@ def main() -> int:
     }
     results["launches_by_path"] = paths
     line = {"kernels": [
-        dict(name=k, route="cuda", source=f"{src}{sources[k]}",
-             replaces=replaces[k], launches=launches[k],
+        dict(name=k, route="cuda", source=f"{src}{sources[base[k]]}",
+             replaces=replaces[base[k]], launches=launches[k],
              max_abs_err=v["max_abs_err"], ms=v["ms"],
              plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
              bound_by=v["bound"][1], library_ms=v["library_ms"])

@@ -28,7 +28,11 @@ Layer map (the JAX package's names, so each counterpart is easy to find):
 
 Device policy: entry points take `device=` and default to "cuda"; the CPU
 runs only when a caller asks for it (the parity tests do, in float64).
-On the card the solve runs in float32 with TF32 off.
+On the card the solve runs in the config's `solver.dtype` with TF32 off,
+float32 or float64, and both go through the CUDA kernels: each LiDAR
+kernel has a float and a double instance (the matcher is float32, as its
+descriptors are).  A kernel wrapper given a CUDA tensor launches its
+kernel or raises; nothing falls back to a plain version.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@
 // multiplied three bf16 mantissa splits of the table to stay exact; on the
 // card the selection is a plain copy, exact by construction.  Bound: bytes
 // — 4 B of id in and 4·C B out per entry, no arithmetic.  One thread per
-// output float (grid-stride): neighbouring threads write neighbouring
+// output value (grid-stride): neighbouring threads write neighbouring
 // floats (coalesced stores) and read the same or the next id; the small
 // table is read through the read-only cache (__ldg).
 //
@@ -20,6 +20,9 @@
 // shared-memory tree adds the lanes: no atomics, bitwise repeatable.  An
 // index outside [0, E) — the sentinel E — adds nothing.  Bound: bytes —
 // every live entry's C floats read once, the table and the output.
+//
+// Both are templated on the value type: the launchers without a suffix
+// take float (float32 solves), the _f64 ones double (float64 solves).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,32 +34,34 @@ constexpr int kSelectThreads = 256;
 constexpr int kLanes = 4;
 constexpr int kReduceThreads = 32 * kLanes;
 
+template <typename T>
 __global__ void __launch_bounds__(kSelectThreads)
 table_select_kernel(const int* __restrict__ frame,
-                    const float* __restrict__ tbl, int64_t E, int P, int C,
-                    float* __restrict__ out) {
+                    const T* __restrict__ tbl, int64_t E, int P, int C,
+                    T* __restrict__ out) {
   const int64_t total = E * C;
   for (int64_t i = (int64_t)blockIdx.x * kSelectThreads + threadIdx.x;
        i < total; i += (int64_t)gridDim.x * kSelectThreads) {
     const int64_t e = i / C;
     const int c = static_cast<int>(i - e * C);
     const int f = __ldg(frame + e);
-    out[i] = (f >= 0 && f < P) ? __ldg(tbl + (int64_t)f * C + c) : 0.0f;
+    out[i] = (f >= 0 && f < P) ? __ldg(tbl + (int64_t)f * C + c) : T(0.0);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-entry_reduce_kernel(const float* __restrict__ vals,
+entry_reduce_kernel(const T* __restrict__ vals,
                     const int* __restrict__ tbl, int64_t E, int C, int Kf,
-                    float* __restrict__ out) {
-  __shared__ float red[kLanes][32];
+                    T* __restrict__ out) {
+  __shared__ T red[kLanes][32];
   const int w = blockIdx.x;
   const int lane = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
   const int* row = tbl + (int64_t)w * Kf;
   for (int c0 = 0; c0 < C; c0 += 32) {
     const int c = c0 + t;
-    float s = 0.0f;
+    T s = T(0.0);
     if (c < C) {
       for (int j = lane; j < Kf; j += kLanes) {
         const int idx = __ldg(row + j);
@@ -75,26 +80,51 @@ entry_reduce_kernel(const float* __restrict__ vals,
   }
 }
 
-}  // namespace
-
-extern "C" int lvba_table_select(const int* frame, const float* tbl, int64_t E,
-                                 int P, int C, float* out, void* stream) {
+template <typename T>
+int launch_select(const int* frame, const T* tbl, int64_t E, int P, int C,
+                  T* out, void* stream) {
   const int64_t total = E * C;
   if (total == 0) return 0;
   int64_t blocks = (total + kSelectThreads - 1) / kSelectThreads;
   if (blocks > 65536) blocks = 65536;  // grid-stride beyond
-  table_select_kernel<<<static_cast<unsigned>(blocks), kSelectThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(frame, tbl, E,
-                                                             P, C, out);
+  table_select_kernel<T><<<static_cast<unsigned>(blocks), kSelectThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(frame, tbl,
+                                                                E, P, C, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_reduce(const T* vals, const int* tbl, int64_t E, int C, int W,
+                  int Kf, T* out, void* stream) {
+  if (W == 0 || C == 0) return 0;
+  entry_reduce_kernel<T><<<W, kReduceThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(vals, tbl, E,
+                                                                C, Kf, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lvba_table_select(const int* frame, const float* tbl,
+                                 int64_t E, int P, int C, float* out,
+                                 void* stream) {
+  return launch_select(frame, tbl, E, P, C, out, stream);
+}
+
+extern "C" int lvba_table_select_f64(const int* frame, const double* tbl,
+                                     int64_t E, int P, int C, double* out,
+                                     void* stream) {
+  return launch_select(frame, tbl, E, P, C, out, stream);
 }
 
 extern "C" int lvba_entry_reduce(const float* vals, const int* tbl, int64_t E,
                                  int C, int W, int Kf, float* out,
                                  void* stream) {
-  if (W == 0 || C == 0) return 0;
-  entry_reduce_kernel<<<W, kReduceThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(vals, tbl, E, C,
-                                                             Kf, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce(vals, tbl, E, C, W, Kf, out, stream);
+}
+
+extern "C" int lvba_entry_reduce_f64(const double* vals, const int* tbl,
+                                     int64_t E, int C, int W, int Kf,
+                                     double* out, void* stream) {
+  return launch_reduce(vals, tbl, E, C, W, Kf, out, stream);
 }

@@ -17,56 +17,60 @@
 // table with vstride 0 on the aligned layout (entry (v, k) takes pose k),
 // per-entry pose rows (V, K, 12) with vstride K·12 on the bucketed layout
 // (table_select's output).
+//
+// Templated on the scalar: lvba_soa_agg launches the float instance
+// (float32 solves), lvba_soa_agg_f64 the double one (float64 solves).
 #include "soa_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
-               const float* __restrict__ Pc, const float* __restrict__ poses,
-               int64_t vstride, int K, float* __restrict__ residv,
-               float* __restrict__ pv) {
+soa_agg_kernel(const T* __restrict__ n, const T* __restrict__ mu,
+               const T* __restrict__ Pc, const T* __restrict__ poses,
+               int64_t vstride, int K, T* __restrict__ residv,
+               T* __restrict__ pv) {
   using namespace lvba;
-  __shared__ float red[6][kThreads];
+  __shared__ T red[6][kThreads];
   const int v = blockIdx.x;
   const int t = threadIdx.x;
   const int64_t row = (int64_t)v * K;
-  const float* __restrict__ pose_row = poses + v * vstride;
+  const T* __restrict__ pose_row = poses + v * vstride;
 
-  float s1[4] = {0.f, 0.f, 0.f, 0.f};  // N, Σ n·wm (3)
+  T s1[4] = {T(0.), T(0.), T(0.), T(0.)};  // N, Σ n·wm (3)
   for (int k = t; k < K; k += kThreads) {
-    const Cell e = load_cell(n, mu, Pc, row + k);
-    const Pose P = load_pose(pose_row, k);
-    float Rm1, Rm2, Rm3;
+    const Cell<T> e = load_cell(n, mu, Pc, row + k);
+    const Pose<T> P = load_pose(pose_row, k);
+    T Rm1, Rm2, Rm3;
     rot_mean(P, e, Rm1, Rm2, Rm3);
     s1[0] += e.n;
     s1[1] += e.n * (Rm1 + P.p1);
     s1[2] += e.n * (Rm2 + P.p2);
     s1[3] += e.n * (Rm3 + P.p3);
   }
-  block_sum<kThreads, 4>(s1, red);
-  const float N = s1[0];
-  const float invN = 1.0f / (N > 0.f ? N : 1.0f);
-  const float vb1 = s1[1] * invN, vb2 = s1[2] * invN, vb3 = s1[3] * invN;
+  block_sum<T, kThreads, 4>(s1, red);
+  const T N = s1[0];
+  const T invN = T(1.0) / (N > T(0.) ? N : T(1.0));
+  const T vb1 = s1[1] * invN, vb2 = s1[2] * invN, vb3 = s1[3] * invN;
 
-  float S[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  T S[6] = {T(0.), T(0.), T(0.), T(0.), T(0.), T(0.)};
   for (int k = t; k < K; k += kThreads) {
-    const Cell e = load_cell(n, mu, Pc, row + k);
-    const Pose P = load_pose(pose_row, k);
-    float Rm1, Rm2, Rm3, RP[9];
+    const Cell<T> e = load_cell(n, mu, Pc, row + k);
+    const Pose<T> P = load_pose(pose_row, k);
+    T Rm1, Rm2, Rm3, RP[9];
     rot_mean(P, e, Rm1, Rm2, Rm3);
     rot_scatter(P, e, RP);
-    const float d1 = Rm1 + P.p1 - vb1;
-    const float d2 = Rm2 + P.p2 - vb2;
-    const float d3 = Rm3 + P.p3 - vb3;
-    const float S11e = RP[0] * P.R11 + RP[1] * P.R12 + RP[2] * P.R13;
-    const float S12e = RP[0] * P.R21 + RP[1] * P.R22 + RP[2] * P.R23;
-    const float S13e = RP[0] * P.R31 + RP[1] * P.R32 + RP[2] * P.R33;
-    const float S22e = RP[3] * P.R21 + RP[4] * P.R22 + RP[5] * P.R23;
-    const float S23e = RP[3] * P.R31 + RP[4] * P.R32 + RP[5] * P.R33;
-    const float S33e = RP[6] * P.R31 + RP[7] * P.R32 + RP[8] * P.R33;
+    const T d1 = Rm1 + P.p1 - vb1;
+    const T d2 = Rm2 + P.p2 - vb2;
+    const T d3 = Rm3 + P.p3 - vb3;
+    const T S11e = RP[0] * P.R11 + RP[1] * P.R12 + RP[2] * P.R13;
+    const T S12e = RP[0] * P.R21 + RP[1] * P.R22 + RP[2] * P.R23;
+    const T S13e = RP[0] * P.R31 + RP[1] * P.R32 + RP[2] * P.R33;
+    const T S22e = RP[3] * P.R21 + RP[4] * P.R22 + RP[5] * P.R23;
+    const T S23e = RP[3] * P.R31 + RP[4] * P.R32 + RP[5] * P.R33;
+    const T S33e = RP[6] * P.R31 + RP[7] * P.R32 + RP[8] * P.R33;
     S[0] += e.mask * S11e + e.n * d1 * d1;
     S[1] += e.mask * S12e + e.n * d1 * d2;
     S[2] += e.mask * S13e + e.n * d1 * d3;
@@ -74,24 +78,33 @@ soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
     S[4] += e.mask * S23e + e.n * d2 * d3;
     S[5] += e.mask * S33e + e.n * d3 * d3;
   }
-  block_sum<kThreads, 6>(S, red);
+  block_sum<T, kThreads, 6>(S, red);
 
   if (t == 0) {
-    float cov[6], lam[3], u[3], e1[3], e2[3];
+    T cov[6], lam[3], u[3], e1[3], e2[3];
 #pragma unroll
     for (int i = 0; i < 6; ++i) cov[i] = S[i] * invN;
     eigh3(cov, lam, u, e1, e2);
-    residv[v] = N > 0.f ? lam[0] : 0.0f;
-    const float scale = fmaxf(fabsf(lam[2]), 1e-20f);
-    const float sc1 = sqrtf(2.0f / fmaxf(lam[1] - lam[0], 1e-9f * scale));
-    const float sc2 = sqrtf(2.0f / fmaxf(lam[2] - lam[0], 1e-9f * scale));
-    float* o = pv + 16 * (int64_t)v;
+    residv[v] = N > T(0.) ? lam[0] : T(0.0);
+    const T scale = mmax(mabs(lam[2]), T(1e-20));
+    const T sc1 = msqrt(T(2.0) / mmax(lam[1] - lam[0], T(1e-9) * scale));
+    const T sc2 = msqrt(T(2.0) / mmax(lam[2] - lam[0], T(1e-9) * scale));
+    T* o = pv + 16 * (int64_t)v;
     o[0] = u[0]; o[1] = u[1]; o[2] = u[2];
     o[3] = sc1 * e1[0]; o[4] = sc1 * e1[1]; o[5] = sc1 * e1[2];
     o[6] = sc2 * e2[0]; o[7] = sc2 * e2[1]; o[8] = sc2 * e2[2];
     o[9] = vb1; o[10] = vb2; o[11] = vb3;
-    o[12] = invN; o[13] = 0.f; o[14] = 0.f; o[15] = 0.f;
+    o[12] = invN; o[13] = T(0.); o[14] = T(0.); o[15] = T(0.);
   }
+}
+
+template <typename T>
+int launch_agg(const T* n, const T* mu, const T* Pc, const T* poses,
+               int vstride, int V, int K, T* residv, T* pv, void* stream) {
+  if (V == 0) return 0;
+  soa_agg_kernel<T><<<V, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      n, mu, Pc, poses, vstride, K, residv, pv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -99,8 +112,12 @@ soa_agg_kernel(const float* __restrict__ n, const float* __restrict__ mu,
 extern "C" int lvba_soa_agg(const float* n, const float* mu, const float* Pc,
                             const float* poses, int vstride, int V, int K,
                             float* residv, float* pv, void* stream) {
-  if (V == 0) return 0;
-  soa_agg_kernel<<<V, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      n, mu, Pc, poses, vstride, K, residv, pv);
-  return static_cast<int>(cudaGetLastError());
+  return launch_agg(n, mu, Pc, poses, vstride, V, K, residv, pv, stream);
+}
+
+extern "C" int lvba_soa_agg_f64(const double* n, const double* mu,
+                                const double* Pc, const double* poses,
+                                int vstride, int V, int K, double* residv,
+                                double* pv, void* stream) {
+  return launch_agg(n, mu, Pc, poses, vstride, V, K, residv, pv, stream);
 }

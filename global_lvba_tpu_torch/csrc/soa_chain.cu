@@ -32,6 +32,10 @@
 // per entry stay far below the card's FLOP/byte balance.  The entry's
 // values live in registers; the stores of a thread are strided (30
 // contiguous floats, 3 runs of 6), which the L2 merges.
+//
+// Both kernels are templated on the scalar: the launchers without a
+// suffix take float (float32 solves), the _f64 ones double (float64
+// solves, with twice the bytes).
 #include "soa_common.cuh"
 
 namespace {
@@ -40,149 +44,150 @@ constexpr int kThreads = 128;
 
 // _soa_chain for one entry.  rows: 18 factor-row channels; acc: += jjt (6)
 // then the d36 channels at _D_UNIQUE positions (24).
+template <typename T>
 __device__ __forceinline__ void chain_entry(
-    const lvba::Cell& e, const lvba::Pose& P, float Rm1, float Rm2, float Rm3,
-    const float (&RP)[9], const float* __restrict__ q, float (&rows)[18],
-    float (&acc)[30]) {
-  const float m1 = e.m1, m2 = e.m2, m3 = e.m3, n = e.n, mask = e.mask;
-  const float P11 = e.P11, P12 = e.P12, P13 = e.P13;
-  const float P22 = e.P22, P23 = e.P23, P33 = e.P33;
-  const float R11 = P.R11, R12 = P.R12, R13 = P.R13;
-  const float R21 = P.R21, R22 = P.R22, R23 = P.R23;
-  const float R31 = P.R31, R32 = P.R32, R33 = P.R33;
-  const float u1 = q[0], u2 = q[1], u3 = q[2];
-  const float B11 = q[3], B12 = q[4], B13 = q[5];
-  const float B21 = q[6], B22 = q[7], B23 = q[8];
-  const float vb1 = q[9], vb2 = q[10], vb3 = q[11];
-  const float invN = q[12];
+    const lvba::Cell<T>& e, const lvba::Pose<T>& P, T Rm1, T Rm2, T Rm3,
+    const T (&RP)[9], const T* __restrict__ q, T (&rows)[18],
+    T (&acc)[30]) {
+  const T m1 = e.m1, m2 = e.m2, m3 = e.m3, n = e.n, mask = e.mask;
+  const T P11 = e.P11, P12 = e.P12, P13 = e.P13;
+  const T P22 = e.P22, P23 = e.P23, P33 = e.P33;
+  const T R11 = P.R11, R12 = P.R12, R13 = P.R13;
+  const T R21 = P.R21, R22 = P.R22, R23 = P.R23;
+  const T R31 = P.R31, R32 = P.R32, R33 = P.R33;
+  const T u1 = q[0], u2 = q[1], u3 = q[2];
+  const T B11 = q[3], B12 = q[4], B13 = q[5];
+  const T B21 = q[6], B22 = q[7], B23 = q[8];
+  const T vb1 = q[9], vb2 = q[10], vb3 = q[11];
+  const T invN = q[12];
 
-  const float r1 = R11 * u1 + R21 * u2 + R31 * u3;  // Rᵀu
-  const float r2 = R12 * u1 + R22 * u2 + R32 * u3;
-  const float r3 = R13 * u1 + R23 * u2 + R33 * u3;
-  const float vi1 = n * m1, vi2 = n * m2, vi3 = n * m3;
-  const float w1 = vi2 * r3 - vi3 * r2;
-  const float w2 = vi3 * r1 - vi1 * r3;
-  const float w3 = vi1 * r2 - vi2 * r1;
-  const float t1 = P.p1 - vb1;
-  const float t2 = P.p2 - vb2;
-  const float t3 = P.p3 - vb3;
-  const float adot = u1 * t1 + u2 * t2 + u3 * t3;
-  const float md = m1 * r1 + m2 * r2 + m3 * r3;
-  const float Pr1 = P11 * r1 + P12 * r2 + P13 * r3;
-  const float Pr2 = P12 * r1 + P22 * r2 + P23 * r3;
-  const float Pr3 = P13 * r1 + P23 * r2 + P33 * r3;
-  const float c11 = Pr1 + n * m1 * md + adot * vi1;
-  const float c12 = Pr2 + n * m2 * md + adot * vi2;
-  const float c13 = Pr3 + n * m3 * md + adot * vi3;
-  const float cb1 = n * Rm1 + n * t1;
-  const float cb2 = n * Rm2 + n * t2;
-  const float cb3 = n * Rm3 + n * t3;
+  const T r1 = R11 * u1 + R21 * u2 + R31 * u3;  // Rᵀu
+  const T r2 = R12 * u1 + R22 * u2 + R32 * u3;
+  const T r3 = R13 * u1 + R23 * u2 + R33 * u3;
+  const T vi1 = n * m1, vi2 = n * m2, vi3 = n * m3;
+  const T w1 = vi2 * r3 - vi3 * r2;
+  const T w2 = vi3 * r1 - vi1 * r3;
+  const T w3 = vi1 * r2 - vi2 * r1;
+  const T t1 = P.p1 - vb1;
+  const T t2 = P.p2 - vb2;
+  const T t3 = P.p3 - vb3;
+  const T adot = u1 * t1 + u2 * t2 + u3 * t3;
+  const T md = m1 * r1 + m2 * r2 + m3 * r3;
+  const T Pr1 = P11 * r1 + P12 * r2 + P13 * r3;
+  const T Pr2 = P12 * r1 + P22 * r2 + P23 * r3;
+  const T Pr3 = P13 * r1 + P23 * r2 + P33 * r3;
+  const T c11 = Pr1 + n * m1 * md + adot * vi1;
+  const T c12 = Pr2 + n * m2 * md + adot * vi2;
+  const T c13 = Pr3 + n * m3 * md + adot * vi3;
+  const T cb1 = n * Rm1 + n * t1;
+  const T cb2 = n * Rm2 + n * t2;
+  const T cb3 = n * Rm3 + n * t3;
 
-  const float T11 = RP[0] + n * Rm1 * m1 + t1 * vi1;
-  const float T12 = RP[1] + n * Rm1 * m2 + t1 * vi2;
-  const float T13 = RP[2] + n * Rm1 * m3 + t1 * vi3;
-  const float T21 = RP[3] + n * Rm2 * m1 + t2 * vi1;
-  const float T22 = RP[4] + n * Rm2 * m2 + t2 * vi2;
-  const float T23 = RP[5] + n * Rm2 * m3 + t2 * vi3;
-  const float T31 = RP[6] + n * Rm3 * m1 + t3 * vi1;
-  const float T32 = RP[7] + n * Rm3 * m2 + t3 * vi2;
-  const float T33 = RP[8] + n * Rm3 * m3 + t3 * vi3;
-  const float H1_11 = T12 * r3 - T13 * r2;
-  const float H1_12 = T13 * r1 - T11 * r3;
-  const float H1_13 = T11 * r2 - T12 * r1;
-  const float H1_21 = T22 * r3 - T23 * r2;
-  const float H1_22 = T23 * r1 - T21 * r3;
-  const float H1_23 = T21 * r2 - T22 * r1;
-  const float H1_31 = T32 * r3 - T33 * r2;
-  const float H1_32 = T33 * r1 - T31 * r3;
-  const float H1_33 = T31 * r2 - T32 * r1;
-  const float Rh_11 = R12 * c13 - R13 * c12;
-  const float Rh_12 = R13 * c11 - R11 * c13;
-  const float Rh_13 = R11 * c12 - R12 * c11;
-  const float Rh_21 = R22 * c13 - R23 * c12;
-  const float Rh_22 = R23 * c11 - R21 * c13;
-  const float Rh_23 = R21 * c12 - R22 * c11;
-  const float Rh_31 = R32 * c13 - R33 * c12;
-  const float Rh_32 = R33 * c11 - R31 * c13;
-  const float Rh_33 = R31 * c12 - R32 * c11;
-  const float sN = invN * mask;
-  const float A11 = (H1_11 - Rh_11) * sN;
-  const float A12 = (H1_12 - Rh_12) * sN;
-  const float A13 = (H1_13 - Rh_13) * sN;
-  const float A21 = (H1_21 - Rh_21) * sN;
-  const float A22 = (H1_22 - Rh_22) * sN;
-  const float A23 = (H1_23 - Rh_23) * sN;
-  const float A31 = (H1_31 - Rh_31) * sN;
-  const float A32 = (H1_32 - Rh_32) * sN;
-  const float A33 = (H1_33 - Rh_33) * sN;
-  const float c2u = cb1 * u1 + cb2 * u2 + cb3 * u3;
-  const float A14 = (cb1 * u1 + c2u) * sN;
-  const float A15 = (cb1 * u2) * sN;
-  const float A16 = (cb1 * u3) * sN;
-  const float A24 = (cb2 * u1) * sN;
-  const float A25 = (cb2 * u2 + c2u) * sN;
-  const float A26 = (cb2 * u3) * sN;
-  const float A34 = (cb3 * u1) * sN;
-  const float A35 = (cb3 * u2) * sN;
-  const float A36 = (cb3 * u3 + c2u) * sN;
+  const T T11 = RP[0] + n * Rm1 * m1 + t1 * vi1;
+  const T T12 = RP[1] + n * Rm1 * m2 + t1 * vi2;
+  const T T13 = RP[2] + n * Rm1 * m3 + t1 * vi3;
+  const T T21 = RP[3] + n * Rm2 * m1 + t2 * vi1;
+  const T T22 = RP[4] + n * Rm2 * m2 + t2 * vi2;
+  const T T23 = RP[5] + n * Rm2 * m3 + t2 * vi3;
+  const T T31 = RP[6] + n * Rm3 * m1 + t3 * vi1;
+  const T T32 = RP[7] + n * Rm3 * m2 + t3 * vi2;
+  const T T33 = RP[8] + n * Rm3 * m3 + t3 * vi3;
+  const T H1_11 = T12 * r3 - T13 * r2;
+  const T H1_12 = T13 * r1 - T11 * r3;
+  const T H1_13 = T11 * r2 - T12 * r1;
+  const T H1_21 = T22 * r3 - T23 * r2;
+  const T H1_22 = T23 * r1 - T21 * r3;
+  const T H1_23 = T21 * r2 - T22 * r1;
+  const T H1_31 = T32 * r3 - T33 * r2;
+  const T H1_32 = T33 * r1 - T31 * r3;
+  const T H1_33 = T31 * r2 - T32 * r1;
+  const T Rh_11 = R12 * c13 - R13 * c12;
+  const T Rh_12 = R13 * c11 - R11 * c13;
+  const T Rh_13 = R11 * c12 - R12 * c11;
+  const T Rh_21 = R22 * c13 - R23 * c12;
+  const T Rh_22 = R23 * c11 - R21 * c13;
+  const T Rh_23 = R21 * c12 - R22 * c11;
+  const T Rh_31 = R32 * c13 - R33 * c12;
+  const T Rh_32 = R33 * c11 - R31 * c13;
+  const T Rh_33 = R31 * c12 - R32 * c11;
+  const T sN = invN * mask;
+  const T A11 = (H1_11 - Rh_11) * sN;
+  const T A12 = (H1_12 - Rh_12) * sN;
+  const T A13 = (H1_13 - Rh_13) * sN;
+  const T A21 = (H1_21 - Rh_21) * sN;
+  const T A22 = (H1_22 - Rh_22) * sN;
+  const T A23 = (H1_23 - Rh_23) * sN;
+  const T A31 = (H1_31 - Rh_31) * sN;
+  const T A32 = (H1_32 - Rh_32) * sN;
+  const T A33 = (H1_33 - Rh_33) * sN;
+  const T c2u = cb1 * u1 + cb2 * u2 + cb3 * u3;
+  const T A14 = (cb1 * u1 + c2u) * sN;
+  const T A15 = (cb1 * u2) * sN;
+  const T A16 = (cb1 * u3) * sN;
+  const T A24 = (cb2 * u1) * sN;
+  const T A25 = (cb2 * u2 + c2u) * sN;
+  const T A26 = (cb2 * u3) * sN;
+  const T A34 = (cb3 * u1) * sN;
+  const T A35 = (cb3 * u2) * sN;
+  const T A36 = (cb3 * u3 + c2u) * sN;
 
-  const float j1 = A11 * u1 + A21 * u2 + A31 * u3;
-  const float j2 = A12 * u1 + A22 * u2 + A32 * u3;
-  const float j3 = A13 * u1 + A23 * u2 + A33 * u3;
-  const float j4 = A14 * u1 + A24 * u2 + A34 * u3;
-  const float j5 = A15 * u1 + A25 * u2 + A35 * u3;
-  const float j6 = A16 * u1 + A26 * u2 + A36 * u3;
+  const T j1 = A11 * u1 + A21 * u2 + A31 * u3;
+  const T j2 = A12 * u1 + A22 * u2 + A32 * u3;
+  const T j3 = A13 * u1 + A23 * u2 + A33 * u3;
+  const T j4 = A14 * u1 + A24 * u2 + A34 * u3;
+  const T j5 = A15 * u1 + A25 * u2 + A35 * u3;
+  const T j6 = A16 * u1 + A26 * u2 + A36 * u3;
 
-  const float Pi11 = P11 + n * m1 * m1;
-  const float Pi12 = P12 + n * m1 * m2;
-  const float Pi13 = P13 + n * m1 * m3;
-  const float Pi22 = P22 + n * m2 * m2;
-  const float Pi23 = P23 + n * m2 * m3;
-  const float Pi33 = P33 + n * m3 * m3;
-  const float hp11 = -r3 * Pi12 + r2 * Pi13;
-  const float hp12 = -r3 * Pi22 + r2 * Pi23;
-  const float hp13 = -r3 * Pi23 + r2 * Pi33;
-  const float hp21 = r3 * Pi11 - r1 * Pi13;
-  const float hp22 = r3 * Pi12 - r1 * Pi23;
-  const float hp23 = r3 * Pi13 - r1 * Pi33;
-  const float hp31 = -r2 * Pi11 + r1 * Pi12;
-  const float hp32 = -r2 * Pi12 + r1 * Pi22;
-  const float hp33 = -r2 * Pi13 + r1 * Pi23;
-  const float F11 = -hp11;
-  const float F12 = -c13 - hp12;
-  const float F13 = c12 - hp13;
-  const float F21 = c13 - hp21;
-  const float F22 = -hp22;
-  const float F23 = -c11 - hp23;
-  const float F31 = -c12 - hp31;
-  const float F32 = c11 - hp32;
-  const float F33 = -hp33;
-  const float two_sN = 2.0f * invN * mask;
+  const T Pi11 = P11 + n * m1 * m1;
+  const T Pi12 = P12 + n * m1 * m2;
+  const T Pi13 = P13 + n * m1 * m3;
+  const T Pi22 = P22 + n * m2 * m2;
+  const T Pi23 = P23 + n * m2 * m3;
+  const T Pi33 = P33 + n * m3 * m3;
+  const T hp11 = -r3 * Pi12 + r2 * Pi13;
+  const T hp12 = -r3 * Pi22 + r2 * Pi23;
+  const T hp13 = -r3 * Pi23 + r2 * Pi33;
+  const T hp21 = r3 * Pi11 - r1 * Pi13;
+  const T hp22 = r3 * Pi12 - r1 * Pi23;
+  const T hp23 = r3 * Pi13 - r1 * Pi33;
+  const T hp31 = -r2 * Pi11 + r1 * Pi12;
+  const T hp32 = -r2 * Pi12 + r1 * Pi22;
+  const T hp33 = -r2 * Pi13 + r1 * Pi23;
+  const T F11 = -hp11;
+  const T F12 = -c13 - hp12;
+  const T F13 = c12 - hp13;
+  const T F21 = c13 - hp21;
+  const T F22 = -hp22;
+  const T F23 = -c11 - hp23;
+  const T F31 = -c12 - hp31;
+  const T F32 = c11 - hp32;
+  const T F33 = -hp33;
+  const T two_sN = T(2.0) * invN * mask;
 
   // gradient
   acc[0] += j1; acc[1] += j2; acc[2] += j3;
   acc[3] += j4; acc[4] += j5; acc[5] += j6;
   // d36 channels 0..17: D_rr rows interleaved with D_rt rows
   acc[6] += two_sN * (F12 * r3 - F13 * r2);
-  acc[7] += two_sN * (F13 * r1 - F11 * r3) + 0.5f * j3;
-  acc[8] += two_sN * (F11 * r2 - F12 * r1) - 0.5f * j2;
+  acc[7] += two_sN * (F13 * r1 - F11 * r3) + T(0.5) * j3;
+  acc[8] += two_sN * (F11 * r2 - F12 * r1) - T(0.5) * j2;
   acc[9] += two_sN * w1 * u1;
   acc[10] += two_sN * w1 * u2;
   acc[11] += two_sN * w1 * u3;
-  acc[12] += two_sN * (F22 * r3 - F23 * r2) - 0.5f * j3;
+  acc[12] += two_sN * (F22 * r3 - F23 * r2) - T(0.5) * j3;
   acc[13] += two_sN * (F23 * r1 - F21 * r3);
-  acc[14] += two_sN * (F21 * r2 - F22 * r1) + 0.5f * j1;
+  acc[14] += two_sN * (F21 * r2 - F22 * r1) + T(0.5) * j1;
   acc[15] += two_sN * w2 * u1;
   acc[16] += two_sN * w2 * u2;
   acc[17] += two_sN * w2 * u3;
-  acc[18] += two_sN * (F32 * r3 - F33 * r2) + 0.5f * j2;
-  acc[19] += two_sN * (F33 * r1 - F31 * r3) - 0.5f * j1;
+  acc[18] += two_sN * (F32 * r3 - F33 * r2) + T(0.5) * j2;
+  acc[19] += two_sN * (F33 * r1 - F31 * r3) - T(0.5) * j1;
   acc[20] += two_sN * (F31 * r2 - F32 * r1);
   acc[21] += two_sN * w3 * u1;
   acc[22] += two_sN * w3 * u2;
   acc[23] += two_sN * w3 * u3;
   // d36 channels 21, 22, 23, 28, 29, 35: the distinct D_tt entries
-  const float tn = two_sN * n;
+  const T tn = two_sN * n;
   acc[24] += tn * u1 * u1;
   acc[25] += tn * u1 * u2;
   acc[26] += tn * u1 * u3;
@@ -203,7 +208,7 @@ __device__ __forceinline__ void chain_entry(
   rows[9] = B21 * A14 + B22 * A24 + B23 * A34;
   rows[10] = B21 * A15 + B22 * A25 + B23 * A35;
   rows[11] = B21 * A16 + B22 * A26 + B23 * A36;
-  const float sq = 1.41421356237309515f * invN * mask;
+  const T sq = T(1.41421356237309515) * invN * mask;
   rows[12] = sq * w1;
   rows[13] = sq * w2;
   rows[14] = sq * w3;
@@ -212,65 +217,67 @@ __device__ __forceinline__ void chain_entry(
   rows[17] = sq * n * u3;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-soa_chain_kernel(const float* __restrict__ n, const float* __restrict__ mu,
-                 const float* __restrict__ Pc,
-                 const float* __restrict__ pose12,
-                 const float* __restrict__ pv, int V, int W, int vtile,
-                 float* __restrict__ A, float* __restrict__ part) {
+soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
+                 const T* __restrict__ Pc,
+                 const T* __restrict__ pose12,
+                 const T* __restrict__ pv, int V, int W, int vtile,
+                 T* __restrict__ A, T* __restrict__ part) {
   using namespace lvba;
   const int k = blockIdx.x * kThreads + threadIdx.x;
   if (k >= W) return;
-  const Pose P = load_pose(pose12, k);
-  float acc[30];
+  const Pose<T> P = load_pose(pose12, k);
+  T acc[30];
 #pragma unroll
-  for (int i = 0; i < 30; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 30; ++i) acc[i] = T(0.);
   const int v0 = blockIdx.y * vtile;
   const int v1 = min(V, v0 + vtile);
   const int64_t ld = 6 * (int64_t)W;  // row stride of A
   for (int v = v0; v < v1; ++v) {
-    const Cell e = load_cell(n, mu, Pc, (int64_t)v * W + k);
-    float Rm1, Rm2, Rm3, RP[9], rows[18];
+    const Cell<T> e = load_cell(n, mu, Pc, (int64_t)v * W + k);
+    T Rm1, Rm2, Rm3, RP[9], rows[18];
     rot_mean(P, e, Rm1, Rm2, Rm3);
     rot_scatter(P, e, RP);
     chain_entry(e, P, Rm1, Rm2, Rm3, RP, pv + 16 * (int64_t)v, rows, acc);
-    float* out = A + 3 * (int64_t)v * ld + 6 * (int64_t)k;
+    T* out = A + 3 * (int64_t)v * ld + 6 * (int64_t)k;
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
 #pragma unroll
       for (int c = 0; c < 6; ++c) out[r * ld + c] = rows[r * 6 + c];
     }
   }
-  float* o = part + (int64_t)blockIdx.y * 30 * W + k;
+  T* o = part + (int64_t)blockIdx.y * 30 * W + k;
 #pragma unroll
   for (int i = 0; i < 30; ++i) o[(int64_t)i * W] = acc[i];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-soa_chain_entries_kernel(const float* __restrict__ n,
-                         const float* __restrict__ mu,
-                         const float* __restrict__ Pc,
-                         const float* __restrict__ poses,
+soa_chain_entries_kernel(const T* __restrict__ n,
+                         const T* __restrict__ mu,
+                         const T* __restrict__ Pc,
+                         const T* __restrict__ poses,
                          const int* __restrict__ frame,
-                         const float* __restrict__ pv, int K, int W,
-                         int64_t E, float* __restrict__ A,
-                         float* __restrict__ vals) {
+                         const T* __restrict__ pv, int K, int W,
+                         int64_t E, T* __restrict__ A,
+                         T* __restrict__ vals) {
   using namespace lvba;
   const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= E) return;
   const int64_t v = e / K;
-  const Cell c = load_cell(n, mu, Pc, e);
-  float* o = vals + 30 * e;
-  if (c.mask == 0.f) {
+  const Cell<T> c = load_cell(n, mu, Pc, e);
+  T* o = vals + 30 * e;
+  if (c.mask == T(0.)) {
 #pragma unroll
-    for (int i = 0; i < 30; ++i) o[i] = 0.f;
+    for (int i = 0; i < 30; ++i) o[i] = T(0.);
     return;
   }
-  const Pose P = load_pose(poses, e);
-  float acc[30];
+  const Pose<T> P = load_pose(poses, e);
+  T acc[30];
 #pragma unroll
-  for (int i = 0; i < 30; ++i) acc[i] = 0.f;
-  float Rm1, Rm2, Rm3, RP[9], rows[18];
+  for (int i = 0; i < 30; ++i) acc[i] = T(0.);
+  T Rm1, Rm2, Rm3, RP[9], rows[18];
   rot_mean(P, c, Rm1, Rm2, Rm3);
   rot_scatter(P, c, RP);
   chain_entry(c, P, Rm1, Rm2, Rm3, RP, pv + 16 * v, rows, acc);
@@ -279,7 +286,7 @@ soa_chain_entries_kernel(const float* __restrict__ n,
   const int f = frame[e];
   if (f < 0 || f >= W) return;
   const int64_t ld = 6 * (int64_t)W;  // row stride of A
-  float* out = A + 3 * v * ld + 6 * (int64_t)f;
+  T* out = A + 3 * v * ld + 6 * (int64_t)f;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
 #pragma unroll
@@ -287,16 +294,44 @@ soa_chain_entries_kernel(const float* __restrict__ n,
   }
 }
 
-}  // namespace
-
-extern "C" int lvba_soa_chain(const float* n, const float* mu, const float* Pc,
-                              const float* pose12, const float* pv, int V,
-                              int W, int vtile, float* A, float* part,
-                              void* stream) {
+template <typename T>
+int launch_chain(const T* n, const T* mu, const T* Pc, const T* pose12,
+                 const T* pv, int V, int W, int vtile, T* A, T* part,
+                 void* stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, (V + vtile - 1) / vtile);
-  soa_chain_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  soa_chain_kernel<T><<<grid, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       n, mu, Pc, pose12, pv, V, W, vtile, A, part);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_chain_entries(const T* n, const T* mu, const T* Pc,
+                         const T* poses, const int* frame, const T* pv,
+                         int V, int K, int W, T* A, T* vals, void* stream) {
+  const int64_t E = (int64_t)V * K;
+  if (E == 0) return 0;
+  const int64_t blocks = (E + kThreads - 1) / kThreads;
+  soa_chain_entries_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      n, mu, Pc, poses, frame, pv, K, W, E, A, vals);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lvba_soa_chain(const float* n, const float* mu,
+                              const float* Pc, const float* pose12,
+                              const float* pv, int V, int W, int vtile,
+                              float* A, float* part, void* stream) {
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vtile, A, part, stream);
+}
+
+extern "C" int lvba_soa_chain_f64(const double* n, const double* mu,
+                                  const double* Pc, const double* pose12,
+                                  const double* pv, int V, int W, int vtile,
+                                  double* A, double* part, void* stream) {
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vtile, A, part, stream);
 }
 
 // A must be zero-filled (3V, 6W); vals is (V·K, 30).
@@ -305,11 +340,16 @@ extern "C" int lvba_soa_chain_entries(const float* n, const float* mu,
                                       const int* frame, const float* pv,
                                       int V, int K, int W, float* A,
                                       float* vals, void* stream) {
-  const int64_t E = (int64_t)V * K;
-  if (E == 0) return 0;
-  const int64_t blocks = (E + kThreads - 1) / kThreads;
-  soa_chain_entries_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      n, mu, Pc, poses, frame, pv, K, W, E, A, vals);
-  return static_cast<int>(cudaGetLastError());
+  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, A, vals,
+                              stream);
+}
+
+extern "C" int lvba_soa_chain_entries_f64(const double* n, const double* mu,
+                                          const double* Pc,
+                                          const double* poses,
+                                          const int* frame, const double* pv,
+                                          int V, int K, int W, double* A,
+                                          double* vals, void* stream) {
+  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, A, vals,
+                              stream);
 }

@@ -1,5 +1,6 @@
 // Kernel 3: gram (N, N) += AᵀA for A (Kr, N) row-major, float32
-// (replaces global_lvba_tpu/ops/pallas/gram.py:41 `_syrk_kernel`).
+// (replaces global_lvba_tpu/ops/pallas/gram.py:41 `_syrk_kernel`); its
+// float64 counterpart, syrk_f64_kernel, is described where it stands.
 //
 // Precision: 3xTF32 on the tensor cores, the counterpart of the TPU
 // kernel's default precision="highest" (six bf16 passes, fp32-faithful).
@@ -415,6 +416,78 @@ syrk_kernel(const __grid_constant__ CUtensorMap tm_hi,
   }, [&](int idx) { return S[(idx % kBM) * kLd + idx / kBM]; });
 }
 
+// syrk_f64_kernel: gram (N, N) += AᵀA in float64, for float64 solves.
+// One 64 x 64 tile of the lower triangle (ti >= tj) per block, on the
+// fp64 FMA units (the fp64 tensor-core path is not used).  256 threads as
+// 16 x 16, each with 4 x 4 outputs at rows ty + 16a and columns tx + 16b
+// of the tile; per k-tile of 16 rows of A the block stages both 16 x 64
+// panels (rows of A: coalesced loads) in shared memory, zero past Kr and
+// N.  Every output is one FMA chain in k order, so the result is bitwise
+// repeatable, and on a diagonal tile (r, c) and (c, r) run the same chain
+// (the product commutes): exactly symmetric.  The tile is added to gram
+// at (r, c) and, off the diagonal, at (c, r).  Bound: operations —
+// Kr·N·(N+1) fp64 flops.
+constexpr int k64Tile = 64;
+constexpr int k64K = 16;
+constexpr int k64Threads = 256;
+
+__global__ void __launch_bounds__(k64Threads)
+syrk_f64_kernel(const double* __restrict__ A, int Kr, int N,
+                double* __restrict__ gram) {
+  __shared__ double As[k64K][k64Tile];
+  __shared__ double Bs[k64K][k64Tile];
+  // block b -> (ti, tj), the lower triangle in row order
+  const int b = blockIdx.x;
+  int ti = static_cast<int>((sqrt(8.0 * b + 1.0) - 1.0) / 2.0);
+  while ((ti + 1) * (ti + 2) / 2 <= b) ++ti;
+  while (ti * (ti + 1) / 2 > b) --ti;
+  const int tj = b - ti * (ti + 1) / 2;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int r0 = ti * k64Tile, c0 = tj * k64Tile;
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+  }
+  for (int k0 = 0; k0 < Kr; k0 += k64K) {
+    for (int i = threadIdx.x; i < k64K * k64Tile; i += k64Threads) {
+      const int kk = i / k64Tile, col = i % k64Tile;
+      const int k = k0 + kk;
+      const double* row = A + (int64_t)k * N;
+      As[kk][col] = (k < Kr && r0 + col < N) ? row[r0 + col] : 0.0;
+      Bs[kk][col] = (k < Kr && c0 + col < N) ? row[c0 + col] : 0.0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < k64K; ++kk) {
+      double a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = As[kk][ty + 16 * i];
+        bv[i] = Bs[kk][tx + 16 * i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], bv[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
+      if (r < N && c < N) {
+        gram[(int64_t)r * N + c] += acc[i][j];
+        if (ti != tj) gram[(int64_t)c * N + r] += acc[i][j];
+      }
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
@@ -484,5 +557,15 @@ extern "C" int lvba_syrk(const float* hi, const float* lo, int Np, int Krp,
   syrk_kernel<<<blocks, kThreads, kSmemBytes,
                 static_cast<cudaStream_t>(stream)>>>(
       m_hi, m_lo, Krp / kBK, full, splits, N, G, part, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gram (N, N) += AᵀA for A (Kr, N) row-major, float64 (syrk_f64_kernel).
+extern "C" int lvba_syrk_f64(const double* A, int Kr, int N, double* G,
+                             void* stream) {
+  if (Kr == 0 || N == 0) return 0;
+  const int nt = (N + k64Tile - 1) / k64Tile;
+  syrk_f64_kernel<<<nt * (nt + 1) / 2, k64Threads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(A, Kr, N, G);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,9 +35,10 @@ Two factor layouts, chosen per solve by the density gate
   (frame_gather_table) and reused by every evaluation.
 
 Each step is a CUDA kernel on the card (kernels/) and its plain torch
-version on the CPU.  The componentwise functions below (_soa_agg,
-_soa_eig, _soa_chain) are the transcriptions of the JAX ones the plain
-versions are built from.
+version on the CPU; each kernel has a float32 and a float64 instance, so
+a float64 solve on the card launches kernels too.  The componentwise
+functions below (_soa_agg, _soa_eig, _soa_chain) are the transcriptions
+of the JAX ones the plain versions are built from.
 """
 
 from __future__ import annotations
@@ -481,7 +482,7 @@ def plane_cost_grad_hess(
     (3V, 6W) factor rows stay within `chunk_bytes`.  tbl: the bucketed
     layout's frame_gather_table(fa, W), built here when not given (a
     solve builds it once).  On CUDA tensors every step is a kernel
-    launch; on CPU tensors the plain versions run."""
+    launch (float32 or float64); on CPU tensors the plain versions run."""
     return _cost_grad_hess(KERNEL_STEPS, fa, R, p, num_frames, chunk_bytes,
                            tbl)
 

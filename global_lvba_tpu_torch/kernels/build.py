@@ -17,7 +17,10 @@ when the library loads; `launcher(name)` is a dictionary lookup after the
 first call.  A source may hold several launchers (soa_chain.cu: the
 aligned and the per-entry chain; selection.cu: table_select and
 entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's launcher
-runs its two kernels (the similarity pass and the column reduction).
+runs its two kernels (the work units and the reduction of their
+partials).  The LiDAR kernels have a float64 instance each for float64
+solves, bound as `<name>_f64` (dtype_launcher picks it); the matcher and
+the tf32 split are float32 only.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,15 +57,37 @@ SIGNATURES = {
                      [_P, _P, _L, _I, _I, _P, _P]),
     "entry_reduce": ("selection", "lvba_entry_reduce",
                      [_P, _P, _L, _I, _I, _I, _P, _P]),
+    "soa_agg_f64": ("soa_agg", "lvba_soa_agg_f64",
+                    [_P] * 4 + [_I] * 3 + [_P] * 3),
+    "soa_chain_f64": ("soa_chain", "lvba_soa_chain_f64",
+                      [_P] * 5 + [_I] * 3 + [_P] * 3),
+    "soa_chain_entries_f64": ("soa_chain", "lvba_soa_chain_entries_f64",
+                              [_P] * 6 + [_I] * 3 + [_P] * 3),
+    "syrk_f64": ("syrk", "lvba_syrk_f64", [_P, _I, _I, _P, _P]),
+    "table_select_f64": ("selection", "lvba_table_select_f64",
+                         [_P, _P, _L, _I, _I, _P, _P]),
+    "entry_reduce_f64": ("selection", "lvba_entry_reduce_f64",
+                         [_P, _P, _L, _I, _I, _I, _P, _P]),
     "top2_similarity": ("matcher", "lvba_top2_similarity",
                         [_P, _P, _P, _I, _P, _P, _P, _I] + [_I] * 4
-                        + [_P] * 6),
+                        + [_P] * 8),
 }
 
 _lock = threading.Lock()
 _libs: dict = {}
 _launchers: dict = {}
 _logs: dict = {}
+
+
+def dtype_launcher(name: str, dtype) -> str:
+    """The launcher key of kernel `name` for operands of `dtype`: `name`
+    for float32, `name_f64` for float64; any other dtype raises."""
+    if dtype == torch.float32:
+        return name
+    if dtype == torch.float64:
+        return f"{name}_f64"
+    raise TypeError(f"{name}: the kernel takes float32 or float64, got "
+                    f"{dtype}")
 
 
 def _nvcc() -> str:

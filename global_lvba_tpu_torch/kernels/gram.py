@@ -22,6 +22,10 @@ order with no atomics on the sums: the Hessian is bitwise repeatable.
 Bound on the card: operations — 3·Kr·N·(N+1) flops at 495 TFLOP/s TF32
 (0.35 ms for the W=512 aligned evaluation's 6,144 rows x 3,072 columns),
 against the bytes of A once and the gram read and written.
+
+Float64 operands (float64 solves) take one launch of syrk_f64_kernel
+instead: the same lower tiles and mirror in fp64 FMAs, no split (the
+`syrk_f64` launch count).  Bound: operations — Kr·N·(N+1) fp64 flops.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from . import build
 
-LAUNCHES = {"syrk": 0, "syrk_split": 0}
+LAUNCHES = {"syrk": 0, "syrk_split": 0, "syrk_f64": 0}
 TILE = 128     # syrk_kernel's output tile (kBM in csrc/syrk.cu)
 KTILE = 32     # its k-tile: one 128-byte row of fp32 (kBK)
 MAX_SPLITS = 4
@@ -45,18 +49,22 @@ def padded_shape(Kr: int, N: int) -> tuple:
 
 def check_args(gram, A: torch.Tensor) -> tuple:
     """The kernels' argument checks, run before any launch: A (Kr, N) and
-    gram (N, N) (None for the split alone) float32, contiguous, on one
-    device.  Returns (Kr, N, Np, Krp)."""
+    gram (N, N) (None for the split alone) of one dtype, float32 or
+    float64, contiguous, on one device.  Returns (Kr, N, Np, Krp)."""
     if A.dim() != 2:
         raise ValueError(f"A must be (Kr, N), got {tuple(A.shape)}")
     Kr, N = A.shape
     if gram is not None and gram.shape != (N, N):
         raise ValueError(f"gram is {tuple(gram.shape)}, A is {tuple(A.shape)}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"A: the kernel takes float32 or float64, got "
+                        f"{A.dtype}")
+    if gram is not None and gram.dtype != A.dtype:
+        raise TypeError(f"gram is {gram.dtype}, A is {A.dtype}: the kernel "
+                        f"takes float32 or float64 operands of one dtype")
     for name, t in (("A", A), ("gram", gram)):
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
         if t.device != A.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {A.device}")
     return (Kr, N) + padded_shape(Kr, N)
@@ -81,7 +89,8 @@ def _stream(A):
 
 def tf32_split(A: torch.Tensor) -> tuple:
     """(hi, lo), each (Np, Krp) float32: A's tf32 split, transposed and
-    zero-padded (syrk_split_kernel on a CUDA tensor)."""
+    zero-padded (syrk_split_kernel on a CUDA tensor).  A float32."""
+    _split_dtype(A)
     if A.device.type == "cpu":
         return tf32_split_plain(A)
     if A.device.type != "cuda":
@@ -101,6 +110,11 @@ def tf32_split(A: torch.Tensor) -> tuple:
     return hi, lo
 
 
+def _split_dtype(A: torch.Tensor):
+    if A.dtype != torch.float32:
+        raise TypeError(f"tf32_split: the split takes float32, got {A.dtype}")
+
+
 def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
     """cvt.rna.tf32.f32 on the int32 view: the magnitude rounded to 10
     explicit mantissa bits, ties away from zero; NaN kept."""
@@ -112,6 +126,7 @@ def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
 
 def tf32_split_plain(A: torch.Tensor) -> tuple:
     """Plain torch version of tf32_split."""
+    _split_dtype(A)
     Kr, N, Np, Krp = check_args(None, A)
     hi = _tf32_rna(A)
     lo = _tf32_rna(A - hi)
@@ -131,6 +146,14 @@ def syrk_(gram: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"syrk_: unsupported device {A.device}")
     Kr, N, Np, Krp = check_args(gram, A)
     if Kr == 0 or N == 0:
+        return gram
+    if A.dtype == torch.float64:
+        launch = build.launcher("syrk_f64")
+        with torch.cuda.device(A.device):
+            err = launch(ctypes.c_void_p(A.data_ptr()), Kr, N,
+                         ctypes.c_void_p(gram.data_ptr()), _stream(A))
+        build.check("syrk_f64", err)
+        LAUNCHES["syrk_f64"] += 1
         return gram
     hi, lo = tf32_split(A)
     nt = Np // TILE

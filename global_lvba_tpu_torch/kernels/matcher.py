@@ -6,16 +6,23 @@ global_lvba_tpu/ops/pallas/matcher.py:30 `_top2_kernel` (via `_top2_pass`,
 column `argmax` of frontend/matching.py:25-50 `match_pair`, which compute
 one function: sim = d1·d2ᵀ, −2 wherever a row or a column is invalid; per
 row the top-2 values and the argmax column; per column the argmax row.
-The (K1, K2) matrix never reaches device memory: one block per 128 rows
-walks every column tile and keeps the running top-2 in registers.  The
-TPU ran two passes, the second with the roles swapped; here each product
-is computed once: every block also writes, per column, the best of its
-own rows, and a small second kernel reduces those (P, K1 / 128, K2)
-partials to the column argmax.  Ties go to the lowest index, as argmax
-and lax.top_k.  fp32 FMA (no TF32, no tensor cores).  A block computes
-no product past the last valid row or column of its pair (extraction
-ranks valid slots first) and merges the skipped −2 entries in closed
-form.  Bound: operations, 2·D FLOP per (valid row, valid column).
+The (K1, K2) matrix never reaches device memory.  The TPU ran two passes,
+the second with the roles swapped; here each product is computed once.
+
+The products run on the tensor cores at 3xTF32 (lo·hi + hi·lo + hi·hi,
+split in registers, rounded as cvt.rna as in gram.tf32_split; each k8
+step in a fresh accumulator added in fp32), the counterpart of fp32.
+The work is cut into equal units (pair, row tile of ROW_TILE, column
+range of UNIT_COLS, walked in column tiles of COL_TILE): each writes row
+partials (best,
+second, index over its columns) and column partials (best row over its
+rows), and a second kernel merges them in a fixed order, so the outputs
+are bitwise repeatable and a pair's do not depend on the chunk it is in.
+Ties go to the lowest index, as argmax and lax.top_k.  A unit computes no
+product past the last valid row or column of its pair (extraction ranks
+valid slots first) and merges the skipped −2 entries in closed form
+(unit_plan mirrors what each unit computes).  Bound: operations, three
+TF32 products of 2·D flops per (valid row, valid column).
 
 The TPU's tile-divisibility rule, its bias columns for padded and invalid
 slots (D 128 -> 256) and `use_pallas` are gone: the kernel masks the
@@ -32,7 +39,31 @@ from . import build
 
 LAUNCHES = {"top2_similarity": 0}
 INVALID = -2.0   # below any dot product of unit descriptors
-ROW_TILE = 128   # rows per block of csrc/matcher.cu (kTile)
+# csrc/matcher.cu's work unit: kBM rows, kUnitCols columns in tiles of kBN
+ROW_TILE = 128
+COL_TILE = 64
+UNIT_COLS = 256
+
+
+def unit_grid(K1: int, K2: int) -> tuple:
+    """(R, C): the row tiles and column ranges of one pair; the kernel
+    runs P·R·C units."""
+    return -(-K1 // ROW_TILE), -(-K2 // UNIT_COLS)
+
+
+def unit_plan(rt: int, cu: int, K1: int, K2: int, a_end: int, b_end: int):
+    """What unit (rt, cu) of a pair computes, given its valid ends (1 +
+    the last valid row / column, 0 if none): None when every entry of
+    the unit is −2 (merged in closed form), else (the first columns of
+    the column tiles it computes, c_stop, c_hi): the columns [c_stop,
+    c_hi) are all −2 and merged in closed form."""
+    r_lo, c_lo = rt * ROW_TILE, cu * UNIT_COLS
+    c_hi = min(c_lo + UNIT_COLS, K2)
+    if r_lo >= a_end or c_lo >= b_end:
+        return None
+    n_ct = -(-(min(c_hi, b_end) - c_lo) // COL_TILE)
+    c_stop = min(c_hi, c_lo + n_ct * COL_TILE)
+    return [c_lo + k * COL_TILE for k in range(n_ct)], c_stop, c_hi
 
 
 def _ptr(t):
@@ -105,17 +136,18 @@ def top2_similarity(d1, d2, v1=None, v2=None, ia=None, ib=None):
     vals = torch.empty((P, K1, 2), dtype=torch.float32, device=dev)
     idx = torch.empty((P, K1), dtype=torch.int32, device=dev)
     colarg = torch.empty((P, K2), dtype=torch.int32, device=dev)
-    R = -(-K1 // ROW_TILE)
-    part_val = torch.empty((P, R, K2), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((P, R, K2), dtype=torch.int32, device=dev)
+    R, C = unit_grid(K1, K2)
+    row_val = torch.empty((P, C, K1, 2), dtype=torch.float32, device=dev)
+    row_idx = torch.empty((P, C, K1), dtype=torch.int32, device=dev)
+    col_val = torch.empty((P, R, K2), dtype=torch.float32, device=dev)
+    col_idx = torch.empty((P, R, K2), dtype=torch.int32, device=dev)
     launch = build.launcher("top2_similarity")
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = launch(_ptr(A), _ptr(masks[0]), _ptr(ia_), A.shape[0], _ptr(B),
                      _ptr(masks[1]), _ptr(ib_), B.shape[0], P, K1, K2, D,
-                     _ptr(vals),
-                     _ptr(idx), _ptr(colarg), _ptr(part_val), _ptr(part_idx),
-                     stream)
+                     _ptr(vals), _ptr(idx), _ptr(colarg), _ptr(row_val),
+                     _ptr(row_idx), _ptr(col_val), _ptr(col_idx), stream)
     build.check("top2_similarity", err)
     LAUNCHES["top2_similarity"] += 1
     if single:

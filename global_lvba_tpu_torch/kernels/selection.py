@@ -22,6 +22,9 @@ one block per frame sums that frame's entries in a fixed order and a
 fixed tree, with no atomics, so H is bitwise repeatable.  The sentinel
 index V·K adds nothing.  Bound: bytes (the live entries' 30 channels, the
 W·Kf table, the W·30 output).
+
+Both take float32 or float64 values: float64 launches the kernel's double
+instance (`<name>_f64`, its own launch count).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 
 from . import build
 
-LAUNCHES = {"table_select": 0, "entry_reduce": 0}
+LAUNCHES = {"table_select": 0, "entry_reduce": 0, "table_select_f64": 0,
+            "entry_reduce_f64": 0}
 
 
 def _ptr(t):
@@ -53,19 +57,20 @@ def table_select(frame: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     if frame.dim() != 1 or frame.dtype != torch.int32 \
             or not frame.is_contiguous():
         raise ValueError("frame must be a contiguous (E,) int32 tensor")
-    if tbl.dim() != 2 or tbl.dtype != torch.float32 \
-            or tbl.device != frame.device or not tbl.is_contiguous():
-        raise ValueError("tbl must be a contiguous (P, C) float32 tensor on "
-                         "frame's device")
+    if tbl.dim() != 2 or tbl.device != frame.device \
+            or not tbl.is_contiguous():
+        raise ValueError("tbl must be a contiguous (P, C) tensor on frame's "
+                         "device")
+    name = build.dtype_launcher("table_select", tbl.dtype)
     E = frame.shape[0]
     P, C = tbl.shape
     out = torch.empty((E, C), dtype=tbl.dtype, device=tbl.device)
-    launch = build.launcher("table_select")
+    launch = build.launcher(name)
     with torch.cuda.device(tbl.device):
         err = launch(_ptr(frame), _ptr(tbl), E, P, C, _ptr(out),
                      _stream(tbl.device))
-    build.check("table_select", err)
-    LAUNCHES["table_select"] += 1
+    build.check(name, err)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -86,9 +91,9 @@ def entry_reduce(vals: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
         return entry_reduce_plain(vals, tbl)
     if vals.device.type != "cuda":
         raise ValueError(f"entry_reduce: unsupported device {vals.device}")
-    if vals.dim() != 2 or vals.dtype != torch.float32 \
-            or not vals.is_contiguous():
-        raise ValueError("vals must be a contiguous (E, C) float32 tensor")
+    if vals.dim() != 2 or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous (E, C) tensor")
+    name = build.dtype_launcher("entry_reduce", vals.dtype)
     if tbl.dim() != 2 or tbl.dtype != torch.int32 \
             or tbl.device != vals.device or not tbl.is_contiguous():
         raise ValueError("tbl must be a contiguous (W, Kf) int32 tensor on "
@@ -96,12 +101,12 @@ def entry_reduce(vals: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     E, C = vals.shape
     W, Kf = tbl.shape
     out = torch.empty((W, C), dtype=vals.dtype, device=vals.device)
-    launch = build.launcher("entry_reduce")
+    launch = build.launcher(name)
     with torch.cuda.device(vals.device):
         err = launch(_ptr(vals), _ptr(tbl), E, C, W, Kf, _ptr(out),
                      _stream(vals.device))
-    build.check("entry_reduce", err)
-    LAUNCHES["entry_reduce"] += 1
+    build.check(name, err)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -34,6 +34,11 @@ soa_agg's pose operand is a (K, 12) pose table read with voxel stride 0
 (aligned: entry (v, k) takes pose k) or per-entry pose rows (V, K, 12)
 with voxel stride K·12 (bucketed: table_select's output), so the pose
 expansion happens in one place and no wrapper reads ids back to the host.
+
+Each kernel takes float32 or float64 operands (all of one dtype): a
+float64 solve launches the kernel's double instance (`<name>_f64`, its
+own launch count), the same formulas in the plain float64 version's
+arithmetic.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ import torch
 
 from . import build
 
-LAUNCHES = {"soa_agg": 0, "soa_chain": 0, "soa_chain_entries": 0}
+LAUNCHES = {"soa_agg": 0, "soa_chain": 0, "soa_chain_entries": 0,
+            "soa_agg_f64": 0, "soa_chain_f64": 0,
+            "soa_chain_entries_f64": 0}
 
 _CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
 _D24_TO_36_ON: dict = {}
@@ -60,8 +67,9 @@ def _stream(dev):
 
 def _check_operands(n, mu, Pc, poses, *more):
     """Shapes of the moments and the pose operand (a (P, 12) table or
-    (V, K, 12) per-entry rows); device, float32 and contiguity of every
-    tensor, `more` as (name, tensor) pairs."""
+    (V, K, 12) per-entry rows); device, dtype (float32 or float64, n's
+    for all) and contiguity of every tensor, `more` as (name, tensor)
+    pairs."""
     V, K = n.shape
     if mu.shape != (V, K, 3) or Pc.shape != (V, K, 3, 3) or not (
             (poses.dim() == 2 and poses.shape[1] == 12)
@@ -73,8 +81,11 @@ def _check_operands(n, mu, Pc, poses, *more):
                     *more):
         if t.device != n.device:
             raise ValueError(f"{name} is on {t.device}, n on {n.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        if t.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{name}: the kernel takes float32 or float64, "
+                            f"got {t.dtype}")
+        if t.dtype != n.dtype:
+            raise TypeError(f"{name} is {t.dtype}, n is {n.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -102,12 +113,13 @@ def soa_agg(n, mu, Pc, poses):
         vstride = K * 12
     residv = torch.empty((V,), dtype=n.dtype, device=n.device)
     pv = torch.empty((V, 16), dtype=n.dtype, device=n.device)
-    launch = build.launcher("soa_agg")
+    name = build.dtype_launcher("soa_agg", n.dtype)
+    launch = build.launcher(name)
     with torch.cuda.device(n.device):
         err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), vstride,
                      V, K, _ptr(residv), _ptr(pv), _stream(n.device))
-    build.check("soa_agg", err)
-    LAUNCHES["soa_agg"] += 1
+    build.check(name, err)
+    LAUNCHES[name] += 1
     return residv, pv
 
 
@@ -139,22 +151,23 @@ def soa_chain(n, mu, Pc, pose12, pv):
     if pose12.dim() != 2 or pose12.shape[0] != W:
         raise ValueError(f"aligned layout needs W == poses, got {W} != "
                          f"{pose12.shape[0]}")
-    if pv.shape != (V, 16) or pv.dtype != torch.float32 \
+    if pv.shape != (V, 16) or pv.dtype != n.dtype \
             or pv.device != n.device or not pv.is_contiguous():
-        raise ValueError("pv must be a contiguous (V, 16) float32 tensor "
-                         "on the operands' device")
+        raise ValueError("pv must be a contiguous (V, 16) tensor of the "
+                         "operands' dtype on their device")
     nblk = -(-V // _CHAIN_VOXEL_TILE)
     if nblk > 65535:
         raise ValueError(f"too many voxels for one launch: {V}")
     A = torch.empty((3 * V, 6 * W), dtype=n.dtype, device=n.device)
     part = torch.empty((nblk, 30, W), dtype=n.dtype, device=n.device)
-    launch = build.launcher("soa_chain")
+    name = build.dtype_launcher("soa_chain", n.dtype)
+    launch = build.launcher(name)
     with torch.cuda.device(n.device):
         err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12), _ptr(pv),
                      V, W, _CHAIN_VOXEL_TILE, _ptr(A), _ptr(part),
                      _stream(n.device))
-    build.check("soa_chain", err)
-    LAUNCHES["soa_chain"] += 1
+    build.check(name, err)
+    LAUNCHES[name] += 1
     return (A,) + _reduce_partials(part, W)
 
 
@@ -230,13 +243,14 @@ def soa_chain_entries(n, mu, Pc, poses, frame, pv, W, vals=None):
         raise ValueError(f"pv {tuple(pv.shape)} / vals {tuple(vals.shape)} "
                          f"do not fit {V} voxels of {K} slots")
     A = torch.zeros((3 * V, 6 * W), dtype=n.dtype, device=n.device)
-    launch = build.launcher("soa_chain_entries")
+    name = build.dtype_launcher("soa_chain_entries", n.dtype)
+    launch = build.launcher(name)
     with torch.cuda.device(n.device):
         err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), _ptr(frame),
                      _ptr(pv), V, K, W, _ptr(A), _ptr(vals),
                      _stream(n.device))
-    build.check("soa_chain_entries", err)
-    LAUNCHES["soa_chain_entries"] += 1
+    build.check(name, err)
+    LAUNCHES[name] += 1
     return A, vals
 
 

@@ -2,12 +2,18 @@
 global_lvba_tpu.solver.dist_solve, single device: the closed-form block
 inverses, the shared PCG loop and solve_damped_cg).
 
-The JAX loop is a fixed-trip fori_loop that freezes its state once
-converged; here the loop stops at convergence instead, which returns the
-same iterate (the frozen trips change nothing).
+The loop has the reference's form: exactly `max_iters` trips, the state
+frozen by torch.where once ||r||/||b|| < tol, and no read to the host.
+On a CUDA tensor solve_damped_cg runs its preamble and trips as one CUDA
+graph (the counterpart of the reference's single compiled fori_loop),
+captured once per solve shape and replayed per solve; on the CPU the same
+trips run eagerly.
 """
 
 from __future__ import annotations
+
+import time
+from collections import OrderedDict
 
 import torch
 
@@ -66,32 +72,117 @@ def _block_jacobi_inv_damped(A: torch.Tensor, damp: torch.Tensor,
     diag = diag + 1e-30 * eye
     if bsize == 6:
         return inv_blocks_6x6(diag)
-    return torch.linalg.inv(diag)
+    # inv_ex: no error check, so no read to the host (the blocks are
+    # damped SPD, as in the reference's jnp.linalg.inv)
+    return torch.linalg.inv_ex(diag)[0]
 
 
 def _pcg(matvec, precond, b: torch.Tensor, max_iters: int, tol: float):
-    """Preconditioned CG from x = 0; stops once ||r||/||b|| < tol (the JAX
-    loop's done-masked freeze returns the same iterate)."""
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.dot(r, z)
+    """Preconditioned CG from x = 0: exactly `max_iters` trips; once
+    ||r||²/||b||² < tol², x, r, p and rz freeze (the reference's
+    done-masked fori_loop, global_lvba_tpu/solver/dist_solve.py:117-152).
+    Nothing is read to the host.  x, r and p are the rows of one (3, n)
+    state, so a trip's freeze is one torch.where: in a CUDA graph the
+    count of a trip's small launches (18 beside the matvec's two) sets
+    its time."""
+    z = precond(b)
+    S = torch.stack([torch.zeros_like(b), b, z])      # x, r, p
+    rz = torch.dot(b, z)
     b2 = torch.clamp(torch.dot(b, b), min=torch.finfo(b.dtype).tiny)
+    done = torch.zeros((), dtype=torch.bool, device=b.device)
     for _ in range(max_iters):
+        x, r, p = S
         Ap = matvec(p)
         denom = torch.dot(p, Ap)
-        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_n = torch.dot(r, z)
-        beta = rz_n / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        rz = rz_n
-        if bool(torch.dot(r, r) / b2 < tol * tol):
-            break
-    return x
+        alpha = rz / torch.where(denom == 0, 1.0, denom)
+        S_n = torch.empty_like(S)
+        torch.addcmul(x, alpha, p, out=S_n[0])
+        torch.addcmul(r, alpha, Ap, value=-1.0, out=S_n[1])
+        z_n = precond(S_n[1])
+        rz_n = torch.dot(S_n[1], z_n)
+        beta = rz_n / torch.where(rz == 0, 1.0, rz)
+        torch.addcmul(z_n, beta, p, out=S_n[2])
+        conv = torch.dot(S_n[1], S_n[1]) / b2 < tol * tol
+        S = torch.where(done, S, S_n)
+        rz = torch.where(done, rz, rz_n)
+        done = done | conv
+    return S[0]
+
+
+def _damped_cg(H: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+               bsize: int, max_iters: int, tol: float) -> torch.Tensor:
+    d = torch.diagonal(H)
+    # same epsilon as the LU solve (solver/lm.py): pins exactly-zero rows
+    eps = 1e-12 * (1.0 + torch.max(d.abs()))
+    damp = u * d + eps
+
+    def matvec(x):
+        return torch.addmv(damp * x, H, x)
+
+    Minv = _block_jacobi_inv_damped(H, damp, bsize)
+
+    def precond(r):
+        W = r.shape[0] // bsize
+        return torch.bmm(Minv, r.reshape(W, bsize, 1)).reshape(-1)
+
+    return _pcg(matvec, precond, -g, max_iters, tol)
+
+
+class DampedCGGraph:
+    """solve_damped_cg for one shape on one card as a captured CUDA graph.
+    The graph reads the static buffers H, g and u and writes x; a solve
+    copies its operands in, replays, and returns a copy of x.  Capture
+    runs one trip first on a side stream (cuBLAS' handle and workspace),
+    then captures the preamble and all `max_iters` trips; a capture that
+    fails raises."""
+
+    def __init__(self, n: int, dtype: torch.dtype, device: torch.device,
+                 bsize: int, max_iters: int, tol: float):
+        t0 = time.perf_counter()
+        with torch.cuda.device(device):
+            self.H = torch.zeros((n, n), dtype=dtype, device=device)
+            self.g = torch.zeros(n, dtype=dtype, device=device)
+            self.u = torch.zeros((), dtype=dtype, device=device)
+            cur = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                _damped_cg(self.H, self.g, self.u, bsize, 1, tol)
+            cur.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.x = _damped_cg(self.H, self.g, self.u, bsize, max_iters,
+                                    tol)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, H, g, u):
+        self.H.copy_(H)
+        self.g.copy_(g)
+        self.u.copy_(u)
+        self.graph.replay()
+        return self.x.clone()
+
+
+# the captured solves, by (n, dtype, device, bsize, max_iters, tol); the
+# oldest is dropped past GRAPH_CACHE_SIZE (each holds an (n, n) buffer)
+GRAPH_CACHE_SIZE = 4
+_GRAPHS: OrderedDict = OrderedDict()
+
+
+def cg_graph(n: int, dtype: torch.dtype, device: torch.device,
+             bsize: int = 6, max_iters: int = 256,
+             tol: float = 1e-10) -> DampedCGGraph:
+    """The captured damped CG solve of this shape, capturing it on the
+    first call."""
+    key = (n, dtype, torch.device(device), bsize, max_iters, tol)
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = DampedCGGraph(n, dtype, key[2], bsize, max_iters, tol)
+        _GRAPHS[key] = graph
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+    _GRAPHS.move_to_end(key)
+    return graph
 
 
 def solve_damped_cg(
@@ -102,19 +193,11 @@ def solve_damped_cg(
     max_iters: int = 256,
     tol: float = 1e-10,
 ) -> torch.Tensor:
-    """Solve (H + u * diag(H)) dx = -g by block-Jacobi preconditioned CG."""
-    d = torch.diagonal(H)
-    # same epsilon as the LU solve (solver/lm.py): pins exactly-zero rows
-    eps = 1e-12 * (1.0 + torch.max(d.abs()))
-    damp = u * d + eps
-
-    def matvec(x):
-        return H @ x + damp * x
-
-    Minv = _block_jacobi_inv_damped(H, damp, bsize)
-
-    def precond(r):
-        W = r.shape[0] // bsize
-        return torch.einsum("wab,wb->wa", Minv, r.reshape(W, bsize)).reshape(-1)
-
-    return _pcg(matvec, precond, -g, max_iters, tol)
+    """Solve (H + u * diag(H)) dx = -g by block-Jacobi preconditioned CG:
+    `max_iters` done-masked trips, no read to the host.  On a CUDA tensor
+    one replay of the captured graph (cg_graph); on the CPU the trips run
+    eagerly."""
+    if H.device.type == "cuda":
+        return cg_graph(H.shape[0], H.dtype, H.device, bsize, max_iters,
+                        tol)(H, g, u)
+    return _damped_cg(H, g, u, bsize, max_iters, tol)

@@ -11,9 +11,14 @@ Replicates BALM2::damping_iter (include/BALM/bavoxel.hpp:662-767):
   * convergence freezes the state when |r1 - r2| / r1 < 1e-6
     (bavoxel.hpp:759-761);
   * free gauge: no pose is fixed, the damping regularizes.
-One factor evaluation per iteration, at the trial point.  The JAX loop is
-a fixed-trip fori_loop that freezes the state once converged; this loop
-stops there instead, which returns the same poses, residual and `iters`.
+One factor evaluation per iteration, at the trial point.  As in the
+reference (global_lvba_tpu/solver/lm.py:311-374), the accepted trial
+state is selected on the device (torch.where over R, p, residual, g, H)
+and the damped solve reads nothing to the host, so each iteration reads
+one value back: `converged`.  The JAX loop is a fixed-trip fori_loop
+that freezes the state once converged; this loop stops there instead,
+which returns the same poses, residual and `iters` and saves the frozen
+trips' evaluations.
 
 Where the JAX package leaves the dense-Gram loop — a bucketed solve at
 W >= 1024 (its banded probe and split LM) or reduced_solver="cg_mf" (its
@@ -79,7 +84,8 @@ def _solve_damped(H, g, u, refine: bool = True):
     d = torch.diagonal(H)
     eps = 1e-12 * (1.0 + torch.max(d.abs()))
     A = H + torch.diag(u * d + eps)
-    LU, piv = torch.linalg.lu_factor(A)
+    # lu_factor_ex: no error check, so no read to the host on the card
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
     rhs = -g[:, None]
     dx = torch.linalg.lu_solve(LU, piv, rhs)
     if refine:
@@ -104,7 +110,9 @@ def lm_damping_iter(
     reduced_solver: "lu" (dense LU), "cg" (block-Jacobi PCG, 48 trips) or
     "auto" (CG once 6W >= 1536, else LU).  A bucketed solve builds each
     bucket's frame table once (frame_gather_table) for all its
-    evaluations."""
+    evaluations: it reads the bucket's ids to the host there, before the
+    first evaluation, and then nothing but one `converged` per
+    iteration."""
     kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
     if not all(isinstance(fa, kinds) for fa in buckets):
         raise TypeError("buckets must be AlignedPlaneFactorArrays or "
@@ -134,8 +142,8 @@ def lm_damping_iter(
 
     R, p = R0, p0
     res1, g, H = cgh(R, p)
-    u = torch.tensor(u_init, dtype=R0.dtype, device=R0.device)
-    v = torch.tensor(v_init, dtype=R0.dtype, device=R0.device)
+    u = torch.full((), u_init, dtype=R0.dtype, device=R0.device)
+    v = torch.full((), v_init, dtype=R0.dtype, device=R0.device)
     it = 0
     for _ in range(max_iters):
         if solver == "cg":
@@ -147,8 +155,8 @@ def lm_damping_iter(
         q1 = 0.5 * torch.dot(dx, u * d * dx - g) / g_size
         res2, g_t, H_t = cgh(R_t, p_t)
         accept, u, v, converged = _nielsen_update(res1, res2, q1, u, v, rel_tol)
-        if bool(accept):
-            R, p, res1, g, H = R_t, p_t, res2, g_t, H_t
+        R, p, res1, g, H = (torch.where(accept, new, old) for new, old in (
+            (R_t, R), (p_t, p), (res2, res1), (g_t, g), (H_t, H)))
         it += 1
         if bool(converged):
             break

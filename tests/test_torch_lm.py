@@ -145,16 +145,21 @@ def test_bucketed_input_raises(w64):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cg_zero_gradient_stops_at_once(dtype):
+    """A zero gradient stops the iterate at once: it converges on the
+    first trip and the state freezes there, while the fixed-trip loop
+    runs its 48 trips on the frozen direction with no read to the host
+    (what stops is the iterate, no longer the loop)."""
     H = torch.eye(12, dtype=dtype) * 2.0
     trips = []
 
     def matvec(x):
-        trips.append(1)
+        trips.append(x.clone())
         return H @ x
 
     x = dist_solve._pcg(matvec, lambda r: r, torch.zeros(12, dtype=dtype),
                         max_iters=48, tol=1e-10)
-    assert len(trips) == 1 and torch.equal(x, torch.zeros(12, dtype=dtype))
+    assert len(trips) == 48 and torch.equal(x, torch.zeros(12, dtype=dtype))
+    assert all(torch.equal(t, trips[0]) for t in trips)
     dx = dist_solve.solve_damped_cg(H, torch.zeros(12, dtype=dtype),
                                     torch.tensor(0.01, dtype=dtype),
                                     max_iters=48)

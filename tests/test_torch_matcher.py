@@ -165,3 +165,178 @@ def test_pairs_outside_the_stack_raise(descriptor_sets, pair):
     ib = torch.tensor([1, pair[1]], dtype=torch.int32)
     with pytest.raises(IndexError):
         km.top2_similarity(d_all, d_all, v_all, v_all, ia, ib)
+
+
+# ---- the kernel's work units (csrc/matcher.cu), emulated on the CPU ----
+
+def _ends(v, K):
+    """1 + the last valid slot (0 if none), as the kernel's valid_end."""
+    if v is None:
+        return K
+    nz = np.flatnonzero(v)
+    return int(nz[-1]) + 1 if nz.size else 0
+
+
+def _masks(kind, K, rng):
+    v = np.zeros(K, bool)
+    if kind == "leading":
+        v[:max(1, K * 2 // 3)] = True
+    elif kind == "scattered":
+        v = rng.uniform(size=K) > 0.5
+    elif kind == "one":
+        v[K // 2] = True
+    elif kind == "all":
+        v[:] = True
+    return v      # "none": no valid slot
+
+
+MASKS = ["leading", "scattered", "empty", "one", "all"]
+
+
+@pytest.mark.parametrize("K1,K2", [(1, 1), (2, 300), (128, 129),
+                                   (300, 2), (129, 640), (2048, 2048)])
+def test_unit_plan_covers_every_valid_tile_once(K1, K2):
+    """Over the P·R·C units, every (row tile, column tile) of a pair that
+    holds a valid (row, column) product is computed by exactly one unit,
+    and no unit computes a tile past the last valid row or column."""
+    rng = np.random.default_rng(K1 + K2)
+    R, C = km.unit_grid(K1, K2)
+    for ka in MASKS:
+        for kb in MASKS:
+            va, vb = _masks(ka, K1, rng), _masks(kb, K2, rng)
+            a_end, b_end = _ends(va, K1), _ends(vb, K2)
+            seen = {}
+            for rt in range(R):
+                for cu in range(C):
+                    plan = km.unit_plan(rt, cu, K1, K2, a_end, b_end)
+                    if plan is None:
+                        continue
+                    cols, c_stop, c_hi = plan
+                    assert cols[0] == cu * km.UNIT_COLS and c_stop <= c_hi
+                    assert all(c < b_end for c in cols)
+                    for c0 in cols:
+                        seen[(rt, c0)] = seen.get((rt, c0), 0) + 1
+            assert all(n == 1 for n in seen.values())
+            for rt in range(R):
+                rows = va[rt * km.ROW_TILE:(rt + 1) * km.ROW_TILE]
+                for c0 in range(0, K2, km.COL_TILE):
+                    cols = vb[c0:c0 + km.COL_TILE]
+                    if rows.any() and cols.any():
+                        assert (rt, c0) in seen
+
+
+def _merge(s, o):
+    """The kernel's (best, second, index) merge, over rows (torch)."""
+    b, sec, i = s
+    ob, osec, oi = o
+    take = (ob > b) | ((ob == b) & (oi < i))
+    second = torch.maximum(torch.minimum(b, ob), torch.maximum(sec, osec))
+    return torch.where(take, ob, b), second, torch.where(take, oi, i)
+
+
+def _take_best(s, o):
+    b, i = s
+    ob, oi = o
+    take = (ob > b) | ((ob == b) & (oi < i))
+    return torch.where(take, ob, b), torch.where(take, oi, i)
+
+
+def _tile_top2(sim, c0):
+    """(best, second, index) of each row of a column tile."""
+    n = sim.shape[1]
+    best, arg = sim.max(dim=1)
+    second = (torch.topk(sim, 2, dim=1).values[:, 1] if n > 1
+              else torch.full_like(best, float("-inf")))
+    return best, second, arg.to(torch.int64) + c0
+
+
+def _emulate(d1, d2, v1, v2):
+    """top2_similarity as the kernel decomposes it: units, their row and
+    column partials (column tiles merged into a running state, closed
+    forms for what a unit skips), then the reduction in order; the
+    products are the plain version's."""
+    K1, K2 = d1.shape[0], d2.shape[0]
+    sim = torch.bmm(torch.as_tensor(d1)[None],
+                    torch.as_tensor(d2)[None].transpose(1, 2))[0]
+    ok = torch.as_tensor(v1)[:, None] & torch.as_tensor(v2)[None, :]
+    sim = torch.where(ok, sim, torch.full_like(sim, -2.0))
+    a_end, b_end = _ends(v1, K1), _ends(v2, K2)
+    R, C = km.unit_grid(K1, K2)
+    ninf = float("-inf")
+    rows = [[None] * C for _ in range(R)]
+    cols = [[None] * C for _ in range(R)]
+    for rt in range(R):
+        r_lo, r_hi = rt * km.ROW_TILE, min((rt + 1) * km.ROW_TILE, K1)
+        n = r_hi - r_lo
+        for cu in range(C):
+            c_lo = cu * km.UNIT_COLS
+            c_hi = min(c_lo + km.UNIT_COLS, K2)
+            plan = km.unit_plan(rt, cu, K1, K2, a_end, b_end)
+            if plan is None:
+                rows[rt][cu] = (torch.full((n,), -2.0),
+                                torch.full((n,), -2.0 if c_hi - c_lo > 1
+                                           else ninf),
+                                torch.full((n,), c_lo, dtype=torch.int64))
+                cols[rt][cu] = (torch.full((c_hi - c_lo,), -2.0),
+                                torch.full((c_hi - c_lo,), r_lo,
+                                           dtype=torch.int64))
+                continue
+            tiles, c_stop, c_hi = plan
+            st = (torch.full((n,), ninf), torch.full((n,), ninf),
+                  torch.full((n,), 2 ** 31 - 1, dtype=torch.int64))
+            cv, ci = [], []
+            for c0 in tiles:
+                c1 = min(c0 + km.COL_TILE, K2)
+                tile = sim[r_lo:r_hi, c0:c1]
+                st = _merge(st, _tile_top2(tile, c0))
+                b, a = tile.max(dim=0)
+                cv.append(b)
+                ci.append(a.to(torch.int64) + r_lo)
+            if c_stop < c_hi:
+                st = _merge(st, (torch.full((n,), -2.0),
+                                 torch.full((n,), -2.0 if c_hi - c_stop > 1
+                                            else ninf),
+                                 torch.full((n,), c_stop,
+                                            dtype=torch.int64)))
+                cv.append(torch.full((c_hi - c_stop,), -2.0))
+                ci.append(torch.full((c_hi - c_stop,), r_lo,
+                                     dtype=torch.int64))
+            rows[rt][cu] = st
+            cols[rt][cu] = (torch.cat(cv), torch.cat(ci))
+    vals, idx = [], []
+    for rt in range(R):
+        s = rows[rt][0]
+        for cu in range(1, C):
+            s = _merge(s, rows[rt][cu])
+        vals.append(torch.stack([s[0], s[1]], dim=1))
+        idx.append(s[2])
+    colarg = []
+    for cu in range(C):
+        s = cols[0][cu]
+        for rt in range(1, R):
+            s = _take_best(s, cols[rt][cu])
+        colarg.append(s[1])
+    return (torch.cat(vals), torch.cat(idx).to(torch.int32),
+            torch.cat(colarg).to(torch.int32))
+
+
+@pytest.mark.parametrize("K1,K2,ka,kb", [
+    (300, 2000, "all", "all"), (300, 2000, "leading", "scattered"),
+    (129, 640, "scattered", "leading"), (128, 129, "empty", "all"),
+    (2, 300, "one", "one"), (1, 1, "all", "all"), (300, 2, "all", "empty"),
+    (640, 513, "leading", "leading")])
+def test_unit_decomposition_equals_plain_bit_for_bit(K1, K2, ka, kb):
+    """The work units and their merges give top2_similarity_plain's
+    values and indices bit for bit, with planted ties and tail winners."""
+    rng = np.random.default_rng(K1 * 7 + K2)
+    d1, d2 = _unit(rng, K1), _unit(rng, K2)
+    v1, v2 = _masks(ka, K1, rng), _masks(kb, K2, rng)
+    if K1 > 10 and K2 > 600:
+        d2[[40, 300, K2 - 1]] = d1[5]       # identical best columns
+        d1[[9, K1 - 2]] = d2[11]            # identical best rows
+        d2[K2 - 3] = d1[3]                  # a best column in the tail
+    got = _emulate(d1, d2, v1, v2)
+    want = km.top2_similarity_plain(*(torch.as_tensor(x)
+                                      for x in (d1, d2, v1, v2)))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
