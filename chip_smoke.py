@@ -6,7 +6,8 @@ NVIDIA GPU.  Run from the repository root:
 
 Phases (any failure raises, so the exit code is non-zero):
   1. set-up: the card's name and power limit, TF32 off, the kernels built
-     from global_lvba_tpu_torch/csrc (timed);
+     from global_lvba_tpu_torch/csrc (timed), the DMMA (fp64 tensor-core)
+     instructions counted in syrk_f64_kernel's SASS (cuobjdump; none fails);
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it (the W=512 scene below,
      every voxel chunk of one evaluation), with the tolerance printed,
@@ -22,7 +23,10 @@ Phases (any failure raises, so the exit code is non-zero):
  2d. the float64 instances of kernels 1-3 (soa_agg_f64, soa_chain_f64,
      syrk_f64) on the same operands in float64 against their plain
      versions in float64 (the TOL64_* limits), timed beside them; the
-     bounds at 8 B a value and the data sheet's fp64 rates;
+     bounds at 8 B a value and the data sheet's fp64 rates; syrk_f64 also
+     on ragged operands (N = 270, 60 and 45 over 1,001 seeded rows, and
+     N = 270 off 16-byte alignment) and at Kr = 0 (no launch); one float64
+     evaluation timed and under torch.profiler (each kernel's own time);
   3. evaluation: plane_cost_grad_hess through the kernels against the same
      evaluation through the plain versions; the Hessian of two kernel
      evaluations must be bitwise equal; one evaluation under
@@ -55,15 +59,23 @@ Slice 2, the bucketed layout:
      plain version; soa_agg on per-entry pose rows and soa_chain_entries
      under slice 1's tolerances and well-conditioned-voxel rule;
      entry_reduce relative to max |.|, two calls bitwise equal; each timed
-     beside its plain version, its library call and its bound; syrk on the
-     corridor's Gram operands, checked as in phase 2 and timed in turns
-     with torch.matmul(A.T, A);
+     beside its plain version, its library call and its bound;
+     soa_chain_entries also with A over a block the caching allocator was
+     handed back filled with NaN (A must take it, and be exactly zero off
+     the live entries' cells), on every chunk, with frame ids -1, W and
+     W + 3 planted in live entries, and on an odd-W bucketed problem
+     (W = 45); syrk on the corridor's Gram operands, checked as in phase 2
+     and timed in turns with torch.matmul(A.T, A);
  6f. the float64 instances of table_select, soa_agg, soa_chain_entries and
      entry_reduce on the same operands in float64, checked and timed as
-     in 2d;
+     in 2d, soa_chain_entries_f64 also as in 6; syrk_f64 on the corridor's
+     float64 Gram operands, checked as in 2d and timed in turns with
+     torch.matmul; one float64 evaluation over the buckets timed and under
+     torch.profiler;
   7. the bucketed evaluation over the corridor's five buckets: kernels
      against the plain steps (r, g, H), H bitwise repeatable, device ms,
-     each kernel's own device time under torch.profiler;
+     each kernel's own device time and the fill kernels under
+     torch.profiler, and no fill op on a tensor of A's shape;
   8. path 2a: run_lidar_ba with the window stage on (ladder 3's LiDAR
      settings, 200 frames / 2.0 M points; 20 windows at W=10, two anchor
      stages at W=20, every solve bucketed): every bucketed kernel must have
@@ -165,6 +177,15 @@ TOL_GRAM_REL = 1e-4      # AᵀA over 3V = 4,095 rows, relative to max |AᵀA|
 # syrk's checks beyond the main path's operands: W = 45 (odd: N = 270) and a
 # path-2a window's N = 60, both over 1,001 seeded rows (not a multiple of 32)
 SYRK_RAGGED = ((1001, 270), (1001, 60))
+# syrk_f64's ragged checks: those and N = 45 (odd: its 8-byte copies), and
+# N = 270 from an operand 8 bytes off 16-byte alignment (the same path);
+# 1,001 rows are not a multiple of its 16-row k-tile
+SYRK64_RAGGED = ((1001, 270, 0), (1001, 60, 0), (1001, 45, 0),
+                 (1001, 270, 1))
+# soa_chain_entries' odd-W bucketed problem: at W = 45, 6W float32 values
+# a row are not a multiple of 16 bytes, so A's rows start off 16-byte
+# alignment
+ODD_W = 45
 TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
 # The float64 instances against their plain float64 versions: the float32
 # limits above scaled down by eps64 / eps32 = 2^-29 leave 1e-14 to 1e-12;
@@ -177,6 +198,8 @@ TOL64_PV = 1e-9
 TOL64_ROWS_REL = 1e-9     # factor rows and the per-entry channels
 TOL64_SUM_REL = 1e-9      # g, Hd, entry_reduce
 TOL64_GRAM_REL = 1e-11    # AᵀA relative to max |AᵀA|
+# the ops that fill a tensor (torch.zeros and new_zeros end in zero_)
+FILL_OPS = ("aten::zero_", "aten::fill_")
 KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
                   "syrk": "syrk_kernel", "syrk_split": "syrk_split_kernel",
                   "table_select": "table_select_kernel",
@@ -315,6 +338,148 @@ def _split_bound(As):
     nbytes = sum(A.numel() * 4 + 2 * 4 * math.prod(padded_shape(*A.shape))
                  for A in As)
     return _bound(nbytes, 0)
+
+
+def _dmma_count(build):
+    """DMMA instructions in syrk_f64_kernel's SASS in the built library
+    (cuobjdump -sass), and their distinct opcodes."""
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(build.library("syrk"))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    count, ops, inside = 0, set(), False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "syrk_f64_kernel" in line
+        elif inside and "DMMA" in line:
+            count += 1
+            ops.update(w for w in line.replace(";", " ").split()
+                       if w.startswith("DMMA"))
+    return count, sorted(ops)
+
+
+def _kernel_times(prof_eval, names):
+    """{launcher: (device ms, launches)} in a torch.profiler run: each
+    kernel by its symbol, a float64 instance (`_f64`) by the `double` in
+    its signature and a float32 one by its absence."""
+    out = {}
+    for name in names:
+        f64 = name.endswith("_f64")
+        sym = ("syrk_f64_kernel" if name == "syrk_f64"
+               else KERNEL_SYMBOLS[name[:-4] if f64 else name])
+        hits = [v for k, v in prof_eval.items()
+                if sym in k and ("double" in k) == f64]
+        if hits:
+            out[name] = (sum(h[0] for h in hits), sum(h[1] for h in hits))
+    return out
+
+
+def _planted(torch, args):
+    """Chain arguments (n, mu, Pc, poses, frame, pv, W) with the frame ids
+    -1, W and W + 3 planted in a live entry of each of the first three
+    voxels that have one (no row may be written for them)."""
+    n, frame, W = args[0], args[4], args[6]
+    f = frame.clone()
+    live = n > 0
+    vs = torch.nonzero(live.any(dim=1)).reshape(-1)[:3].tolist()
+    if len(vs) < 3:
+        _fail("too few live voxels to plant frame ids in")
+    for v, bad in zip(vs, (-1, W, W + 3)):
+        f[v, int(torch.nonzero(live[v]).reshape(-1)[0])] = bad
+    return args[:4] + (f,) + args[5:]
+
+
+def _odd_w_args(torch, dev):
+    """Chain arguments of an odd-width bucketed problem, every bucket of
+    make_corridor_scene(ODD_W, CORRIDOR_PPF) at its perturbed poses
+    (float32; pv from soa_agg)."""
+    from global_lvba_tpu_torch.__main__ import slice_config
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        PlaneFactorArrays, pose_table)
+    from global_lvba_tpu_torch.kernels.selection import table_select
+    from global_lvba_tpu_torch.kernels.soa import soa_agg
+    from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_corridor_scene, perturb_poses)
+
+    cfg = slice_config("float32")
+    sc = make_corridor_scene(ODD_W, CORRIDOR_PPF, seed=0)
+    Rp, pp = perturb_poses(sc.R_true, sc.p_true, 0.003, 0.01, seed=1)
+    vm = build_voxel_map(sc.points_body, sc.frame_ids, Rp, pp, VOXEL,
+                         eigen_ratios=[RATIO] * 4, min_ps=cfg.solver.min_ps,
+                         layer_limit=cfg.solver.layer_limit)
+    bs = buckets_to_device(vm, W=ODD_W, dtype=torch.float32, device=dev)
+    if not all(isinstance(fa, PlaneFactorArrays) for fa in bs):
+        _fail(f"W={ODD_W}: the density gate does not pick the bucketed "
+              f"layout")
+    pose12 = pose_table(
+        torch.as_tensor(Rp, dtype=torch.float32, device=dev),
+        torch.as_tensor(pp, dtype=torch.float32, device=dev))
+    out = []
+    for fa in bs:
+        V, K = fa.n.shape
+        poses = table_select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
+        pv = soa_agg(fa.n, fa.mu, fa.Pc, poses)[1]
+        out.append((fa.n, fa.mu, fa.Pc, poses, fa.frame, pv, ODD_W))
+    return out
+
+
+def _to_f64(torch, args):
+    """Chain arguments in float64, pv recomputed by soa_agg in float64."""
+    from global_lvba_tpu_torch.kernels.soa import soa_agg
+
+    out = []
+    for n, mu, Pc, poses, frame, _, W in args:
+        x = tuple(t.double() for t in (n, mu, Pc, poses))
+        out.append(x + (frame, soa_agg(*x)[1], W))
+    return out
+
+
+def _chain_entries_full_write(torch, label, args, tol):
+    """soa_chain_entries (float32 or float64) on each chain-argument tuple
+    (n, mu, Pc, poses, frame, pv, W), its A allocated by the wrapper's
+    torch.empty right after the caching allocator was handed back a block
+    of A's size filled with NaN: A must take that block, hold no NaN, be
+    exactly zero off the cells of the live entries with frame ids in
+    [0, W), and agree with soa_chain_entries_plain (A and vals) within tol
+    relative to each one's max |.|."""
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_chain_entries, soa_chain_entries_plain)
+
+    err_A = err_v = 0.0
+    reused = clean = 0
+    for a in args:
+        n, frame, W = a[0], a[4], a[6]
+        V, K = n.shape
+        vals = torch.empty((V * K, 30), dtype=n.dtype, device=n.device)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        nan = torch.full((3 * V, 6 * W), float("nan"), dtype=n.dtype,
+                         device=n.device)
+        ptr = nan.data_ptr()
+        del nan
+        A, _ = soa_chain_entries(*a, vals=vals)
+        Ap, vp = soa_chain_entries_plain(*a)
+        torch.cuda.synchronize()
+        f = frame.long()
+        vi, ki = torch.nonzero((n > 0) & (f >= 0) & (f < W), as_tuple=True)
+        on = torch.zeros((V, W), dtype=torch.bool, device=n.device)
+        on[vi, f[vi, ki]] = True
+        off = (~on)[:, None, :, None].expand(V, 3, W, 6)
+        reused += A.data_ptr() == ptr
+        clean += bool(~A.isnan().any()) and bool(
+            (A.view(V, 3, W, 6)[off] == 0).all())
+        err_A = max(err_A, _rel(A, Ap))
+        err_v = max(err_v, _rel(vals, vp))
+    print(f"[{label}] {len(args)} calls, A over a NaN-filled block: block "
+          f"reused {reused}/{len(args)}, no NaN and exact zeros off the "
+          f"entries' cells {clean}/{len(args)}; rel err vs the plain "
+          f"version: A {err_A:.3e}, vals {err_v:.3e} (tol {tol})",
+          flush=True)
+    if not (reused == clean == len(args) and err_A <= tol and err_v <= tol):
+        _fail(f"{label}: soa_chain_entries does not write A in full or "
+              f"disagrees with its plain version")
 
 
 def _syrk_check(torch, label, As, N):
@@ -568,11 +733,20 @@ def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
     return err_r
 
 
-def _aligned_f64(torch, kern, ops, pose12, live, wc, lam0, lam2, W):
+def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
+                 lam0, lam2, W):
     """Phase 2d: the float64 instances of kernels 1-3 (soa_agg_f64,
     soa_chain_f64, syrk_f64) against their plain versions in float64 on
     the main path's operands, timed beside them and their bounds (bytes
-    at 8 B a value; operations at the fp64 rates)."""
+    at 8 B a value; operations at the fp64 rates); syrk_f64 also on ragged
+    operands and at Kr = 0; one float64 evaluation timed and under
+    torch.profiler for each kernel's own device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.factors.plane_eigen import plane_cost_grad_hess
+    from global_lvba_tpu_torch.kernels import launch_counts
+    from global_lvba_tpu_torch.kernels.gram import syrk_
     from global_lvba_tpu_torch.kernels.soa import (
         soa_agg, soa_agg_plain, soa_chain, soa_chain_plain)
 
@@ -622,13 +796,49 @@ def _aligned_f64(torch, kern, ops, pose12, live, wc, lam0, lam2, W):
     As = [a[0] for a in ch_k]
     del ch_k, ch_p, agg_k, agg_p
     kern["syrk_f64"] = _syrk_f64_check(torch, "aligned W=512", As, 6 * W)
+    del As
+    rng = np.random.default_rng(5)
+    for kr_, n_, off in SYRK64_RAGGED:
+        flat = torch.as_tensor(rng.normal(size=kr_ * n_ + off),
+                               device=pose12.device)
+        A_ = flat[off:].view(kr_, n_)
+        _syrk_f64_check(torch, f"ragged N={n_}"
+                        + (f", A {8 * off} B off 16-byte alignment"
+                           if off else ""), [A_], n_, timed=False)
+    N = 6 * W
+    before = launch_counts()
+    g0 = torch.zeros((N, N), dtype=d, device=pose12.device)
+    out0 = syrk_(g0, torch.empty((0, N), dtype=d, device=pose12.device))
+    torch.cuda.synchronize()
+    empty_ok = (out0 is g0 and launch_counts() == before
+                and not bool(g0.any()))
+    print(f"[syrk_f64] Kr = 0: returns gram unchanged with no launch: "
+          f"{empty_ok}", flush=True)
+    if not empty_ok:
+        _fail("syrk_ launched or changed gram on an empty float64 operand")
+    del g0
+    # one float64 evaluation: device ms, and each kernel's own time
+    fa64 = fa._replace(n=fa.n.to(d), mu=fa.mu.to(d), Pc=fa.Pc.to(d))
+    R64, p64 = R.to(d), p.to(d)
+    ms, ahead = _timed(torch, lambda: plane_cost_grad_hess(fa64, R64, p64, W))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        plane_cost_grad_hess(fa64, R64, p64, W)
+        torch.cuda.synchronize()
+    per = _kernel_times(_device_ms(prof), ALIGNED_F64_KERNELS)
+    for name, (k_ms, _) in per.items():
+        kern[name]["kernel_device_ms"] = k_ms
+    print(f"[eval float64] {ms:.4f} ms device time (queued ahead {ahead}); "
+          f"profiler, (device ms, launches) per evaluation by kernel: {per}",
+          flush=True)
+    results["eval_float64"] = dict(ms=ms, queued_ahead=ahead, per_kernel=per)
 
 
-def _syrk_f64_check(torch, label, As, N):
+def _syrk_f64_check(torch, label, As, N, timed=True):
     """syrk_ on float64 operands As into one gram: within TOL64_GRAM_REL of
     syrk_plain_ and torch.matmul, exactly symmetric, two runs bitwise
-    equal; timed in turns with torch.matmul(A.T, A).  Its bound:
-    Kr·N·(N+1) flops at the fp64 tensor-core rate."""
+    equal; with `timed`, timed in turns with torch.matmul(A.T, A).  Its
+    bound: Kr·N·(N+1) flops at the fp64 tensor-core rate."""
     from global_lvba_tpu_torch.kernels.gram import syrk_, syrk_plain_
 
     gk = torch.zeros((N, N), dtype=torch.float64, device=As[0].device)
@@ -651,6 +861,8 @@ def _syrk_f64_check(torch, label, As, N):
         _fail(f"syrk_ disagrees with AᵀA on the float64 {label} operand")
     out = dict(max_abs_err=float((gk - gp).abs().max()))
     del gk2, gp, gl
+    if not timed:
+        return out
     out.update(_times_in_turns(torch, "syrk_f64",
                                lambda: [syrk_(gk, A) for A in As],
                                lambda: [syrk_plain_(gk, A) for A in As],
@@ -660,22 +872,27 @@ def _syrk_f64_check(torch, label, As, N):
                           FP64_TC_FLOP_PER_S)
     print(f"[syrk_f64] {label}: {flops / 1e9:.1f} GFLOP; bound "
           f"{out['bound'][0]:.4f} ms ({out['bound'][1]}, fp64 at "
-          f"{FP64_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s on the tensor cores, "
-          f"{flops / FP64_FLOP_PER_S * 1e3:.4f} ms at the "
-          f"{FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s of the fp64 units the kernel "
-          f"uses); {flops / out['ms'] / 1e9:.1f} TFLOP/s at the wrapper's "
-          f"{out['ms']:.4f} ms; torch.matmul {out['library_ms']:.4f} ms",
-          flush=True)
+          f"{FP64_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s on the tensor cores); "
+          f"{flops / out['ms'] / 1e9:.1f} TFLOP/s at the wrapper's "
+          f"{out['ms']:.4f} ms; torch.matmul {out['library_ms']:.4f} ms "
+          f"({flops / out['library_ms'] / 1e9:.1f} TFLOP/s)", flush=True)
     return out
 
 
-def _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
-                  lam2, pose12, W):
+def _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
+                  lam0, lam2, pose12, R, p, W, odd_args):
     """Phase 6f: the float64 instances of the bucketed kernels
     (table_select_f64, soa_agg_f64 on per-entry pose rows,
     soa_chain_entries_f64, entry_reduce_f64) against their plain versions
     in float64 on path 2b's operands, timed beside them, their library
-    calls and their bounds."""
+    calls and their bounds; soa_chain_entries_f64 also over NaN-filled
+    memory, with planted frame ids and at W = 45; syrk_f64 on the
+    corridor's Gram operands; one float64 evaluation timed and under
+    torch.profiler for each kernel's own device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        KERNEL_STEPS, _cost_grad_hess)
     from global_lvba_tpu_torch.kernels.selection import (
         entry_reduce, entry_reduce_plain, table_select, table_select_plain)
     from global_lvba_tpu_torch.kernels.soa import (
@@ -738,7 +955,18 @@ def _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
         bound=_bound(VK * 25 * 8 + VK * 4 + Vs * 16 * 8 + VK * 30 * 8
                      + 3 * Vs * 6 * W * 8, VK * CHAIN_FLOPS_PER_CELL,
                      FP64_FLOP_PER_S))
+    _chain_entries_full_write(torch, "soa_chain_entries_f64 2b", chain_args,
+                              TOL64_ROWS_REL)
+    big = max(chain_args, key=lambda a: a[0].shape[0])
+    _chain_entries_full_write(torch, "soa_chain_entries_f64 planted ids",
+                              [_planted(torch, big)], TOL64_ROWS_REL)
+    _chain_entries_full_write(torch, f"soa_chain_entries_f64 W={ODD_W}",
+                              _to_f64(torch, odd_args), TOL64_ROWS_REL)
+    As = [a[0] for a in ch_k]
     del ch_k, ch_p, agg_k, agg_p
+    results["syrk_f64_2b"] = _syrk_f64_check(torch, "corridor W=512", As,
+                                             6 * W)
+    del As
     vals, off = [], 0
     for fa in bs:
         vals.append(vk[off:off + fa.n.numel()].contiguous())
@@ -771,6 +999,27 @@ def _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
                           for v, f in zip(vals, frames64)]),
         bound=_bound(live_e * 30 * 8 + kw * 4 + len(bs) * W * 30 * 8,
                      live_e * 30, FP64_FLOP_PER_S))
+    # one float64 evaluation over the buckets: device ms, kernel times
+    R64, p64 = R.to(d), p.to(d)
+
+    def cgh64():
+        return [_cost_grad_hess(KERNEL_STEPS, fa, R64, p64, W, tbl=t)
+                for fa, t in zip(bs, tbls)]
+
+    ms, ahead = _timed(torch, cgh64)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cgh64()
+        torch.cuda.synchronize()
+    per = _kernel_times(_device_ms(prof), BUCKETED_F64_KERNELS)
+    for name, (k_ms, _) in per.items():
+        # soa_agg_f64's and syrk_f64's rows keep the aligned evaluation's
+        kern[name].setdefault("kernel_device_ms", k_ms)
+    print(f"[eval 2b float64] {ms:.4f} ms device time (queued ahead "
+          f"{ahead}); profiler, (device ms, launches) per evaluation by "
+          f"kernel: {per}", flush=True)
+    results["eval_2b_float64"] = dict(ms=ms, queued_ahead=ahead,
+                                      per_kernel=per)
 
 
 def _stage_lines(tag, stats):
@@ -921,6 +1170,16 @@ def _slice2(torch, np, dev, kern, results, paths):
                      + 3 * Vs * 6 * W * 4, VK * CHAIN_FLOPS_PER_CELL),
     )
     del ch_p
+    # A written in full: over NaN-filled memory, with planted frame ids,
+    # and at an odd W (the stores' narrow path)
+    _chain_entries_full_write(torch, "soa_chain_entries 2b", chain_args,
+                              TOL_ROWS_REL)
+    big = max(chain_args, key=lambda a: a[0].shape[0])
+    _chain_entries_full_write(torch, "soa_chain_entries planted ids",
+                              [_planted(torch, big)], TOL_ROWS_REL)
+    odd_args = _odd_w_args(torch, dev)
+    _chain_entries_full_write(torch, f"soa_chain_entries W={ODD_W}",
+                              odd_args, TOL_ROWS_REL)
 
     # ---- 6d. entry_reduce: relative to max |.|, two calls bitwise equal ----
     vals, off = [], 0
@@ -981,8 +1240,9 @@ def _slice2(torch, np, dev, kern, results, paths):
     del scratch, As
     del ch_k, vk, vp, vals, agg_k, agg_p, ops, chain_args
     # ---- 6f. the float64 instances of the bucketed kernels ----
-    _bucketed_f64(torch, kern, bs, frames, tbls, chunks, live, wc, lam0,
-                  lam2, pose12, W)
+    _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
+                  lam0, lam2, pose12, R, p, W, odd_args)
+    del odd_args
 
     # ---- 7. the bucketed evaluation over the corridor's buckets ----
     def cgh(steps, fas, tables):
@@ -1032,11 +1292,17 @@ def _slice2(torch, np, dev, kern, results, paths):
             and e_H <= TOL_EVAL_REL and same):
         _fail("the bucketed kernel evaluation disagrees with the plain one "
               "or is not repeatable")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         cgh(KERNEL_STEPS, bs, tbls)
         torch.cuda.synchronize()
     prof_eval = _device_ms(prof)
+    # no fill may touch A: the fill ops' tensors, by shape, against the
+    # buckets' Gram operands (3V, 6W)
+    a_shapes = {(3 * fa.n.shape[0], 6 * W) for fa in bs}
+    fill_shapes = [tuple(sh) for e in prof.events() if e.name in FILL_OPS
+                   for sh in e.input_shapes if sh]
+    a_fills = [sh for sh in fill_shapes if sh in a_shapes]
     per_kernel = {}
     for name, sym in KERNEL_SYMBOLS.items():
         hits = [v for k, v in prof_eval.items() if sym in k]
@@ -1044,8 +1310,17 @@ def _slice2(torch, np, dev, kern, results, paths):
             per_kernel[name] = hits[0]
             if name in kern and "kernel_device_ms" not in kern[name]:
                 kern[name]["kernel_device_ms"] = hits[0][0]
+    fills = {k[:60]: v for k, v in prof_eval.items() if "Fill" in k}
     print(f"[eval 2b] profiler, (device ms, launches) per evaluation by "
-          f"kernel: {per_kernel}", flush=True)
+          f"kernel: {per_kernel}; fill kernels: {fills}; fill ops by "
+          f"shape: {sorted(set(fill_shapes))}, of A's shape "
+          f"{sorted(a_shapes)}: {len(a_fills)}", flush=True)
+    if a_fills:
+        _fail(f"the bucketed evaluation fills A ({a_fills}): the chain "
+              f"kernel writes every element of it")
+    if not fill_shapes:
+        _fail("the profile recorded no fill op's shape: the check that "
+              "no fill touches A saw nothing")
     N, kr = 6 * W, 3 * Vs
     syrk_ms = per_kernel.get("syrk", (float("nan"), 0))[0]
     split_ms = per_kernel.get("syrk_split", (float("nan"), 0))[0]
@@ -1060,7 +1335,7 @@ def _slice2(torch, np, dev, kern, results, paths):
                               host_queue_ms=host_ms, r_rel=e_r,
                               g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
                               queued_ahead=ahead_e, per_kernel=per_kernel,
-                              syrk_bound=syrk_bound,
+                              syrk_bound=syrk_bound, fills=fills,
                               profiler_device_ms=prof_eval)
     del r1, g1, H1, r2, g2, H2, rq
 
@@ -1753,6 +2028,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "(reused)" in line:
                 print(f"[setup] {name}: {line.strip()}", flush=True)
+    n_dmma, dmma_ops = _dmma_count(build)
+    results["syrk_f64_dmma"] = dict(count=n_dmma, opcodes=dmma_ops)
+    print(f"[setup] syrk_f64_kernel's SASS: {n_dmma} DMMA instructions "
+          f"{dmma_ops}", flush=True)
+    if n_dmma == 0:
+        _fail("syrk_f64_kernel's SASS holds no DMMA: the fp64 tensor cores "
+              "are not used")
 
     # ---- the main path's problem: the W=512 scene, stage-1 voxelization ----
     W = FRAMES
@@ -1904,7 +2186,8 @@ def main() -> int:
           flush=True)
     del scratch, g0, As, ch_k, ch_p
     # ---- 2d. the float64 instances of kernels 1-3 ----
-    _aligned_f64(torch, kern, ops, pose12, live, wc, lam0, lam2, W)
+    _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
+                 lam0, lam2, W)
 
     # ---- 3. evaluation ----
     r1, g1, H1 = plane_cost_grad_hess(fa, R, p, W)

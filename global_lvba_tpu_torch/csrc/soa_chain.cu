@@ -16,22 +16,34 @@
 //
 // soa_chain_entries_kernel, the bucketed layout: `_chain_kernel` on its
 // native layout (poses pre-gathered per entry, plane_eigen.py:1388-1390),
-// one thread per (voxel, slot) entry e = v·K + k.  It reads the entry's
-// moments, its pose row (table_select's output) and its voxel's pv, and
-//   * writes the 30 unique g/Hd channels (jjt 6 | d36 at _D_UNIQUE 24) to
-//     vals[e, :] — zeros for a dead entry (n == 0) — for the frame
-//     segment-sum (selection.cu entry_reduce_kernel);
-//   * scatters its three factor rows into the zero-filled Gram operand
-//     A (3V, 6W) at A[3v + r, 6·frame[e] + c]: the one-hot M expansion of
-//     plane_eigen.py:1485-1489 as an exact store.  A voxel observes a
-//     frame at most once, so no two entries write one cell; a dead entry,
-//     or one whose frame id lies outside [0, W), writes nothing (its
-//     one-hot column is zero in the JAX expansion).
-// Bound: bytes — 13 moment + 12 pose + 1 id floats in and 30 + 18 floats
-// out per entry, plus the memset of A that the wrapper makes; ~560 flops
-// per entry stay far below the card's FLOP/byte balance.  The entry's
-// values live in registers; the stores of a thread are strided (30
-// contiguous floats, 3 runs of 6), which the L2 merges.
+// entries e = v·K + k.  It writes
+//   * the 30 unique g/Hd channels (jjt 6 | d36 at _D_UNIQUE 24) of every
+//     entry to vals[e, :] — zeros for a dead entry (n == 0) — for the
+//     frame segment-sum (selection.cu entry_reduce_kernel);
+//   * every element of the Gram operand A (3V, 6W): entry e's three
+//     factor rows at A[3v + r, 6·frame[e] + c], zero elsewhere — the one-hot
+//     M expansion of plane_eigen.py:1485-1489 as an exact store.  A voxel
+//     observes a frame at most once, so no two entries write one cell; a
+//     dead entry, or one whose frame id lies outside [0, W), writes no
+//     rows (its one-hot column is zero in the JAX expansion).
+// Bound: bytes — A written once (18·W values a voxel: 172 MB of the
+// corridor's 218 MB in float32), 13 moment + 12 pose + 1 id values in and
+// 30 out per entry, 16 pv values per voxel; ~560 flops per live entry stay
+// far below the card's FLOP/byte balance.
+// Design: a block owns `vt` whole voxels (chain_entries_tile picks vt from
+// K and V: at most CHAIN_MAX_ENTRIES = 128 entries, one round of the
+// block's threads, and enough blocks to spread A's writes).  It stages its entries' inputs (n,
+// μ, Pc, pose rows, frame ids; the voxels' pv) into shared memory with
+// coalesced 16-byte loads and, after one __syncthreads(), each thread runs
+// the chain of one live entry (a dead slot costs no chain), keeps its 18
+// row values in registers and puts its 30 channels in shared memory.  Then
+// A, voxel by voxel: the voxel's three rows (contiguous) are zero-filled
+// with 16-byte stores (single values at unaligned ends: any W) and, behind
+// one __syncthreads(), its live entries store their rows over the zeros
+// while the L2 still holds those lines (filling the block's whole span
+// first let them leave the L2 before the rows came: slower).  Last, the
+// block's vals rows leave as one contiguous, coalesced store.  K > 128
+// takes rounds of 128 entries, so shared memory stays bounded at any K.
 //
 // Both kernels are templated on the scalar: the launchers without a
 // suffix take float (float32 solves), the _f64 ones double (float64
@@ -252,45 +264,165 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
   for (int i = 0; i < 30; ++i) o[(int64_t)i * W] = acc[i];
 }
 
+// The limits of chain_entries_tile (kernels/soa.py CHAIN_MAX_ENTRIES and
+// CHAIN_MAX_TILE), passed by kernels/build.py.
+#if !defined(LVBA_CHAIN_MAX_ENTRIES) || !defined(LVBA_CHAIN_MAX_TILE)
+#error "built by kernels/build.py, which passes the per-entry block limits"
+#endif
+constexpr int kEntryThreads = LVBA_CHAIN_MAX_ENTRIES;  // entries a round
+constexpr int kMaxTile = LVBA_CHAIN_MAX_TILE;          // voxels a block
+static_assert(kEntryThreads % 32 == 0 && kEntryThreads <= 1024,
+              "one entry a thread, whole warps");
+
+// The first value of a span staged at shared memory `sm` (16-byte aligned,
+// with 16 bytes of slack) sits at the span's own misalignment, so the
+// span's 16-byte chunks land on 16-byte chunks of shared memory.
+template <typename U>
+__device__ __forceinline__ U* skewed(U* sm, const void* g) {
+  return sm + (reinterpret_cast<uintptr_t>(g) & 15) / sizeof(U);
+}
+
+// dst[0 .. count) = src[0 .. count) by the block: 16-byte vectors where
+// dst and src agree mod 16 (skewed), single values at the ends.
+template <typename U>
+__device__ __forceinline__ void copy_span(U* __restrict__ dst,
+                                          const U* __restrict__ src,
+                                          int64_t count) {
+  constexpr int kv = 16 / sizeof(U);
+  const int64_t lead =
+      ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / sizeof(U);
+  const int head = static_cast<int>(count < lead ? count : lead);
+  const int64_t nvec = (count - head) / kv;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = s4[i];
+  for (int64_t i = head + nvec * kv + threadIdx.x; i < count;
+       i += blockDim.x)
+    dst[i] = src[i];
+}
+
+// dst[0 .. count) = 0 by the block, 16-byte stores between the ends
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void zero_span(T* __restrict__ dst,
+                                          int64_t count) {
+  constexpr int kv = 16 / sizeof(T);
+  const int64_t lead =
+      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / sizeof(T);
+  const int head = static_cast<int>(count < lead ? count : lead);
+  const int64_t nvec = (count - head) / kv;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = T(0.);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const int4 z = make_int4(0, 0, 0, 0);
+  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = z;
+  for (int64_t i = head + nvec * kv + threadIdx.x; i < count;
+       i += blockDim.x)
+    dst[i] = T(0.);
+}
+
+// Shared memory of one block, in values of T: each span's region holds its
+// values and 16 bytes of slack for the skew.
+template <typename T>
+struct EntrySmem {
+  static constexpr int kSlack = 16 / sizeof(T);
+  static constexpr int kPv = 16 * kMaxTile + kSlack;
+  static constexpr int kN = kEntryThreads + kSlack;
+  static constexpr int kMu = 3 * kEntryThreads + kSlack;
+  static constexpr int kPc = 9 * kEntryThreads + kSlack;
+  static constexpr int kPose = 12 * kEntryThreads + kSlack;
+  static constexpr int kVals = 30 * kEntryThreads + kSlack;
+  static constexpr int kFrame = kEntryThreads + 4;          // ints
+  static constexpr int kValues = kPv + kN + kMu + kPc + kPose + kVals;
+  static constexpr int kBytes = kValues * sizeof(T) + kFrame * 4;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kEntryThreads)
 soa_chain_entries_kernel(const T* __restrict__ n,
                          const T* __restrict__ mu,
                          const T* __restrict__ Pc,
                          const T* __restrict__ poses,
                          const int* __restrict__ frame,
-                         const T* __restrict__ pv, int K, int W,
-                         int64_t E, T* __restrict__ A,
-                         T* __restrict__ vals) {
+                         const T* __restrict__ pv, int V, int K, int W,
+                         int vt, T* __restrict__ A, T* __restrict__ vals) {
   using namespace lvba;
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= E) return;
-  const int64_t v = e / K;
-  const Cell<T> c = load_cell(n, mu, Pc, e);
-  T* o = vals + 30 * e;
-  if (c.mask == T(0.)) {
-#pragma unroll
-    for (int i = 0; i < 30; ++i) o[i] = T(0.);
-    return;
-  }
-  const Pose<T> P = load_pose(poses, e);
-  T acc[30];
-#pragma unroll
-  for (int i = 0; i < 30; ++i) acc[i] = T(0.);
-  T Rm1, Rm2, Rm3, RP[9], rows[18];
-  rot_mean(P, c, Rm1, Rm2, Rm3);
-  rot_scatter(P, c, RP);
-  chain_entry(c, P, Rm1, Rm2, Rm3, RP, pv + 16 * v, rows, acc);
-#pragma unroll
-  for (int i = 0; i < 30; ++i) o[i] = acc[i];
-  const int f = frame[e];
-  if (f < 0 || f >= W) return;
+  using L = EntrySmem<T>;
+  extern __shared__ __align__(16) unsigned char entry_smem[];
+  // every region starts 16-byte aligned (each size is a multiple of 16 B)
+  T* const sm_pv = reinterpret_cast<T*>(entry_smem);
+  T* const sm_n = sm_pv + L::kPv;
+  T* const sm_mu = sm_n + L::kN;
+  T* const sm_Pc = sm_mu + L::kMu;
+  T* const sm_pose = sm_Pc + L::kPc;
+  T* const sm_vals = sm_pose + L::kPose;
+  int* const sm_frame = reinterpret_cast<int*>(sm_vals + L::kVals);
+
+  const int v0 = blockIdx.x * vt;
+  const int nv = min(vt, V - v0);
   const int64_t ld = 6 * (int64_t)W;  // row stride of A
-  T* out = A + 3 * v * ld + 6 * (int64_t)f;
+  T* const spv = skewed(sm_pv, pv + 16 * (int64_t)v0);
+  copy_span(spv, pv + 16 * (int64_t)v0, 16 * (int64_t)nv);
+
+  const int64_t e0 = (int64_t)v0 * K;
+  const int ne = nv * K;
+  for (int r0 = 0; r0 < ne; r0 += kEntryThreads) {
+    const int m = min(kEntryThreads, ne - r0);
+    const int64_t e = e0 + r0;  // the round's first entry
+    if (r0 > 0) __syncthreads();  // the last round's reads are done
+    T* cn = skewed(sm_n, n + e);
+    T* cmu = skewed(sm_mu, mu + 3 * e);
+    T* cPc = skewed(sm_Pc, Pc + 9 * e);
+    T* cpose = skewed(sm_pose, poses + 12 * e);
+    int* cf = skewed(sm_frame, frame + e);
+    T* cv = skewed(sm_vals, vals + 30 * e);
+    copy_span(cn, n + e, m);
+    copy_span(cmu, mu + 3 * e, 3 * (int64_t)m);
+    copy_span(cPc, Pc + 9 * e, 9 * (int64_t)m);
+    copy_span(cpose, poses + 12 * e, 12 * (int64_t)m);
+    copy_span(cf, frame + e, m);
+    __syncthreads();  // the inputs are staged
+    const int j = threadIdx.x;
+    T rows[18];
+    int mine = -1, f = 0;  // the voxel (in the block) and frame of my rows
+    if (j < m) {
+      T* o = cv + 30 * j;
+      const Cell<T> c = load_cell(cn, cmu, cPc, j);
+      if (c.mask == T(0.)) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r) {
+        for (int i = 0; i < 30; ++i) o[i] = T(0.);
+      } else {
+        const int vl = (r0 + j) / K;  // the voxel within the block
+        const Pose<T> P = load_pose(cpose, j);
+        T acc[30];
 #pragma unroll
-    for (int cc = 0; cc < 6; ++cc) out[r * ld + cc] = rows[r * 6 + cc];
+        for (int i = 0; i < 30; ++i) acc[i] = T(0.);
+        T Rm1, Rm2, Rm3, RP[9];
+        rot_mean(P, c, Rm1, Rm2, Rm3);
+        rot_scatter(P, c, RP);
+        chain_entry(c, P, Rm1, Rm2, Rm3, RP, spv + 16 * vl, rows, acc);
+#pragma unroll
+        for (int i = 0; i < 30; ++i) o[i] = acc[i];
+        f = cf[j];
+        if (f >= 0 && f < W) mine = vl;
+      }
+    }
+    // A, voxel by voxel: the voxel's three rows zero-filled (in the round
+    // where its first entry lies), then, behind one barrier, its entries'
+    // rows stored over the zeros while the L2 still holds those lines
+    for (int vl = r0 / K; vl <= (r0 + m - 1) / K; ++vl) {
+      if (vl * K >= r0) zero_span(A + 3 * (int64_t)(v0 + vl) * ld, 3 * ld);
+      __syncthreads();
+      if (mine == vl) {
+        T* out = A + 3 * (int64_t)(v0 + vl) * ld + 6 * (int64_t)f;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+          for (int cc = 0; cc < 6; ++cc) out[r * ld + cc] = rows[r * 6 + cc];
+        }
+      }
+    }
+    // (the loop's barriers put every vals row in shared memory first)
+    copy_span(vals + 30 * e, cv, 30 * (int64_t)m);
   }
 }
 
@@ -308,13 +440,22 @@ int launch_chain(const T* n, const T* mu, const T* Pc, const T* pose12,
 template <typename T>
 int launch_chain_entries(const T* n, const T* mu, const T* Pc,
                          const T* poses, const int* frame, const T* pv,
-                         int V, int K, int W, T* A, T* vals, void* stream) {
-  const int64_t E = (int64_t)V * K;
-  if (E == 0) return 0;
-  const int64_t blocks = (E + kThreads - 1) / kThreads;
-  soa_chain_entries_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                         int V, int K, int W, int vt, T* A, T* vals,
+                         void* stream) {
+  if ((int64_t)V * K == 0) return 0;
+  if (vt < 1 || vt > kMaxTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int bytes = EntrySmem<T>::kBytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        soa_chain_entries_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int blocks = (V + vt - 1) / vt;
+  soa_chain_entries_kernel<T><<<blocks, kEntryThreads, bytes,
                                 static_cast<cudaStream_t>(stream)>>>(
-      n, mu, Pc, poses, frame, pv, K, W, E, A, vals);
+      n, mu, Pc, poses, frame, pv, V, K, W, vt, A, vals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -334,22 +475,25 @@ extern "C" int lvba_soa_chain_f64(const double* n, const double* mu,
   return launch_chain(n, mu, Pc, pose12, pv, V, W, vtile, A, part, stream);
 }
 
-// A must be zero-filled (3V, 6W); vals is (V·K, 30).
+// A (3V, 6W) and vals (V·K, 30) are written in full (A needs no fill);
+// vt voxels a block, 1 <= vt <= CHAIN_MAX_TILE (kernels/soa.py
+// chain_entries_tile).
 extern "C" int lvba_soa_chain_entries(const float* n, const float* mu,
                                       const float* Pc, const float* poses,
                                       const int* frame, const float* pv,
-                                      int V, int K, int W, float* A,
+                                      int V, int K, int W, int vt, float* A,
                                       float* vals, void* stream) {
-  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, A, vals,
-                              stream);
+  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, vt, A,
+                              vals, stream);
 }
 
 extern "C" int lvba_soa_chain_entries_f64(const double* n, const double* mu,
                                           const double* Pc,
                                           const double* poses,
                                           const int* frame, const double* pv,
-                                          int V, int K, int W, double* A,
-                                          double* vals, void* stream) {
-  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, A, vals,
-                              stream);
+                                          int V, int K, int W, int vt,
+                                          double* A, double* vals,
+                                          void* stream) {
+  return launch_chain_entries(n, mu, Pc, poses, frame, pv, V, K, W, vt, A,
+                              vals, stream);
 }

@@ -203,24 +203,31 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // G[at(idx)] += val(idx) over a tile's elements idx = 0 .. 128·128 − 1 by
-// the consumer threads (at < 0: outside gram).  Each thread loads kBatch
-// elements before it stores any: loads of gram cannot pass a store to
-// gram, so one at a time they would wait on memory in series.
-template <class At, class Val>
-__device__ __forceinline__ void add_to_gram(float* G, int tid, At at,
-                                            Val val) {
-  for (int base = tid; base < kBM * kBM; base += kCThreads * kBatch) {
-    int64_t o[kBatch];
-    float g[kBatch];
+// kThr threads (at < 0: outside gram).  Each thread loads kB elements
+// before it stores any: loads of gram cannot pass a store to gram, so one
+// at a time they would wait on memory in series.
+template <int kThr, int kB, typename T, class At, class Val>
+__device__ __forceinline__ void add_to_gram(T* G, int tid, At at, Val val) {
+  for (int base = tid; base < kBM * kBM; base += kThr * kB) {
+    int64_t o[kB];
+    T g[kB];
 #pragma unroll
-    for (int q = 0; q < kBatch; ++q) {
-      o[q] = at(base + q * kCThreads);
-      g[q] = o[q] >= 0 ? G[o[q]] : 0.f;
+    for (int q = 0; q < kB; ++q) {
+      o[q] = at(base + q * kThr);
+      g[q] = o[q] >= 0 ? G[o[q]] : T(0);
     }
 #pragma unroll
-    for (int q = 0; q < kBatch; ++q)
-      if (o[q] >= 0) G[o[q]] = g[q] + val(base + q * kCThreads);
+    for (int q = 0; q < kB; ++q)
+      if (o[q] >= 0) G[o[q]] = g[q] + val(base + q * kThr);
   }
+}
+
+// lower-triangle tile p -> (ti, tj), ti >= tj, row-major over ti
+__device__ __forceinline__ void tile_of(int p, int& ti, int& tj) {
+  ti = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+  while ((ti + 1) * (ti + 2) / 2 <= p) ++ti;
+  while (ti * (ti + 1) / 2 > p) --ti;
+  tj = p - ti * (ti + 1) / 2;
 }
 
 // hi, lo (Np, Krp) = tf32 split of A (Kr, N), transposed and zero-padded.
@@ -270,10 +277,8 @@ syrk_kernel(const __grid_constant__ CUtensorMap tm_hi,
   const int p = tail ? full + (b - full) / splits : b;
   const int s = tail ? (b - full) % splits : 0;
   const int nparts = tail ? splits : 1;
-  int ti = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= p) ++ti;
-  while (ti * (ti + 1) / 2 > p) --ti;
-  const int tj = p - ti * (ti + 1) / 2;
+  int ti, tj;
+  tile_of(p, ti, tj);
   const bool diag = ti == tj;
   const int i0 = ti * kBM, j0 = tj * kBM;
   const int kt0 = s * nk / nparts, kt1 = (s + 1) * nk / nparts;
@@ -401,7 +406,7 @@ syrk_kernel(const __grid_constant__ CUtensorMap tm_hi,
   }
 
   // ---- gram += tile at (ti, tj), rows along threadIdx ----
-  add_to_gram(G, tid, [&](int idx) -> int64_t {
+  add_to_gram<kCThreads, kBatch>(G, tid, [&](int idx) -> int64_t {
     const int gi = i0 + idx / kBM, gj = j0 + idx % kBM;
     return gi < N && gj < N ? (int64_t)gi * N + gj : -1;
   }, [&](int idx) {
@@ -410,82 +415,265 @@ syrk_kernel(const __grid_constant__ CUtensorMap tm_hi,
   });
   if (diag) return;
   // ---- and its transpose at (tj, ti) ----
-  add_to_gram(G, tid, [&](int idx) -> int64_t {
+  add_to_gram<kCThreads, kBatch>(G, tid, [&](int idx) -> int64_t {
     const int gj = j0 + idx / kBM, gi = i0 + idx % kBM;
     return gi < N && gj < N ? (int64_t)gj * N + gi : -1;
   }, [&](int idx) { return S[(idx % kBM) * kLd + idx / kBM]; });
 }
 
-// syrk_f64_kernel: gram (N, N) += AᵀA in float64, for float64 solves.
-// One 64 x 64 tile of the lower triangle (ti >= tj) per block, on the
-// fp64 FMA units (the fp64 tensor-core path is not used).  256 threads as
-// 16 x 16, each with 4 x 4 outputs at rows ty + 16a and columns tx + 16b
-// of the tile; per k-tile of 16 rows of A the block stages both 16 x 64
-// panels (rows of A: coalesced loads) in shared memory, zero past Kr and
-// N.  Every output is one FMA chain in k order, so the result is bitwise
-// repeatable, and on a diagonal tile (r, c) and (c, r) run the same chain
-// (the product commutes): exactly symmetric.  The tile is added to gram
-// at (r, c) and, off the diagonal, at (c, r).  Bound: operations —
-// Kr·N·(N+1) fp64 flops.
-constexpr int k64Tile = 64;
-constexpr int k64K = 16;
-constexpr int k64Threads = 256;
+// syrk_f64_kernel: gram (N, N) += AᵀA in float64, for float64 solves
+// (the float64 instance of the same TPU kernel).
+//
+// Bound: operations — Kr·N·(N+1) fp64 flops (the lower triangle) at the
+// card's 67 TFLOP/s on the fp64 tensor cores (0.87 ms for the W=512 aligned
+// evaluation's 6,144 rows x 3,072 columns); A once and the gram read and
+// written take a sixth of that time there.
+//
+// The fp64 tensor cores: wgmma has no fp64 form, so every product is
+// mma.sync.aligned.m16n8k4.f64 (DMMA.16x8x4 in the SASS), accumulated in
+// fp64 registers.  One 128 x 128 tile of the lower triangle (ti >= tj) per
+// block of 16 warps; warp w owns rows 32·(w / 4) and columns 32·(w % 4) of
+// it, 2 x 4 m16n8 accumulators (32 doubles a thread, 128 registers, no
+// spill).  Measured on an H100 SXM at 6,144 x 3,072 (scripts/syrk_sweep.py
+// --f64 times it): 1.55 ms; 8 warps of 64 x 32 tiles took 1.75 (four warps
+// a scheduler hide more of the fragment loads' latency), and the k8 and k16
+// shapes, 32-row stages and prefetched fragments were no faster.  The
+// products alone, on register operands, reach 66 TFLOP/s there: the
+// kernel's 39 TFLOP/s of products is held by feeding them (the fragment
+// loads from shared memory, and the panels' 3.6 GB a launch from the L2,
+// 2.3 TB/s at that time), not by the tensor cores.
+//
+// Operands.  Row k of A holds the k-slice of both operands of the tile
+// (columns i0.. and j0..), so a stage is 16 rows of A over the tile's two
+// 128-column panels (one panel on a diagonal tile), copied by cp.async
+// straight from A's rows (16 B, or 8 B where N is odd), zero past Kr and
+// N, into a ring of 4 stages: the copies of the next three stages run while
+// one is multiplied.  The panels' row stride, 132 doubles (≡ 4 mod 16),
+// puts the 4 k-rows x 8 columns of a fragment load on distinct banks.
+//
+// Waves and the epilogue as syrk_kernel: one block per SM (132 KB of ring);
+// the tiles of the last, partial wave split over the contraction
+// (tile_schedule), each part's sums stored and added in the order of the
+// parts by the last to finish; the tile staged in shared memory (odd
+// stride) and added to gram at (r, c) and, off the diagonal, at (c, r) with
+// coalesced read-modify-writes.  On a diagonal tile element (r, c), r >= c,
+// is added at (r, c) and at (c, r): exactly symmetric whatever order the
+// tensor cores sum in.  No atomics touch the sums: bitwise repeatable.
+constexpr int k64Threads = 512;              // 16 warps, 4 x 4 over the tile
+constexpr int k64WarpsN = 4;                 // warps along the columns
+constexpr int k64MT = 2;                     // m16 tiles a warp: 32 rows
+constexpr int k64NT = 4;                     // n8 tiles a warp: 32 columns
+constexpr int k64BK = 16;                    // k rows a stage (F64_KTILE)
+constexpr int k64Ld = kBM + 4;               // panel row stride, doubles
+constexpr int k64Panel = k64BK * k64Ld;      // doubles
+constexpr int k64StageBytes = 2 * k64Panel * 8;
+constexpr int k64Stages = 4;
+constexpr int k64LdS = kBM + 1;              // staged tile's row stride
+constexpr int k64Batch = 8;                  // epilogue loads in flight
+constexpr int k64SmemBytes = k64Stages * k64StageBytes;
+static_assert(k64SmemBytes <= 232448, "the ring fits in shared memory");
+static_assert(kBM * k64LdS * 8 <= k64SmemBytes, "staging fits");
 
-__global__ void __launch_bounds__(k64Threads)
-syrk_f64_kernel(const double* __restrict__ A, int Kr, int N,
-                double* __restrict__ gram) {
-  __shared__ double As[k64K][k64Tile];
-  __shared__ double Bs[k64K][k64Tile];
-  // block b -> (ti, tj), the lower triangle in row order
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// d (16 x 8) += a (16 x 4) · b (4 x 8) in fp64.  Lane 4g + t holds a[0]
+// at row g and a[1] at row g + 8, both at column t; b at row t, column g;
+// d[0], d[1] at row g and d[2], d[3] at row g + 8, columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[2],
+                                        double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
+
+__global__ void __launch_bounds__(k64Threads, 1)
+syrk_f64_kernel(const double* __restrict__ A, int Kr, int N, int full,
+                int splits, double* __restrict__ G,
+                double* __restrict__ part, int* __restrict__ count) {
+  extern __shared__ __align__(16) double smem64[];
+  __shared__ int last_part;
+  // block -> tile p and part s of its contraction, as in syrk_kernel
   const int b = blockIdx.x;
-  int ti = static_cast<int>((sqrt(8.0 * b + 1.0) - 1.0) / 2.0);
-  while ((ti + 1) * (ti + 2) / 2 <= b) ++ti;
-  while (ti * (ti + 1) / 2 > b) --ti;
-  const int tj = b - ti * (ti + 1) / 2;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int r0 = ti * k64Tile, c0 = tj * k64Tile;
-  double acc[4][4];
+  const bool tail = b >= full;
+  const int p = tail ? full + (b - full) / splits : b;
+  const int s = tail ? (b - full) % splits : 0;
+  const int nparts = tail ? splits : 1;
+  int ti, tj;
+  tile_of(p, ti, tj);
+  const bool diag = ti == tj;
+  const int i0 = ti * kBM, j0 = tj * kBM;
+  const int nk = (Kr + k64BK - 1) / k64BK;
+  const int kt0 = s * nk / nparts, kt1 = (s + 1) * nk / nparts;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / k64WarpsN, wn = warp % k64WarpsN;
+  // 16-byte copies need even N (a row's pairs stay pairs) and an aligned A
+  const bool vec = (N % 2 == 0)
+                   && (reinterpret_cast<uintptr_t>(A) & 15) == 0;
+  const int npanels = diag ? 1 : 2;
+
+  // stage st <- rows k-tile kt of A over the panels (i0.., j0..)
+  auto load_stage = [&](int st, int kt) {
+    double* ring = smem64 + st * 2 * k64Panel;
+    const int k0 = kt * k64BK;
+    if (vec) {
+      constexpr int per = k64BK * kBM / 2;   // 16-byte chunks a panel
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+      for (int q = 0; q < 2 * per / k64Threads; ++q) {
+        const int c = tid + q * k64Threads;
+        const int pn = c / per, kr = (c % per) / (kBM / 2);
+        const int col = 2 * (c % (kBM / 2));
+        const int k = k0 + kr, n = (pn ? j0 : i0) + col;
+        const bool ok = pn < npanels && k < Kr && n < N;
+        if (pn < npanels)
+          cp_async16(ring + pn * k64Panel + kr * k64Ld + col,
+                     ok ? A + (int64_t)k * N + n : A, ok ? 16 : 0);
+      }
+    } else {
+      constexpr int per = k64BK * kBM;
+#pragma unroll 4
+      for (int q = 0; q < 2 * per / k64Threads; ++q) {
+        const int c = tid + q * k64Threads;
+        const int pn = c / per, kr = (c % per) / kBM, col = c % kBM;
+        const int k = k0 + kr, n = (pn ? j0 : i0) + col;
+        const bool ok = pn < npanels && k < Kr && n < N;
+        if (pn < npanels)
+          cp_async8(ring + pn * k64Panel + kr * k64Ld + col,
+                    ok ? A + (int64_t)k * N + n : A, ok ? 8 : 0);
+      }
+    }
+  };
+
+  double acc[k64MT][k64NT][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+  for (int mt = 0; mt < k64MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < k64NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0;
+    }
   }
-  for (int k0 = 0; k0 < Kr; k0 += k64K) {
-    for (int i = threadIdx.x; i < k64K * k64Tile; i += k64Threads) {
-      const int kk = i / k64Tile, col = i % k64Tile;
-      const int k = k0 + kk;
-      const double* row = A + (int64_t)k * N;
-      As[kk][col] = (k < Kr && r0 + col < N) ? row[r0 + col] : 0.0;
-      Bs[kk][col] = (k < Kr && c0 + col < N) ? row[c0 + col] : 0.0;
+#pragma unroll
+  for (int st = 0; st < k64Stages - 1; ++st) {
+    if (kt0 + st < kt1) load_stage(st, kt0 + st);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int it = kt - kt0;
+    cp_async_wait<k64Stages - 2>();   // stage it has landed
+    __syncthreads();                  // and every warp is done with it − 1
+    if (kt + k64Stages - 1 < kt1)
+      load_stage((it + k64Stages - 1) % k64Stages, kt + k64Stages - 1);
+    cp_async_commit();
+    const double* Pi = smem64 + (it % k64Stages) * 2 * k64Panel;
+    const double* Pj = diag ? Pi : Pi + k64Panel;
+    const double* pa = Pi + t * k64Ld + wm * 16 * k64MT + g;
+    const double* pb = Pj + t * k64Ld + wn * 32 + g;
+#pragma unroll
+    for (int kk = 0; kk < k64BK; kk += 4) {
+      double bf[k64NT];
+#pragma unroll
+      for (int nt = 0; nt < k64NT; ++nt) bf[nt] = pb[kk * k64Ld + nt * 8];
+#pragma unroll
+      for (int mt = 0; mt < k64MT; ++mt) {
+        const double af[2] = {pa[kk * k64Ld + mt * 16],
+                              pa[kk * k64Ld + mt * 16 + 8]};
+#pragma unroll
+        for (int nt = 0; nt < k64NT; ++nt) mma_f64(acc[mt][nt], af, bf[nt]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free
+
+  // ---- stage the tile: S[r][c], r, c in [0, 128) ----
+  double* S = smem64;
+#pragma unroll
+  for (int mt = 0; mt < k64MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < k64NT; ++nt) {
+      double* row = S + (wm * 16 * k64MT + mt * 16 + g) * k64LdS + wn * 32
+                    + nt * 8 + 2 * t;
+      row[0] = acc[mt][nt][0];
+      row[1] = acc[mt][nt][1];
+      row[8 * k64LdS] = acc[mt][nt][2];
+      row[8 * k64LdS + 1] = acc[mt][nt][3];
+    }
+  }
+  __syncthreads();
+
+  if (nparts > 1) {
+    // store this part's sums; the last part to finish adds all of them in
+    // the order s = 0, 1, ..., whichever it is
+    double* parts = part + (int64_t)(p - full) * nparts * kBM * kBM;
+    double* mine = parts + (int64_t)s * kBM * kBM;
+    for (int idx = tid; idx < kBM * kBM; idx += k64Threads)
+      mine[idx] = S[(idx / kBM) * k64LdS + idx % kBM];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int before = atomicAdd(&count[p - full], 1);
+      last_part = before == nparts - 1;
+      if (last_part) count[p - full] = 0;
     }
     __syncthreads();
+    if (!last_part) return;
+    __threadfence();
+    for (int base = tid; base < kBM * kBM; base += k64Threads * k64Batch) {
+      double x[k64Batch];
 #pragma unroll
-    for (int kk = 0; kk < k64K; ++kk) {
-      double a[4], bv[4];
+      for (int q = 0; q < k64Batch; ++q)
+        x[q] = __ldcg(parts + base + q * k64Threads);
+      for (int u = 1; u < nparts; ++u) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[kk][ty + 16 * i];
-        bv[i] = Bs[kk][tx + 16 * i];
+        for (int q = 0; q < k64Batch; ++q)
+          x[q] += __ldcg(parts + (int64_t)u * kBM * kBM + base
+                         + q * k64Threads);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], bv[j], acc[i][j]);
+      for (int q = 0; q < k64Batch; ++q) {
+        const int idx = base + q * k64Threads;
+        S[(idx / kBM) * k64LdS + idx % kBM] = x[q];
       }
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + ty + 16 * i, c = c0 + tx + 16 * j;
-      if (r < N && c < N) {
-        gram[(int64_t)r * N + c] += acc[i][j];
-        if (ti != tj) gram[(int64_t)c * N + r] += acc[i][j];
-      }
-    }
-  }
+
+  // ---- gram += tile at (ti, tj), and off the diagonal at (tj, ti) ----
+  add_to_gram<k64Threads, k64Batch>(G, tid, [&](int idx) -> int64_t {
+    const int gi = i0 + idx / kBM, gj = j0 + idx % kBM;
+    return gi < N && gj < N ? (int64_t)gi * N + gj : -1;
+  }, [&](int idx) {
+    const int r = idx / kBM, c = idx % kBM;
+    return (diag && c > r) ? S[c * k64LdS + r] : S[r * k64LdS + c];
+  });
+  if (diag) return;
+  add_to_gram<k64Threads, k64Batch>(G, tid, [&](int idx) -> int64_t {
+    const int gj = j0 + idx / kBM, gi = i0 + idx % kBM;
+    return gi < N && gj < N ? (int64_t)gj * N + gi : -1;
+  }, [&](int idx) { return S[(idx % kBM) * k64LdS + idx / kBM]; });
 }
 
 typedef CUresult (*EncodeTiled)(
@@ -561,11 +749,21 @@ extern "C" int lvba_syrk(const float* hi, const float* lo, int Np, int Krp,
 }
 
 // gram (N, N) += AᵀA for A (Kr, N) row-major, float64 (syrk_f64_kernel).
-extern "C" int lvba_syrk_f64(const double* A, int Kr, int N, double* G,
-                             void* stream) {
+// Tiles p < full take one block each, the others `splits` blocks each
+// (1-4); part holds (tiles − full)·splits·128·128 doubles and count
+// tiles − full ints, all 0 (the kernel leaves them 0).
+extern "C" int lvba_syrk_f64(const double* A, int Kr, int N, int full,
+                             int splits, double* G, double* part,
+                             int* count, void* stream) {
   if (Kr == 0 || N == 0) return 0;
-  const int nt = (N + k64Tile - 1) / k64Tile;
-  syrk_f64_kernel<<<nt * (nt + 1) / 2, k64Threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(A, Kr, N, G);
+  const cudaError_t e = cudaFuncSetAttribute(
+      syrk_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k64SmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = (N + kBM - 1) / kBM;
+  const int blocks = full + (nt * (nt + 1) / 2 - full) * splits;
+  syrk_f64_kernel<<<blocks, k64Threads, k64SmemBytes,
+                    static_cast<cudaStream_t>(stream)>>>(
+      A, Kr, N, full, splits, G, part, count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,8 @@ together, into a shared library with a plain C interface
 (build/torch_ext/lib<name>-<digest>.so, next to the package; `.gitignore`
 lists build/).  The digest covers the source, the shared header and the
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
+A limit that the Python side shares with a kernel is passed as a -D flag
+(_defines), so it is written down once.
 Nothing here runs at import time: the first wrapper call on a CUDA tensor
 builds.  A build that fails raises with the compiler's output; there is no
 fallback.
@@ -50,7 +52,7 @@ SIGNATURES = {
     "soa_chain": ("soa_chain", "lvba_soa_chain",
                   [_P] * 5 + [_I] * 3 + [_P] * 3),
     "soa_chain_entries": ("soa_chain", "lvba_soa_chain_entries",
-                          [_P] * 6 + [_I] * 3 + [_P] * 3),
+                          [_P] * 6 + [_I] * 4 + [_P] * 3),
     "syrk_split": ("syrk", "lvba_syrk_split", [_P] + [_I] * 4 + [_P] * 3),
     "syrk": ("syrk", "lvba_syrk", [_P] * 2 + [_I] * 5 + [_P] * 4),
     "table_select": ("selection", "lvba_table_select",
@@ -62,8 +64,8 @@ SIGNATURES = {
     "soa_chain_f64": ("soa_chain", "lvba_soa_chain_f64",
                       [_P] * 5 + [_I] * 3 + [_P] * 3),
     "soa_chain_entries_f64": ("soa_chain", "lvba_soa_chain_entries_f64",
-                              [_P] * 6 + [_I] * 3 + [_P] * 3),
-    "syrk_f64": ("syrk", "lvba_syrk_f64", [_P, _I, _I, _P, _P]),
+                              [_P] * 6 + [_I] * 4 + [_P] * 3),
+    "syrk_f64": ("syrk", "lvba_syrk_f64", [_P] + [_I] * 4 + [_P] * 4),
     "table_select_f64": ("selection", "lvba_table_select_f64",
                          [_P, _P, _L, _I, _I, _P, _P]),
     "entry_reduce_f64": ("selection", "lvba_entry_reduce_f64",
@@ -101,25 +103,43 @@ def _nvcc() -> str:
     return found
 
 
+def _defines(name: str) -> tuple:
+    """The -D flags of csrc/<name>.cu: soa_chain.cu takes its per-entry
+    block limits from kernels/soa.py, whose chain_entries_tile picks the
+    voxels a block within them."""
+    if name != "soa_chain":
+        return ()
+    from . import soa
+    return (f"-DLVBA_CHAIN_MAX_TILE={soa.CHAIN_MAX_TILE}",
+            f"-DLVBA_CHAIN_MAX_ENTRIES={soa.CHAIN_MAX_ENTRIES}")
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + _defines(name)).encode())
     return h.hexdigest()[:16]
+
+
+def library(name: str) -> Path:
+    """The shared library built from csrc/<name>.cu with NVCC_FLAGS and
+    its _defines."""
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
 def _build_all():
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in SOURCES:
-        out = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+        out = library(name)
         if out.exists():
             _logs[name] = "(reused)"
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *_defines(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc))
@@ -134,7 +154,7 @@ def _build_all():
     if failed:
         raise RuntimeError("\n".join(failed))
     for name in SOURCES:
-        lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}-{_digest(name)}.so"))
+        lib = ctypes.CDLL(str(library(name)))
         lib.lvba_error_string.argtypes = [ctypes.c_int]
         lib.lvba_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

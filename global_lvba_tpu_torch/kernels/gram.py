@@ -24,8 +24,14 @@ Bound on the card: operations — 3·Kr·N·(N+1) flops at 495 TFLOP/s TF32
 against the bytes of A once and the gram read and written.
 
 Float64 operands (float64 solves) take one launch of syrk_f64_kernel
-instead: the same lower tiles and mirror in fp64 FMAs, no split (the
-`syrk_f64` launch count).  Bound: operations — Kr·N·(N+1) fp64 flops.
+instead (the `syrk_f64` launch count), on the fp64 tensor cores:
+mma.sync m16n8k4.f64 (DMMA; wgmma has no fp64 form) on the same 128 x 128
+lower tiles, 16 warps of 32 x 32 a block, each stage 16 rows of A over the
+tile's column panels copied by cp.async straight from A's rows into a
+4-stage ring, no split.  The same waves (f64_schedule: tile_schedule over 16-row k-tiles),
+the same ordered merge of the tail's parts and the same mirrored epilogue:
+exactly symmetric, bitwise repeatable.  Bound: operations — Kr·N·(N+1)
+flops at 67 TFLOP/s fp64 on the tensor cores (0.87 ms at 6,144 x 3,072).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from . import build
 LAUNCHES = {"syrk": 0, "syrk_split": 0, "syrk_f64": 0}
 TILE = 128     # syrk_kernel's output tile (kBM in csrc/syrk.cu)
 KTILE = 32     # its k-tile: one 128-byte row of fp32 (kBK)
+F64_KTILE = 16  # syrk_f64_kernel's k-tile: rows of A a stage (k64BK)
 MAX_SPLITS = 4
 
 
@@ -83,8 +90,27 @@ def tile_schedule(tiles: int, ktiles: int, sms: int) -> tuple:
     return tiles - tail, splits
 
 
+def f64_schedule(Kr: int, N: int, sms: int) -> tuple:
+    """(tiles, full, splits) of syrk_f64_kernel on A (Kr, N): the lower
+    triangle's TILE x TILE tiles, and tile_schedule over F64_KTILE-row
+    k-tiles at one block per SM."""
+    nt = -(-N // TILE)
+    tiles = nt * (nt + 1) // 2
+    return (tiles,) + tile_schedule(tiles, -(-Kr // F64_KTILE), sms)
+
+
 def _stream(A):
     return ctypes.c_void_p(torch.cuda.current_stream(A.device).cuda_stream)
+
+
+def _parts(tiles, full, splits, dtype, device):
+    """Scratch of the tail's parts and their counters (zeroed; each launch
+    leaves its counters 0)."""
+    part = torch.empty((max((tiles - full) * splits, 1) * TILE * TILE,),
+                       dtype=dtype, device=device)
+    count = torch.zeros((max(tiles - full, 1),), dtype=torch.int32,
+                        device=device)
+    return part, count
 
 
 def tf32_split(A: torch.Tensor) -> tuple:
@@ -147,24 +173,24 @@ def syrk_(gram: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     Kr, N, Np, Krp = check_args(gram, A)
     if Kr == 0 or N == 0:
         return gram
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     if A.dtype == torch.float64:
+        tiles, full, splits = f64_schedule(Kr, N, sms)
+        part, count = _parts(tiles, full, splits, A.dtype, A.device)
         launch = build.launcher("syrk_f64")
         with torch.cuda.device(A.device):
-            err = launch(ctypes.c_void_p(A.data_ptr()), Kr, N,
-                         ctypes.c_void_p(gram.data_ptr()), _stream(A))
+            err = launch(ctypes.c_void_p(A.data_ptr()), Kr, N, full, splits,
+                         ctypes.c_void_p(gram.data_ptr()),
+                         ctypes.c_void_p(part.data_ptr()),
+                         ctypes.c_void_p(count.data_ptr()), _stream(A))
         build.check("syrk_f64", err)
         LAUNCHES["syrk_f64"] += 1
         return gram
     hi, lo = tf32_split(A)
     nt = Np // TILE
     tiles = nt * (nt + 1) // 2
-    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     full, splits = tile_schedule(tiles, Krp // KTILE, sms)
-    parts = (tiles - full) * splits
-    part = torch.empty((max(parts, 1) * TILE * TILE,), dtype=torch.float32,
-                       device=A.device)
-    count = torch.zeros((max(tiles - full, 1),), dtype=torch.int32,
-                        device=A.device)
+    part, count = _parts(tiles, full, splits, A.dtype, A.device)
     launch = build.launcher("syrk")
     with torch.cuda.device(A.device):
         err = launch(ctypes.c_void_p(hi.data_ptr()),

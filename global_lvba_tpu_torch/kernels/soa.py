@@ -23,12 +23,20 @@ in, 18 out per cell; ~400 flops per cell).
 
 soa_chain_entries (csrc/soa_chain.cu) is the same `_chain_kernel` on its
 own, bucketed layout (poses pre-gathered per entry, plane_eigen.py:
-1388-1390): one thread per (voxel, slot) entry.  It scatters the entry's
-factor rows into the zero-filled A at columns 6·frame (the one-hot M
-expansion of plane_eigen.py:1485-1489, exact: no two entries of a voxel
-share a frame) and writes the 30 unique g/Hd channels per entry for the
-frame segment-sum (kernels/selection.py).  Bound: bytes (25 floats in,
-30 + 18 out per entry, plus the memset of A).
+1388-1390), and the one-hot M expansion after it (plane_eigen.py:
+1485-1489) as an exact store: it writes every element of the Gram operand
+A (3V, 6W), each live entry's factor rows at columns 6·frame and zeros
+elsewhere (no two entries of a voxel share a frame), and the 30 unique
+g/Hd channels per entry for the frame segment-sum (kernels/selection.py).
+Bound: bytes — A written once (18·W values a voxel: 172 MB of the W=512
+corridor's 218 MB in float32, 0.065 ms), 26 values in and 30 out per
+entry.  A block owns chain_entries_tile(V, K) whole voxels: it stages its
+entries' inputs in shared memory with coalesced 16-byte loads and runs the
+chain once per live entry; then, voxel by voxel, it zero-fills the
+voxel's rows of A with 16-byte stores and, behind one barrier, stores its
+entries' rows over the zeros while the L2 holds them; its vals rows leave
+as one coalesced span.  The wrapper allocates A with torch.empty: nothing
+else fills it.
 
 soa_agg's pose operand is a (K, 12) pose table read with voxel stride 0
 (aligned: entry (v, k) takes pose k) or per-entry pose rows (V, K, 12)
@@ -54,6 +62,10 @@ LAUNCHES = {"soa_agg": 0, "soa_chain": 0, "soa_chain_entries": 0,
             "soa_chain_entries_f64": 0}
 
 _CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
+# soa_chain_entries' block limits; kernels/build.py passes them to
+# soa_chain.cu (kMaxTile, kEntryThreads)
+CHAIN_MAX_TILE = 64      # voxels a block
+CHAIN_MAX_ENTRIES = 128  # entries a round: the block's threads
 _D24_TO_36_ON: dict = {}
 
 
@@ -213,14 +225,29 @@ def soa_chain_plain(n, mu, Pc, pose12, pv):
     return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), g, Hd
 
 
+def chain_entries_tile(V: int, K: int, sms: int) -> int:
+    """Voxels per block of soa_chain_entries_kernel for V voxels of K slots
+    on `sms` SMs: the largest power of two up to CHAIN_MAX_TILE whose
+    entries fit in CHAIN_MAX_ENTRIES, halved while the launch has fewer
+    than two blocks per SM (A's rows, 18·W values a voxel, are most of the
+    bytes, and the blocks write them); at least 1."""
+    vt = CHAIN_MAX_TILE
+    while vt > 1 and vt * K > CHAIN_MAX_ENTRIES:
+        vt //= 2
+    while vt > 1 and -(-V // vt) < 2 * sms:
+        vt //= 2
+    return vt
+
+
 def soa_chain_entries(n, mu, Pc, poses, frame, pv, W, vals=None):
     """Linearization chain on the bucketed layout -> (A (3V, 6W), vals
     (V·K, 30)).  Entry (v, k) writes its three factor rows into A row
     block v at columns 6·frame[v, k] (the M expansion; A is zero
     elsewhere) and its 30 unique g/Hd channels (jjt 6 | the _D_UNIQUE
     diagonal extras 24) into vals row v·K + k.  Dead entries (n == 0)
-    write zero channels and no rows, and so does a live entry whose
-    frame id lies outside [0, W) (the JAX one-hot drops it likewise).
+    write zero channels and no rows; a live entry whose frame id lies
+    outside [0, W) writes its channels but no rows (the JAX one-hot drops
+    its column likewise).
     poses: per-entry pose rows (V, K, 12); frame (V, K) int32; pv the
     voxels' soa_agg output.  vals, when given, is the (V·K, 30) output
     (a slice of a bucket-wide buffer)."""
@@ -242,13 +269,14 @@ def soa_chain_entries(n, mu, Pc, poses, frame, pv, W, vals=None):
     if pv.shape != (V, 16) or vals.shape != (V * K, 30):
         raise ValueError(f"pv {tuple(pv.shape)} / vals {tuple(vals.shape)} "
                          f"do not fit {V} voxels of {K} slots")
-    A = torch.zeros((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    A = torch.empty((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    sms = torch.cuda.get_device_properties(n.device).multi_processor_count
     name = build.dtype_launcher("soa_chain_entries", n.dtype)
     launch = build.launcher(name)
     with torch.cuda.device(n.device):
         err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), _ptr(frame),
-                     _ptr(pv), V, K, W, _ptr(A), _ptr(vals),
-                     _stream(n.device))
+                     _ptr(pv), V, K, W, chain_entries_tile(V, K, sms),
+                     _ptr(A), _ptr(vals), _stream(n.device))
     build.check(name, err)
     LAUNCHES[name] += 1
     return A, vals

@@ -1,7 +1,8 @@
 """Gram kernel 3 (syrk_, 3xTF32) on the CPU: the tf32 split's plain version
 (rounding, reconstruction, layout), the accuracy of the three-product sum,
 syrk_plain_ against the JAX Pallas SYRK at precision="highest", and the
-wrapper's argument checks and tile schedule.  The CUDA kernels themselves
+wrapper's argument checks and tile schedules (syrk_kernel's and the
+float64 syrk_f64_kernel's).  The CUDA kernels themselves
 run only on the card (chip_smoke.py holds them to these plain versions)."""
 
 import math
@@ -158,6 +159,19 @@ def test_split_has_no_fallback_off_cpu():
 ])
 def test_tile_schedule(tiles, ktiles, sms, want):
     assert gram.tile_schedule(tiles, ktiles, sms) == want
+
+
+@pytest.mark.parametrize("Kr, N, want", [
+    (6144, 3072, (300, 264, 3)),  # aligned W=512: 384 k-tiles, 36 x 3 parts
+    (5781, 3072, (300, 264, 3)),  # a corridor chunk
+    (96, 3072, (300, 264, 3)),    # 6 k-tiles still split the tail in 3
+    (1001, 270, (6, 0, 4)),       # ragged: 63 k-tiles, 6 tiles x 4 parts
+    (1001, 60, (1, 0, 4)),
+    (16, 60, (1, 1, 1)),          # one k-tile: nothing to split
+    (17, 60, (1, 0, 2)),          # two k-tiles: two parts
+])
+def test_f64_schedule(Kr, N, want):
+    assert gram.f64_schedule(Kr, N, 132) == want
 
 
 @pytest.mark.parametrize("Kr, N, want", [(1001, 270, (384, 1024)),
