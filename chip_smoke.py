@@ -14,7 +14,12 @@ Phases (any failure raises, so the exit code is non-zero):
      and timed (device time per evaluation = every chunk, calls queued
      behind a spin kernel so host time between launches does not show)
      beside its plain version, the one PyTorch call that computes the same
-     function where there is one, and its bound on this card;
+     function where there is one, and its bound on this card (soa_agg's
+     over the live cells' bytes, the layout's printed beside it);
+     soa_agg (one launch over the bucket) is also checked at K = 1, 4, 45,
+     64 and 1,024 on seeded planes, V not a multiple of a block's voxels,
+     float32 and float64, with the pose table, per-entry pose rows and
+     rows off 16-byte alignment, and all five in one soa_agg_buckets call;
      syrk (3xTF32 on the tensor cores) is also checked on ragged operands
      (N = 270 and 60 over 1,001 seeded rows) and at Kr = 0: its tf32 split
      bitwise equal to the plain split, the Gram within 1e-4 of syrk_plain_
@@ -55,11 +60,14 @@ Phases (any failure raises, so the exit code is non-zero):
      printed beside it as a cross-run estimate).
 Slice 2, the bucketed layout:
   6. kernels at path 2b's shapes (the corridor below: every tier and every
-     voxel chunk of one evaluation): table_select bitwise equal to its
-     plain version; soa_agg on per-entry pose rows and soa_chain_entries
-     under slice 1's tolerances and well-conditioned-voxel rule;
-     entry_reduce relative to max |.|, two calls bitwise equal; each timed
-     beside its plain version, its library call and its bound;
+     voxel chunk of one evaluation, in the evaluation's launch shape):
+     table_select bitwise equal to its plain version; soa_agg on per-entry
+     pose rows, all tiers in one soa_agg_buckets call (a launch a bucket
+     timed beside it, bitwise equal), and soa_chain_entries under slice
+     1's tolerances and well-conditioned-voxel rule; entry_reduce once over
+     every tier's entries through the merged frame table, relative to max
+     |.|, two calls bitwise equal; each timed beside its plain version,
+     its library call and its bound;
      soa_chain_entries also with A over a block the caching allocator was
      handed back filled with NaN (A must take it, and be exactly zero off
      the live entries' cells), on every chunk, with frame ids -1, W and
@@ -72,10 +80,13 @@ Slice 2, the bucketed layout:
      float64 Gram operands, checked as in 2d and timed in turns with
      torch.matmul; one float64 evaluation over the buckets timed and under
      torch.profiler;
-  7. the bucketed evaluation over the corridor's five buckets: kernels
-     against the plain steps (r, g, H), H bitwise repeatable, device ms,
-     each kernel's own device time and the fill kernels under
-     torch.profiler, and no fill op on a tensor of A's shape;
+  7. the bucketed evaluation over the corridor's five buckets (one Gram
+     accumulator, one entry_reduce: solver.lm's): its launches counted
+     (one entry_reduce, at most one soa_agg and one table_select a
+     bucket), kernels against the plain steps (r, g, H), H bitwise
+     repeatable, device ms, each kernel's own device time and the fill
+     kernels under torch.profiler, and no fill op on a tensor of A's
+     shape;
   8. path 2a: run_lidar_ba with the window stage on (ladder 3's LiDAR
      settings, 200 frames / 2.0 M points; 20 windows at W=10, two anchor
      stages at W=20, every solve bucketed): every bucketed kernel must have
@@ -733,6 +744,178 @@ def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
     return err_r
 
 
+def _agg_bounds(name, ns, table_vals, itemsize):
+    """soa_agg's bounds over the buckets whose n are `ns`, one launch each:
+    "bound" by the bytes the function needs (n of every cell; μ (3) and
+    Pc's upper triangle (6: Pc is symmetric) of each live cell; its pose
+    row where poses come per entry (table_vals 0) or the pose table once a
+    launch (table_vals = its values); 17 outputs a voxel: a dead cell adds
+    exactly zero) and "bound_layout" by
+    the layout's (every cell's 13 moment values and pose row or the table,
+    the outputs), each against its operations.  Printed."""
+    cells = sum(n.numel() for n in ns)
+    live = sum(int((n > 0).sum()) for n in ns)
+    vox = sum(n.shape[0] for n in ns)
+    row = 0 if table_vals else 12
+    fixed = len(ns) * table_vals + vox * 17
+    rate = FP32_FLOP_PER_S if itemsize == 4 else FP64_FLOP_PER_S
+    out = dict(
+        bound=_bound((cells + live * (9 + row) + fixed) * itemsize,
+                     live * AGG_FLOPS_PER_CELL + vox * AGG_FLOPS_PER_VOXEL,
+                     rate),
+        bound_layout=_bound((cells * (13 + row) + fixed) * itemsize,
+                            cells * AGG_FLOPS_PER_CELL
+                            + vox * AGG_FLOPS_PER_VOXEL, rate))
+    print(f"[{name}] bound {out['bound'][0]:.4f} ms ({out['bound'][1]}) "
+          f"over the live cells' bytes ({live} of {cells} cells live); the "
+          f"layout's bytes bound {out['bound_layout'][0]:.4f} ms", flush=True)
+    return out
+
+
+def _agg_per_bucket(torch, name, ops, one):
+    """soa_agg a launch a bucket over `ops`, bitwise equal to the one
+    launch over them (`one`, its outputs), and its device ms per
+    evaluation, printed: the shape the one launch replaced."""
+    from global_lvba_tpu_torch.kernels.soa import soa_agg
+
+    each = [soa_agg(*o) for o in ops]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(each, one))
+    ms, ahead = _timed(torch, lambda: [soa_agg(*o) for o in ops])
+    print(f"[{name}] a launch a bucket ({len(ops)} launches): {ms:.4f} ms "
+          f"(queued ahead {ahead}), bitwise equal to the one launch: {same}",
+          flush=True)
+    if not same:
+        _fail(f"{name}: one launch over the buckets differs from a launch "
+              f"a bucket")
+    return dict(ms=ms, launches=len(ops), queued_ahead=ahead)
+
+
+def _agg_case(np, V, K, seed):
+    """A seeded soa_agg operand of V voxels of K slots: each voxel a plane
+    (centre within 8 m of the origin, the main path's box room's scale:
+    at 40 m the cancellation in R μ + p − v̄ moves u by ~1e-4 in float32,
+    the plain version's as much as the kernel's; entry means within 0.5 m
+    of it along one in-plane axis, 1 cm off it; each cell's points
+    scattered by 0.04 and 0.01 m² in-plane, 1e-5 across: λ2 − λ1 >= 0.03
+    at any K.  Where λ1 ≈ λ2
+    (a few entries spread along both axes) the closed-form eigensolve
+    keeps only ~sqrt(eps)·λ2 of them in float32, in the plain version as
+    in the kernel, as on line-like voxels), observed from K poses shared by all
+    voxels (rotations up to 0.3 rad, offsets of ~5 m); counts 1-29 on 60%
+    of the slots, and one voxel in ten padded (no live slot).  Returns
+    numpy (n, mu, Pc, pose table (K, 12))."""
+    rng = np.random.default_rng(seed)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    ax = unit(rng.normal(size=(K, 3)))
+    ang = rng.uniform(-0.3, 0.3, K)[:, None, None]
+    X = np.zeros((K, 3, 3))
+    X[:, 0, 1], X[:, 0, 2], X[:, 1, 2] = -ax[:, 2], ax[:, 1], -ax[:, 0]
+    X = X - X.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(ang) * X + (1 - np.cos(ang)) * (X @ X)
+    pk = rng.normal(scale=5.0, size=(K, 3))
+    nv = unit(rng.normal(size=(V, 3)))
+    t1 = unit(np.cross(nv, rng.normal(size=(V, 3))))
+    t2 = np.cross(nv, t1)
+    c = rng.uniform(-8.0, 8.0, (V, 3))
+    a = rng.uniform(-0.5, 0.5, (V, K, 1))
+    off = 0.01 * rng.normal(size=(V, K, 1))
+    wm = c[:, None] + a * t1[:, None] + off * nv[:, None]
+    mu = np.einsum("kji,vkj->vki", R, wm - pk)          # Rᵀ (wm − p)
+    Lw = (0.04 * t1[:, :, None] * t1[:, None]           # world scatter:
+          + 0.01 * t2[:, :, None] * t2[:, None]         # distinct λ
+          + 1e-5 * nv[:, :, None] * nv[:, None])
+    n = rng.integers(1, 30, (V, K)) * (rng.random((V, K)) < 0.6)
+    n[rng.random(V) < 0.1] = 0
+    # a cell's Pc is its points' scatter about their mean: n · Rᵀ L R
+    Pc = n[..., None, None] * np.einsum("kji,vjl,klm->vkim", R, Lw, R)
+    tbl = np.concatenate([R.reshape(K, 9), pk], axis=1)
+    return n.astype(np.float64), mu, Pc, tbl
+
+
+AGG_K_CASES = ((1, 773), (4, 773), (45, 773), (64, 773), (1024, 301))
+
+
+def _agg_k_cases(torch, np, dev):
+    """soa_agg against its plain version beyond the main path's shapes:
+    K = 1, 4, 45 (odd), 64 and 1,024 (two rounds of a warp's 512
+    entries), V = 773 and 301 (not multiples of the block's voxels),
+    float32 and float64, under _agg_check's limits (both versions'
+    distance to float64 printed beside); each case with the (K, 12) pose
+    table (voxel stride 0), the same poses as per-entry rows (bitwise equal
+    to it), and, at K = 45, those rows 4 bytes off 16-byte alignment (the
+    scalar pose loads; bitwise equal too).  Then all five cases in one
+    soa_agg_buckets call (a launch per entries a thread), bitwise equal to
+    their own launches."""
+    from types import SimpleNamespace
+
+    from global_lvba_tpu_torch.kernels import launch_counts
+    from global_lvba_tpu_torch.kernels.soa import (
+        AGG_THREADS, agg_group, soa_agg, soa_agg_buckets, soa_agg_plain)
+
+    for d, tols in ((torch.float32, (TOL_RESIDV_REL, TOL_RESIDV_REL_LINE,
+                                     TOL_PV)),
+                    (torch.float64, (TOL64_RESIDV_REL,
+                                     TOL64_RESIDV_REL_LINE, TOL64_PV))):
+        ops, outs = [], []
+        for K, V in AGG_K_CASES:
+            n, mu, Pc, tbl = (torch.as_tensor(x, dtype=d, device=dev)
+                              for x in _agg_case(np, V, K, seed=K))
+            rows = tbl.expand(V, K, 12).contiguous()
+            fa = SimpleNamespace(n=n, mu=mu, Pc=Pc)
+            gap, lam0, lam2 = _spectrum(torch, fa, tbl)
+            live = n.sum(dim=1) > 0
+            wc = live & (gap >= WELL_CONDITIONED_GAP)
+            name = f"soa_agg{'_f64' if d == torch.float64 else ''} K={K}"
+            rk, pvk = soa_agg(n, mu, Pc, tbl)
+            rp, pvp = soa_agg_plain(n, mu, Pc, tbl)
+            pv64 = soa_agg_plain(*(x.double() for x in (n, mu, Pc, tbl)))[1]
+            variants = [soa_agg(n, mu, Pc, rows)]
+            if K == 45:
+                buf = torch.empty(V * K * 12 + 1, dtype=d, device=dev)
+                off = buf[1:].view(V, K, 12)
+                off.copy_(rows)
+                variants.append(soa_agg(n, mu, Pc, off))
+            torch.cuda.synchronize()
+            lg, ept = agg_group(K)
+            e64 = [_pv_errors(torch, x[wc].double(), pv64[wc])[:2]
+                   for x in (pvk, pvp)]
+            print(f"[{name}] V={V}, {1 << lg} threads a voxel, {ept} "
+                  f"entries a thread a round, {AGG_THREADS >> lg} voxels a "
+                  f"block; {int(live.sum())} live voxels; on well-"
+                  f"conditioned voxels (u abs, BᵀB rel) against float64: "
+                  f"kernel {e64[0][0]:.2e}, {e64[0][1]:.2e}; plain "
+                  f"{e64[1][0]:.2e}, {e64[1][1]:.2e}", flush=True)
+            _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
+                       tols=tols)
+            same = all(torch.equal(rk, a) and torch.equal(pvk, b)
+                       for a, b in variants)
+            rows_s = "rows (and 4 B off alignment)" if K == 45 else "rows"
+            print(f"[{name}] per-entry pose {rows_s} bitwise equal to the "
+                  f"pose table: {same}", flush=True)
+            if not same:
+                _fail(f"{name}: soa_agg on per-entry pose rows differs "
+                      f"from the pose table's")
+            ops.append((n, mu, Pc, rows if K % 2 else tbl))
+            outs.append((rk, pvk))
+        before = launch_counts()
+        one = soa_agg_buckets(ops)
+        torch.cuda.synchronize()
+        calls = sum(launch_counts().values()) - sum(before.values())
+        same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                   for a, b in zip(one, outs))
+        print(f"[soa_agg{'_f64' if d == torch.float64 else ''} K cases] the "
+              f"{len(ops)} cases in one soa_agg_buckets call ({calls} "
+              f"launches, one per entries a thread) bitwise equal to their "
+              f"own launches: {same}", flush=True)
+        if not same:
+            _fail("soa_agg_buckets differs from soa_agg per bucket")
+
+
 def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
                  lam0, lam2, W):
     """Phase 2d: the float64 instances of kernels 1-3 (soa_agg_f64,
@@ -744,7 +927,8 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from global_lvba_tpu_torch.factors.plane_eigen import plane_cost_grad_hess
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        plane_cost_grad_hess, voxel_chunks)
     from global_lvba_tpu_torch.kernels import launch_counts
     from global_lvba_tpu_torch.kernels.gram import syrk_
     from global_lvba_tpu_torch.kernels.soa import (
@@ -753,24 +937,23 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
     d = torch.float64
     ops = [tuple(x.to(d) for x in o) for o in ops]
     pose12 = pose12.to(d)
-    agg_k = [soa_agg(*o, pose12) for o in ops]
-    agg_p = [soa_agg_plain(*o, pose12) for o in ops]
+    fa64 = fa._replace(n=fa.n.to(d), mu=fa.mu.to(d), Pc=fa.Pc.to(d))
+    rk, pvk = soa_agg(fa64.n, fa64.mu, fa64.Pc, pose12)
+    rp, pvp = soa_agg_plain(fa64.n, fa64.mu, fa64.Pc, pose12)
     torch.cuda.synchronize()
     err_r = _agg_check(
-        torch, "soa_agg_f64", *(torch.cat([a[i] for a in x])
-                                for i in (0, 1) for x in (agg_k, agg_p)),
-        live, wc, lam0, lam2,
+        torch, "soa_agg_f64", rk, rp, pvk, pvp, live, wc, lam0, lam2,
         tols=(TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV))
-    nb = sum(o[0].shape[0] for o in ops)
+    nb = fa.n.shape[0]
     kern["soa_agg_f64"] = dict(
         max_abs_err=err_r,
         **_times(torch, "soa_agg_f64",
-                 lambda: [soa_agg(*o, pose12) for o in ops],
-                 lambda: [soa_agg_plain(*o, pose12) for o in ops]),
-        bound=_bound((nb * W * 13 + len(ops) * W * 12 + nb * 17) * 8,
-                     nb * W * AGG_FLOPS_PER_CELL + nb * AGG_FLOPS_PER_VOXEL,
-                     FP64_FLOP_PER_S))
-    pvs = [a[1] for a in agg_k]
+                 lambda: soa_agg(fa64.n, fa64.mu, fa64.Pc, pose12),
+                 lambda: soa_agg_plain(fa64.n, fa64.mu, fa64.Pc, pose12)),
+        **_agg_bounds("soa_agg_f64", [fa64.n], W * 12, 8))
+    chunks = voxel_chunks(nb, W)
+    pvs = [pvk[lo:hi] for lo, hi in chunks]
+    del rk, rp, pvp
     ch_k = [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)]
     ch_p = [soa_chain_plain(*o, pose12, q) for o, q in zip(ops, pvs)]
     torch.cuda.synchronize()
@@ -794,7 +977,7 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
                       + nb * W * 18 + W * 42) * 8,
                      nb * W * CHAIN_FLOPS_PER_CELL, FP64_FLOP_PER_S))
     As = [a[0] for a in ch_k]
-    del ch_k, ch_p, agg_k, agg_p
+    del ch_k, ch_p, pvk, pvs
     kern["syrk_f64"] = _syrk_f64_check(torch, "aligned W=512", As, 6 * W)
     del As
     rng = np.random.default_rng(5)
@@ -818,7 +1001,6 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
         _fail("syrk_ launched or changed gram on an empty float64 operand")
     del g0
     # one float64 evaluation: device ms, and each kernel's own time
-    fa64 = fa._replace(n=fa.n.to(d), mu=fa.mu.to(d), Pc=fa.Pc.to(d))
     R64, p64 = R.to(d), p.to(d)
     ms, ahead = _timed(torch, lambda: plane_cost_grad_hess(fa64, R64, p64, W))
     with profile(activities=[ProfilerActivity.CPU,
@@ -879,12 +1061,14 @@ def _syrk_f64_check(torch, label, As, N, timed=True):
     return out
 
 
-def _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
+def _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
                   lam0, lam2, pose12, R, p, W, odd_args):
     """Phase 6f: the float64 instances of the bucketed kernels
     (table_select_f64, soa_agg_f64 on per-entry pose rows,
     soa_chain_entries_f64, entry_reduce_f64) against their plain versions
-    in float64 on path 2b's operands, timed beside them, their library
+    in float64 on path 2b's operands, in the evaluation's launch shape
+    (soa_agg once a bucket, entry_reduce once through the merged frame
+    table tbl_m), timed beside them, their library
     calls and their bounds; soa_chain_entries_f64 also over NaN-filled
     memory, with planted frame ids and at W = 45; syrk_f64 on the
     corridor's Gram operands; one float64 evaluation timed and under
@@ -892,11 +1076,12 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
     from torch.profiler import ProfilerActivity, profile
 
     from global_lvba_tpu_torch.factors.plane_eigen import (
-        KERNEL_STEPS, _cost_grad_hess)
+        KERNEL_STEPS, _cost_grad_hess_buckets)
     from global_lvba_tpu_torch.kernels.selection import (
         entry_reduce, entry_reduce_plain, table_select, table_select_plain)
     from global_lvba_tpu_torch.kernels.soa import (
-        soa_agg, soa_agg_plain, soa_chain_entries, soa_chain_entries_plain)
+        soa_agg_buckets, soa_agg_plain, soa_chain_entries,
+        soa_chain_entries_plain)
 
     d, dev = torch.float64, pose12.device
     pose12 = pose12.to(d)
@@ -924,17 +1109,25 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
         bound=_bound(VK * 4 + len(bs) * W * 96 + VK * 96, 0))
     poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
              for s, fa in zip(sel_k, bs)]
+    agg_ops = [(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(bs, poses)]
+    agg_k = soa_agg_buckets(agg_ops)
+    agg_p = [soa_agg_plain(*o) for o in agg_ops]
+    torch.cuda.synchronize()
+    err_r = _agg_check(
+        torch, "soa_agg_f64 2b", *(torch.cat([a[i] for a in x])
+                                   for i in (0, 1) for x in (agg_k, agg_p)),
+        live, wc, lam0, lam2,
+        tols=(TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV))
+    results["soa_agg_f64_2b"] = dict(
+        max_abs_err=err_r,
+        **_times(torch, "soa_agg_f64 2b", lambda: soa_agg_buckets(agg_ops),
+                 lambda: [soa_agg_plain(*o) for o in agg_ops]),
+        per_bucket=_agg_per_bucket(torch, "soa_agg_f64 2b", agg_ops, agg_k),
+        **_agg_bounds("soa_agg_f64 2b", [fa.n for fa in bs], 0, 8))
     ops = [(bs[b].n[lo:hi], bs[b].mu[lo:hi], bs[b].Pc[lo:hi],
             poses[b][lo:hi]) for b, lo, hi in chunks]
-    agg_k = [soa_agg(*o) for o in ops]
-    agg_p = [soa_agg_plain(*o) for o in ops]
-    torch.cuda.synchronize()
-    _agg_check(torch, "soa_agg_f64 2b",
-               *(torch.cat([a[i] for a in x]) for i in (0, 1)
-                 for x in (agg_k, agg_p)), live, wc, lam0, lam2,
-               tols=(TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV))
-    chain_args = [o + (bs[b].frame[lo:hi], a[1], W)
-                  for o, a, (b, lo, hi) in zip(ops, agg_k, chunks)]
+    chain_args = [o + (bs[b].frame[lo:hi], agg_k[b][1][lo:hi], W)
+                  for o, (b, lo, hi) in zip(ops, chunks)]
     ch_k = [soa_chain_entries(*a) for a in chain_args]
     ch_p = [soa_chain_entries_plain(*a) for a in chain_args]
     torch.cuda.synchronize()
@@ -967,44 +1160,36 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
     results["syrk_f64_2b"] = _syrk_f64_check(torch, "corridor W=512", As,
                                              6 * W)
     del As
-    vals, off = [], 0
-    for fa in bs:
-        vals.append(vk[off:off + fa.n.numel()].contiguous())
-        off += fa.n.numel()
-    red_k = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
-    red_k2 = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
-    red_p = [entry_reduce_plain(v, t) for v, t in zip(vals, tbls)]
-    red_l = [torch.zeros((W, 30), dtype=d, device=dev).index_add_(0, f, v)
-             for v, f in zip(vals, frames64)]
+    fcat = torch.cat(frames64)
+    red_k = entry_reduce(vk, tbl_m)
+    red_k2 = entry_reduce(vk, tbl_m)
+    red_p = entry_reduce_plain(vk, tbl_m)
+    red_l = torch.zeros((W, 30), dtype=d, device=dev).index_add_(0, fcat, vk)
     torch.cuda.synchronize()
-    err_red = max(_rel(a, b) for a, b in zip(red_k, red_p))
-    err_lib = max(_rel(a, b) for a, b in zip(red_k, red_l))
-    rep = all(torch.equal(a, b) for a, b in zip(red_k, red_k2))
-    print(f"[entry_reduce_f64] rel err vs entry_reduce_plain {err_red:.3e}, "
-          f"vs index_add_ {err_lib:.3e} (tol {TOL64_SUM_REL}); two calls "
-          f"bitwise equal: {rep}", flush=True)
+    err_red, err_lib = _rel(red_k, red_p), _rel(red_k, red_l)
+    rep = bool(torch.equal(red_k, red_k2))
+    print(f"[entry_reduce_f64] one launch over the buckets: rel err vs "
+          f"entry_reduce_plain {err_red:.3e}, vs index_add_ {err_lib:.3e} "
+          f"(tol {TOL64_SUM_REL}); two calls bitwise equal: {rep}",
+          flush=True)
     if not (err_red <= TOL64_SUM_REL and err_lib <= TOL64_SUM_REL and rep):
         _fail("entry_reduce_f64 disagrees with entry_reduce_plain or is not "
               "repeatable")
-    kw = sum(int(t.numel()) for t in tbls)
     kern["entry_reduce_f64"] = dict(
-        max_abs_err=max(float((a - b).abs().max())
-                        for a, b in zip(red_k, red_p)),
+        max_abs_err=float((red_k - red_p).abs().max()),
         **_times(torch, "entry_reduce_f64",
-                 lambda: [entry_reduce(v, t) for v, t in zip(vals, tbls)],
-                 lambda: [entry_reduce_plain(v, t)
-                          for v, t in zip(vals, tbls)],
-                 lambda: [torch.zeros((W, 30), dtype=d, device=dev)
-                          .index_add_(0, f, v)
-                          for v, f in zip(vals, frames64)]),
-        bound=_bound(live_e * 30 * 8 + kw * 4 + len(bs) * W * 30 * 8,
+                 lambda: entry_reduce(vk, tbl_m),
+                 lambda: entry_reduce_plain(vk, tbl_m),
+                 lambda: torch.zeros((W, 30), dtype=d, device=dev)
+                 .index_add_(0, fcat, vk)),
+        bound=_bound(live_e * 30 * 8 + tbl_m.numel() * 4 + W * 30 * 8,
                      live_e * 30, FP64_FLOP_PER_S))
     # one float64 evaluation over the buckets: device ms, kernel times
     R64, p64 = R.to(d), p.to(d)
 
     def cgh64():
-        return [_cost_grad_hess(KERNEL_STEPS, fa, R64, p64, W, tbl=t)
-                for fa, t in zip(bs, tbls)]
+        return _cost_grad_hess_buckets(KERNEL_STEPS, bs, R64, p64, W,
+                                       table=tbl_m)
 
     ms, ahead = _timed(torch, cgh64)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1042,15 +1227,17 @@ def _slice2(torch, np, dev, kern, results, paths):
     from global_lvba_tpu_torch.__main__ import slice_config
     from global_lvba_tpu_torch.factors.padding import buckets_to_device
     from global_lvba_tpu_torch.factors.plane_eigen import (
-        KERNEL_STEPS, PLAIN_STEPS, PlaneFactorArrays, _cost_grad_hess,
-        frame_gather_table, plane_cost, pose_table, voxel_chunks)
+        KERNEL_STEPS, PLAIN_STEPS, PlaneFactorArrays, _cost_grad_hess_buckets,
+        buckets_frame_table, frame_gather_table, plane_cost, pose_table,
+        voxel_chunks)
     from global_lvba_tpu_torch.kernels import launch_counts, reset_launch_counts
     from global_lvba_tpu_torch.kernels.gram import (
         syrk_, syrk_plain_, tf32_split, tf32_split_plain)
     from global_lvba_tpu_torch.kernels.selection import (
         entry_reduce, entry_reduce_plain, table_select, table_select_plain)
     from global_lvba_tpu_torch.kernels.soa import (
-        soa_agg, soa_agg_plain, soa_chain_entries, soa_chain_entries_plain)
+        soa_agg_buckets, soa_agg_plain, soa_chain_entries,
+        soa_chain_entries_plain)
     from global_lvba_tpu_torch.map.voxelize import build_voxel_map
     from global_lvba_tpu_torch.models.synthetic import (
         ate_rmse, make_corridor_scene, make_plane_scene, perturb_poses)
@@ -1073,7 +1260,10 @@ def _slice2(torch, np, dev, kern, results, paths):
     R = torch.as_tensor(Rp, dtype=torch.float32, device=dev)
     p = torch.as_tensor(pp, dtype=torch.float32, device=dev)
     pose12 = pose_table(R, p)
-    tbls = [frame_gather_table(fa, W) for fa in bs]
+    # the evaluation's one frame table over every bucket's entries (the
+    # buckets' own, for their widths)
+    tbl_m = buckets_frame_table(bs, W)
+    widths = [int(frame_gather_table(fa, W).shape[1]) for fa in bs]
     frames = [fa.frame.reshape(-1) for fa in bs]
     frames64 = [f.long() for f in frames]
     live_e = sum(int((fa.n > 0).sum()) for fa in bs)
@@ -1088,7 +1278,7 @@ def _slice2(torch, np, dev, kern, results, paths):
                 padded=[list(fa.n.shape) for fa in bs], entries=live_e,
                 slots=VK, gram_rows=3 * Vs, gram_cols=6 * W,
                 chunks=[hi - lo for _, lo, hi in chunks],
-                table_widths=[int(t.shape[1]) for t in tbls])
+                table_widths=widths, merged_table_width=int(tbl_m.shape[1]))
     print(f"[2b] corridor W={W}: {info}", flush=True)
     results["corridor"] = info
 
@@ -1116,11 +1306,11 @@ def _slice2(torch, np, dev, kern, results, paths):
     poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
              for s, fa in zip(sel_k, bs)]
 
-    # ---- 6b. soa_agg on the per-entry pose rows ----
-    ops = [(bs[b].n[lo:hi], bs[b].mu[lo:hi], bs[b].Pc[lo:hi],
-            poses[b][lo:hi]) for b, lo, hi in chunks]
-    agg_k = [soa_agg(*o) for o in ops]
-    agg_p = [soa_agg_plain(*o) for o in ops]
+    # ---- 6b. soa_agg on the per-entry pose rows: one launch over the
+    # buckets (the evaluation's), a launch a bucket timed beside it ----
+    agg_ops = [(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(bs, poses)]
+    agg_k = soa_agg_buckets(agg_ops)
+    agg_p = [soa_agg_plain(*o) for o in agg_ops]
     torch.cuda.synchronize()
     spec = [_spectrum(torch, fa, ps) for fa, ps in zip(bs, poses)]
     gap, lam0, lam2 = (torch.cat([s[i] for s in spec]) for i in range(3))
@@ -1137,14 +1327,16 @@ def _slice2(torch, np, dev, kern, results, paths):
                        cat(agg_k, 1), cat(agg_p, 1), live, wc, lam0, lam2)
     results["soa_agg_2b"] = dict(
         max_abs_err=err_r,
-        **_times(torch, "soa_agg 2b", lambda: [soa_agg(*o) for o in ops],
-                 lambda: [soa_agg_plain(*o) for o in ops]),
-        bound=_bound(VK * (13 + 12) * 4 + Vs * 17 * 4,
-                     VK * AGG_FLOPS_PER_CELL + Vs * AGG_FLOPS_PER_VOXEL))
+        **_times(torch, "soa_agg 2b", lambda: soa_agg_buckets(agg_ops),
+                 lambda: [soa_agg_plain(*o) for o in agg_ops]),
+        per_bucket=_agg_per_bucket(torch, "soa_agg 2b", agg_ops, agg_k),
+        **_agg_bounds("soa_agg 2b", [fa.n for fa in bs], 0, 4))
 
     # ---- 6c. soa_chain_entries (both versions take the kernel's pv) ----
-    chain_args = [o + (bs[b].frame[lo:hi], a[1], W)
-                  for o, a, (b, lo, hi) in zip(ops, agg_k, chunks)]
+    ops = [(bs[b].n[lo:hi], bs[b].mu[lo:hi], bs[b].Pc[lo:hi],
+            poses[b][lo:hi]) for b, lo, hi in chunks]
+    chain_args = [o + (bs[b].frame[lo:hi], agg_k[b][1][lo:hi], W)
+                  for o, (b, lo, hi) in zip(ops, chunks)]
     ch_k = [soa_chain_entries(*a) for a in chain_args]
     ch_p = [soa_chain_entries_plain(*a) for a in chain_args]
     torch.cuda.synchronize()
@@ -1181,38 +1373,32 @@ def _slice2(torch, np, dev, kern, results, paths):
     _chain_entries_full_write(torch, f"soa_chain_entries W={ODD_W}",
                               odd_args, TOL_ROWS_REL)
 
-    # ---- 6d. entry_reduce: relative to max |.|, two calls bitwise equal ----
-    vals, off = [], 0
-    for fa in bs:
-        vals.append(vk[off:off + fa.n.numel()].contiguous())
-        off += fa.n.numel()
-    red_k = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
-    red_k2 = [entry_reduce(v, t) for v, t in zip(vals, tbls)]
-    red_p = [entry_reduce_plain(v, t) for v, t in zip(vals, tbls)]
-    red_l = [torch.zeros((W, 30), device=dev).index_add_(0, f, v)
-             for v, f in zip(vals, frames64)]
+    # ---- 6d. entry_reduce, one launch over every bucket's entries:
+    # relative to max |.|, two calls bitwise equal ----
+    fcat = torch.cat(frames64)
+    red_k = entry_reduce(vk, tbl_m)
+    red_k2 = entry_reduce(vk, tbl_m)
+    red_p = entry_reduce_plain(vk, tbl_m)
+    red_l = torch.zeros((W, 30), device=dev).index_add_(0, fcat, vk)
     torch.cuda.synchronize()
-    err_red = max(_rel(a, b) for a, b in zip(red_k, red_p))
-    err_lib = max(_rel(a, b) for a, b in zip(red_k, red_l))
-    rep = all(torch.equal(a, b) for a, b in zip(red_k, red_k2))
-    print(f"[entry_reduce] rel err vs entry_reduce_plain {err_red:.3e}, vs "
-          f"index_add_ {err_lib:.3e} (tol {TOL_SUM_REL}, relative to max "
-          f"|.|: float32 sums in another order); two calls bitwise equal: "
-          f"{rep}", flush=True)
+    err_red, err_lib = _rel(red_k, red_p), _rel(red_k, red_l)
+    rep = bool(torch.equal(red_k, red_k2))
+    print(f"[entry_reduce] one launch over the {len(bs)} buckets' {VK} "
+          f"entries, table ({W}, {tbl_m.shape[1]}): rel err vs "
+          f"entry_reduce_plain {err_red:.3e}, vs index_add_ {err_lib:.3e} "
+          f"(tol {TOL_SUM_REL}, relative to max |.|: float32 sums in "
+          f"another order); two calls bitwise equal: {rep}", flush=True)
     if not (err_red <= TOL_SUM_REL and err_lib <= TOL_SUM_REL and rep):
         _fail("entry_reduce disagrees with entry_reduce_plain or is not "
               "repeatable")
-    kw = sum(int(t.numel()) for t in tbls)
     kern["entry_reduce"] = dict(
-        max_abs_err=max(float((a - b).abs().max())
-                        for a, b in zip(red_k, red_p)),
+        max_abs_err=float((red_k - red_p).abs().max()),
         **_times(torch, "entry_reduce",
-                 lambda: [entry_reduce(v, t) for v, t in zip(vals, tbls)],
-                 lambda: [entry_reduce_plain(v, t)
-                          for v, t in zip(vals, tbls)],
-                 lambda: [torch.zeros((W, 30), device=dev).index_add_(0, f, v)
-                          for v, f in zip(vals, frames64)]),
-        bound=_bound(live_e * 30 * 4 + kw * 4 + len(bs) * W * 30 * 4,
+                 lambda: entry_reduce(vk, tbl_m),
+                 lambda: entry_reduce_plain(vk, tbl_m),
+                 lambda: torch.zeros((W, 30), device=dev).index_add_(
+                     0, fcat, vk)),
+        bound=_bound(live_e * 30 * 4 + tbl_m.numel() * 4 + W * 30 * 4,
                      live_e * 30),
     )
     # ---- 6e. syrk on the corridor's Gram operands (every tier and chunk
@@ -1238,32 +1424,43 @@ def _slice2(torch, np, dev, kern, results, paths):
     results["syrk_2b"] = dict(max_abs_err=err_g2, bound=bound,
                               bound_fp32=bound_fp32, split=t2s, **t2)
     del scratch, As
-    del ch_k, vk, vp, vals, agg_k, agg_p, ops, chain_args
+    del ch_k, vk, vp, agg_k, agg_p, agg_ops, ops, chain_args, fcat
     # ---- 6f. the float64 instances of the bucketed kernels ----
-    _bucketed_f64(torch, kern, results, bs, frames, tbls, chunks, live, wc,
+    _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
                   lam0, lam2, pose12, R, p, W, odd_args)
     del odd_args
 
-    # ---- 7. the bucketed evaluation over the corridor's buckets ----
-    def cgh(steps, fas, tables):
-        out = [_cost_grad_hess(steps, fa, R, p, W, tbl=t)
-               for fa, t in zip(fas, tables)]
-        return tuple(sum(o[i] for o in out) for i in range(3))
+    # ---- 7. the bucketed evaluation over the corridor's buckets: one
+    # Gram accumulator, one entry_reduce (solver.lm._total_cgh's) ----
+    def cgh(steps, fas, table):
+        return _cost_grad_hess_buckets(steps, fas, R, p, W, table=table)
 
-    r1, g1, H1 = cgh(KERNEL_STEPS, bs, tbls)
-    r2, g2, H2 = cgh(KERNEL_STEPS, bs, tbls)
+    reset_launch_counts()
+    r1, g1, H1 = cgh(KERNEL_STEPS, bs, tbl_m)
+    torch.cuda.synchronize()
+    per_eval = {k: v for k, v in launch_counts().items() if v}
+    shape_ok = (per_eval.get("entry_reduce") == 1
+                and 1 <= per_eval.get("soa_agg", 0) <= len(bs)
+                and per_eval.get("table_select") == len(bs))
+    print(f"[eval 2b] launches in one evaluation over the {len(bs)} "
+          f"buckets: {per_eval}", flush=True)
+    if not shape_ok:
+        _fail(f"the bucketed evaluation launched {per_eval}: one "
+              f"entry_reduce, at most one soa_agg and one table_select a "
+              f"bucket expected")
+    r2, g2, H2 = cgh(KERNEL_STEPS, bs, tbl_m)
     torch.cuda.synchronize()
     same = bool(torch.equal(r1, r2) and torch.equal(g1, g2)
                 and torch.equal(H1, H2) and torch.isfinite(H1).all()
                 and torch.isfinite(g1).all())
-    rq = cgh(PLAIN_STEPS, bs, tbls)[0]
+    rq = cgh(PLAIN_STEPS, bs, tbl_m)[0]
     line_like = live & ~wc
     r_slack = TOL_RESIDV_REL_LINE * float(lam2[line_like].abs().sum())
     e_r = max(0.0, abs(float(r1) - float(rq)) - r_slack) / abs(float(rq))
     wcs = torch.split(wc, [fa.n.shape[0] for fa in bs])
     bs_wc = [fa._replace(n=fa.n * w[:, None].to(fa.n.dtype))
              for fa, w in zip(bs, wcs)]
-    tb_wc = [frame_gather_table(fa, W) for fa in bs_wc]
+    tb_wc = buckets_frame_table(bs_wc, W)
     _, gk_, Hk_ = cgh(KERNEL_STEPS, bs_wc, tb_wc)
     _, gq, Hq = cgh(PLAIN_STEPS, bs_wc, tb_wc)
     e_g, e_H = _rel(gk_, gq), _rel(Hk_, Hq)
@@ -1273,13 +1470,13 @@ def _slice2(torch, np, dev, kern, results, paths):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     t0 = time.perf_counter()
-    cgh(KERNEL_STEPS, bs, tbls)
+    cgh(KERNEL_STEPS, bs, tbl_m)
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    eval_ms, ahead_e = _timed(torch, lambda: cgh(KERNEL_STEPS, bs, tbls))
+    eval_ms, ahead_e = _timed(torch, lambda: cgh(KERNEL_STEPS, bs, tbl_m))
     plain_eval_ms, ahead_pe = _timed(torch,
-                                     lambda: cgh(PLAIN_STEPS, bs, tbls))
+                                     lambda: cgh(PLAIN_STEPS, bs, tbl_m))
     print(f"[eval 2b] kernels vs plain over the {len(bs)} buckets: r rel err "
           f"{e_r:.3e} (beyond the line-like voxels' {r_slack:.3e}), g "
           f"{e_g:.3e}, H {e_H:.3e} (well-conditioned voxels) (tol "
@@ -1294,7 +1491,7 @@ def _slice2(torch, np, dev, kern, results, paths):
               "or is not repeatable")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        cgh(KERNEL_STEPS, bs, tbls)
+        cgh(KERNEL_STEPS, bs, tbl_m)
         torch.cuda.synchronize()
     prof_eval = _device_ms(prof)
     # no fill may touch A: the fill ops' tensors, by shape, against the
@@ -1332,6 +1529,7 @@ def _slice2(torch, np, dev, kern, results, paths):
           f"fp32-equivalent at its profiled {syrk_ms:.4f} ms + the split's "
           f"{split_ms:.4f} ms", flush=True)
     results["eval_2b"] = dict(ms=eval_ms, plain_ms=plain_eval_ms,
+                              launches=per_eval,
                               host_queue_ms=host_ms, r_rel=e_r,
                               g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
                               queued_ahead=ahead_e, per_kernel=per_kernel,
@@ -1446,9 +1644,9 @@ def _slice2(torch, np, dev, kern, results, paths):
     lm = lm_2b()
     torch.cuda.synchronize()
     lm_wall = time.time() - t0
-    syncs = _lm_syncs(torch, "2b-lm", lm_2b, tables=lambda: [
-        frame_gather_table(fa, W) for fa in bs])
-    _, g_c, H_c = cgh(KERNEL_STEPS, bs, tbls)
+    syncs = _lm_syncs(torch, "2b-lm", lm_2b,
+                      tables=lambda: buckets_frame_table(bs, W))
+    _, g_c, H_c = cgh(KERNEL_STEPS, bs, tbl_m)
     cg_2b = _cg_check(torch, "2b-lm", H_c.reshape(6 * W, 6 * W),
                       g_c.reshape(-1), torch.full((), 0.01, device=dev))
     del g_c, H_c
@@ -2074,40 +2272,36 @@ def main() -> int:
     results["scene"]["line_like_voxels"] = n_ill
     kern = {}
 
-    # ---- 2a. soa_agg ----
-    agg_k = [soa_agg(*o, pose12) for o in ops]
-    agg_p = [soa_agg_plain(*o, pose12) for o in ops]
-    rk = torch.cat([a[0] for a in agg_k])
-    rp = torch.cat([a[0] for a in agg_p])
-    pvk = torch.cat([a[1] for a in agg_k])
-    pvp = torch.cat([a[1] for a in agg_p])
+    # ---- 2a. soa_agg: one launch over the bucket ----
+    rk, pvk = soa_agg(fa.n, fa.mu, fa.Pc, pose12)
+    rp, pvp = soa_agg_plain(fa.n, fa.mu, fa.Pc, pose12)
     torch.cuda.synchronize()
     line_like = live & ~wc
     err_r = _agg_check(torch, "soa_agg", rk, rp, pvk, pvp, live, wc, lam0,
                        lam2)
     # the per-entry pose operand (the bucketed layout's table_select rows)
     # with frame k at slot k must give the aligned result bit for bit
-    n0, mu0, Pc0 = ops[0]
     frame = torch.arange(W, dtype=torch.int32, device=dev).expand(
-        n0.shape[0], W).contiguous()
-    rows0 = table_select(frame.reshape(-1), pose12).reshape(n0.shape[0], W, 12)
+        V, W).contiguous()
+    rows0 = table_select(frame.reshape(-1), pose12).reshape(V, W, 12)
     same_frame = all(torch.equal(a, b) for a, b in zip(
-        soa_agg(n0, mu0, Pc0, rows0), agg_k[0]))
+        soa_agg(fa.n, fa.mu, fa.Pc, rows0), (rk, pvk)))
     print(f"[soa_agg] per-entry pose operand equal: {same_frame}", flush=True)
     if not same_frame:
         _fail("soa_agg on per-entry pose rows differs from the aligned one")
-    nb = sum(o[0].shape[0] for o in ops)
+    del frame, rows0
     kern["soa_agg"] = dict(
         max_abs_err=err_r,
         **_times(torch, "soa_agg",
-                 lambda: [soa_agg(*o, pose12) for o in ops],
-                 lambda: [soa_agg_plain(*o, pose12) for o in ops]),
-        bound=_bound(nb * W * 13 * 4 + len(ops) * W * 12 * 4 + nb * 17 * 4,
-                     nb * W * AGG_FLOPS_PER_CELL + nb * AGG_FLOPS_PER_VOXEL),
-    )
+                 lambda: soa_agg(fa.n, fa.mu, fa.Pc, pose12),
+                 lambda: soa_agg_plain(fa.n, fa.mu, fa.Pc, pose12)),
+        **_agg_bounds("soa_agg", [fa.n], W * 12, 4))
+    # the group shapes beyond the main path's: K = 1, 4, 45, 64, 1024
+    _agg_k_cases(torch, np, dev)
 
     # ---- 2b. soa_chain (both versions take the kernel's pv) ----
-    pvs = [a[1] for a in agg_k]
+    pvs = [pvk[lo:hi] for lo, hi in chunks]
+    nb = V
     ch_k = [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)]
     ch_p = [soa_chain_plain(*o, pose12, q) for o, q in zip(ops, pvs)]
     torch.cuda.synchronize()
@@ -2184,7 +2378,7 @@ def main() -> int:
           f"TFLOP/s fp32-equivalent at the wrapper's {kern['syrk']['ms']:.4f} "
           f"ms, of which the split {kern['syrk_split']['ms']:.4f} ms",
           flush=True)
-    del scratch, g0, As, ch_k, ch_p
+    del scratch, g0, As, ch_k, ch_p, rk, rp, pvk, pvp
     # ---- 2d. the float64 instances of kernels 1-3 ----
     _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
                  lam0, lam2, W)

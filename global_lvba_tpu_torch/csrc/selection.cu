@@ -12,14 +12,20 @@
 //
 // entry_reduce_kernel replaces selection.py:84 `_entry_reduce_kernel`:
 // out[w, c] = Σ_j vals[tbl[w, j], c] over the frame-major (W, Kf) table of
-// plane_eigen.frame_gather_table.  The TPU kernel accumulated over a
+// plane_eigen.buckets_frame_table.  The TPU kernel accumulated over a
 // sequential grid in VMEM; blocks here run in no order, so each block owns
-// one frame w.  Its kLanes lanes of 32 threads take the table's entries
-// j = lane, lane + kLanes, ... in order, thread c of a lane one channel
-// (a lane reads an entry's C contiguous floats together), and a fixed
-// shared-memory tree adds the lanes: no atomics, bitwise repeatable.  An
-// index outside [0, E) — the sentinel E — adds nothing.  Bound: bytes —
-// every live entry's C floats read once, the table and the output.
+// one frame w.  A bucketed evaluation launches it once over all of its
+// buckets: their entries share one vals buffer and one table.  The block's
+// 512 threads are S = 512 / C entry slots of C threads (17 slots of 30 for
+// the g/Hd channels: 510 busy threads, each warp's lanes on neighbouring
+// values of one or two entries).  The block first copies a run of up to 512
+// table indices to shared memory (coalesced), then slot s takes the run's
+// entries s, s + S, ... in order, thread c of the slot channel c, with the
+// loads unrolled four deep; the slots' sums are added in slot order by C
+// threads.  Each output is one fixed-order sum, no atomics: bitwise
+// repeatable.  An index outside [0, E) — the sentinel E — adds nothing.
+// C above 512 goes in passes of 512 channels.  Bound: bytes — every live
+// entry's C values read once, the table and the output.
 //
 // Both are templated on the value type: the launchers without a suffix
 // take float (float32 solves), the _f64 ones double (float64 solves).
@@ -31,8 +37,7 @@
 namespace {
 
 constexpr int kSelectThreads = 256;
-constexpr int kLanes = 4;
-constexpr int kReduceThreads = 32 * kLanes;
+constexpr int kReduceThreads = 512;
 
 template <typename T>
 __global__ void __launch_bounds__(kSelectThreads)
@@ -54,28 +59,36 @@ __global__ void __launch_bounds__(kReduceThreads)
 entry_reduce_kernel(const T* __restrict__ vals,
                     const int* __restrict__ tbl, int64_t E, int C, int Kf,
                     T* __restrict__ out) {
-  __shared__ T red[kLanes][32];
-  const int w = blockIdx.x;
-  const int lane = threadIdx.x / 32;
-  const int t = threadIdx.x % 32;
-  const int* row = tbl + (int64_t)w * Kf;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + t;
+  __shared__ int idx[kReduceThreads];
+  __shared__ T red[kReduceThreads];
+  const int t = threadIdx.x;
+  const int* __restrict__ row = tbl + (int64_t)blockIdx.x * Kf;
+  for (int c0 = 0; c0 < C; c0 += kReduceThreads) {
+    const int cw = min(C - c0, kReduceThreads);  // channels this pass
+    const int S = kReduceThreads / cw;           // entry slots
+    const int slot = t / cw;
+    const int c = c0 + t - slot * cw;
     T s = T(0.0);
-    if (c < C) {
-      for (int j = lane; j < Kf; j += kLanes) {
-        const int idx = __ldg(row + j);
-        if (idx >= 0 && idx < E) s += vals[(int64_t)idx * C + c];
+    for (int j0 = 0; j0 < Kf; j0 += kReduceThreads) {
+      const int nj = min(Kf - j0, kReduceThreads);
+      __syncthreads();
+      if (t < nj) idx[t] = __ldg(row + j0 + t);
+      __syncthreads();
+      if (slot < S) {
+#pragma unroll 4
+        for (int j = slot; j < nj; j += S) {
+          const int e = idx[j];
+          if (e >= 0 && e < E) s += vals[(int64_t)e * C + c];
+        }
       }
     }
-    red[lane][t] = s;
+    red[t] = s;
     __syncthreads();
-#pragma unroll
-    for (int h = kLanes / 2; h > 0; h >>= 1) {
-      if (lane < h) red[lane][t] += red[lane + h][t];
-      __syncthreads();
+    if (t < cw) {
+      T o = red[t];
+      for (int k = 1; k < S; ++k) o += red[k * cw + t];
+      out[(int64_t)blockIdx.x * C + c0 + t] = o;
     }
-    if (lane == 0 && c < C) out[(int64_t)w * C + c] = red[0][t];
     __syncthreads();
   }
 }

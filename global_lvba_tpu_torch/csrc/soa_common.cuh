@@ -33,27 +33,6 @@ __device__ __forceinline__ double macos(double x) { return acos(x); }
 __device__ __forceinline__ float mcos(float x) { return cosf(x); }
 __device__ __forceinline__ double mcos(double x) { return cos(x); }
 
-// Deterministic block sum of NV values per thread: a fixed shared-memory
-// tree, every thread gets the totals.
-template <typename T, int NT, int NV>
-__device__ __forceinline__ void block_sum(T (&v)[NV], T (*red)[NT]) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) red[i][t] = v[i];
-  __syncthreads();
-#pragma unroll
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (t < s) {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) red[i][t] += red[i][t + s];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) v[i] = red[i][0];
-  __syncthreads();
-}
-
 // One (voxel, frame) cell of the aligned arrays: n (V,K), mu (V,K,3),
 // Pc (V,K,3,3) row-major; Pc is symmetric, its upper triangle is read.
 template <typename T>

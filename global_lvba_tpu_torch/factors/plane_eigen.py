@@ -13,26 +13,33 @@ Two factor layouts, chosen per solve by the density gate
 
 * frame-ALIGNED (AlignedPlaneFactorArrays, (V, W)): slot k IS frame k, so
   pose channels broadcast over voxels, g/Hd are voxel-axis sums and the
-  factor rows already sit in the Gram layout.  Three steps per voxel
-  chunk:
+  factor rows already sit in the Gram layout.  Per bucket
     1. soa_agg    aggregation + eigensolve    -> residv (V,), pv (V, 16)
+                  (one launch per kernel instance over the
+                  evaluation's buckets)
+  then per voxel chunk
     2. soa_chain  linearization chain          -> A (3V, 6W), g (W, 6), Hd
     3. syrk_      gram += AᵀA
 * BUCKETED (PlaneFactorArrays, (V, K) slots with a frame id each): per
-  bucket and evaluation
+  bucket
     0. table_select        pose table -> per-entry pose rows (V, K, 12)
+    1. soa_agg             on the per-entry pose rows (the same launch)
   then per voxel chunk
-    1. soa_agg             on the per-entry pose rows
     2. soa_chain_entries   rows scattered into A (3V, 6W) at column
                            6·frame (the M expansion, exact: a voxel
                            observes a frame at most once), the 30 unique
                            g/Hd channels per entry -> vals (V·K, 30)
     3. syrk_               gram += AᵀA
-  and once per bucket
+  and once per evaluation, over all of its bucketed buckets
     4. entry_reduce        frame segment-sum of vals through the (W, Kf)
                            frame table -> g (W, 6), Hd (W, 6, 6).
-  The frame table is built on the host once per solve
-  (frame_gather_table) and reused by every evaluation.
+  The buckets write one vals buffer, each at its offset, and the frame
+  table lists the entries of all of them; it is built on the host once
+  per solve (buckets_frame_table) and reused by every evaluation.
+
+An evaluation over a list of buckets (plane_cost_grad_hess_buckets, the
+LM's) adds every bucket's AᵀA into one Gram accumulator and negates it
+once, and adds the block diagonal once.
 
 Each step is a CUDA kernel on the card (kernels/) and its plain torch
 version on the CPU; each kernel has a float32 and a float64 instance, so
@@ -378,10 +385,11 @@ def voxel_chunks(V: int, W: int, chunk_bytes: int = 256 * 1024 * 1024,
 def _frame_table_np(frame: np.ndarray, n: np.ndarray, W: int) -> np.ndarray:
     """(W, Kf) frame-major index table over the FLAT (v, k) entries: row w
     lists every valid entry observing frame w, padded with the sentinel
-    index V*K (which gathers an all-zero row).  Kf = max entries per
+    index V*K (which gathers an all-zero row).  An entry is valid when it
+    is live (n > 0) and its frame id lies in [0, W).  Kf = max entries per
     frame, rounded up to 8."""
     flat_f = frame.reshape(-1).astype(np.int64)
-    valid = n.reshape(-1) > 0
+    valid = (n.reshape(-1) > 0) & (flat_f >= 0) & (flat_f < W)
     sel = np.flatnonzero(valid)
     fsel = flat_f[sel]
     order = np.argsort(fsel, kind="stable")
@@ -398,21 +406,42 @@ def _frame_table_np(frame: np.ndarray, n: np.ndarray, W: int) -> np.ndarray:
     return idx
 
 
+def buckets_frame_table(buckets, W: int) -> torch.Tensor:
+    """(W, Kf) int32 frame table over the flat entries of the bucketed
+    buckets in list order (bucket b's entry (v, k) at Σ_{b' < b} V·K + v·K
+    + k: the layout of the evaluation's one vals buffer), on their device;
+    the sentinel is the total entry count.  Built on the host from the
+    buckets' frame ids and counts (one copy each way per bucket and one to
+    the device, once per solve).  The operand of entry_reduce; every
+    evaluation of a solve reuses it.  Aligned buckets have no entry in it."""
+    bs = [fa for fa in buckets if isinstance(fa, PlaneFactorArrays)]
+    if not bs:
+        raise ValueError("no bucketed factor arrays to build a frame table "
+                         "for")
+    frame = np.concatenate([fa.frame.cpu().numpy().reshape(-1) for fa in bs])
+    n = np.concatenate([fa.n.cpu().numpy().reshape(-1) for fa in bs])
+    tbl = _frame_table_np(frame, n, W)
+    return torch.as_tensor(tbl).to(bs[0].n.device)
+
+
 def frame_gather_table(fa: PlaneFactorArrays, W: int) -> torch.Tensor:
-    """(W, Kf) int32 frame table of a bucket on its device, built on the
-    host from the bucket's frame ids and counts (one copy each way per
-    solve).  The operand of entry_reduce; every evaluation of a solve
-    reuses it."""
-    tbl = _frame_table_np(fa.frame.cpu().numpy(), fa.n.cpu().numpy(), W)
-    return torch.as_tensor(tbl).to(fa.n.device)
+    """(W, Kf) int32 frame table of one bucket: buckets_frame_table of
+    [fa].  Kept under the name of its counterpart in the JAX package
+    (global_lvba_tpu.factors.plane_eigen.frame_gather_table), which the
+    parity tests call beside it."""
+    return buckets_frame_table([fa], W)
 
 
 def segsum_table(z: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     """Frame-indexed segment sum of flat per-entry values z (VK, C) through
     the frame table: a (W, Kf, C) row gather and a sum over Kf.  The
-    sentinel index VK gathers an all-zero row."""
+    sentinel index VK, as any index outside [0, VK), gathers an all-zero
+    row."""
+    E = z.shape[0]
+    t = tbl.long()
+    t = t.masked_fill((t < 0) | (t >= E), E)
     zpad = torch.cat([z, z.new_zeros((1,) + tuple(z.shape[1:]))])
-    return zpad[tbl.long()].sum(dim=1)
+    return zpad[t].sum(dim=1)
 
 
 class EvalSteps(NamedTuple):
@@ -426,10 +455,10 @@ class EvalSteps(NamedTuple):
     reduce: object
 
 
-KERNEL_STEPS = EvalSteps(_soa.soa_agg, _soa.soa_chain, _gram.syrk_,
+KERNEL_STEPS = EvalSteps(_soa.soa_agg_buckets, _soa.soa_chain, _gram.syrk_,
                          _sel.table_select, _soa.soa_chain_entries,
                          _sel.entry_reduce)
-PLAIN_STEPS = EvalSteps(_soa.soa_agg_plain, _soa.soa_chain_plain,
+PLAIN_STEPS = EvalSteps(_soa.soa_agg_buckets_plain, _soa.soa_chain_plain,
                         _gram.syrk_plain_, _sel.table_select_plain,
                         _soa.soa_chain_entries_plain, _sel.entry_reduce_plain)
 
@@ -442,29 +471,21 @@ def _check_width(fa: AlignedPlaneFactorArrays, W: int):
         )
 
 
-def _pose_operand(steps: EvalSteps, fa, pose12: torch.Tensor, W: int,
-                  chunk_bytes: int = 256 * 1024 * 1024):
-    """soa_agg's pose operand for the whole bucket and the bucket's voxel
-    chunks: the pose table itself on the aligned layout, the
-    table_select'ed per-entry rows (V, K, 12) on the bucketed one."""
-    V, K = fa.n.shape
+def _pose_operand(steps: EvalSteps, fa, pose12: torch.Tensor, W: int):
+    """soa_agg's pose operand for the whole bucket: the pose table itself
+    on the aligned layout, the table_select'ed per-entry rows (V, K, 12)
+    on the bucketed one."""
     if isinstance(fa, PlaneFactorArrays):
-        poses = steps.select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
-        return poses, voxel_chunks(V, W, chunk_bytes, K=K)
+        V, K = fa.n.shape
+        return steps.select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
     _check_width(fa, W)
-    return pose12, voxel_chunks(V, W, chunk_bytes)
+    return pose12
 
 
 def plane_cost(fa, R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Sum over voxels of λ_min (evaluate_only_residual, bavoxel.hpp:176-203)."""
-    poses, chunks = _pose_operand(KERNEL_STEPS, fa, pose_table(R, p),
-                                  R.shape[0])
-    bucketed = poses.dim() == 3
-    return sum(
-        _soa.soa_agg(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
-                     poses[lo:hi] if bucketed else poses)[0].sum()
-        for lo, hi in chunks
-    )
+    poses = _pose_operand(KERNEL_STEPS, fa, pose_table(R, p), R.shape[0])
+    return _soa.soa_agg(fa.n, fa.mu, fa.Pc, poses)[0].sum()
 
 
 def plane_cost_grad_hess(
@@ -476,7 +497,8 @@ def plane_cost_grad_hess(
     tbl: torch.Tensor = None,
 ):
     """Total (residual, gradient (W, 6), Hessian (W, 6, W, 6)) of one
-    factor-array set, aligned or bucketed.
+    factor-array set, aligned or bucketed: plane_cost_grad_hess_buckets of
+    [fa].
 
     H = diag-blocks(Hd) - Σ_chunks A_cᵀ A_c, chunked over voxels so the
     (3V, 6W) factor rows stay within `chunk_bytes`.  tbl: the bucketed
@@ -487,57 +509,97 @@ def plane_cost_grad_hess(
                            tbl)
 
 
+def plane_cost_grad_hess_buckets(
+    buckets,
+    R: torch.Tensor,
+    p: torch.Tensor,
+    num_frames: int,
+    table: torch.Tensor = None,
+    chunk_bytes: int = 256 * 1024 * 1024,
+):
+    """Total (residual, gradient (W, 6), Hessian (W, 6, W, 6)) over a list
+    of factor-array sets, aligned and bucketed mixed (the sum of their
+    plane_cost_grad_hess, the JAX package's solver.lm._total_cgh).
+
+    One Gram accumulator takes every bucket's AᵀA and is negated once; the
+    bucketed buckets' per-entry channels go to one vals buffer, summed by
+    frame in one entry_reduce through `table`, their
+    buckets_frame_table(buckets, W) (built here when not given: a solve
+    builds it once, since building it reads the ids to the host); the
+    aligned buckets' g and Hd come from their chain's voxel sums."""
+    return _cost_grad_hess_buckets(KERNEL_STEPS, buckets, R, p, num_frames,
+                                   chunk_bytes, table)
+
+
 def _cost_grad_hess(steps: EvalSteps, fa, R, p, num_frames: int,
                     chunk_bytes: int = 256 * 1024 * 1024, tbl=None):
+    return _cost_grad_hess_buckets(steps, [fa], R, p, num_frames,
+                                   chunk_bytes, tbl)
+
+
+def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
+                            chunk_bytes: int = 256 * 1024 * 1024,
+                            table=None):
     W = num_frames
     pose12 = pose_table(R, p)
     dev, dt = R.device, R.dtype
     gram = torch.zeros((6 * W, 6 * W), dtype=dt, device=dev)
-    if isinstance(fa, PlaneFactorArrays):
-        resid, g, Hd = _bucketed_pass(steps, fa, pose12, W, gram,
-                                      chunk_bytes, tbl)
-    else:
-        resid, g, Hd = _aligned_pass(steps, fa, pose12, W, gram, chunk_bytes)
+    resid = torch.zeros((), dtype=dt, device=dev)
+    g = torch.zeros((W, 6), dtype=dt, device=dev)
+    Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
+    entries = sum(fa.n.numel() for fa in buckets
+                  if isinstance(fa, PlaneFactorArrays))
+    if entries and table is None:
+        table = buckets_frame_table(buckets, W)
+    vals = torch.empty((entries, 30), dtype=dt, device=dev)
+    poses = [_pose_operand(steps, fa, pose12, W) for fa in buckets]
+    aggs = steps.agg([(fa.n, fa.mu, fa.Pc, ps)
+                      for fa, ps in zip(buckets, poses)])
+    off = 0
+    for fa, ps, (residv, pv) in zip(buckets, poses, aggs):
+        resid = resid + residv.sum()
+        if isinstance(fa, PlaneFactorArrays):
+            VK = fa.n.numel()
+            _bucketed_pass(steps, fa, ps, pv, W, gram, chunk_bytes,
+                           vals[off:off + VK])
+            off += VK
+        else:
+            g_, Hd_ = _aligned_pass(steps, fa, pose12, pv, W, gram,
+                                    chunk_bytes)
+            g, Hd = g + g_, Hd + Hd_
+    if entries:
+        gHd = steps.reduce(vals, table)                         # (W, 30)
+        g = g + gHd[:, :6]
+        Hd = Hd + gHd[:, 6:][:, _soa.d24_to_36(dev)].reshape(W, 6, 6)
     H = add_block_diag(gram.neg_().reshape(W, 6, W, 6), Hd, W)
     return resid, g, H
 
 
-def _aligned_pass(steps, fa, pose12, W, gram, chunk_bytes):
-    _, chunks = _pose_operand(steps, fa, pose12, W, chunk_bytes)
+def _aligned_pass(steps, fa, pose12, pv, W, gram, chunk_bytes):
+    """g, Hd of an aligned bucket with its soa_agg output pv; its AᵀA
+    added into gram."""
     dev, dt = pose12.device, pose12.dtype
-    resid = torch.zeros((), dtype=dt, device=dev)
     g = torch.zeros((W, 6), dtype=dt, device=dev)
     Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
-    for lo, hi in chunks:
-        n, mu, Pc = fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi]
-        residv, pv = steps.agg(n, mu, Pc, pose12)
-        A, g_c, Hd_c = steps.chain(n, mu, Pc, pose12, pv)
+    for lo, hi in voxel_chunks(fa.n.shape[0], W, chunk_bytes):
+        A, g_c, Hd_c = steps.chain(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
+                                   pose12, pv[lo:hi])
         steps.syrk_(gram, A)
-        resid = resid + residv.sum()
         g = g + g_c
         Hd = Hd + Hd_c
-    return resid, g, Hd
+    return g, Hd
 
 
-def _bucketed_pass(steps, fa, pose12, W, gram, chunk_bytes, tbl):
+def _bucketed_pass(steps, fa, poses, pv, W, gram, chunk_bytes, vals):
+    """A bucketed bucket with its per-entry pose rows and soa_agg output
+    pv: its AᵀA added into gram, its per-entry g/Hd channels written to
+    vals (V·K, 30)."""
     V, K = fa.n.shape
-    dev, dt = pose12.device, pose12.dtype
-    if tbl is None:
-        tbl = frame_gather_table(fa, W)
-    poses, chunks = _pose_operand(steps, fa, pose12, W, chunk_bytes)
-    vals = torch.empty((V * K, 30), dtype=dt, device=dev)
-    resid = torch.zeros((), dtype=dt, device=dev)
-    for lo, hi in chunks:
-        n, mu, Pc, pc = fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi], poses[lo:hi]
-        residv, pv = steps.agg(n, mu, Pc, pc)
-        A, _ = steps.chain_entries(n, mu, Pc, pc, fa.frame[lo:hi], pv, W,
-                                   vals[lo * K:hi * K])
+    for lo, hi in voxel_chunks(V, W, chunk_bytes, K=K):
+        A, _ = steps.chain_entries(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
+                                   poses[lo:hi], fa.frame[lo:hi], pv[lo:hi],
+                                   W, vals[lo * K:hi * K])
         steps.syrk_(gram, A)
-        resid = resid + residv.sum()
-    gHd = steps.reduce(vals, tbl)                               # (W, 30)
-    g = gHd[:, :6].contiguous()
-    Hd = gHd[:, 6:][:, _soa.d24_to_36(dev)].reshape(W, 6, 6)
-    return resid, g, Hd
 
 
 def add_block_diag(H: torch.Tensor, Hd: torch.Tensor, W: int) -> torch.Tensor:

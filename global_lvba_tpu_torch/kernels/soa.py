@@ -4,13 +4,20 @@ fused 3x3 eigensolve, and the per-entry linearization chain.
 soa_agg (csrc/soa_agg.cu) replaces the Pallas kernel
 global_lvba_tpu/ops/pallas/soa_fused.py:61 `_agg_kernel` and the XLA
 eigensolve beside it (`_soa_eig`): CUDA has acosf, so the eigensolve that
-the TPU had to split out runs in the same kernel.  One block per voxel
-reduces its W entries in a fixed tree order (no atomics).  Bound: bytes —
-it reads the 13 floats of every (voxel, frame) cell once (54.5 MB at
-V=2048, W=512) and does ~150 flops per cell, far below the card's
-FLOP/byte balance; the design reads each cell with neighbouring threads
-on neighbouring cells and keeps the per-voxel results (N, v̄, the
-covariance, the eigenvectors) in registers and shared memory.
+the TPU had to split out runs in the same kernel.  Bound: bytes — a dead
+cell (n == 0) adds exactly zero, so it needs n of every cell and μ (3),
+Pc's upper triangle (6) and the pose row of the live ones (aligned W=512,
+one pose table: 15.7 MB of the layout's 54.5 MB); ~150 flops per cell
+are far below the card's FLOP/byte balance.  A voxel gets a group of up
+to a warp's threads matched to its K (agg_group: every thread on an
+entry, several voxels a warp when K is small), each holding up to 16
+entries, which load n, then μ, Pc and the pose row of live entries only,
+keep their n·(R μ + p) in registers for pass 2 and sum in a fixed
+shuffle tree (no atomics, no barrier); each group's first thread runs
+its voxel's eigensolve, in parallel with the other groups'.  One launch
+takes all of an evaluation's buckets of one kernel instance
+(soa_agg_buckets: each bucket's V, K and pose operand in a table passed
+by value as the kernel's parameter, with the instance's EPT).
 
 soa_chain (csrc/soa_chain.cu) replaces global_lvba_tpu/ops/pallas/
 soa_fused.py:73 `_chain_kernel` and, on the aligned layout, the voxel-axis
@@ -61,6 +68,10 @@ LAUNCHES = {"soa_agg": 0, "soa_chain": 0, "soa_chain_entries": 0,
             "soa_agg_f64": 0, "soa_chain_f64": 0,
             "soa_chain_entries_f64": 0}
 
+AGG_THREADS = 256        # soa_agg_kernel's block (kThreads in soa_agg.cu)
+AGG_GROUP = 32           # its threads a voxel at most: a warp's shuffles
+AGG_EPT = 16             # its entries a thread a round at most (1-16)
+AGG_MAX_BUCKETS = 16     # buckets one launch takes (kMaxBuckets)
 _CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
 # soa_chain_entries' block limits; kernels/build.py passes them to
 # soa_chain.cu (kMaxTile, kEntryThreads)
@@ -102,6 +113,27 @@ def _check_operands(n, mu, Pc, poses, *more):
             raise ValueError(f"{name} must be contiguous")
 
 
+def agg_group(K: int):
+    """(log2 G, EPT) of soa_agg_kernel for voxels of K slots: each thread
+    holds EPT entries a round, the least power of two that covers K with a
+    warp's threads (AGG_GROUP) up to AGG_EPT (K above AGG_GROUP·AGG_EPT
+    takes rounds), and each voxel a group of G threads, the least power of
+    two with G·EPT >= K up to a warp (AGG_THREADS / G voxels a block; the
+    launcher derives G from K and EPT the same way).  So one entry a thread
+    up to K = 32: the group's sums then pair entries as the plain version's
+    reduction does (four a thread took 0.0101 ms on the corridor against
+    0.0182 on an H100, but its voxel means round differently, and the
+    corridor's gradient, which cancels, moved 1.4e-4 from the plain
+    version's: TOL_EVAL_REL is 1e-4)."""
+    ept = 1
+    while AGG_GROUP * ept < K and ept < AGG_EPT:
+        ept *= 2
+    G = 1
+    while G * ept < K and G < AGG_GROUP:
+        G *= 2
+    return G.bit_length() - 1, ept
+
+
 def soa_agg(n, mu, Pc, poses):
     """Aggregation + eigensolve -> (residv (V,), pv (V, 16)), pv =
     [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0].
@@ -110,29 +142,63 @@ def soa_agg(n, mu, Pc, poses):
     on the aligned layout (entry (v, k) takes pose k: voxel stride 0) or
     per-entry pose rows (V, K, 12) on the bucketed layout (table_select's
     output: voxel stride K·12)."""
-    if n.device.type == "cpu":
-        return soa_agg_plain(n, mu, Pc, poses)
-    if n.device.type != "cuda":
-        raise ValueError(f"soa_agg: unsupported device {n.device}")
-    V, K = n.shape
-    _check_operands(n, mu, Pc, poses)
-    if poses.dim() == 2:
-        if poses.shape[0] != K:
-            raise ValueError(f"aligned layout needs K == poses, got {K} != "
-                             f"{poses.shape[0]}")
-        vstride = 0
-    else:
-        vstride = K * 12
-    residv = torch.empty((V,), dtype=n.dtype, device=n.device)
-    pv = torch.empty((V, 16), dtype=n.dtype, device=n.device)
-    name = build.dtype_launcher("soa_agg", n.dtype)
+    return soa_agg_buckets([(n, mu, Pc, poses)])[0]
+
+
+def soa_agg_buckets(ops):
+    """soa_agg of each (n, mu, Pc, poses) of `ops` -> [(residv, pv)], all
+    of one dtype and device, each bucket with its own V, K and pose
+    operand: one launch per kernel instance the buckets take (agg_group's
+    entries a thread, EPT: the corridor's five tiers take two) and per
+    AGG_MAX_BUCKETS buckets.  A bucket runs in its own instance whatever
+    else is in the launch, so its outputs are bit for bit soa_agg's."""
+    if not ops:
+        return []
+    dev = ops[0][0].device
+    if dev.type == "cpu":
+        return soa_agg_buckets_plain(ops)
+    if dev.type != "cuda":
+        raise ValueError(f"soa_agg: unsupported device {dev}")
+    dt = ops[0][0].dtype
+    name = build.dtype_launcher("soa_agg", dt)
+    groups, outs = {}, []
+    for n, mu, Pc, poses in ops:
+        V, K = n.shape
+        _check_operands(n, mu, Pc, poses)
+        if n.device != dev or n.dtype != dt:
+            raise ValueError("soa_agg: the buckets' operands must share one "
+                             "device and dtype")
+        if poses.dim() == 2:
+            if poses.shape[0] != K:
+                raise ValueError(f"aligned layout needs K == poses, got {K} "
+                                 f"!= {poses.shape[0]}")
+            vstride = 0
+        else:
+            vstride = K * 12
+        residv = torch.empty((V,), dtype=dt, device=dev)
+        pv = torch.empty((V, 16), dtype=dt, device=dev)
+        outs.append((residv, pv))
+        groups.setdefault(agg_group(K)[1], []).append(
+            (n, mu, Pc, poses, vstride, V, K, residv, pv))
     launch = build.launcher(name)
-    with torch.cuda.device(n.device):
-        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), vstride,
-                     V, K, _ptr(residv), _ptr(pv), _stream(n.device))
-    build.check(name, err)
-    LAUNCHES[name] += 1
-    return residv, pv
+    for ept, args in groups.items():
+        for i0 in range(0, len(args), AGG_MAX_BUCKETS):
+            cols = list(zip(*args[i0:i0 + AGG_MAX_BUCKETS]))
+            nb = len(cols[0])
+            ptrs = [(ctypes.c_void_p * nb)(*(t.data_ptr() for t in col))
+                    for col in cols[:4] + cols[7:]]
+            ints = [(ctypes.c_int * nb)(*col) for col in cols[4:7]]
+            with torch.cuda.device(dev):
+                err = launch(nb, *ptrs[:4], *ints, ept, *ptrs[4:],
+                             _stream(dev))
+            build.check(name, err)
+            LAUNCHES[name] += 1
+    return outs
+
+
+def soa_agg_buckets_plain(ops):
+    """Plain torch version of soa_agg_buckets: soa_agg_plain per bucket."""
+    return [soa_agg_plain(*o) for o in ops]
 
 
 def soa_agg_plain(n, mu, Pc, poses):

@@ -33,8 +33,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..factors.plane_eigen import (
-    AlignedPlaneFactorArrays, PlaneFactorArrays, frame_gather_table,
-    plane_cost_grad_hess)
+    AlignedPlaneFactorArrays, PlaneFactorArrays, buckets_frame_table,
+    plane_cost_grad_hess_buckets)
 from ..geometry.se3 import boxplus_pose
 from .dist_solve import solve_damped_cg
 
@@ -53,13 +53,10 @@ class LMResult(NamedTuple):
     residual: torch.Tensor
 
 
-def _total_cgh(buckets, tables, R, p, W):
-    resid = torch.zeros((), dtype=R.dtype, device=R.device)
-    g = torch.zeros((W, 6), dtype=R.dtype, device=R.device)
-    H = torch.zeros((W, 6, W, 6), dtype=R.dtype, device=R.device)
-    for fa, tbl in zip(buckets, tables):
-        r_, g_, H_ = plane_cost_grad_hess(fa, R, p, W, tbl=tbl)
-        resid, g, H = resid + r_, g + g_, H + H_
+def _total_cgh(buckets, table, R, p, W):
+    """(resid, g (6W,), H (6W, 6W)) over all buckets: one evaluation
+    (plane_cost_grad_hess_buckets) through the solve's frame table."""
+    resid, g, H = plane_cost_grad_hess_buckets(buckets, R, p, W, table)
     return resid, g.reshape(W * 6), H.reshape(W * 6, W * 6)
 
 
@@ -108,10 +105,10 @@ def lm_damping_iter(
     as buckets_to_device gives them).
 
     reduced_solver: "lu" (dense LU), "cg" (block-Jacobi PCG, 48 trips) or
-    "auto" (CG once 6W >= 1536, else LU).  A bucketed solve builds each
-    bucket's frame table once (frame_gather_table) for all its
-    evaluations: it reads the bucket's ids to the host there, before the
-    first evaluation, and then nothing but one `converged` per
+    "auto" (CG once 6W >= 1536, else LU).  A bucketed solve builds one
+    frame table over all its buckets once (buckets_frame_table) for all
+    its evaluations: it reads the buckets' ids to the host there, before
+    the first evaluation, and then nothing but one `converged` per
     iteration."""
     kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
     if not all(isinstance(fa, kinds) for fa in buckets):
@@ -133,11 +130,11 @@ def lm_damping_iter(
     if solver not in ("lu", "cg"):
         raise ValueError(f"unknown reduced_solver {reduced_solver!r}")
     g_size = float(max(sum(int(fa.n.shape[0]) for fa in buckets), 1))
-    tables = [frame_gather_table(fa, W) if isinstance(fa, PlaneFactorArrays)
-              else None for fa in buckets]
+    table = (buckets_frame_table(buckets, W) if any(
+        isinstance(fa, PlaneFactorArrays) for fa in buckets) else None)
 
     def cgh(R, p):
-        r, g, H = _total_cgh(buckets, tables, R, p, W)
+        r, g, H = _total_cgh(buckets, table, R, p, W)
         return r / g_size, g, H
 
     R, p = R0, p0

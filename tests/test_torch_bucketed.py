@@ -4,8 +4,10 @@ evaluation r/g/H at 1e-9 on a box room (W = 24, several tiers) and a
 corridor (W = 48, sparse coupling), the per-entry chain against JAX's
 _soa_core and, with frame ids planted outside [0, W) and at an odd W, its
 Gram operand against JAX's one-hot M expansion, the chain kernel's
-voxels-per-block choice, chunking as an exact reassociation, and the f64
-numpy oracle."""
+voxels-per-block choice, chunking as an exact reassociation, the f64
+numpy oracle, and the multi-bucket evaluation (one Gram accumulator, one
+entry_reduce over all buckets) against JAX's _total_cgh, with the steps it
+calls counted."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -17,11 +19,13 @@ from global_lvba_tpu.factors import padding as jpad
 from global_lvba_tpu.factors import plane_eigen as jpe
 from global_lvba_tpu.map.voxelize import build_voxel_map as jbuild
 from global_lvba_tpu.models import synthetic as jsyn
+from global_lvba_tpu.solver import lm as jlm
 from global_lvba_tpu_torch.factors import padding, plane_eigen as pe
 from global_lvba_tpu_torch.kernels import build, selection as sel, soa
 from global_lvba_tpu_torch.map.voxelize import (
     PlaneFactorBucket, build_voxel_map)
 from global_lvba_tpu_torch.models import synthetic
+from global_lvba_tpu_torch.solver import lm
 
 F64 = torch.float64
 SCENES = {
@@ -276,3 +280,152 @@ def test_bucket_to_device_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pe.bucket_to_device(b)
+
+
+# The multi-bucket evaluation (plane_cost_grad_hess_buckets, the LM's
+# _total_cgh): one Gram accumulator, one vals buffer and one entry_reduce
+# through the merged frame table, against the JAX package's _total_cgh at
+# float64.  Float64 holds to test_cost_grad_hess_matches_jax's tolerance
+# (r rtol 1e-12; g rtol 1e-9, atol 1e-12; H rtol 1e-9, atol 1e-10).
+# Float32 holds to float32's: each of r, g, H within 1e-5 of its max |.|
+# (every sum in float32; the float32 eigensolve of the line-like voxels
+# keeps λ_min to ~sqrt(eps32)·λ_max, which r, g and H bound from above).
+TOL32_REL = 1e-5
+
+
+def _jax_total(ja_list, Rp, pp, W):
+    r, g, H = jlm._total_cgh(list(ja_list), jnp.asarray(Rp), jnp.asarray(pp),
+                             W)
+    return float(r), np.asarray(g), np.asarray(H)
+
+
+def _check_total(got, want, dtype):
+    r, g, H = (x.double().numpy() for x in got)
+    rj, gj, Hj = want
+    if dtype == F64:
+        assert np.isclose(float(r), rj, rtol=1e-12)
+        np.testing.assert_allclose(g, gj, rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(H, Hj, rtol=1e-9, atol=1e-10)
+    else:
+        assert abs(float(r) - rj) <= TOL32_REL * abs(rj)
+        assert np.abs(g - gj).max() <= TOL32_REL * np.abs(gj).max()
+        assert np.abs(H - Hj).max() <= TOL32_REL * np.abs(Hj).max()
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_multi_bucket_evaluation_matches_jax_total_cgh(prob, dtype):
+    W = prob["W"]
+    fas = [pe.PlaneFactorArrays(fa.n.to(dtype), fa.mu.to(dtype),
+                                fa.Pc.to(dtype), fa.frame)
+           for fa in prob["fas"]]
+    assert len(fas) > 1
+    R, p = prob["R"].to(dtype), prob["p"].to(dtype)
+    table = pe.buckets_frame_table(fas, W)
+    r, g, H = lm._total_cgh(fas, table, R, p, W)
+    assert r.dtype == g.dtype == H.dtype == dtype
+    assert g.shape == (6 * W,) and H.shape == (6 * W, 6 * W)
+    _check_total((r, g, H), _jax_total(prob["ja"], prob["Rp"], prob["pp"],
+                                       W), dtype)
+    # the table is the one the evaluation builds when given none
+    got = pe.plane_cost_grad_hess_buckets(fas, R, p, W)
+    assert all(torch.equal(a.reshape(-1), b.reshape(-1))
+               for a, b in zip(got, (r, g, H)))
+
+
+@pytest.mark.parametrize("where", [0, 2])
+def test_multi_bucket_evaluation_with_an_aligned_bucket(where):
+    """An aligned bucket in the list keeps its g/Hd from the aligned
+    chain's voxel sums; its AᵀA joins the one Gram accumulator."""
+    W, make = SCENES["plane"]
+    sc = make(jsyn)
+    Rp, pp = jsyn.perturb_poses(sc.R_true, sc.p_true, 0.004, 0.015, seed=1)
+    vm = jbuild(sc.points_body, sc.frame_ids, sc.R_true, sc.p_true, 1.0,
+                eigen_ratios=(0.2,) * 4)
+    jb = jpad.buckets_to_device(vm, dtype=jnp.float64, W=W)
+    jal = jpad.aligned_to_device(vm.buckets[:2], W, dtype=jnp.float64)
+    ja = list(jb)
+    ja.insert(where, jal)
+    fas = []
+    for b in ja:
+        if isinstance(b, jpe.PlaneFactorArrays):
+            fas.append(padding.from_jax_arrays(b.n, b.mu, b.Pc, device="cpu",
+                                               dtype=F64, frame=b.frame))
+        else:
+            fas.append(padding.from_jax_arrays(b.n, b.mu, b.Pc, device="cpu",
+                                               dtype=F64))
+    assert isinstance(fas[where], pe.AlignedPlaneFactorArrays)
+    R, p = torch.as_tensor(Rp), torch.as_tensor(pp)
+    table = pe.buckets_frame_table(fas, W)
+    got = lm._total_cgh(fas, table, R, p, W)
+    _check_total(got, _jax_total(ja, Rp, pp, W), F64)
+
+
+def test_agg_once_per_bucket_is_bitwise_the_chunks(prob):
+    """soa_agg over a whole bucket gives bit for bit the per-chunk calls
+    concatenated (the evaluation aggregates once per bucket; the chain
+    takes pv[lo:hi] per chunk)."""
+    W = prob["W"]
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    for fa in prob["fas"]:
+        V, K = fa.n.shape
+        poses = sel.table_select(fa.frame.reshape(-1), pose12).reshape(V, K,
+                                                                       12)
+        whole = soa.soa_agg(fa.n, fa.mu, fa.Pc, poses)
+        chunks = pe.voxel_chunks(V, W, 16 * 1024, K=K)
+        assert len(chunks) > 1 or V == 1
+        parts = [soa.soa_agg(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
+                             poses[lo:hi]) for lo, hi in chunks]
+        for i in (0, 1):
+            assert torch.equal(whole[i], torch.cat([q[i] for q in parts]))
+
+
+def _counting_steps(counts):
+    def wrap(name, fn):
+        def f(*a, **k):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **k)
+        return f
+
+    return pe.EvalSteps(*(wrap(name, fn) for name, fn in
+                          zip(pe.EvalSteps._fields, pe.KERNEL_STEPS)))
+
+
+def test_total_cgh_reduces_once_and_aggregates_once(prob, monkeypatch):
+    """The LM's evaluation calls the aggregation once over all buckets
+    (one soa_agg launch), the reduce step once, the pose selection once
+    per bucket, and the chain and the Gram once per voxel chunk (counted
+    through stubs around the kernel steps: on the CPU the wrappers run
+    their plain versions and count no launch)."""
+    W = prob["W"]
+    fas = prob["fas"]
+    small = 64 * 1024
+    chunks = sum(len(pe.voxel_chunks(fa.n.shape[0], W, small,
+                                     K=fa.n.shape[1])) for fa in fas)
+    assert chunks > len(fas) > 1
+    table = pe.buckets_frame_table(fas, W)
+    want = lm._total_cgh(fas, table, prob["R"], prob["p"], W)
+    counts = {}
+    monkeypatch.setattr(pe, "KERNEL_STEPS", _counting_steps(counts))
+    got = lm._total_cgh(fas, table, prob["R"], prob["p"], W)
+    assert counts == dict(select=len(fas), agg=1, chain_entries=len(fas),
+                          syrk_=len(fas), reduce=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    counts.clear()
+    pe.plane_cost_grad_hess_buckets(fas, prob["R"], prob["p"], W, table,
+                                    chunk_bytes=small)
+    assert counts == dict(select=len(fas), agg=1, chain_entries=chunks,
+                          syrk_=chunks, reduce=1)
+
+
+def test_soa_agg_buckets_is_soa_agg_per_bucket(prob):
+    """soa_agg_buckets (one launch over the buckets on the card) gives
+    each bucket's soa_agg bit for bit."""
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    ops = []
+    for fa in prob["fas"]:
+        V, K = fa.n.shape
+        rows = sel.table_select(fa.frame.reshape(-1), pose12)
+        ops.append((fa.n, fa.mu, fa.Pc, rows.reshape(V, K, 12)))
+    for a, b in zip(soa.soa_agg_buckets(ops), [soa.soa_agg(*o) for o in ops]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert soa.soa_agg_buckets([]) == []

@@ -15,7 +15,7 @@ from global_lvba_tpu.map.voxelize import build_voxel_map as jbuild
 from global_lvba_tpu.models.synthetic import make_plane_scene, perturb_poses
 from global_lvba_tpu_torch import resolve_device
 from global_lvba_tpu_torch.factors import padding, plane_eigen as pe
-from global_lvba_tpu_torch.kernels import gram, selection, soa
+from global_lvba_tpu_torch.kernels import build, gram, selection, soa
 from global_lvba_tpu_torch.map.voxelize import build_voxel_map
 
 F64 = torch.float64
@@ -194,3 +194,54 @@ def test_no_fallback_off_cpu(prob, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+
+
+def test_soa_agg_once_is_bitwise_the_chunks(prob):
+    """soa_agg over the whole aligned bucket gives bit for bit the
+    per-chunk calls concatenated: the evaluation aggregates once per
+    bucket and hands the chain pv[lo:hi] per chunk."""
+    fa, W = prob["fa"], prob["W"]
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    whole = soa.soa_agg(fa.n, fa.mu, fa.Pc, pose12)
+    chunks = pe.voxel_chunks(fa.n.shape[0], W, 64 * 1024)
+    assert len(chunks) > 1
+    parts = [soa.soa_agg(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi], pose12)
+             for lo, hi in chunks]
+    for i in (0, 1):
+        assert torch.equal(whole[i], torch.cat([q[i] for q in parts]))
+
+
+@pytest.mark.parametrize("K, lg, ept", [
+    (1, 0, 1), (2, 1, 1), (4, 2, 1), (5, 3, 1), (16, 4, 1), (32, 5, 1),
+    (33, 5, 2), (45, 5, 2), (64, 5, 2), (65, 5, 4), (129, 5, 8),
+    (512, 5, 16), (513, 5, 16), (1024, 5, 16), (5000, 5, 16),
+])
+def test_agg_group(K, lg, ept):
+    """soa_agg_kernel's group: the least power of two >= K threads a voxel
+    up to a warp, and the least power of two entries a thread that covers
+    K up to 16 (rounds beyond)."""
+    assert soa.agg_group(K) == (lg, ept)
+    G = 1 << lg
+    assert G <= soa.AGG_GROUP and soa.AGG_THREADS % G == 0
+    assert G * ept >= K or ept == soa.AGG_EPT
+    assert G == soa.AGG_GROUP or G // 2 < K
+
+
+def test_agg_block_matches_the_kernel():
+    """agg_group sizes groups for soa_agg_kernel's block and instances,
+    soa_agg_buckets' launches hold at most the kernel's bucket table, and
+    the launcher takes the bucket count, seven per-bucket arrays, one EPT
+    for the launch (each bucket's group follows from its K and EPT), the
+    two output arrays and the stream."""
+    src = (build.CSRC / "soa_agg.cu").read_text()
+    assert f"constexpr int kThreads = {soa.AGG_THREADS};" in src
+    assert f"constexpr int kMaxBuckets = {soa.AGG_MAX_BUCKETS};" in src
+    assert soa.AGG_GROUP == 32
+    assert "while ((1 << lg) * ept < K[i] && lg < 5) ++lg;" in src
+    e = 1
+    while e <= soa.AGG_EPT:
+        assert f"soa_agg_kernel<T, {e}><<<" in src
+        e *= 2
+    for name in ("soa_agg", "soa_agg_f64"):
+        assert build.SIGNATURES[name][2] == ([build._I] + [build._P] * 7
+                                             + [build._I] + [build._P] * 3)

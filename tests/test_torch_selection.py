@@ -98,3 +98,70 @@ def test_frame_table_matches_jax(scene_buckets):
         assert t.dtype == torch.int32 and t.shape[0] == W
         # entries index the flat (v, k) grid; the sentinel V*K pads rows
         assert int(t.max()) <= n.size and (t.shape[1] % 8) == 0
+
+
+def _plant_frames(frame, n, W, seed):
+    """frame with the ids -1, W and W + 3 planted in live entries: the
+    frame tables leave those entries out."""
+    f = frame.copy().reshape(-1)
+    live = np.flatnonzero(n.reshape(-1) > 0)
+    pick = np.random.default_rng(seed).choice(live, 3, replace=False)
+    f[pick] = (-1, W, W + 3)
+    return f.reshape(frame.shape)
+
+
+def test_merged_frame_table_equals_the_per_bucket_reduces(scene_buckets):
+    """One entry_reduce through the merged table of all buckets over their
+    concatenated per-entry channels equals the sum of the per-bucket
+    reduces (float64, 1e-12 of max |.|), with out-of-range frame ids
+    planted in every bucket (left out of both) and out-of-range indices
+    planted in the merged table (adding nothing)."""
+    W, buckets, _, _ = scene_buckets
+    assert len(buckets) > 1
+    fas, vals, per = [], [], []
+    for i, b in enumerate(buckets):
+        n = np.asarray(b.n).astype(np.float64)
+        frame = _plant_frames(np.asarray(b.frame), n, W, i)
+        fa = pe.PlaneFactorArrays(torch.as_tensor(n), None, None,
+                                  torch.as_tensor(frame))
+        v = torch.as_tensor(_entry_vals(b, 20 + i, np.float64))
+        fas.append(fa)
+        vals.append(v)
+        per.append(sel.entry_reduce_plain(v, pe.frame_gather_table(fa, W)))
+    merged = pe.buckets_frame_table(fas, W)
+    E = sum(v.shape[0] for v in vals)
+    assert merged.dtype == torch.int32 and merged.shape[0] == W
+    assert merged.shape[1] % 8 == 0 and int(merged.max()) == E
+    allv = torch.cat(vals)
+    got = sel.entry_reduce_plain(allv, merged).numpy()
+    want = sum(per).numpy()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-12)
+    # against np.add.at over the live in-range entries
+    frame = np.concatenate([fa.frame.numpy().reshape(-1) for fa in fas])
+    n = np.concatenate([fa.n.numpy().reshape(-1) for fa in fas])
+    ok = (n > 0) & (frame >= 0) & (frame < W)
+    assert int((n > 0).sum() - ok.sum()) == 3 * len(fas)
+    ref = np.zeros((W, 30))
+    np.add.at(ref, frame[ok], allv.numpy()[ok])
+    np.testing.assert_allclose(got / scale, ref / scale, rtol=0, atol=1e-12)
+    # out-of-range indices in the table add nothing
+    planted = merged.clone()
+    pad = planted == E
+    rows = torch.nonzero(pad.any(dim=1)).reshape(-1)[:4]
+    for r, bad in zip(rows.tolist(), (-1, E + 1, E + 3, 2 ** 31 - 1)):
+        planted[r, int(torch.nonzero(pad[r])[0])] = bad
+    assert not torch.equal(planted, merged)
+    assert torch.equal(sel.entry_reduce_plain(allv, planted),
+                       sel.entry_reduce_plain(allv, merged))
+
+
+def test_frame_gather_table_is_the_one_bucket_merge(scene_buckets):
+    W, buckets, _, _ = scene_buckets
+    for fa in buckets:
+        t = pe.PlaneFactorArrays(torch.as_tensor(np.array(fa.n)), None,
+                                 None, torch.as_tensor(np.array(fa.frame)))
+        assert torch.equal(pe.frame_gather_table(t, W),
+                           pe.buckets_frame_table([t], W))
+    with pytest.raises(ValueError, match="no bucketed"):
+        pe.buckets_frame_table([], W)
