@@ -20,6 +20,14 @@ Phases (any failure raises, so the exit code is non-zero):
      64 and 1,024 on seeded planes, V not a multiple of a block's voxels,
      float32 and float64, with the pose table, per-entry pose rows and
      rows off 16-byte alignment, and all five in one soa_agg_buckets call;
+     soa_chain (its voxel sums finished in the launch) is also checked as
+     the evaluation calls it (the first chunk stores g and Hd, the next
+     adds to them): two runs bitwise equal, the rows of dead cells exact
+     zeros, and at the aligned widths W = 77 and 130 (off its 32-frame
+     tile; picks_aligned must take them), each launch timed alone beside
+     its bound and the earlier design's time; its bound counts the live
+     cells' bytes (n of every cell, μ and Pc's upper triangle of a live
+     one), the layout's printed beside it;
      syrk (3xTF32 on the tensor cores) is also checked on ragged operands
      (N = 270 and 60 over 1,001 seeded rows) and at Kr = 0: its tf32 split
      bitwise equal to the plain split, the Gram within 1e-4 of syrk_plain_
@@ -30,12 +38,16 @@ Phases (any failure raises, so the exit code is non-zero):
      versions in float64 (the TOL64_* limits), timed beside them; the
      bounds at 8 B a value and the data sheet's fp64 rates; syrk_f64 also
      on ragged operands (N = 270, 60 and 45 over 1,001 seeded rows, and
-     N = 270 off 16-byte alignment) and at Kr = 0 (no launch); one float64
-     evaluation timed and under torch.profiler (each kernel's own time);
+     N = 270 off 16-byte alignment) and at Kr = 0 (no launch); soa_chain_f64
+     as soa_chain in 2; one float64 evaluation timed and under
+     torch.profiler (each kernel's own time; no aten::sum but the
+     residuals');
   3. evaluation: plane_cost_grad_hess through the kernels against the same
      evaluation through the plain versions; the Hessian of two kernel
      evaluations must be bitwise equal; one evaluation under
-     torch.profiler gives each kernel's own device time; the LM's damped
+     torch.profiler gives each kernel's own device time, and its only
+     aten::sum ops must be the residuals' (the chain's voxel sums finish
+     in its launch); the LM's damped
      CG solve on that H (48 done-masked trips captured as one CUDA graph,
      the capture timed once): one solve queued under sync debug mode
      "error", two solves bitwise equal and within 1e-6 of the same trips
@@ -61,7 +73,10 @@ Phases (any failure raises, so the exit code is non-zero):
 Slice 2, the bucketed layout:
   6. kernels at path 2b's shapes (the corridor below: every tier and every
      voxel chunk of one evaluation, in the evaluation's launch shape):
-     table_select bitwise equal to its plain version; soa_agg on per-entry
+     table_select over every tier in one table_select_buckets launch,
+     bitwise equal to its plain version and to torch.index_select, with
+     the ids -1, P and P + 3 planted in every tier (zero rows) and on the
+     W = 45 corridor's tiers; soa_agg on per-entry
      pose rows, all tiers in one soa_agg_buckets call (a launch a bucket
      timed beside it, bitwise equal), and soa_chain_entries under slice
      1's tolerances and well-conditioned-voxel rule; entry_reduce once over
@@ -82,8 +97,8 @@ Slice 2, the bucketed layout:
      torch.profiler;
   7. the bucketed evaluation over the corridor's five buckets (one Gram
      accumulator, one entry_reduce: solver.lm's): its launches counted
-     (one entry_reduce, at most one soa_agg and one table_select a
-     bucket), kernels against the plain steps (r, g, H), H bitwise
+     (one entry_reduce, one table_select, at most one soa_agg a bucket),
+     kernels against the plain steps (r, g, H), H bitwise
      repeatable, device ms, each kernel's own device time and the fill
      kernels under torch.profiler, and no fill op on a tensor of A's
      shape;
@@ -197,6 +212,17 @@ SYRK64_RAGGED = ((1001, 270, 0), (1001, 60, 0), (1001, 45, 0),
 # a row are not a multiple of 16 bytes, so A's rows start off 16-byte
 # alignment
 ODD_W = 45
+# soa_chain's aligned widths off its 32-frame tile: W = 77 (odd: A's rows
+# and the spans start off 16-byte alignment; a last tile of 13 frames)
+# and W = 130 (a last tile of 2 frames), make_plane_scene(W, PPF), each
+# taken aligned by the density gate
+CHAIN_W_CASES = (77, 130)
+# the earlier aligned chain design's time per W=512 evaluation (a thread a
+# frame over 16 voxels, its partial sums added by torch; this script on an
+# NVIDIA H100 80GB HBM3 at 700 W with that design): its wrapper's device
+# ms (the torch sums included) and its kernel's under torch.profiler
+CHAIN_EARLIER_MS = {"soa_chain": (0.0968, 0.0679),
+                "soa_chain_f64": (0.1668, 0.1694)}
 TOL_EVAL_REL = 1e-4      # r on all voxels; g, H on well-conditioned voxels
 # The float64 instances against their plain float64 versions: the float32
 # limits above scaled down by eps64 / eps32 = 2^-29 leave 1e-14 to 1e-12;
@@ -403,12 +429,13 @@ def _planted(torch, args):
 def _odd_w_args(torch, dev):
     """Chain arguments of an odd-width bucketed problem, every bucket of
     make_corridor_scene(ODD_W, CORRIDOR_PPF) at its perturbed poses
-    (float32; pv from soa_agg)."""
+    (float32; the pose rows of one table_select_buckets call, pv from
+    soa_agg), with the buckets' frame ids and the pose table."""
     from global_lvba_tpu_torch.__main__ import slice_config
     from global_lvba_tpu_torch.factors.padding import buckets_to_device
     from global_lvba_tpu_torch.factors.plane_eigen import (
         PlaneFactorArrays, pose_table)
-    from global_lvba_tpu_torch.kernels.selection import table_select
+    from global_lvba_tpu_torch.kernels.selection import table_select_buckets
     from global_lvba_tpu_torch.kernels.soa import soa_agg
     from global_lvba_tpu_torch.map.voxelize import build_voxel_map
     from global_lvba_tpu_torch.models.synthetic import (
@@ -427,13 +454,69 @@ def _odd_w_args(torch, dev):
     pose12 = pose_table(
         torch.as_tensor(Rp, dtype=torch.float32, device=dev),
         torch.as_tensor(pp, dtype=torch.float32, device=dev))
+    frames = [fa.frame.reshape(-1) for fa in bs]
     out = []
-    for fa in bs:
-        V, K = fa.n.shape
-        poses = table_select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
+    for fa, rows in zip(bs, table_select_buckets(frames, pose12)):
+        poses = rows.view(*fa.n.shape, 12)
         pv = soa_agg(fa.n, fa.mu, fa.Pc, poses)[1]
         out.append((fa.n, fa.mu, fa.Pc, poses, fa.frame, pv, ODD_W))
-    return out
+    return out, frames, pose12
+
+
+def _select_check(torch, name, frames, tbl, odd):
+    """table_select_buckets over every bucket's ids `frames` with the pose
+    table tbl: one launch (counted), each bucket's rows bitwise equal to
+    table_select_plain of its ids and to torch.index_select; again with
+    the ids -1, P and P + 3 planted in every bucket (zero rows there, the
+    other rows unchanged); and on the W = ODD_W corridor's buckets (`odd`:
+    its frames and table).  Returns the rows."""
+    from global_lvba_tpu_torch.kernels import build
+    from global_lvba_tpu_torch.kernels.selection import (
+        LAUNCHES, table_select_buckets, table_select_plain)
+
+    def exact(rows, fs, t):
+        P = t.shape[0]
+        ok = True
+        for r, f in zip(rows, fs):
+            valid = (f >= 0) & (f < P)
+            ok &= bool(torch.equal(r, table_select_plain(f, t))
+                       and torch.equal(r[valid], torch.index_select(
+                           t, 0, f[valid].long()))
+                       and not r[~valid].any())
+        return ok
+
+    key = build.dtype_launcher("table_select", tbl.dtype)
+    before = LAUNCHES[key]
+    rows = table_select_buckets(frames, tbl)
+    launches = LAUNCHES[key] - before
+    torch.cuda.synchronize()
+    same = exact(rows, frames, tbl)
+    P = tbl.shape[0]
+    planted, spots = [], []
+    for f in frames:
+        g = f.clone()
+        i = torch.tensor([0, f.numel() // 2, f.numel() - 1], device=f.device)
+        g[i] = torch.tensor([-1, P, P + 3], dtype=g.dtype, device=g.device)
+        planted.append(g)
+        spots.append(i)
+    rows_p = table_select_buckets(planted, tbl)
+    keep = True
+    for r, rp, i in zip(rows, rows_p, spots):
+        m = torch.ones(r.shape[0], dtype=torch.bool, device=r.device)
+        m[i] = False
+        keep &= bool(torch.equal(r[m], rp[m]) and not rp[i].any())
+    planted_ok = keep and exact(rows_p, planted, tbl)
+    odd_ok = exact(table_select_buckets(odd[0], odd[1]), odd[0], odd[1])
+    print(f"[{name}] the {len(frames)} buckets in one table_select_buckets "
+          f"call ({launches} launch): bitwise equal to table_select_plain "
+          f"and torch.index_select: {same}; ids -1, P, P + 3 planted in "
+          f"every bucket give zero rows, the rest unchanged: {planted_ok}; "
+          f"the W={ODD_W} corridor's {len(odd[0])} buckets: {odd_ok}",
+          flush=True)
+    if not (launches == 1 and same and planted_ok and odd_ok):
+        _fail(f"{name}: table_select_buckets disagrees with the plain "
+              f"selection or took {launches} launches")
+    return rows
 
 
 def _to_f64(torch, args):
@@ -491,6 +574,155 @@ def _chain_entries_full_write(torch, label, args, tol):
     if not (reused == clean == len(args) and err_A <= tol and err_v <= tol):
         _fail(f"{label}: soa_chain_entries does not write A in full or "
               f"disagrees with its plain version")
+
+
+def _chain_bounds(ns, W, itemsize):
+    """soa_chain's bounds over the chunks whose n are `ns`, one launch each
+    with the running sums: "bound" by the bytes the function needs (n of
+    every cell; μ and Pc's upper triangle, 9 values, of a live cell: a dead
+    cell adds nothing and its rows are zeros; pv's 13 used values a voxel;
+    A's 18 values a cell written; the pose table and g and Hd, 42 values a
+    frame read and written, once a launch) and the live cells' chains;
+    "bound_layout" by the layout's bytes (13 values a cell, 16 a voxel)
+    and every cell's chain."""
+    cells = sum(n.numel() for n in ns)
+    live = sum(int((n > 0).sum()) for n in ns)
+    vox = sum(n.shape[0] for n in ns)
+    fixed = len(ns) * W * (12 + 2 * 42)
+    rate = FP32_FLOP_PER_S if itemsize == 4 else FP64_FLOP_PER_S
+    return (_bound((cells + live * 9 + vox * 13 + cells * 18 + fixed)
+                   * itemsize, live * CHAIN_FLOPS_PER_CELL, rate),
+            _bound((cells * 13 + vox * 16 + cells * 18 + fixed) * itemsize,
+                   cells * CHAIN_FLOPS_PER_CELL, rate))
+
+
+def _chain_evaluation(chain, ops, pose12, pvs):
+    """The chain over an evaluation's voxel chunks as
+    plane_eigen._aligned_pass calls it: the first chunk stores the voxel
+    sums, the others add to them.  Returns ([A], g, Hd)."""
+    g = Hd = None
+    As = []
+    for o, q in zip(ops, pvs):
+        A, g, Hd = chain(*o, pose12, q, g, Hd)
+        As.append(A)
+    return As, g, Hd
+
+
+def _chain_check(torch, name, ops, pose12, pvs, tol_rows, tol_sum):
+    """soa_chain over an evaluation's chunks (_chain_evaluation) against
+    soa_chain_plain doing the same: rows, g and Hd relative to each one's
+    max |.|; the rows of dead cells (n == 0, padded voxels included)
+    exactly zero; two runs bitwise equal (A, g and Hd).  Returns (rows
+    rel err, g rel err, Hd rel err, max abs row err)."""
+    from global_lvba_tpu_torch.kernels.soa import soa_chain, soa_chain_plain
+
+    k1 = _chain_evaluation(soa_chain, ops, pose12, pvs)
+    k2 = _chain_evaluation(soa_chain, ops, pose12, pvs)
+    p = _chain_evaluation(soa_chain_plain, ops, pose12, pvs)
+    torch.cuda.synchronize()
+    W = pose12.shape[0]
+    err_A = max(_rel(a, b) for a, b in zip(k1[0], p[0]))
+    abs_A = max(float((a - b).abs().max()) for a, b in zip(k1[0], p[0]))
+    err_g, err_hd = _rel(k1[1], p[1]), _rel(k1[2], p[2])
+    rep = all(torch.equal(a, b) for a, b in
+              zip(k1[0] + [k1[1], k1[2]], k2[0] + [k2[1], k2[2]]))
+    dead = all(bool((A.view(-1, 3, W, 6)[(o[0] <= 0)[:, None, :, None]
+                                           .expand(-1, 3, W, 6)] == 0).all())
+               for A, o in zip(k1[0], ops))
+    print(f"[{name}] W={W}, {len(ops)} chunks with the running sums: rows "
+          f"rel err {err_A:.3e} (tol {tol_rows}); g {err_g:.3e}, Hd "
+          f"{err_hd:.3e} (tol {tol_sum}); dead cells' rows == 0: {dead}; "
+          f"two runs bitwise equal (A, g, Hd): {rep}", flush=True)
+    if not (err_A <= tol_rows and err_g <= tol_sum and err_hd <= tol_sum
+            and dead and rep):
+        _fail(f"{name} at W={W} disagrees with soa_chain_plain, writes a "
+              f"dead cell's row or is not repeatable")
+    return err_A, err_g, err_hd, abs_A
+
+
+def _chain_widths(torch, dev, name, dtype, tol_rows, tol_sum):
+    """_chain_check at the widths CHAIN_W_CASES: make_plane_scene(W, PPF)
+    at its perturbed poses, voxelized as the main path, each required to
+    take the aligned layout (picks_aligned); pv from soa_agg."""
+    from global_lvba_tpu_torch.__main__ import slice_config
+    from global_lvba_tpu_torch.factors.padding import (
+        buckets_to_device, picks_aligned)
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        pose_table, voxel_chunks)
+    from global_lvba_tpu_torch.kernels.soa import soa_agg
+    from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_plane_scene, perturb_poses)
+
+    cfg = slice_config("float32")
+    for W in CHAIN_W_CASES:
+        sc = make_plane_scene(num_frames=W, points_per_frame=PPF, seed=0)
+        Rp, pp = perturb_poses(sc.R_true, sc.p_true, 0.003, 0.01, seed=1)
+        vm = build_voxel_map(sc.points_body, sc.frame_ids, Rp, pp, VOXEL,
+                             eigen_ratios=[RATIO] * 4,
+                             min_ps=cfg.solver.min_ps,
+                             layer_limit=cfg.solver.layer_limit)
+        if not picks_aligned(vm, W):
+            _fail(f"W={W}: the density gate does not pick the aligned layout")
+        fa = buckets_to_device(vm, W=W, dtype=dtype, device=dev)[0]
+        pose12 = pose_table(torch.as_tensor(Rp, dtype=dtype, device=dev),
+                            torch.as_tensor(pp, dtype=dtype, device=dev))
+        pv = soa_agg(fa.n, fa.mu, fa.Pc, pose12)[1]
+        chunks = voxel_chunks(fa.n.shape[0], W)
+        _chain_check(torch, name, [(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi])
+                                   for lo, hi in chunks], pose12,
+                     [pv[lo:hi] for lo, hi in chunks], tol_rows, tol_sum)
+
+
+def _chain_launches(torch, name, ops, pose12, pvs):
+    """Each launch of one aligned evaluation's chain timed alone (device
+    ms, with the running sums, as the evaluation makes it) beside its
+    bounds; printed, returned."""
+    from global_lvba_tpu_torch.kernels.soa import soa_chain
+
+    W, dt = pose12.shape[0], pose12.dtype
+    g = torch.zeros((W, 6), dtype=dt, device=pose12.device)
+    Hd = torch.zeros((W, 6, 6), dtype=dt, device=pose12.device)
+    out = []
+    for o, q in zip(ops, pvs):
+        ms, ahead = _timed(torch, lambda: soa_chain(*o, pose12, q, g, Hd))
+        bound, layout = _chain_bounds([o[0]], W, dt.itemsize)
+        out.append(dict(voxels=int(o[0].shape[0]), ms=ms, queued_ahead=ahead,
+                        bound=bound, bound_layout=layout))
+    old = CHAIN_EARLIER_MS[name]
+    rows = [(d["voxels"], round(d["ms"], 4), round(d["bound"][0], 4),
+             round(d["bound_layout"][0], 4)) for d in out]
+    print(f"[{name}] each launch alone, (voxels, device ms, bound over the "
+          f"live cells' bytes, the layout's): {rows}; "
+          f"sum {sum(d['ms'] for d in out):.4f} ms; the earlier design took "
+          f"{old[0]} ms an evaluation, its kernel {old[1]} (CHAIN_EARLIER_MS)",
+          flush=True)
+    return out
+
+
+def _sum_shapes(prof):
+    """The input shapes of the aten::sum ops a torch.profiler run (with
+    record_shapes) saw."""
+    return [tuple(e.input_shapes[0]) for e in prof.events()
+            if e.name == "aten::sum" and e.input_shapes
+            and e.input_shapes[0]]
+
+
+def _no_partial_sums(prof, tag):
+    """One aligned evaluation under torch.profiler: its only aten::sum ops
+    are the residuals' (1-D); a sum of the chain's partials by torch (the
+    earlier design's (blocks, 30, W)) fails.  The profile must have recorded
+    at least the residuals' sum."""
+    shapes = _sum_shapes(prof)
+    print(f"[{tag}] aten::sum ops in one aligned evaluation, by input "
+          f"shape: {shapes}", flush=True)
+    if not shapes:
+        _fail(f"{tag}: the profile recorded no aten::sum's shape: the check "
+              f"that no sum of the chain's partials runs saw nothing")
+    if any(len(sh) != 1 for sh in shapes):
+        _fail(f"{tag}: the aligned evaluation sums a tensor of shape "
+              f"{shapes} in torch: the chain's voxel sums left the kernel")
+    return shapes
 
 
 def _syrk_check(torch, label, As, N):
@@ -966,16 +1198,26 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
     if not (err_A <= TOL64_ROWS_REL and err_g <= TOL64_SUM_REL
             and err_hd <= TOL64_SUM_REL):
         _fail("soa_chain_f64 disagrees with soa_chain_plain in float64")
+    err_ev = _chain_check(torch, "soa_chain_f64", ops, pose12, pvs,
+                          TOL64_ROWS_REL, TOL64_SUM_REL)
+    _chain_widths(torch, pose12.device, "soa_chain_f64", d, TOL64_ROWS_REL,
+                  TOL64_SUM_REL)
+    bound, bound_layout = _chain_bounds([o[0] for o in ops], W, 8)
     kern["soa_chain_f64"] = dict(
-        max_abs_err=max(float((a[0] - b[0]).abs().max())
-                        for a, b in zip(ch_k, ch_p)),
+        max_abs_err=max(err_ev[3], max(float((a[0] - b[0]).abs().max())
+                                       for a, b in zip(ch_k, ch_p))),
         **_times(torch, "soa_chain_f64",
-                 lambda: [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)],
-                 lambda: [soa_chain_plain(*o, pose12, q)
-                          for o, q in zip(ops, pvs)]),
-        bound=_bound((nb * W * 13 + len(ops) * W * 12 + nb * 16
-                      + nb * W * 18 + W * 42) * 8,
-                     nb * W * CHAIN_FLOPS_PER_CELL, FP64_FLOP_PER_S))
+                 lambda: _chain_evaluation(soa_chain, ops, pose12, pvs),
+                 lambda: _chain_evaluation(soa_chain_plain, ops, pose12,
+                                           pvs)),
+        bound=bound, bound_layout=bound_layout)
+    results["soa_chain_f64_launches"] = _chain_launches(
+        torch, "soa_chain_f64", ops, pose12, pvs)
+    print(f"[soa_chain_f64] bound {bound[0]:.4f} ms ({bound[1]}) over the "
+          f"live cells' bytes; the layout's {bound_layout[0]:.4f} ms "
+          f"({bound_layout[1]}); the earlier design "
+          f"{CHAIN_EARLIER_MS['soa_chain_f64'][0]} ms an evaluation",
+          flush=True)
     As = [a[0] for a in ch_k]
     del ch_k, ch_p, pvk, pvs
     kern["syrk_f64"] = _syrk_f64_check(torch, "aligned W=512", As, 6 * W)
@@ -1003,17 +1245,19 @@ def _aligned_f64(torch, kern, results, fa, R, p, ops, pose12, live, wc,
     # one float64 evaluation: device ms, and each kernel's own time
     R64, p64 = R.to(d), p.to(d)
     ms, ahead = _timed(torch, lambda: plane_cost_grad_hess(fa64, R64, p64, W))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         plane_cost_grad_hess(fa64, R64, p64, W)
         torch.cuda.synchronize()
+    sums = _no_partial_sums(prof, "eval float64")
     per = _kernel_times(_device_ms(prof), ALIGNED_F64_KERNELS)
     for name, (k_ms, _) in per.items():
         kern[name]["kernel_device_ms"] = k_ms
     print(f"[eval float64] {ms:.4f} ms device time (queued ahead {ahead}); "
           f"profiler, (device ms, launches) per evaluation by kernel: {per}",
           flush=True)
-    results["eval_float64"] = dict(ms=ms, queued_ahead=ahead, per_kernel=per)
+    results["eval_float64"] = dict(ms=ms, queued_ahead=ahead, per_kernel=per,
+                                   sum_shapes=sums)
 
 
 def _syrk_f64_check(torch, label, As, N, timed=True):
@@ -1062,7 +1306,7 @@ def _syrk_f64_check(torch, label, As, N, timed=True):
 
 
 def _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
-                  lam0, lam2, pose12, R, p, W, odd_args):
+                  lam0, lam2, pose12, R, p, W, odd):
     """Phase 6f: the float64 instances of the bucketed kernels
     (table_select_f64, soa_agg_f64 on per-entry pose rows,
     soa_chain_entries_f64, entry_reduce_f64) against their plain versions
@@ -1078,12 +1322,14 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
     from global_lvba_tpu_torch.factors.plane_eigen import (
         KERNEL_STEPS, _cost_grad_hess_buckets)
     from global_lvba_tpu_torch.kernels.selection import (
-        entry_reduce, entry_reduce_plain, table_select, table_select_plain)
+        entry_reduce, entry_reduce_plain, table_select_buckets,
+        table_select_buckets_plain)
     from global_lvba_tpu_torch.kernels.soa import (
         soa_agg_buckets, soa_agg_plain, soa_chain_entries,
         soa_chain_entries_plain)
 
     d, dev = torch.float64, pose12.device
+    odd_args, odd_frames, odd_pose12 = odd
     pose12 = pose12.to(d)
     bs = [fa._replace(n=fa.n.to(d), mu=fa.mu.to(d), Pc=fa.Pc.to(d))
           for fa in bs]
@@ -1091,22 +1337,16 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
     VK = sum(f.numel() for f in frames)
     Vs = sum(fa.n.shape[0] for fa in bs)
     live_e = sum(int((fa.n > 0).sum()) for fa in bs)
-    sel_k = [table_select(f, pose12) for f in frames]
-    same = all(torch.equal(a, table_select_plain(f, pose12))
-               and torch.equal(a, torch.index_select(pose12, 0, g))
-               for a, f, g in zip(sel_k, frames, frames64))
-    print(f"[table_select_f64] bitwise equal to the plain version and to "
-          f"torch.index_select: {same}", flush=True)
-    if not same:
-        _fail("table_select_f64 disagrees with table_select_plain")
+    sel_k = _select_check(torch, "table_select_f64", frames, pose12,
+                          (odd_frames, odd_pose12.to(d)))
     kern["table_select_f64"] = dict(
         max_abs_err=0.0,
         **_times(torch, "table_select_f64",
-                 lambda: [table_select(f, pose12) for f in frames],
-                 lambda: [table_select_plain(f, pose12) for f in frames],
+                 lambda: table_select_buckets(frames, pose12),
+                 lambda: table_select_buckets_plain(frames, pose12),
                  lambda: [torch.index_select(pose12, 0, f)
                           for f in frames64]),
-        bound=_bound(VK * 4 + len(bs) * W * 96 + VK * 96, 0))
+        bound=_bound(VK * 4 + W * 96 + VK * 96, 0))
     poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
              for s, fa in zip(sel_k, bs)]
     agg_ops = [(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(bs, poses)]
@@ -1234,7 +1474,8 @@ def _slice2(torch, np, dev, kern, results, paths):
     from global_lvba_tpu_torch.kernels.gram import (
         syrk_, syrk_plain_, tf32_split, tf32_split_plain)
     from global_lvba_tpu_torch.kernels.selection import (
-        entry_reduce, entry_reduce_plain, table_select, table_select_plain)
+        entry_reduce, entry_reduce_plain, table_select_buckets,
+        table_select_buckets_plain)
     from global_lvba_tpu_torch.kernels.soa import (
         soa_agg_buckets, soa_agg_plain, soa_chain_entries,
         soa_chain_entries_plain)
@@ -1282,26 +1523,19 @@ def _slice2(torch, np, dev, kern, results, paths):
     print(f"[2b] corridor W={W}: {info}", flush=True)
     results["corridor"] = info
 
-    # ---- 6a. table_select: bitwise equal (it is a copy) ----
-    sel_k = [table_select(f, pose12) for f in frames]
-    sel_p = [table_select_plain(f, pose12) for f in frames]
-    sel_l = [torch.index_select(pose12, 0, f) for f in frames64]
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) and torch.equal(a, c)
-               for a, b, c in zip(sel_k, sel_p, sel_l))
-    print(f"[table_select] bitwise equal to the plain version and to "
-          f"torch.index_select (tol 0: a copy): {same}", flush=True)
-    if not same:
-        _fail("table_select disagrees with table_select_plain")
+    # ---- 6a. table_select: every bucket in one launch, bitwise equal
+    # (it is a copy) ----
+    odd_args, odd_frames, odd_pose12 = _odd_w_args(torch, dev)
+    sel_k = _select_check(torch, "table_select", frames, pose12,
+                          (odd_frames, odd_pose12))
     kern["table_select"] = dict(
-        max_abs_err=max(float((a - b).abs().max())
-                        for a, b in zip(sel_k, sel_p)),
+        max_abs_err=0.0,
         **_times(torch, "table_select",
-                 lambda: [table_select(f, pose12) for f in frames],
-                 lambda: [table_select_plain(f, pose12) for f in frames],
+                 lambda: table_select_buckets(frames, pose12),
+                 lambda: table_select_buckets_plain(frames, pose12),
                  lambda: [torch.index_select(pose12, 0, f)
                           for f in frames64]),
-        bound=_bound(VK * 4 + len(bs) * W * 48 + VK * 48, 0),
+        bound=_bound(VK * 4 + W * 48 + VK * 48, 0),
     )
     poses = [s.reshape(fa.n.shape[0], fa.n.shape[1], 12)
              for s, fa in zip(sel_k, bs)]
@@ -1369,7 +1603,6 @@ def _slice2(torch, np, dev, kern, results, paths):
     big = max(chain_args, key=lambda a: a[0].shape[0])
     _chain_entries_full_write(torch, "soa_chain_entries planted ids",
                               [_planted(torch, big)], TOL_ROWS_REL)
-    odd_args = _odd_w_args(torch, dev)
     _chain_entries_full_write(torch, f"soa_chain_entries W={ODD_W}",
                               odd_args, TOL_ROWS_REL)
 
@@ -1427,7 +1660,8 @@ def _slice2(torch, np, dev, kern, results, paths):
     del ch_k, vk, vp, agg_k, agg_p, agg_ops, ops, chain_args, fcat
     # ---- 6f. the float64 instances of the bucketed kernels ----
     _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
-                  lam0, lam2, pose12, R, p, W, odd_args)
+                  lam0, lam2, pose12, R, p, W,
+                  (odd_args, odd_frames, odd_pose12))
     del odd_args
 
     # ---- 7. the bucketed evaluation over the corridor's buckets: one
@@ -1441,13 +1675,13 @@ def _slice2(torch, np, dev, kern, results, paths):
     per_eval = {k: v for k, v in launch_counts().items() if v}
     shape_ok = (per_eval.get("entry_reduce") == 1
                 and 1 <= per_eval.get("soa_agg", 0) <= len(bs)
-                and per_eval.get("table_select") == len(bs))
+                and per_eval.get("table_select") == 1)
     print(f"[eval 2b] launches in one evaluation over the {len(bs)} "
           f"buckets: {per_eval}", flush=True)
     if not shape_ok:
         _fail(f"the bucketed evaluation launched {per_eval}: one "
-              f"entry_reduce, at most one soa_agg and one table_select a "
-              f"bucket expected")
+              f"entry_reduce, at most one soa_agg a bucket and one "
+              f"table_select expected")
     r2, g2, H2 = cgh(KERNEL_STEPS, bs, tbl_m)
     torch.cuda.synchronize()
     same = bool(torch.equal(r1, r2) and torch.equal(g1, g2)
@@ -2301,7 +2535,6 @@ def main() -> int:
 
     # ---- 2b. soa_chain (both versions take the kernel's pv) ----
     pvs = [pvk[lo:hi] for lo, hi in chunks]
-    nb = V
     ch_k = [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)]
     ch_p = [soa_chain_plain(*o, pose12, q) for o, q in zip(ops, pvs)]
     torch.cuda.synchronize()
@@ -2324,16 +2557,26 @@ def main() -> int:
     if not (err_A <= TOL_ROWS_REL and err_g <= TOL_SUM_REL
             and err_hd <= TOL_SUM_REL and dead_ok):
         _fail("soa_chain disagrees with soa_chain_plain")
+    # as the evaluation calls it (the running sums), bitwise repeatable,
+    # dead cells' rows exact zeros; then the widths off its frame tile
+    err_ev = _chain_check(torch, "soa_chain", ops, pose12, pvs,
+                          TOL_ROWS_REL, TOL_SUM_REL)
+    _chain_widths(torch, dev, "soa_chain", torch.float32, TOL_ROWS_REL,
+                  TOL_SUM_REL)
+    bound, bound_layout = _chain_bounds([o[0] for o in ops], W, 4)
     kern["soa_chain"] = dict(
-        max_abs_err=abs_A,
+        max_abs_err=max(abs_A, err_ev[3]),
         **_times(torch, "soa_chain",
-                 lambda: [soa_chain(*o, pose12, q) for o, q in zip(ops, pvs)],
-                 lambda: [soa_chain_plain(*o, pose12, q)
-                          for o, q in zip(ops, pvs)]),
-        bound=_bound(nb * W * 13 * 4 + len(ops) * W * 12 * 4 + nb * 16 * 4
-                     + nb * W * 18 * 4 + W * 42 * 4,
-                     nb * W * CHAIN_FLOPS_PER_CELL),
-    )
+                 lambda: _chain_evaluation(soa_chain, ops, pose12, pvs),
+                 lambda: _chain_evaluation(soa_chain_plain, ops, pose12,
+                                           pvs)),
+        bound=bound, bound_layout=bound_layout)
+    results["soa_chain_launches"] = _chain_launches(torch, "soa_chain", ops,
+                                                    pose12, pvs)
+    print(f"[soa_chain] bound {bound[0]:.4f} ms ({bound[1]}) over the live "
+          f"cells' bytes; the layout's {bound_layout[0]:.4f} ms "
+          f"({bound_layout[1]}); the earlier design "
+          f"{CHAIN_EARLIER_MS['soa_chain'][0]} ms an evaluation", flush=True)
 
     # ---- 2c. syrk (3xTF32): the tf32 split, then the Gram ----
     # on the main path's operands (every voxel chunk into one gram), then
@@ -2420,10 +2663,11 @@ def main() -> int:
     cg = _cg_check(torch, "eval", Hf, gf, u0, capture=True)
     cg_ms = cg["ms"]
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         plane_cost_grad_hess(fa, R, p, W)
         torch.cuda.synchronize()
+    sums = _no_partial_sums(prof, "eval")
     prof_eval = _device_ms(prof)
     for name, sym in KERNEL_SYMBOLS.items():
         hits = [(k, v) for k, v in prof_eval.items() if sym in k]
@@ -2440,6 +2684,7 @@ def main() -> int:
           f"{[(k[:48], round(v[0], 4), v[1]) for k, v in top]}", flush=True)
     results["eval"] = dict(ms=eval_ms, plain_ms=plain_eval_ms, r_rel=e_r,
                            g_rel=e_g, H_rel=e_H, bitwise_repeatable=same,
+                           sum_shapes=sums,
                            cg_solve_ms=cg_ms, cg=cg, queued_ahead=ahead_e,
                            profiler_device_ms=prof_eval)
     del r1, g1, H1, r2, g2, H2, rq, gq, Hq, fa, Hf, gf

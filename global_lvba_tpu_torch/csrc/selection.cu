@@ -5,10 +5,16 @@
 // id outside [0, P).  The TPU kernel built a one-hot tile in VMEM and
 // multiplied three bf16 mantissa splits of the table to stay exact; on the
 // card the selection is a plain copy, exact by construction.  Bound: bytes
-// — 4 B of id in and 4·C B out per entry, no arithmetic.  One thread per
-// output value (grid-stride): neighbouring threads write neighbouring
-// floats (coalesced stores) and read the same or the next id; the small
-// table is read through the read-only cache (__ldg).
+// — 4 B of id in and 4·C (8·C) B out per entry, no arithmetic.  One launch
+// takes all of an evaluation's buckets (up to kMaxSelectBuckets) through
+// a table passed by value as the kernel's parameter, as soa_agg's does:
+// each bucket's id pointer, entry count and first row in the one output
+// (ΣE, C); a block finds its bucket from the buckets' first blocks.  One
+// thread per 16-byte chunk of an output row (a pose row is 48 B in float,
+// 96 in double, so every row starts 16-byte aligned): its id once, one
+// 16-byte load of the table through the read-only path (the (P, C) table,
+// 24 KB at P = 512, stays in the L1 and L2), one 16-byte store, in 32-bit
+// index arithmetic with no 64-bit division.
 //
 // entry_reduce_kernel replaces selection.py:84 `_entry_reduce_kernel`:
 // out[w, c] = Σ_j vals[tbl[w, j], c] over the frame-major (W, Kf) table of
@@ -37,21 +43,35 @@
 namespace {
 
 constexpr int kSelectThreads = 256;
+constexpr int kMaxSelectBuckets = 16;
 constexpr int kReduceThreads = 512;
+
+struct SelectLaunch {
+  const int* frame[kMaxSelectBuckets];
+  int E[kMaxSelectBuckets];
+  int row0[kMaxSelectBuckets];       // the bucket's first output row
+  int first[kMaxSelectBuckets + 1];  // its first block; first[nb]: grid
+  int nb;
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kSelectThreads)
-table_select_kernel(const int* __restrict__ frame,
-                    const T* __restrict__ tbl, int64_t E, int P, int C,
-                    T* __restrict__ out) {
-  const int64_t total = E * C;
-  for (int64_t i = (int64_t)blockIdx.x * kSelectThreads + threadIdx.x;
-       i < total; i += (int64_t)gridDim.x * kSelectThreads) {
-    const int64_t e = i / C;
-    const int c = static_cast<int>(i - e * C);
-    const int f = __ldg(frame + e);
-    out[i] = (f >= 0 && f < P) ? __ldg(tbl + (int64_t)f * C + c) : T(0.0);
-  }
+table_select_kernel(const SelectLaunch L, const T* __restrict__ tbl, int P,
+                    int C, T* __restrict__ out) {
+  int b = 0;
+  while (b + 1 < L.nb && static_cast<int>(blockIdx.x) >= L.first[b + 1]) ++b;
+  const int q = C * static_cast<int>(sizeof(T)) / 16;  // chunks a row
+  const int i =
+      (static_cast<int>(blockIdx.x) - L.first[b]) * kSelectThreads +
+      static_cast<int>(threadIdx.x);
+  if (i >= L.E[b] * q) return;
+  const int e = i / q;
+  const int j = i - e * q;
+  const int f = __ldg(L.frame[b] + e);
+  int4 v = make_int4(0, 0, 0, 0);
+  if (f >= 0 && f < P)
+    v = __ldg(reinterpret_cast<const int4*>(tbl + f * C) + j);
+  reinterpret_cast<int4*>(out + (L.row0[b] + e) * C)[j] = v;
 }
 
 template <typename T>
@@ -93,16 +113,34 @@ entry_reduce_kernel(const T* __restrict__ vals,
   }
 }
 
+// nb <= kMaxSelectBuckets buckets, bucket i given by the i-th entry of
+// each array; C·sizeof(T) a multiple of 16, tbl and out 16-byte aligned,
+// (Σ E)·C < 2^31.
 template <typename T>
-int launch_select(const int* frame, const T* tbl, int64_t E, int P, int C,
-                  T* out, void* stream) {
-  const int64_t total = E * C;
-  if (total == 0) return 0;
-  int64_t blocks = (total + kSelectThreads - 1) / kSelectThreads;
-  if (blocks > 65536) blocks = 65536;  // grid-stride beyond
-  table_select_kernel<T><<<static_cast<unsigned>(blocks), kSelectThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(frame, tbl,
-                                                                E, P, C, out);
+int launch_select(int nb, const int* const* frame, const int* E,
+                  const int* row0, const T* tbl, int P, int C, T* out,
+                  void* stream) {
+  if (nb < 1 || nb > kMaxSelectBuckets || C < 1 ||
+      (C * sizeof(T)) % 16 != 0 ||
+      (reinterpret_cast<uintptr_t>(tbl) | reinterpret_cast<uintptr_t>(out)) &
+          15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SelectLaunch L;
+  L.nb = nb;
+  const int q = C * static_cast<int>(sizeof(T)) / 16;
+  int blocks = 0;
+  for (int i = 0; i < nb; ++i) {
+    L.frame[i] = frame[i];
+    L.E[i] = E[i];
+    L.row0[i] = row0[i];
+    L.first[i] = blocks;
+    blocks += (E[i] * q + kSelectThreads - 1) / kSelectThreads;
+  }
+  L.first[nb] = blocks;
+  if (blocks == 0) return 0;
+  table_select_kernel<T><<<blocks, kSelectThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(L, tbl, P, C,
+                                                                out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -118,16 +156,20 @@ int launch_reduce(const T* vals, const int* tbl, int64_t E, int C, int W,
 
 }  // namespace
 
-extern "C" int lvba_table_select(const int* frame, const float* tbl,
-                                 int64_t E, int P, int C, float* out,
+// The selection of nb buckets' ids into one (Σ E, C) output (bucket i's
+// rows from row0[i]), one launch.
+extern "C" int lvba_table_select(int nb, const int* const* frame,
+                                 const int* E, const int* row0,
+                                 const float* tbl, int P, int C, float* out,
                                  void* stream) {
-  return launch_select(frame, tbl, E, P, C, out, stream);
+  return launch_select(nb, frame, E, row0, tbl, P, C, out, stream);
 }
 
-extern "C" int lvba_table_select_f64(const int* frame, const double* tbl,
-                                     int64_t E, int P, int C, double* out,
-                                     void* stream) {
-  return launch_select(frame, tbl, E, P, C, out, stream);
+extern "C" int lvba_table_select_f64(int nb, const int* const* frame,
+                                     const int* E, const int* row0,
+                                     const double* tbl, int P, int C,
+                                     double* out, void* stream) {
+  return launch_select(nb, frame, E, row0, tbl, P, C, out, stream);
 }
 
 extern "C" int lvba_entry_reduce(const float* vals, const int* tbl, int64_t E,

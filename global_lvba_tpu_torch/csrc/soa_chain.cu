@@ -2,17 +2,51 @@
 // (replaces global_lvba_tpu/ops/pallas/soa_fused.py:73 `_chain_kernel`),
 // in two launchers sharing chain_entry below.
 //
-// soa_chain_kernel, the frame-aligned layout (with the voxel-axis g/Hd
-// sums of plane_eigen.py:1361-1381).  Grid (ceil(W / 128), ceil(V / vtile)); thread k of block (bx, by) owns
-// frame k = 128·bx + threadIdx.x and walks voxels by·vtile ... in order.
-// Per entry it recomputes R μ and R Pc (cheaper than storing them), runs
-// the chain with the voxel's u, B1, B2, v̄, 1/N from pv, and
-//   * writes the three factor rows straight into the Gram operand
-//     A (3V, 6W): A[3v + r, 6k + c] = rows18[r·6 + c];
-//   * adds jjt (6) and the 24 distinct diagonal-extras channels to
-//     register accumulators, written once per thread to
-//     part[by, ch, k] (channel-major, coalesced).  The caller sums part
-//     over by in a fixed order: no atomics, bitwise repeatable.
+// soa_chain_kernel, the frame-aligned layout, with the voxel-axis g/Hd
+// sums of plane_eigen.py:1361-1381 finished inside the launch.  It writes
+//   * the three factor rows of every cell straight into the Gram operand
+//     A (3V, 6W): A[3v + r, 6k + c] = rows18[r·6 + c] (zeros for a dead
+//     cell, n == 0), every element, so A needs no fill;
+//   * g (W, 6) and Hd (W, 6, 6), the sums over the voxels of jjt (6) and
+//     of the diagonal extras (24 distinct channels, written out to the 36
+//     of the row-major 6x6 block), stored or, with `accumulate`, added to
+//     the values they hold (an evaluation's running sums over its voxel
+//     chunks).
+// Bound: bytes — A written once (18 values a cell: 75 MB of the W=512
+// evaluation's 130 MB in float32), 13 values read a cell, 16 a voxel,
+// the pose table; ~560 flops per live cell stay far below the card's
+// FLOP/byte balance.
+// Design:
+//  * A block owns a tile of kTile = 32 frames (lane l on frame k0 + l, its
+//    pose row in registers) and a run of vt voxels (kernels/soa.py
+//    chain_tile: the grid fills the card's resident blocks once); warp w
+//    walks voxels w, w + kWarps, ... of the run.  In the (V, W)
+//    layout voxel v's cells for the tile are contiguous in n, μ and Pc,
+//    so each is one span: the warp stages a voxel's n, μ, Pc and pv spans
+//    into shared memory with 16-byte cp.async copies (single values at
+//    unaligned ends: any W, any offset), the next two voxels' copies in
+//    flight while the current voxel's chain runs (a ring of kStages
+//    buffers a warp).
+//  * A dead cell skips the chain: its rows are exact zeros and it adds
+//    nothing, as the masked chain gives.  A voxel with no live cell in
+//    the tile skips the gather too: its rows leave as 16-byte zeros.
+//  * Row r of voxel v over the tile is 6·nt contiguous values of A: the
+//    lanes gather it in shared memory (placed at A's misalignment) and
+//    the warp stores it with 16-byte vectors, single values at unaligned
+//    ends.
+//  * The voxel-axis sums finish in the launch, in a fixed order: a lane
+//    sums its frame's 30 channels over its voxels in registers; the block
+//    adds its warps' sums in warp order and writes them to part (one
+//    (30, 32) slot a block); the last block of the frame tile to arrive
+//    (an arrival counter, not an atomic sum) adds the tile's slots in
+//    voxel-block order and writes g and Hd, then sets its counter back to
+//    zero for the next launch.  No atomic sum: bitwise repeatable.  That
+//    pass runs on the kernel's tail and grows with the tile's slots, so a
+//    block is one a SM (Chain<T>: 16 warps in float, 8 in double): 8 slots
+//    a tile at W = 512 on 132 SMs.
+//  * Where W·sizeof(T) is a multiple of 16 and every operand 16-byte
+//    aligned (the main path), spans and rows move as whole 16-byte chunks
+//    with no skew or ends (kFast).
 //
 // soa_chain_entries_kernel, the bucketed layout: `_chain_kernel` on its
 // native layout (poses pre-gathered per entry, plane_eigen.py:1388-1390),
@@ -51,8 +85,6 @@
 #include "soa_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
 
 // _soa_chain for one entry.  rows: 18 factor-row channels; acc: += jjt (6)
 // then the d36 channels at _D_UNIQUE positions (24).
@@ -229,39 +261,388 @@ __device__ __forceinline__ void chain_entry(
   rows[17] = sq * n * u3;
 }
 
+// The first value of a span staged at shared memory `sm` (16-byte aligned,
+// with 16 bytes of slack) sits at the span's own misalignment, so the
+// span's 16-byte chunks land on 16-byte chunks of shared memory.
+template <typename U>
+__device__ __forceinline__ U* skewed(U* sm, const void* g) {
+  return sm + (reinterpret_cast<uintptr_t>(g) & 15) / sizeof(U);
+}
+
+// Values before `p`'s next 16-byte boundary, at most count.
+template <typename U>
+__device__ __forceinline__ int64_t lead_of(const U* p, int64_t count) {
+  const int64_t lead =
+      ((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / sizeof(U);
+  return count < lead ? count : lead;
+}
+
+// dst[0 .. count) = src[0 .. count) by threads tid of nthr: 16-byte
+// vectors where dst and src agree mod 16 (skewed), single values at the
+// ends.
+template <typename U>
+__device__ __forceinline__ void copy_span(U* __restrict__ dst,
+                                          const U* __restrict__ src,
+                                          int64_t count, int tid, int nthr) {
+  constexpr int kv = 16 / sizeof(U);
+  const int head = static_cast<int>(lead_of(src, count));
+  const int64_t nvec = (count - head) / kv;
+  for (int i = tid; i < head; i += nthr) dst[i] = src[i];
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  for (int64_t i = tid; i < nvec; i += nthr) d4[i] = s4[i];
+  for (int64_t i = head + nvec * kv + tid; i < count; i += nthr)
+    dst[i] = src[i];
+}
+
+// dst[0 .. count) = 0 by threads tid of nthr, 16-byte stores between the
+// ends
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
-                 const T* __restrict__ Pc,
-                 const T* __restrict__ pose12,
-                 const T* __restrict__ pv, int V, int W, int vtile,
-                 T* __restrict__ A, T* __restrict__ part) {
-  using namespace lvba;
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  if (k >= W) return;
-  const Pose<T> P = load_pose(pose12, k);
-  T acc[30];
-#pragma unroll
-  for (int i = 0; i < 30; ++i) acc[i] = T(0.);
-  const int v0 = blockIdx.y * vtile;
-  const int v1 = min(V, v0 + vtile);
-  const int64_t ld = 6 * (int64_t)W;  // row stride of A
-  for (int v = v0; v < v1; ++v) {
-    const Cell<T> e = load_cell(n, mu, Pc, (int64_t)v * W + k);
-    T Rm1, Rm2, Rm3, RP[9], rows[18];
-    rot_mean(P, e, Rm1, Rm2, Rm3);
-    rot_scatter(P, e, RP);
-    chain_entry(e, P, Rm1, Rm2, Rm3, RP, pv + 16 * (int64_t)v, rows, acc);
-    T* out = A + 3 * (int64_t)v * ld + 6 * (int64_t)k;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < 6; ++c) out[r * ld + c] = rows[r * 6 + c];
+__device__ __forceinline__ void zero_span(T* __restrict__ dst,
+                                          int64_t count, int tid,
+                                          int nthr) {
+  constexpr int kv = 16 / sizeof(T);
+  const int head = static_cast<int>(lead_of(dst, count));
+  const int64_t nvec = (count - head) / kv;
+  for (int i = tid; i < head; i += nthr) dst[i] = T(0.);
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const int4 z = make_int4(0, 0, 0, 0);
+  for (int64_t i = tid; i < nvec; i += nthr) d4[i] = z;
+  for (int64_t i = head + nvec * kv + tid; i < count; i += nthr)
+    dst[i] = T(0.);
+}
+
+// cp.async of B bytes from global memory to shared memory (16 bytes by
+// the L2 alone, smaller copies through the L1, as PTX allows them)
+template <int B>
+__device__ __forceinline__ void cp_async(void* sm, const void* g) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(sm));
+  if constexpr (B == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(g));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(g), "n"(B));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// copy_span by a warp's lanes through cp.async: count < 32·16/sizeof(U)
+// values, dst skewed to src
+template <typename U>
+__device__ __forceinline__ void async_span(U* __restrict__ dst,
+                                           const U* __restrict__ src,
+                                           int count, int lane) {
+  constexpr int kv = 16 / static_cast<int>(sizeof(U));
+  const int head = static_cast<int>(lead_of(src, count));
+  const int nvec = (count - head) / kv;
+  const int tail = head + nvec * kv;
+  if (lane < head) cp_async<sizeof(U)>(dst + lane, src + lane);
+  for (int i = lane; i < nvec; i += 32)
+    cp_async<16>(dst + head + i * kv, src + head + i * kv);
+  if (tail + lane < count) cp_async<sizeof(U)>(dst + tail + lane,
+                                               src + tail + lane);
+}
+
+// The same for whole 16-byte chunks between 16-byte aligned addresses,
+// no ends: cp.async from global memory, copies, zeros.
+__device__ __forceinline__ void async_chunks(void* dst, const void* src,
+                                             int chunks, int lane) {
+  char* const d = static_cast<char*>(dst);
+  const char* const s = static_cast<const char*>(src);
+  for (int i = lane; i < chunks; i += 32) cp_async<16>(d + 16 * i, s + 16 * i);
+}
+
+__device__ __forceinline__ void copy_chunks(void* dst, const void* src,
+                                            int chunks, int lane) {
+  int4* const d = static_cast<int4*>(dst);
+  const int4* const s = static_cast<const int4*>(src);
+  for (int i = lane; i < chunks; i += 32) d[i] = s[i];
+}
+
+__device__ __forceinline__ void zero_chunks(void* dst, int chunks, int lane) {
+  int4* const d = static_cast<int4*>(dst);
+  for (int i = lane; i < chunks; i += 32) d[i] = make_int4(0, 0, 0, 0);
+}
+
+// The aligned chain's warps a block for each scalar, passed by
+// kernels/build.py from kernels/soa.py CHAIN_WARPS (chain_tile sizes the
+// grid with them).
+#if !defined(LVBA_CHAIN_WARPS_F32) || !defined(LVBA_CHAIN_WARPS_F64)
+#error "built by kernels/build.py, which passes the aligned chain's warps"
+#endif
+template <typename T>
+struct Chain {
+  static constexpr int kWarps =
+      sizeof(T) == 4 ? LVBA_CHAIN_WARPS_F32 : LVBA_CHAIN_WARPS_F64;
+  static constexpr int kThreads = 32 * kWarps;
+  static_assert(kWarps >= 1 && kThreads <= 1024, "whole warps");
+};
+constexpr int kTile = 32;   // frames a block: one a lane
+constexpr int kCh = 30;     // summed channels: jjt 6 | the 24 distinct d36
+constexpr int kStages = 3;  // a warp's voxels staged at once: 2 in flight
+
+// The 36 row-major Hd channels from the 24 distinct ones
+// (factors/plane_eigen.py _D24_TO_36).
+__constant__ int kD24To36[36] = {
+    0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11,
+    12, 13, 14, 15, 16, 17, 3,  9,  15, 18, 19, 20,
+    4,  10, 16, 19, 21, 22, 5,  11, 17, 20, 22, 23};
+
+// Shared memory of the aligned chain, in values of T: per warp a ring of
+// kStages buffers of one voxel's spans (n, μ, Pc over the tile, pv) and
+// three staged rows, each region with 16 bytes of slack for the skew.
+// After the voxels, a warp's region holds its (kCh, kTile) sums.
+template <typename T>
+struct ChainSmem {
+  static constexpr int kSlack = 16 / sizeof(T);
+  static constexpr int kN = kTile + kSlack;
+  static constexpr int kMu = 3 * kTile + kSlack;
+  static constexpr int kPc = 9 * kTile + kSlack;
+  static constexpr int kPv = 16 + kSlack;
+  static constexpr int kBuf = kN + kMu + kPc + kPv;
+  static constexpr int kRow = 6 * kTile + kSlack;
+  static constexpr int kRows = kStages * kBuf;  // the staged rows' offset
+  static constexpr int kWarp = kRows + 3 * kRow;
+  static constexpr int kBytes = Chain<T>::kWarps * kWarp * sizeof(T);
+  static_assert(kN * sizeof(T) % 16 == 0 && kMu * sizeof(T) % 16 == 0 &&
+                    kPc * sizeof(T) % 16 == 0 && kPv * sizeof(T) % 16 == 0 &&
+                    kRow * sizeof(T) % 16 == 0,
+                "every region starts 16-byte aligned");
+  static_assert(kWarp >= kCh * kTile, "a warp's region holds its sums");
+};
+
+// Resident blocks a SM the launch bounds ask for: 512 threads a SM in
+// float32 (128 registers a thread), 256 in float64 (255 registers).
+template <typename T>
+struct ChainOcc {
+  static constexpr int kThreadsPerSm = sizeof(T) == 4 ? 512 : 256;
+  static constexpr int kPer = kThreadsPerSm / Chain<T>::kThreads;
+  static constexpr int kMinBlocks = kPer > 0 ? kPer : 1;
+};
+
+// Where voxel v's spans of the tile starting at cell c sit in buffer buf:
+// at each span's misalignment, or at the regions' starts on the aligned
+// path (kFast: every span starts 16-byte aligned).
+template <typename T, bool kFast>
+struct Spans {
+  T* n;
+  T* mu;
+  T* Pc;
+  T* pv;
+  __device__ __forceinline__ Spans(T* buf, const T* n_, const T* mu_,
+                                   const T* Pc_, const T* pv_, int64_t c,
+                                   int v) {
+    using L = ChainSmem<T>;
+    n = buf;
+    mu = buf + L::kN;
+    Pc = buf + L::kN + L::kMu;
+    pv = buf + L::kN + L::kMu + L::kPc;
+    if constexpr (!kFast) {
+      n = skewed(n, n_ + c);
+      mu = skewed(mu, mu_ + 3 * c);
+      Pc = skewed(Pc, Pc_ + 9 * c);
+      pv = skewed(pv, pv_ + 16 * (int64_t)v);
     }
   }
-  T* o = part + (int64_t)blockIdx.y * 30 * W + k;
+};
+
+// kFast: W·sizeof(T) a multiple of 16 and every operand 16-byte aligned,
+// so every span and staged row is whole 16-byte chunks (the main path's
+// W = 512); otherwise spans and rows go through their ends one value at
+// a time.
+template <typename T, bool kFast>
+__global__ void __launch_bounds__(Chain<T>::kThreads,
+                                  ChainOcc<T>::kMinBlocks)
+soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
+                 const T* __restrict__ Pc, const T* __restrict__ pose12,
+                 const T* __restrict__ pv, int V, int W, int vt,
+                 T* __restrict__ A, T* __restrict__ g, T* __restrict__ Hd,
+                 int accumulate, T* __restrict__ part,
+                 int* __restrict__ arrivals) {
+  using namespace lvba;
+  using L = ChainSmem<T>;
+  using C = Chain<T>;
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  __shared__ int last;
+  T* const smem = reinterpret_cast<T*>(chain_smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T* const wsm = smem + warp * L::kWarp;
+  const int tile = blockIdx.x, vb = blockIdx.y, nvb = gridDim.y;
+  const int k0 = tile * kTile;
+  const int nt = min(kTile, W - k0);  // frames in the tile
+  const bool on = lane < nt;
+  const int64_t ld = 6 * (int64_t)W;  // row stride of A
+  Pose<T> P{};
+  if (on) P = load_pose(pose12, k0 + lane);
+  T acc[kCh];
 #pragma unroll
-  for (int i = 0; i < 30; ++i) o[(int64_t)i * W] = acc[i];
+  for (int i = 0; i < kCh; ++i) acc[i] = T(0.);
+
+  const int cn = nt * static_cast<int>(sizeof(T)) / 16;  // kFast: n's chunks
+  auto stage = [&](int v, T* buf) {
+    const int64_t c = (int64_t)v * W + k0;
+    const Spans<T, kFast> s(buf, n, mu, Pc, pv, c, v);
+    if constexpr (kFast) {
+      async_chunks(s.n, n + c, cn, lane);
+      async_chunks(s.mu, mu + 3 * c, 3 * cn, lane);
+      async_chunks(s.Pc, Pc + 9 * c, 9 * cn, lane);
+      async_chunks(s.pv, pv + 16 * (int64_t)v, sizeof(T), lane);
+    } else {
+      async_span(s.n, n + c, nt, lane);
+      async_span(s.mu, mu + 3 * c, 3 * nt, lane);
+      async_span(s.Pc, Pc + 9 * c, 9 * nt, lane);
+      async_span(s.pv, pv + 16 * (int64_t)v, 16, lane);
+    }
+  };
+  const int v1 = min(V, (vb + 1) * vt);
+  constexpr int kStep = C::kWarps;  // a warp's voxels: warp, warp + kStep...
+  int v = vb * vt + warp;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (v + i * kStep < v1) stage(v + i * kStep, wsm + i * L::kBuf);
+    cp_async_commit();
+  }
+  for (int b = 0; v < v1; v += kStep, b = (b + 1) % kStages) {
+    T* const buf = wsm + b * L::kBuf;
+    const int va = v + (kStages - 1) * kStep;  // into the freed buffer
+    if (va < v1) stage(va, wsm + (b + kStages - 1) % kStages * L::kBuf);
+    cp_async_commit();  // (empty groups at the last voxels)
+    cp_async_wait<kStages - 1>();  // voxel v's spans have landed
+    __syncwarp();
+    const int64_t c = (int64_t)v * W + k0;
+    const Spans<T, kFast> s(buf, n, mu, Pc, pv, c, v);
+    T* const out = A + 3 * (int64_t)v * ld + 6 * (int64_t)k0;
+    Cell<T> e{};
+    if (on) e = load_cell(s.n, s.mu, s.Pc, lane);
+    const bool live = on && e.mask != T(0.);
+    if (__ballot_sync(0xffffffffu, live) == 0u) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        if constexpr (kFast) zero_chunks(out + r * ld, 6 * cn, lane);
+        else zero_span(out + r * ld, 6 * nt, lane, 32);
+      }
+    } else {
+      T* st[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        st[r] = wsm + L::kRows + r * L::kRow;
+        if constexpr (!kFast) st[r] = skewed(st[r], out + r * ld);
+      }
+      if (live) {
+        T Rm1, Rm2, Rm3, RP[9], rows[18];
+        rot_mean(P, e, Rm1, Rm2, Rm3);
+        rot_scatter(P, e, RP);
+        chain_entry(e, P, Rm1, Rm2, Rm3, RP, s.pv, rows, acc);
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+          for (int cc = 0; cc < 6; ++cc)
+            st[r][6 * lane + cc] = rows[r * 6 + cc];
+        }
+      } else if (on) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+#pragma unroll
+          for (int cc = 0; cc < 6; ++cc) st[r][6 * lane + cc] = T(0.);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        if constexpr (kFast) copy_chunks(out + r * ld, st[r], 6 * cn, lane);
+        else copy_span(out + r * ld, st[r], 6 * nt, lane, 32);
+      }
+    }
+    __syncwarp();  // buffer b and the staged rows are free again
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the block's sums: its warps' in warp order, into its slot of part
+#pragma unroll
+  for (int i = 0; i < kCh; ++i) wsm[i * kTile + lane] = acc[i];
+  __syncthreads();
+  constexpr int kSlot = kCh * kTile;
+  T* const mine = part + ((int64_t)tile * nvb + vb) * kSlot;
+  for (int j = threadIdx.x; j < kSlot; j += C::kThreads) {
+    T s = smem[j];
+    for (int w = 1; w < C::kWarps; ++w) s += smem[w * L::kWarp + j];
+    mine[j] = s;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + tile, 1) == nvb - 1;
+  __syncthreads();
+  if (!last) return;
+  // the tile's last block: the running g and Hd of its frames loaded
+  // first (kOut values a thread), then the tile's slots added in
+  // voxel-block order (kCols columns a thread, kAhead slots' loads in
+  // flight at once), then g and Hd stored
+  __threadfence();
+  constexpr int kOut = (42 * kTile + C::kThreads - 1) / C::kThreads;
+  T* o[kOut];
+  T old[kOut];
+  int col[kOut];  // the column of the tile's sums each output takes
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    const int j = threadIdx.x + u * C::kThreads;
+    o[u] = nullptr;
+    old[u] = T(0.);
+    col[u] = 0;
+    if (j < 42 * nt) {
+      const int l = j / 42, q = j - 42 * l;
+      col[u] = (q < 6 ? q : 6 + kD24To36[q - 6]) * kTile + l;
+      o[u] = q < 6 ? g + 6 * (int64_t)(k0 + l) + q
+                   : Hd + 36 * (int64_t)(k0 + l) + (q - 6);
+      if (accumulate) old[u] = __ldcg(o[u]);
+    }
+  }
+  const T* const slots = part + (int64_t)tile * nvb * kSlot;
+  constexpr int kCols = (kSlot + C::kThreads - 1) / C::kThreads;
+  constexpr int kAhead = 8;
+  T sum[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) sum[c] = T(0.);
+  for (int i0 = 0; i0 < nvb; i0 += kAhead) {
+    T x[kAhead][kCols];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int j = threadIdx.x + c * C::kThreads;
+        x[u][c] = i0 + u < nvb && j < kSlot
+                      ? __ldcg(slots + (int64_t)(i0 + u) * kSlot + j)
+                      : T(0.);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) sum[c] += x[u][c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const int j = threadIdx.x + c * C::kThreads;
+    if (j < kSlot) smem[j] = sum[c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kOut; ++u) {
+    if (o[u] != nullptr)
+      *o[u] = accumulate ? old[u] + smem[col[u]] : smem[col[u]];
+  }
+  if (threadIdx.x == 0) arrivals[tile] = 0;
 }
 
 // The limits of chain_entries_tile (kernels/soa.py CHAIN_MAX_ENTRIES and
@@ -274,54 +655,6 @@ constexpr int kMaxTile = LVBA_CHAIN_MAX_TILE;          // voxels a block
 static_assert(kEntryThreads % 32 == 0 && kEntryThreads <= 1024,
               "one entry a thread, whole warps");
 
-// The first value of a span staged at shared memory `sm` (16-byte aligned,
-// with 16 bytes of slack) sits at the span's own misalignment, so the
-// span's 16-byte chunks land on 16-byte chunks of shared memory.
-template <typename U>
-__device__ __forceinline__ U* skewed(U* sm, const void* g) {
-  return sm + (reinterpret_cast<uintptr_t>(g) & 15) / sizeof(U);
-}
-
-// dst[0 .. count) = src[0 .. count) by the block: 16-byte vectors where
-// dst and src agree mod 16 (skewed), single values at the ends.
-template <typename U>
-__device__ __forceinline__ void copy_span(U* __restrict__ dst,
-                                          const U* __restrict__ src,
-                                          int64_t count) {
-  constexpr int kv = 16 / sizeof(U);
-  const int64_t lead =
-      ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) / sizeof(U);
-  const int head = static_cast<int>(count < lead ? count : lead);
-  const int64_t nvec = (count - head) / kv;
-  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
-  const int4* s4 = reinterpret_cast<const int4*>(src + head);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = s4[i];
-  for (int64_t i = head + nvec * kv + threadIdx.x; i < count;
-       i += blockDim.x)
-    dst[i] = src[i];
-}
-
-// dst[0 .. count) = 0 by the block, 16-byte stores between the ends
-template <typename T>
-__device__ __forceinline__ void zero_span(T* __restrict__ dst,
-                                          int64_t count) {
-  constexpr int kv = 16 / sizeof(T);
-  const int64_t lead =
-      ((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) / sizeof(T);
-  const int head = static_cast<int>(count < lead ? count : lead);
-  const int64_t nvec = (count - head) / kv;
-  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = T(0.);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  const int4 z = make_int4(0, 0, 0, 0);
-  for (int64_t i = threadIdx.x; i < nvec; i += blockDim.x) d4[i] = z;
-  for (int64_t i = head + nvec * kv + threadIdx.x; i < count;
-       i += blockDim.x)
-    dst[i] = T(0.);
-}
-
-// Shared memory of one block, in values of T: each span's region holds its
-// values and 16 bytes of slack for the skew.
 template <typename T>
 struct EntrySmem {
   static constexpr int kSlack = 16 / sizeof(T);
@@ -361,7 +694,8 @@ soa_chain_entries_kernel(const T* __restrict__ n,
   const int nv = min(vt, V - v0);
   const int64_t ld = 6 * (int64_t)W;  // row stride of A
   T* const spv = skewed(sm_pv, pv + 16 * (int64_t)v0);
-  copy_span(spv, pv + 16 * (int64_t)v0, 16 * (int64_t)nv);
+  copy_span(spv, pv + 16 * (int64_t)v0, 16 * (int64_t)nv, threadIdx.x,
+            blockDim.x);
 
   const int64_t e0 = (int64_t)v0 * K;
   const int ne = nv * K;
@@ -375,11 +709,11 @@ soa_chain_entries_kernel(const T* __restrict__ n,
     T* cpose = skewed(sm_pose, poses + 12 * e);
     int* cf = skewed(sm_frame, frame + e);
     T* cv = skewed(sm_vals, vals + 30 * e);
-    copy_span(cn, n + e, m);
-    copy_span(cmu, mu + 3 * e, 3 * (int64_t)m);
-    copy_span(cPc, Pc + 9 * e, 9 * (int64_t)m);
-    copy_span(cpose, poses + 12 * e, 12 * (int64_t)m);
-    copy_span(cf, frame + e, m);
+    copy_span(cn, n + e, m, threadIdx.x, blockDim.x);
+    copy_span(cmu, mu + 3 * e, 3 * (int64_t)m, threadIdx.x, blockDim.x);
+    copy_span(cPc, Pc + 9 * e, 9 * (int64_t)m, threadIdx.x, blockDim.x);
+    copy_span(cpose, poses + 12 * e, 12 * (int64_t)m, threadIdx.x, blockDim.x);
+    copy_span(cf, frame + e, m, threadIdx.x, blockDim.x);
     __syncthreads();  // the inputs are staged
     const int j = threadIdx.x;
     T rows[18];
@@ -410,7 +744,9 @@ soa_chain_entries_kernel(const T* __restrict__ n,
     // where its first entry lies), then, behind one barrier, its entries'
     // rows stored over the zeros while the L2 still holds those lines
     for (int vl = r0 / K; vl <= (r0 + m - 1) / K; ++vl) {
-      if (vl * K >= r0) zero_span(A + 3 * (int64_t)(v0 + vl) * ld, 3 * ld);
+      if (vl * K >= r0)
+        zero_span(A + 3 * (int64_t)(v0 + vl) * ld, 3 * ld, threadIdx.x,
+                  blockDim.x);
       __syncthreads();
       if (mine == vl) {
         T* out = A + 3 * (int64_t)(v0 + vl) * ld + 6 * (int64_t)f;
@@ -422,19 +758,61 @@ soa_chain_entries_kernel(const T* __restrict__ n,
       }
     }
     // (the loop's barriers put every vals row in shared memory first)
-    copy_span(vals + 30 * e, cv, 30 * (int64_t)m);
+    copy_span(vals + 30 * e, cv, 30 * (int64_t)m, threadIdx.x, blockDim.x);
   }
 }
 
 template <typename T>
+int chain_smem_attr() {
+  constexpr int bytes = ChainSmem<T>::kBytes;
+  if (bytes <= 48 * 1024) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      soa_chain_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(soa_chain_kernel<T, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  return static_cast<int>(e);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T>
 int launch_chain(const T* n, const T* mu, const T* Pc, const T* pose12,
-                 const T* pv, int V, int W, int vtile, T* A, T* part,
-                 void* stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, (V + vtile - 1) / vtile);
-  soa_chain_kernel<T><<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      n, mu, Pc, pose12, pv, V, W, vtile, A, part);
+                 const T* pv, int V, int W, int vt, T* A, T* g, T* Hd,
+                 int accumulate, T* part, int* arrivals, void* stream) {
+  if (V < 1 || W < 1 || vt < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = chain_smem_attr<T>();
+  if (err != 0) return err;
+  const dim3 grid((W + kTile - 1) / kTile, (V + vt - 1) / vt);
+  const bool fast = (W * sizeof(T)) % 16 == 0 && aligned16(n) &&
+                    aligned16(mu) && aligned16(Pc) && aligned16(pv) &&
+                    aligned16(A);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fast)
+    soa_chain_kernel<T, true><<<grid, Chain<T>::kThreads,
+                                ChainSmem<T>::kBytes, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate, part,
+        arrivals);
+  else
+    soa_chain_kernel<T, false><<<grid, Chain<T>::kThreads,
+                                 ChainSmem<T>::kBytes, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate, part,
+        arrivals);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int chain_occupancy(int* blocks) {
+  const int err = chain_smem_attr<T>();
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, soa_chain_kernel<T, true>, Chain<T>::kThreads,
+      ChainSmem<T>::kBytes));
 }
 
 template <typename T>
@@ -461,18 +839,33 @@ int launch_chain_entries(const T* n, const T* mu, const T* Pc,
 
 }  // namespace
 
+// A (3V, 6W) is written in full; g (W, 6) and Hd (W, 6, 6) are stored,
+// or added to with `accumulate`.  vt voxels a block (kernels/soa.py
+// chain_tile); part holds ceil(W / 32) · ceil(V / vt) slots of 30 · 32
+// values; arrivals[ceil(W / 32)] must be zero, and the launch leaves it so.
 extern "C" int lvba_soa_chain(const float* n, const float* mu,
                               const float* Pc, const float* pose12,
-                              const float* pv, int V, int W, int vtile,
-                              float* A, float* part, void* stream) {
-  return launch_chain(n, mu, Pc, pose12, pv, V, W, vtile, A, part, stream);
+                              const float* pv, int V, int W, int vt,
+                              float* A, float* g, float* Hd, int accumulate,
+                              float* part, int* arrivals, void* stream) {
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate,
+                      part, arrivals, stream);
 }
 
 extern "C" int lvba_soa_chain_f64(const double* n, const double* mu,
                                   const double* Pc, const double* pose12,
-                                  const double* pv, int V, int W, int vtile,
-                                  double* A, double* part, void* stream) {
-  return launch_chain(n, mu, Pc, pose12, pv, V, W, vtile, A, part, stream);
+                                  const double* pv, int V, int W, int vt,
+                                  double* A, double* g, double* Hd,
+                                  int accumulate, double* part, int* arrivals,
+                                  void* stream) {
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate,
+                      part, arrivals, stream);
+}
+
+// Resident blocks a SM of soa_chain_kernel's float (f64 == 0) or double
+// instance, written to *blocks.
+extern "C" int lvba_soa_chain_occupancy(int f64, int* blocks) {
+  return f64 ? chain_occupancy<double>(blocks) : chain_occupancy<float>(blocks);
 }
 
 // A (3V, 6W) and vals (V·K, 30) are written in full (A needs no fill);

@@ -18,11 +18,15 @@ Two factor layouts, chosen per solve by the density gate
                   (one launch per kernel instance over the
                   evaluation's buckets)
   then per voxel chunk
-    2. soa_chain  linearization chain          -> A (3V, 6W), g (W, 6), Hd
+    2. soa_chain  linearization chain          -> A (3V, 6W), its voxel
+                  sums added to the evaluation's g (W, 6), Hd in the
+                  same launch
     3. syrk_      gram += AᵀA
-* BUCKETED (PlaneFactorArrays, (V, K) slots with a frame id each): per
-  bucket
-    0. table_select        pose table -> per-entry pose rows (V, K, 12)
+* BUCKETED (PlaneFactorArrays, (V, K) slots with a frame id each): once
+  per evaluation, over all of its bucketed buckets
+    0. table_select        pose table -> per-entry pose rows (V, K, 12),
+                           views of one buffer (table_select_buckets)
+  then per bucket
     1. soa_agg             on the per-entry pose rows (the same launch)
   then per voxel chunk
     2. soa_chain_entries   rows scattered into A (3V, 6W) at column
@@ -456,10 +460,10 @@ class EvalSteps(NamedTuple):
 
 
 KERNEL_STEPS = EvalSteps(_soa.soa_agg_buckets, _soa.soa_chain, _gram.syrk_,
-                         _sel.table_select, _soa.soa_chain_entries,
+                         _sel.table_select_buckets, _soa.soa_chain_entries,
                          _sel.entry_reduce)
 PLAIN_STEPS = EvalSteps(_soa.soa_agg_buckets_plain, _soa.soa_chain_plain,
-                        _gram.syrk_plain_, _sel.table_select_plain,
+                        _gram.syrk_plain_, _sel.table_select_buckets_plain,
                         _soa.soa_chain_entries_plain, _sel.entry_reduce_plain)
 
 
@@ -471,21 +475,29 @@ def _check_width(fa: AlignedPlaneFactorArrays, W: int):
         )
 
 
-def _pose_operand(steps: EvalSteps, fa, pose12: torch.Tensor, W: int):
-    """soa_agg's pose operand for the whole bucket: the pose table itself
-    on the aligned layout, the table_select'ed per-entry rows (V, K, 12)
-    on the bucketed one."""
-    if isinstance(fa, PlaneFactorArrays):
-        V, K = fa.n.shape
-        return steps.select(fa.frame.reshape(-1), pose12).reshape(V, K, 12)
-    _check_width(fa, W)
-    return pose12
+def _pose_operands(steps: EvalSteps, buckets, pose12: torch.Tensor, W: int):
+    """soa_agg's pose operand of each bucket: the pose table itself on the
+    aligned layout, the selected per-entry rows (V, K, 12) on the bucketed
+    one, all of those from one select step over the buckets' ids (views of
+    its one buffer)."""
+    bs = [fa for fa in buckets if isinstance(fa, PlaneFactorArrays)]
+    rows = iter(steps.select([fa.frame.reshape(-1) for fa in bs], pose12)
+                if bs else ())
+    out = []
+    for fa in buckets:
+        if isinstance(fa, PlaneFactorArrays):
+            out.append(next(rows).view(*fa.n.shape, 12))
+        else:
+            _check_width(fa, W)
+            out.append(pose12)
+    return out
 
 
 def plane_cost(fa, R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Sum over voxels of λ_min (evaluate_only_residual, bavoxel.hpp:176-203)."""
-    poses = _pose_operand(KERNEL_STEPS, fa, pose_table(R, p), R.shape[0])
-    return _soa.soa_agg(fa.n, fa.mu, fa.Pc, poses)[0].sum()
+    W = R.shape[0]
+    poses = _pose_operands(KERNEL_STEPS, [fa], pose_table(R, p), W)
+    return _soa.soa_agg(fa.n, fa.mu, fa.Pc, poses[0])[0].sum()
 
 
 def plane_cost_grad_hess(
@@ -526,7 +538,8 @@ def plane_cost_grad_hess_buckets(
     frame in one entry_reduce through `table`, their
     buckets_frame_table(buckets, W) (built here when not given: a solve
     builds it once, since building it reads the ids to the host); the
-    aligned buckets' g and Hd come from their chain's voxel sums."""
+    aligned buckets' g and Hd come from their chain's voxel sums, added
+    to the evaluation's running ones in the chain's launch."""
     return _cost_grad_hess_buckets(KERNEL_STEPS, buckets, R, p, num_frames,
                                    chunk_bytes, table)
 
@@ -545,14 +558,13 @@ def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
     dev, dt = R.device, R.dtype
     gram = torch.zeros((6 * W, 6 * W), dtype=dt, device=dev)
     resid = torch.zeros((), dtype=dt, device=dev)
-    g = torch.zeros((W, 6), dtype=dt, device=dev)
-    Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
+    g = Hd = None  # the first aligned chain stores its sums, the rest add
     entries = sum(fa.n.numel() for fa in buckets
                   if isinstance(fa, PlaneFactorArrays))
     if entries and table is None:
         table = buckets_frame_table(buckets, W)
     vals = torch.empty((entries, 30), dtype=dt, device=dev)
-    poses = [_pose_operand(steps, fa, pose12, W) for fa in buckets]
+    poses = _pose_operands(steps, buckets, pose12, W)
     aggs = steps.agg([(fa.n, fa.mu, fa.Pc, ps)
                       for fa, ps in zip(buckets, poses)])
     off = 0
@@ -564,9 +576,11 @@ def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
                            vals[off:off + VK])
             off += VK
         else:
-            g_, Hd_ = _aligned_pass(steps, fa, pose12, pv, W, gram,
-                                    chunk_bytes)
-            g, Hd = g + g_, Hd + Hd_
+            g, Hd = _aligned_pass(steps, fa, pose12, pv, W, gram,
+                                  chunk_bytes, g, Hd)
+    if g is None:
+        g = torch.zeros((W, 6), dtype=dt, device=dev)
+        Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
     if entries:
         gHd = steps.reduce(vals, table)                         # (W, 30)
         g = g + gHd[:, :6]
@@ -575,18 +589,15 @@ def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
     return resid, g, H
 
 
-def _aligned_pass(steps, fa, pose12, pv, W, gram, chunk_bytes):
-    """g, Hd of an aligned bucket with its soa_agg output pv; its AᵀA
-    added into gram."""
-    dev, dt = pose12.device, pose12.dtype
-    g = torch.zeros((W, 6), dtype=dt, device=dev)
-    Hd = torch.zeros((W, 6, 6), dtype=dt, device=dev)
+def _aligned_pass(steps, fa, pose12, pv, W, gram, chunk_bytes, g, Hd):
+    """An aligned bucket with its soa_agg output pv: its voxel sums added
+    by the chain, chunk by chunk, to the running g (W, 6) and Hd (W, 6, 6)
+    in place (stored by the first chunk when they are None), its AᵀA added
+    into gram.  Returns the running g and Hd."""
     for lo, hi in voxel_chunks(fa.n.shape[0], W, chunk_bytes):
-        A, g_c, Hd_c = steps.chain(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
-                                   pose12, pv[lo:hi])
+        A, g, Hd = steps.chain(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
+                               pose12, pv[lo:hi], g, Hd)
         steps.syrk_(gram, A)
-        g = g + g_c
-        Hd = Hd + Hd_c
     return g, Hd
 
 

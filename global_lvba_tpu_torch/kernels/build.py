@@ -17,9 +17,10 @@ launcher takes tensor pointers and the stream as integers and returns
 cudaGetLastError() after the launch.  Its ctypes signature is bound once,
 when the library loads; `launcher(name)` is a dictionary lookup after the
 first call.  A source may hold several launchers (soa_chain.cu: the
-aligned and the per-entry chain; selection.cu: table_select and
-entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's launcher
-runs its two kernels (the work units and the reduction of their
+aligned and the per-entry chain, and the aligned chain's occupancy query
+that kernels/soa.py sizes its grid with; selection.cu: table_select and
+entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's
+launcher runs its two kernels (the work units and the reduction of their
 partials).  The LiDAR kernels have a float64 instance each for float64
 solves, bound as `<name>_f64` (dtype_launcher picks it); the matcher and
 the tf32 split are float32 only.
@@ -51,26 +52,30 @@ SIGNATURES = {
     "soa_agg": ("soa_agg", "lvba_soa_agg",
                 [_I] + [_P] * 7 + [_I] + [_P] * 3),
     "soa_chain": ("soa_chain", "lvba_soa_chain",
-                  [_P] * 5 + [_I] * 3 + [_P] * 3),
+                  [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3),
     "soa_chain_entries": ("soa_chain", "lvba_soa_chain_entries",
                           [_P] * 6 + [_I] * 4 + [_P] * 3),
     "syrk_split": ("syrk", "lvba_syrk_split", [_P] + [_I] * 4 + [_P] * 3),
     "syrk": ("syrk", "lvba_syrk", [_P] * 2 + [_I] * 5 + [_P] * 4),
     "table_select": ("selection", "lvba_table_select",
-                     [_P, _P, _L, _I, _I, _P, _P]),
+                     [_I] + [_P] * 4 + [_I] * 2 + [_P] * 2),
     "entry_reduce": ("selection", "lvba_entry_reduce",
                      [_P, _P, _L, _I, _I, _I, _P, _P]),
     "soa_agg_f64": ("soa_agg", "lvba_soa_agg_f64",
                     [_I] + [_P] * 7 + [_I] + [_P] * 3),
     "soa_chain_f64": ("soa_chain", "lvba_soa_chain_f64",
-                      [_P] * 5 + [_I] * 3 + [_P] * 3),
+                      [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3),
     "soa_chain_entries_f64": ("soa_chain", "lvba_soa_chain_entries_f64",
                               [_P] * 6 + [_I] * 4 + [_P] * 3),
     "syrk_f64": ("syrk", "lvba_syrk_f64", [_P] + [_I] * 4 + [_P] * 4),
     "table_select_f64": ("selection", "lvba_table_select_f64",
-                         [_P, _P, _L, _I, _I, _P, _P]),
+                         [_I] + [_P] * 4 + [_I] * 2 + [_P] * 2),
     "entry_reduce_f64": ("selection", "lvba_entry_reduce_f64",
                          [_P, _P, _L, _I, _I, _I, _P, _P]),
+    # not a launcher: the aligned chain's resident blocks a SM (float or
+    # double instance), for kernels/soa.py chain_tile
+    "soa_chain_occupancy": ("soa_chain", "lvba_soa_chain_occupancy",
+                            [_I, _P]),
     "top2_similarity": ("matcher", "lvba_top2_similarity",
                         [_P, _P, _P, _I, _P, _P, _P, _I] + [_I] * 4
                         + [_P] * 8),
@@ -107,12 +112,15 @@ def _nvcc() -> str:
 def _defines(name: str) -> tuple:
     """The -D flags of csrc/<name>.cu: soa_chain.cu takes its per-entry
     block limits from kernels/soa.py, whose chain_entries_tile picks the
-    voxels a block within them."""
+    voxels a block within them, and the aligned chain's warps a block per
+    dtype, with which chain_tile sizes its grid."""
     if name != "soa_chain":
         return ()
     from . import soa
     return (f"-DLVBA_CHAIN_MAX_TILE={soa.CHAIN_MAX_TILE}",
-            f"-DLVBA_CHAIN_MAX_ENTRIES={soa.CHAIN_MAX_ENTRIES}")
+            f"-DLVBA_CHAIN_MAX_ENTRIES={soa.CHAIN_MAX_ENTRIES}",
+            f"-DLVBA_CHAIN_WARPS_F32={soa.CHAIN_WARPS[torch.float32]}",
+            f"-DLVBA_CHAIN_WARPS_F64={soa.CHAIN_WARPS[torch.float64]}")
 
 
 def _digest(name: str) -> str:

@@ -8,9 +8,12 @@ global_lvba_tpu/ops/pallas/selection.py:44 `_table_select_kernel` (via
 outside [0, P) as the TPU's one-hot gives.  The TPU built a one-hot tile
 in VMEM and multiplied three bf16 mantissa splits to keep the selection
 exact; here it is a copy, exact by construction.  Bound: bytes (4 B of id
-in, 48 B of pose row out per entry).  One thread per output float:
-neighbouring threads write neighbouring floats and read the same or the
-next id; the (P, 12) table is read through the read-only cache.
+in, 48 B of pose row out per entry, 96 in float64).  One launch takes all
+of an evaluation's buckets (table_select_buckets, up to
+SELECT_MAX_BUCKETS: each bucket's ids, count and first output row in a
+table passed by value) and writes one (ΣE, C) buffer, the buckets' rows
+views of it; one thread per 16-byte chunk of an output row, the (P, C)
+table read through the read-only path.
 
 entry_reduce (csrc/selection.cu) replaces selection.py:84
 `_entry_reduce_kernel` (via `entry_reduce`, :106) and the one-hot g/Hd
@@ -37,6 +40,7 @@ from . import build
 
 LAUNCHES = {"table_select": 0, "entry_reduce": 0, "table_select_f64": 0,
             "entry_reduce_f64": 0}
+SELECT_MAX_BUCKETS = 16   # buckets one table_select launch takes
 
 
 def _ptr(t):
@@ -49,29 +53,59 @@ def _stream(dev):
 
 def table_select(frame: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     """Per-entry rows (E, C) of a (P, C) table: row e is tbl[frame[e]],
-    zero where frame[e] lies outside [0, P).  frame (E,) int32."""
-    if frame.device.type == "cpu":
-        return table_select_plain(frame, tbl)
-    if frame.device.type != "cuda":
-        raise ValueError(f"table_select: unsupported device {frame.device}")
-    if frame.dim() != 1 or frame.dtype != torch.int32 \
-            or not frame.is_contiguous():
-        raise ValueError("frame must be a contiguous (E,) int32 tensor")
-    if tbl.dim() != 2 or tbl.device != frame.device \
-            or not tbl.is_contiguous():
-        raise ValueError("tbl must be a contiguous (P, C) tensor on frame's "
-                         "device")
+    zero where frame[e] lies outside [0, P).  frame (E,) int32.  The
+    one-bucket case of table_select_buckets."""
+    return table_select_buckets([frame], tbl)[0]
+
+
+def table_select_buckets(frames, tbl: torch.Tensor) -> list:
+    """table_select of each bucket's ids frames[i] (E_i,) int32 -> views
+    (E_i, C) of one (ΣE, C) buffer, bucket i's rows after bucket i-1's:
+    one launch per SELECT_MAX_BUCKETS buckets.  C·itemsize must be a
+    multiple of 16 bytes (a pose row: 48 B, 96 in float64) and tbl 16-byte
+    aligned."""
+    if not frames:
+        return []
+    dev = frames[0].device
+    if dev.type == "cpu":
+        return table_select_buckets_plain(frames, tbl)
+    if dev.type != "cuda":
+        raise ValueError(f"table_select: unsupported device {dev}")
+    for f in frames:
+        if f.dim() != 1 or f.dtype != torch.int32 or f.device != dev \
+                or not f.is_contiguous():
+            raise ValueError("each frame must be a contiguous (E,) int32 "
+                             "tensor on one device")
+    if tbl.dim() != 2 or tbl.device != dev or not tbl.is_contiguous():
+        raise ValueError("tbl must be a contiguous (P, C) tensor on the "
+                         "frames' device")
     name = build.dtype_launcher("table_select", tbl.dtype)
-    E = frame.shape[0]
     P, C = tbl.shape
-    out = torch.empty((E, C), dtype=tbl.dtype, device=tbl.device)
+    if (C * tbl.element_size()) % 16 or tbl.data_ptr() % 16:
+        raise ValueError(f"table_select: a row of {C} values must be a "
+                         f"multiple of 16 bytes and tbl 16-byte aligned")
+    Es = [f.shape[0] for f in frames]
+    if sum(Es) * C >= 2 ** 31:
+        raise ValueError(f"too many entries for one launch: {sum(Es)}")
+    out = torch.empty((sum(Es), C), dtype=tbl.dtype, device=dev)
     launch = build.launcher(name)
-    with torch.cuda.device(tbl.device):
-        err = launch(_ptr(frame), _ptr(tbl), E, P, C, _ptr(out),
-                     _stream(tbl.device))
-    build.check(name, err)
-    LAUNCHES[name] += 1
-    return out
+    row0 = 0
+    for i0 in range(0, len(frames), SELECT_MAX_BUCKETS):
+        fs = frames[i0:i0 + SELECT_MAX_BUCKETS]
+        es = Es[i0:i0 + SELECT_MAX_BUCKETS]
+        nb = len(fs)
+        rows = [row0 + sum(es[:i]) for i in range(nb)]
+        row0 += sum(es)
+        if not sum(es):
+            continue  # no entry: the launcher would launch nothing
+        with torch.cuda.device(dev):
+            err = launch(nb, (ctypes.c_void_p * nb)(*(f.data_ptr()
+                                                      for f in fs)),
+                         (ctypes.c_int * nb)(*es), (ctypes.c_int * nb)(*rows),
+                         _ptr(tbl), P, C, _ptr(out), _stream(dev))
+        build.check(name, err)
+        LAUNCHES[name] += 1
+    return list(out.split(Es))
 
 
 def table_select_plain(frame: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
@@ -81,6 +115,15 @@ def table_select_plain(frame: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     valid = (f >= 0) & (f < P)
     rows = tbl[f.clamp(0, P - 1)]
     return torch.where(valid[:, None], rows, torch.zeros_like(rows))
+
+
+def table_select_buckets_plain(frames, tbl: torch.Tensor) -> list:
+    """Plain torch version of table_select_buckets: table_select_plain of
+    the buckets' ids in one, split back into views per bucket."""
+    if not frames:
+        return []
+    out = table_select_plain(torch.cat(list(frames)), tbl)
+    return list(out.split([f.shape[0] for f in frames]))
 
 
 def entry_reduce(vals: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:

@@ -21,12 +21,20 @@ by value as the kernel's parameter, with the instance's EPT).
 
 soa_chain (csrc/soa_chain.cu) replaces global_lvba_tpu/ops/pallas/
 soa_fused.py:73 `_chain_kernel` and, on the aligned layout, the voxel-axis
-g/Hd sums after it: one thread per frame walks a tile of voxels, so the
-jjt6 and the 24 distinct diagonal-extras channels are summed in registers
-(partials per voxel tile, summed in a fixed order by torch.sum) and only
-the factor rows reach device memory — written straight into the Gram
-operand layout A (3V, 6W), row (v, r) contiguous.  Bound: bytes (13 floats
-in, 18 out per cell; ~400 flops per cell).
+g/Hd sums after it (plane_eigen.py:1361-1381), both in one launch.  A block
+owns a tile of 32 frames (a lane each) and a run of chain_tile voxels; a
+warp stages each voxel's n, μ, Pc and pv spans over the tile in shared
+memory with 16-byte cp.async copies (the next two voxels' in flight while
+the current one's chain runs), runs the chain of the live cells only,
+gathers the voxel's three factor rows over the tile in shared memory and
+stores them into the Gram operand A (3V, 6W) with 16-byte stores (every
+element: A is torch.empty).  The jjt6 and the 24 distinct diagonal-extras channels
+are summed over the voxels in registers, then over the block's warps, and
+the last block of a frame tile to arrive adds the tile's block sums in
+voxel-block order and writes g (W, 6) and Hd (W, 6, 6) — stored, or added
+to the running sums the caller passes (an evaluation's, over its voxel
+chunks).  No atomic sum: bitwise repeatable.  Bound: bytes (13 values in
+and 18 out per cell; ~560 flops per live cell).
 
 soa_chain_entries (csrc/soa_chain.cu) is the same `_chain_kernel` on its
 own, bucketed layout (poses pre-gathered per entry, plane_eigen.py:
@@ -72,12 +80,17 @@ AGG_THREADS = 256        # soa_agg_kernel's block (kThreads in soa_agg.cu)
 AGG_GROUP = 32           # its threads a voxel at most: a warp's shuffles
 AGG_EPT = 16             # its entries a thread a round at most (1-16)
 AGG_MAX_BUCKETS = 16     # buckets one launch takes (kMaxBuckets)
-_CHAIN_VOXEL_TILE = 16   # voxels one chain thread reduces (partial sums)
+CHAIN_FRAME_TILE = 32    # soa_chain_kernel's frames a block (kTile)
+# its warps a block per dtype (one block a SM: 128 registers a thread in
+# float32, ~220 in float64); kernels/build.py passes them
+CHAIN_WARPS = {torch.float32: 16, torch.float64: 8}
 # soa_chain_entries' block limits; kernels/build.py passes them to
 # soa_chain.cu (kMaxTile, kEntryThreads)
 CHAIN_MAX_TILE = 64      # voxels a block
 CHAIN_MAX_ENTRIES = 128  # entries a round: the block's threads
 _D24_TO_36_ON: dict = {}
+_CHAIN_SLOTS_ON: dict = {}
+_CHAIN_ARRIVALS_ON: dict = {}
 
 
 def _ptr(t):
@@ -215,13 +228,71 @@ def soa_agg_plain(n, mu, Pc, poses):
     return residv, pv
 
 
-def soa_chain(n, mu, Pc, pose12, pv):
+def chain_tile(V: int, W: int, slots: int, warps: int) -> int:
+    """Voxels per block of soa_chain_kernel for V voxels of W frames when
+    the card holds `slots` blocks of `warps` warps at once (its SMs times
+    the kernel's resident blocks a SM): the grid of ceil(W /
+    CHAIN_FRAME_TILE) frame tiles by ceil(V / vt) voxel blocks fills the
+    slots about once, each of a block's warps walking the same number of
+    voxels, so a warp's staging ring has a run of voxels to overlap and a
+    tile's last block has few blocks' sums to add; a multiple of warps, at
+    least warps."""
+    tiles = -(-W // CHAIN_FRAME_TILE)
+    per_tile = max(1, slots // tiles)
+    return warps * max(1, -(-V // (per_tile * warps)))
+
+
+def _chain_slots(dev, dtype) -> int:
+    """The blocks of soa_chain_kernel's `dtype` instance that `dev` holds at
+    once: its SMs times the resident blocks a SM the runtime reports for
+    the built kernel (its registers and shared memory)."""
+    key = (dev, dtype)
+    slots = _CHAIN_SLOTS_ON.get(key)
+    if slots is None:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = build.launcher("soa_chain_occupancy")(
+                int(dtype == torch.float64), ctypes.byref(blocks))
+        build.check("soa_chain_occupancy", err)
+        if blocks.value < 1:
+            raise RuntimeError("soa_chain_kernel does not fit on an SM")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = _CHAIN_SLOTS_ON[key] = sms * blocks.value
+    return slots
+
+
+def _chain_arrivals(dev, tiles: int):
+    """The aligned chain's arrival counters on `dev`, one a frame tile: made
+    zero once; each launch leaves them zero."""
+    buf = _CHAIN_ARRIVALS_ON.get(dev)
+    if buf is None or buf.numel() < tiles:
+        buf = _CHAIN_ARRIVALS_ON[dev] = torch.zeros(
+            (max(tiles, 64),), dtype=torch.int32, device=dev)
+    return buf
+
+
+def _check_sums(g, Hd, W, n):
+    if (g is None) != (Hd is None):
+        raise ValueError("soa_chain: pass both running sums g and Hd, or "
+                         "neither")
+    if g is None:
+        return
+    for name, t, shape in (("g", g, (W, 6)), ("Hd", Hd, (W, 6, 6))):
+        if t.shape != shape or t.dtype != n.dtype or t.device != n.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor of "
+                             f"the operands' dtype on their device")
+
+
+def soa_chain(n, mu, Pc, pose12, pv, g=None, Hd=None):
     """Linearization chain on the aligned layout -> (A (3V, 6W), g (W, 6),
     Hd (W, 6, 6)): A row (v, r) holds factor row r of voxel v at columns
     6k..6k+5 for every frame k (the Gram operand; H -= AᵀA), g and Hd are
-    the voxel sums of the per-entry gradient and diagonal extras."""
+    the voxel sums of the per-entry gradient and diagonal extras.  Given
+    the running sums g and Hd, the voxel sums are added to them in place
+    and they are returned."""
     if n.device.type == "cpu":
-        return soa_chain_plain(n, mu, Pc, pose12, pv)
+        return soa_chain_plain(n, mu, Pc, pose12, pv, g, Hd)
     if n.device.type != "cuda":
         raise ValueError(f"soa_chain: unsupported device {n.device}")
     _check_operands(n, mu, Pc, pose12)
@@ -233,20 +304,34 @@ def soa_chain(n, mu, Pc, pose12, pv):
             or pv.device != n.device or not pv.is_contiguous():
         raise ValueError("pv must be a contiguous (V, 16) tensor of the "
                          "operands' dtype on their device")
-    nblk = -(-V // _CHAIN_VOXEL_TILE)
-    if nblk > 65535:
+    _check_sums(g, Hd, W, n)
+    dev, dt = n.device, n.dtype
+    accumulate = g is not None
+    if not accumulate:
+        g = torch.empty((W, 6), dtype=dt, device=dev)
+        Hd = torch.empty((W, 6, 6), dtype=dt, device=dev)
+    A = torch.empty((3 * V, 6 * W), dtype=dt, device=dev)
+    if V == 0 or W == 0:
+        if not accumulate:
+            g.zero_()
+            Hd.zero_()
+        return A, g, Hd
+    vt = chain_tile(V, W, _chain_slots(dev, dt), CHAIN_WARPS[dt])
+    tiles, nvb = -(-W // CHAIN_FRAME_TILE), -(-V // vt)
+    if nvb > 65535:
         raise ValueError(f"too many voxels for one launch: {V}")
-    A = torch.empty((3 * V, 6 * W), dtype=n.dtype, device=n.device)
-    part = torch.empty((nblk, 30, W), dtype=n.dtype, device=n.device)
-    name = build.dtype_launcher("soa_chain", n.dtype)
+    part = torch.empty((tiles * nvb * 30 * CHAIN_FRAME_TILE,), dtype=dt,
+                       device=dev)
+    name = build.dtype_launcher("soa_chain", dt)
     launch = build.launcher(name)
-    with torch.cuda.device(n.device):
+    with torch.cuda.device(dev):
         err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12), _ptr(pv),
-                     V, W, _CHAIN_VOXEL_TILE, _ptr(A), _ptr(part),
-                     _stream(n.device))
+                     V, W, vt, _ptr(A), _ptr(g), _ptr(Hd), int(accumulate),
+                     _ptr(part), _ptr(_chain_arrivals(dev, tiles)),
+                     _stream(dev))
     build.check(name, err)
     LAUNCHES[name] += 1
-    return (A,) + _reduce_partials(part, W)
+    return A, g, Hd
 
 
 def d24_to_36(device):
@@ -261,20 +346,15 @@ def d24_to_36(device):
     return idx
 
 
-def _reduce_partials(part, W):
-    s = part.sum(dim=0)                                  # (30, W)
-    g = s[:6].T.contiguous()
-    Hd = s[6:].T[:, d24_to_36(part.device)].reshape(W, 6, 6)
-    return g, Hd
-
-
-def soa_chain_plain(n, mu, Pc, pose12, pv):
+def soa_chain_plain(n, mu, Pc, pose12, pv, g=None, Hd=None):
     """Plain torch version of soa_chain: _soa_chain + voxel-axis sums, the
-    rows relaid out to the Gram operand (3V, 6W)."""
+    rows relaid out to the Gram operand (3V, 6W); the sums added in place
+    to the running g and Hd when given."""
     from ..factors.plane_eigen import (
         _moment_channels, _pose_channels, _soa_agg, _soa_chain)
 
     V, W = n.shape
+    _check_sums(g, Hd, W, n)
     mu3, P6 = _moment_channels(mu, Pc)
     R9, p3 = _pose_channels(pose12)
     mask, nm, _, _, _, Rm, RP, _ = _soa_agg(n, mu3, P6, R9, p3)
@@ -285,8 +365,13 @@ def soa_chain_plain(n, mu, Pc, pose12, pv):
     invN = pv[:, 12]
     rows_ch, jjt_ch, d36_ch = _soa_chain(
         mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
-    g = torch.stack([c.sum(dim=0) for c in jjt_ch], dim=-1)
-    Hd = torch.stack([c.sum(dim=0) for c in d36_ch], dim=-1).reshape(W, 6, 6)
+    gs = torch.stack([c.sum(dim=0) for c in jjt_ch], dim=-1)
+    Hds = torch.stack([c.sum(dim=0) for c in d36_ch], dim=-1).reshape(W, 6, 6)
+    if g is None:
+        g, Hd = gs, Hds
+    else:
+        g.add_(gs)
+        Hd.add_(Hds)
     A = torch.stack(rows_ch, dim=-1).reshape(V, W, 3, 6)
     return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), g, Hd
 

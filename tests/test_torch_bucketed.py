@@ -393,9 +393,10 @@ def _counting_steps(counts):
 def test_total_cgh_reduces_once_and_aggregates_once(prob, monkeypatch):
     """The LM's evaluation calls the aggregation once over all buckets
     (one soa_agg launch), the reduce step once, the pose selection once
-    per bucket, and the chain and the Gram once per voxel chunk (counted
-    through stubs around the kernel steps: on the CPU the wrappers run
-    their plain versions and count no launch)."""
+    over all buckets (one table_select launch), and the chain and the
+    Gram once per voxel chunk (counted through stubs around the kernel
+    steps: on the CPU the wrappers run their plain versions and count no
+    launch)."""
     W = prob["W"]
     fas = prob["fas"]
     small = 64 * 1024
@@ -407,13 +408,13 @@ def test_total_cgh_reduces_once_and_aggregates_once(prob, monkeypatch):
     counts = {}
     monkeypatch.setattr(pe, "KERNEL_STEPS", _counting_steps(counts))
     got = lm._total_cgh(fas, table, prob["R"], prob["p"], W)
-    assert counts == dict(select=len(fas), agg=1, chain_entries=len(fas),
+    assert counts == dict(select=1, agg=1, chain_entries=len(fas),
                           syrk_=len(fas), reduce=1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     counts.clear()
     pe.plane_cost_grad_hess_buckets(fas, prob["R"], prob["p"], W, table,
                                     chunk_bytes=small)
-    assert counts == dict(select=len(fas), agg=1, chain_entries=chunks,
+    assert counts == dict(select=1, agg=1, chain_entries=chunks,
                           syrk_=chunks, reduce=1)
 
 

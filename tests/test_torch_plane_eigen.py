@@ -1,7 +1,10 @@
 """Aligned plane-factor evaluation of the PyTorch port against the JAX
-package (float64, CPU): r/g/H at the 1e-9 of tests/test_aligned_layout.py,
-the plain versions of the three CUDA kernels against the JAX functions they
-transcribe, the Gram-operand layout, and the aligned factor arrays."""
+package (float64, CPU): r/g/H at the 1e-9 of tests/test_aligned_layout.py
+(at W = 8 and at W = 77, not a multiple of the chain kernel's frame
+tile), the plain versions of the three CUDA kernels against the JAX
+functions they transcribe (the chain's voxel sums added to running sums
+as the evaluation passes them), the Gram-operand layout, the aligned
+factor arrays, and the chain kernel's tile helper and build limits."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -126,6 +129,122 @@ def test_soa_chain_plain_matches_jax_and_gram_layout(prob):
     np.testing.assert_array_equal(
         Hd.reshape(W, 36).numpy(),
         Hd.reshape(W, 36).numpy()[:, list(pe._D_UNIQUE)][:, pe._D24_TO_36])
+
+
+def test_soa_chain_plain_adds_the_jax_voxel_sums(prob):
+    """Given running sums g and Hd, soa_chain_plain adds the voxel sums of
+    JAX's _soa_chain to them in place (1e-12 of max |.|) and returns them,
+    with the same rows; from zeros it gives the sums alone."""
+    fa, W = prob["fa"], prob["W"]
+    pose12 = pe.pose_table(prob["R"], prob["p"])
+    _, pv = soa.soa_agg_plain(fa.n, fa.mu, fa.Pc, pose12)
+    mu3, P6, R9, p3, agg = _jax_channels(prob)
+    mask, n, N, invN, vb, Rm, RP, cov6 = agg
+    _, u, B1, B2 = jpe._soa_eig(cov6, N)
+    _, jjt, d36 = jpe._soa_chain(mask, n, invN, vb, Rm, RP, mu3, P6, R9,
+                                 p3, u, B1, B2)
+    gj = np.stack([np.asarray(c).sum(0) for c in jjt], -1)
+    Hj = np.stack([np.asarray(c).sum(0) for c in d36], -1).reshape(W, 6, 6)
+    rng = np.random.default_rng(11)
+    g0 = torch.as_tensor(rng.normal(size=(W, 6)))
+    H0 = torch.as_tensor(rng.normal(size=(W, 6, 6)))
+    A0, _, _ = soa.soa_chain_plain(fa.n, fa.mu, fa.Pc, pose12, pv)
+    for start_g, start_H in ((g0, H0), (torch.zeros_like(g0),
+                                        torch.zeros_like(H0))):
+        g, Hd = start_g.clone(), start_H.clone()
+        A, g2, Hd2 = soa.soa_chain_plain(fa.n, fa.mu, fa.Pc, pose12, pv,
+                                         g, Hd)
+        assert g2 is g and Hd2 is Hd
+        assert torch.equal(A, A0)
+        for got, want in ((g - start_g, gj), (Hd - start_H, Hj)):
+            scale = np.abs(want).max()
+            np.testing.assert_allclose(got.numpy() / scale, want / scale,
+                                       rtol=0, atol=1e-12)
+    with pytest.raises(ValueError, match="both running sums"):
+        soa.soa_chain_plain(fa.n, fa.mu, fa.Pc, pose12, pv, g0.clone())
+    with pytest.raises(ValueError, match="Hd must be"):
+        soa.soa_chain_plain(fa.n, fa.mu, fa.Pc, pose12, pv, g0.clone(),
+                            H0[:-1].clone())
+
+
+@pytest.fixture(scope="module")
+def prob77():
+    """An aligned scene at W = 77: not a multiple of the chain kernel's
+    32-frame tile (its last tile holds 13 frames), and odd, so the
+    (3V, 6W) rows are not a multiple of 16 bytes."""
+    W = 77
+    scene = make_plane_scene(num_frames=W, points_per_frame=600, seed=2)
+    vm = jbuild(scene.points_body, scene.frame_ids, scene.R_true,
+                scene.p_true, 1.0, eigen_ratios=(0.2,) * 4)
+    assert padding.picks_aligned(build_voxel_map(
+        scene.points_body, scene.frame_ids, scene.R_true, scene.p_true, 1.0,
+        eigen_ratios=(0.2,) * 4), W)
+    ja = jpad.aligned_to_device(vm.buckets, W, dtype=jnp.float64)
+    fa = padding.from_jax_arrays(ja.n, ja.mu, ja.Pc, device="cpu", dtype=F64)
+    Rp, pp = perturb_poses(scene.R_true, scene.p_true, 0.004, 0.01, seed=1)
+    return W, ja, fa, Rp, pp
+
+
+def test_cost_grad_hess_matches_jax_at_w77(prob77):
+    W, ja, fa, Rp, pp = prob77
+    r, g, H = pe.plane_cost_grad_hess(fa, torch.as_tensor(Rp),
+                                      torch.as_tensor(pp), W)
+    rj, gj, Hj = jpe.plane_cost_grad_hess(ja, jnp.asarray(Rp),
+                                          jnp.asarray(pp), W)
+    assert np.isclose(float(r), float(rj), rtol=1e-12)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=1e-9,
+                               atol=1e-12)
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=1e-9,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("V, W, slots, warps, want", [
+    (1365, 512, 132, 16, 176),  # the W=512 evaluation's chunks on 132 SMs,
+    (683, 512, 132, 16, 96),    # one block a SM: 8 voxel blocks a tile
+    (1365, 512, 132, 8, 176),   # float64
+    (300, 77, 132, 16, 16),     # few voxels: one voxel a warp
+    (100_000, 64, 528, 4, 380),
+    (1, 4096, 132, 16, 16),     # more frame tiles than slots
+    (37, 130, 1, 8, 40),        # one block a tile
+])
+def test_chain_tile(V, W, slots, warps, want):
+    vt = soa.chain_tile(V, W, slots, warps)
+    assert vt == want
+    assert vt % warps == 0 and vt >= warps
+    tiles = -(-W // soa.CHAIN_FRAME_TILE)
+    blocks = tiles * -(-V // vt)
+    # the grid fills the slots at most about once, or has a voxel a warp
+    assert blocks <= max(slots, tiles) or vt == warps
+
+
+def test_chain_limits_reach_the_kernel(monkeypatch):
+    """soa_chain.cu takes its warps a block per dtype from kernels/soa.py
+    through the build's -D flags (a changed count rebuilds the library),
+    its frame tile is CHAIN_FRAME_TILE, its 24 -> 36 channel table is
+    plane_eigen's, and its launcher takes the running sums, the
+    accumulate flag, the partial slots and the arrival counters (float32
+    and float64 alike); the occupancy query is bound beside it."""
+    flags = build._defines("soa_chain")
+    assert (f"-DLVBA_CHAIN_WARPS_F32={soa.CHAIN_WARPS[torch.float32]}"
+            in flags)
+    assert (f"-DLVBA_CHAIN_WARPS_F64={soa.CHAIN_WARPS[torch.float64]}"
+            in flags)
+    src = (build.CSRC / "soa_chain.cu").read_text()
+    assert "sizeof(T) == 4 ? LVBA_CHAIN_WARPS_F32 : LVBA_CHAIN_WARPS_F64;" \
+        in src
+    assert f"constexpr int kTile = {soa.CHAIN_FRAME_TILE};" in src
+    body = src.split("kD24To36[36] = {", 1)[1].split("}", 1)[0]
+    table = [int(x) for x in body.replace("\n", " ").split(",")]
+    assert table == pe._D24_TO_36.tolist()
+    for name in ("soa_chain", "soa_chain_f64"):
+        assert build.SIGNATURES[name][2] == ([build._P] * 5 + [build._I] * 3
+                                             + [build._P] * 3 + [build._I]
+                                             + [build._P] * 3)
+    assert build.SIGNATURES["soa_chain_occupancy"][:2] == (
+        "soa_chain", "lvba_soa_chain_occupancy")
+    before = build.library("soa_chain")
+    monkeypatch.setitem(soa.CHAIN_WARPS, torch.float64, 4)
+    assert build.library("soa_chain") != before
 
 
 def test_syrk_plain_matches_jax_dot():

@@ -1,7 +1,9 @@
 """Selection kernels 4 and 5 of the PyTorch port: their plain versions
 against the JAX package's Pallas kernels in interpret mode, on the
 bf16-split packing the TPU path feeds them (as tests/test_exact_dots.py
-runs them), and the port's frame table against the JAX one."""
+runs them), the selection over a list of buckets (one buffer, one launch
+on the card) and its launcher's bucket table, and the port's frame table
+against the JAX one."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,7 +16,7 @@ from global_lvba_tpu.map.voxelize import build_voxel_map
 from global_lvba_tpu.models.synthetic import make_plane_scene, perturb_poses
 from global_lvba_tpu.ops.pallas.selection import entry_reduce, table_select
 from global_lvba_tpu_torch.factors import plane_eigen as pe
-from global_lvba_tpu_torch.kernels import selection as sel
+from global_lvba_tpu_torch.kernels import build, selection as sel
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +46,81 @@ def test_table_select_plain_matches_pallas_bit_exact(scene_buckets):
         np.testing.assert_array_equal(got, want)
         assert (got[::7] == 0).all()
         np.testing.assert_array_equal(got[1::7], tbl[frame[1::7]])
+
+
+def _planted_ids(frame, P, seed):
+    """frame (flat) with the ids -1, P and P + 3 planted at three seeded
+    places: each selects a zero row."""
+    f = frame.copy()
+    pick = np.random.default_rng(seed).choice(f.size, 3, replace=False)
+    f[pick] = (-1, P, P + 3)
+    return f, pick
+
+
+def test_table_select_buckets_plain_matches_pallas_bit_exact(scene_buckets):
+    """table_select_buckets over all of the fixture's buckets (ids -1, P
+    and P + 3 planted in each) gives each bucket the rows of JAX's Pallas
+    table_select in interpret mode, bit for bit, as views of one buffer in
+    bucket order."""
+    W, buckets, Rp, pp = scene_buckets
+    assert len(buckets) > 1
+    tbl = np.concatenate([Rp.reshape(W, 9), pp], axis=1).astype(np.float32)
+    tbl3 = jnp.concatenate(jpe._split3_bf16(jnp.asarray(tbl)), axis=1)
+    frames, wants, picks = [], [], []
+    for i, fa in enumerate(buckets):
+        frame, pick = _planted_ids(np.asarray(fa.frame).reshape(-1), W, i)
+        g = np.asarray(table_select(jnp.asarray(frame), tbl3, W,
+                                    interpret=True))
+        frames.append(torch.as_tensor(frame))
+        wants.append((g[:12] + g[12:24] + g[24:36]).T)
+        picks.append(pick)
+    got = sel.table_select_buckets(frames, torch.as_tensor(tbl))
+    assert len(got) == len(frames)
+    base = got[0].data_ptr()
+    off = 0
+    for rows, want, pick, f in zip(got, wants, picks, frames):
+        np.testing.assert_array_equal(rows.numpy(), want)
+        assert (rows[torch.as_tensor(pick)] == 0).all()
+        assert rows.data_ptr() == base + off * 12 * 4    # one buffer
+        np.testing.assert_array_equal(
+            rows.numpy(), sel.table_select(f, torch.as_tensor(tbl)).numpy())
+        off += f.shape[0]
+    assert sel.table_select_buckets([], torch.as_tensor(tbl)) == []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_table_select_buckets_plain_matches_index_select(dtype):
+    """Seeded ids over more buckets than one launch takes, some empty, in
+    float32 and float64: each bucket's rows are index_select's where the id
+    lies in [0, P), zero elsewhere."""
+    rng = np.random.default_rng(7)
+    P = 40
+    tbl = torch.as_tensor(rng.normal(size=(P, 12))).to(dtype)
+    sizes = [int(x) for x in rng.integers(0, 50, sel.SELECT_MAX_BUCKETS + 3)]
+    sizes[2] = 0
+    frames = [torch.as_tensor(rng.integers(-3, P + 4, n), dtype=torch.int32)
+              for n in sizes]
+    got = sel.table_select_buckets(frames, tbl)
+    for rows, f in zip(got, frames):
+        ok = (f >= 0) & (f < P)
+        want = torch.index_select(tbl, 0, f.long().clamp(0, P - 1))
+        want[~ok] = 0
+        assert rows.shape == (f.shape[0], 12) and rows.dtype == dtype
+        assert torch.equal(rows, want)
+
+
+def test_table_select_launcher_matches_the_kernel():
+    """table_select_buckets' launches hold at most the kernel's bucket
+    table, and the launcher takes the bucket count, the ids, counts and
+    first rows per bucket, the table, P, C, the output and the stream
+    (float32 and float64 alike)."""
+    src = (build.CSRC / "selection.cu").read_text()
+    assert (f"constexpr int kMaxSelectBuckets = {sel.SELECT_MAX_BUCKETS};"
+            in src)
+    for name in ("table_select", "table_select_f64"):
+        assert build.SIGNATURES[name][2] == ([build._I] + [build._P] * 4
+                                             + [build._I] * 2
+                                             + [build._P] * 2)
 
 
 def _entry_vals(fa, seed, dtype):
