@@ -117,7 +117,38 @@ Slice 2, the bucketed layout:
      residual; ms per LM iteration (building its frame tables included),
      the synchronizing calls equal to the iterations plus those of
      building the frame tables, the damped CG solve on the corridor's H as
-     in phase 3, and the device's idle share under torch.profiler.
+     in phase 3, and the device's idle share under torch.profiler;
+ 9b. [cg_mf]: the same map through lm_damping_iter(reduced_solver="cg_mf")
+     (the matrix-free rows route: kernels 4, 1, the per-entry chain at
+     width K on the slot ids, 5; a 256-trip rows CG as one graph replay),
+     the launch counts set to 0 just before: its residual within 1e-4 of
+     the float64 CPU rows LM's; its poses' largest distance from the
+     dense route's LM, ms per iteration and the rows solve's device ms.
+Slice 4, large W (the banded Hessian, the split LM):
+ 11. path 2c: run_lidar_ba with the window stage off on the JAX bench's
+     corridor make_corridor_scene(4096, 1000) (4.09 M points), path 2b's
+     settings: both global stages must take the route split-banded (the
+     loop's record: group Grams, no (6W)² H, the compact banded CG) and
+     every banded kernel must have run (table_select, soa_agg,
+     soa_chain_entries, entry_reduce); the poses finite, the ATE printed.
+     Stage 1's LM alone on the card (3 iterations, the JAX bench's) must
+     lower the residual and land within 1e-4 of the float64 CPU LM's on
+     the same map; ms per iteration, peak device memory beside (6W)²·4 B,
+     the synchronizing calls (the route's set-up reads, then one
+     `converged` an iteration) and the idle share under torch.profiler.
+     One evaluation and one solve's trips under torch.profiler with
+     record_shapes: no op may take a (6W)²-element operand.  The group
+     Grams' torch.bmm timed beside syrk_ a group at a time;
+ 12. [banded-cg]: the compact banded CG (96 done-masked trips, one CUDA
+     graph) on stage 1's linearization: one solve under sync debug mode
+     "error", two solves bitwise equal, within 1e-6 of the same trips run
+     eagerly, the capture and device ms printed;
+ 13. [2c-dense]: the corridor at W = 2048 (the banded route with the dense
+     H): the banded H against the dense-Gram evaluation's on the same map
+     (r, g, H within 1e-4), two banded evaluations bitwise equal, the
+     block forced to 16 (stragglers: syrk must launch) against the dense
+     H too, and stage 1's LM (3 iterations, launch counts kept) against
+     the float64 CPU LM as in phase 11.
 Slice 3, the SIFT frontend:
  10. path 3: 48 renders of the box room (640 x 512, the reference camera)
      through extract_images (default SiftParams, batches of 4) and
@@ -144,7 +175,7 @@ Slice 3, the SIFT frontend:
      three TF32 products each at 495 TFLOP/s, the fp32 bound beside it.
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
-2b, frontend); the last line is
+2b, cg_mf, 2c, 2c-dense, frontend); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -246,6 +277,9 @@ KERNEL_SYMBOLS = {"soa_agg": "soa_agg_kernel", "soa_chain": "soa_chain_kernel",
 ALIGNED_PATH_KERNELS = ("soa_agg", "soa_chain", "syrk", "syrk_split")
 BUCKETED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
                          "syrk", "syrk_split", "entry_reduce")
+# the banded and rows routes (no full-width Gram without stragglers)
+BANDED_PATH_KERNELS = ("table_select", "soa_agg", "soa_chain_entries",
+                       "entry_reduce")
 # a float64 solve: each kernel's double instance (no tf32 split)
 ALIGNED_F64_KERNELS = ("soa_agg_f64", "soa_chain_f64", "syrk_f64")
 BUCKETED_F64_KERNELS = ("table_select_f64", "soa_agg_f64",
@@ -265,6 +299,22 @@ CORRIDOR_PPF = 2000
 # path 2b's stage-1 LM: final residual, card float32 vs CPU float64 (the
 # card lands 4e-7 from float64 there in this script's runs)
 TOL_RESID_LM_REL = 1e-4
+# slice 4, large W (ROADMAP A3): path 2c is the JAX bench's W = 4096
+# corridor (bench.py:501-571, 1,000 points a frame: 4.09 M), every solve
+# bucketed -> split -> compact banded; [2c-dense] the corridor at W = 2048,
+# the banded route with the dense H; SMALL_BLOCK forces stragglers there.
+# Stage 1's LM runs the JAX bench's 3 iterations on the card and in
+# float64 on the CPU (3 float64 CPU iterations take 13-21 s at W = 2048
+# and 4096 on the card's host; 10 would add about a minute to each)
+LARGE_FRAMES = 4096
+LARGE_DENSE_FRAMES = 2048
+LARGE_PPF = 1000
+LARGE_LM_ITERS = 3
+SMALL_BLOCK = 16
+# the compact banded CG's step against the dense-H CG's on the same
+# linearization: both float32, 96 trips, the same operator summed in
+# another order; relative to max |x|
+TOL_STEP_REL = 1e-3
 
 # path 3, the SIFT frontend: views of the box room through the reference
 # camera (CamConfig x scale 0.5: 640 x 512), default SiftParams (5 octaves,
@@ -942,11 +992,16 @@ def _window_config(dtype):
 
 
 def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
-               tols=(TOL_RESIDV_REL, TOL_RESIDV_REL_LINE, TOL_PV)):
+               tols=(TOL_RESIDV_REL, TOL_RESIDV_REL_LINE, TOL_PV),
+               ref64=False):
     """soa_agg kernel vs plain (both of one dtype on the card) under the
     well-conditioned-voxel rule above, with the limits `tols` (residv on
     well-conditioned and on line-like voxels, pv); raises on
-    disagreement.  Returns residv's max abs error."""
+    disagreement.  With ref64, a well-conditioned voxel where the plain
+    version itself lies more than the limit from the float64 λ_min (lam0:
+    float32 rounding of far-off coordinates, path 2c's) is held to that
+    value instead: the kernel's error there may exceed the plain
+    version's by at most the limit.  Returns residv's max abs error."""
     tol_r, tol_line, tol_pv = tols
     line_like = live & ~wc
 
@@ -955,7 +1010,21 @@ def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
         return float(d.max()) if d.numel() else 0.0
 
     err_r = float((rk - rp).abs()[live].max())
-    err_r_rel = r_err(rk, rp, wc)
+    strict, excess, n_lim = wc, 0.0, 0
+    if ref64:
+        e_p = (rp.double() - lam0).abs() / lam2.abs()
+        e_k = (rk.double() - lam0).abs() / lam2.abs()
+        limited = wc & (e_p > tol_r)
+        strict, n_lim = wc & ~limited, int(limited.sum())
+        if n_lim:
+            excess = float((e_k - e_p)[limited].max())
+            print(f"[{name}] {n_lim} well-conditioned voxels where the plain "
+                  f"version lies more than {tol_r} of λ_max from float64 "
+                  f"(up to {float(e_p[limited].max()):.3e}; the kernel up to "
+                  f"{float(e_k[limited].max()):.3e}): there the kernel's "
+                  f"error exceeds the plain version's by at most "
+                  f"{excess:.3e} (tol {tol_r})", flush=True)
+    err_r_rel = r_err(rk, rp, strict)
     err_r_line = r_err(rk, rp, line_like)
     line64 = (r_err(rk, lam0, line_like), r_err(rp, lam0, line_like))
     err_u, err_bb, err_vn = _pv_errors(torch, pvk[wc], pvp[wc])
@@ -970,7 +1039,7 @@ def _agg_check(torch, name, rk, rp, pvk, pvp, live, wc, lam0, lam2,
           f"{err_bb:.3e}, v̄/(1/N) rel err {err_vn:.3e} (tol {tol_pv}); all "
           f"voxels finite: {finite}; padded voxels residv == 0: {dead_ok}",
           flush=True)
-    if not (err_r_rel <= tol_r and err_r_line <= tol_line
+    if not (err_r_rel <= tol_r and excess <= tol_r and err_r_line <= tol_line
             and max(err_u, err_bb, err_vn) <= tol_pv and dead_ok and finite):
         _fail(f"{name}: soa_agg disagrees with soa_agg_plain")
     return err_r
@@ -1455,7 +1524,8 @@ def _stage_lines(tag, stats):
     for s in stats["global"]:
         print(f"[{tag}] global stage {s['stage']}: {s['planes']} planes, "
               f"{s.get('lm_iters', 0)} LM iterations in "
-              f"{s.get('lm_s', 0.0):.3f} s, {s['time_s']:.3f} s", flush=True)
+              f"{s.get('lm_s', 0.0):.3f} s on route {s.get('lm_route')}, "
+              f"{s['time_s']:.3f} s", flush=True)
 
 
 def _slice2(torch, np, dev, kern, results, paths):
@@ -1928,7 +1998,731 @@ def _slice2(torch, np, dev, kern, results, paths):
         ate_float64_cpu=ate_c64, profiled_wall_ms=prof_wall * 1e3,
         device_busy_ms=busy, idle_share=idle,
         idle_share_cross_run_estimate=idle_w, host_reads=syncs, cg=cg_2b)
+    # ---- 9b. [cg_mf]: the same map through the matrix-free rows route ----
+    _cg_mf(torch, kern, results, paths, bs, bs64, R, p, Rp, pp, W, lm)
 
+
+def _corridor_clouds(np, scene, W):
+    """The scene's points split by frame (one pass: the frame ids are
+    grouped by a stable sort)."""
+    order = np.argsort(scene.frame_ids, kind="stable")
+    counts = np.bincount(scene.frame_ids, minlength=W)
+    return np.split(scene.points_body[order], np.cumsum(counts)[:-1])
+
+
+def _large_map(np, W, cfg):
+    """The corridor at W frames of LARGE_PPF points, the perturbed poses
+    and stage 1's voxel map on them (path 2b's settings)."""
+    from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_corridor_scene, perturb_poses)
+
+    scene = make_corridor_scene(W, LARGE_PPF, seed=0)
+    Rp, pp = perturb_poses(scene.R_true, scene.p_true, 0.003, 0.01, seed=1)
+    vm = build_voxel_map(
+        scene.points_body, scene.frame_ids, Rp, pp, VOXEL,
+        eigen_ratios=[RATIO] * 4, min_ps=cfg.solver.min_ps,
+        layer_limit=cfg.solver.layer_limit)
+    return scene, Rp, pp, vm
+
+
+def _group_info(groups):
+    return [dict(G=int(bg.fa.n.shape[0]), Vp=int(bg.fa.n.shape[1]),
+                 K=int(bg.fa.n.shape[2]), width=int(bg.inv.shape[-1]),
+                 Vw=int(bg.wide_fa.n.shape[0])) for bg in groups]
+
+
+def _idle(torch, run, wall_ms):
+    """run() under torch.profiler: (wall ms, device busy ms, idle share in
+    that window, the busy time over the unprofiled `wall_ms`), and the
+    device ms by op name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = _device_ms(prof)
+    busy = sum(v[0] for v in dev_ms.values())
+    return prof_wall, busy, 1.0 - busy / prof_wall, 1.0 - busy / wall_ms, \
+        dev_ms
+
+
+def _top_ops(dev_ms, n=10):
+    return [(k[:56], round(v[0], 4), v[1])
+            for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1][0])[:n]]
+
+
+def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
+                  p, W, evaluate):
+    """[tag]: the kernels of one large-W evaluation held against their
+    plain versions at the shapes that evaluation gives them, then the
+    evaluation against the plain one.  fas: its buckets (the flattened
+    group stacks and the straggler buckets, or the rows route's buckets),
+    cols and widths: each one's chain column ids (local, global or slot
+    ids) and chain width, table: its merged frame table, evaluate(steps,
+    fas) -> (r, sums: [g, Hd, Grams...], rows: [A...]).  table_select over
+    every bucket's global ids bitwise equal (a copy); soa_agg on the
+    selected rows under _agg_check; soa_chain_entries at each width on its
+    column ids (rows, jjt and the diagonal extras within TOL_ROWS_REL of
+    max |.|, dead entries' channels zero); entry_reduce over the merged
+    table within TOL_SUM_REL, two calls bitwise equal; the evaluation as
+    [eval 2b]: r within TOL_EVAL_REL beyond the line-like voxels' slack,
+    the sums within TOL_EVAL_REL and the rows within TOL_ROWS_REL on the
+    well-conditioned voxels.  Each kernel's max abs error goes to
+    results and raises its kernels-line max_abs_err."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        KERNEL_STEPS, PLAIN_STEPS, pose_table)
+    from global_lvba_tpu_torch.kernels.selection import (
+        entry_reduce, entry_reduce_plain, table_select_buckets,
+        table_select_buckets_plain)
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg_buckets, soa_agg_plain, soa_chain_entries,
+        soa_chain_entries_plain)
+
+    pose12 = pose_table(R, p)
+    frames = [fa.frame.reshape(-1) for fa in fas]
+    sel_k = table_select_buckets(frames, pose12)
+    sel_p = table_select_buckets_plain(frames, pose12)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(sel_k, sel_p)):
+        _fail(f"{tag}: table_select disagrees with its plain version")
+    poses = [s.view(*fa.n.shape, 12) for s, fa in zip(sel_k, fas)]
+    ops = [(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(fas, poses)]
+    agg_k = soa_agg_buckets(ops)
+    agg_p = [soa_agg_plain(*o) for o in ops]
+    spec = [_spectrum(torch, fa, ps) for fa, ps in zip(fas, poses)]
+    gap, lam0, lam2 = (torch.cat([x[i] for x in spec]) for i in range(3))
+    live = torch.cat([fa.n.sum(dim=1) > 0 for fa in fas])
+    wc = live & (gap >= WELL_CONDITIONED_GAP)
+    err_agg = _agg_check(
+        torch, f"soa_agg {tag}", torch.cat([a[0] for a in agg_k]),
+        torch.cat([a[0] for a in agg_p]), torch.cat([a[1] for a in agg_k]),
+        torch.cat([a[1] for a in agg_p]), live, wc, lam0, lam2, ref64=True)
+    del agg_p, spec
+    vk, vp, err_A, abs_A = [], [], 0.0, 0.0
+    for fa, ps, (_, pv), c, w in zip(fas, poses, agg_k, cols, widths):
+        args = (fa.n, fa.mu, fa.Pc, ps, c, pv, w)
+        A_k, v_k = soa_chain_entries(*args)
+        A_p, v_p = soa_chain_entries_plain(*args)
+        err_A = max(err_A, _rel(A_k, A_p))
+        abs_A = max(abs_A, float((A_k - A_p).abs().max()))
+        vk.append(v_k)
+        vp.append(v_p)
+        del A_k, A_p
+    vk, vp = torch.cat(vk), torch.cat(vp)
+    err_j, err_d = _rel(vk[:, :6], vp[:, :6]), _rel(vk[:, 6:], vp[:, 6:])
+    live_s = torch.cat([fa.n.reshape(-1) > 0 for fa in fas])
+    dead_ok = bool((vk[~live_s] == 0).all())
+    red_k, red_k2 = entry_reduce(vk, table), entry_reduce(vk, table)
+    red_p = entry_reduce_plain(vk, table)
+    torch.cuda.synchronize()
+    err_red, rep = _rel(red_k, red_p), bool(torch.equal(red_k, red_k2))
+    abs_red = float((red_k - red_p).abs().max())
+    del vk, vp, red_k2
+    r1, sums_k, rows_k = evaluate(KERNEL_STEPS, fas)
+    r_p = evaluate(PLAIN_STEPS, fas)[0]
+    line_like = live & ~wc
+    r_slack = TOL_RESIDV_REL_LINE * float(lam2[line_like].abs().sum())
+    e_r = max(0.0, abs(float(r1) - float(r_p)) - r_slack) / abs(float(r_p))
+    del sums_k, rows_k
+    wcs = torch.split(wc, [fa.n.shape[0] for fa in fas])
+    fas_wc = [fa._replace(n=fa.n * w[:, None].to(fa.n.dtype))
+              for fa, w in zip(fas, wcs)]
+    _, sums_k, rows_k = evaluate(KERNEL_STEPS, fas_wc)
+    _, sums_p, rows_p = evaluate(PLAIN_STEPS, fas_wc)
+    torch.cuda.synchronize()
+    e_each = [_rel(a, b) for a, b in zip(sums_k, sums_p)]
+    e_sums = max(e_each)
+    e_rows = max((_rel(a, b) for a, b in zip(rows_k, rows_p)), default=0.0)
+    del sums_k, sums_p, rows_k, rows_p, fas_wc
+    out = dict(buckets=[list(fa.n.shape) for fa in fas], widths=list(widths),
+               table=list(table.shape), soa_agg=err_agg,
+               soa_chain_entries=dict(rows=err_A, jjt=err_j, extras=err_d,
+                                      max_abs=abs_A, dead_zero=dead_ok),
+               entry_reduce=dict(rel=err_red, max_abs=abs_red,
+                                 repeatable=rep),
+               eval=dict(r=e_r, g=e_each[0], Hd=e_each[1],
+                         grams=max(e_each[2:], default=0.0), rows=e_rows,
+                         line_like_voxels=int(line_like.sum())))
+    print(f"[{tag}] kernels at this evaluation's shapes (buckets "
+          f"{out['buckets']}, chain widths {out['widths']}, table "
+          f"{out['table']}): table_select bitwise equal; soa_chain_entries "
+          f"rows rel err {err_A:.3e}, jjt {err_j:.3e}, extras {err_d:.3e} "
+          f"(tol {TOL_ROWS_REL}), dead entries' channels == 0: {dead_ok}; "
+          f"entry_reduce rel err {err_red:.3e} (tol {TOL_SUM_REL}), two "
+          f"calls bitwise equal: {rep}; the evaluation, kernels vs plain: r "
+          f"{e_r:.3e} (beyond the line-like voxels' {r_slack:.3e}), g "
+          f"{e_each[0]:.3e}, Hd {e_each[1]:.3e}, Grams "
+          f"{out['eval']['grams']:.3e} (tol {TOL_EVAL_REL}), rows {e_rows:.3e} "
+          f"(tol {TOL_ROWS_REL}) on well-conditioned voxels", flush=True)
+    if not (max(err_A, err_j, err_d, e_rows) <= TOL_ROWS_REL and dead_ok
+            and err_red <= TOL_SUM_REL and rep
+            and max(e_r, e_sums) <= TOL_EVAL_REL):
+        _fail(f"{tag}: a kernel or the evaluation disagrees with its plain "
+              f"version at these shapes: {out}")
+    results.setdefault("large_w_kernels", {})[tag] = out
+    for k, e in (("table_select", 0.0), ("soa_agg", err_agg),
+                 ("soa_chain_entries", abs_A), ("entry_reduce", abs_red)):
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], e)
+    return out
+
+
+def _banded_evaluate(plan, R, p, W):
+    """_eval_kernels' evaluate of a BandedPlan: the compact evaluation
+    over the stacks and straggler buckets given."""
+    from global_lvba_tpu_torch.factors.plane_eigen import _banded_eval
+
+    ns = len(plan.stacks)
+
+    def evaluate(steps, fas):
+        r, g, Hd, grams, wide = _banded_eval(
+            steps, plan._replace(stacks=fas[:ns], wide=fas[ns:]), R, p, W,
+            True)
+        return r, [g, Hd, *grams], wide
+
+    return evaluate
+
+
+def _plan_kernels(torch, kern, results, tag, plan, R, p, W):
+    """_eval_kernels over a BandedPlan: the stacks at width 2B on their
+    local ids, the straggler buckets at W on their global ids."""
+    return _eval_kernels(
+        torch, kern, results, tag, plan.stacks + plan.wide,
+        plan.local + [fa.frame for fa in plan.wide],
+        [d[2] for d in plan.dims] + [W] * len(plan.wide), plan.table, R, p,
+        W, _banded_evaluate(plan, R, p, W))
+
+
+def _large_lm(torch, np, tag, vm, Rp, pp, W, scene, dev, route_name, paths):
+    """Stage 1's LM alone on the card (LARGE_LM_ITERS iterations, launch
+    counts set to 0 just before the measured run and kept as the path's)
+    against the float64 CPU LM on the same voxel map: the residual must
+    fall and land within TOL_RESID_LM_REL of the CPU's; the route from the
+    loop's record; ms per iteration, peak device memory, the synchronizing
+    calls (plan_route's set-up reads, then the loop's: one `converged` an
+    iteration) and the idle share under torch.profiler."""
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.factors.plane_eigen import plane_cost
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.models.synthetic import ate_rmse
+    from global_lvba_tpu_torch.solver import dist_solve, lm as lm_mod
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter, plan_route
+
+    bs = buckets_to_device(vm, W=W, dtype=torch.float32, device=dev)
+    R = torch.as_tensor(Rp, dtype=torch.float32, device=dev)
+    p = torch.as_tensor(pp, dtype=torch.float32, device=dev)
+
+    def run():
+        return lm_damping_iter(bs, R, p, max_iters=LARGE_LM_ITERS)
+
+    # the earlier phases' graphs (and their copies of operands) go first,
+    # so the peak below is this LM's own
+    dist_solve._GRAPHS.clear()
+    run()               # captures the damped solve's graph
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    graphs = set(map(id, dist_solve._GRAPHS.values()))
+    t0 = time.time()
+    lm = run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths[tag] = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the solve's graph is cached by its operands' shapes: the measured
+    # run must find the warm-up's (a capture here costs ~0.1 s)
+    captures = sum(id(g) not in graphs for g in dist_solve._GRAPHS.values())
+    # the route's set-up (plan_route: the buckets' ids and counts read to
+    # the host, the groups and tables built) and the loop counted apart:
+    # the loop must synchronize once an iteration (`converged`)
+    t0 = time.perf_counter()
+    route, setup_syncs = _count_syncs(torch, lambda: plan_route(bs, W))
+    t1 = time.perf_counter()
+    res_l, loop_syncs = _count_syncs(torch, lambda: lm_mod._run(
+        route, R, p, LARGE_LM_ITERS, 0.01, 2.0, 1e-6))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, all_syncs = _count_syncs(torch, run)
+    syncs = dict(setup=setup_syncs, loop=loop_syncs, lm_damping_iter=all_syncs)
+    setup_ms, loop_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    print(f"[{tag}] synchronizing calls under sync debug mode \"warn\": "
+          f"the route's set-up {setup_syncs} ({setup_ms:.1f} ms of wall), "
+          f"its loop {loop_syncs} in {res_l.iters} iterations (one read of "
+          f"`converged` each; {loop_ms:.1f} ms of wall, "
+          f"{loop_ms / max(res_l.iters, 1):.2f} ms/iter with the initial "
+          f"evaluation); lm_damping_iter in all {all_syncs}", flush=True)
+    if loop_syncs != res_l.iters or not torch.equal(res_l.p, lm.p):
+        _fail(f"{tag}: the loop synchronized {loop_syncs} times in "
+              f"{res_l.iters} iterations, or differs from lm_damping_iter")
+    g_size = sum(fa.n.shape[0] for fa in bs)
+    res0 = float(sum(plane_cost(fa, R, p) for fa in bs)) / g_size
+    bs64 = buckets_to_device(vm, W=W, dtype=torch.float64, device="cpu")
+    t0 = time.time()
+    lm64 = lm_damping_iter(bs64, torch.as_tensor(Rp), torch.as_tensor(pp),
+                           max_iters=LARGE_LM_ITERS)
+    cpu_s = time.time() - t0
+    e_res = abs(float(lm.residual) - float(lm64.residual)) / float(
+        lm64.residual)
+    ate_c = ate_rmse(lm.p.double().cpu().numpy(), scene.p_true)
+    ate_c64 = ate_rmse(lm64.p.numpy(), scene.p_true)
+    ms_iter = wall / max(lm.iters, 1) * 1e3
+    print(f"[{tag}] lm_damping_iter on stage 1's map ({len(bs)} buckets, "
+          f"W={W}), route {lm.route} (the CPU's {lm64.route}): residual "
+          f"{res0:.9g} -> {float(lm.residual):.9g} in {lm.iters} iterations "
+          f"(max_iters {LARGE_LM_ITERS}, the JAX bench's), {wall * 1e3:.1f} "
+          f"ms ({ms_iter:.2f} ms/iter incl. the route's set-up and the "
+          f"initial evaluation, {captures} graph captures); peak device "
+          f"memory {peak / 1e9:.3f} GB "
+          f"((6W)² float32 = {(6 * W) ** 2 * 4 / 1e9:.3f} GB); float64 CPU "
+          f"residual {float(lm64.residual):.9g} in {lm64.iters} iterations "
+          f"({cpu_s:.1f} s): rel diff {e_res:.3e} (tol {TOL_RESID_LM_REL}); "
+          f"ATE {ate_c:.6f} m, float64 {ate_c64:.6f} m; launches {counts}",
+          flush=True)
+    if not (lm.route == route_name == lm64.route
+            and float(lm.residual) < res0 and e_res <= TOL_RESID_LM_REL
+            and bool(torch.isfinite(lm.p).all())):
+        _fail(f"{tag} stage-1 LM: route {lm.route}, residual {res0} -> "
+              f"{float(lm.residual)}, float64 {float(lm64.residual)}")
+    if not all(counts[k] > 0 for k in BANDED_PATH_KERNELS):
+        _fail(f"{tag}: a kernel of the banded path was never launched: "
+              f"{counts}")
+    prof_wall, busy, idle, idle_w, dev_ms = _idle(torch, run, wall * 1e3)
+    print(f"[{tag}] under torch.profiler: {prof_wall:.1f} ms wall, "
+          f"{busy:.1f} ms device busy, idle share {idle:.3f} (one window); "
+          f"that device time over the unprofiled run's {wall * 1e3:.1f} ms "
+          f"wall: {idle_w:.3f}; device ms by op (ms, calls) over the run: "
+          f"{_top_ops(dev_ms)}", flush=True)
+    return bs, R, p, dict(
+        route=lm.route, residual0=res0, residual=float(lm.residual),
+        residual_float64_cpu=float(lm64.residual), rel_diff=e_res,
+        iters=lm.iters, iters_float64_cpu=lm64.iters, wall_ms=wall * 1e3,
+        ms_per_iter=ms_iter, setup_ms=setup_ms, loop_ms=loop_ms, cpu_s=cpu_s,
+        graph_captures=captures,
+        ate=ate_c, ate_float64_cpu=ate_c64,
+        peak_bytes=peak, host_reads=syncs, launches=counts,
+        profiled_wall_ms=prof_wall, device_busy_ms=busy, idle_share=idle,
+        idle_share_cross_run_estimate=idle_w,
+        device_ms_by_op=_top_ops(dev_ms, 20))
+
+
+def _banded_dense(torch, np, dev, kern, results, paths):
+    """[2c-dense]: the corridor at W = 2048 (1024 <= W < SPLIT_W, bucketed:
+    the banded route with the dense H).  The banded H against the
+    dense-Gram evaluation's on the same map (r, g, H within TOL_EVAL_REL),
+    two banded evaluations bitwise equal, the same with the block forced
+    to SMALL_BLOCK (stragglers: syrk must launch), each evaluation's
+    kernels under torch.profiler, and stage 1's LM against the float64
+    CPU LM."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.__main__ import slice_config
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_cost, banded_cost_grad_hess, banded_plan, build_banded_groups,
+        buckets_frame_table, plane_cost_grad_hess_buckets)
+    from global_lvba_tpu_torch.kernels import launch_counts
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import BANDED_CG_ITERS, plan_route
+
+    W = LARGE_DENSE_FRAMES
+    cfg = slice_config("float32")
+    t0 = time.time()
+    scene, Rp, pp, vm = _large_map(np, W, cfg)
+    print(f"[2c-dense] corridor W={W}: {scene.points_body.shape[0]} points, "
+          f"{vm.num_planes} planes ({time.time() - t0:.1f} s)", flush=True)
+    bs = buckets_to_device(vm, W=W, dtype=torch.float32, device=dev)
+    R = torch.as_tensor(Rp, dtype=torch.float32, device=dev)
+    p = torch.as_tensor(pp, dtype=torch.float32, device=dev)
+    route = plan_route(bs, W)
+    groups = [build_banded_groups(fa, W) for fa in bs]
+    saving = banded_cost(groups, bs, W)
+    plan = banded_plan(groups, W)
+    info = dict(route=route.name, trips=route.trips,
+                buckets=[list(fa.n.shape) for fa in bs],
+                groups=_group_info(groups),
+                dense_over_banded_flops=saving[1] / saving[0])
+    print(f"[2c-dense] {info}", flush=True)
+    if route.name != "banded":
+        _fail(f"2c-dense: route {route.name}, not banded")
+    table = buckets_frame_table(bs, W)
+    rb, gb, Hb = banded_cost_grad_hess(plan, R, p, W)
+    rb2, gb2, Hb2 = banded_cost_grad_hess(plan, R, p, W)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(rb, rb2) and torch.equal(gb, gb2)
+                and torch.equal(Hb, Hb2) and torch.isfinite(Hb).all())
+    del rb2, gb2, Hb2
+    rd, gd, Hd_ = plane_cost_grad_hess_buckets(bs, R, p, W, table)
+    e = dict(r=abs(float(rb) - float(rd)) / abs(float(rd)), g=_rel(gb, gd),
+             H=_rel(Hb, Hd_))
+    del Hb
+    before = launch_counts()["syrk"]
+    groups16 = [build_banded_groups(fa, W, block=SMALL_BLOCK) for fa in bs]
+    plan16 = banded_plan(groups16, W)
+    rs, gs, Hs = banded_cost_grad_hess(plan16, R, p, W)
+    torch.cuda.synchronize()
+    syrk_n = launch_counts()["syrk"] - before
+    vw = sum(int(bg.wide_fa.n.shape[0]) for bg in groups16)
+    e16 = dict(r=abs(float(rs) - float(rd)) / abs(float(rd)), g=_rel(gs, gd),
+               H=_rel(Hs, Hd_))
+    del Hd_
+    # the compact route with stragglers: its kernels at these shapes, its
+    # solve as [banded-cg], and its step against the dense-H CG's on the
+    # same linearization (the same trips)
+    _plan_kernels(torch, kern, results, "2c-dense-kernels", plan, R, p, W)
+    _plan_kernels(torch, kern, results, "2c-dense-stragglers-kernels",
+                  plan16, R, p, W)
+    rec16, _, u0, x16 = _banded_cg(torch, "2c-dense stragglers", plan16, R,
+                                   p, W)
+    x_h = dist_solve.solve_damped_cg(Hs.reshape(6 * W, 6 * W),
+                                     gs.reshape(-1), u0,
+                                     max_iters=BANDED_CG_ITERS)
+    e_step = _rel(x16, x_h)
+    print(f"[2c-dense stragglers] the compact banded CG's step vs "
+          f"solve_damped_cg's on the dense H with the stragglers "
+          f"({BANDED_CG_ITERS} trips each): rel diff {e_step:.3e} (tol "
+          f"{TOL_STEP_REL}, relative to max |x|)", flush=True)
+    if not e_step <= TOL_STEP_REL:
+        _fail("2c-dense: the compact banded CG's step departs from the "
+              "dense-H CG's")
+    rec16.update(step_vs_dense_cg=e_step)
+    del Hs, x16, x_h
+    eval_ms, ahead = _timed(torch, lambda: banded_cost_grad_hess(plan, R, p,
+                                                                 W), reps=3)
+    dense_ms, ahead_d = _timed(torch, lambda: plane_cost_grad_hess_buckets(
+        bs, R, p, W, table), reps=3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        banded_cost_grad_hess(plan, R, p, W)
+        torch.cuda.synchronize()
+    ev = _device_ms(prof)
+    print(f"[2c-dense] banded vs dense-Gram evaluation: rel err {e} (tol "
+          f"{TOL_EVAL_REL}); bitwise repeatable and finite: {same}; block "
+          f"{SMALL_BLOCK}: {vw} straggler voxels, {syrk_n} syrk launches, "
+          f"rel err {e16}; banded evaluation {eval_ms:.3f} ms device time "
+          f"(queued ahead {ahead}), dense-Gram {dense_ms:.3f} ms (queued "
+          f"ahead {ahead_d}); one banded evaluation by op (ms, calls): "
+          f"{_top_ops(ev)}", flush=True)
+    if not (same and max(e.values()) <= TOL_EVAL_REL and vw > 0
+            and syrk_n > 0 and max(e16.values()) <= TOL_EVAL_REL):
+        _fail("2c-dense: the banded H disagrees with the dense one, is not "
+              "repeatable, or the straggler path did not run")
+    del rb, gb, rd, gd, rs, gs, groups16, plan16
+    _, _, _, lmres = _large_lm(torch, np, "2c-dense", vm, Rp, pp, W, scene,
+                               dev, "banded", paths)
+    results["path_2c_dense"] = dict(
+        info, points=int(scene.points_body.shape[0]), planes=vm.num_planes,
+        eval_rel=e, bitwise_repeatable=same, stragglers_block=SMALL_BLOCK,
+        straggler_voxels=vw, straggler_syrk_launches=syrk_n, eval_rel_block=e16,
+        eval_ms=eval_ms, dense_eval_ms=dense_ms,
+        eval_device_ms_by_op=_top_ops(ev, 20), stage1_lm=lmres,
+        compact_stragglers=rec16)
+
+
+def _banded_cg(torch, tag, plan, R, p, W):
+    """[tag]: the compact evaluation of `plan` queued under sync debug mode
+    "error", then its banded CG (BANDED_CG_ITERS done-masked trips, one
+    CUDA graph replay, the graph cache emptied first and the capture
+    timed): one solve under "error", two solves bitwise equal and finite,
+    within 1e-6 of the same trips run eagerly (relative to max |x|), and
+    device ms of both.  Returns (the record, the state (r, g, Hd, grams,
+    wide), u, the step)."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_cost_grad_compact)
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import BANDED_CG_ITERS
+
+    u0 = torch.full((), 0.01, dtype=R.dtype, device=R.device)
+    dist_solve._GRAPHS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        st = banded_cost_grad_compact(plan, R, p, W)
+        eval_host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    r, g, Hd, grams, wide = st
+    wides = [A for A in wide if A.shape[0]]
+
+    def solve():
+        return dist_solve.solve_damped_cg_banded(
+            grams, wide, plan.offsets, Hd, g, u0, max_iters=BANDED_CG_ITERS,
+            windows=plan.windows)
+
+    def eager():
+        return dist_solve._damped_cg_banded(
+            Hd, g, u0, grams, wides, plan.windows[0], plan.windows[1],
+            BANDED_CG_ITERS, 1e-10)
+
+    x1, _ = solve()
+    torch.cuda.synchronize()
+    capture_s = next(reversed(dist_solve._GRAPHS.values())).capture_s
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        x2, _ = solve()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    x_e, _ = eager()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(x1, x2) and torch.isfinite(x1).all())
+    err = _rel(x1, x_e)
+    cg_ms, ahead = _timed(torch, solve, reps=3)
+    eager_ms, ahead_e = _timed(torch, eager, reps=3)
+    vw = sum(A.shape[0] // 3 for A in wides)
+    print(f"[{tag}] compact banded CG (W={W}, {vw} straggler voxels, "
+          f"{BANDED_CG_ITERS} done-masked trips, one CUDA graph replay): "
+          f"the evaluation queued in {eval_host_ms:.3f} ms and one solve in "
+          f"{host_ms:.3f} ms of host time under sync debug mode \"error\"; "
+          f"graph captured in {capture_s * 1e3:.1f} ms; {cg_ms:.3f} ms device "
+          f"time (queued ahead {ahead}), the same trips run eagerly "
+          f"{eager_ms:.3f} ms (queued ahead {ahead_e}); two solves bitwise "
+          f"equal and finite: {same}; graph vs eager rel diff {err:.3e}",
+          flush=True)
+    if not (same and err <= 1e-6):
+        _fail(f"{tag}: the compact solve is not repeatable or departs from "
+              f"its eager trips")
+    rec = dict(capture_s=capture_s, ms=cg_ms, eager_ms=eager_ms,
+               host_ms=host_ms, eval_host_ms=eval_host_ms, repeatable=same,
+               eager_rel=err, straggler_voxels=vw)
+    return rec, st, u0, x1
+
+
+def _large_w(torch, np, dev, kern, results, paths):
+    """Path 2c, the main path at the JAX bench's W = 4096 (bench.py:501-571),
+    with [banded-cg]; then [2c-dense] (W = 2048)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.__main__ import slice_config
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        KERNEL_STEPS, _pose_operands, banded_cost, banded_cost_grad_compact,
+        banded_plan, build_banded_groups, pose_table)
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.kernels.gram import syrk_
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg_buckets, soa_chain_entries)
+    from global_lvba_tpu_torch.models.synthetic import ate_rmse
+    from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import BANDED_CG_ITERS
+
+    W = LARGE_FRAMES
+    cfg = slice_config("float32")
+    t0 = time.time()
+    scene, Rp, pp, vm = _large_map(np, W, cfg)
+    clouds = _corridor_clouds(np, scene, W)
+    print(f"[2c] corridor W={W}: {scene.points_body.shape[0]} points, stage "
+          f"1's map {vm.num_planes} planes, tiers "
+          f"{[list(b.n.shape) for b in vm.buckets]} ({time.time() - t0:.1f} "
+          f"s)", flush=True)
+    reset_launch_counts()
+    t0 = time.time()
+    res = run_lidar_ba(clouds, Rp, pp, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["2c"] = launch_counts()
+    ate0, ate = ate_rmse(pp, scene.p_true), ate_rmse(res.p_opt, scene.p_true)
+    st = res.stats["global"]
+    routes = [s.get("lm_route") for s in st]
+    print(f"[2c] run_lidar_ba {W} frames: ATE {ate0:.6f} -> {ate:.6f} m, "
+          f"wall {wall:.2f} s, routes {routes}, launches {counts}",
+          flush=True)
+    _stage_lines("2c", res.stats)
+    if not (np.isfinite(res.p_opt).all() and len(st) == 2
+            and routes == ["split-banded"] * 2
+            and all(s.get("lm_iters", 0) > 0 for s in st)):
+        _fail(f"2c: non-finite poses, or a stage ran no LM or took another "
+              f"route: {routes}")
+    if not all(counts[k] > 0 for k in BANDED_PATH_KERNELS):
+        _fail(f"2c: a kernel of the banded path was never launched: {counts}")
+    results["path_2c"] = dict(
+        points=int(scene.points_body.shape[0]), ate0=ate0, ate=ate,
+        wall_s=wall, routes=routes, stats=res.stats, launches=counts)
+    del res, clouds
+
+    # stage 1's LM alone, against the float64 CPU LM on the same map
+    bs, R, p, lmres = _large_lm(torch, np, "2c-lm", vm, Rp, pp, W, scene,
+                                dev, "split-banded", {})
+    results["path_2c"]["stage1_lm"] = lmres
+    print(f"[2c] ATE: the pipeline {ate:.6f} m; stage 1's LM on the card "
+          f"{lmres['ate']:.6f} m, the float64 CPU LM's {lmres['ate_float64_cpu']:.6f} m "
+          f"(scene-noise-bound at this W)", flush=True)
+
+    # the kernels at the stacks' shapes, [banded-cg], and the same with
+    # the block forced small (stragglers at full width)
+    groups = [build_banded_groups(fa, W) for fa in bs]
+    saving = banded_cost(groups, bs, W)
+    plan = banded_plan(groups, W)
+    results["path_2c"]["groups"] = _group_info(groups)
+    print(f"[2c] banded groups {_group_info(groups)}; dense/banded Gram "
+          f"flops {saving[1] / saving[0]:.1f}x", flush=True)
+    _plan_kernels(torch, kern, results, "2c-kernels", plan, R, p, W)
+    results["banded_cg"], _, u0, _ = _banded_cg(torch, "banded-cg", plan, R,
+                                                p, W)
+    groups16 = [build_banded_groups(fa, W, block=SMALL_BLOCK) for fa in bs]
+    plan16 = banded_plan(groups16, W)
+    results["banded_cg_stragglers"], _, _, _ = _banded_cg(
+        torch, "banded-cg stragglers", plan16, R, p, W)
+    results["banded_cg_stragglers"]["groups"] = _group_info(groups16)
+    del groups16, plan16
+
+    # no op of one evaluation and one solve (its trips run eagerly: a
+    # graph replay shows no op) takes an operand of (6W)² elements
+    big = (6 * W) ** 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        st = banded_cost_grad_compact(plan, R, p, W)
+        dist_solve._damped_cg_banded(st[2], st[1], u0, st[3],
+                                     [A for A in st[4] if A.shape[0]],
+                                     plan.windows[0], plan.windows[1],
+                                     BANDED_CG_ITERS, 1e-10)
+        torch.cuda.synchronize()
+    largest, hits = 0, []
+    for ev in prof.events():
+        for shp in ev.input_shapes or ():
+            if isinstance(shp, (list, tuple)) and shp and all(
+                    isinstance(s, int) for s in shp):
+                n = math.prod(shp)
+                largest = max(largest, n)
+                if n >= big:
+                    hits.append((ev.name, shp))
+    ev_ms = _device_ms(prof)
+    del st
+    print(f"[2c] one evaluation and one solve's trips under torch.profiler "
+          f"(record_shapes): largest operand {largest} elements, (6W)² = "
+          f"{big}; ops at or above it: {hits[:5]}; device ms by op (ms, "
+          f"calls): {_top_ops(ev_ms)}", flush=True)
+    if hits:
+        _fail(f"2c: an op takes a (6W)²-element operand: {hits[:5]}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        banded_cost_grad_compact(plan, R, p, W)
+        torch.cuda.synchronize()
+    per_eval = _device_ms(prof)
+    eval_ms, ahead_ev = _timed(torch, lambda: banded_cost_grad_compact(
+        plan, R, p, W), reps=3)
+    print(f"[2c] compact evaluation {eval_ms:.3f} ms device time (queued "
+          f"ahead {ahead_ev}); by op (ms, calls): {_top_ops(per_eval)}",
+          flush=True)
+
+    # the group Grams (torch.bmm, a library call) beside syrk_ group by
+    # group on the same operands
+    pose12 = pose_table(R, p)
+    poses = _pose_operands(KERNEL_STEPS, plan.stacks, pose12, W)
+    aggs = soa_agg_buckets([(fa.n, fa.mu, fa.Pc, ps)
+                            for fa, ps in zip(plan.stacks, poses)])
+    A3s = []
+    for fa, ps, (_, pv), loc, (G, Vp, w) in zip(
+            plan.stacks, poses, aggs, plan.local, plan.dims):
+        A, _ = soa_chain_entries(fa.n, fa.mu, fa.Pc, ps, loc, pv, w)
+        A3s.append(A.view(G, 3 * Vp, 6 * w))
+    bmm_ms, ahead_b = _timed(torch, lambda: [torch.bmm(A.transpose(1, 2), A)
+                                             for A in A3s], reps=3)
+    scratch = [torch.zeros((A.shape[0], A.shape[2], A.shape[2]),
+                           dtype=A.dtype, device=dev) for A in A3s]
+    syrk_ms, ahead_s = _timed(torch, lambda: [
+        [syrk_(s[i], A[i]) for i in range(A.shape[0])]
+        for s, A in zip(scratch, A3s)], reps=3)
+    flops = sum(2 * A.shape[0] * A.shape[1] * A.shape[2] ** 2 for A in A3s)
+    gram_err = max(_rel(torch.stack([syrk_(torch.zeros_like(s[i]), A[i])
+                                     for i in range(A.shape[0])]),
+                        torch.bmm(A.transpose(1, 2), A))
+                   for s, A in zip(scratch, A3s))
+    print(f"[2c] group Grams per evaluation: torch.bmm {bmm_ms:.4f} ms "
+          f"(queued ahead {ahead_b}), syrk_ a group at a time "
+          f"{syrk_ms:.4f} ms (queued ahead {ahead_s}), "
+          f"{flops / 1e9:.2f} GFLOP (full products), syrk vs bmm rel diff "
+          f"{gram_err:.3e}; fp32 bound {flops / FP32_FLOP_PER_S * 1e3:.4f} "
+          f"ms", flush=True)
+    results["path_2c"].update(
+        dense_over_banded_flops=saving[1] / saving[0], eval_ms=eval_ms,
+        eval_device_ms_by_op=_top_ops(per_eval, 20),
+        largest_operand=largest, group_gram_bmm_ms=bmm_ms,
+        group_gram_syrk_ms=syrk_ms, group_gram_gflop=flops / 1e9,
+        group_gram_syrk_vs_bmm=gram_err)
+    del A3s, scratch, bs, plan, groups
+
+    _banded_dense(torch, np, dev, kern, results, paths)
+
+
+def _cg_mf(torch, kern, results, paths, bs, bs64, R, p, Rp, pp, W,
+           lm_dense):
+    """[cg_mf]: path 2b's stage-1 map through lm_damping_iter with
+    reduced_solver="cg_mf" (the rows route), launch counts set to 0 just
+    before: its residual within TOL_RESID_LM_REL of the float64 CPU rows
+    LM's, its poses' largest distance from the dense route's LM on the
+    card, ms per iteration and the rows solve's device ms."""
+    from global_lvba_tpu_torch.factors.plane_eigen import _rows_eval, rows_plan
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.solver.lm import (
+        ROWS_CG_ITERS, lm_damping_iter, plan_route)
+
+    # the kernels at the rows evaluation's shapes: the chain at width K on
+    # the slot ids, entry_reduce over the merged table
+    plan = rows_plan(bs, W)
+
+    def evaluate(steps, fas):
+        r, g, Hd, rows = _rows_eval(steps, fas, plan, R, p, W)
+        return r, [g, Hd], rows
+
+    _eval_kernels(torch, kern, results, "cg_mf-kernels", bs, plan.slots,
+                  [fa.n.shape[1] for fa in bs], plan.table, R, p, W, evaluate)
+
+    def run():
+        return lm_damping_iter(bs, R, p, max_iters=LM_ITERS,
+                               reduced_solver="cg_mf")
+
+    run()               # captures the rows solve's graph
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    mf = run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["cg_mf"] = launch_counts()
+    t0 = time.time()
+    mf64 = lm_damping_iter(bs64, torch.as_tensor(Rp), torch.as_tensor(pp),
+                           max_iters=LM_ITERS, reduced_solver="cg_mf")
+    cpu_s = time.time() - t0
+    e_res = abs(float(mf.residual) - float(mf64.residual)) / float(
+        mf64.residual)
+    dp = float((mf.p - lm_dense.p).abs().max())
+    route = plan_route(bs, W, "cg_mf")
+    state = route.cgh(R, p)
+    u0 = torch.full((), 0.01, dtype=R.dtype, device=R.device)
+    solve_ms, ahead = _timed(torch, lambda: route.solve(state, u0), reps=3)
+    print(f"[cg_mf] lm_damping_iter(reduced_solver='cg_mf') on path 2b's "
+          f"map (W={W}), route {mf.route}: residual "
+          f"{float(mf.residual):.9g} in {mf.iters} iterations, "
+          f"{wall * 1e3:.1f} ms ({wall / max(mf.iters, 1) * 1e3:.2f} "
+          f"ms/iter incl. the set-up); float64 CPU rows LM "
+          f"{float(mf64.residual):.9g} in {mf64.iters} iterations "
+          f"({cpu_s:.1f} s): rel diff {e_res:.3e} (tol {TOL_RESID_LM_REL}); "
+          f"poses' largest distance from the dense route's LM {dp:.3e}; the "
+          f"rows solve ({ROWS_CG_ITERS} trips, one graph replay) {solve_ms:.3f} "
+          f"ms device time (queued ahead {ahead}); launches {counts}",
+          flush=True)
+    if not (mf.route == "rows" and e_res <= TOL_RESID_LM_REL
+            and bool(torch.isfinite(mf.p).all())):
+        _fail(f"cg_mf: route {mf.route}, residual {float(mf.residual)} vs "
+              f"float64 {float(mf64.residual)}")
+    if not all(counts[k] > 0 for k in BANDED_PATH_KERNELS):
+        _fail(f"cg_mf: a kernel of the rows path was never launched: "
+              f"{counts}")
+    results["cg_mf"] = dict(
+        residual=float(mf.residual), residual_float64_cpu=float(mf64.residual),
+        rel_diff=e_res, iters=mf.iters, iters_float64_cpu=mf64.iters,
+        wall_ms=wall * 1e3, ms_per_iter=wall / max(mf.iters, 1) * 1e3,
+        cpu_s=cpu_s, max_pose_diff_vs_dense=dp, solve_ms=solve_ms,
+        launches=counts)
 
 def _frontend_views(np):
     """Path 3's input: FRONTEND_VIEWS renders of make_plane_scene's box room
@@ -2799,6 +3593,8 @@ def main() -> int:
 
     # ---- 6-9. slice 2: the bucketed layout ----
     _slice2(torch, np, dev, kern, results, paths)
+    # ---- 11-13. slice 4: large W (paths 2c, [banded-cg], [2c-dense]) ----
+    _large_w(torch, np, dev, kern, results, paths)
     # ---- 10. slice 3: the SIFT frontend ----
     _frontend(torch, np, dev, kern, results, paths)
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in kern}

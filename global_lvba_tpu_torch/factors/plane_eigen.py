@@ -45,6 +45,21 @@ An evaluation over a list of buckets (plane_cost_grad_hess_buckets, the
 LM's) adds every bucket's AᵀA into one Gram accumulator and negates it
 once, and adds the block diagonal once.
 
+Large W (the JAX package's plane_eigen.py:547-967), on the bucketed
+layout:
+* banded groups (build_banded_groups, banded_plan): a bucket's voxels
+  grouped by the frame block their observer span starts in, each group a
+  window of 2B frames.  One evaluation is the bucketed pass over the
+  flattened group stacks (one select, one soa_agg pass, a chain_entries
+  launch a stack at width 2B on the local ids, one entry_reduce) and a
+  torch.bmm a stack for the group Grams: into the dense H
+  (banded_cost_grad_hess) or kept per group (banded_cost_grad_compact,
+  for solver.dist_solve.solve_damped_cg_banded);
+* compact rows (rows_plan, plane_cost_grad_rows): the chain_entries launch
+  at width K on the slot ids writes each entry's three factor rows at
+  columns 6k (row-block layout (3V, 6K)), the operand of the matrix-free
+  solve (solver.dist_solve.solve_damped_cg_rows); no Gram.
+
 Each step is a CUDA kernel on the card (kernels/) and its plain torch
 version on the CPU; each kernel has a float32 and a float64 instance, so
 a float64 solve on the card launches kernels too.  The componentwise
@@ -65,6 +80,9 @@ from ..kernels import gram as _gram
 from ..kernels import selection as _sel
 from ..kernels import soa as _soa
 from ..ops.eigh3 import eigh3_soa
+from ..solver.dist_solve import (
+    _frame_table_np, _safe_frames, _safe_table, _segsum, banded_windows_np,
+    rows_cross_diag, rows_matvec, to_device)
 
 
 class PlaneFactorArrays(NamedTuple):
@@ -386,30 +404,6 @@ def voxel_chunks(V: int, W: int, chunk_bytes: int = 256 * 1024 * 1024,
     return [(lo, min(V, lo + chunk)) for lo in range(0, V, chunk)]
 
 
-def _frame_table_np(frame: np.ndarray, n: np.ndarray, W: int) -> np.ndarray:
-    """(W, Kf) frame-major index table over the FLAT (v, k) entries: row w
-    lists every valid entry observing frame w, padded with the sentinel
-    index V*K (which gathers an all-zero row).  An entry is valid when it
-    is live (n > 0) and its frame id lies in [0, W).  Kf = max entries per
-    frame, rounded up to 8."""
-    flat_f = frame.reshape(-1).astype(np.int64)
-    valid = (n.reshape(-1) > 0) & (flat_f >= 0) & (flat_f < W)
-    sel = np.flatnonzero(valid)
-    fsel = flat_f[sel]
-    order = np.argsort(fsel, kind="stable")
-    sel = sel[order]
-    fsel = fsel[order]
-    counts = np.bincount(fsel, minlength=W)
-    Kf = max(int(counts.max()), 1)
-    Kf = (Kf + 7) // 8 * 8
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    idx = np.full((W, Kf), flat_f.size, np.int32)
-    if fsel.size:
-        pos = np.arange(fsel.size) - starts[fsel]
-        idx[fsel, pos] = sel.astype(np.int32)
-    return idx
-
-
 def buckets_frame_table(buckets, W: int) -> torch.Tensor:
     """(W, Kf) int32 frame table over the flat entries of the bucketed
     buckets in list order (bucket b's entry (v, k) at Σ_{b' < b} V·K + v·K
@@ -441,11 +435,7 @@ def segsum_table(z: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     the frame table: a (W, Kf, C) row gather and a sum over Kf.  The
     sentinel index VK, as any index outside [0, VK), gathers an all-zero
     row."""
-    E = z.shape[0]
-    t = tbl.long()
-    t = t.masked_fill((t < 0) | (t >= E), E)
-    zpad = torch.cat([z, z.new_zeros((1,) + tuple(z.shape[1:]))])
-    return zpad[t].sum(dim=1)
+    return _segsum(z, _safe_table(tbl, z.shape[0]))
 
 
 class EvalSteps(NamedTuple):
@@ -619,3 +609,402 @@ def add_block_diag(H: torch.Tensor, Hd: torch.Tensor, W: int) -> torch.Tensor:
     idx = torch.arange(W, device=H.device)
     H[idx, :, idx, :] += Hd
     return H
+
+
+# ---------------------------------------------------------------------------
+# Block-banded groups (large W) and the matrix-free rows evaluation
+# ---------------------------------------------------------------------------
+# A voxel's observers are temporally contiguous frames, so its factor rows
+# touch a narrow column window of the (6W)² Hessian.  Grouping voxels by
+# the frame block their span starts in and Gramming each group at local
+# width 2B cuts the Gram's flops by ~(2B/W)² against the dense assembly
+# (the JAX package's plane_eigen.py:547-865).
+
+
+class BandedHost(NamedTuple):
+    """The host side of one bucket's BandedGroups: what a solve's plan
+    (banded_plan) builds its tables from, so nothing is read back."""
+
+    frame: np.ndarray           # (G, Vp, K) global frame ids of the stack
+    live: np.ndarray            # (G, Vp, K) bool, n > 0
+    offsets: tuple              # the G window offsets
+    wide_frame: np.ndarray      # (Vw, K)
+    wide_live: np.ndarray       # (Vw, K)
+
+
+class BandedGroups(NamedTuple):
+    """Stacked banded groups of one bucket: G groups of equal padded shape
+    (Vp voxels of K slots), window g covering frames offset[g] ..
+    offset[g] + 2B - 1.  Voxels whose observers span more than two blocks
+    are the full-width straggler group (Vw = 0 when there are none)."""
+
+    fa: PlaneFactorArrays       # each leaf (G, Vp, K[, ...]), global ids
+    inv: torch.Tensor           # (G, Vp, 2B) int32 local frame-slot table
+    offset: torch.Tensor        # (G,) int32 frame offset of each window
+    wide_fa: PlaneFactorArrays  # straggler voxels, full width
+    wide_inv: torch.Tensor      # (Vw, W) int32
+    host: BandedHost
+
+
+def _ids_to_host(fa: PlaneFactorArrays):
+    """A bucket's (frame ids, live mask) as numpy, in one read."""
+    both = torch.stack([fa.frame.to(torch.int32),
+                        (fa.n > 0).to(torch.int32)]).cpu().numpy()
+    return both[0], both[1].astype(bool)
+
+
+def _slot_table(frame: torch.Tensor, live: torch.Tensor, off,
+                width: int) -> torch.Tensor:
+    """(..., V, width) int32 inverse table of voxels (..., V, K), on their
+    device with no read to the host: entry (v, w) is the slot k of voxel
+    v's observation of frame off + w, or K (the zero pad row) where v does
+    not observe it; ids outside the window have no entry.  off: an int, or
+    a tensor of one offset per leading index.  A voxel observes a frame at
+    most once, so every kept entry has a cell of its own (the rest write
+    one spare cell, dropped)."""
+    K = frame.shape[-1]
+    lead = frame.shape[:-1]
+    n = math.prod(lead)
+    if torch.is_tensor(off):
+        off = off.long().reshape(off.shape + (1,) * (frame.dim() - off.dim()))
+    loc = frame.long() - off
+    keep = live & (loc >= 0) & (loc < width)
+    cell = torch.arange(n, device=frame.device).view(lead + (1,)) * width
+    cell = torch.where(keep, cell + loc, n * width)
+    k = torch.arange(K, dtype=torch.int32, device=frame.device)
+    inv = torch.full((n * width + 1,), K, dtype=torch.int32,
+                     device=frame.device)
+    inv.scatter_(0, cell.reshape(-1), k.expand(frame.shape).reshape(-1))
+    return inv[:-1].view(lead + (width,))
+
+
+def frame_slot_table(fa: PlaneFactorArrays, W: int) -> torch.Tensor:
+    """(V, W) int32 inverse table of a bucket on its device: entry (v, w)
+    is the k-slot of voxel v's observation of frame w, or K where v does
+    not observe w (each voxel observes a frame at most once)."""
+    return _slot_table(fa.frame, fa.n > 0, 0, W)
+
+
+def _banded_layout(frame: np.ndarray, valid: np.ndarray, W: int,
+                   block: int = None):
+    """The host plan of build_banded_groups, with the JAX package's rules:
+    the block is the p99 observer span rounded up to a power of two, at
+    least 8 and at most W/2; the width 2B; a group a start block with the
+    last window shifted left into range; Vp a power of two, at least 8;
+    stragglers (span over two blocks) full width, Vw = 0 when there are
+    none.  Returns (groups: voxel index arrays, offsets, Vp, width,
+    stragglers: index array, Vw)."""
+    any_valid = valid.any(axis=1)
+    fmin = np.where(any_valid, np.where(valid, frame, W).min(axis=1), 0)
+    fmax = np.where(any_valid, np.where(valid, frame, -1).max(axis=1), 0)
+    span = fmax - fmin + 1
+    if block is None:
+        p99 = (float(np.percentile(span[any_valid], 99))
+               if any_valid.any() else 1.0)
+        block = 1 << max(int(np.ceil(np.log2(max(p99, 1.0)))), 3)
+    block = min(block, max(W // 2, 1))
+    width = min(2 * block, W)
+    n_blk = (W + block - 1) // block
+    start_blk = fmin // block
+    wide = (fmax // block - start_blk) > 1
+    idxs, offs = [], []
+    for s in range(n_blk):
+        idx = np.flatnonzero(any_valid & ~wide & (start_blk == s))
+        if idx.size:
+            idxs.append(idx)
+            offs.append(min(s * block, W - width))
+    Vp = max(8, 1 << int(np.ceil(np.log2(max(
+        [i.size for i in idxs], default=1)))))
+    if not idxs:
+        idxs, offs = [np.zeros(0, np.int64)], [0]
+    wid = np.flatnonzero(any_valid & wide)
+    # Vw = 0 without stragglers: a padded empty group would cost a full
+    # (6W)² Gram of zeros per evaluation
+    Vw = 0 if wid.size == 0 else max(8, 1 << int(np.ceil(np.log2(wid.size))))
+    return idxs, offs, Vp, width, wid, Vw
+
+
+def _gather_voxels(fa: PlaneFactorArrays, idx: torch.Tensor,
+                   shape) -> PlaneFactorArrays:
+    """fa's voxels idx (an index V picks a zero voxel: padding) as leaves
+    of leading shape `shape`."""
+    def take(x):
+        xp = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+        return xp[idx].reshape(tuple(shape) + tuple(x.shape[1:])).contiguous()
+
+    return PlaneFactorArrays(*(take(x) for x in fa))
+
+
+def build_banded_groups(fa: PlaneFactorArrays, W: int, block: int = None,
+                        aligned: bool = False) -> BandedGroups:
+    """Stacked banded voxel groups of one bucket (the JAX package's
+    plane_eigen.build_banded_groups, its rules in _banded_layout).  The
+    plan is host numpy from the bucket's frame ids and counts (one read
+    to the host), its index arrays go to the bucket's device in one copy,
+    and the groups and their slot tables are made there; the host plan is
+    kept (`host`).
+    aligned=True (the JAX package's AlignedBandedGroups, opt-in there) is
+    not ported: ROADMAP A3b."""
+    if aligned:
+        raise NotImplementedError(
+            "aligned banded groups (AlignedBandedGroups) are not ported: "
+            "ROADMAP A3b")
+    frame, live = _ids_to_host(fa)
+    V, K = frame.shape
+    idxs, offs, Vp, width, wid, Vw = _banded_layout(frame, live, W, block)
+    gidx = np.full((len(idxs), Vp), V, np.int64)
+    for g, idx in enumerate(idxs):
+        gidx[g, :idx.size] = idx
+    widx = np.full(Vw, V, np.int64)
+    widx[:wid.size] = wid
+    # an index V picks a dead voxel (frame 0, n 0), as _gather_voxels does
+    fpad = np.concatenate([frame, np.zeros((1, K), frame.dtype)])
+    lpad = np.concatenate([live, np.zeros((1, K), bool)])
+    host = BandedHost(fpad[gidx], lpad[gidx], tuple(offs), fpad[widx],
+                      lpad[widx])
+    gidx_d, widx_d, off_d = to_device(
+        [gidx, widx, np.asarray(offs, np.int32)], fa.n.device)
+    stack = _gather_voxels(fa, gidx_d, gidx.shape)
+    wide = _gather_voxels(fa, widx_d, (Vw,))
+    return BandedGroups(
+        fa=stack, inv=_slot_table(stack.frame, stack.n > 0, off_d, width),
+        offset=off_d, wide_fa=wide,
+        wide_inv=_slot_table(wide.frame, wide.n > 0, 0, W), host=host)
+
+
+class BandedPlan(NamedTuple):
+    """A solve's banded groups in the form one evaluation and one solve
+    read, built once per solve (banded_plan): each bucket's group stack
+    flattened to one (G·Vp, K) bucket with its global frame ids (the pose
+    selection) and its local ids frame − offset[g] (the chain's columns at
+    width 2B), the straggler buckets at full width, one frame table over
+    all their entries, stacks first (entry_reduce), and the compact
+    solve's window operands (solver.dist_solve.banded_windows)."""
+
+    stacks: list    # PlaneFactorArrays (G·Vp, K) per bucket
+    local: list     # (G·Vp, K) int32 local frame ids per bucket
+    dims: list      # (G, Vp, width) per bucket
+    offsets: list   # tuple of G window offsets (host ints) per bucket
+    wide: list      # straggler PlaneFactorArrays (Vw > 0 only)
+    table: torch.Tensor  # (W, Kf) int32 merged frame table
+    windows: tuple  # (wins, slots) of solve_damped_cg_banded
+
+
+def banded_plan(groups, W: int) -> BandedPlan:
+    """The BandedPlan of a solve's BandedGroups (one per bucket), from
+    their host plans: the merged frame table and the window operands go to
+    the device in one copy, and nothing is read back; the local ids are
+    made on the device."""
+    stacks, local, dims, offsets, wide = [], [], [], [], []
+    frames, lives = [], []
+    for bg in groups:
+        G, Vp, K = bg.fa.n.shape
+        stacks.append(PlaneFactorArrays(*(
+            x.reshape((G * Vp,) + tuple(x.shape[2:])) for x in bg.fa)))
+        loc = bg.fa.frame - bg.offset.view(G, 1, 1)
+        local.append(loc.reshape(G * Vp, K).to(torch.int32).contiguous())
+        dims.append((G, Vp, bg.inv.shape[-1]))
+        offsets.append(bg.host.offsets)
+        frames.append(bg.host.frame)
+        lives.append(bg.host.live)
+    for bg in groups:
+        if bg.wide_fa.n.shape[0]:
+            wide.append(bg.wide_fa)
+            frames.append(bg.host.wide_frame)
+            lives.append(bg.host.wide_live)
+    table = _frame_table_np(np.concatenate([f.reshape(-1) for f in frames]),
+                            np.concatenate([v.reshape(-1) for v in lives]),
+                            W)
+    out = to_device([table] + banded_windows_np(
+        offsets, [d[2] for d in dims], W), groups[0].fa.n.device)
+    return BandedPlan(stacks, local, dims, offsets, wide, out[0],
+                      (out[1:-1], out[-1]))
+
+
+def banded_cost(groups, buckets, W: int):
+    """(banded, dense) Gram costs of the JAX package's probe
+    (solver/lm.py:246-257): Σ G·Vp·width² + Vw·W² against Σ V·W²."""
+    dense = sum(fa.n.shape[0] * W * W for fa in buckets)
+    banded = sum(bg.fa.n.shape[0] * bg.fa.n.shape[1] * bg.inv.shape[-1] ** 2
+                 + bg.wide_fa.n.shape[0] * W * W for bg in groups)
+    return banded, dense
+
+
+def _banded_eval(steps: EvalSteps, plan: BandedPlan, R, p, W: int,
+                 compact: bool, chunk_bytes: int = 256 * 1024 * 1024):
+    """One banded evaluation -> (resid, g (W, 6), Hd (W, 6, 6), grams,
+    wide).  One select and one soa_agg pass over every stack and straggler
+    bucket; each stack's chain is one chain_entries launch at width 2B on
+    its local ids, whose A (3·G·Vp, 12B) is the stacked group operand, and
+    its group Grams +AᵀA (G, 12B, 12B) one torch.bmm; one entry_reduce
+    sums g and Hd over the merged table.  With `compact`, the last output
+    is the stragglers' full-width A (3Vw, 6W) per straggler bucket; else
+    it is the (6W, 6W) Gram accumulator with the stragglers' AᵀA (syrk_,
+    chunked as the bucketed pass) and every group's Gram added into its
+    window, in group order (overlapping windows, no atomics: bitwise
+    repeatable)."""
+    pose12 = pose_table(R, p)
+    dev, dt = R.device, R.dtype
+    fas = plan.stacks + plan.wide
+    poses = _pose_operands(steps, fas, pose12, W)
+    aggs = steps.agg([(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(fas, poses)])
+    resid = torch.zeros((), dtype=dt, device=dev)
+    for residv, _ in aggs:
+        resid = resid + residv.sum()
+    vals = torch.empty((sum(fa.n.numel() for fa in fas), 30), dtype=dt,
+                       device=dev)
+    grams, off = [], 0
+    for fa, ps, (_, pv), loc, (G, Vp, w) in zip(
+            plan.stacks, poses, aggs, plan.local, plan.dims):
+        VK = fa.n.numel()
+        A, _ = steps.chain_entries(fa.n, fa.mu, fa.Pc, ps, loc, pv, w,
+                                   vals[off:off + VK])
+        A3 = A.view(G, 3 * Vp, 6 * w)
+        grams.append(torch.bmm(A3.transpose(1, 2), A3))
+        off += VK
+    wide = []
+    gram = None if compact else torch.zeros((6 * W, 6 * W), dtype=dt,
+                                            device=dev)
+    n_st = len(plan.stacks)
+    for fa, ps, (_, pv) in zip(plan.wide, poses[n_st:], aggs[n_st:]):
+        VK = fa.n.numel()
+        if compact:
+            A, _ = steps.chain_entries(fa.n, fa.mu, fa.Pc, ps, fa.frame, pv,
+                                       W, vals[off:off + VK])
+            wide.append(A)
+        else:
+            _bucketed_pass(steps, fa, ps, pv, W, gram, chunk_bytes,
+                           vals[off:off + VK])
+        off += VK
+    gHd = steps.reduce(vals, plan.table)
+    g = gHd[:, :6]
+    Hd = gHd[:, 6:][:, _soa.d24_to_36(dev)].reshape(W, 6, 6)
+    if compact:
+        return resid, g, Hd, grams, wide
+    for gr, offs, (_, _, w) in zip(grams, plan.offsets, plan.dims):
+        for i, o in enumerate(offs):
+            gram[6 * o:6 * (o + w), 6 * o:6 * (o + w)] += gr[i]
+    return resid, g, Hd, grams, gram
+
+
+def banded_cost_grad_hess(plan: BandedPlan, R, p, W: int):
+    """(residual, gradient (W, 6), Hessian (W, 6, W, 6)) through the banded
+    groups (the JAX package's _lm_banded_jitted evaluation): the dense H
+    from the group Grams and the stragglers' AᵀA, then the block diagonal."""
+    resid, g, Hd, _, H = _banded_eval(KERNEL_STEPS, plan, R, p, W, False)
+    return resid, g, add_block_diag(H.neg_().reshape(W, 6, W, 6), Hd, W)
+
+
+def banded_cost_grad_compact(plan: BandedPlan, R, p, W: int):
+    """(residual, g (W, 6), Hd (W, 6, 6), grams, wide) without the (6W)² H
+    (the JAX package's _cgh_banded_compact_exec):
+    H = diag-blocks(Hd) − Σ windows(grams) − Σ wideᵀ wide, which
+    solver.dist_solve.solve_damped_cg_banded applies."""
+    return _banded_eval(KERNEL_STEPS, plan, R, p, W, True)
+
+
+def banded_cgh(bg: BandedGroups, R, p, W: int):
+    """(resid, g (W, 6), Hd (W, 6, 6), H (6W, 6W) cross part) of one
+    bucket's banded groups and stragglers (the JAX package's
+    plane_eigen.banded_cgh)."""
+    resid, g, Hd, _, gram = _banded_eval(KERNEL_STEPS, banded_plan([bg], W),
+                                         R, p, W, False)
+    return resid, g, Hd, gram.neg_()
+
+
+def banded_cgh_compact(bg: BandedGroups, R, p, W: int):
+    """(resid, g (W, 6), Hd (W, 6, 6), grams (G, 12B, 12B), wide_M) of one
+    bucket (the JAX package's plane_eigen.banded_cgh_compact): grams hold
+    +AᵀA per group; wide_M is the stragglers' A in (3Vw, 6W) row-block
+    layout (the JAX package's (Vw, W, 3, 6) M, row (v, r) at column
+    6w + c), (0, 6W) without stragglers."""
+    resid, g, Hd, grams, wide = _banded_eval(
+        KERNEL_STEPS, banded_plan([bg], W), R, p, W, True)
+    wM = wide[0] if wide else R.new_zeros((0, 6 * W))
+    return resid, g, Hd, grams[0], wM
+
+
+class RowsPlan(NamedTuple):
+    """The rows evaluation's per-solve operands (rows_plan): each bucket's
+    slot ids (the chain's columns: frame := slot k, width := K), its own
+    frame table (the matvec's segment sums) and the merged table over all
+    buckets (entry_reduce)."""
+
+    slots: list          # (V, K) int32 slot ids per bucket
+    tables: list         # (W, Kf) int32 frame table per bucket
+    table: torch.Tensor  # (W, Kf) int32 merged frame table
+
+
+def rows_plan(buckets, W: int) -> RowsPlan:
+    """The RowsPlan of a solve's buckets: their ids and counts read to the
+    host once per bucket, the tables copied to the device in one copy."""
+    slots = [torch.arange(fa.n.shape[1], dtype=torch.int32,
+                          device=fa.n.device).expand(fa.n.shape).contiguous()
+             for fa in buckets]
+    ids = [_ids_to_host(fa) for fa in buckets]
+    merged = _frame_table_np(np.concatenate([f.reshape(-1) for f, _ in ids]),
+                             np.concatenate([v.reshape(-1) for _, v in ids]),
+                             W)
+    tables = to_device([_frame_table_np(f, v, W) for f, v in ids] + [merged],
+                       buckets[0].n.device)
+    return RowsPlan(slots, tables[:-1], tables[-1])
+
+
+def _rows_eval(steps: EvalSteps, buckets, plan: RowsPlan, R, p, W: int):
+    """(resid, g (W, 6), Hd (W, 6, 6), rows) over the buckets: the bucketed
+    evaluation with each chain_entries launch at width K on the slot ids,
+    so its A (3V, 6K) holds entry (v, k)'s three factor rows at columns
+    6k..6k+5 (the compact rows in row-block layout, never 6W columns), and
+    no Gram."""
+    pose12 = pose_table(R, p)
+    dev, dt = R.device, R.dtype
+    poses = _pose_operands(steps, buckets, pose12, W)
+    aggs = steps.agg([(fa.n, fa.mu, fa.Pc, ps)
+                      for fa, ps in zip(buckets, poses)])
+    resid = torch.zeros((), dtype=dt, device=dev)
+    vals = torch.empty((sum(fa.n.numel() for fa in buckets), 30), dtype=dt,
+                       device=dev)
+    rows, off = [], 0
+    for fa, ps, (residv, pv), sl in zip(buckets, poses, aggs, plan.slots):
+        resid = resid + residv.sum()
+        V, K = fa.n.shape
+        A, _ = steps.chain_entries(fa.n, fa.mu, fa.Pc, ps, sl, pv, K,
+                                   vals[off:off + V * K])
+        rows.append(A)
+        off += V * K
+    gHd = steps.reduce(vals, plan.table)
+    Hd = gHd[:, 6:][:, _soa.d24_to_36(dev)].reshape(W, 6, 6)
+    return resid, gHd[:, :6], Hd, rows
+
+
+def plane_cost_grad_rows(fa: PlaneFactorArrays, R, p, W: int,
+                         tbl: torch.Tensor = None):
+    """Compact linearization of one bucket for the matrix-free damped solve
+    (the JAX package's plane_eigen.plane_cost_grad_rows) -> (resid,
+    g (W, 6), Hd (W, 6, 6), rows (3V, 6K)), H = diag-blocks(Hd) − MᵀM
+    with M the frame expansion of the rows.  The rows are in row-block
+    layout: row (v, r), columns 6k..6k+5 hold the JAX package's
+    rows18[v, k, 6r:6r+6].  tbl (the bucket's frame_gather_table) is read
+    for g and Hd; built here when not given."""
+    plan = rows_plan([fa], W)
+    if tbl is not None:
+        plan = plan._replace(tables=[tbl], table=tbl)
+    resid, g, Hd, rows = _rows_eval(KERNEL_STEPS, [fa], plan, R, p, W)
+    return resid, g, Hd, rows[0]
+
+
+def plane_rows_cross_diag(rows: torch.Tensor, tbl: torch.Tensor, W: int):
+    """Per-frame 6x6 diagonal blocks (W, 6, 6) of MᵀM from compact rows
+    (3V, 6K) and their frame table (solver.dist_solve.rows_cross_diag)."""
+    E = (rows.shape[0] // 3) * (rows.shape[1] // 6)
+    return rows_cross_diag(rows, _safe_table(tbl, E)).reshape(W, 6, 6)
+
+
+def plane_rows_matvec(rows: torch.Tensor, frame: torch.Tensor,
+                      tbl: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Cross-term matvec (MᵀM) x from compact rows (3V, 6K), their frame
+    ids (V, K) and frame table (solver.dist_solve.rows_matvec).  x (W, 6)
+    -> (W, 6); an id outside [0, W) gathers and adds nothing."""
+    W = x.shape[0]
+    return rows_matvec(rows, _safe_frames(frame, W),
+                       _safe_table(tbl, frame.numel()), x)

@@ -86,7 +86,7 @@ def _solve_from_vm(vm, R, p, cfg: LvbaConfig, device, min_voxels: int = 0,
     )
     R_out = res.R.to("cpu", torch.float64).numpy()
     p_out = res.p.to("cpu", torch.float64).numpy()
-    lm = dict(lm_iters=res.iters, lm_s=time.time() - t0)
+    lm = dict(lm_iters=res.iters, lm_s=time.time() - t0, lm_route=res.route)
     return R_out, p_out, vm.num_planes, lm
 
 

@@ -1,13 +1,18 @@
 """Block-Jacobi preconditioned CG for the damped reduced system (port of
 global_lvba_tpu.solver.dist_solve, single device: the closed-form block
-inverses, the shared PCG loop and solve_damped_cg).
+inverses, the shared PCG loop, and its three operators: the assembled H
+(solve_damped_cg), the banded groups' Grams (solve_damped_cg_banded) and
+the compact factor rows (solve_damped_cg_rows)), with the segment tables
+and the fixed-order sums through them that the matvecs and the factor
+evaluation's frame sums share.
 
 The loop has the reference's form: exactly `max_iters` trips, the state
 frozen by torch.where once ||r||/||b|| < tol, and no read to the host.
-On a CUDA tensor solve_damped_cg runs its preamble and trips as one CUDA
-graph (the counterpart of the reference's single compiled fori_loop),
-captured once per solve shape and replayed per solve; on the CPU the same
-trips run eagerly.
+On CUDA tensors each solve runs its preamble and trips as one CUDA graph
+(the counterpart of the reference's single compiled fori_loop), captured
+once per operand shapes and replayed per solve; on the CPU the same trips
+run eagerly.  Every gather, sum and product of the trips is a fixed-order
+op (no atomic scatter), so two solves are bitwise equal.
 """
 
 from __future__ import annotations
@@ -15,7 +20,98 @@ from __future__ import annotations
 import time
 from collections import OrderedDict
 
+import numpy as np
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Segment tables and the fixed-order sums through them (the frame sums of
+# the evaluation's plain steps and of the banded and rows matvecs)
+# ---------------------------------------------------------------------------
+
+
+def _frame_table_np(frame: np.ndarray, n: np.ndarray, W: int) -> np.ndarray:
+    """(W, Kf) frame-major index table over the FLAT (v, k) entries: row w
+    lists every valid entry observing frame w, padded with the sentinel
+    index V*K (which gathers an all-zero row).  An entry is valid when it
+    is live (n > 0) and its frame id lies in [0, W).  Kf = max entries per
+    frame, rounded up to 8."""
+    flat_f = frame.reshape(-1).astype(np.int64)
+    valid = (n.reshape(-1) > 0) & (flat_f >= 0) & (flat_f < W)
+    sel = np.flatnonzero(valid)
+    fsel = flat_f[sel]
+    # a stable sort of 16-bit keys is numpy's radix sort (the same order)
+    order = np.argsort(fsel.astype(np.uint16) if W <= 1 << 16 else fsel,
+                       kind="stable")
+    sel = sel[order]
+    fsel = fsel[order]
+    counts = np.bincount(fsel, minlength=W)
+    Kf = max(int(counts.max()), 1)
+    Kf = (Kf + 7) // 8 * 8
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    idx = np.full((W, Kf), flat_f.size, np.int32)
+    if fsel.size:
+        pos = np.arange(fsel.size) - starts[fsel]
+        idx[fsel, pos] = sel.astype(np.int32)
+    return idx
+
+
+def to_device(arrays, device):
+    """Host integer arrays as tensors of their shapes and dtypes on
+    `device`, in one copy (one int32 buffer, split and cast there): a
+    solve's index operands cost one synchronizing copy, not one each."""
+    flat = np.concatenate([np.asarray(a).reshape(-1).astype(np.int32)
+                           for a in arrays])
+    buf = torch.as_tensor(flat).to(device)
+    out, o = [], 0
+    for a in arrays:
+        out.append(buf[o:o + a.size].view(a.shape).to(getattr(torch,
+                                                              a.dtype.name)))
+        o += a.size
+    return out
+
+
+def _safe_table(tbl: torch.Tensor, E: int) -> torch.Tensor:
+    """tbl as int64 with every index outside [0, E) set to E (the zero
+    row _segsum appends)."""
+    t = tbl.long()
+    return t.masked_fill((t < 0) | (t >= E), E)
+
+
+def _segsum(z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Segment sum of the rows of z (E, ...) through a _safe_table t (S, C):
+    a (S, C, ...) gather and a fixed-order sum over C."""
+    zpad = torch.cat([z, z.new_zeros((1,) + tuple(z.shape[1:]))])
+    return zpad[t].sum(dim=1)
+
+
+def _safe_frames(frame: torch.Tensor, W: int) -> torch.Tensor:
+    """frame as int64 with every id outside [0, W) set to W."""
+    f = frame.long()
+    return f.masked_fill((f < 0) | (f >= W), W)
+
+
+def rows_cross_diag(rows: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Per-frame 6x6 diagonal blocks (W, 6, 6) of MᵀM from compact rows
+    (3V, 6K) through the _safe_table t (W, Kf) of their entries: block w
+    sums rows_{vkr}ᵀ rows_{vkr} over the entries of frame w."""
+    V, K = rows.shape[0] // 3, rows.shape[1] // 6
+    r = rows.view(V, 3, K, 6)
+    P = torch.einsum("vrkc,vrkd->vkcd", r, r).reshape(V * K, 36)
+    return _segsum(P, t).view(-1, 6, 6)
+
+
+def rows_matvec(rows: torch.Tensor, fsafe: torch.Tensor, t: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """(MᵀM) x (W, 6) from compact rows (3V, 6K), their _safe_frames fsafe
+    (V, K) and _safe_table t: per voxel s_r = Σ_{k,c} rows_{vrkc}
+    x[frame_vk, c], then z_vkc = Σ_r rows_{vrkc} s_r summed by frame."""
+    V, K = fsafe.shape
+    xg = torch.cat([x, x.new_zeros((1, 6))])[fsafe]          # (V, K, 6)
+    r = rows.view(V, 3, 6 * K)
+    s = torch.bmm(r, xg.reshape(V, 6 * K, 1))                # (V, 3, 1)
+    z = torch.bmm(r.transpose(1, 2), s).reshape(V * K, 6)
+    return _segsum(z, t)
 
 
 def _inv3_batched(A: torch.Tensor) -> torch.Tensor:
@@ -128,61 +224,224 @@ def _damped_cg(H: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     return _pcg(matvec, precond, -g, max_iters, tol)
 
 
-class DampedCGGraph:
-    """solve_damped_cg for one shape on one card as a captured CUDA graph.
-    The graph reads the static buffers H, g and u and writes x; a solve
-    copies its operands in, replays, and returns a copy of x.  Capture
-    runs one trip first on a side stream (cuBLAS' handle and workspace),
-    then captures the preamble and all `max_iters` trips; a capture that
-    fails raises."""
+def _damping(Dblk: torch.Tensor, u: torch.Tensor):
+    """(d (W, 6) = diag(H), damp = u·d + eps, block-Jacobi inverses of the
+    damped true 6x6 diagonal blocks) with the LU solve's epsilon (the JAX
+    package's solve_damped_cg_banded / _rows preamble)."""
+    d = torch.diagonal(Dblk, dim1=1, dim2=2)
+    eps = 1e-12 * (1.0 + torch.max(d.abs()))
+    damp = u * d + eps
+    eye = torch.eye(6, dtype=Dblk.dtype, device=Dblk.device)
+    return d, damp, inv_blocks_6x6(Dblk + damp[:, :, None] * eye)
 
-    def __init__(self, n: int, dtype: torch.dtype, device: torch.device,
-                 bsize: int, max_iters: int, tol: float):
+
+def _block_cg(Hd, g, damp, d, Minv, cross, max_iters: int, tol: float):
+    """PCG on (diag-blocks(Hd) − cross + diag(damp)) x = −g, x (W, 6) flat,
+    block-Jacobi preconditioned by Minv -> (x (6W,), d (6W,))."""
+    W = Hd.shape[0]
+
+    def matvec(xf):
+        x = xf.view(W, 6)
+        y = torch.bmm(Hd, x.unsqueeze(-1)).squeeze(-1) + damp * x
+        return (y - cross(x)).reshape(-1)
+
+    def precond(r):
+        return torch.bmm(Minv, r.view(W, 6, 1)).reshape(-1)
+
+    return _pcg(matvec, precond, -g.reshape(-1), max_iters, tol), d.reshape(-1)
+
+
+def banded_windows_np(offsets_list, widths, W: int):
+    """The banded solve's index operands on the host, from the groups'
+    offsets (host ints): per bucket the (G, w) frame of each window slot,
+    and the (W, C) slot table whose row w lists the flat window slots
+    covering frame w (bucket by bucket, group by group, in slot order),
+    padded with the sentinel Q = Σ G·w."""
+    wins = [np.asarray(offs, np.int64)[:, None] + np.arange(w)
+            for offs, w in zip(offsets_list, widths)]
+    flat = np.concatenate([f.reshape(-1) for f in wins])
+    slots = _frame_table_np(flat, np.ones_like(flat), W).astype(np.int64)
+    return wins + [slots]
+
+
+def banded_windows(offsets_list, widths, W: int, device):
+    """(wins, slots): banded_windows_np on `device`, in one copy."""
+    out = to_device(banded_windows_np(offsets_list, widths, W), device)
+    return out[:-1], out[-1]
+
+
+def _damped_cg_banded(Hd, g, u, grams, wides, wins, slots, max_iters, tol):
+    W = Hd.shape[0]
+    dims = [(gr.shape[0], gr.shape[1] // 6) for gr in grams]
+    # the groups' 6x6 diagonal blocks, flat by window slot
+    ldiag = torch.cat([
+        torch.diagonal(gr.view(G, w, 6, w, 6), dim1=1, dim2=3)
+        .permute(0, 3, 1, 2).reshape(G * w, 6, 6)
+        for gr, (G, w) in zip(grams, dims)])
+    Dblk = Hd - _segsum(ldiag, slots)
+    for A in wides:
+        Aw = A.view(-1, W, 6)
+        Dblk = Dblk - torch.einsum("rwc,rwd->wcd", Aw, Aw)
+    d, damp, Minv = _damping(Dblk, u)
+
+    def cross(x):
+        yg = [torch.bmm(gr, x[win].reshape(G, 6 * w, 1)).reshape(G * w, 6)
+              for gr, win, (G, w) in zip(grams, wins, dims)]
+        y = _segsum(torch.cat(yg), slots)
+        for A in wides:
+            y = y + (A.t() @ (A @ x.reshape(-1))).view(W, 6)
+        return y
+
+    return _block_cg(Hd, g, damp, d, Minv, cross, max_iters, tol)
+
+
+def solve_damped_cg_banded(grams_list, wide_list, offsets_list,
+                           Hd: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+                           max_iters: int = 96, tol: float = 1e-10,
+                           windows=None):
+    """Damped CG on the banded Hessian, never assembled (the JAX package's
+    solve_damped_cg_banded, its unrolled form):
+    H = diag-blocks(Hd) − Σ_buckets [windows(grams) + wideᵀ wide].
+    grams_list: per bucket the (G, 6w, 6w) group Grams +AᵀA; wide_list:
+    the stragglers' A (3Vw, 6W) (none, or Vw = 0, for a bucket without);
+    offsets_list: per bucket the G window offsets (host ints).  A matvec
+    gathers each window of x, multiplies the stack in one torch.bmm and
+    sums the windows' products back by frame through the slot table (a
+    gather and a fixed-order sum: no atomic scatter).  The preconditioner
+    is block-Jacobi on the true 6x6 diagonal blocks.  `max_iters`
+    done-masked trips; on CUDA tensors one replay of a captured graph.
+    windows: banded_windows(offsets_list, ...), built here when not given.
+    Returns (dx (6W,), d (6W,)), d = diag(H)."""
+    W = Hd.shape[0]
+    if windows is None:
+        windows = banded_windows(offsets_list,
+                                 [gr.shape[1] // 6 for gr in grams_list], W,
+                                 Hd.device)
+    wins, slots = windows
+    wides = [A for A in wide_list if A.shape[0]]
+    ns, nw = len(grams_list), len(wides)
+
+    def fn(trips, Hd, g, u, *rest):
+        return _damped_cg_banded(Hd, g, u, rest[:ns], rest[ns:ns + nw],
+                                 rest[ns + nw:-1], rest[-1], trips, tol)
+
+    ops = [Hd, g.reshape(W, 6), u, *grams_list, *wides, *wins, slots]
+    return _solve(("banded", tol), fn, ops, max_iters)
+
+
+def _damped_cg_rows(Hd, g, u, rows, frames, tables, max_iters, tol):
+    Dblk = Hd
+    for r, t in zip(rows, tables):
+        Dblk = Dblk - rows_cross_diag(r, t)
+    d, damp, Minv = _damping(Dblk, u)
+
+    def cross(x):
+        y = torch.zeros_like(x)
+        for r, f, t in zip(rows, frames, tables):
+            y = y + rows_matvec(r, f, t, x)
+        return y
+
+    return _block_cg(Hd, g, damp, d, Minv, cross, max_iters, tol)
+
+
+def solve_damped_cg_rows(rows_list, frame_list, tbl_list, Hd: torch.Tensor,
+                         g: torch.Tensor, u: torch.Tensor,
+                         max_iters: int = 256, tol: float = 1e-10):
+    """Matrix-free damped solve (the JAX package's solve_damped_cg_rows):
+    H = diag-blocks(Hd) − MᵀM applied straight from the compact factor
+    rows, per bucket rows (3V, 6K) (plane_eigen.plane_cost_grad_rows'
+    row-block layout), frame ids (V, K) and frame table (W, Kf); never a
+    (6W)² product.  `max_iters` done-masked trips; on CUDA tensors one
+    replay of a captured graph.  Returns (dx (6W,), d (6W,)), d = diag(H)."""
+    W = Hd.shape[0]
+    frames = [_safe_frames(f, W) for f in frame_list]
+    tables = [_safe_table(t, f.numel()) for t, f in zip(tbl_list, frame_list)]
+    nb = len(rows_list)
+
+    def fn(trips, Hd, g, u, *rest):
+        return _damped_cg_rows(Hd, g, u, rest[:nb], rest[nb:2 * nb],
+                               rest[2 * nb:], trips, tol)
+
+    ops = [Hd, g.reshape(W, 6), u, *rows_list, *frames, *tables]
+    return _solve(("rows", tol), fn, ops, max_iters)
+
+
+class CapturedSolve:
+    """A damped solve fn(trips, *operands) for one set of operand shapes on
+    one card as a captured CUDA graph.  The graph reads static copies of
+    the operands and writes its outputs; a call copies the operands in,
+    replays, and returns copies of the outputs.  (A graph that read an
+    LM's state where it lies would be captured anew for every LM, at
+    ~0.1 s a capture, to save a copy of ~1 ms a solve.)  Capture runs one
+    trip first on a side stream (cuBLAS' handle and workspace), then
+    captures the preamble and all `max_iters` trips; a capture that fails
+    raises."""
+
+    def __init__(self, fn, specs, device: torch.device, max_iters: int):
         t0 = time.perf_counter()
         with torch.cuda.device(device):
-            self.H = torch.zeros((n, n), dtype=dtype, device=device)
-            self.g = torch.zeros(n, dtype=dtype, device=device)
-            self.u = torch.zeros((), dtype=dtype, device=device)
+            self.inputs = [torch.zeros(shape, dtype=dt, device=device)
+                           for shape, dt in specs]
             cur = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                _damped_cg(self.H, self.g, self.u, bsize, 1, tol)
+                fn(1, *self.inputs)
             cur.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
-                self.x = _damped_cg(self.H, self.g, self.u, bsize, max_iters,
-                                    tol)
+                self.out = fn(max_iters, *self.inputs)
         self.capture_s = time.perf_counter() - t0
 
-    def __call__(self, H, g, u):
-        self.H.copy_(H)
-        self.g.copy_(g)
-        self.u.copy_(u)
+    def __call__(self, *operands):
+        for s, x in zip(self.inputs, operands):
+            s.copy_(x)
         self.graph.replay()
-        return self.x.clone()
+        if isinstance(self.out, tuple):
+            return tuple(o.clone() for o in self.out)
+        return self.out.clone()
 
 
-# the captured solves, by (n, dtype, device, bsize, max_iters, tol); the
-# oldest is dropped past GRAPH_CACHE_SIZE (each holds an (n, n) buffer)
+# the captured solves, by kind, operand shapes and dtypes, device and trips;
+# the oldest is dropped past GRAPH_CACHE_SIZE (each holds copies of its
+# operands)
 GRAPH_CACHE_SIZE = 4
 _GRAPHS: OrderedDict = OrderedDict()
 
 
-def cg_graph(n: int, dtype: torch.dtype, device: torch.device,
-             bsize: int = 6, max_iters: int = 256,
-             tol: float = 1e-10) -> DampedCGGraph:
-    """The captured damped CG solve of this shape, capturing it on the
-    first call."""
-    key = (n, dtype, torch.device(device), bsize, max_iters, tol)
+def _captured(key, fn, specs, device, max_iters) -> CapturedSolve:
+    """The cached CapturedSolve of `key`, capturing it on the first call."""
     graph = _GRAPHS.get(key)
     if graph is None:
-        graph = DampedCGGraph(n, dtype, key[2], bsize, max_iters, tol)
-        _GRAPHS[key] = graph
+        graph = _GRAPHS[key] = CapturedSolve(fn, specs, device, max_iters)
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
     _GRAPHS.move_to_end(key)
     return graph
+
+
+def _solve(kind, fn, ops, max_iters: int):
+    """fn(max_iters, *ops): one replay of its captured graph on CUDA
+    tensors, the trips run eagerly on CPU tensors."""
+    dev = ops[0].device
+    if dev.type != "cuda":
+        return fn(max_iters, *ops)
+    specs = tuple((tuple(x.shape), x.dtype) for x in ops)
+    return _captured((kind, specs, dev, max_iters), fn, specs, dev,
+                     max_iters)(*ops)
+
+
+def cg_graph(n: int, dtype: torch.dtype, device: torch.device,
+             bsize: int = 6, max_iters: int = 256,
+             tol: float = 1e-10) -> CapturedSolve:
+    """The captured damped CG solve (solve_damped_cg) of this shape,
+    capturing it on the first call."""
+    dev = torch.device(device)
+    specs = (((n, n), dtype), ((n,), dtype), ((), dtype))
+    return _captured((("dense", bsize, tol), specs, dev, max_iters),
+                     lambda trips, H, g, u: _damped_cg(H, g, u, bsize, trips,
+                                                       tol),
+                     specs, dev, max_iters)
 
 
 def solve_damped_cg(

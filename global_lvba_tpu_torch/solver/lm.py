@@ -1,5 +1,6 @@
 """Levenberg-Marquardt driver for the LiDAR plane-eigen BA (port of
-global_lvba_tpu.solver.lm, the dense-Gram loop on aligned and bucketed
+global_lvba_tpu.solver.lm: the dense-Gram loop, the banded loop, the split
+LM of large W and the matrix-free rows loop, on aligned and bucketed
 factor arrays).
 
 Replicates BALM2::damping_iter (include/BALM/bavoxel.hpp:662-767):
@@ -13,37 +14,64 @@ Replicates BALM2::damping_iter (include/BALM/bavoxel.hpp:662-767):
   * free gauge: no pose is fixed, the damping regularizes.
 One factor evaluation per iteration, at the trial point.  As in the
 reference (global_lvba_tpu/solver/lm.py:311-374), the accepted trial
-state is selected on the device (torch.where over R, p, residual, g, H)
-and the damped solve reads nothing to the host, so each iteration reads
-one value back: `converged`.  The JAX loop is a fixed-trip fori_loop
-that freezes the state once converged; this loop stops there instead,
-which returns the same poses, residual and `iters` and saves the frozen
-trips' evaluations.
+state is selected on the device (torch.where over every tensor of the
+state, written into the state's own buffers) and the damped solve reads
+nothing to the host, so each iteration reads one value back: `converged`.  The JAX loops are fixed-trip
+fori_loops that freeze the state once converged; this loop stops there
+instead, which returns the same poses, residual and `iters` and saves the
+frozen trips' evaluations.
 
-Where the JAX package leaves the dense-Gram loop — a bucketed solve at
-W >= 1024 (its banded probe and split LM) or reduced_solver="cg_mf" (its
-matrix-free rows path) — this port raises NotImplementedError (ROADMAP
-A3) and never substitutes the dense loop.
+Routes (plan_route; the JAX package's lm_damping_iter:136-272):
+
+  route         taken when                       evaluation        solve
+  dense         W < SPLIT_W, no banded, no       dense Gram        LU if 6W < 1536,
+                cg_mf (_lm_jitted)                                 else 48-trip CG
+  banded        bucketed, W < SPLIT_W, banded    group Grams into  LU or 96-trip CG
+                (W >= 1024 with a >= 4x saving,  the dense H
+                or hessian="banded")
+                (_lm_banded_jitted)
+  split-dense   W >= SPLIT_W without banded      dense Gram        LU or 96-trip CG
+                (every aligned solve)
+  split-banded  W >= SPLIT_W, bucketed, banded   group Grams, no   96-trip banded CG
+                                                 (6W)² H
+  rows          reduced_solver="cg_mf",          compact rows      256-trip rows CG
+                bucketed (_lm_rows_jitted)
+
+The JAX package splits its loop into executables at W >= LVBA_SPLIT_W for
+its compiler; this loop is host-driven already, so its split route is the
+same loop with the split's evaluation and solve.  The JAX package's
+environment switches are module constants here (SPLIT_W and the trip
+counts).  Its opt-in gather tables (LVBA_GATHER_M) and aligned banded
+groups (LVBA_BANDED_ALIGNED) raise NotImplementedError (ROADMAP A3b).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
 from ..factors.plane_eigen import (
-    AlignedPlaneFactorArrays, PlaneFactorArrays, buckets_frame_table,
-    plane_cost_grad_hess_buckets)
+    KERNEL_STEPS, AlignedPlaneFactorArrays, PlaneFactorArrays, _rows_eval,
+    banded_cost, banded_cost_grad_compact, banded_cost_grad_hess,
+    banded_plan, build_banded_groups, buckets_frame_table,
+    plane_cost_grad_hess_buckets, rows_plan)
 from ..geometry.se3 import boxplus_pose
-from .dist_solve import solve_damped_cg
+from .dist_solve import (
+    solve_damped_cg, solve_damped_cg_banded, solve_damped_cg_rows)
 
-# CG trips of the damped solve in the LM loop (solver/lm.py:316-325 of the
-# JAX package: twice the measured convergence at W = 512)
+# CG trips of the damped solve on each route (the JAX package's
+# LVBA_LIDAR_CG_ITERS default, solver/lm.py:324: twice the measured
+# convergence at W = 512; the banded loop's and the split's 96,
+# lm.py:430, :609 and dist_solve.py:566; the rows solve's 256,
+# dist_solve.py:162)
 LIDAR_CG_ITERS = 48
-# the JAX package engages its banded probe on bucketed solves from here
-# (solver/lm.py:245)
+BANDED_CG_ITERS = 96
+ROWS_CG_ITERS = 256
+# the banded probe engages on bucketed solves from here (lm.py:245), and
+# the split LM from SPLIT_W (LVBA_SPLIT_W, lm.py:198)
 BANDED_MIN_W = 1024
+SPLIT_W = 3072
 
 
 class LMResult(NamedTuple):
@@ -51,6 +79,20 @@ class LMResult(NamedTuple):
     p: torch.Tensor
     iters: int
     residual: torch.Tensor
+    route: str = ""     # the route the solve took (Route.name)
+
+
+class Route(NamedTuple):
+    """A solve's route: its name, its damped solve's CG trips (0: LU), the
+    evaluation cgh(R, p) -> state (residual / factor count, g, ...) and
+    the damped solve solve(state, u) -> (dx (6W,), diag(H) (6W,)) it runs,
+    and the factor count of the AVG_THR residual."""
+
+    name: str
+    trips: int
+    cgh: Callable
+    solve: Callable
+    g_size: float
 
 
 def _total_cgh(buckets, table, R, p, W):
@@ -91,6 +133,153 @@ def _solve_damped(H, g, u, refine: bool = True):
     return dx[:, 0]
 
 
+def _dense_solve(solver: str, trips: int):
+    """The damped solve of an assembled H: LU or `trips` CG trips."""
+    def solve(state, u):
+        _, g, H = state
+        if solver == "cg":
+            dx = solve_damped_cg(H, g, u, max_iters=trips)
+        else:
+            dx = _solve_damped(H, g, u)
+        return dx, torch.diagonal(H)
+    return solve
+
+
+def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
+               hessian: str = "auto", gather_tables: bool = False,
+               split: bool = None) -> Route:
+    """The route of a W-frame solve over `buckets` (see the module
+    docstring), with the operands it reads built once: a bucketed solve
+    reads its buckets' ids and counts to the host here (its frame tables;
+    the banded groups and their tables), before its first evaluation.
+    split: None takes the split route at W >= SPLIT_W (but for cg_mf);
+    True forces it (lm_damping_iter_split)."""
+    kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
+    if not all(isinstance(fa, kinds) for fa in buckets):
+        raise TypeError("buckets must be AlignedPlaneFactorArrays or "
+                        "PlaneFactorArrays")
+    if hessian not in ("auto", "dense", "banded"):
+        raise ValueError(f"unknown hessian {hessian!r}")
+    aligned = any(isinstance(fa, AlignedPlaneFactorArrays) for fa in buckets)
+    if aligned:
+        # the aligned layout has no frame selection for gather tables,
+        # banded groups or the rows path to replace
+        if reduced_solver == "cg_mf":
+            raise ValueError(
+                "reduced_solver='cg_mf' needs bucketed factor arrays; "
+                "build them with buckets_to_device (bucketed layout)")
+        hessian = "dense"
+    elif gather_tables:
+        raise NotImplementedError(
+            "gather_tables=True (the JAX package's GatherPlan / _cgh_gather "
+            "evaluation) is not ported: ROADMAP A3b")
+    if split is None:
+        split = W >= SPLIT_W and reduced_solver != "cg_mf"
+    elif split and reduced_solver == "cg_mf":
+        raise ValueError("the split LM does not take reduced_solver='cg_mf'")
+    solver = reduced_solver
+    if solver == "auto":
+        solver = "cg" if 6 * W >= 1536 else "lu"
+    if solver not in ("lu", "cg", "cg_mf"):
+        raise ValueError(f"unknown reduced_solver {reduced_solver!r}")
+    g_size = float(max(sum(int(fa.n.shape[0]) for fa in buckets), 1))
+
+    if solver == "cg_mf":
+        plan = rows_plan(buckets, W)
+        frames = [fa.frame for fa in buckets]
+
+        def cgh(R, p):
+            r, g, Hd, rows = _rows_eval(KERNEL_STEPS, buckets, plan, R, p, W)
+            return r / g_size, g, Hd, rows
+
+        def solve(state, u):
+            _, g, Hd, rows = state
+            return solve_damped_cg_rows(rows, frames, plan.tables, Hd, g, u,
+                                        max_iters=ROWS_CG_ITERS)
+
+        return Route("rows", ROWS_CG_ITERS, cgh, solve, g_size)
+
+    groups = None
+    if hessian != "dense" and (hessian == "banded" or W >= BANDED_MIN_W):
+        groups = [build_banded_groups(fa, W) for fa in buckets]
+        banded, dense = banded_cost(groups, buckets, W)
+        if hessian != "banded" and banded * 4 > dense:
+            groups = None
+    if groups is not None and split:
+        plan = banded_plan(groups, W)
+
+        def cgh(R, p):
+            r, g, Hd, grams, wide = banded_cost_grad_compact(plan, R, p, W)
+            return r / g_size, g, Hd, grams, wide
+
+        def solve(state, u):
+            _, g, Hd, grams, wide = state
+            return solve_damped_cg_banded(grams, wide, plan.offsets, Hd, g,
+                                          u, max_iters=BANDED_CG_ITERS,
+                                          windows=plan.windows)
+
+        return Route("split-banded", BANDED_CG_ITERS, cgh, solve, g_size)
+    if groups is not None:
+        plan = banded_plan(groups, W)
+
+        def cgh(R, p):
+            r, g, H = banded_cost_grad_hess(plan, R, p, W)
+            return r / g_size, g.reshape(W * 6), H.reshape(W * 6, W * 6)
+
+        name, trips = "banded", BANDED_CG_ITERS
+    else:
+        table = (buckets_frame_table(buckets, W) if any(
+            isinstance(fa, PlaneFactorArrays) for fa in buckets) else None)
+
+        def cgh(R, p):
+            r, g, H = _total_cgh(buckets, table, R, p, W)
+            return r / g_size, g, H
+
+        name = "split-dense" if split else "dense"
+        trips = BANDED_CG_ITERS if split else LIDAR_CG_ITERS
+    trips = trips if solver == "cg" else 0
+    return Route(name, trips, cgh, _dense_solve(solver, trips), g_size)
+
+
+def _select_(keep, new, old):
+    """old = torch.where(keep, new, old) over a state's tensors and lists,
+    in place: the state keeps its buffers from one iteration to the next,
+    and no third copy of a large state (the W=4096 group Grams: 454 MB)
+    is allocated an iteration."""
+    if isinstance(new, (list, tuple)):
+        for a, b in zip(new, old):
+            _select_(keep, a, b)
+    else:
+        torch.where(keep, new, old, out=old)
+    return old
+
+
+def _run(route: Route, R0, p0, max_iters, u_init, v_init, rel_tol):
+    """The Nielsen loop over a route: one evaluation an iteration at the
+    trial point, the accepted state selected on the device, one read of
+    `converged` an iteration."""
+    W = R0.shape[0]
+    R, p = R0, p0
+    state = route.cgh(R, p)
+    u = torch.full((), u_init, dtype=R0.dtype, device=R0.device)
+    v = torch.full((), v_init, dtype=R0.dtype, device=R0.device)
+    it = 0
+    for _ in range(max_iters):
+        dx, d = route.solve(state, u)
+        R_t, p_t = boxplus_pose(R, p, dx.reshape(W, 6))
+        q1 = 0.5 * torch.dot(dx, u * d * dx - state[1].reshape(-1)) \
+            / route.g_size
+        state_t = route.cgh(R_t, p_t)
+        accept, u, v, converged = _nielsen_update(state[0], state_t[0], q1,
+                                                  u, v, rel_tol)
+        R, p = torch.where(accept, R_t, R), torch.where(accept, p_t, p)
+        state = _select_(accept, state_t, state)
+        it += 1
+        if bool(converged):
+            break
+    return LMResult(R=R, p=p, iters=it, residual=state[0], route=route.name)
+
+
 def lm_damping_iter(
     buckets: Sequence,
     R0: torch.Tensor,
@@ -100,61 +289,42 @@ def lm_damping_iter(
     v_init: float = 2.0,
     rel_tol: float = 1e-6,
     reduced_solver: str = "auto",
+    gather_tables: bool = False,
+    hessian: str = "auto",
 ) -> LMResult:
     """Damped LM over plane-eigen factor arrays (aligned and/or bucketed,
-    as buckets_to_device gives them).
+    as buckets_to_device gives them), on the route plan_route picks.
 
-    reduced_solver: "lu" (dense LU), "cg" (block-Jacobi PCG, 48 trips) or
-    "auto" (CG once 6W >= 1536, else LU).  A bucketed solve builds one
-    frame table over all its buckets once (buckets_frame_table) for all
-    its evaluations: it reads the buckets' ids to the host there, before
-    the first evaluation, and then nothing but one `converged` per
-    iteration."""
-    kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
-    if not all(isinstance(fa, kinds) for fa in buckets):
-        raise TypeError("buckets must be AlignedPlaneFactorArrays or "
-                        "PlaneFactorArrays")
-    W = R0.shape[0]
-    aligned = any(isinstance(fa, AlignedPlaneFactorArrays) for fa in buckets)
-    if reduced_solver == "cg_mf":
-        raise NotImplementedError(
-            "reduced_solver='cg_mf' (the matrix-free rows path) is not "
-            "ported: ROADMAP A3")
-    if not aligned and W >= BANDED_MIN_W:
-        raise NotImplementedError(
-            f"a bucketed solve at W={W} >= {BANDED_MIN_W} takes the banded "
-            f"Hessian / split LM in the JAX package, not ported: ROADMAP A3")
-    solver = reduced_solver
-    if solver == "auto":
-        solver = "cg" if 6 * W >= 1536 else "lu"
-    if solver not in ("lu", "cg"):
-        raise ValueError(f"unknown reduced_solver {reduced_solver!r}")
-    g_size = float(max(sum(int(fa.n.shape[0]) for fa in buckets), 1))
-    table = (buckets_frame_table(buckets, W) if any(
-        isinstance(fa, PlaneFactorArrays) for fa in buckets) else None)
+    reduced_solver: "lu" (dense LU), "cg" (block-Jacobi PCG), "cg_mf"
+    (matrix-free CG on compact factor rows, bucketed only) or "auto" (CG
+    once 6W >= 1536, else LU).  hessian: "dense" Grams every bucket at
+    full width; "banded" groups voxels by observer-span frame block and
+    Grams at local width 2B; "auto" takes banded at W >= BANDED_MIN_W when
+    the Gram flops drop at least 4x.  At W >= SPLIT_W the split route
+    runs (the compact banded solve where banded).  The result's `route`
+    names the route taken."""
+    route = plan_route(buckets, R0.shape[0], reduced_solver, hessian,
+                       gather_tables)
+    return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)
 
-    def cgh(R, p):
-        r, g, H = _total_cgh(buckets, table, R, p, W)
-        return r / g_size, g, H
 
-    R, p = R0, p0
-    res1, g, H = cgh(R, p)
-    u = torch.full((), u_init, dtype=R0.dtype, device=R0.device)
-    v = torch.full((), v_init, dtype=R0.dtype, device=R0.device)
-    it = 0
-    for _ in range(max_iters):
-        if solver == "cg":
-            dx = solve_damped_cg(H, g, u, max_iters=LIDAR_CG_ITERS)
-        else:
-            dx = _solve_damped(H, g, u)
-        R_t, p_t = boxplus_pose(R, p, dx.reshape(W, 6))
-        d = torch.diagonal(H)
-        q1 = 0.5 * torch.dot(dx, u * d * dx - g) / g_size
-        res2, g_t, H_t = cgh(R_t, p_t)
-        accept, u, v, converged = _nielsen_update(res1, res2, q1, u, v, rel_tol)
-        R, p, res1, g, H = (torch.where(accept, new, old) for new, old in (
-            (R_t, R), (p_t, p), (res2, res1), (g_t, g), (H_t, H)))
-        it += 1
-        if bool(converged):
-            break
-    return LMResult(R=R, p=p, iters=it, residual=res1)
+def lm_damping_iter_split(
+    buckets: Sequence,
+    R0: torch.Tensor,
+    p0: torch.Tensor,
+    max_iters: int = 10,
+    u_init: float = 0.01,
+    v_init: float = 2.0,
+    rel_tol: float = 1e-6,
+    reduced_solver: str = "auto",
+    hessian: str = "auto",
+) -> LMResult:
+    """The split LM at any W (the JAX package's lm_damping_iter_split): the
+    same Nielsen schedule as lm_damping_iter with the split's evaluation
+    and solve, the dense Gram with LU or a 96-trip CG, or, where banded,
+    the compact group Grams and solve_damped_cg_banded.  The JAX package
+    keeps its Nielsen scalars on the host; here they stay on the device,
+    so the two differ by rounding only."""
+    route = plan_route(buckets, R0.shape[0], reduced_solver, hessian,
+                       split=True)
+    return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)

@@ -1,8 +1,8 @@
 """Damped LM of the PyTorch port against the JAX package (float64, CPU):
 poses at the 1e-8 of tests/test_aligned_layout.py on both reduced-solve
 branches and on both layouts (aligned; bucketed on a box room and a
-corridor), the zero-observation frame of tests/test_lm.py, and the solves
-the port refuses (ROADMAP A3)."""
+corridor), the zero-observation frame of tests/test_lm.py, and the
+options the port refuses (ROADMAP A3b)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,7 +15,8 @@ from global_lvba_tpu.models.synthetic import (
     ate_rmse, make_corridor_scene, make_plane_scene, perturb_poses)
 from global_lvba_tpu.solver import dist_solve as jds, lm as jlm
 from global_lvba_tpu_torch.factors.padding import from_jax_arrays
-from global_lvba_tpu_torch.factors.plane_eigen import PlaneFactorArrays
+from global_lvba_tpu_torch.factors.plane_eigen import (
+    PlaneFactorArrays, build_banded_groups)
 from global_lvba_tpu_torch.solver import dist_solve, lm
 
 F64 = torch.float64
@@ -124,18 +125,24 @@ def test_bucketed_lm_matches_jax(scene):
 
 
 def test_bucketed_input_raises(w64):
-    """Where the JAX package leaves the dense-Gram loop, the port raises
-    (a tiny synthetic bucket: the check comes before any evaluation)."""
+    """What the port still refuses raises before any evaluation: the JAX
+    package's opt-in gather tables and aligned banded groups name ROADMAP
+    A3b (NotImplementedError, no other route taken), cg_mf on aligned
+    factor arrays raises ValueError as in the JAX package, and anything
+    but factor arrays TypeError (a tiny synthetic bucket)."""
     fa = PlaneFactorArrays(
         n=torch.ones(1, 2, dtype=F64), mu=torch.zeros(1, 2, 3, dtype=F64),
         Pc=torch.zeros(1, 2, 3, 3, dtype=F64),
         frame=torch.tensor([[0, 1]], dtype=torch.int32))
     W = lm.BANDED_MIN_W
     R0 = torch.eye(3, dtype=F64).expand(W, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        lm.lm_damping_iter([fa], R0, torch.zeros(W, 3, dtype=F64))
+    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
+        lm.lm_damping_iter([fa], R0, torch.zeros(W, 3, dtype=F64),
+                           gather_tables=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
+        build_banded_groups(fa, W, aligned=True)
     _, _, fa_al, Rp, pp = w64
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    with pytest.raises(ValueError, match="cg_mf"):
         lm.lm_damping_iter([fa_al], torch.as_tensor(Rp), torch.as_tensor(pp),
                            reduced_solver="cg_mf")
     with pytest.raises(TypeError):
