@@ -173,15 +173,62 @@ Slice 3, the SIFT frontend:
      tensor cores) is timed in turns with torch.bmm of the chunk's
      product; its bound counts the valid products of the timed chunk,
      three TF32 products each at 495 TFLOP/s, the fp32 bound beside it.
+Slice 10, the visual stage (no kernel of its own: the JAX package runs
+it in XLA, the port in plain torch; its LiDAR stage runs the kernels):
+ 14. [visual-m1000] and [visual-m200]: the JAX bench's solver problems
+     (bench.py:574-684, from the same numpy draws: M=1000 cameras, 20k
+     points, 200k observations, 5 iterations; M=200, 2k points, 20k
+     observations, 10 iterations) through solve_visual_ba's plan and loop
+     on the card in float32: the route must be tier, the cost must fall,
+     cost0 within 1e-5 and the final cost within 1e-3 relative of the
+     float64 CPU run after the same iterations; two runs bitwise equal;
+     the loop's synchronizing calls under sync debug mode "warn" equal to
+     its iterations (the set-up's counted apart); one reduced solve step
+     (damped assembly, the 48-trip point-major CG as one graph replay,
+     back-substitution) under "error"; ms per iteration, the evaluation's,
+     the step's and the CG's device ms, peak memory and the idle share
+     under torch.profiler.  M=200 also in float64 on the card, within
+     1e-6 relative of the CPU float64 run, the same iterations;
+ 15. [visual-routes]: the m200 generator at M = 100 (6M < 1024: auto
+     gives lu) through lu, cg (the pair scatter, once in chunks of 50,000
+     pairs), cg_mf (the per-observation matvec), cg_pm (the point-major
+     matvec) and tier, in float64 on the card: each takes its route, and
+     its cost0 and cost lie within 1e-8 relative of the same route's
+     float64 CPU run, with the same iterations;
+ 16. [visual-e2e]: ladder 3 (make_joint_scene(200, 10000, 8,000
+     landmarks, seed 13), odometry perturb_poses(truth, 0.003, 0.008, seed
+     21), scripts/ladder3_e2e.py's LiDAR settings): run_lidar_ba on the
+     card with the launch counts set to 0 just before (every bucketed
+     kernel must run), its ATE below odometry's and within 10% of the
+     float64 CPU run's; the kernels at this path's shapes (the first
+     window's merged bucket at W = 10, global stage 2's buckets at the
+     final anchor poses) against their plain versions as in [cg_mf]
+     (table_select, soa_agg, soa_chain_entries, entry_reduce, the
+     evaluation), and syrk_ on their chain rows (the split bitwise equal,
+     the Gram within 1e-4 of syrk_plain_ and torch.matmul).  Then
+     run_visual_ba on the card from its poses: the post-BA reprojection
+     below the pre-BA one and below 1 px; against the float64 CPU run
+     (fusion in float64) at the same 50 LM iterations, the tracks, tracks
+     with a plane and observations within 1%, the post-BA reprojection
+     within 2%, the final cost within 1e-3 relative.  The stage again in
+     float64 on the card and on the CPU, both at 10 LM iterations (from
+     ~15 on, two cameras seen once each follow the rounding): the card's
+     cost and post px within 1e-6 relative of the CPU's.  The depth maps
+     (host numpy, the same in every run) are rendered by the first run
+     and reused by the other three.  The stage times (depth, fuse,
+     planes, solve), and the solve again alone, warm, on the stage's
+     problem (equal cost; ms per iteration and the checks of phase 14).
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
-2b, cg_mf, 2c, 2c-dense, frontend); the last line is
+2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import json
 import math
 import subprocess
@@ -338,6 +385,37 @@ TOL_POS_PX = 1e-2          # extraction, card vs CPU keypoint positions
 # orientation peak flips between near-equal bins moves it by ~0.1
 TOL_DESC = 1e-3
 EXTRACT_SHARE = 0.99       # both directions, and descriptors
+
+# slice 10, the visual stage.  The JAX bench's solver problems
+# (bench.py:574-684) and their iterations: M=1000 (20k points, 200k
+# observations) and M=200 (2k points, 20k observations)
+VISUAL_BENCH = (("m1000", 5), ("m200", 10))
+TOL_VISUAL_COST0 = 1e-5    # card float32 vs CPU float64, relative
+TOL_VISUAL_COST = 1e-3     # the final cost after the same iterations
+TOL_VISUAL_F64 = 1e-6      # card float64 vs CPU float64
+# [visual-routes]: the m200 generator at M = 100 (6M < 1024: auto gives
+# lu) through every route in float64, card vs CPU; the chunked pair
+# scatter in chunks of 50,000 of its 200,000 pairs
+VISUAL_ROUTE_CAMS = 100
+VISUAL_ROUTE_ITERS = 5
+VISUAL_ROUTE_CHUNK = 50_000
+TOL_VISUAL_ROUTE = 1e-8
+# [visual-e2e]: ladder 3 (scripts/ladder3_e2e.py), 200 frames of 10,000
+# points, 200 images of 8,000 landmarks.  The JAX package's figures on a
+# TPU (BASELINE.md:102): reprojection 0.903 -> 0.302 px, 12.0k tracks,
+# 59.1k observations (parity targets, not time targets)
+E2E_FRAMES = 200
+E2E_PPF = 10_000
+E2E_LANDMARKS = 8000
+JAX_E2E_REPROJ = (0.903, 0.302)
+TOL_E2E_COUNT = 0.01       # tracks and observations, card vs CPU float64
+TOL_E2E_POST = 0.02        # the post-BA reprojection, the same
+# the float64 stage, card vs CPU, runs 10 LM iterations: two cameras of
+# the stage's problem carry one observation each, their poses are free
+# but for the damping, and from iteration ~15 their paths follow the
+# rounding (two float64 CPU runs, 1 and 4 threads, agree to 1e-16 in cost
+# at 10 iterations and differ by 3e-6 at 50, one camera by 0.36 rad)
+E2E_FLOAT64_ITERS = 10
 
 
 def _fail(msg):
@@ -862,6 +940,10 @@ def _cg_check(torch, tag, H, g, u, capture=False):
     return out
 
 
+# the source lines of the synchronizing calls of _count_syncs' last run
+SYNC_SITES = {}
+
+
 def _count_syncs(torch, run):
     """(run()'s result, the synchronizing calls it made): run under sync
     debug mode "warn" with the warnings recorded ("always": repeats from
@@ -876,7 +958,15 @@ def _count_syncs(torch, run):
             res = run()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return res, sum("synchronizing" in str(w.message) for w in caught)
+    # torch's one-time notice on the first call of set_sync_debug_mode
+    # ("Synchronization debug mode is a prototype feature and does not
+    # yet detect all synchronizing operations") is not a synchronizing call
+    sync = [w for w in caught if "synchronizing" in str(w.message)
+            and "debug mode is a prototype" not in str(w.message)]
+    SYNC_SITES.clear()
+    SYNC_SITES.update(collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in sync))
+    return res, len(sync)
 
 
 def _lm_syncs(torch, tag, run, tables=None):
@@ -3196,6 +3286,430 @@ def _frontend(torch, np, dev, kern, results, paths):
     results["frontend"] = info
 
 
+def _visual_problem(kind, num_cams=None):
+    """(VisualBAProblem, VisualBenchProblem) of a JAX bench problem."""
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_visual_bench_problem)
+    from global_lvba_tpu_torch.solver.schur import VisualBAProblem
+
+    bp = make_visual_bench_problem(kind, num_cams)
+    return VisualBAProblem(
+        cam=bp.cam, obs_cam=bp.obs_cam, obs_pt=bp.obs_pt, obs_uv=bp.obs_uv,
+        plane_n=bp.plane_n, plane_d=bp.plane_d, num_cams=bp.R0.shape[0],
+        num_pts=bp.X0.shape[0]), bp
+
+
+def _rel_cost(a, b):
+    return abs(a - b) / abs(b)
+
+
+def _visual_loop(torch, tag, plan, iters, dev):
+    """The visual LM over a plan on the card (its CG graph captured by a
+    warm-up run): ms per iteration (the initial evaluation included), peak
+    memory, two runs bitwise equal, the loop's synchronizing calls (one
+    read an iteration), one reduced solve step (damped assembly, the
+    point-major CG, back-substitution) under sync debug mode "error", the
+    CG's and the step's device ms, the idle share under torch.profiler."""
+    from global_lvba_tpu_torch.solver import dist_solve, schur
+
+    schur.run_visual(plan, iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = schur.run_visual(plan, iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    res2, syncs = _count_syncs(torch, lambda: schur.run_visual(plan, iters))
+    same = (all(torch.equal(a, b) for a, b in zip(res[:3], res2[:3]))
+            and (res.iters, res.cost0, res.cost)
+            == (res2.iters, res2.cost0, res2.cost))
+    cache = plan.lin(plan.R0, plan.t0, plan.X0)
+    u = torch.full((), 1e-3, dtype=plan.R0.dtype, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan.solve(cache, u)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_ms = _timed(torch, lambda: plan.solve(cache, u))[0]
+    lin_ms = _timed(torch, lambda: plan.lin(plan.R0, plan.t0, plan.X0))[0]
+    cg_ms = None
+    if plan.route == "tier":
+        T = plan.consts.tiers
+        dHcc, Hpi = schur._damped_blocks(u, cache.Hcc, cache.Hpp)
+        Y = cache.Wb @ Hpi[T.pt]
+        b = schur._zero_first(-cache.g_c, True)
+        cg_ms = _timed(torch, lambda: dist_solve.solve_schur_cg_pm_tiers(
+            dHcc, cache.Wb, Y, T, b))[0]
+    prof_wall, busy, idle, idle_w, dev_ms = _idle(
+        torch, lambda: schur.run_visual(plan, iters), wall * 1e3)
+    ms_iter = wall / max(res.iters, 1) * 1e3
+    print(f"[{tag}] route {res.route}: cost {res.cost0:.9g} -> "
+          f"{res.cost:.9g} in {res.iters} iterations, {wall * 1e3:.1f} ms "
+          f"({ms_iter:.2f} ms/iter incl. the initial evaluation); peak device "
+          f"memory {peak / 1e9:.3f} GB; two runs bitwise equal: {same}; "
+          f"synchronizing calls in the loop {syncs} (one read an "
+          f"iteration); one evaluation {lin_ms:.3f} ms, one reduced solve "
+          f"step {step_ms:.3f} ms device time (its point-major CG "
+          f"{cg_ms} ms); under torch.profiler {prof_wall:.1f} ms wall, "
+          f"{busy:.1f} ms device busy, idle share {idle:.3f} (that device "
+          f"time over the unprofiled wall: {idle_w:.3f}); device ms by op "
+          f"{_top_ops(dev_ms, 6)}", flush=True)
+    if not (same and syncs == res2.iters):
+        _fail(f"{tag}: two runs differ, or the loop synchronized {syncs} "
+              f"times in {res2.iters} iterations (at {SYNC_SITES})")
+    return res, dict(
+        route=res.route, iters=res.iters, cost0=res.cost0, cost=res.cost,
+        wall_ms=wall * 1e3, ms_per_iter=ms_iter, peak_bytes=peak,
+        bitwise_repeatable=same, loop_syncs=syncs, eval_ms=lin_ms,
+        step_ms=step_ms, cg_ms=cg_ms, profiled_wall_ms=prof_wall,
+        device_busy_ms=busy, idle_share=idle,
+        idle_share_cross_run_estimate=idle_w,
+        device_ms_by_op=_top_ops(dev_ms, 12))
+
+
+def _visual_bench(torch, np, dev, results):
+    """Phase 14, [visual-m1000] and [visual-m200]: the JAX bench's solver
+    problems through solve_visual_ba's plan and loop on the card in
+    float32 (the tier route), against the float64 CPU run; M=200 also in
+    float64 on the card."""
+    from global_lvba_tpu_torch.solver import schur
+
+    out = results["visual_bench"] = {}
+    for kind, iters in VISUAL_BENCH:
+        tag = f"visual-{kind}"
+        prob, bp = _visual_problem(kind)
+        args = (prob, bp.R0, bp.t0, bp.X0)
+        t0 = time.perf_counter()
+        plan, setup_syncs = _count_syncs(torch, lambda: schur.plan_visual(
+            *args, dtype=torch.float32, device=dev))
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[{tag}] M={prob.num_cams}, P={prob.num_pts}, "
+              f"O={prob.obs_cam.shape[0]}: route {plan.route}, set-up "
+              f"{setup_ms:.1f} ms with {setup_syncs} synchronizing calls",
+              flush=True)
+        if plan.route != "tier":
+            _fail(f"{tag}: route {plan.route}, not tier")
+        res, rec = _visual_loop(torch, tag, plan, iters, dev)
+        t0 = time.time()
+        ref = schur.solve_visual_ba(*args, max_iters=iters,
+                                    dtype=torch.float64, device="cpu")
+        cpu_s = time.time() - t0
+        e0, e1 = _rel_cost(res.cost0, ref.cost0), _rel_cost(res.cost,
+                                                            ref.cost)
+        rec.update(setup_ms=setup_ms, setup_syncs=setup_syncs,
+                   cost0_float64_cpu=ref.cost0, cost_float64_cpu=ref.cost,
+                   iters_float64_cpu=ref.iters, cost0_rel=e0, cost_rel=e1,
+                   cpu_s=cpu_s)
+        print(f"[{tag}] float64 CPU: cost {ref.cost0:.12g} -> "
+              f"{ref.cost:.12g} in {ref.iters} iterations ({cpu_s:.1f} s); "
+              f"card float32 cost0 rel diff {e0:.3e} (tol "
+              f"{TOL_VISUAL_COST0}), final {e1:.3e} (tol {TOL_VISUAL_COST})",
+              flush=True)
+        if not (res.cost < res.cost0 and e0 <= TOL_VISUAL_COST0
+                and e1 <= TOL_VISUAL_COST):
+            _fail(f"{tag}: cost {res.cost0} -> {res.cost}, float64 CPU "
+                  f"{ref.cost0} -> {ref.cost}")
+        if kind == "m200":
+            plan64 = schur.plan_visual(*args, dtype=torch.float64,
+                                       device=dev)
+            res64 = schur.run_visual(plan64, iters)
+            f0, f1 = _rel_cost(res64.cost0, ref.cost0), _rel_cost(
+                res64.cost, ref.cost)
+            print(f"[{tag}] float64 on the card: cost {res64.cost0:.12g} -> "
+                  f"{res64.cost:.12g} in {res64.iters} iterations; rel diff "
+                  f"from the CPU's {f0:.3e} / {f1:.3e} (tol {TOL_VISUAL_F64})",
+                  flush=True)
+            rec.update(float64_card=dict(cost0=res64.cost0, cost=res64.cost,
+                                         iters=res64.iters, cost0_rel=f0,
+                                         cost_rel=f1))
+            if not (f0 <= TOL_VISUAL_F64 and f1 <= TOL_VISUAL_F64
+                    and res64.iters == ref.iters):
+                _fail(f"{tag}: float64 on the card departs from the CPU's")
+        out[kind] = rec
+
+
+def _visual_routes(torch, np, dev, results):
+    """Phase 15, [visual-routes]: the m200 generator at M=100 through every
+    single-device route in float64, card against CPU."""
+    import dataclasses
+
+    from global_lvba_tpu_torch.solver import schur
+
+    prob, bp = _visual_problem("m200", VISUAL_ROUTE_CAMS)
+    counts = np.bincount(prob.obs_pt)
+    Q = int((counts.astype(np.int64) ** 2).sum())
+    # (name, problem fields, schur module switches, the route it must take)
+    cases = (
+        ("lu", {}, {}, "lu"),
+        ("cg", dict(reduced_solver="cg"), {}, "cg"),
+        ("cg chunked", dict(reduced_solver="cg",
+                            pair_chunk=VISUAL_ROUTE_CHUNK), {}, "cg"),
+        ("cg_mf", dict(reduced_solver="cg_mf"),
+         dict(VISUAL_TIER=False, PM_ONEHOT_BUDGET=0), "cg_mf"),
+        ("cg_pm", dict(reduced_solver="cg_mf"), dict(VISUAL_TIER=False),
+         "cg_pm"),
+        ("tier", dict(reduced_solver="cg_mf"), {}, "tier"),
+    )
+    out = results["visual_routes"] = dict(M=prob.num_cams, Q=Q)
+    for name, fields, switches, route in cases:
+        p = dataclasses.replace(prob, **fields)
+        saved = {k: getattr(schur, k) for k in switches}
+        for k, v in switches.items():
+            setattr(schur, k, v)
+        try:
+            args = (p, bp.R0, bp.t0, bp.X0)
+            t0 = time.perf_counter()
+            card = schur.solve_visual_ba(*args, max_iters=VISUAL_ROUTE_ITERS,
+                                         dtype=torch.float64, device=dev)
+            card_ms = (time.perf_counter() - t0) * 1e3
+            cpu = schur.solve_visual_ba(*args, max_iters=VISUAL_ROUTE_ITERS,
+                                        dtype=torch.float64, device="cpu")
+        finally:
+            for k, v in saved.items():
+                setattr(schur, k, v)
+        e0, e1 = _rel_cost(card.cost0, cpu.cost0), _rel_cost(card.cost,
+                                                            cpu.cost)
+        print(f"[visual-routes] {name} (M={p.num_cams}, Q={Q}): route "
+              f"{card.route} (CPU {cpu.route}); cost {card.cost0:.12g} -> "
+              f"{card.cost:.12g} in {card.iters} iterations, "
+              f"{card_ms:.1f} ms on the card (set-up and capture included); "
+              f"rel diff from the float64 CPU run {e0:.3e} / {e1:.3e} (tol "
+              f"{TOL_VISUAL_ROUTE})", flush=True)
+        out[name] = dict(route=card.route, cost0=card.cost0, cost=card.cost,
+                         iters=card.iters, cost_float64_cpu=cpu.cost,
+                         cost0_rel=e0, cost_rel=e1, card_ms=card_ms)
+        if not (card.route == cpu.route == route and e0 <= TOL_VISUAL_ROUTE
+                and e1 <= TOL_VISUAL_ROUTE and card.iters == cpu.iters
+                and card.cost < card.cost0):
+            _fail(f"[visual-routes] {name}: route {card.route}, cost "
+                  f"{card.cost} vs the CPU's {cpu.cost}")
+    if not Q > VISUAL_ROUTE_CHUNK:
+        _fail("[visual-routes] the chunked pair scatter has one chunk")
+
+
+def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
+    """[tag]: bucketed factors of the dense route on W frames (one of
+    [visual-e2e]'s LiDAR solves) through _eval_kernels (kernels 1, 2b, 4
+    and 5 against their plain versions at these shapes, the evaluation
+    against the plain one), then syrk_ over each bucket's chain rows
+    under _syrk_check; each max abs error raises its kernels-line
+    max_abs_err."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        PlaneFactorArrays, _cost_grad_hess_buckets, buckets_frame_table,
+        pose_table)
+    from global_lvba_tpu_torch.kernels.selection import table_select_buckets
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg_buckets, soa_chain_entries)
+
+    if not all(isinstance(fa, PlaneFactorArrays) for fa in bs):
+        _fail(f"{tag}: the density gate does not pick the bucketed layout")
+    R = torch.as_tensor(R, dtype=torch.float32, device=bs[0].n.device)
+    p = torch.as_tensor(p, dtype=torch.float32, device=bs[0].n.device)
+    table = buckets_frame_table(bs, W)
+
+    def evaluate(steps, fas):
+        r, g, H = _cost_grad_hess_buckets(steps, fas, R, p, W, table=table)
+        return r, [g, H], []
+
+    _eval_kernels(torch, kern, results, tag, bs, [fa.frame for fa in bs],
+                  [W] * len(bs), table, R, p, W, evaluate)
+    sel = table_select_buckets([fa.frame.reshape(-1) for fa in bs],
+                               pose_table(R, p))
+    poses = [s.view(*fa.n.shape, 12) for s, fa in zip(sel, bs)]
+    aggs = soa_agg_buckets([(fa.n, fa.mu, fa.Pc, ps)
+                            for fa, ps in zip(bs, poses)])
+    As = [soa_chain_entries(fa.n, fa.mu, fa.Pc, ps, fa.frame, pv, W)[0]
+          for fa, ps, (_, pv) in zip(bs, poses, aggs)]
+    err = _syrk_check(torch, tag, As, 6 * W)
+    kern["syrk"]["max_abs_err"] = max(kern["syrk"]["max_abs_err"], err)
+
+
+def _reused_depth_maps(np, visual_ba):
+    """visual_ba.render_depth_maps computed by its first call and handed
+    back to later calls with the same camera poses (host numpy, the same
+    for every device and dtype); a call with other poses fails.  Returns
+    the function to put back."""
+    render = visual_ba.render_depth_maps
+    memo = {}
+
+    def reused(cam, gm, lidar_times, image_times, Rcw, tcw):
+        if not memo:
+            memo.update(Rcw=Rcw, tcw=tcw, maps=render(
+                cam, gm, lidar_times, image_times, Rcw, tcw))
+        elif not (np.array_equal(memo["Rcw"], Rcw)
+                  and np.array_equal(memo["tcw"], tcw)):
+            _fail("[visual-e2e]: a run's camera poses differ from the "
+                  "first run's")
+        return memo["maps"]
+
+    visual_ba.render_depth_maps = reused
+    return render
+
+
+def _visual_e2e(torch, np, dev, kern, results, paths):
+    """Phase 16, [visual-e2e]: ladder 3 through run_lidar_ba (launch counts
+    from 0: every bucketed kernel), held against the float64 CPU run and
+    its kernels against their plain versions at its shapes, then
+    run_visual_ba on the card from its poses in float32, against the
+    float64 CPU run at the same iterations; the visual stage in float64
+    on the card and on the CPU at E2E_FLOAT64_ITERS (track fusion in
+    float64 in the float64 runs)."""
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.models.synthetic import (
+        ate_rmse, make_joint_scene, perturb_poses)
+    from global_lvba_tpu_torch.pipeline import visual_ba
+    from global_lvba_tpu_torch.pipeline.lidar_ba import _build_vm, run_lidar_ba
+    from global_lvba_tpu_torch.solver import schur
+
+    t0 = time.time()
+    js = make_joint_scene(E2E_FRAMES, E2E_PPF, num_landmarks=E2E_LANDMARKS,
+                          seed=13, px_noise=0.3)
+    sc = js.lidar
+    R_odom, p_odom = perturb_poses(sc.R_true, sc.p_true, 0.003, 0.008,
+                                   seed=21)
+    clouds = [sc.points_body[sc.frame_ids == i] for i in range(E2E_FRAMES)]
+    gen_s = time.time() - t0
+    cfg = _window_config("float32")
+    reset_launch_counts()
+    t0 = time.time()
+    lid = run_lidar_ba(clouds, R_odom, p_odom, cfg, device=dev)
+    torch.cuda.synchronize()
+    lidar_s = time.time() - t0
+    counts = paths["visual-e2e"] = launch_counts()
+    ate0, ate = ate_rmse(p_odom, sc.p_true), ate_rmse(lid.p_opt, sc.p_true)
+    print(f"[visual-e2e] scene {sc.points_body.shape[0]} points, "
+          f"{len(js.image_times)} images ({gen_s:.1f} s to make); "
+          f"run_lidar_ba {lidar_s:.2f} s, ATE {ate0:.5f} -> {ate:.5f} m; "
+          f"launches {counts}", flush=True)
+    _stage_lines("visual-e2e", lid.stats)
+    if not all(counts[k] > 0 for k in BUCKETED_PATH_KERNELS):
+        _fail(f"[visual-e2e]: a bucketed kernel was never launched: {counts}")
+    t0 = time.time()
+    lid64 = run_lidar_ba(clouds, R_odom, p_odom, _window_config("float64"),
+                         device="cpu")
+    ate_ref = ate_rmse(lid64.p_opt, sc.p_true)
+    lidar64_s = time.time() - t0
+    print(f"[visual-e2e] run_lidar_ba float64 on the CPU ({lidar64_s:.1f} "
+          f"s): ATE {ate_ref:.5f} m; the card's within 10%: "
+          f"{abs(ate - ate_ref) <= 0.1 * ate_ref}", flush=True)
+    if not (np.isfinite(lid.p_opt).all() and ate < ate0
+            and abs(ate - ate_ref) <= 0.1 * ate_ref):
+        _fail(f"[visual-e2e]: ATE {ate0} -> {ate} (float64 CPU {ate_ref})")
+    # the kernels at the shapes of this path's solves: the first window
+    # at odometry (its tiers merged into one bucket, as the window stage
+    # builds them) and global stage 2 at the final anchor poses
+    Ww = cfg.window_ba.size
+    vm = _build_vm(np.concatenate(clouds[:Ww]), np.concatenate(
+        [np.full(len(c), j, np.int32) for j, c in enumerate(clouds[:Ww])]),
+        R_odom[:Ww], p_odom[:Ww], cfg.BALM_stage1.root_voxel_size,
+        cfg.window_ba.eigen_ratio_array, cfg)
+    _e2e_kernels(torch, kern, results, "visual-e2e-window-kernels",
+                 buckets_to_device(vm, W=Ww, device=dev, merge="always"),
+                 R_odom[:Ww], p_odom[:Ww], Ww)
+    A = lid.anchor_R.shape[0]
+    st = cfg.BALM_stage2
+    vm = _build_vm(np.concatenate(lid.anchor_clouds), np.concatenate(
+        [np.full(len(c), j, np.int32)
+         for j, c in enumerate(lid.anchor_clouds)]),
+        lid.anchor_R, lid.anchor_p, st.root_voxel_size,
+        st.eigen_ratio_array, cfg)
+    _e2e_kernels(torch, kern, results, "visual-e2e-global-kernels",
+                 buckets_to_device(vm, W=A, device=dev), lid.anchor_R,
+                 lid.anchor_p, A)
+    del vm
+    kw = dict(cam=js.cam, clouds=clouds, lidar_times=sc.times,
+              R_opt=lid.R_opt, p_opt=lid.p_opt, R_orig=R_odom, p_orig=p_odom,
+              image_times=js.image_times, cam_R=R_odom[js.image_frame],
+              cam_p=p_odom[js.image_frame], Rci=js.Rci, tci=js.tci,
+              keypoints=js.keypoints, matches=js.matches)
+    cfg64 = _window_config("float64")
+    cfg64_n = _window_config("float64")
+    cfg64_n.solver.visual_max_iters = E2E_FLOAT64_ITERS
+    fuse32 = visual_ba.fuse_tracks
+    render = _reused_depth_maps(np, visual_ba)
+    runs = {}
+    try:
+        for name, c, d in (("card", cfg, dev), ("cpu-float64", cfg64, "cpu"),
+                           ("card-float64", cfg64_n, dev),
+                           ("cpu-float64-short", cfg64_n, "cpu")):
+            # the float64 runs fuse their tracks in float64 too
+            visual_ba.fuse_tracks = fuse32 if c is cfg else functools.partial(
+                fuse32, dtype=torch.float64)
+            t0 = time.time()
+            v = runs[name] = visual_ba.run_visual_ba(cfg=c, device=d, **kw)
+            s = v.stats
+            print(f"[visual-e2e] run_visual_ba {name} ({time.time() - t0:.2f} "
+                  f"s): reprojection {v.mean_reproj_pre:.4f} -> "
+                  f"{v.mean_reproj_post:.4f} px (the JAX package's "
+                  f"{JAX_E2E_REPROJ}); {s['tracks_fused']} tracks fused, "
+                  f"{s['tracks_with_plane']} with a plane, "
+                  f"{s['observations']} observations; cost "
+                  f"{s['cost0']:.9g} -> {s['cost']:.9g} in "
+                  f"{s['solve_iters']} iterations on route "
+                  f"{s['solve_route']}; stages depth {s['depth_s']:.3f} s"
+                  f"{'' if name == 'card' else ' (the first run maps reused)'}"
+                  f", fuse {s['fuse_s']:.3f} s, planes {s['planes_s']:.3f} s, "
+                  f"solve {s['solve_s']:.3f} s (set-up included)", flush=True)
+    finally:
+        visual_ba.fuse_tracks = fuse32
+        visual_ba.render_depth_maps = render
+    v, ref = runs["card"], runs["cpu-float64"]
+    v64, ref_n = runs["card-float64"], runs["cpu-float64-short"]
+    # the solve alone, warm, on the card run's problem: its plane priors
+    # looked up again
+    lookup = visual_ba.build_anchor_plane_lookup(clouds, lid.R_opt,
+                                                 lid.p_opt, cfg)
+    idx = lookup.query(v.points_pre)
+    obs_cam, obs_pt, obs_uv = v.track_obs
+    prob = schur.VisualBAProblem(
+        cam=js.cam, obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=obs_uv,
+        plane_n=lookup.normals[idx],
+        plane_d=-np.einsum("pi,pi->p", lookup.normals[idx],
+                           lookup.centers[idx]),
+        num_cams=len(js.image_times), num_pts=v.points_pre.shape[0])
+    plan = schur.plan_visual(prob, v.Rcw_pre, v.tcw_pre, v.points_pre,
+                             dtype=torch.float32, device=dev)
+    sol, rec = _visual_loop(torch, "visual-e2e solve", plan,
+                            cfg.solver.visual_max_iters, dev)
+    e_counts = {k: abs(v.stats[k] - ref.stats[k]) / ref.stats[k]
+                for k in ("tracks_fused", "tracks_with_plane",
+                          "observations")}
+    e_post = abs(v.mean_reproj_post - ref.mean_reproj_post) \
+        / ref.mean_reproj_post
+    e_cost = _rel_cost(v.stats["cost"], ref.stats["cost"])
+    f_cost = _rel_cost(v64.stats["cost"], ref_n.stats["cost"])
+    f_post = abs(v64.mean_reproj_post - ref_n.mean_reproj_post) \
+        / ref_n.mean_reproj_post
+    print(f"[visual-e2e] card float32 vs CPU float64 ("
+          f"{cfg.solver.visual_max_iters} iterations each): counts rel diff "
+          f"{e_counts} (tol {TOL_E2E_COUNT}), post-BA reprojection "
+          f"{e_post:.3e} (tol {TOL_E2E_POST}), final cost {e_cost:.3e} (tol "
+          f"{TOL_VISUAL_COST}); card float64 vs CPU float64 "
+          f"({E2E_FLOAT64_ITERS} iterations each): cost {f_cost:.3e}, post "
+          f"px {f_post:.3e} (tol {TOL_VISUAL_F64}); the warm solve "
+          f"{sol.cost:.9g} (the stage's {v.stats['cost']:.9g})", flush=True)
+    results["visual_e2e"] = dict(
+        gen_s=gen_s, lidar_s=lidar_s, ate=[ate0, ate],
+        ate_float64_cpu=ate_ref, lidar_float64_cpu_s=lidar64_s,
+        launches=counts, lidar_stages=lid.stats["global"],
+        runs={k: dict(reproj=[r.mean_reproj_pre, r.mean_reproj_post],
+                      stats=r.stats) for k, r in runs.items()},
+        solve=rec, counts_rel=e_counts, post_rel=e_post, cost_rel=e_cost,
+        float64_cost_rel=f_cost, float64_post_rel=f_post)
+    if not (v.mean_reproj_post < v.mean_reproj_pre
+            and v.mean_reproj_post < 1.0
+            and all(e <= TOL_E2E_COUNT for e in e_counts.values())
+            and e_post <= TOL_E2E_POST and e_cost <= TOL_VISUAL_COST
+            and f_cost <= TOL_VISUAL_F64 and f_post <= TOL_VISUAL_F64
+            and v64.stats["solve_iters"] == ref_n.stats["solve_iters"]
+            and sol.cost == v.stats["cost"]):
+        _fail("[visual-e2e]: the visual stage misses its limits")
+
+
 def main() -> int:
     import torch
 
@@ -3597,6 +4111,17 @@ def main() -> int:
     _large_w(torch, np, dev, kern, results, paths)
     # ---- 10. slice 3: the SIFT frontend ----
     _frontend(torch, np, dev, kern, results, paths)
+    # ---- 14-16. slice 10: the visual stage ----
+    for phase, run in (
+            ("14", lambda: _visual_bench(torch, np, dev, results)),
+            ("15", lambda: _visual_routes(torch, np, dev, results)),
+            ("16", lambda: _visual_e2e(torch, np, dev, kern, results,
+                                       paths))):
+        t0 = time.time()
+        run()
+        results[f"phase_{phase}_s"] = time.time() - t0
+        print(f"[phase {phase}] {results[f'phase_{phase}_s']:.1f} s",
+              flush=True)
     launches = {k: sum(c.get(k, 0) for c in paths.values()) for k in kern}
     if not all(launches.values()):
         _fail(f"a kernel was never launched on a path: {paths}")

@@ -2,8 +2,10 @@
 
 The LiDAR bundle adjustment (BALM plane-eigenvalue factors solved by
 Nielsen-damped LM) on one NVIDIA H100, on both factor layouts (frame-
-aligned and bucketed), and the SIFT frontend (extraction, all-pairs
-matching, track components), with hand-written CUDA kernels (csrc/,
+aligned and bucketed), the SIFT frontend (extraction, all-pairs
+matching, track components) and the visual stage (depth maps, track
+fusion, the joint reprojection + plane-prior Schur LM; plain torch, as
+the JAX package runs it in XLA), with hand-written CUDA kernels (csrc/,
 built at first use by kernels/build.py): the per-voxel aggregation +
 eigensolve, the linearization chain (aligned and per-entry), the Gram
 SYRK, the pose-table selection, the frame segment-sum and the matcher's
@@ -14,16 +16,21 @@ it and nothing of JAX.
 Layer map (the JAX package's names, so each counterpart is easy to find):
   geometry/  SO(3) exp/log, the pose box-plus of the LM, the camera model
   map/       host numpy voxelization into per-(voxel, frame) moments
-  models/    synthetic plane and corridor scenes, textured renders, pose
-             perturbation, ATE
+  models/    synthetic plane, corridor and joint LiDAR-visual scenes,
+             textured renders, pose perturbation, ATE, the JAX bench's
+             visual solver problems
   frontend/  SIFT extraction and descriptor matching
   ops/       closed-form 3x3 eigensolve (plain torch)
-  factors/   aligned and bucketed factor arrays, plane-eigen cost/grad/Hessian
+  factors/   aligned and bucketed factor arrays, plane-eigen cost/grad/Hessian;
+             reprojection and point-to-plane residuals
   kernels/   CUDA kernel wrappers, their plain versions, the builder
-  solver/    damped LM, LU and block-Jacobi PCG reduced solves
+  solver/    damped LM, LU and block-Jacobi PCG reduced solves; the
+             visual Schur LM and its reduced-camera CG solves
   pipeline/  window -> anchors -> two-stage global LiDAR BA; the SIFT
-             frontend stage (load, extract, match all pairs)
-  tracks/    match-graph components -> padded track arrays
+             frontend stage (load, extract, match all pairs); depth maps
+             and the visual BA stage
+  tracks/    match-graph components -> padded track arrays; track fusion
+  eval/      mean reprojection error, ATE
   utils/     logging, progress bar
 
 Device policy: entry points take `device=` and default to "cuda"; the CPU

@@ -1,6 +1,7 @@
 """Synthetic scenes for tests and benchmarks (the port's own copy of
-the plane-scene, corridor and textured-render parts of
-global_lvba_tpu.models.synthetic, numpy only).
+the plane-scene, corridor, joint LiDAR-visual and textured-render parts of
+global_lvba_tpu.models.synthetic, numpy, with the port's camera model, and
+the JAX bench's visual solver problems).
 
 The reference repo ships no tests and no benchmark data (SURVEY.md §4/§6);
 ground-truth validation therefore runs on generated scenes: a room of
@@ -11,7 +12,7 @@ planes observed from a smooth trajectory, with known poses, so BA accuracy
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 
@@ -212,6 +213,29 @@ def perturb_poses(
     return R_out, p_out
 
 
+def perturb_poses_drift(
+    R: np.ndarray, p: np.ndarray, rot_rate: float, trans_rate: float,
+    seed: int = 1,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Odometry-style accumulated drift: each step's relative pose gets a
+    small random error that integrates along the trajectory (frame-i error
+    grows ~ sqrt(i)), the error model of LIVO odometry input, where global
+    BA must remove low-frequency drift rather than i.i.d. jitter
+    (perturb_poses)."""
+    rng = np.random.default_rng(seed)
+    W = R.shape[0]
+    R_out = np.array(R, copy=True)
+    p_out = np.array(p, copy=True)
+    for i in range(1, W):
+        R_rel = R[i - 1].T @ R[i]
+        p_rel = R[i - 1].T @ (p[i] - p[i - 1])
+        R_rel = R_rel @ _small_rotation(rng, rot_rate)
+        p_rel = p_rel + rng.normal(scale=trans_rate, size=3)
+        R_out[i] = R_out[i - 1] @ R_rel
+        p_out[i] = p_out[i - 1] + R_out[i - 1] @ p_rel
+    return R_out, p_out
+
+
 def ate_rmse(p_est: np.ndarray, p_ref: np.ndarray, align: bool = True) -> float:
     """Absolute trajectory error RMSE after optional SE(3) (Umeyama) alignment."""
     a = np.asarray(p_est, dtype=np.float64)
@@ -227,6 +251,214 @@ def ate_rmse(p_est: np.ndarray, p_ref: np.ndarray, align: bool = True) -> float:
         a = (Rali @ A.T).T + cb
         b = B + cb
     return float(np.sqrt(np.mean(np.sum((a - b) ** 2, axis=1))))
+
+
+# ---------------------------------------------------------------------------
+# Joint LiDAR-visual scene
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class JointScene:
+    lidar: PlaneScene
+    cam: "object"                 # geometry.camera.CameraModel
+    image_times: np.ndarray       # (M,)
+    image_frame: np.ndarray       # (M,) lidar frame index per image
+    keypoints: list               # per image (K_i, 2) float32 pixel coords
+    matches: dict                 # {(i, j): (m, 2) int32}
+    kp_landmark: list             # per image (K_i,) landmark id (ground truth)
+    landmarks: np.ndarray         # (L, 3) world feature points
+    Rci: np.ndarray               # camera <- body rotation
+    tci: np.ndarray
+
+
+def make_joint_scene(
+    num_frames: int = 30,
+    points_per_frame: int = 12000,
+    num_landmarks: int = 1500,
+    image_stride: int = 1,
+    px_noise: float = 0.3,
+    cam=None,
+    seed: int = 0,
+    pair_window: int = 10,
+    lidar_noise: float = 0.004,
+) -> JointScene:
+    """LiDAR plane scene plus camera observations of plane-borne landmarks.
+
+    Cameras sit on the body with a forward-looking extrinsic (z_cam =
+    x_body); landmarks are sampled on the scene planes, projected into
+    every image, perturbed by px_noise, and matched between image pairs
+    within `pair_window`: the reference's input (COLMAP-verified matches
+    and per-frame LiDAR clouds)."""
+    import torch
+
+    from ..geometry.camera import CameraModel, project_cam_to_pixel
+
+    rng = np.random.default_rng(seed + 100)
+    scene = make_plane_scene(
+        num_frames=num_frames, points_per_frame=points_per_frame,
+        noise=lidar_noise, seed=seed,
+    )
+    if cam is None:
+        # wide FOV (~±47°) so wall-borne landmarks stay visible across frames
+        cam = CameraModel(
+            fx=110.0, fy=110.0, cx=120.0, cy=96.0,
+            k1=-0.05, k2=0.08, p1=-0.001, p2=0.0005, width=240, height=192,
+        )
+    Rci = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    tci = np.array([0.02, 0.01, -0.01])
+
+    e = 4.0
+    L = num_landmarks
+    lms = []
+    P = scene.planes_n.shape[0]
+    for i in range(L):
+        k = i % P
+        n, d = scene.planes_n[k], scene.planes_d[k]
+        a = np.array([1.0, 0, 0]) if abs(n[0]) < 0.9 else np.array([0, 1.0, 0])
+        t1 = np.cross(n, a); t1 /= np.linalg.norm(t1)
+        t2 = np.cross(n, t1)
+        uv = rng.uniform(-e, e, 2)
+        lms.append(-d * n + uv[0] * t1 + uv[1] * t2)
+    landmarks = np.stack(lms)
+
+    image_frame = np.arange(0, num_frames, image_stride)
+    image_times = scene.times[image_frame]
+    keypoints = []
+    kp_landmark = []
+    for fi in image_frame:
+        Rcw = Rci @ scene.R_true[fi].T
+        tcw = -Rcw @ scene.p_true[fi] + tci
+        Xc = (Rcw @ landmarks.T).T + tcw
+        uv, Z, valid = project_cam_to_pixel(cam, torch.as_tensor(Xc))
+        uv = uv.numpy()
+        valid = valid.numpy() & (Z.numpy() > 0.5) & (Z.numpy() < 40.0)
+        inb = (
+            (uv[:, 0] >= 2) & (uv[:, 0] < cam.width - 2)
+            & (uv[:, 1] >= 2) & (uv[:, 1] < cam.height - 2)
+        )
+        vis = np.flatnonzero(valid & inb)
+        perm = rng.permutation(vis.shape[0])
+        vis = vis[perm]
+        kps = uv[vis] + rng.normal(scale=px_noise, size=(vis.shape[0], 2))
+        keypoints.append(kps.astype(np.float32))
+        kp_landmark.append(vis.astype(np.int64))
+
+    matches = {}
+    M = len(image_frame)
+    for i in range(M):
+        for j in range(i + 1, min(i + 1 + pair_window, M)):
+            li = kp_landmark[i]
+            lj = kp_landmark[j]
+            common, ia, ja = np.intersect1d(li, lj, return_indices=True)
+            if common.shape[0]:
+                matches[(i, j)] = np.stack([ia, ja], axis=-1).astype(np.int32)
+
+    return JointScene(
+        lidar=scene,
+        cam=cam,
+        image_times=image_times,
+        image_frame=image_frame,
+        keypoints=keypoints,
+        matches=matches,
+        kp_landmark=kp_landmark,
+        landmarks=landmarks,
+        Rci=Rci,
+        tci=tci,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The JAX bench's visual solver problems (bench.py:574-684)
+# ---------------------------------------------------------------------------
+
+
+class VisualBenchProblem(NamedTuple):
+    cam: "object"            # geometry.camera.CameraModel
+    obs_cam: np.ndarray      # (O,) int32
+    obs_pt: np.ndarray       # (O,) int32
+    obs_uv: np.ndarray       # (O, 2) noisy pixels
+    plane_n: np.ndarray      # (P, 3)
+    plane_d: np.ndarray      # (P,)
+    R_true: np.ndarray       # (M, 3, 3) world->camera
+    t_true: np.ndarray       # (M, 3)
+    R0: np.ndarray           # perturbed start (camera 0 exact)
+    t0: np.ndarray
+    X0: np.ndarray           # (P, 3) the true points
+
+
+def _exp_so3_np(w: np.ndarray) -> np.ndarray:
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    K = K / th
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def _project_np(cam, Rcw, tcw, X):
+    """numpy Brown-Conrady projection of X (O, 3) through (O,) poses."""
+    Xc = np.einsum("oij,oj->oi", Rcw, X) + tcw
+    Z = Xc[:, 2]
+    ok = Z > 1e-8
+    z = np.where(ok, Z, 1.0)
+    x = Xc[:, 0] / z
+    y = Xc[:, 1] / z
+    r2 = x * x + y * y
+    radial = 1.0 + cam.k1 * r2 + cam.k2 * r2 * r2
+    xd = x * radial + 2 * cam.p1 * x * y + cam.p2 * (r2 + 2 * x * x)
+    yd = y * radial + cam.p1 * (r2 + 2 * y * y) + 2 * cam.p2 * x * y
+    return np.stack([cam.fx * xd + cam.cx, cam.fy * yd + cam.cy], axis=-1), ok
+
+
+def make_visual_bench_problem(kind: str, num_cams: int = None,
+                              seed: int = 0) -> VisualBenchProblem:
+    """The JAX bench's visual solver problems, from the same numpy draws:
+    "m1000" (bench_visual_m1000: M=1000 cameras, 20k points, 10
+    observations a point, 200k in all) and "m200" (bench_visual_m200:
+    M=200, 2k points, 20k observations).  Cameras step along x and look
+    down z at points 8-12 m away, each point observed by 10 consecutive
+    cameras at 0.3 px noise with a z = const plane prior; the start
+    perturbs every camera but the first by 0.002 rad and 0.01 m.
+    num_cams overrides M (the generator otherwise unchanged)."""
+    from ..geometry.camera import CameraModel
+
+    rng = np.random.default_rng(seed)
+    M, P, spacing = {"m1000": (1000, 20000, 0.02),
+                     "m200": (200, 2000, 0.05)}[kind]
+    M = num_cams or M
+    k = 10
+    cam = CameraModel(fx=400.0, fy=400.0, cx=320.0, cy=240.0,
+                      k1=-0.05, k2=0.08, p1=-0.001, p2=0.0005,
+                      width=640, height=480)
+    Rcw = np.zeros((M, 3, 3))
+    tcw = np.zeros((M, 3))
+    for m in range(M):
+        Rcw[m] = _exp_so3_np(rng.normal(scale=0.05, size=3))
+        tcw[m] = [spacing * m, 0.0, 4.0]
+    X = rng.uniform(-3, 3, size=(P, 3))
+    if kind == "m1000":
+        X[:, 0] += rng.uniform(0, 0.02 * M, size=P)
+        X[:, 2] = rng.uniform(8, 12, size=P)
+        base = rng.integers(0, M - k + 1, size=P)
+        obs_pt = np.repeat(np.arange(P, dtype=np.int32), k)
+        obs_cam = (base[:, None] + np.arange(k)[None, :]).reshape(-1)
+    else:
+        X[:, 2] = rng.uniform(8, 12, size=P)
+        base = np.array([rng.integers(0, M - k + 1) for _ in range(P)])
+        obs_pt = np.repeat(np.arange(P, dtype=np.int32), k)
+        obs_cam = (base[:, None] + np.arange(k)[None, :]).reshape(-1)
+    obs_cam = obs_cam.astype(np.int32)
+    uv, _ = _project_np(cam, Rcw[obs_cam], tcw[obs_cam], X[obs_pt])
+    obs_uv = uv + rng.normal(scale=0.3, size=uv.shape)
+    pn = np.tile(np.array([[0.0, 0.0, 1.0]]), (P, 1))
+    pd = -X[:, 2].copy()
+    Rp = Rcw.copy()
+    tp = tcw.copy()
+    for m in range(1, M):
+        Rp[m] = Rcw[m] @ _exp_so3_np(rng.normal(scale=0.002, size=3))
+        tp[m] = tcw[m] + rng.normal(scale=0.01, size=3)
+    return VisualBenchProblem(cam, obs_cam, obs_pt.astype(np.int32), obs_uv,
+                              pn, pd, Rcw, tcw, Rp, tp, X)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Block-Jacobi preconditioned CG for the damped reduced system (port of
 global_lvba_tpu.solver.dist_solve, single device: the closed-form block
-inverses, the shared PCG loop, and its three operators: the assembled H
-(solve_damped_cg), the banded groups' Grams (solve_damped_cg_banded) and
-the compact factor rows (solve_damped_cg_rows)), with the segment tables
-and the fixed-order sums through them that the matvecs and the factor
-evaluation's frame sums share.
+inverses, the shared PCG loop, and its operators: the assembled H
+(solve_damped_cg), the banded groups' Grams (solve_damped_cg_banded), the
+compact factor rows (solve_damped_cg_rows) and the visual BA's reduced
+camera system (solve_schur_cg_mf, _pm and _pm_tiers)), with the segment
+tables and the fixed-order sums through them that the matvecs and the
+factor evaluation's frame sums share.
 
 The loop has the reference's form: exactly `max_iters` trips, the state
 frozen by torch.where once ||r||/||b|| < tol, and no read to the host.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -460,3 +462,198 @@ def solve_damped_cg(
         return cg_graph(H.shape[0], H.dtype, H.device, bsize, max_iters,
                         tol)(H, g, u)
     return _damped_cg(H, g, u, bsize, max_iters, tol)
+
+
+# ---------------------------------------------------------------------------
+# The reduced-camera Schur solves of the visual BA (the JAX package's
+# solve_schur_cg_mf / _pm / _pm_tiers).  The JAX package expands and reduces
+# by camera through one-hot selection matmuls with a 3-way bf16 split (a TPU
+# artefact); here expansion is a row gather and reduction a fixed-order sum
+# through a camera table built on the host once per solve.
+# ---------------------------------------------------------------------------
+
+# CG trips of the point-major solves (the JAX package's LVBA_PM_CG_ITERS
+# default, dist_solve.py:295, :364); the per-observation solve's 256 is its
+# signature default (:215)
+PM_CG_ITERS = 48
+
+
+def index_table_np(ids: np.ndarray, num: int) -> np.ndarray:
+    """(num, K) int64 table whose row j lists, in order, the flat positions
+    of `ids` equal to j; ids outside [0, num) are left out (pad slots), and
+    rows pad with ids.size (the zero row _segsum appends)."""
+    ids = np.asarray(ids).reshape(-1)
+    return _frame_table_np(ids, np.ones(ids.shape, np.int8),
+                           num).astype(np.int64)
+
+
+class PMTiers(NamedTuple):
+    """The point-major tier layout of a problem's observations, flat by
+    slot: tier i holds points whose track fits K_i, padded to (Pv_i, K_i),
+    at slots [Σ_{j<i} Pv_j K_j, ...).  A pad slot has camera M (the zero
+    row of a gather) and observation O."""
+
+    dims: tuple              # ((Pv, K), ...) host ints
+    idx: torch.Tensor        # (S,) flat observation of each slot, pad -> O
+    cam: torch.Tensor        # (S,) camera of each slot, pad -> M
+    pt: torch.Tensor         # (S,) tier-point row of each slot, in [0, Pt)
+    cam_table: torch.Tensor  # (M, Kc) slots of each camera, pad -> S
+
+
+def pm_tiers(tables, num_cams: int, device) -> PMTiers:
+    """PMTiers on `device` (one copy) from the host tier tables [(pt (Pv,),
+    idx (Pv, K), cam (Pv, K), mask), ...] (schur._tier_tables)."""
+    dims = tuple((int(i.shape[0]), int(i.shape[1])) for _, i, _, _ in tables)
+    idx = np.concatenate([i.reshape(-1) for _, i, _, _ in tables])
+    cam = np.concatenate([c.reshape(-1) for _, _, c, _ in tables])
+    pt, o = [], 0
+    for Pv, K in dims:
+        pt.append(np.repeat(np.arange(o, o + Pv), K))
+        o += Pv
+    arrays = [a.astype(np.int64) for a in (idx, cam, np.concatenate(pt))]
+    arrays.append(index_table_np(cam, num_cams))
+    return PMTiers(dims, *to_device(arrays, device))
+
+
+def _tier_sum(z: torch.Tensor, dims) -> torch.Tensor:
+    """Per tier point sums over the K axis of slot values z (S, C) ->
+    (Pt, C), in tier point order."""
+    out, o = [], 0
+    for Pv, K in dims:
+        out.append(z[o:o + Pv * K].view(Pv, K, -1).sum(dim=1))
+        o += Pv * K
+    return torch.cat(out)
+
+
+def _expand(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of x (M, C) at ids, where id M gives a zero row."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])[ids]
+
+
+def _schur_cg(dHcc, cross, b, reduce_obs, fix_first: bool, max_iters: int,
+              tol: float) -> torch.Tensor:
+    """PCG on S dc = b, S = blockdiag(dHcc) − (camera-pair couplings),
+    applied as S x = dHcc x − reduce_obs(x); the preconditioner inverts the
+    6x6 diagonal blocks dHcc − cross.  With fix_first, camera 0 is held:
+    its row of S x returns x_0 and its block is the identity.  Products
+    batched over cameras or observations are broadcast multiplies and
+    sums: a batched matmul of these shapes runs as many tiny cuBLAS
+    products, several times slower."""
+    M = dHcc.shape[0]
+    eye = torch.eye(6, dtype=dHcc.dtype, device=dHcc.device)
+    first = (torch.arange(M, device=dHcc.device) == 0)[:, None]
+    Dblk = dHcc - cross
+    if fix_first:
+        Dblk = torch.where(first[..., None], eye, Dblk)
+    Minv = inv_blocks_6x6(Dblk + 1e-30 * eye)
+
+    def matvec(xf):
+        x = xf.view(M, 6)
+        xm = x.masked_fill(first, 0.0) if fix_first else x
+        y = (dHcc * xm[:, None, :]).sum(-1) - reduce_obs(xm)
+        if fix_first:
+            y = torch.where(first, x, y)
+        return y.reshape(-1)
+
+    def precond(r):
+        return (Minv * r.view(M, 1, 6)).sum(-1).reshape(-1)
+
+    return _pcg(matvec, precond, b.reshape(-1), max_iters, tol).view(M, 6)
+
+
+def _cross_blocks(W, Y, table):
+    """Per-camera Σ Y Wᵀ (M, 6, 6) over the observations in `table`."""
+    yw = (Y[:, :, None, :] * W[:, None, :, :]).sum(-1).reshape(-1, 36)
+    return _segsum(yw, table).view(-1, 6, 6)
+
+
+def _schur_mf(dHcc, W, Y, b, cam, pt, cam_tbl, pt_tbl, fix_first, max_iters,
+              tol):
+    def reduce_obs(xm):
+        wx = (W * xm[cam][:, :, None]).sum(1)                     # (O, 3)
+        tp = _segsum(wx, pt_tbl)                                  # (P, 3)
+        yo = (Y * tp[pt][:, None, :]).sum(-1)                     # (O, 6)
+        return _segsum(yo, cam_tbl)
+
+    return _schur_cg(dHcc, _cross_blocks(W, Y, cam_tbl), b, reduce_obs,
+                     fix_first, max_iters, tol)
+
+
+def solve_schur_cg_mf(dHcc: torch.Tensor, W: torch.Tensor, Y: torch.Tensor,
+                      obs_cam: torch.Tensor, obs_pt: torch.Tensor,
+                      b: torch.Tensor, num_pts: int, fix_first: bool = True,
+                      max_iters: int = 256, tol: float = 1e-10,
+                      tables=None) -> torch.Tensor:
+    """Matrix-free reduced-camera solve (the Ceres ITERATIVE_SCHUR
+    analogue): S dc = b with S = blockdiag(dHcc) − Σ_pairs Y_a W_bᵀ applied
+    per observation, S x = dHcc x − Y · segsum_pt(Wᵀ x), so the
+    O(Σ track_len²) pair list is never built.  dHcc (M, 6, 6) damped camera
+    blocks; W, Y (O, 6, 3) coupling blocks and Y = W Hpp⁻¹; b (M, 6) with
+    row 0 zeroed when fix_first.  The sums by point and by camera run
+    through the (P, Kp) and (M, Kc) tables `tables` (index_table_np of
+    obs_pt and obs_cam on the device; built here, reading the ids to the
+    host, when not given).  `max_iters` done-masked trips; on CUDA tensors
+    one replay of a captured graph.  Returns dc (M, 6)."""
+    M = dHcc.shape[0]
+    if tables is None:
+        tables = to_device([index_table_np(obs_cam.cpu().numpy(), M),
+                            index_table_np(obs_pt.cpu().numpy(), num_pts)],
+                           dHcc.device)
+    cam_tbl, pt_tbl = tables
+
+    def fn(trips, dHcc, W, Y, b, cam, pt, cam_tbl, pt_tbl):
+        return _schur_mf(dHcc, W, Y, b, cam, pt, cam_tbl, pt_tbl, fix_first,
+                         trips, tol)
+
+    ops = [dHcc, W, Y, b, obs_cam.long(), obs_pt.long(), cam_tbl, pt_tbl]
+    return _solve(("schur_mf", fix_first, tol), fn, ops, max_iters)
+
+
+def _schur_pm(dHcc, Wt, Yt, b, cam, pt, cam_tbl, dims, fix_first, max_iters,
+              tol):
+    def reduce_obs(xm):
+        wx = (Wt * _expand(xm, cam)[:, :, None]).sum(1)          # (S, 3)
+        tp = _tier_sum(wx, dims)                                 # (Pt, 3)
+        yo = (Yt * tp[pt][:, None, :]).sum(-1)                   # (S, 6)
+        return _segsum(yo, cam_tbl)
+
+    return _schur_cg(dHcc, _cross_blocks(Wt, Yt, cam_tbl), b, reduce_obs,
+                     fix_first, max_iters, tol)
+
+
+def solve_schur_cg_pm_tiers(dHcc: torch.Tensor, Wt: torch.Tensor,
+                            Yt: torch.Tensor, tiers: PMTiers,
+                            b: torch.Tensor, fix_first: bool = True,
+                            max_iters: int = None,
+                            tol: float = 1e-10) -> torch.Tensor:
+    """Point-major CG core on slot-resident coupling blocks Wt, Yt (S, 6, 3)
+    in the `tiers` layout (pad slots zero): the point-side sum of a matvec
+    is a K-axis sum within each tier, the camera side a gather by slot and
+    a fixed-order sum through tiers.cam_table.  The system and the
+    preconditioner are those of solve_schur_cg_mf.  `max_iters` (default
+    PM_CG_ITERS) done-masked trips; on CUDA tensors one replay of a
+    captured graph.  Returns dc (M, 6)."""
+    max_iters = PM_CG_ITERS if max_iters is None else max_iters
+    dims = tiers.dims
+
+    def fn(trips, dHcc, Wt, Yt, b, cam, pt, cam_tbl):
+        return _schur_pm(dHcc, Wt, Yt, b, cam, pt, cam_tbl, dims, fix_first,
+                         trips, tol)
+
+    ops = [dHcc, Wt, Yt, b, tiers.cam, tiers.pt, tiers.cam_table]
+    return _solve(("schur_pm", dims, fix_first, tol), fn, ops, max_iters)
+
+
+def solve_schur_cg_pm(dHcc: torch.Tensor, W: torch.Tensor, Y: torch.Tensor,
+                      tiers: PMTiers, b: torch.Tensor, fix_first: bool = True,
+                      max_iters: int = None,
+                      tol: float = 1e-10) -> torch.Tensor:
+    """Point-major matrix-free reduced-camera solve: W, Y (O, 6, 3) in flat
+    observation order are gathered into the tier slots once (pad slots
+    take a zero row), then solve_schur_cg_pm_tiers."""
+    zrow = W.new_zeros((1, 6, 3))
+    Wt = torch.cat([W, zrow])[tiers.idx]
+    Yt = torch.cat([Y, zrow])[tiers.idx]
+    return solve_schur_cg_pm_tiers(dHcc, Wt, Yt, tiers, b,
+                                   fix_first=fix_first, max_iters=max_iters,
+                                   tol=tol)

@@ -1,0 +1,55 @@
+"""Runs chip_smoke.py's visual phases (14-16: the JAX bench's visual
+solver problems, every visual route at M=100, ladder 3 end to end) alone
+on one CUDA card, and writes their results to chiprun_out/visual_phases.json.
+
+    python3 scripts/visual_phases.py [14] [15] [16]
+
+With no arguments it runs all three.  It fails, as chip_smoke.py does,
+when a check misses its limit or no CUDA device is available."""
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from global_lvba_tpu_torch import resolve_device
+
+    dev = resolve_device("cuda")
+    print(cs._card_line(), flush=True)
+    results, paths = {}, {}
+    t0 = time.time()
+    for name in sys.argv[1:] or ["14", "15", "16"]:
+        t1 = time.time()
+        if name == "14":
+            cs._visual_bench(torch, np, dev, results)
+        elif name == "15":
+            cs._visual_routes(torch, np, dev, results)
+        elif name == "16":
+            # the LiDAR stage's kernel checks record their max abs errors
+            kern = {k: dict(max_abs_err=0.0) for k in (
+                "table_select", "soa_agg", "soa_chain_entries",
+                "entry_reduce", "syrk")}
+            cs._visual_e2e(torch, np, dev, kern, results, paths)
+            results["kernel_max_abs_err"] = kern
+        else:
+            raise SystemExit(f"unknown phase {name!r}: 14, 15 or 16")
+        print(f"[phase {name}] {time.time() - t1:.1f} s", flush=True)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "visual_phases.json").write_text(
+        json.dumps(results, indent=1, default=float))
+    print(f"all {time.time() - t0:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
