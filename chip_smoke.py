@@ -218,9 +218,39 @@ it in XLA, the port in plain torch; its LiDAR stage runs the kernels):
      and reused by the other three.  The stage times (depth, fuse,
      planes, solve), and the solve again alone, warm, on the stage's
      problem (equal cost; ms per iteration and the checks of phase 14).
+Slice 11, the system (dataset IO, checkpoints, exports, the CLI):
+ 17. [system]: phase 16's scene and odometry written as a dataset in the
+     reference's layout with the port's own writers (200 binary PCDs, the
+     two TUM pose files, match.db from the scene's keypoints and matches,
+     200 placeholder images: the db route reads no pixels, and the card's
+     machine has no cv2; cfg.yaml with ladder 3's settings in float32 and
+     the COLMAP export on) under build/system_smoke/, removed after.  Run
+     A: LvbaSystem(cfg, out_dir=A).run_full_pipeline() on the card with
+     the launch counts set to 0 just before (every bucketed kernel must
+     run); the ATE within 10%, the post-BA reprojection below 1 px and
+     within 2%, tracks and observations within 1% of phase 16's float64
+     CPU runs; the tree: both checkpoints, 200 depth PNGs (decoded by
+     load_depth_png: the camera's size, not all empty; the scene leaves
+     a few views with no LiDAR point in range), Colmap/sparse/images.txt
+     (400 lines) and points3D.txt (a line a track point),
+     viz/tracks_{before,after}.pcd and metrics.json.  The kernels at
+     run A's own solves' shapes, as in [visual-e2e]: the first window
+     from the dataset's poses as read back from lidar_poses.txt
+     ([system-window-kernels]) and global stage 2 at run A's final anchor
+     poses ([system-global-kernels]; the TUM round trip moves where the
+     LM stops, so these are not phase 16's buckets).  Run B: A's
+     lidar_ba.npz and a truncated visual_ba.tmp.npz in a new directory,
+     then `python -m global_lvba_tpu_torch run --config cfg.yaml --out B`
+     in a fresh process on the card: its visual_ba.npz bitwise A's, its
+     depth PNGs A's pixels.  Run C: the same command on A's tree (both
+     stages resumed) prints A's mean reprojections exactly; `info`
+     prints the config's dataclasses.asdict; `view` exits 1 with the
+     hint (no open3d).  Each run's wall and stage times, and the time
+     outside the stages (loading, checkpoints, depth PNGs, exports), are
+     printed.
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
-2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e); the last line is
+2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, system); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -416,6 +446,8 @@ TOL_E2E_POST = 0.02        # the post-BA reprojection, the same
 # rounding (two float64 CPU runs, 1 and 4 threads, agree to 1e-16 in cost
 # at 10 iterations and differ by 3e-6 at 50, one camera by 0.36 rad)
 E2E_FLOAT64_ITERS = 10
+# [system]: each CLI process's limit (run B is about one visual stage)
+SYSTEM_CLI_TIMEOUT_S = 300
 
 
 def _fail(msg):
@@ -3526,6 +3558,41 @@ def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
     kern["syrk"]["max_abs_err"] = max(kern["syrk"]["max_abs_err"], err)
 
 
+def _path_kernels(torch, np, dev, kern, results, tag, cfg, clouds, R0, p0,
+                  lid):
+    """The kernels at the shapes of one run_lidar_ba's solves (lid, run on
+    clouds from poses R0, p0 under cfg) through _e2e_kernels: the first
+    window at R0, p0 (its tiers merged into one bucket, as the window
+    stage builds them) as [tag-window-kernels], and global stage 2 at the
+    run's final anchor poses as [tag-global-kernels].  Returns the s
+    taken."""
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.pipeline.lidar_ba import _build_vm
+
+    t0 = time.time()
+    Ww = cfg.window_ba.size
+    vm = _build_vm(np.concatenate(clouds[:Ww]), np.concatenate(
+        [np.full(len(c), j, np.int32) for j, c in enumerate(clouds[:Ww])]),
+        R0[:Ww], p0[:Ww], cfg.BALM_stage1.root_voxel_size,
+        cfg.window_ba.eigen_ratio_array, cfg)
+    _e2e_kernels(torch, kern, results, f"{tag}-window-kernels",
+                 buckets_to_device(vm, W=Ww, device=dev, merge="always"),
+                 R0[:Ww], p0[:Ww], Ww)
+    A = lid.anchor_R.shape[0]
+    st = cfg.BALM_stage2
+    vm = _build_vm(np.concatenate(lid.anchor_clouds), np.concatenate(
+        [np.full(len(c), j, np.int32)
+         for j, c in enumerate(lid.anchor_clouds)]),
+        lid.anchor_R, lid.anchor_p, st.root_voxel_size,
+        st.eigen_ratio_array, cfg)
+    _e2e_kernels(torch, kern, results, f"{tag}-global-kernels",
+                 buckets_to_device(vm, W=A, device=dev), lid.anchor_R,
+                 lid.anchor_p, A)
+    del vm
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
 def _reused_depth_maps(np, visual_ba):
     """visual_ba.render_depth_maps computed by its first call and handed
     back to later calls with the same camera poses (host numpy, the same
@@ -3555,14 +3622,14 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
     run_visual_ba on the card from its poses in float32, against the
     float64 CPU run at the same iterations; the visual stage in float64
     on the card and on the CPU at E2E_FLOAT64_ITERS (track fusion in
-    float64 in the float64 runs)."""
-    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    float64 in the float64 runs).  Returns the scene and its odometry
+    (js, R_odom, p_odom) for phase 17."""
     from global_lvba_tpu_torch.kernels import (
         launch_counts, reset_launch_counts)
     from global_lvba_tpu_torch.models.synthetic import (
         ate_rmse, make_joint_scene, perturb_poses)
     from global_lvba_tpu_torch.pipeline import visual_ba
-    from global_lvba_tpu_torch.pipeline.lidar_ba import _build_vm, run_lidar_ba
+    from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
     from global_lvba_tpu_torch.solver import schur
 
     t0 = time.time()
@@ -3599,28 +3666,8 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
     if not (np.isfinite(lid.p_opt).all() and ate < ate0
             and abs(ate - ate_ref) <= 0.1 * ate_ref):
         _fail(f"[visual-e2e]: ATE {ate0} -> {ate} (float64 CPU {ate_ref})")
-    # the kernels at the shapes of this path's solves: the first window
-    # at odometry (its tiers merged into one bucket, as the window stage
-    # builds them) and global stage 2 at the final anchor poses
-    Ww = cfg.window_ba.size
-    vm = _build_vm(np.concatenate(clouds[:Ww]), np.concatenate(
-        [np.full(len(c), j, np.int32) for j, c in enumerate(clouds[:Ww])]),
-        R_odom[:Ww], p_odom[:Ww], cfg.BALM_stage1.root_voxel_size,
-        cfg.window_ba.eigen_ratio_array, cfg)
-    _e2e_kernels(torch, kern, results, "visual-e2e-window-kernels",
-                 buckets_to_device(vm, W=Ww, device=dev, merge="always"),
-                 R_odom[:Ww], p_odom[:Ww], Ww)
-    A = lid.anchor_R.shape[0]
-    st = cfg.BALM_stage2
-    vm = _build_vm(np.concatenate(lid.anchor_clouds), np.concatenate(
-        [np.full(len(c), j, np.int32)
-         for j, c in enumerate(lid.anchor_clouds)]),
-        lid.anchor_R, lid.anchor_p, st.root_voxel_size,
-        st.eigen_ratio_array, cfg)
-    _e2e_kernels(torch, kern, results, "visual-e2e-global-kernels",
-                 buckets_to_device(vm, W=A, device=dev), lid.anchor_R,
-                 lid.anchor_p, A)
-    del vm
+    _path_kernels(torch, np, dev, kern, results, "visual-e2e", cfg, clouds,
+                  R_odom, p_odom, lid)
     kw = dict(cam=js.cam, clouds=clouds, lidar_times=sc.times,
               R_opt=lid.R_opt, p_opt=lid.p_opt, R_orig=R_odom, p_orig=p_odom,
               image_times=js.image_times, cam_R=R_odom[js.image_frame],
@@ -3708,6 +3755,281 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
             and v64.stats["solve_iters"] == ref_n.stats["solve_iters"]
             and sol.cost == v.stats["cost"]):
         _fail("[visual-e2e]: the visual stage misses its limits")
+    return js, R_odom, p_odom
+
+
+def _write_ladder3(np, work, js, R_odom, p_odom):
+    """Ladder 3 as a dataset in the reference's layout, with the port's
+    own writers (scripts/ladder3_e2e.py's layout): all_pcd_body/<ts>.pcd
+    (binary) + lidar_poses.txt, all_image/<ts>.png + image_poses.txt,
+    match.db from the scene's keypoints and matches, and cfg.yaml with
+    ladder 3's settings (_window_config: float32) and the COLMAP export
+    on.  The images are 4 x 4 placeholders (save_depth_png): the db
+    route reads no pixels.  Returns the config's path."""
+    import dataclasses
+
+    import yaml
+
+    from global_lvba_tpu_torch.frontend.colmap_db import write_colmap_db
+    from global_lvba_tpu_torch.io.pcd import write_pcd
+    from global_lvba_tpu_torch.io.tum import write_tum_poses
+    from global_lvba_tpu_torch.pipeline.outputs import save_depth_png
+
+    sc = js.lidar
+    root = work / "dataset"
+    img_dir, pcd_dir = root / "all_image", root / "all_pcd_body"
+    img_dir.mkdir(parents=True)
+    pcd_dir.mkdir()
+    names = [f"{t:.6f}.png" for t in js.image_times]
+    blank = np.zeros((4, 4), np.float32)
+    for name in names:
+        save_depth_png(img_dir / name, blank)
+    write_tum_poses(img_dir / "image_poses.txt", js.image_times,
+                    R_odom[js.image_frame], p_odom[js.image_frame])
+    for i, t in enumerate(sc.times):
+        write_pcd(pcd_dir / f"{t:.6f}.pcd", sc.points_body[sc.frame_ids == i])
+    write_tum_poses(pcd_dir / "lidar_poses.txt", sc.times, R_odom, p_odom)
+    kps4 = [np.concatenate([k, np.ones((k.shape[0], 2), np.float32)], axis=1)
+            for k in js.keypoints]
+    write_colmap_db(root / "match.db", names, kps4, js.matches)
+    cfg = _window_config("float32")
+    cfg.data_config.data_path = str(root)
+    cfg.data_config.colmap_db_path = "match.db"
+    cfg.data_config.image_sample_step = 1
+    cm, cam = cfg.cam_model, js.cam
+    cm.cam_width, cm.cam_height, cm.scale = cam.width, cam.height, 1.0
+    cm.cam_fx, cm.cam_fy, cm.cam_cx, cm.cam_cy = (
+        float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    cm.cam_d0, cm.cam_d1, cm.cam_d2, cm.cam_d3 = (
+        float(cam.k1), float(cam.k2), float(cam.p1), float(cam.p2))
+    cfg.extrin_calib.Rcl = [float(v) for v in js.Rci.reshape(-1)]
+    cfg.extrin_calib.Pcl = [float(v) for v in js.tci]
+    cfg.colmap_output.enable = True
+    path = root / "cfg.yaml"
+    path.write_text(yaml.safe_dump(dataclasses.asdict(cfg)))
+    return path
+
+
+def _cli(args, timeout=SYSTEM_CLI_TIMEOUT_S):
+    """`python -m global_lvba_tpu_torch <args>` from the repository root in
+    a fresh process: (exit code, stdout, stderr, wall s)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "global_lvba_tpu_torch", *map(str, args)],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=str(Path(__file__).resolve().parent))
+    return proc.returncode, proc.stdout, proc.stderr, time.time() - t0
+
+
+def _last_json(tag, out, err):
+    lines = out.strip().splitlines()
+    if not lines:
+        _fail(f"[system] {tag} printed nothing: {err[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _same_npz(np, a, b):
+    """Every array of two .npz files bitwise equal (the same keys): returns
+    the keys that differ."""
+    fa, fb = np.load(a), np.load(b)
+    if sorted(fa.files) != sorted(fb.files):
+        return ["<keys>"]
+    return [k for k in fa.files if not (
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]))]
+
+
+def _system(torch, np, dev, kern, results, paths, js, R_odom, p_odom):
+    """Phase 17, [system]: ladder 3 (phase 16's scene and odometry) written
+    as a reference-layout dataset, then LvbaSystem on the card in three
+    runs: A in this process (launch counts from 0), held to phase 16's
+    float64 CPU values, its output tree checked, and the kernels held to
+    their plain versions at its own solves' shapes (_path_kernels on the
+    dataset's poses as read back and A's final anchor poses); B a crash and resume
+    through the CLI in a fresh process (A's lidar_ba.npz, a truncated
+    visual_ba.tmp.npz), its visual_ba.npz bitwise A's; C the CLI again on
+    A's tree (both stages resumed: A's numbers exactly), `info` and
+    `view`."""
+    import dataclasses
+    import shutil
+
+    from global_lvba_tpu_torch.config import LvbaConfig
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.models.synthetic import ate_rmse
+    from global_lvba_tpu_torch.pipeline import system
+    from global_lvba_tpu_torch.pipeline.outputs import load_depth_png
+
+    sc = js.lidar
+    ref = results["visual_e2e"]
+    ref_stats = ref["runs"]["cpu-float64"]["stats"]
+    ref_post = ref["runs"]["cpu-float64"]["reproj"][1]
+    work = Path(__file__).resolve().parent / "build" / "system_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    cfg_path = _write_ladder3(np, work, js, R_odom, p_odom)
+    write_s = time.time() - t0
+    outA, outB = work / "A", work / "B"
+
+    # ---- run A, in process ----
+    spans = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                spans[name] += time.time() - t
+        return run
+
+    # run_lidar_ba's result (its anchor clouds and poses), for the kernels
+    # at this run's shapes
+    lidar_ba, lidar = system.run_lidar_ba, []
+
+    def kept(*a, **k):
+        lidar.append(lidar_ba(*a, **k))
+        return lidar[-1]
+
+    reset_launch_counts()
+    t0 = time.time()
+    sysA = system.LvbaSystem(LvbaConfig.from_yaml(cfg_path), out_dir=outA)
+    spans["load"] = time.time() - t0
+    sysA.ckpt.save = timed("checkpoints", sysA.ckpt.save)
+    sysA._load_frontend = timed("frontend", sysA._load_frontend)
+    sysA.export_outputs = timed("exports", sysA.export_outputs)
+    sysA.metrics.dump = timed("metrics_json", sysA.metrics.dump)
+    system.run_lidar_ba = kept
+    try:
+        resA = sysA.run_full_pipeline()
+    finally:
+        system.run_lidar_ba = lidar_ba
+    torch.cuda.synchronize()
+    wallA = time.time() - t0
+    counts = paths["system"] = launch_counts()
+    mA = resA["metrics"]
+    v = sysA.visual_result
+    vs = v.stats
+    stage_keys = ("depth_s", "depth_png_s", "fuse_s", "planes_s", "solve_s")
+    in_stages = mA["time/lidar_ba_s"] + mA["time/visual_ba_s"]
+    outside = wallA - in_stages + vs["depth_png_s"]
+    ate0 = ate_rmse(p_odom, sc.p_true)
+    ate = ate_rmse(sysA.p_opt, sc.p_true)
+    e_ate = abs(ate - ref["ate_float64_cpu"]) / ref["ate_float64_cpu"]
+    e_post = abs(v.mean_reproj_post - ref_post) / ref_post
+    e_counts = {k: abs(vs[k] - ref_stats[k]) / ref_stats[k]
+                for k in ("tracks_fused", "tracks_with_plane",
+                          "observations")}
+    print(f"[system] ladder 3 written in {write_s:.2f} s; run A "
+          f"(LvbaSystem in process) {wallA:.2f} s: stages "
+          f"{ {k: round(mA[k], 3) for k in mA if k.startswith('time/')} }, "
+          f"visual {({k: round(vs[k], 3) for k in stage_keys})}, outside "
+          f"the stages {({k: round(t, 3) for k, t in spans.items()})}; "
+          f"load, checkpoints, PNG and export writes {outside:.2f} s "
+          f"({outside / wallA:.3f} of the run); launches {counts}",
+          flush=True)
+    print(f"[system] run A: ATE {ate0:.5f} -> {ate:.5f} m ({e_ate:.3e} "
+          f"from phase 16's float64 CPU run, tol 0.1); reprojection "
+          f"{v.mean_reproj_pre:.4f} -> {v.mean_reproj_post:.4f} px "
+          f"({e_post:.3e} from float64, tol {TOL_E2E_POST}); counts rel "
+          f"diff {e_counts} (tol {TOL_E2E_COUNT})", flush=True)
+    if not all(counts[k] > 0 for k in BUCKETED_PATH_KERNELS):
+        _fail(f"[system]: a bucketed kernel was never launched: {counts}")
+    if not (np.isfinite(sysA.p_opt).all() and ate < ate0
+            and e_ate <= 0.1 and v.mean_reproj_post < 1.0
+            and v.mean_reproj_post < v.mean_reproj_pre
+            and e_post <= TOL_E2E_POST
+            and all(e <= TOL_E2E_COUNT for e in e_counts.values())):
+        _fail("[system]: run A misses phase 16's limits")
+    # the output tree
+    M = len(js.image_times)
+    depth = sorted((outA / "depth").glob("*.png"))
+    maps = [load_depth_png(pth) for pth in depth]
+    zero = sum(not m.any() for m in maps)
+    shape_ok = all(m.shape == (js.cam.height, js.cam.width) for m in maps)
+    ilines = (outA / "Colmap" / "sparse" / "images.txt").read_text() \
+        .splitlines()
+    plines = (outA / "Colmap" / "sparse" / "points3D.txt").read_text() \
+        .splitlines()
+    need = ["checkpoints/lidar_ba.npz", "checkpoints/visual_ba.npz",
+            "viz/tracks_before.pcd", "viz/tracks_after.pcd", "metrics.json"]
+    missing = [n for n in need if not (outA / n).exists()]
+    metrics_ok = json.loads((outA / "metrics.json").read_text()) == \
+        json.loads(json.dumps(mA, default=float))
+    tree = sorted(str(pth.relative_to(outA)) for pth in outA.rglob("*")
+                  if pth.is_file() and pth.parent.name != "depth")
+    print(f"[system] run A's tree: {len(depth)} depth PNGs "
+          f"({js.cam.width} x {js.cam.height}: {shape_ok}; empty maps: "
+          f"{zero}), images.txt {len(ilines)} lines, points3D.txt "
+          f"{len(plines)} points, metrics.json equal to the run's: "
+          f"{metrics_ok}; the rest {tree}", flush=True)
+    if not (len(depth) == M and shape_ok and zero < M
+            and [pth.name for pth in depth] == sorted(
+                f"{t:.6f}.png" for t in js.image_times)
+            and len(ilines) == 2 * M and len(plines) == v.points.shape[0]
+            and not missing and metrics_ok):
+        _fail(f"[system]: run A's output tree (missing {missing})")
+    ds = sysA.ds
+    kernels_s = _path_kernels(torch, np, dev, kern, results, "system",
+                              sysA.cfg, ds.clouds, ds.lidar_R, ds.lidar_p,
+                              lidar[0])
+    print(f"[system] run A's kernels at its own solves' shapes: "
+          f"{kernels_s:.2f} s", flush=True)
+
+    # ---- run B: a crash after the LiDAR checkpoint, resumed by the CLI ----
+    (outB / "checkpoints").mkdir(parents=True)
+    shutil.copy(outA / "checkpoints" / "lidar_ba.npz", outB / "checkpoints")
+    (outB / "checkpoints" / "visual_ba.tmp.npz").write_bytes(
+        b"PK\x03\x04 truncated by SIGKILL")
+    rc, out, err, wallB = _cli(["run", "--config", cfg_path, "--out", outB])
+    if rc != 0:
+        _fail(f"[system] run B exited {rc}: {err[-3000:]}")
+    resB = _last_json("run B", out, err)
+    mB = json.loads((outB / "metrics.json").read_text())
+    diff = _same_npz(np, outA / "checkpoints" / "visual_ba.npz",
+                     outB / "checkpoints" / "visual_ba.npz")
+    diff += [pth.name for pth, m in zip(depth, maps) if not np.array_equal(
+        load_depth_png(outB / "depth" / pth.name), m)]
+    tmp_left = (outB / "checkpoints" / "visual_ba.tmp.npz").exists()
+    print(f"[system] run B (the CLI in a fresh process, resumed from A's "
+          f"lidar_ba.npz past a truncated visual_ba.tmp.npz) {wallB:.2f} s: "
+          f"stages { {k: round(mB[k], 3) for k in mB if k.startswith('time/')} }"
+          f", reprojection {resB}; visual_ba.npz bitwise A's: {not diff} "
+          f"and its depth PNGs A's (differing {diff}); tmp file left: "
+          f"{tmp_left}",
+          flush=True)
+    if diff or tmp_left or "time/lidar_ba_s" in mB:
+        _fail("[system]: run B does not reproduce run A's visual stage")
+
+    # ---- run C: both checkpoints present; info; view ----
+    rc, out, err, wallC = _cli(["run", "--config", cfg_path, "--out", outA])
+    resC = _last_json("run C", out, err) if rc == 0 else None
+    same_c = resC == {k: resA[k] for k in ("mean_reproj_pre",
+                                           "mean_reproj_post")}
+    rc_i, out_i, err_i, wall_i = _cli(["info", "--config", cfg_path])
+    info_ok = rc_i == 0 and json.loads(out_i) == dataclasses.asdict(
+        LvbaConfig.from_yaml(cfg_path))
+    rc_v, out_v, err_v, wall_v = _cli(["view", "--out", outA])
+    view_ok = rc_v == 1 and "open3d not installed" in out_v
+    print(f"[system] run C (the CLI on A's tree) {wallC:.2f} s: {resC}, "
+          f"run A's exactly: {same_c}; info {wall_i:.2f} s, the config's "
+          f"asdict: {info_ok}; view {wall_v:.2f} s, exit {rc_v} with the "
+          f"hint: {view_ok}", flush=True)
+    if not (rc == 0 and same_c and info_ok and view_ok):
+        _fail(f"[system]: run C / info / view ({err[-2000:]}"
+              f"{err_i[-1000:]}{err_v[-1000:]})")
+    results["system"] = dict(
+        write_s=write_s, run_a=dict(wall_s=wallA, metrics=mA, spans=spans,
+                                    visual_stages={k: vs[k]
+                                                   for k in stage_keys},
+                                    outside_s=outside, launches=counts,
+                                    ate=[ate0, ate], ate_rel=e_ate,
+                                    reproj=[v.mean_reproj_pre,
+                                            v.mean_reproj_post],
+                                    post_rel=e_post, counts_rel=e_counts),
+        kernels_s=kernels_s,
+        run_b=dict(wall_s=wallB, metrics=mB, bitwise=not diff),
+        run_c=dict(wall_s=wallC, info_s=wall_i, view_s=wall_v))
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -4111,12 +4433,15 @@ def main() -> int:
     _large_w(torch, np, dev, kern, results, paths)
     # ---- 10. slice 3: the SIFT frontend ----
     _frontend(torch, np, dev, kern, results, paths)
-    # ---- 14-16. slice 10: the visual stage ----
+    # ---- 14-16. slice 10: the visual stage; 17. slice 11: the system ----
+    scene = []
     for phase, run in (
             ("14", lambda: _visual_bench(torch, np, dev, results)),
             ("15", lambda: _visual_routes(torch, np, dev, results)),
-            ("16", lambda: _visual_e2e(torch, np, dev, kern, results,
-                                       paths))):
+            ("16", lambda: scene.extend(_visual_e2e(
+                torch, np, dev, kern, results, paths))),
+            ("17", lambda: _system(torch, np, dev, kern, results, paths,
+                                   *scene))):
         t0 = time.time()
         run()
         results[f"phase_{phase}_s"] = time.time() - t0

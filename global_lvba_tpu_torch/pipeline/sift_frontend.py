@@ -10,6 +10,7 @@ compact the keypoints and matches to the valid slots.
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -165,15 +166,31 @@ def extract_and_match_sift(
     """Full frontend from a dataset: load, extract, match all pairs.
 
     Returns (keypoints (K, 2) per image restricted to valid slots,
-    matches)."""
-    if cfg.solver.save_match_images and result_dir is not None:
-        raise NotImplementedError(
-            "save_match_images needs pipeline/outputs.draw_matches, which "
-            "is not ported yet (ROADMAP A5)")
+    matches).  With cfg.solver.save_match_images and a result_dir, each
+    matched pair is drawn into result_dir/matches_<i>_<j>.jpg
+    (outputs.draw_matches)."""
     kps, descs, valids = extract_images_pipelined(
         ds.image_paths, ds.cam.width, ds.cam.height, params, device=device)
     kps_out, matches_out = match_and_compact(kps, descs, valids,
                                              device=device)
+    if cfg.solver.save_match_images and result_dir is not None:
+        # per-pair match visualizations, the reference's
+        # drawAndSaveMatchesGPU into result/ (lvba_system.cpp:823)
+        import cv2
+
+        from .outputs import draw_matches
+
+        rdir = Path(result_dir)
+        rdir.mkdir(parents=True, exist_ok=True)
+        for (i, j), m in matches_out.items():
+            img1 = cv2.imread(str(ds.image_paths[i]), cv2.IMREAD_COLOR)
+            img2 = cv2.imread(str(ds.image_paths[j]), cv2.IMREAD_COLOR)
+            if img1 is None or img2 is None:
+                continue
+            draw_matches(
+                img1, img2, kps_out[i], kps_out[j], m,
+                path=rdir / f"matches_{i:04d}_{j:04d}.jpg",
+            )
     log.info(
         "[sift] %d images, %d pairs matched, mean kp %.0f",
         len(kps_out), len(matches_out),

@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -129,13 +130,9 @@ def run_visual_ba(
 ) -> VisualBAResultFull:
     """The visual stage on `device` (default the card; "cpu" runs the
     plain path).  Track fusion runs in float32 (fuse_tracks' default, as
-    in the JAX package), the solve in cfg.solver.dtype.  depth_out_dir
-    (the 16-bit depth PNGs) is not ported yet and raises
-    NotImplementedError (ROADMAP A5)."""
-    if depth_out_dir is not None:
-        raise NotImplementedError(
-            "depth_out_dir (the depth PNG writer, pipeline/outputs."
-            "save_depth_png) is not ported: ROADMAP A5")
+    in the JAX package), the solve in cfg.solver.dtype.  With
+    depth_out_dir, each image's depth map is written there as a 16-bit
+    PNG named by its timestamp (<ts>.png, outputs.save_depth_png)."""
     dev = resolve_device(device)
     t_start = time.time()
     stats: dict = {}
@@ -156,6 +153,16 @@ def run_visual_ba(
         cam, gm, lidar_times, image_times, Rcw_pre, tcw_pre
     )
     stats["depth_s"] = time.time() - t0
+    if depth_out_dir is not None:
+        # timestamp-named 16-bit depth maps (lvba_system.cpp:907-915)
+        from .outputs import save_depth_png
+
+        t0 = time.time()
+        dd = Path(depth_out_dir)
+        dd.mkdir(parents=True, exist_ok=True)
+        for i, t_img in enumerate(image_times):
+            save_depth_png(dd / f"{t_img:.6f}.png", depth_maps[i])
+        stats["depth_png_s"] = time.time() - t0
 
     # 4-5. tracks
     t0 = time.time()

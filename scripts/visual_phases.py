@@ -1,10 +1,12 @@
-"""Runs chip_smoke.py's visual phases (14-16: the JAX bench's visual
-solver problems, every visual route at M=100, ladder 3 end to end) alone
-on one CUDA card, and writes their results to chiprun_out/visual_phases.json.
+"""Runs chip_smoke.py's visual and system phases (14-16: the JAX bench's
+visual solver problems, every visual route at M=100, ladder 3 end to end;
+17: ladder 3 through LvbaSystem and the CLI, held to phase 16's values)
+alone on one CUDA card, and writes their results to
+chiprun_out/visual_phases.json.
 
-    python3 scripts/visual_phases.py [14] [15] [16]
+    python3 scripts/visual_phases.py [14] [15] [16] [17]
 
-With no arguments it runs all three.  It fails, as chip_smoke.py does,
+With no arguments it runs 14-16; 17 needs 16 before it.  It fails, as chip_smoke.py does,
 when a check misses its limit or no CUDA device is available."""
 
 import json
@@ -26,6 +28,12 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(cs._card_line(), flush=True)
     results, paths = {}, {}
+    scene = []
+    # the LiDAR stages' kernel checks (phases 16 and 17) record their max
+    # abs errors
+    kern = {k: dict(max_abs_err=0.0) for k in (
+        "table_select", "soa_agg", "soa_chain_entries", "entry_reduce",
+        "syrk")}
     t0 = time.time()
     for name in sys.argv[1:] or ["14", "15", "16"]:
         t1 = time.time()
@@ -34,14 +42,14 @@ def main() -> int:
         elif name == "15":
             cs._visual_routes(torch, np, dev, results)
         elif name == "16":
-            # the LiDAR stage's kernel checks record their max abs errors
-            kern = {k: dict(max_abs_err=0.0) for k in (
-                "table_select", "soa_agg", "soa_chain_entries",
-                "entry_reduce", "syrk")}
-            cs._visual_e2e(torch, np, dev, kern, results, paths)
+            scene.extend(cs._visual_e2e(torch, np, dev, kern, results, paths))
             results["kernel_max_abs_err"] = kern
+        elif name == "17" and scene:
+            cs._system(torch, np, dev, kern, results, paths, *scene)
+            results["launches_by_path"] = paths
         else:
-            raise SystemExit(f"unknown phase {name!r}: 14, 15 or 16")
+            raise SystemExit(f"unknown phase {name!r}: 14, 15, 16 or 17 "
+                             "(after 16)")
         print(f"[phase {name}] {time.time() - t1:.1f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -113,9 +113,25 @@ def test_build_components_small_graphs(case):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
 
 
-def test_save_match_images_is_not_ported(dataset, tmp_path):
+def test_save_match_images_match_jax_draw_matches(dataset, tmp_path):
+    """With solver.save_match_images every matched pair is drawn into
+    result_dir, byte for byte as the JAX package's draw_matches writes
+    the same pair."""
+    import cv2
+
+    from global_lvba_tpu.pipeline.outputs import draw_matches
+
     cfg = LvbaConfig()
     cfg.solver.save_match_images = True
-    with pytest.raises(NotImplementedError, match="A5"):
-        psf.extract_and_match_sift(dataset, cfg, result_dir=tmp_path,
-                                   device="cpu")
+    kps, matches = psf.extract_and_match_sift(
+        dataset, cfg, params=SiftParams(**PARAMS),
+        result_dir=tmp_path / "result", device="cpu")
+    names = sorted(f"matches_{i:04d}_{j:04d}.jpg" for i, j in matches)
+    assert matches and sorted(
+        p.name for p in (tmp_path / "result").iterdir()) == names
+    for (i, j), m in matches.items():
+        imgs = [cv2.imread(str(dataset.image_paths[k]), cv2.IMREAD_COLOR)
+                for k in (i, j)]
+        draw_matches(*imgs, kps[i], kps[j], m, path=tmp_path / "want.jpg")
+        got = tmp_path / "result" / f"matches_{i:04d}_{j:04d}.jpg"
+        assert got.read_bytes() == (tmp_path / "want.jpg").read_bytes()

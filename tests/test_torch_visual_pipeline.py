@@ -278,11 +278,36 @@ def test_run_visual_ba_matches_jax(scene, fuse_dtype, monkeypatch):
     assert abs(got.mean_reproj_pre - ref.mean_reproj_pre) <= tol
 
 
-def test_depth_out_dir_raises_naming_a5(scene, tmp_path):
+def test_depth_out_dir_pngs_decode_to_depth_maps(scene, tmp_path,
+                                                 monkeypatch):
+    """run_visual_ba(depth_out_dir=) writes <ts>.png per image: each
+    decodes (the port's reader, and cv2) to the map render_depth_maps
+    returned, within the 1/2000 m quantization."""
+    import cv2
+
+    from global_lvba_tpu_torch.pipeline.outputs import load_depth_png
+
     jsc, tsc, clouds, R_odom, p_odom = scene
     sc = jsc.lidar
-    with pytest.raises(NotImplementedError, match="A5"):
-        visual_ba.run_visual_ba(
-            tsc.cam, clouds, sc.times, sc.R_true, sc.p_true, R_odom, p_odom,
-            jsc.image_times, R_odom, p_odom, jsc.Rci, jsc.tci, jsc.keypoints,
-            jsc.matches, LvbaConfig(), depth_out_dir=tmp_path, device="cpu")
+    maps = []
+    render = visual_ba.render_depth_maps
+    monkeypatch.setattr(visual_ba, "render_depth_maps",
+                        lambda *a: maps.append(render(*a)) or maps[-1])
+    cfg = LvbaConfig()
+    cfg.solver.dtype = "float64"
+    visual_ba.run_visual_ba(
+        tsc.cam, clouds, sc.times, sc.R_true, sc.p_true, R_odom, p_odom,
+        jsc.image_times, R_odom[jsc.image_frame], p_odom[jsc.image_frame],
+        jsc.Rci, jsc.tci, jsc.keypoints, jsc.matches, cfg,
+        depth_out_dir=tmp_path / "depth", device="cpu")
+    names = sorted(p.name for p in (tmp_path / "depth").iterdir())
+    assert names == sorted(f"{t:.6f}.png" for t in jsc.image_times)
+    assert len(maps) == 1 and len(maps[0]) == len(names)
+    for t, d in zip(jsc.image_times, maps[0]):
+        path = tmp_path / "depth" / f"{t:.6f}.png"
+        got = load_depth_png(path)
+        want = np.clip(d, 0, 65535 / 2000.0)
+        assert got.shape == d.shape and (d > 0).any()
+        assert np.abs(got - want).max() <= 1 / 2000
+        assert np.array_equal(cv2.imread(str(path), cv2.IMREAD_UNCHANGED),
+                              np.clip(d * 2000, 0, 65535).astype(np.uint16))
