@@ -248,9 +248,37 @@ Slice 11, the system (dataset IO, checkpoints, exports, the CLI):
      hint (no open3d).  Each run's wall and stage times, and the time
      outside the stages (loading, checkpoints, depth PNGs, exports), are
      printed.
+Slice 12, the multi-device layer (the machine has one card, so every
+mesh lists cuda:0 several times):
+ 18. [mesh]: [mesh-dryrun] dryrun_multichip(8, devices=[cuda:0] * 8) in
+     float64, every check sharded == local within 1e-8 (its launches the
+     path mesh-dryrun); [mesh-shard-kernels] kernels 1, 2b, 3, 4 and 5
+     against their plain versions at the last of 3 shards of the dry
+     run's problem, padding rows included (_e2e_kernels), and their
+     float64 instances at every one of the dry run's 8 shards; [mesh-w512]
+     the bench's W=512 problem through lm_damping_iter_sharded, lu and
+     cg, n = 1, 2, 4, 8, float32, against the local LM (residual within
+     1e-4, ATE within 1%; one host read an iteration; ms an iteration and
+     the idle share beside the local route's; the path mesh-w512), then
+     kernels 1, 2 (aligned) and 3 against their plain versions at each of
+     the 8 shards' shapes, padding rows included; [mesh-w4096]
+     path 2c's stage-1 map through lm_damping_iter_banded_compact_sharded
+     on 4 shards, 3 iterations, the local route's blocks: the residual
+     within 1e-4 of the float64 CPU LM's, no (6W)²-element operand in one
+     evaluation and one solve run eagerly, peak memory, ms an iteration
+     beside the local split-banded LM, the kernels at every shard's
+     shapes (padded groups included; the path mesh-w4096); [mesh-visual] [visual-m1000] on 4
+     shards: the route _auto_solver(1000, pairs_sharded=True) names (cg),
+     the cost within 1e-3 of the local float32 solve's; [mesh-spatial]
+     distributed_voxel_moments over path 2a's 2.0 M points (world frame)
+     on 8 shards == host_voxel_moments (keys and counts exactly, sums
+     within 1e-4 of each column's max); [mesh-processes] two processes on
+     cuda:0 through gloo and a world of one NCCL process, one sharded LM
+     step each == the local one (this script with --mesh-worker).
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
-2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, system); the last line is
+2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, system, mesh-dryrun,
+mesh-w512, mesh-w4096); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -448,6 +476,24 @@ TOL_E2E_POST = 0.02        # the post-BA reprojection, the same
 E2E_FLOAT64_ITERS = 10
 # [system]: each CLI process's limit (run B is about one visual stage)
 SYSTEM_CLI_TIMEOUT_S = 300
+
+# slice 12, the multi-device layer (phase 18): every mesh lists cuda:0
+# several times (the machine has one card)
+MESH_DRYRUN_N = 8
+MESH_W512_NS = (1, 2, 4, 8)
+MESH_W4096_N = 4
+MESH_VISUAL_N = 4
+MESH_SPATIAL_N = 8
+MESH_KERNELS_N = 3         # the shard whose kernels are checked pads
+TOL_MESH_RESID = 1e-4      # float32 sharded vs local, relative
+TOL_MESH_ATE = 1e-2        # float32 sharded vs local ATE, relative
+TOL_MESH_VISUAL = 1e-3     # float32 sharded cg vs the local tier route
+TOL_MESH_SPATIAL = 1e-4    # float32 Σx, Σxxᵀ vs the host's float64 sums,
+                           # relative to each column's max |.|
+MESH_PROC_TIMEOUT_S = 300
+# what later phases reuse of earlier ones (path 2a's clouds and poses,
+# path 2c's voxel map), kept out of the JSON results
+KEEP = {}
 
 
 def _fail(msg):
@@ -2017,6 +2063,7 @@ def _slice2(torch, np, dev, kern, results, paths):
     if not (np.isfinite(res64.p_opt).all() and e64 <= 1e-6 and f64_only):
         _fail(f"2a in float64 on the card: ATE {ate64} vs the CPU's "
               f"{ate_ref}, launches {counts64}")
+    KEEP["2a"] = (sc_a.points_body, sc_a.frame_ids, Ra, pa)
     del clouds, sc_a, res, ref, res64
 
     # ---- 9. path 2b: the sparse corridor at W=512 ----
@@ -2179,7 +2226,7 @@ def _top_ops(dev_ms, n=10):
 
 
 def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
-                  p, W, evaluate):
+                  p, W, evaluate, f64=False):
     """[tag]: the kernels of one large-W evaluation held against their
     plain versions at the shapes that evaluation gives them, then the
     evaluation against the plain one.  fas: its buckets (the flattened
@@ -2194,8 +2241,10 @@ def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
     table within TOL_SUM_REL, two calls bitwise equal; the evaluation as
     [eval 2b]: r within TOL_EVAL_REL beyond the line-like voxels' slack,
     the sums within TOL_EVAL_REL and the rows within TOL_ROWS_REL on the
-    well-conditioned voxels.  Each kernel's max abs error goes to
-    results and raises its kernels-line max_abs_err."""
+    well-conditioned voxels.  With f64 (float64 operands) the float64
+    instances under the TOL64_* limits; evaluate None leaves the
+    evaluation out.  Each kernel's max abs error goes to results and
+    raises its kernels-line max_abs_err."""
     from global_lvba_tpu_torch.factors.plane_eigen import (
         KERNEL_STEPS, PLAIN_STEPS, pose_table)
     from global_lvba_tpu_torch.kernels.selection import (
@@ -2205,6 +2254,12 @@ def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
         soa_agg_buckets, soa_agg_plain, soa_chain_entries,
         soa_chain_entries_plain)
 
+    if f64:
+        tol_agg = (TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV)
+        tol_rows, tol_sum, sfx = TOL64_ROWS_REL, TOL64_SUM_REL, "_f64"
+    else:
+        tol_agg = (TOL_RESIDV_REL, TOL_RESIDV_REL_LINE, TOL_PV)
+        tol_rows, tol_sum, sfx = TOL_ROWS_REL, TOL_SUM_REL, ""
     pose12 = pose_table(R, p)
     frames = [fa.frame.reshape(-1) for fa in fas]
     sel_k = table_select_buckets(frames, pose12)
@@ -2221,9 +2276,10 @@ def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
     live = torch.cat([fa.n.sum(dim=1) > 0 for fa in fas])
     wc = live & (gap >= WELL_CONDITIONED_GAP)
     err_agg = _agg_check(
-        torch, f"soa_agg {tag}", torch.cat([a[0] for a in agg_k]),
+        torch, f"soa_agg{sfx} {tag}", torch.cat([a[0] for a in agg_k]),
         torch.cat([a[0] for a in agg_p]), torch.cat([a[1] for a in agg_k]),
-        torch.cat([a[1] for a in agg_p]), live, wc, lam0, lam2, ref64=True)
+        torch.cat([a[1] for a in agg_p]), live, wc, lam0, lam2, tols=tol_agg,
+        ref64=not f64)
     del agg_p, spec
     vk, vp, err_A, abs_A = [], [], 0.0, 0.0
     for fa, ps, (_, pv), c, w in zip(fas, poses, agg_k, cols, widths):
@@ -2245,51 +2301,58 @@ def _eval_kernels(torch, kern, results, tag, fas, cols, widths, table, R,
     err_red, rep = _rel(red_k, red_p), bool(torch.equal(red_k, red_k2))
     abs_red = float((red_k - red_p).abs().max())
     del vk, vp, red_k2
-    r1, sums_k, rows_k = evaluate(KERNEL_STEPS, fas)
-    r_p = evaluate(PLAIN_STEPS, fas)[0]
-    line_like = live & ~wc
-    r_slack = TOL_RESIDV_REL_LINE * float(lam2[line_like].abs().sum())
-    e_r = max(0.0, abs(float(r1) - float(r_p)) - r_slack) / abs(float(r_p))
-    del sums_k, rows_k
-    wcs = torch.split(wc, [fa.n.shape[0] for fa in fas])
-    fas_wc = [fa._replace(n=fa.n * w[:, None].to(fa.n.dtype))
-              for fa, w in zip(fas, wcs)]
-    _, sums_k, rows_k = evaluate(KERNEL_STEPS, fas_wc)
-    _, sums_p, rows_p = evaluate(PLAIN_STEPS, fas_wc)
-    torch.cuda.synchronize()
-    e_each = [_rel(a, b) for a, b in zip(sums_k, sums_p)]
-    e_sums = max(e_each)
-    e_rows = max((_rel(a, b) for a, b in zip(rows_k, rows_p)), default=0.0)
-    del sums_k, sums_p, rows_k, rows_p, fas_wc
     out = dict(buckets=[list(fa.n.shape) for fa in fas], widths=list(widths),
                table=list(table.shape), soa_agg=err_agg,
                soa_chain_entries=dict(rows=err_A, jjt=err_j, extras=err_d,
                                       max_abs=abs_A, dead_zero=dead_ok),
                entry_reduce=dict(rel=err_red, max_abs=abs_red,
-                                 repeatable=rep),
-               eval=dict(r=e_r, g=e_each[0], Hd=e_each[1],
-                         grams=max(e_each[2:], default=0.0), rows=e_rows,
-                         line_like_voxels=int(line_like.sum())))
+                                 repeatable=rep))
     print(f"[{tag}] kernels at this evaluation's shapes (buckets "
           f"{out['buckets']}, chain widths {out['widths']}, table "
-          f"{out['table']}): table_select bitwise equal; soa_chain_entries "
-          f"rows rel err {err_A:.3e}, jjt {err_j:.3e}, extras {err_d:.3e} "
-          f"(tol {TOL_ROWS_REL}), dead entries' channels == 0: {dead_ok}; "
-          f"entry_reduce rel err {err_red:.3e} (tol {TOL_SUM_REL}), two "
-          f"calls bitwise equal: {rep}; the evaluation, kernels vs plain: r "
-          f"{e_r:.3e} (beyond the line-like voxels' {r_slack:.3e}), g "
-          f"{e_each[0]:.3e}, Hd {e_each[1]:.3e}, Grams "
-          f"{out['eval']['grams']:.3e} (tol {TOL_EVAL_REL}), rows {e_rows:.3e} "
-          f"(tol {TOL_ROWS_REL}) on well-conditioned voxels", flush=True)
-    if not (max(err_A, err_j, err_d, e_rows) <= TOL_ROWS_REL and dead_ok
-            and err_red <= TOL_SUM_REL and rep
-            and max(e_r, e_sums) <= TOL_EVAL_REL):
+          f"{out['table']}): table_select{sfx} bitwise equal; "
+          f"soa_chain_entries{sfx} rows rel err {err_A:.3e}, jjt "
+          f"{err_j:.3e}, extras {err_d:.3e} (tol {tol_rows}), dead entries' "
+          f"channels == 0: {dead_ok}; entry_reduce{sfx} rel err "
+          f"{err_red:.3e} (tol {tol_sum}), two calls bitwise equal: {rep}",
+          flush=True)
+    ok = (max(err_A, err_j, err_d) <= tol_rows and dead_ok
+          and err_red <= tol_sum and rep)
+    if evaluate is not None:
+        r1, sums_k, rows_k = evaluate(KERNEL_STEPS, fas)
+        r_p = evaluate(PLAIN_STEPS, fas)[0]
+        line_like = live & ~wc
+        r_slack = TOL_RESIDV_REL_LINE * float(lam2[line_like].abs().sum())
+        e_r = max(0.0, abs(float(r1) - float(r_p)) - r_slack) / abs(
+            float(r_p))
+        del sums_k, rows_k
+        wcs = torch.split(wc, [fa.n.shape[0] for fa in fas])
+        fas_wc = [fa._replace(n=fa.n * w[:, None].to(fa.n.dtype))
+                  for fa, w in zip(fas, wcs)]
+        _, sums_k, rows_k = evaluate(KERNEL_STEPS, fas_wc)
+        _, sums_p, rows_p = evaluate(PLAIN_STEPS, fas_wc)
+        torch.cuda.synchronize()
+        e_each = [_rel(a, b) for a, b in zip(sums_k, sums_p)]
+        e_rows = max((_rel(a, b) for a, b in zip(rows_k, rows_p)),
+                     default=0.0)
+        del sums_k, sums_p, rows_k, rows_p, fas_wc
+        out["eval"] = dict(r=e_r, g=e_each[0], Hd=e_each[1],
+                           grams=max(e_each[2:], default=0.0), rows=e_rows,
+                           line_like_voxels=int(line_like.sum()))
+        print(f"[{tag}] the evaluation, kernels vs plain: r {e_r:.3e} "
+              f"(beyond the line-like voxels' {r_slack:.3e}), g "
+              f"{e_each[0]:.3e}, Hd {e_each[1]:.3e}, Grams "
+              f"{out['eval']['grams']:.3e} (tol {TOL_EVAL_REL}), rows "
+              f"{e_rows:.3e} (tol {TOL_ROWS_REL}) on well-conditioned "
+              f"voxels", flush=True)
+        ok = ok and e_rows <= TOL_ROWS_REL and max(
+            e_r, *e_each) <= TOL_EVAL_REL
+    if not ok:
         _fail(f"{tag}: a kernel or the evaluation disagrees with its plain "
               f"version at these shapes: {out}")
     results.setdefault("large_w_kernels", {})[tag] = out
     for k, e in (("table_select", 0.0), ("soa_agg", err_agg),
                  ("soa_chain_entries", abs_A), ("entry_reduce", abs_red)):
-        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], e)
+        kern[k + sfx]["max_abs_err"] = max(kern[k + sfx]["max_abs_err"], e)
     return out
 
 
@@ -2669,6 +2732,7 @@ def _large_w(torch, np, dev, kern, results, paths):
         wall_s=wall, routes=routes, stats=res.stats, launches=counts)
     del res, clouds
 
+    KEEP["2c"] = (vm, Rp, pp, scene.p_true)
     # stage 1's LM alone, against the float64 CPU LM on the same map
     bs, R, p, lmres = _large_lm(torch, np, "2c-lm", vm, Rp, pp, W, scene,
                                 dev, "split-banded", {})
@@ -3521,13 +3585,14 @@ def _visual_routes(torch, np, dev, results):
         _fail("[visual-routes] the chunked pair scatter has one chunk")
 
 
-def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
+def _e2e_kernels(torch, kern, results, tag, bs, R, p, W, f64=False):
     """[tag]: bucketed factors of the dense route on W frames (one of
     [visual-e2e]'s LiDAR solves) through _eval_kernels (kernels 1, 2b, 4
     and 5 against their plain versions at these shapes, the evaluation
     against the plain one), then syrk_ over each bucket's chain rows
     under _syrk_check; each max abs error raises its kernels-line
-    max_abs_err."""
+    max_abs_err.  With f64 (float64 buckets) the float64 instances under
+    the TOL64_* limits (_syrk_f64_check), without the evaluation."""
     from global_lvba_tpu_torch.factors.plane_eigen import (
         PlaneFactorArrays, _cost_grad_hess_buckets, buckets_frame_table,
         pose_table)
@@ -3537,8 +3602,9 @@ def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
 
     if not all(isinstance(fa, PlaneFactorArrays) for fa in bs):
         _fail(f"{tag}: the density gate does not pick the bucketed layout")
-    R = torch.as_tensor(R, dtype=torch.float32, device=bs[0].n.device)
-    p = torch.as_tensor(p, dtype=torch.float32, device=bs[0].n.device)
+    d = torch.float64 if f64 else torch.float32
+    R = torch.as_tensor(R, dtype=d, device=bs[0].n.device)
+    p = torch.as_tensor(p, dtype=d, device=bs[0].n.device)
     table = buckets_frame_table(bs, W)
 
     def evaluate(steps, fas):
@@ -3546,7 +3612,8 @@ def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
         return r, [g, H], []
 
     _eval_kernels(torch, kern, results, tag, bs, [fa.frame for fa in bs],
-                  [W] * len(bs), table, R, p, W, evaluate)
+                  [W] * len(bs), table, R, p, W,
+                  None if f64 else evaluate, f64=f64)
     sel = table_select_buckets([fa.frame.reshape(-1) for fa in bs],
                                pose_table(R, p))
     poses = [s.view(*fa.n.shape, 12) for s, fa in zip(sel, bs)]
@@ -3554,8 +3621,13 @@ def _e2e_kernels(torch, kern, results, tag, bs, R, p, W):
                             for fa, ps in zip(bs, poses)])
     As = [soa_chain_entries(fa.n, fa.mu, fa.Pc, ps, fa.frame, pv, W)[0]
           for fa, ps, (_, pv) in zip(bs, poses, aggs)]
-    err = _syrk_check(torch, tag, As, 6 * W)
-    kern["syrk"]["max_abs_err"] = max(kern["syrk"]["max_abs_err"], err)
+    if f64:
+        name = "syrk_f64"
+        err = _syrk_f64_check(torch, tag, As, 6 * W,
+                              timed=False)["max_abs_err"]
+    else:
+        name, err = "syrk", _syrk_check(torch, tag, As, 6 * W)
+    kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], err)
 
 
 def _path_kernels(torch, np, dev, kern, results, tag, cfg, clouds, R0, p0,
@@ -4032,6 +4104,514 @@ def _system(torch, np, dev, kern, results, paths, js, R_odom, p_odom):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def _mesh_dryrun(torch, dev, results, paths):
+    """[mesh-dryrun]: dryrun_multichip on MESH_DRYRUN_N shards of the card
+    in float64, every check sharded == local within 1e-8; its launches are
+    the path "mesh-dryrun"."""
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.parallel.dryrun import TOL, dryrun_multichip
+
+    reset_launch_counts()
+    t0 = time.time()
+    out = dryrun_multichip(MESH_DRYRUN_N, devices=[dev] * MESH_DRYRUN_N,
+                           dtype=torch.float64)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["mesh-dryrun"] = launch_counts()
+    print(f"[mesh-dryrun] n={MESH_DRYRUN_N} on {dev} in float64 ({wall:.1f} "
+          f"s): max |sharded - local| by check {out}; launches {counts}",
+          flush=True)
+    results["mesh_dryrun"] = dict(n=MESH_DRYRUN_N, wall_s=wall, diffs=out,
+                                  launches=counts)
+    bad = {k: v for k, v in out.items() if k != "spatial" and not v < TOL}
+    if bad or not all(counts[k] > 0 for k in BUCKETED_F64_KERNELS):
+        _fail(f"mesh-dryrun: sharded != local {bad}, or a float64 kernel "
+              f"never launched: {counts}")
+
+
+def _mesh_shard_kernels(torch, np, dev, kern, results):
+    """[mesh-shard-kernels]: kernels 1, 2b, 3, 4 and 5 against their plain
+    versions at the shapes of the last of MESH_KERNELS_N shards (its
+    padding rows included) of the dry run's bucketed problem in float32;
+    then their float64 instances at the shapes of every one of the dry
+    run's MESH_DRYRUN_N shards in float64 (its last shards hold no live
+    row), all shards' buckets in one check; both through _e2e_kernels."""
+    from global_lvba_tpu_torch.parallel.dryrun import _lidar_problem
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh
+    from global_lvba_tpu_torch.parallel.shard import shard_buckets
+
+    for n, d, tag in ((MESH_KERNELS_N, torch.float32, "mesh-shard-kernels"),
+                      (MESH_DRYRUN_N, torch.float64,
+                       "mesh-shard-kernels-f64")):
+        buckets, R, p, _ = _lidar_problem(d, dev)
+        sb = shard_buckets(buckets, make_mesh(n, devices=[dev] * n))
+        f64 = d == torch.float64
+        shards = ([s.shards[i] for i in range(n) for s in sb] if f64
+                  else [s.shards[-1] for s in sb])
+        pad = [s.rows - fa.n.shape[0] for s, fa in zip(sb, buckets)]
+        dead = [int((fa.n.sum(dim=1) == 0).sum()) for fa in shards]
+        print(f"[{tag}] {'every' if f64 else 'the last'} of {n} shards in "
+              f"{d}: rows {[fa.n.shape[0] for fa in shards]}, of them "
+              f"without a live entry {dead}; rows the sharding padded "
+              f"{pad}", flush=True)
+        if not (any(dead) and (f64 or any(pad))):
+            _fail(f"{tag}: the shards carry no padding row")
+        _e2e_kernels(torch, kern, results, tag, shards,
+                     R.double().cpu().numpy(), p.double().cpu().numpy(),
+                     R.shape[0], f64=f64)
+
+
+def _aligned_shard_kernels(torch, kern, tag, shards, R, p, W):
+    """[tag]: kernels 1, 2 (aligned) and 3 against their plain versions at
+    the shapes that each aligned shard's evaluation gives them (its voxel
+    chunks, its padding rows included): soa_agg over every shard under
+    _agg_check; soa_chain as the evaluation calls it on each shard
+    (_chain_check: rows, g, Hd, dead cells' rows zero, bitwise repeats);
+    tf32_split and syrk_ over each shard's chain rows into its gram
+    (_syrk_check).  Each max abs error raises its kernels-line
+    max_abs_err."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        AlignedPlaneFactorArrays, pose_table, voxel_chunks)
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg, soa_agg_plain, soa_chain)
+
+    if not all(isinstance(s, AlignedPlaneFactorArrays) for s in shards):
+        _fail(f"{tag}: a shard is not of the aligned layout")
+    pose12 = pose_table(R, p)
+    agg_k = [soa_agg(s.n, s.mu, s.Pc, pose12) for s in shards]
+    agg_p = [soa_agg_plain(s.n, s.mu, s.Pc, pose12) for s in shards]
+    spec = [_spectrum(torch, s, pose12) for s in shards]
+    gap, lam0, lam2 = (torch.cat([x[i] for x in spec]) for i in range(3))
+    live = torch.cat([s.n.sum(dim=1) > 0 for s in shards])
+    err_agg = _agg_check(
+        torch, f"soa_agg {tag}", *(torch.cat([a[i] for a in x])
+                                   for i in (0, 1) for x in (agg_k, agg_p)),
+        live, live & (gap >= WELL_CONDITIONED_GAP), lam0, lam2)
+    del agg_p, spec
+    err_chain = err_gram = 0.0
+    for i, (s, (_, pv)) in enumerate(zip(shards, agg_k)):
+        chunks = voxel_chunks(s.n.shape[0], W)
+        ops = [(s.n[lo:hi], s.mu[lo:hi], s.Pc[lo:hi]) for lo, hi in chunks]
+        pvs = [pv[lo:hi] for lo, hi in chunks]
+        err_chain = max(err_chain, _chain_check(
+            torch, f"soa_chain {tag} shard {i}", ops, pose12, pvs,
+            TOL_ROWS_REL, TOL_SUM_REL)[3])
+        As = _chain_evaluation(soa_chain, ops, pose12, pvs)[0]
+        err_gram = max(err_gram, _syrk_check(torch, f"{tag} shard {i}", As,
+                                             6 * W))
+        del As
+    for k, e in (("soa_agg", err_agg), ("soa_chain", err_chain),
+                 ("syrk", err_gram)):
+        kern[k]["max_abs_err"] = max(kern[k]["max_abs_err"], e)
+
+
+def _mesh_w512(torch, np, dev, kern, results, paths, bench):
+    """[mesh-w512]: the JAX bench's W=512 problem through
+    lm_damping_iter_sharded with lu and cg on n in MESH_W512_NS shards of
+    the card in float32, against the local LM: residual (the local one's
+    factor count) within TOL_MESH_RESID, ATE within TOL_MESH_ATE; ms an
+    iteration, host reads an iteration, idle share; then, the launches
+    read, the kernels at every shard's shapes of the largest n
+    (_aligned_shard_kernels)."""
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.models.synthetic import ate_rmse
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh
+    from global_lvba_tpu_torch.parallel.shard import (
+        lm_damping_iter_sharded, shard_buckets)
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter
+
+    fa_t, R, p, p_true = bench
+    g_loc = sum(fa.n.shape[0] for fa in fa_t)
+
+    def measure(tag, run, g_size):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        _, syncs = _count_syncs(torch, run)
+        _, busy, idle, _, _ = _idle(torch, run, wall)
+        resid = float(res.residual) * g_size / g_loc
+        rec = dict(route=res.route, iters=res.iters, residual=resid,
+                   ate=ate_rmse(res.p.double().cpu().numpy(), p_true),
+                   ms_per_iter=wall / max(res.iters, 1),
+                   host_reads_per_iter=syncs / max(res.iters, 1),
+                   idle_share=idle, device_busy_ms=busy)
+        if idle < 0:
+            # the kernels' device times overlap (cuSOLVER's LU runs on
+            # streams of its own): their sum is no busy time
+            rec["idle_share"] = None
+        print(f"[mesh-w512] {tag}: route {rec['route']}, residual "
+              f"{resid:.9g} in {res.iters} iterations, ATE {rec['ate']:.6f} "
+              f"m, {rec['ms_per_iter']:.2f} ms/iter, host reads "
+              f"{rec['host_reads_per_iter']:.2f} an iteration, idle share "
+              f"{rec['idle_share']} (kernel device ms summed {busy:.1f} "
+              f"over {wall:.1f} ms of wall)", flush=True)
+        return rec
+
+    out = results["mesh_w512"] = {}
+    loc = out["local"] = measure("local", lambda: lm_damping_iter(
+        fa_t, R, p, max_iters=LM_ITERS), g_loc)
+    reset_launch_counts()
+    for n in MESH_W512_NS:
+        mesh = make_mesh(n, devices=[dev] * n)
+        g_pad = sum(-(-fa.n.shape[0] // n) * n for fa in fa_t)
+        for solver in ("lu", "cg"):
+            rec = out[f"n{n}-{solver}"] = measure(
+                f"n={n} {solver}", lambda: lm_damping_iter_sharded(
+                    fa_t, R, p, mesh, max_iters=LM_ITERS,
+                    reduced_solver=solver), g_pad)
+            e_r = abs(rec["residual"] - loc["residual"]) / loc["residual"]
+            e_a = abs(rec["ate"] - loc["ate"]) / loc["ate"]
+            rec.update(residual_rel=e_r, ate_rel=e_a)
+            if not (rec["route"] == "sharded-dense" and e_r <= TOL_MESH_RESID
+                    and e_a <= TOL_MESH_ATE
+                    and rec["host_reads_per_iter"] == 1.0):
+                _fail(f"mesh-w512 n={n} {solver}: {rec} against the local "
+                      f"{loc}")
+    torch.cuda.synchronize()
+    counts = paths["mesh-w512"] = launch_counts()
+    out["launches"] = counts
+    print(f"[mesh-w512] launches over the sharded runs {counts}", flush=True)
+    if not all(counts[k] > 0 for k in ALIGNED_PATH_KERNELS):
+        _fail(f"mesh-w512: a kernel of the path was never launched: {counts}")
+    n = max(MESH_W512_NS)
+    sb = shard_buckets(fa_t, make_mesh(n, devices=[dev] * n))
+    shards = [s.shards[i] for i in range(n) for s in sb]
+    dead = [int((fa.n.sum(dim=1) == 0).sum()) for fa in shards]
+    print(f"[mesh-w512] the kernels at the {n} shards' shapes: rows "
+          f"{[fa.n.shape[0] for fa in shards]}, of them without a live "
+          f"entry {dead}; rows the sharding padded "
+          f"{[s.rows - fa.n.shape[0] for s, fa in zip(sb, fa_t)]}",
+          flush=True)
+    if not any(dead):
+        _fail("mesh-w512: the shards carry no padding row")
+    _aligned_shard_kernels(torch, kern, "mesh-w512-kernels", shards, R, p,
+                           R.shape[0])
+
+
+def _mesh_w4096(torch, np, dev, kern, results, paths):
+    """[mesh-w4096]: path 2c's stage-1 map (W=4096) through
+    lm_damping_iter_banded_compact_sharded on MESH_W4096_N shards of the
+    card (LARGE_LM_ITERS iterations, each bucket's block by the local
+    route's rule: a power of two, so it divides W), against the
+    float64 CPU LM's residual (path 2c's limit) and beside the local
+    split-banded LM: no (6W)²-element operand in one evaluation and one
+    solve's trips run eagerly; peak memory; the kernels at every shard's
+    shapes, in one evaluation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.factors.padding import buckets_to_device
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_plan, build_banded_groups)
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh, shard_bounds
+    from global_lvba_tpu_torch.parallel.shard import (
+        _group_shard, lm_damping_iter_banded_compact_sharded,
+        pad_banded_group_stack)
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter, plan_route
+
+    vm, Rp, pp, _ = KEEP.pop("2c")
+    W, n = LARGE_FRAMES, MESH_W4096_N
+    ref64 = results["path_2c"]["stage1_lm"]["residual_float64_cpu"]
+    bs = buckets_to_device(vm, W=W, dtype=torch.float32, device=dev)
+    R = torch.as_tensor(Rp, dtype=torch.float32, device=dev)
+    p = torch.as_tensor(pp, dtype=torch.float32, device=dev)
+    groups = [build_banded_groups(fa, W) for fa in bs]
+    blocks = [bg.inv.shape[-1] // 2 for bg in groups]
+    if any(W % b for b in blocks):
+        _fail(f"mesh-w4096: a block does not divide W={W}: {blocks}")
+    mesh = make_mesh(n, devices=[dev] * n)
+    dist_solve._GRAPHS.clear()
+
+    def timed(run):
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, \
+            torch.cuda.max_memory_allocated()
+
+    loc, loc_ms, loc_peak = timed(lambda: lm_damping_iter(
+        bs, R, p, max_iters=LARGE_LM_ITERS))
+    dist_solve._GRAPHS.clear()
+
+    def run():
+        return lm_damping_iter_banded_compact_sharded(
+            bs, R, p, mesh, max_iters=LARGE_LM_ITERS)
+
+    run()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = paths["mesh-w4096"] = launch_counts()
+    _, syncs = _count_syncs(torch, run)
+    e64 = abs(float(res.residual) - ref64) / ref64
+    # one evaluation and one solve's trips run eagerly (a graph replay
+    # shows no op): no operand of (6W)² elements
+    route = plan_route(bs, W, "cg", "banded", split=True, mesh=mesh)
+    u0 = torch.full((), 0.01, dtype=torch.float32, device=dev)
+    big = (6 * W) ** 2
+    solve_graph = dist_solve._solve
+    dist_solve._solve = lambda kind, fn, ops, it, graph=True: fn(it, *ops)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            state = route.cgh(R, p)
+            route.solve(state, u0)
+            torch.cuda.synchronize()
+    finally:
+        dist_solve._solve = solve_graph
+    largest, hits = 0, []
+    for ev in prof.events():
+        for shp in ev.input_shapes or ():
+            if isinstance(shp, (list, tuple)) and shp and all(
+                    isinstance(s, int) for s in shp):
+                largest = max(largest, math.prod(shp))
+                if math.prod(shp) >= big:
+                    hits.append((ev.name, shp))
+    del state
+    ms_iter = wall / max(res.iters, 1)
+    loc_iter = loc_ms / max(loc.iters, 1)
+    rec = results["mesh_w4096"] = dict(
+        n=n, blocks=blocks, route=res.route, iters=res.iters,
+        residual=float(res.residual), residual_float64_cpu=ref64,
+        rel_diff=e64, local_route=loc.route,
+        local_residual=float(loc.residual), wall_ms=wall,
+        ms_per_iter=ms_iter, local_ms_per_iter=loc_iter, peak_bytes=peak,
+        local_peak_bytes=loc_peak, largest_operand=largest,
+        host_reads=syncs, launches=counts)
+    print(f"[mesh-w4096] W={W}, n={n}, blocks {blocks}: route {res.route}, "
+          f"residual {float(res.residual):.9g} in {res.iters} iterations; "
+          f"float64 CPU {ref64:.9g}: rel diff {e64:.3e} (tol "
+          f"{TOL_RESID_LM_REL}); {ms_iter:.2f} ms/iter (with the set-up), "
+          f"the local {loc.route} {loc_iter:.2f}; peak memory "
+          f"{peak / 1e9:.3f} GB (local {loc_peak / 1e9:.3f}; (6W)² float32 "
+          f"= {big * 4 / 1e9:.3f} GB); largest operand {largest} elements, "
+          f"ops at (6W)² or above: {hits[:3]}; synchronizing calls {syncs} "
+          f"(set-up and {res.iters} reads of `converged`); launches "
+          f"{counts}", flush=True)
+    if not (res.route == "sharded-compact" and e64 <= TOL_RESID_LM_REL
+            and not hits and bool(torch.isfinite(res.p).all())):
+        _fail(f"mesh-w4096: {rec}, (6W)² operands {hits[:3]}")
+    if not all(counts[k] > 0 for k in BANDED_PATH_KERNELS):
+        _fail(f"mesh-w4096: a kernel of the path was never launched: "
+              f"{counts}")
+    # the kernels at every shard's shapes (the padded groups included), in
+    # one evaluation over the shards' stacks: the errors are relative to
+    # the whole map's largest values, as path 2c's are (the last shard
+    # alone, at the corridor's far end, holds none of them)
+    shard_gs = []
+    for bg in groups:
+        bg = pad_banded_group_stack(bg, n)
+        shard_gs += [_group_shard(bg, lo, hi, dev) for lo, hi in
+                     shard_bounds(bg.fa.n.shape[0], n)]
+    _plan_kernels(torch, kern, results, "mesh-w4096-kernels",
+                  banded_plan(shard_gs, W), R, p, W)
+    del shard_gs, groups, bs, vm
+
+
+def _mesh_visual(torch, np, dev, results):
+    """[mesh-visual]: the JAX bench's M=1000 problem with its observations
+    and pairs sharded over MESH_VISUAL_N shards of the card in float32:
+    the route _auto_solver(1000, pairs_sharded=True) names (cg, S
+    row-sharded), the final cost within TOL_MESH_VISUAL of the local
+    float32 solve's ([visual-m1000], the tier route), ms an iteration."""
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh
+    from global_lvba_tpu_torch.solver import schur
+
+    kind, iters = VISUAL_BENCH[0]
+    prob, bp = _visual_problem(kind)
+    counts = np.bincount(prob.obs_pt, minlength=prob.num_pts)
+    want = schur._auto_solver(prob.num_cams, pairs_sharded=True,
+                              Q=int((counts.astype(np.int64) ** 2).sum()))
+    n = MESH_VISUAL_N
+    mesh = make_mesh(n, devices=[dev] * n)
+    t0 = time.perf_counter()
+    plan = schur.plan_visual(prob, bp.R0, bp.t0, bp.X0, dtype=torch.float32,
+                             mesh=mesh)
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    schur.run_visual(plan, iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = schur.run_visual(plan, iters)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    loc = results["visual_bench"][kind]
+    e = _rel_cost(res.cost, loc["cost"])
+    rec = results["mesh_visual"] = dict(
+        n=n, route=res.route, auto_solver=want, iters=res.iters,
+        cost0=res.cost0, cost=res.cost, local_route=loc["route"],
+        local_cost=loc["cost"], cost_rel=e, setup_ms=setup_ms,
+        ms_per_iter=wall / max(res.iters, 1),
+        local_ms_per_iter=loc["ms_per_iter"])
+    print(f"[mesh-visual] M={prob.num_cams} on {n} shards: route "
+          f"{res.route} (_auto_solver(pairs_sharded=True): {want}), cost "
+          f"{res.cost0:.9g} -> {res.cost:.9g} in {res.iters} iterations; the "
+          f"local {loc['route']} solve's {loc['cost']:.9g}: rel diff {e:.3e} "
+          f"(tol {TOL_MESH_VISUAL}); set-up {setup_ms:.0f} ms, "
+          f"{rec['ms_per_iter']:.2f} ms/iter (local "
+          f"{loc['ms_per_iter']:.2f})", flush=True)
+    if not (res.route == want == "cg" and e <= TOL_MESH_VISUAL
+            and res.cost < res.cost0):
+        _fail(f"mesh-visual: {rec}")
+
+
+def _mesh_spatial(torch, np, dev, results):
+    """[mesh-spatial]: distributed_voxel_moments over path 2a's clouds (2.0 M
+    points, world frame at the perturbed poses) on MESH_SPATIAL_N shards
+    of the card against host_voxel_moments: keys and counts exactly, Σx
+    and Σxxᵀ within TOL_MESH_SPATIAL of each column's max |.|."""
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh
+    from global_lvba_tpu_torch.parallel.spatial import (
+        distributed_voxel_moments, host_voxel_moments)
+
+    pts_b, fid, Ra, pa = KEEP.pop("2a")
+    pts = (np.einsum("nij,nj->ni", Ra[fid], pts_b) + pa[fid]).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    hk, hc, hs, hm = host_voxel_moments(pts.astype(np.float64), VOXEL)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n = MESH_SPATIAL_N
+    mesh = make_mesh(n, devices=[dev] * n)
+    args = (pts, VOXEL, mesh)
+    distributed_voxel_moments(*args, capacity=hk.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kk, cc, ss, mm = distributed_voxel_moments(*args, capacity=hk.shape[0])
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(kk, hk) and np.array_equal(cc, hc)
+    e_s = float(np.abs(ss - hs).max(0).max() / np.abs(hs).max())
+    e_m = float(np.abs(mm - hm).max(0).max() / np.abs(hm).max())
+    results["mesh_spatial"] = dict(points=int(pts.shape[0]), n=n,
+                                   voxels=int(hk.shape[0]), equal=same,
+                                   sum_rel=e_s, moment_rel=e_m, ms=dev_ms,
+                                   host_ms=host_ms)
+    print(f"[mesh-spatial] {pts.shape[0]} points on {n} shards: "
+          f"{hk.shape[0]} voxels, keys and counts equal to the host's: "
+          f"{same}; Σx rel err {e_s:.3e}, Σxxᵀ {e_m:.3e} (tol "
+          f"{TOL_MESH_SPATIAL}, of each column's max |.|); {dev_ms:.1f} ms "
+          f"(host binning {host_ms:.1f} ms)", flush=True)
+    if not (same and e_s <= TOL_MESH_SPATIAL and e_m <= TOL_MESH_SPATIAL):
+        _fail("mesh-spatial: the distributed moments differ from the host's")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_processes(results):
+    """[mesh-processes]: two processes on cuda:0 joined through gloo, one
+    factor-sharded LM step each == the local step; then a world of one
+    NCCL process through lm_damping_iter_sharded (its reduction an NCCL
+    all_reduce on the card).  Each worker is this script with
+    --mesh-worker; any failure fails the phase."""
+    root = Path(__file__).resolve().parent
+    runs = []
+    for backend, world in (("gloo", 2), ("nccl", 1)):
+        port = str(_free_port())
+        runs.append([(backend, subprocess.Popen(
+            [sys.executable, str(root / "chip_smoke.py"), "--mesh-worker",
+             str(rank), str(world), port, backend], cwd=str(root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for rank in range(world)])
+    out = results["mesh_processes"] = []
+    try:
+        for backend, proc in (x for r in runs for x in r):
+            so, se = proc.communicate(timeout=MESH_PROC_TIMEOUT_S)
+            if proc.returncode != 0:
+                _fail(f"mesh-processes ({backend}): a worker exited "
+                      f"{proc.returncode}: {se[-3000:]}")
+            line = json.loads(so.strip().splitlines()[-1])
+            out.append(line)
+            print(f"[mesh-processes] {line}", flush=True)
+    finally:
+        for r in runs:
+            for _, proc in r:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def _mesh_worker(argv) -> int:
+    """One process of [mesh-processes]: join the group, then one
+    factor-sharded LM step over the dry run's problem in float64 on
+    cuda:0 against the local step, and a psum of the ranks."""
+    import torch
+
+    rank, world, port, backend = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from global_lvba_tpu_torch.parallel.dryrun import _lidar_problem
+    from global_lvba_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, psum)
+    from global_lvba_tpu_torch.parallel.shard import lm_damping_iter_sharded
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter
+
+    dev = torch.device("cuda:0")
+    initialize_distributed(f"localhost:{port}", world, rank, backend=backend)
+    try:
+        mesh = make_mesh(1, devices=[dev])
+        tot = float(psum([torch.full((), float(rank + 1), device=dev)],
+                         mesh))
+        buckets, R, p, _ = _lidar_problem(torch.float64, dev)
+        loc = lm_damping_iter(buckets, R, p, max_iters=1)
+        res = lm_damping_iter_sharded(buckets, R, p, mesh, max_iters=1)
+        dR = float((res.R - loc.R).abs().max())
+        dp = float((res.p - loc.p).abs().max())
+        line = dict(backend=backend, world=world, rank=rank,
+                    shards=mesh.n_shards(), psum=tot, route=res.route,
+                    iters=res.iters, dR=dR, dp=dp)
+        print(json.dumps(line), flush=True)
+        if not (tot == world * (world + 1) / 2 and dR < 1e-9 and dp < 1e-9):
+            print(f"sharded step != local: {line}", file=sys.stderr)
+            return 1
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _mesh(torch, np, dev, kern, results, paths, bench):
+    """Phase 18, the multi-device layer on one card (each mesh lists cuda:0
+    several times): [mesh-dryrun], [mesh-shard-kernels], [mesh-w512],
+    [mesh-w4096], [mesh-visual], [mesh-spatial], [mesh-processes]."""
+    from global_lvba_tpu_torch.solver import dist_solve
+
+    dist_solve._GRAPHS.clear()
+    for name, run in (
+            ("dryrun", lambda: _mesh_dryrun(torch, dev, results, paths)),
+            ("shard-kernels", lambda: _mesh_shard_kernels(
+                torch, np, dev, kern, results)),
+            ("w512", lambda: _mesh_w512(torch, np, dev, kern, results,
+                                        paths, bench)),
+            ("w4096", lambda: _mesh_w4096(torch, np, dev, kern, results,
+                                          paths)),
+            ("visual", lambda: _mesh_visual(torch, np, dev, results)),
+            ("spatial", lambda: _mesh_spatial(torch, np, dev, results)),
+            ("processes", lambda: _mesh_processes(results))):
+        t0 = time.time()
+        run()
+        dist_solve._GRAPHS.clear()
+        results[f"mesh_{name}_s"] = time.time() - t0
+        print(f"[mesh-{name}] {results[f'mesh_{name}_s']:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4427,6 +5007,7 @@ def main() -> int:
                                     device_busy_ms=busy, idle_share=idle,
                                     idle_share_cross_run_estimate=idle_w)
 
+    bench = (fa_t, R, p, scene.p_true)
     # ---- 6-9. slice 2: the bucketed layout ----
     _slice2(torch, np, dev, kern, results, paths)
     # ---- 11-13. slice 4: large W (paths 2c, [banded-cg], [2c-dense]) ----
@@ -4441,7 +5022,9 @@ def main() -> int:
             ("16", lambda: scene.extend(_visual_e2e(
                 torch, np, dev, kern, results, paths))),
             ("17", lambda: _system(torch, np, dev, kern, results, paths,
-                                   *scene))):
+                                   *scene)),
+            ("18", lambda: _mesh(torch, np, dev, kern, results, paths,
+                                 bench))):
         t0 = time.time()
         run()
         results[f"phase_{phase}_s"] = time.time() - t0
@@ -4498,4 +5081,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(_mesh_worker(sys.argv[2:]))
     sys.exit(main())

@@ -79,7 +79,7 @@ from .. import resolve_device
 from ..kernels import gram as _gram
 from ..kernels import selection as _sel
 from ..kernels import soa as _soa
-from ..ops.eigh3 import eigh3_soa
+from ..ops.eigh3 import eigh3_soa, eigh3x3
 from ..solver.dist_solve import (
     _frame_table_np, _safe_frames, _safe_table, _segsum, banded_windows_np,
     rows_cross_diag, rows_matvec, to_device)
@@ -488,6 +488,36 @@ def plane_cost(fa, R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     W = R.shape[0]
     poses = _pose_operands(KERNEL_STEPS, [fa], pose_table(R, p), W)
     return _soa.soa_agg(fa.n, fa.mu, fa.Pc, poses[0])[0].sum()
+
+
+# the JAX package's name of the residual-only SoA evaluation, which
+# plane_cost is (kernel 1 on the card)
+plane_cost_soa = plane_cost
+
+
+def plane_cost_aos(fa, R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Sum over voxels of λ_min in the array-of-structs form (the JAX
+    package's reference path for tests): the world covariance of each
+    voxel by the parallel-axis rule over its entries, then eigh3x3.  An
+    aligned bucket's slot k is frame k; an id outside [0, W) reads the
+    nearest pose (JAX's clamped gather), and its entry is dead anyway."""
+    W = R.shape[0]
+    if isinstance(fa, PlaneFactorArrays):
+        frame = fa.frame.long().clamp(0, W - 1)
+    else:
+        frame = torch.arange(fa.n.shape[1], device=R.device).expand(
+            fa.n.shape)
+    Rk, pk = R[frame], p[frame]                          # (V, K, 3, 3), (V, K, 3)
+    m = torch.einsum("vkij,vkj->vki", Rk, fa.mu) + pk
+    S = torch.einsum("vkia,vkab,vkjb->vkij", Rk, fa.Pc, Rk)
+    N = fa.n.sum(-1)
+    N_safe = torch.where(N > 0, N, torch.ones_like(N))
+    vbar = (fa.n[..., None] * m).sum(-2) / N_safe[:, None]
+    d = m - vbar[:, None, :]
+    S_tot = (S + fa.n[..., None, None] * (d[..., :, None] * d[..., None, :])
+             ).sum(1)
+    lams, _ = eigh3x3(S_tot / N_safe[:, None, None])
+    return torch.where(N > 0, lams[..., 0], torch.zeros_like(N)).sum()
 
 
 def plane_cost_grad_hess(

@@ -96,3 +96,48 @@ def log_so3(R: torch.Tensor) -> torch.Tensor:
     w_pi = axis * theta[..., None]
 
     return torch.where(near_pi[..., None], w_pi, w_generic)
+
+
+def jr(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SO(3) (tools.hpp:114-128). (..., 3) -> (..., 3, 3)."""
+    theta = torch.linalg.norm(w, dim=-1)
+    small = theta < 1e-6
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    a = torch.where(small, 1.0 - theta ** 2 / 6.0, torch.sin(safe) / safe)
+    axis = w / safe[..., None]
+    b = 1.0 - a
+    c = torch.where(small, theta / 2.0 - theta ** 3 / 24.0,
+                    (1.0 - torch.cos(safe)) / safe)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    aaT = axis[..., :, None] * axis[..., None, :]
+    return (a[..., None, None] * eye + b[..., None, None] * aaT
+            - c[..., None, None] * hat(axis))
+
+
+def jr_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian (tools.hpp:130-145) of the rotation vector w."""
+    theta = torch.linalg.norm(w, dim=-1)
+    small = theta < 1e-6
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    half = safe / 2.0
+    ctt = torch.where(small, 1.0 - theta ** 2 / 12.0, half / torch.tan(half))
+    axis = w / safe[..., None]
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    aaT = axis[..., :, None] * axis[..., None, :]
+    return (ctt[..., None, None] * eye + (1.0 - ctt)[..., None, None] * aaT
+            + (theta / 2.0)[..., None, None] * hat(axis))
+
+
+def euler_to_rot(roll: torch.Tensor, pitch: torch.Tensor,
+                 yaw: torch.Tensor) -> torch.Tensor:
+    """Z-Y-X Euler angles -> rotation matrix, R = Rz(yaw) Ry(pitch) Rx(roll)
+    (EulerToRot, utils.hpp:448-458), batched."""
+    cr, sr = torch.cos(roll), torch.sin(roll)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    row0 = torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                        cy * sp * cr + sy * sr], dim=-1)
+    row1 = torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                        sy * sp * cr - cy * sr], dim=-1)
+    row2 = torch.stack([-sp, cp * sr, cp * cr], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)

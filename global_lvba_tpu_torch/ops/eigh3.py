@@ -1,7 +1,8 @@
-"""Closed-form symmetric 3x3 eigensolve in structure-of-arrays form (port
-of global_lvba_tpu.ops.eigh3's eigvals3_soa / eigh3_soa).
+"""Closed-form symmetric 3x3 eigensolve (port of global_lvba_tpu.ops.eigh3):
+the batched-matrix form eigh3x3 and the structure-of-arrays form
+eigvals3_soa / eigh3_soa.
 
-Each argument is a batched plane of one matrix component; everything is
+In the SoA form each argument is a batched plane of one matrix component; everything is
 elementwise: the analytic trigonometric eigenvalues plus Cayley-Hamilton
 eigenvectors.  Eigenvalues ascend (Eigen's convention).  These are the
 plain versions of the eigensolve the CUDA aggregation kernel fuses
@@ -13,6 +14,71 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def _eigenvalues3(A: torch.Tensor) -> torch.Tensor:
+    """Analytic eigenvalues of symmetric (..., 3, 3), ascending (..., 3)."""
+    lams = eigvals3_soa(A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+                        A[..., 1, 1], A[..., 1, 2], A[..., 2, 2])
+    return torch.stack(lams, dim=-1)
+
+
+def _maxnorm_column(M: torch.Tensor):
+    """The column of (..., 3, 3) with the largest norm (the first on a
+    tie), and that norm."""
+    norms = torch.linalg.norm(M, dim=-2)                       # (..., 3)
+    idx = torch.argmax(norms, dim=-1, keepdim=True)
+    col = torch.take_along_dim(M, idx[..., None, :], dim=-1)[..., 0]
+    return col, torch.take_along_dim(norms, idx, dim=-1)[..., 0]
+
+
+def _any_orthonormal(v: torch.Tensor) -> torch.Tensor:
+    """A unit vector orthogonal to the unit v: the basis vector least
+    aligned with v, orthogonalized."""
+    idx = torch.argmin(v.abs(), dim=-1)
+    e = torch.eye(3, dtype=v.dtype, device=v.device)[idx]
+    u = e - (e * v).sum(-1, keepdim=True) * v
+    n = torch.linalg.norm(u, dim=-1, keepdim=True)
+    return u / torch.where(n < 1e-30, torch.ones_like(n), n)
+
+
+def eigh3x3(A: torch.Tensor):
+    """Batched closed-form eigh of symmetric (..., 3, 3) matrices -> (lams
+    (..., 3) ascending, U (..., 3, 3) with the eigenvectors as columns,
+    orthonormal and right-handed): the analytic eigenvalues of the
+    max-|entry|-scaled matrix, v2 and v0 the max-norm columns of the
+    Cayley-Hamilton products, v1 = v2 × v0."""
+    scale = torch.clamp(A.abs().amax(dim=(-2, -1)), min=1e-30)
+    As = A / scale[..., None, None]
+    As = 0.5 * (As + As.transpose(-1, -2))
+    lams = _eigenvalues3(As)
+    lam0, lam1, lam2 = lams[..., 0], lams[..., 1], lams[..., 2]
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    spread = torch.clamp(lam2 - lam0, min=1e-30)
+    # v2 (largest eigenvalue): columns of (A - lam0 I)(A - lam1 I)
+    M2 = (As - lam0[..., None, None] * eye) @ (As - lam1[..., None, None] * eye)
+    v2, n2 = _maxnorm_column(M2)
+    degenerate = (spread < 1e-7) | (n2 < 1e-12)
+    v2 = torch.where(degenerate[..., None], eye[:, 2].expand(v2.shape), v2)
+    v2 = v2 / torch.linalg.norm(v2, dim=-1, keepdim=True)
+    # v0 (smallest): columns of (A - lam1 I)(A - lam2 I); a degenerate
+    # lam0 ≈ lam1 collapses the product, so any vector orthogonal to v2
+    M0 = (As - lam1[..., None, None] * eye) @ (As - lam2[..., None, None] * eye)
+    v0, n0 = _maxnorm_column(M0)
+    bad0 = n0 < 1e-12 * torch.clamp(spread, min=1.0)
+    v0 = torch.where(bad0[..., None], _any_orthonormal(v2), v0)
+    v0 = v0 - (v0 * v2).sum(-1, keepdim=True) * v2
+    n0b = torch.linalg.norm(v0, dim=-1, keepdim=True)
+    tiny = n0b < 1e-20
+    v0 = torch.where(tiny, _any_orthonormal(v2),
+                     v0 / torch.where(tiny, torch.ones_like(n0b), n0b))
+    v1 = torch.linalg.cross(v2, v0, dim=-1)
+    return lams * scale[..., None], torch.stack([v0, v1, v2], dim=-1)
+
+
+def eigh3x3_reference(A: torch.Tensor):
+    """torch.linalg.eigh with eigh3x3's output convention (for testing)."""
+    return torch.linalg.eigh(A)
 
 
 def eigvals3_soa(a00, a01, a02, a11, a12, a22):

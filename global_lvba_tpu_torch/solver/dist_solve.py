@@ -313,8 +313,16 @@ def solve_damped_cg_banded(grams_list, wide_list, offsets_list,
     is block-Jacobi on the true 6x6 diagonal blocks.  `max_iters`
     done-masked trips; on CUDA tensors one replay of a captured graph.
     windows: banded_windows(offsets_list, ...), built here when not given.
+    With BANDED_PAIR and pair-aligned offsets, the pair-window form
+    (solve_damped_cg_banded_vec, its tables built per call) runs instead.
     Returns (dx (6W,), d (6W,)), d = diag(H)."""
     W = Hd.shape[0]
+    if BANDED_PAIR and all(
+            _pair_aligned(tuple(offs), gr.shape[1] // 6, W)
+            for gr, offs in zip(grams_list, offsets_list)):
+        return solve_damped_cg_banded_vec(grams_list, wide_list,
+                                          offsets_list, Hd, g, u,
+                                          max_iters=max_iters, tol=tol)
     if windows is None:
         windows = banded_windows(offsets_list,
                                  [gr.shape[1] // 6 for gr in grams_list], W,
@@ -329,6 +337,163 @@ def solve_damped_cg_banded(grams_list, wide_list, offsets_list,
 
     ops = [Hd, g.reshape(W, 6), u, *grams_list, *wides, *wins, slots]
     return _solve(("banded", tol), fn, ops, max_iters)
+
+
+# the pair-window form of the banded solve for pair-aligned offsets
+# (LVBA_BANDED_PAIR, the JAX package's dist_solve.py:589-600; off by
+# default there, by its chip A/B); the sharded compact LM always takes it
+BANDED_PAIR = False
+
+
+def _pair_aligned(offsets, width: int, W: int) -> bool:
+    """True when a bucket's group offsets admit the pair-window matvec:
+    width is two equal blocks, W tiles into blocks, and every offset sits
+    on a block boundary (build_banded_groups gives this whenever
+    block | W)."""
+    if width % 2:
+        return False
+    block = width // 2
+    if block == 0 or W % block:
+        return False
+    return all(o % block == 0 and o <= W - width for o in offsets)
+
+
+def _pair_onehot(offsets, block: int, n_pairs: int) -> np.ndarray:
+    """(G,) int64 pair-window row of each group: the column of the one 1
+    in each row of the JAX package's (G, n_pairs) selection one-hot (a TPU
+    artefact: here the selection is a gather by this index)."""
+    p = np.asarray(offsets, np.int64) // block
+    if p.size and (p.min() < 0 or p.max() >= n_pairs):
+        raise ValueError("group offset outside the pair windows")
+    return p
+
+
+def _pair_fold(x: torch.Tensor, block: int) -> torch.Tensor:
+    """x (W, 6) -> all block-pair windows (n_pairs, 2·block·6): row s is
+    x[s·block : s·block + 2·block] flattened."""
+    xb = x.reshape(x.shape[0] // block, block * 6)
+    return torch.cat([xb[:-1], xb[1:]], dim=-1)
+
+
+def _pair_unfold(yp: torch.Tensor, block: int, W: int,
+                 ch: int = 6) -> torch.Tensor:
+    """Inverse of _pair_fold: pair-row contributions (n_pairs, 2·block·ch)
+    -> (W, ch), each row's halves added to its two blocks (two slice adds,
+    no atomics)."""
+    nb = W // block
+    yb = yp.new_zeros((nb, block * ch))
+    yb[:-1] += yp[:, :block * ch]
+    yb[1:] += yp[:, block * ch:]
+    return yb.reshape(W, ch)
+
+
+def pair_tables_np(offsets, block: int, W: int):
+    """(idx (G,), table (n_pairs, Kq)) of a bucket's pair-aligned groups:
+    each group's pair row and, per pair row, its groups in order (the
+    fixed-order G-contraction)."""
+    n_pairs = W // block - 1
+    idx = _pair_onehot(offsets, block, n_pairs)
+    return idx, index_table_np(idx, n_pairs)
+
+
+def pair_tables(offsets_list, blocks, W: int, device):
+    """[(idx, table), ...] of pair_tables_np per bucket on `device`, in one
+    copy."""
+    arrs = []
+    for offs, b in zip(offsets_list, blocks):
+        arrs += list(pair_tables_np(offs, b, W))
+    out = to_device(arrs, device)
+    return list(zip(out[0::2], out[1::2]))
+
+
+def _pair_terms(shard, W: int, x: torch.Tensor = None) -> torch.Tensor:
+    """One shard's pair-window terms in frame space on its device: with x
+    (W, 6), Σ_buckets unfold(Σ_groups-of-a-pair Gram · window) (W, 6);
+    without, the groups' 6x6 diagonal blocks the same way (W, 36).  shard:
+    [(grams (G, 6w, 6w), idx (G,), table (n_pairs, Kq)), ...]."""
+    out = None
+    for gr, idx, tbl in shard:
+        G, w = gr.shape[0], gr.shape[1] // 6
+        block = w // 2
+        if x is None:
+            z = torch.diagonal(gr.view(G, w, 6, w, 6), dim1=1, dim2=3)
+            z, ch = z.permute(0, 3, 1, 2).reshape(G, w * 36), 36
+        else:
+            win = _pair_fold(x.to(gr.device), block)[idx]
+            z, ch = torch.bmm(gr, win.unsqueeze(-1)).squeeze(-1), 6
+        t = _pair_unfold(_segsum(z, tbl), block, W, ch)
+        out = t if out is None else out + t
+    return out
+
+
+def _damped_cg_pairs(Hd, g, u, shards, wides, reduce, max_iters, tol):
+    """Damped CG on H = diag-blocks(Hd) − Σ pair windows(grams) − Σ wideᵀ
+    wide, the group Grams held by shard (each shard's on its device) and
+    each shard's terms reduced by `reduce` (a list, one a shard, in shard
+    order -> one tensor on Hd's device): the G-contraction."""
+    W = Hd.shape[0]
+    Dblk = Hd - reduce([_pair_terms(sh, W) for sh in shards]).view(W, 6, 6)
+    for A in wides:
+        Aw = A.view(-1, W, 6)
+        Dblk = Dblk - torch.einsum("rwc,rwd->wcd", Aw, Aw)
+    d, damp, Minv = _damping(Dblk, u)
+
+    def cross(x):
+        y = reduce([_pair_terms(sh, W, x) for sh in shards])
+        for A in wides:
+            y = y + (A.t() @ (A @ x.reshape(-1))).view(W, 6)
+        return y
+
+    return _block_cg(Hd, g, damp, d, Minv, cross, max_iters, tol)
+
+
+def pair_solve(shards, wide_list, Hd: torch.Tensor, g: torch.Tensor,
+               u: torch.Tensor, reduce, max_iters: int = 96,
+               tol: float = 1e-10, graph: bool = True):
+    """The pair-window damped CG over shards of group Grams (see
+    _damped_cg_pairs): `max_iters` done-masked trips with no read to the
+    host; on CUDA tensors of one card one replay of a captured graph (the
+    operands are the shards' Grams, indices and tables).  Returns (dx
+    (6W,), d (6W,))."""
+    W = Hd.shape[0]
+    wides = [A for A in wide_list if A.shape[0]]
+    dims = tuple(len(sh) for sh in shards)
+    flat = [t for sh in shards for piece in sh for t in piece]
+
+    def fn(trips, Hd, g, u, *rest):
+        it = iter(rest[:len(flat)])
+        sh = [[(next(it), next(it), next(it)) for _ in range(k)]
+              for k in dims]
+        return _damped_cg_pairs(Hd, g, u, sh, rest[len(flat):], reduce,
+                                trips, tol)
+
+    ops = [Hd, g.reshape(W, 6), u, *flat, *wides]
+    return _solve(("pairs", dims, tol), fn, ops, max_iters, graph)
+
+
+def solve_damped_cg_banded_vec(grams_list, wide_list, offsets_list,
+                               Hd: torch.Tensor, g: torch.Tensor,
+                               u: torch.Tensor, max_iters: int = 96,
+                               tol: float = 1e-10, tables=None):
+    """The pair-window form of solve_damped_cg_banded (the JAX package's
+    solve_damped_cg_banded_vec): every group covers two consecutive frame
+    blocks (offsets pair-aligned, _pair_aligned), so a matvec is per
+    bucket a gather of the pair windows of x, one torch.bmm over the
+    stack and a fixed-order sum of the groups' products by pair row,
+    unfolded to frames, with no per-group loop.  The JAX package selects
+    and scatters by one-hot matmuls; here by index.  tables:
+    pair_tables(offsets_list, blocks, W, device), built here (one copy)
+    when not given.  Returns (dx (6W,), d (6W,)), d = diag(H)."""
+    W = Hd.shape[0]
+    blocks = [gr.shape[1] // 12 for gr in grams_list]
+    for gr, offs in zip(grams_list, offsets_list):
+        if not _pair_aligned(tuple(offs), gr.shape[1] // 6, W):
+            raise ValueError("group offsets not pair-aligned")
+    if tables is None:
+        tables = pair_tables(offsets_list, blocks, W, Hd.device)
+    shard = [(gr, idx, tbl) for gr, (idx, tbl) in zip(grams_list, tables)]
+    return pair_solve([shard], wide_list, Hd, g, u, lambda parts: parts[0],
+                      max_iters, tol)
 
 
 def _damped_cg_rows(Hd, g, u, rows, frames, tables, max_iters, tol):
@@ -422,11 +587,14 @@ def _captured(key, fn, specs, device, max_iters) -> CapturedSolve:
     return graph
 
 
-def _solve(kind, fn, ops, max_iters: int):
+def _solve(kind, fn, ops, max_iters: int, graph: bool = True):
     """fn(max_iters, *ops): one replay of its captured graph on CUDA
-    tensors, the trips run eagerly on CPU tensors."""
+    tensors of one device; the trips run eagerly on CPU tensors, on
+    operands that span several devices (a mesh of several cards) and when
+    `graph` is False (a solve that reduces across processes)."""
     dev = ops[0].device
-    if dev.type != "cuda":
+    if (dev.type != "cuda" or not graph
+            or any(x.device != dev for x in ops)):
         return fn(max_iters, *ops)
     specs = tuple((tuple(x.shape), x.dtype) for x in ops)
     return _captured((kind, specs, dev, max_iters), fn, specs, dev,
@@ -446,6 +614,46 @@ def cg_graph(n: int, dtype: torch.dtype, device: torch.device,
                      specs, dev, max_iters)
 
 
+def row_blocks(n: int, bsize: int, parts: int):
+    """[(lo, hi), ...]: n rows in `parts` contiguous row blocks of whole
+    bsize-row blocks, as equal as they go (the first ones one block
+    larger)."""
+    sizes = [len(c) for c in np.array_split(np.arange(n // bsize), parts)]
+    bounds = np.concatenate([[0], np.cumsum(sizes)]) * bsize
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def _damped_cg_sharded(blocks, g, u, bsize: int, max_iters: int,
+                       tol: float) -> torch.Tensor:
+    """_damped_cg on H held as row blocks (r_j, n), each on its device: a
+    matvec sends p to every block's device and gathers the row products
+    on g's device; each block inverts its own diagonal blocks."""
+    dev = g.device
+    bounds, lo = [], 0
+    for blk in blocks:
+        bounds.append((lo, lo + blk.shape[0]))
+        lo += blk.shape[0]
+    d = torch.cat([blk[:, a:b].diagonal().to(dev)
+                   for blk, (a, b) in zip(blocks, bounds)])
+    eps = 1e-12 * (1.0 + torch.max(d.abs()))
+    damp = u * d + eps
+    damps = [damp[a:b].to(blk.device) for blk, (a, b) in zip(blocks, bounds)]
+    Minv = [_block_jacobi_inv_damped(blk[:, a:b], dm, bsize)
+            for blk, (a, b), dm in zip(blocks, bounds, damps)]
+
+    def matvec(x):
+        return torch.cat([
+            torch.addmv(dm * x[a:b].to(blk.device), blk, x.to(blk.device))
+            .to(dev) for blk, (a, b), dm in zip(blocks, bounds, damps)])
+
+    def precond(r):
+        return torch.cat([
+            torch.bmm(mi, r[a:b].to(mi.device).reshape(-1, bsize, 1))
+            .reshape(-1).to(dev) for mi, (a, b) in zip(Minv, bounds)])
+
+    return _pcg(matvec, precond, -g, max_iters, tol)
+
+
 def solve_damped_cg(
     H: torch.Tensor,
     g: torch.Tensor,
@@ -453,11 +661,29 @@ def solve_damped_cg(
     bsize: int = 6,
     max_iters: int = 256,
     tol: float = 1e-10,
+    h_sharding=None,
 ) -> torch.Tensor:
     """Solve (H + u * diag(H)) dx = -g by block-Jacobi preconditioned CG:
     `max_iters` done-masked trips, no read to the host.  On a CUDA tensor
     one replay of the captured graph (cg_graph); on the CPU the trips run
-    eagerly."""
+    eagerly.
+
+    h_sharding: a list of devices (the JAX package's row sharding
+    P(axis, None) of H): H is split into as many row blocks of whole
+    bsize blocks, block j placed on device j, and each matvec evaluates
+    its row blocks where they lie (the distributed CG); x, r and p stay
+    on H's device.  One graph when every device is H's card."""
+    if h_sharding is not None:
+        blocks = [H[a:b].to(torch.device(dv)) for (a, b), dv in zip(
+            row_blocks(H.shape[0], bsize, len(h_sharding)), h_sharding)]
+        nb = len(blocks)
+
+        def fn(trips, *ops):
+            return _damped_cg_sharded(ops[:nb], ops[nb], ops[nb + 1], bsize,
+                                      trips, tol)
+
+        return _solve(("dense-rows", bsize, tol, nb), fn,
+                      [*blocks, g, u.to(H.device)], max_iters)
     if H.device.type == "cuda":
         return cg_graph(H.shape[0], H.dtype, H.device, bsize, max_iters,
                         tol)(H, g, u)
@@ -607,6 +833,43 @@ def solve_schur_cg_mf(dHcc: torch.Tensor, W: torch.Tensor, Y: torch.Tensor,
 
     ops = [dHcc, W, Y, b, obs_cam.long(), obs_pt.long(), cam_tbl, pt_tbl]
     return _solve(("schur_mf", fix_first, tol), fn, ops, max_iters)
+
+
+def _schur_mf_sharded(dHcc, b, shards, reduce, fix_first, max_iters, tol):
+    """_schur_mf over observation shards [(W, Y, cam, pt, cam_tbl, pt_tbl),
+    ...] (each on its device): the point and camera sums of a matvec are
+    each shard's table sums, reduced (`reduce`: a list, one a shard ->
+    one tensor on dHcc's device)."""
+    def reduce_obs(xm):
+        tp = reduce([_segsum((W * xm.to(W.device)[cam][:, :, None]).sum(1),
+                             ptt) for W, _, cam, _, _, ptt in shards])
+        return reduce([_segsum((Y * tp.to(Y.device)[pt][:, None, :]).sum(-1),
+                               camt) for _, Y, _, pt, camt, _ in shards])
+
+    cross = reduce([_cross_blocks(W, Y, camt)
+                    for W, Y, _, _, camt, _ in shards])
+    return _schur_cg(dHcc, cross, b, reduce_obs, fix_first, max_iters, tol)
+
+
+def solve_schur_cg_mf_sharded(dHcc: torch.Tensor, shards, b: torch.Tensor,
+                              reduce, fix_first: bool = True,
+                              max_iters: int = 256, tol: float = 1e-10,
+                              graph: bool = True) -> torch.Tensor:
+    """solve_schur_cg_mf with the observations sharded: shards [(W, Y
+    (O_s, 6, 3), obs_cam, obs_pt (O_s,), cam table (M, Kc), point table
+    (P, Kp)), ...], each on its device, their sums combined by `reduce`
+    (the mesh's psum).  On one card one replay of a captured graph (graph
+    False: a reduction across processes, run eagerly).  Returns dc
+    (M, 6)."""
+    k = len(shards)
+    flat = [t for sh in shards for t in sh]
+
+    def fn(trips, dHcc, b, *rest):
+        sh = [tuple(rest[6 * i:6 * i + 6]) for i in range(k)]
+        return _schur_mf_sharded(dHcc, b, sh, reduce, fix_first, trips, tol)
+
+    return _solve(("schur_mf_sharded", k, fix_first, tol), fn,
+                  [dHcc, b, *flat], max_iters, graph)
 
 
 def _schur_pm(dHcc, Wt, Yt, b, cam, pt, cam_tbl, dims, fix_first, max_iters,

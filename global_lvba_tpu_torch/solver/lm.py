@@ -147,13 +147,19 @@ def _dense_solve(solver: str, trips: int):
 
 def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
                hessian: str = "auto", gather_tables: bool = False,
-               split: bool = None) -> Route:
+               split: bool = None, mesh=None, axis: str = "factors",
+               block: int = None) -> Route:
     """The route of a W-frame solve over `buckets` (see the module
     docstring), with the operands it reads built once: a bucketed solve
     reads its buckets' ids and counts to the host here (its frame tables;
     the banded groups and their tables), before its first evaluation.
     split: None takes the split route at W >= SPLIT_W (but for cg_mf);
-    True forces it (lm_damping_iter_split)."""
+    True forces it (lm_damping_iter_split).
+    mesh: a parallel.mesh.Mesh; the sharded routes of parallel.shard
+    (sharded_route: the factor-sharded dense route, the sharded banded
+    route, and with split the compact banded route with the pair-window
+    solve), their factor arrays or group stacks sharded over `axis`.
+    block: the banded groups' frame block (None: the p99 span rule)."""
     kinds = (AlignedPlaneFactorArrays, PlaneFactorArrays)
     if not all(isinstance(fa, kinds) for fa in buckets):
         raise TypeError("buckets must be AlignedPlaneFactorArrays or "
@@ -173,6 +179,11 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
         raise NotImplementedError(
             "gather_tables=True (the JAX package's GatherPlan / _cgh_gather "
             "evaluation) is not ported: ROADMAP A3b")
+    if mesh is not None:
+        # lazy import: parallel.shard imports this module
+        from ..parallel.shard import sharded_route
+        return sharded_route(buckets, W, reduced_solver, hessian,
+                             bool(split), mesh, axis, block)
     if split is None:
         split = W >= SPLIT_W and reduced_solver != "cg_mf"
     elif split and reduced_solver == "cg_mf":
@@ -201,7 +212,7 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
 
     groups = None
     if hessian != "dense" and (hessian == "banded" or W >= BANDED_MIN_W):
-        groups = [build_banded_groups(fa, W) for fa in buckets]
+        groups = [build_banded_groups(fa, W, block) for fa in buckets]
         banded, dense = banded_cost(groups, buckets, W)
         if hessian != "banded" and banded * 4 > dense:
             groups = None
@@ -250,7 +261,8 @@ def _select_(keep, new, old):
         for a, b in zip(new, old):
             _select_(keep, a, b)
     else:
-        torch.where(keep, new, old, out=old)
+        # a sharded state's tensors lie on their shards' devices
+        torch.where(keep.to(old.device), new, old, out=old)
     return old
 
 

@@ -58,9 +58,10 @@ from ..geometry.so3 import exp_so3
 from .dist_solve import (
     PMTiers, _expand, _inv3_batched, _segsum, _tier_sum, index_table_np,
     pm_tiers,
-    solve_damped_cg, solve_schur_cg_mf, solve_schur_cg_pm,
-    solve_schur_cg_pm_tiers, to_device)
+    solve_damped_cg, solve_schur_cg_mf, solve_schur_cg_mf_sharded,
+    solve_schur_cg_pm, solve_schur_cg_pm_tiers, to_device)
 from .lm import _select_
+from ..parallel.mesh import Mesh, gather_rows, psum, shard_bounds
 
 log = logging.getLogger("global_lvba_tpu_torch.solver")
 
@@ -175,15 +176,18 @@ def _auto_solver(M: int, pairs_sharded: bool, Q: int = 0) -> str:
     return "lu"
 
 
-def _route(prob: VisualBAProblem, dtype: torch.dtype, host_loop: bool):
+def _route(prob: VisualBAProblem, dtype: torch.dtype, host_loop: bool,
+           sharded: bool = False):
     """(route, the tier tables where the route reads them): the JAX
-    package's choice (schur.py:740-850) with its byte budgets."""
+    package's choice (schur.py:740-850) with its byte budgets.  On a mesh
+    (sharded) "auto" takes _auto_solver(pairs_sharded=True) and "cg_mf"
+    the per-observation matvec, as the JAX package's mesh path does."""
     solver = prob.reduced_solver
     if solver == "auto":
         counts = np.bincount(np.asarray(prob.obs_pt),
                              minlength=prob.num_pts).astype(np.int64)
         Q = int((counts ** 2).sum())
-        solver = _auto_solver(prob.num_cams, pairs_sharded=False, Q=Q)
+        solver = _auto_solver(prob.num_cams, pairs_sharded=sharded, Q=Q)
         log.info("[visualBA] auto solver=%s M=%d P=%d O=%d Q=%d maxlen=%d",
                  solver, prob.num_cams, prob.num_pts,
                  int(np.asarray(prob.obs_pt).shape[0]), Q,
@@ -192,6 +196,8 @@ def _route(prob: VisualBAProblem, dtype: torch.dtype, host_loop: bool):
         return solver, None
     if solver != "cg_mf":
         raise ValueError(f"unknown reduced_solver {prob.reduced_solver!r}")
+    if sharded:
+        return "cg_mf", None
     itemsize = torch.empty((), dtype=dtype).element_size()
     tt = _tier_tables(np.asarray(prob.obs_cam, np.int32),
                       np.asarray(prob.obs_pt, np.int32), prob.num_cams)
@@ -257,23 +263,33 @@ def _matmul3(A, B):
     return (A[:, :, :, None] * B[:, None, :, :]).sum(2)
 
 
+def _obs_sums(M, r, Jc, Jp, cam_sum, pt_sum) -> _LinCache:
+    """_LinCache of per-observation residuals and Jacobians, summed by
+    camera (cam_sum) and by point (pt_sum), without the plane priors."""
+    return _LinCache(
+        g_c=cam_sum((Jc * r[..., None]).sum(1)),
+        g_p=pt_sum((Jp * r[..., None]).sum(1)),
+        Hcc=cam_sum(_outer(Jc, Jc).reshape(-1, 36)).view(M, 6, 6),
+        Hpp=pt_sum(_outer(Jp, Jp).reshape(-1, 9)).view(-1, 3, 3),
+        Wb=_outer(Jc, Jp), cost=0.5 * (r * r).sum())
+
+
+def _with_plane(prob, cache: _LinCache, X, n, d) -> _LinCache:
+    """The cache with the plane priors of the points X added."""
+    if not prob.use_plane:
+        return cache
+    rp, Jx = plane_point_batch(n, d, X, prob.sigma_plane)
+    return cache._replace(
+        cost=cache.cost + 0.5 * (rp * rp).sum(),
+        g_p=cache.g_p + rp[:, None] * Jx,
+        Hpp=cache.Hpp + Jx[:, :, None] * Jx[:, None, :])
+
+
 def _reductions(prob, r, Jc, Jp, cam_sum, pt_sum, X, n, d):
     """_LinCache from per-observation residuals and Jacobians, summed by
     camera (cam_sum) and by point (pt_sum), plus the plane priors."""
-    M = prob.num_cams
-    cost = 0.5 * (r * r).sum()
-    g_c = cam_sum((Jc * r[..., None]).sum(1))
-    Hcc = cam_sum(_outer(Jc, Jc).reshape(-1, 36))
-    g_p = pt_sum((Jp * r[..., None]).sum(1))
-    Hpp = pt_sum(_outer(Jp, Jp).reshape(-1, 9)).view(-1, 3, 3)
-    if prob.use_plane:
-        rp, Jx = plane_point_batch(n, d, X, prob.sigma_plane)
-        cost = cost + 0.5 * (rp * rp).sum()
-        g_p = g_p + rp[:, None] * Jx
-        Hpp = Hpp + Jx[:, :, None] * Jx[:, None, :]
-    Wb = _outer(Jc, Jp)
-    return _LinCache(g_c=g_c, g_p=g_p, Hcc=Hcc.view(M, 6, 6), Hpp=Hpp,
-                     Wb=Wb, cost=cost)
+    return _with_plane(prob, _obs_sums(prob.num_cams, r, Jc, Jp, cam_sum,
+                                       pt_sum), X, n, d)
 
 
 def _linearize(prob, c: _Consts, R, t, X) -> _LinCache:
@@ -331,13 +347,26 @@ def _schur_matrix(prob, c: _Consts, W, Y, dHcc):
     Y_a W_bᵀ, each camera-pair cell the fixed-order sum of its pairs
     through the chunk's cell table; with fix_first, camera 0's rows and
     columns are the identity's."""
-    M = prob.num_cams
-    chunks, pa, pb = c.pairs
+    return _schur_finish(prob, _pair_scatter(prob.num_cams, c.pairs, W, Y),
+                         dHcc)
+
+
+def _pair_scatter(M: int, pairs, W, Y):
+    """The camera-pair couplings −Σ_pairs Y_a W_bᵀ (M·M, 36) of one pair
+    list: chunk by chunk, each cell the fixed-order sum of its pairs."""
+    chunks, pa, pb = pairs
     S = W.new_zeros((M * M, 36))
     for (lo, hi), cells, table in chunks:
         blk = -torch.bmm(Y[pa[lo:hi]], W[pb[lo:hi]].transpose(1, 2))
         S.index_copy_(0, cells, S.index_select(0, cells)
                       + _segsum(blk.reshape(-1, 36), table))
+    return S
+
+
+def _schur_finish(prob, S, dHcc):
+    """The reduced system (6M, 6M) from the couplings S (M·M, 36) and the
+    damped camera blocks; camera 0 held with fix_first."""
+    M = prob.num_cams
     S = S.view(M, M, 6, 6)
     diag = torch.arange(M, device=S.device)
     S[diag, diag] = S[diag, diag] + dHcc
@@ -432,15 +461,17 @@ class VisualPlan(NamedTuple):
 
 def plan_visual(prob: VisualBAProblem, R0, t0, X0, dtype=None,
                 device="cuda", device_loop: bool = True,
-                verbose: bool = False, mesh=None) -> VisualPlan:
+                verbose: bool = False, mesh=None,
+                shard_axis: str = "factors") -> VisualPlan:
     """The solve's route and its operands on `device`, built once: the
     host tables (by camera, point, tier slot or camera pair) and every
     array copied to the device.  All of a solve's reads to the host happen
-    here."""
+    here.  With `mesh` (a parallel.mesh.Mesh) the observations and pairs
+    are sharded over `shard_axis` and the plan lives on the mesh's devices
+    (_plan_sharded; `device` is not read)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_visual_ba(mesh=...) (the sharded visual solve) is not "
-            "ported: ROADMAP A7")
+        return _plan_sharded(prob, R0, t0, X0, dtype, device_loop, verbose,
+                             mesh, shard_axis)
     dev = resolve_device(device)
     dtype = torch.float32 if dtype is None else dtype
     host_loop = not device_loop or verbose
@@ -498,6 +529,167 @@ def plan_visual(prob: VisualBAProblem, R0, t0, X0, dtype=None,
         route, c, lambda R, t, X: _linearize(prob, c, R, t, X),
         lambda cache, u: _solve_cached(prob, route, c, cache, u),
         R, t, X, lambda X: X, host_loop, verbose)
+
+
+class _ObsShard(NamedTuple):
+    """One shard of a sharded visual solve: its observations' operands on
+    its device (consts: obs_cam, obs_pt, uv, cam_table, pt_table and its
+    pair chunks, which index the gathered observations) and their weights
+    (0 on padded observations)."""
+
+    c: _Consts
+    w: torch.Tensor
+
+
+def _shard_obs(prob, mesh, axis, route, dtype):
+    """The observations (and, on the lu / cg routes, the observation
+    pairs) padded to the axis's shard count by the JAX package's rule
+    (schur.py:862-878: padded pairs point at a zero-weight padded
+    observation, a whole shard row added when only the pairs need
+    padding) and split into this process's shards."""
+    n = mesh.n_shards(axis)
+    M, P = prob.num_cams, prob.num_pts
+    obs_cam = np.asarray(prob.obs_cam).astype(np.int64)
+    obs_pt = np.asarray(prob.obs_pt).astype(np.int64)
+    uv = np.asarray(prob.obs_uv, np.float64)
+    O = obs_cam.shape[0]
+    pa = pb = np.zeros(0, np.int64)
+    if route in ("lu", "cg"):
+        pa, pb = (x.astype(np.int64) for x in _build_pairs(obs_pt, P))
+    Q = pa.shape[0]
+    Opad, Qpad = -(-O // n) * n, -(-Q // n) * n
+    if Qpad > Q and Opad == O:
+        Opad += n
+    obs_cam = np.pad(obs_cam, (0, Opad - O))
+    obs_pt = np.pad(obs_pt, (0, Opad - O))
+    uv = np.pad(uv, ((0, Opad - O), (0, 0)))
+    w = np.pad(np.ones(O), (0, Opad - O))
+    pad_obs = Opad - 1 if Opad > O else 0
+    pa = np.pad(pa, (0, Qpad - Q), constant_values=pad_obs)
+    pb = np.pad(pb, (0, Qpad - Q), constant_values=pad_obs)
+    obounds, qbounds = shard_bounds(Opad, n), shard_bounds(Qpad, n)
+    shards = []
+    for gi, dev in zip(mesh.local_shards(axis), mesh.axis_devices(axis)):
+        lo, hi = obounds[gi]
+        ints = [obs_cam[lo:hi], obs_pt[lo:hi],
+                index_table_np(obs_cam[lo:hi], M),
+                index_table_np(obs_pt[lo:hi], P)]
+        chunks = ()
+        if route in ("lu", "cg"):
+            qa, qb = pa[slice(*qbounds[gi])], pb[slice(*qbounds[gi])]
+            plan = _pair_cells_np(obs_cam, qa, qb, M, prob.pair_chunk)
+            chunks = [(a, b) for a, b, _, _ in plan]
+            ints += [qa, qb]
+            for _, _, cells, table in plan:
+                ints += [cells, table]
+        ints = to_device(ints, dev)
+        pairs = ()
+        if route in ("lu", "cg"):
+            pairs = (list(zip(chunks, ints[6::2], ints[7::2])), ints[4],
+                     ints[5])
+        fl = torch.as_tensor(np.concatenate([uv[lo:hi].reshape(-1),
+                                             w[lo:hi]])).to(dev, dtype)
+        c = _Consts(uv=fl[:2 * (hi - lo)].view(-1, 2), n=None, d=None,
+                    obs_cam=ints[0], obs_pt=ints[1], cam_table=ints[2],
+                    pt_table=ints[3], pairs=pairs)
+        shards.append(_ObsShard(c, fl[2 * (hi - lo):]))
+    return shards
+
+
+def _linearize_sharded(prob, shards, mesh, n, d, R, t, X) -> _LinCache:
+    """The flat routes' evaluation on observation shards: each shard's
+    weighted residuals and Jacobians summed by camera and point through its
+    tables, the sums reduced (mesh.psum); the coupling blocks stay on their
+    shards (Wb: a list, one a shard); the plane priors once."""
+    parts, wbs = [], []
+    for sh in shards:
+        c, w = sh.c, sh.w
+        dev = w.device
+        r, Jc, Jp = reproj_jacobians_batch(
+            prob.cam, R.to(dev), t.to(dev), X.to(dev), c.obs_cam, c.obs_pt,
+            c.uv, prob.sigma_px)
+        r, Jc, Jp = r * w[:, None], Jc * w[:, None, None], \
+            Jp * w[:, None, None]
+        k = _obs_sums(prob.num_cams, r, Jc, Jp,
+                      lambda z, t=c.cam_table: _segsum(z, t),
+                      lambda z, t=c.pt_table: _segsum(z, t))
+        parts.append((k.g_c, k.g_p, k.Hcc, k.Hpp, k.cost))
+        wbs.append(k.Wb)
+    g_c, g_p, Hcc, Hpp, cost = psum(parts, mesh)
+    return _with_plane(prob, _LinCache(g_c, g_p, Hcc, Hpp, wbs, cost), X, n,
+                       d)
+
+
+def _solve_sharded(prob, route, shards, mesh, axis, cache, u):
+    """_solve_cached on observation shards: Y and the reduced rhs per
+    shard, reduced; the reduced solve (lu: the couplings of each shard's
+    pairs over the gathered W, Y, reduced, then the replicated LU; cg: the
+    same S row-sharded over the axis; cg_mf: the sharded matrix-free CG);
+    the back-substitution's point sums reduced."""
+    M = prob.num_cams
+    dHcc, Hpp_inv = _damped_blocks(u, cache.Hcc, cache.Hpp)
+    Ys, bs = [], []
+    for sh, W in zip(shards, cache.Wb):
+        c = sh.c
+        Y = _matmul3(W, Hpp_inv.to(W.device)[c.obs_pt])
+        gp = cache.g_p.to(W.device)[c.obs_pt]
+        Ys.append(Y)
+        bs.append(_segsum((Y * gp[:, None, :]).sum(-1), c.cam_table))
+    b = _zero_first(psum(bs, mesh) - cache.g_c, prob.fix_first)
+    if route == "cg_mf":
+        dc = solve_schur_cg_mf_sharded(
+            dHcc, [(W, Y, sh.c.obs_cam, sh.c.obs_pt, sh.c.cam_table,
+                    sh.c.pt_table) for sh, W, Y in zip(shards, cache.Wb, Ys)],
+            b, lambda parts: psum(parts, mesh), fix_first=prob.fix_first,
+            graph=not mesh.distributed)
+    else:
+        Wg, Yg = gather_rows(cache.Wb, mesh), gather_rows(Ys, mesh)
+        S = psum([_pair_scatter(M, sh.c.pairs, Wg.to(sh.w.device),
+                                Yg.to(sh.w.device)) for sh in shards], mesh)
+        A = _schur_finish(prob, S, dHcc)
+        rhs = b.reshape(M * 6)
+        if route == "cg":
+            dc = solve_damped_cg(A, -rhs, A.new_zeros(()),
+                                 h_sharding=mesh.axis_devices(axis))
+        else:
+            LU, piv, _ = torch.linalg.lu_factor_ex(A)
+            dc = torch.linalg.lu_solve(LU, piv, rhs[:, None])
+            dc = dc + torch.linalg.lu_solve(LU, piv, rhs[:, None] - A @ dc)
+        dc = dc.reshape(M, 6)
+    wt = psum([_segsum((W * dc.to(W.device)[sh.c.obs_cam][:, :, None]).sum(1),
+                       sh.c.pt_table) for sh, W in zip(shards, cache.Wb)],
+              mesh)
+    dX = (Hpp_inv * (-cache.g_p - wt)[:, None, :]).sum(-1)
+    return dc, dX, _model_decrease(u, cache.Hcc, cache.g_c, dc, cache.Hpp,
+                                   cache.g_p, dX)
+
+
+def _plan_sharded(prob, R0, t0, X0, dtype, device_loop, verbose, mesh,
+                  axis) -> VisualPlan:
+    """The VisualPlan of a solve on a mesh (the JAX package's
+    solve_visual_ba(mesh=), schur.py:722-925): observations and pairs
+    sharded over `axis`, the per-camera and per-point sums reduced on the
+    mesh's first device, where the state lives."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), "
+                        f"not {type(mesh).__name__}")
+    dtype = torch.float32 if dtype is None else dtype
+    host_loop = not device_loop or verbose
+    route, _ = _route(prob, dtype, host_loop, sharded=True)
+    dev = mesh.first
+
+    def fl(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
+
+    shards = _shard_obs(prob, mesh, axis, route, dtype)
+    n, d = fl(prob.plane_n), fl(prob.plane_d)
+    c = _Consts(uv=None, n=n, d=d)
+    return VisualPlan(
+        route, c,
+        lambda R, t, X: _linearize_sharded(prob, shards, mesh, n, d, R, t, X),
+        lambda cache, u: _solve_sharded(prob, route, shards, mesh, axis,
+                                        cache, u),
+        fl(R0), fl(t0), fl(X0), lambda X: X, host_loop, verbose)
 
 
 def _step(plan: VisualPlan, R, t, X, cache, u):
@@ -589,13 +781,18 @@ def solve_visual_ba(
     dtype=None,
     verbose: bool = False,
     mesh=None,
+    shard_axis: str = "factors",
     device_loop: bool = True,
     device="cuda",
 ) -> VisualBAResult:
     """LM with Schur steps (Ceres-equivalent semantics) on `device`
     (default the card), in `dtype` (default float32).  The result's
-    `route` names the route taken (module docstring).  mesh= (the JAX
-    package's sharded solve) raises NotImplementedError (ROADMAP A7)."""
+    `route` names the route taken (module docstring).  With `mesh` (the
+    JAX package's sharded solve) observations and pairs are sharded over
+    `shard_axis`; the route follows _auto_solver(pairs_sharded=True), the
+    cg route row-shards S, and the result lies on the mesh's first
+    device."""
     plan = plan_visual(prob, R0, t0, X0, dtype=dtype, device=device,
-                       device_loop=device_loop, verbose=verbose, mesh=mesh)
+                       device_loop=device_loop, verbose=verbose, mesh=mesh,
+                       shard_axis=shard_axis)
     return run_visual(plan, max_iters, u_init, rel_tol)

@@ -48,3 +48,31 @@ def test_every_module_imports_with_jax_blocked():
     + ["chip_smoke.py"])
 def test_source_has_no_jax_import(path):
     assert not BANNED.search((ROOT / path).read_text()), path
+
+
+def test_parallel_modules_walked_and_distributed_builds_no_kernel():
+    """The multi-device modules are among those walked above, and importing
+    torch.distributed with them (and making a CPU mesh) builds no kernel."""
+    names = _port_modules()
+    for m in ("parallel", "parallel.mesh", "parallel.shard",
+              "parallel.spatial", "parallel.dryrun"):
+        assert f"global_lvba_tpu_torch.{m}" in names
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'global_lvba_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import torch.distributed\n"
+        "from global_lvba_tpu_torch.parallel import make_mesh, psum\n"
+        "import global_lvba_tpu_torch.parallel.dryrun\n"
+        "import global_lvba_tpu_torch.parallel.spatial\n"
+        "m = make_mesh(2, devices=['cpu'] * 2)\n"
+        "assert m.world == 1\n"
+        "from global_lvba_tpu_torch.kernels import build\n"
+        "assert not build._libs\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

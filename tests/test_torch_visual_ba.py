@@ -484,10 +484,28 @@ def test_route_choice_matches_jax(case, dtype, monkeypatch):
 
 
 def test_mesh_raises_naming_a7():
+    """solve_visual_ba raises TypeError, naming Mesh, for a mesh that is no
+    parallel.mesh.Mesh."""
     arrays, R0, t0, X0 = _problem()
-    with pytest.raises(NotImplementedError, match="A7"):
-        schur.solve_visual_ba(schur.VisualBAProblem(cam=CAM, **arrays), R0,
-                              t0, X0, device="cpu", mesh=object())
+    prob = schur.VisualBAProblem(cam=CAM, **arrays)
+    with pytest.raises(TypeError, match="Mesh"):
+        schur.solve_visual_ba(prob, R0, t0, X0, device="cpu", mesh=object())
+
+
+def test_mesh_solve_equals_local():
+    """solve_visual_ba(mesh=) on two CPU shards gives the local solve's
+    route, iterations and result (1e-8)."""
+    from global_lvba_tpu_torch.parallel.mesh import make_mesh
+
+    arrays, R0, t0, X0 = _problem()
+    prob = schur.VisualBAProblem(cam=CAM, **arrays)
+    got = schur.solve_visual_ba(prob, R0, t0, X0, max_iters=5, dtype=F64,
+                                mesh=make_mesh(2, devices=["cpu"] * 2))
+    want = schur.solve_visual_ba(prob, R0, t0, X0, max_iters=5, dtype=F64,
+                                 device="cpu")
+    assert got.route == want.route == "lu" and got.iters == want.iters
+    for a, b in ((got.R, want.R), (got.t, want.t), (got.X, want.X)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-8)
 
 
 def test_unknown_solver_raises():
