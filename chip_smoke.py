@@ -274,11 +274,30 @@ mesh lists cuda:0 several times):
      on 8 shards == host_voxel_moments (keys and counts exactly, sums
      within 1e-4 of each column's max); [mesh-processes] two processes on
      cuda:0 through gloo and a world of one NCCL process, one sharded LM
-     step each == the local one (this script with --mesh-worker).
+     step each == the local one (this script with --mesh-worker); the dry
+     run includes the gather-plan LM (single-device, as in the JAX
+     package's).
+Slice 13, the JAX package's opt-in large-W evaluations:
+ 19. [a3b]: [a3b-kernels] the group forms of kernels 1 and 2 at path 2c's
+     aligned banded stacks (G groups of Vp voxels at 2B = 128: one
+     table_select of the (G, 2B, 12) pose windows bitwise its plain
+     version; soa_agg on the windows under phase 2's limits, bitwise equal
+     to soa_agg on the per-entry rows and to itself; soa_chain_groups'
+     rows within 1e-3, its (group, slot) entry rows within 1e-3, dead
+     cells' rows exactly zero, repeats bitwise), each timed over the
+     stacks beside its plain version and its bound; the float64 instances
+     at the CPU tests' corridor (make_corridor_scene(48, 800), block 8)
+     under TOL64; [a3b-2c-aligned] stage 1's LM on path 2c's map with
+     lm.BANDED_ALIGNED (route split-banded-aligned) against the gather
+     layout's (split-banded) in the same call, timed in turns: the
+     residual within 1e-5, ms an iteration, set-up ms, peak memory,
+     launches an evaluation, no (6W)² operand; [a3b-gather-2b] path 2b's
+     stage-1 map with gather_tables=True (route gather) against the dense
+     route the same way.  scripts/a3b_phase.py runs the phase alone.
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
 2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, system, mesh-dryrun,
-mesh-w512, mesh-w4096); the last line is
+mesh-w512, mesh-w4096, a3b-aligned, a3b-gather); the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -2169,6 +2188,7 @@ def _slice2(torch, np, dev, kern, results, paths):
         idle_share_cross_run_estimate=idle_w, host_reads=syncs, cg=cg_2b)
     # ---- 9b. [cg_mf]: the same map through the matrix-free rows route ----
     _cg_mf(torch, kern, results, paths, bs, bs64, R, p, Rp, pp, W, lm)
+    KEEP["2b"] = (bs, R, p)
 
 
 def _corridor_clouds(np, scene, W):
@@ -2196,8 +2216,10 @@ def _large_map(np, W, cfg):
 
 
 def _group_info(groups):
+    from global_lvba_tpu_torch.factors.plane_eigen import group_width
+
     return [dict(G=int(bg.fa.n.shape[0]), Vp=int(bg.fa.n.shape[1]),
-                 K=int(bg.fa.n.shape[2]), width=int(bg.inv.shape[-1]),
+                 K=int(bg.fa.n.shape[2]), width=group_width(bg),
                  Vw=int(bg.wide_fa.n.shape[0])) for bg in groups]
 
 
@@ -2608,6 +2630,47 @@ def _banded_dense(torch, np, dev, kern, results, paths):
         compact_stragglers=rec16)
 
 
+def _no_dense_operand(torch, tag, plan, R, p, W, u0):
+    """[tag]: no op of one compact evaluation of `plan` and one solve (its
+    trips run eagerly: a graph replay shows no op) takes an operand of
+    (6W)² elements (torch.profiler with record_shapes).  Returns the
+    largest operand's elements."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_cost_grad_compact)
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import BANDED_CG_ITERS
+
+    big = (6 * W) ** 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        st = banded_cost_grad_compact(plan, R, p, W)
+        dist_solve._damped_cg_banded(st[2], st[1], u0, st[3],
+                                     [A for A in st[4] if A.shape[0]],
+                                     plan.windows[0], plan.windows[1],
+                                     BANDED_CG_ITERS, 1e-10)
+        torch.cuda.synchronize()
+    largest, hits = 0, []
+    for ev in prof.events():
+        for shp in ev.input_shapes or ():
+            if isinstance(shp, (list, tuple)) and shp and all(
+                    isinstance(s, int) for s in shp):
+                n = math.prod(shp)
+                largest = max(largest, n)
+                if n >= big:
+                    hits.append((ev.name, shp))
+    ev_ms = _device_ms(prof)
+    del st
+    print(f"[{tag}] one evaluation and one solve's trips under "
+          f"torch.profiler (record_shapes): largest operand {largest} "
+          f"elements, (6W)² = {big}; ops at or above it: {hits[:5]}; device "
+          f"ms by op (ms, calls): {_top_ops(ev_ms)}", flush=True)
+    if hits:
+        _fail(f"{tag}: an op takes a (6W)²-element operand: {hits[:5]}")
+    return largest
+
+
 def _banded_cg(torch, tag, plan, R, p, W):
     """[tag]: the compact evaluation of `plan` queued under sync debug mode
     "error", then its banded CG (BANDED_CG_ITERS done-masked trips, one
@@ -2681,7 +2744,8 @@ def _banded_cg(torch, tag, plan, R, p, W):
 
 def _large_w(torch, np, dev, kern, results, paths):
     """Path 2c, the main path at the JAX bench's W = 4096 (bench.py:501-571),
-    with [banded-cg]; then [2c-dense] (W = 2048)."""
+    with [banded-cg]; then [2c-dense] (W = 2048).  Returns stage 1's
+    buckets and poses on the card (bs, R, p), which phase 19 reuses."""
     from torch.profiler import ProfilerActivity, profile
 
     from global_lvba_tpu_torch.__main__ import slice_config
@@ -2695,8 +2759,6 @@ def _large_w(torch, np, dev, kern, results, paths):
         soa_agg_buckets, soa_chain_entries)
     from global_lvba_tpu_torch.models.synthetic import ate_rmse
     from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
-    from global_lvba_tpu_torch.solver import dist_solve
-    from global_lvba_tpu_torch.solver.lm import BANDED_CG_ITERS
 
     W = LARGE_FRAMES
     cfg = slice_config("float32")
@@ -2759,34 +2821,7 @@ def _large_w(torch, np, dev, kern, results, paths):
     results["banded_cg_stragglers"]["groups"] = _group_info(groups16)
     del groups16, plan16
 
-    # no op of one evaluation and one solve (its trips run eagerly: a
-    # graph replay shows no op) takes an operand of (6W)² elements
-    big = (6 * W) ** 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        st = banded_cost_grad_compact(plan, R, p, W)
-        dist_solve._damped_cg_banded(st[2], st[1], u0, st[3],
-                                     [A for A in st[4] if A.shape[0]],
-                                     plan.windows[0], plan.windows[1],
-                                     BANDED_CG_ITERS, 1e-10)
-        torch.cuda.synchronize()
-    largest, hits = 0, []
-    for ev in prof.events():
-        for shp in ev.input_shapes or ():
-            if isinstance(shp, (list, tuple)) and shp and all(
-                    isinstance(s, int) for s in shp):
-                n = math.prod(shp)
-                largest = max(largest, n)
-                if n >= big:
-                    hits.append((ev.name, shp))
-    ev_ms = _device_ms(prof)
-    del st
-    print(f"[2c] one evaluation and one solve's trips under torch.profiler "
-          f"(record_shapes): largest operand {largest} elements, (6W)² = "
-          f"{big}; ops at or above it: {hits[:5]}; device ms by op (ms, "
-          f"calls): {_top_ops(ev_ms)}", flush=True)
-    if hits:
-        _fail(f"2c: an op takes a (6W)²-element operand: {hits[:5]}")
+    largest = _no_dense_operand(torch, "2c", plan, R, p, W, u0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         banded_cost_grad_compact(plan, R, p, W)
@@ -2833,9 +2868,10 @@ def _large_w(torch, np, dev, kern, results, paths):
         largest_operand=largest, group_gram_bmm_ms=bmm_ms,
         group_gram_syrk_ms=syrk_ms, group_gram_gflop=flops / 1e9,
         group_gram_syrk_vs_bmm=gram_err)
-    del A3s, scratch, bs, plan, groups
+    del A3s, scratch, plan, groups
 
     _banded_dense(torch, np, dev, kern, results, paths)
+    return bs, R, p
 
 
 def _cg_mf(torch, kern, results, paths, bs, bs64, R, p, Rp, pp, W,
@@ -4611,6 +4647,350 @@ def _mesh(torch, np, dev, kern, results, paths, bench):
         results[f"mesh_{name}_s"] = time.time() - t0
         print(f"[mesh-{name}] {results[f'mesh_{name}_s']:.1f} s", flush=True)
 
+# ---- phase 19 [a3b]: the opt-in large-W evaluations ----
+TOL_A3B_RESID = 1e-5       # the opt-in layout's LM residual vs the default
+                           # layout's in the same call, relative
+A3B_CORRIDOR = (48, 800, 4)   # the CPU tests' corridor (W, ppf, seed) and
+A3B_BLOCK = 8                 # block, for the float64 group forms
+A3B_ALIGNED_KERNELS = ("table_select", "soa_agg", "soa_chain",
+                       "entry_reduce")
+
+
+def _group_stacks(torch, groups):
+    """Each aligned stack of `groups` flattened: (n, mu, Pc) of (G·Vp, 2B)
+    and its window frame ids offset[g] + k (G·2B,) int32."""
+    out = []
+    for bg in groups:
+        G, Vp, w = bg.fa.n.shape
+        flat = tuple(x.reshape((G * Vp,) + tuple(x.shape[2:])) for x in bg.fa)
+        ids = (bg.offset.view(G, 1) + torch.arange(
+            w, dtype=torch.int32, device=bg.offset.device)).reshape(-1)
+        out.append((flat, ids.to(torch.int32), (G, Vp, w)))
+    return out
+
+
+def _group_bounds(stacks, itemsize):
+    """The group forms' bounds over `stacks` (one launch of each a stack,
+    as an evaluation makes them), by the bytes the functions need:
+    soa_agg n of every cell, μ and Pc's upper triangle of a live one, the
+    (G, 2B, 12) windows and 17 outputs a voxel; soa_chain_groups the same
+    inputs, pv's 13 used values a voxel, A's 18 values a cell written and
+    the (G·2B, 30) entry rows; each against its live cells' operations."""
+    cells = sum(st[0][0].numel() for st in stacks)
+    live = sum(int((st[0][0] > 0).sum()) for st in stacks)
+    vox = sum(st[0][0].shape[0] for st in stacks)
+    slots = sum(st[2][0] * st[2][2] for st in stacks)
+    rate = FP32_FLOP_PER_S if itemsize == 4 else FP64_FLOP_PER_S
+    agg = _bound((cells + live * 9 + slots * 12 + vox * 17) * itemsize,
+                 live * AGG_FLOPS_PER_CELL + vox * AGG_FLOPS_PER_VOXEL, rate)
+    chain = _bound((cells + live * 9 + slots * 12 + vox * 13 + cells * 18
+                    + slots * 30) * itemsize, live * CHAIN_FLOPS_PER_CELL,
+                   rate)
+    return agg, chain
+
+
+def _group_kernels(torch, kern, results, tag, groups, R, p, f64=False,
+                   timed=True):
+    """[tag]: the group forms of kernels 1 and 2 at the aligned stacks'
+    shapes against their plain versions: table_select of each stack's
+    (G, 2B, 12) windows bitwise its plain version; soa_agg on the windows
+    under _agg_check (phase 2's limits: λ within TOL_RESIDV_REL of
+    λ_max), bitwise equal to soa_agg on the per-entry rows (the windows
+    repeated a voxel) and to itself; soa_chain_groups' rows within
+    TOL_ROWS_REL, its (group, slot) entry rows' jjt and diagonal extras
+    within TOL_SUM_REL, dead cells' rows exactly zero, two launches
+    bitwise equal.  f64: the float64 instances under the TOL64_* limits.
+    With `timed`, each form's device ms over the stacks (one launch a
+    stack, as an evaluation) beside its plain version and its bound.
+    Each kernel's max abs error raises its kernels-line max_abs_err."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        AlignedPlaneFactorArrays, pose_table)
+    from global_lvba_tpu_torch.kernels.selection import (
+        table_select_buckets, table_select_buckets_plain)
+    from global_lvba_tpu_torch.kernels.soa import (
+        soa_agg, soa_agg_buckets, soa_agg_buckets_plain, soa_agg_plain,
+        soa_chain_groups, soa_chain_groups_plain)
+
+    if f64:
+        tol_agg = (TOL64_RESIDV_REL, TOL64_RESIDV_REL_LINE, TOL64_PV)
+        tol_rows, tol_sum, sfx = TOL64_ROWS_REL, TOL64_SUM_REL, "_f64"
+    else:
+        tol_agg = (TOL_RESIDV_REL, TOL_RESIDV_REL_LINE, TOL_PV)
+        tol_rows, tol_sum, sfx = TOL_ROWS_REL, TOL_SUM_REL, ""
+    pose12 = pose_table(R, p)
+    stacks = _group_stacks(torch, groups)
+    ids = [st[1] for st in stacks]
+    sel_k = table_select_buckets(ids, pose12)
+    sel_p = table_select_buckets_plain(ids, pose12)
+    torch.cuda.synchronize()
+    sel_ok = all(torch.equal(a, b) for a, b in zip(sel_k, sel_p))
+    wins = [s_.view(G, w, 12) for s_, (_, _, (G, _, w)) in zip(sel_k, stacks)]
+    out = dict(stacks=[list(st[2]) for st in stacks], select_bitwise=sel_ok)
+    err_agg = err_rows = abs_rows = err_j = err_d = abs_vals = 0.0
+    same_entry = rep_agg = rep_chain = dead_ok = True
+    pvs = []
+    for ((n, mu, Pc), _, (G, Vp, w)), win in zip(stacks, wins):
+        rk, pvk = soa_agg(n, mu, Pc, win)
+        rk2, pvk2 = soa_agg(n, mu, Pc, win)
+        rows = win.repeat_interleave(Vp, dim=0)
+        re_, pve = soa_agg(n, mu, Pc, rows)
+        rp, pvp = soa_agg_plain(n, mu, Pc, win)
+        torch.cuda.synchronize()
+        rep_agg &= bool(torch.equal(rk, rk2) and torch.equal(pvk, pvk2))
+        same_entry &= bool(torch.equal(rk, re_) and torch.equal(pvk, pve))
+        gap, lam0, lam2 = _spectrum(torch, AlignedPlaneFactorArrays(
+            n, mu, Pc), rows)
+        live = n.sum(dim=1) > 0
+        wc = live & (gap >= WELL_CONDITIONED_GAP)
+        if bool(live.any()):
+            err_agg = max(err_agg, _agg_check(
+                torch, f"soa_agg{sfx} group form {tag} G={G} Vp={Vp} 2B={w}",
+                rk, rp, pvk, pvp, live, wc, lam0, lam2, tols=tol_agg,
+                ref64=not f64))
+        elif bool(rk.any()):     # a stack of padding alone (no group)
+            _fail(f"{tag}: soa_agg gave a residual to padded voxels")
+        del rows, re_, pve, rk2, pvk2, rp, pvp, gap, lam0, lam2
+        A_k, v_k = soa_chain_groups(n, mu, Pc, win, pvk)
+        A_k2, v_k2 = soa_chain_groups(n, mu, Pc, win, pvk)
+        A_p, v_p = soa_chain_groups_plain(n, mu, Pc, win, pvk)
+        torch.cuda.synchronize()
+        err_rows = max(err_rows, _rel(A_k, A_p))
+        abs_rows = max(abs_rows, float((A_k - A_p).abs().max()))
+        err_j = max(err_j, _rel(v_k[:, :6], v_p[:, :6]))
+        err_d = max(err_d, _rel(v_k[:, 6:], v_p[:, 6:]))
+        abs_vals = max(abs_vals, float((v_k - v_p).abs().max()))
+        rep_chain &= bool(torch.equal(A_k, A_k2) and torch.equal(v_k, v_k2))
+        dead = (n <= 0)[:, None, :, None].expand(G * Vp, 3, w, 6)
+        dead_ok &= bool((A_k.view(G * Vp, 3, w, 6)[dead] == 0).all())
+        pvs.append(pvk)
+        del A_k, A_k2, A_p, v_k, v_k2, v_p, dead
+    ok = (sel_ok and same_entry and rep_agg and rep_chain and dead_ok
+          and err_rows <= tol_rows and max(err_j, err_d) <= tol_sum)
+    out.update(soa_agg=dict(max_abs=err_agg, per_entry_bitwise=same_entry,
+                            repeatable=rep_agg),
+               soa_chain_groups=dict(rows=err_rows, jjt=err_j, extras=err_d,
+                                     max_abs_rows=abs_rows,
+                                     max_abs_vals=abs_vals,
+                                     dead_zero=dead_ok, repeatable=rep_chain))
+    print(f"[{tag}] group forms at the aligned stacks {out['stacks']} "
+          f"(G, Vp, 2B): table_select{sfx} of the windows bitwise equal: "
+          f"{sel_ok}; soa_agg{sfx} on the windows bitwise the per-entry "
+          f"rows' {same_entry}, repeatable {rep_agg}; soa_chain{sfx} group "
+          f"form rows rel err {err_rows:.3e} (tol {tol_rows}), entry rows "
+          f"jjt {err_j:.3e}, extras {err_d:.3e} (tol {tol_sum}), dead "
+          f"cells' rows == 0: {dead_ok}, two launches bitwise equal: "
+          f"{rep_chain}", flush=True)
+    if not ok:
+        _fail(f"{tag}: a group form disagrees with its plain version: {out}")
+    if timed:
+        ops = [(n, mu, Pc, win) for ((n, mu, Pc), _, _), win in zip(stacks,
+                                                                     wins)]
+        agg_b, chain_b = _group_bounds(stacks, 8 if f64 else 4)
+        out["soa_agg"].update(**_times(
+            torch, f"soa_agg{sfx} group form {tag}",
+            lambda: soa_agg_buckets(ops),
+            lambda: soa_agg_buckets_plain(ops)), bound=agg_b)
+        out["soa_chain_groups"].update(**_times(
+            torch, f"soa_chain{sfx} group form {tag}",
+            lambda: [soa_chain_groups(*o, q) for o, q in zip(ops, pvs)],
+            lambda: [soa_chain_groups_plain(*o, q)
+                     for o, q in zip(ops, pvs)]), bound=chain_b)
+        print(f"[{tag}] bounds: soa_agg{sfx} group form {agg_b[0]:.4f} ms "
+              f"({agg_b[1]}), soa_chain{sfx} group form {chain_b[0]:.4f} ms "
+              f"({chain_b[1]})", flush=True)
+    results.setdefault("a3b_kernels", {})[tag] = out
+    for k, e in (("soa_agg", err_agg), ("soa_chain", abs_rows)):
+        kern[k + sfx]["max_abs_err"] = max(kern[k + sfx]["max_abs_err"], e)
+        if timed:
+            kern[k + sfx]["group_form"] = {
+                key: out["soa_agg" if k == "soa_agg" else "soa_chain_groups"]
+                .get(key) for key in ("ms", "plain_ms", "bound")}
+    return out
+
+
+def _a3b_lm(torch, tag, bs, R, p, iters, ref_kw, opt_kw, ref_route,
+            opt_route, setup=None):
+    """[tag]: lm_damping_iter over `bs` with the default layout (ref_kw)
+    and the opt-in one (opt_kw), both warmed up (their graphs captured),
+    then timed in turns (default, opt-in, opt-in, default), the launch
+    counts set to 0 just before the first opt-in run and read after it.
+    Each must take its route; the opt-in residual within TOL_A3B_RESID of
+    the default's (relative).  setup(on) switches a module constant
+    around the opt-in runs.  Returns the record and the launch counts."""
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.solver import dist_solve
+    from global_lvba_tpu_torch.solver.lm import lm_damping_iter, plan_route
+
+    setup = setup or (lambda on: None)
+    W = R.shape[0]
+
+    def run(kw, on):
+        setup(on)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lm = lm_damping_iter(bs, R, p, max_iters=iters, **kw)
+            torch.cuda.synchronize()
+            return lm, (time.perf_counter() - t0) * 1e3, \
+                torch.cuda.max_memory_allocated()
+        finally:
+            setup(False)
+
+    dist_solve._GRAPHS.clear()
+    run(ref_kw, False)
+    run(opt_kw, True)
+    ref, ref_ms1, ref_peak = run(ref_kw, False)
+    reset_launch_counts()
+    opt, opt_ms1, opt_peak = run(opt_kw, True)
+    counts = launch_counts()
+    opt2, opt_ms2, _ = run(opt_kw, True)
+    ref2, ref_ms2, _ = run(ref_kw, False)
+    # the set-up alone (plan_route) and one evaluation's launches
+    setup(True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        route = plan_route(bs, W, **opt_kw)
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        reset_launch_counts()
+        route.cgh(R, p)
+        torch.cuda.synchronize()
+        per_eval = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        setup(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan_route(bs, W, **ref_kw)
+    torch.cuda.synchronize()
+    ref_setup_ms = (time.perf_counter() - t0) * 1e3
+    e_res = abs(float(opt.residual) - float(ref.residual)) / abs(
+        float(ref.residual))
+    same = bool(torch.equal(opt.p, opt2.p) and torch.equal(ref.p, ref2.p))
+    opt_ms = (opt_ms1 + opt_ms2) / 2 / max(opt.iters, 1)
+    ref_ms = (ref_ms1 + ref_ms2) / 2 / max(ref.iters, 1)
+    print(f"[{tag}] {W} frames, {len(bs)} buckets, {iters} LM iterations: "
+          f"route {opt.route} ({opt.iters} iterations) residual "
+          f"{float(opt.residual):.9g}, {opt_ms:.2f} ms/iter (runs "
+          f"{opt_ms1:.1f}, {opt_ms2:.1f} ms with set-up), set-up "
+          f"{setup_ms:.1f} ms, peak {opt_peak / 1e9:.3f} GB; default route "
+          f"{ref.route} ({ref.iters} iterations) residual "
+          f"{float(ref.residual):.9g}, {ref_ms:.2f} ms/iter (runs "
+          f"{ref_ms1:.1f}, {ref_ms2:.1f} ms), set-up {ref_setup_ms:.1f} ms, "
+          f"peak {ref_peak / 1e9:.3f} GB; rel diff {e_res:.3e} (tol "
+          f"{TOL_A3B_RESID}); repeats bitwise equal: {same}; launches an "
+          f"evaluation {per_eval}; the run's {counts}", flush=True)
+    if not (opt.route == opt_route and ref.route == ref_route
+            and e_res <= TOL_A3B_RESID and bool(torch.isfinite(opt.p).all())
+            and same):
+        _fail(f"{tag}: routes {opt.route} / {ref.route}, residual "
+              f"{float(opt.residual)} vs {float(ref.residual)}, repeatable "
+              f"{same}")
+    rec = dict(route=opt.route, residual=float(opt.residual),
+               iters=opt.iters, ms_per_iter=opt_ms, runs_ms=[opt_ms1, opt_ms2],
+               setup_ms=setup_ms, peak_bytes=opt_peak,
+               default=dict(route=ref.route, residual=float(ref.residual),
+                            iters=ref.iters, ms_per_iter=ref_ms,
+                            runs_ms=[ref_ms1, ref_ms2],
+                            setup_ms=ref_setup_ms, peak_bytes=ref_peak),
+               rel_diff=e_res, repeatable=same, launches_per_eval=per_eval,
+               launches=counts)
+    return rec, counts
+
+
+def _a3b(torch, np, dev, kern, results, paths, large, kernels=True,
+         aligned=True, gather=True):
+    """Phase 19 [a3b], the JAX package's opt-in large-W evaluations:
+    [a3b-kernels] the group forms of kernels 1 and 2 at path 2c's aligned
+    stacks (float32) and at the CPU tests' corridor (float64);
+    [a3b-2c-aligned] path 2c's stage-1 map with lm.BANDED_ALIGNED, against
+    the gather layout in the same call, the no-(6W)²-operand check;
+    [a3b-gather-2b] path 2b's map with gather_tables=True against the
+    dense route.  Their launches are the paths a3b-aligned and
+    a3b-gather.  kernels, aligned, gather: the parts run (all by
+    default; scripts/a3b_phase.py picks)."""
+    bs, R, p = large
+    W = R.shape[0]
+    rec = results.setdefault("a3b", {})
+    if kernels:
+        _a3b_kernels(torch, dev, kern, results, rec, bs, R, p, W)
+    if aligned:
+        _a3b_aligned(torch, dev, rec, paths, bs, R, p, W)
+    if gather:
+        bs2, R2, p2 = KEEP["2b"]
+        rec["gather_lm"], paths["a3b-gather"] = _a3b_lm(
+            torch, "a3b-gather-2b", bs2, R2, p2, LM_ITERS, {},
+            dict(gather_tables=True), "dense", "gather")
+        if not all(paths["a3b-gather"][k] > 0 for k in BUCKETED_PATH_KERNELS):
+            _fail(f"a3b-gather-2b: a kernel of the gather path was never "
+                  f"launched: {paths['a3b-gather']}")
+
+
+def _a3b_kernels(torch, dev, kern, results, rec, bs, R, p, W):
+    """[a3b-kernels] at path 2c's aligned stacks (float32), then the
+    float64 instances at the CPU tests' corridor (A3B_CORRIDOR, block
+    A3B_BLOCK, true poses)."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_cost, bucket_to_device, build_banded_groups)
+    from global_lvba_tpu_torch.map.voxelize import build_voxel_map
+    from global_lvba_tpu_torch.models.synthetic import make_corridor_scene
+
+    t0 = time.perf_counter()
+    groups = [build_banded_groups(fa, W, aligned=True) for fa in bs]
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    banded, dense = banded_cost(groups, bs, W)
+    info = _group_info(groups)
+    stack_bytes = sum(sum(x.numel() for x in bg.fa) * 4 for bg in groups)
+    print(f"[a3b-kernels] path 2c's aligned banded groups {info} "
+          f"(built in {build_ms:.1f} ms; the stacks' n, μ, Pc "
+          f"{stack_bytes / 1e6:.1f} MB); dense/banded Gram flops "
+          f"{dense / banded:.1f}x", flush=True)
+    rec.update(groups=info, build_ms=build_ms, stack_bytes=stack_bytes)
+    rec["kernels"] = _group_kernels(torch, kern, results, "a3b-kernels",
+                                    groups, R, p)
+    sc = make_corridor_scene(A3B_CORRIDOR[0], A3B_CORRIDOR[1],
+                             seed=A3B_CORRIDOR[2])
+    vm = build_voxel_map(sc.points_body, sc.frame_ids, sc.R_true, sc.p_true,
+                         VOXEL, eigen_ratios=[RATIO] * 4)
+    W64 = A3B_CORRIDOR[0]
+    bs64 = [bucket_to_device(b, dtype=torch.float64, device=dev)
+            for b in vm.buckets]
+    g64 = [build_banded_groups(fa, W64, block=A3B_BLOCK, aligned=True)
+           for fa in bs64]
+    rec["kernels_f64"] = _group_kernels(
+        torch, kern, results, "a3b-kernels-f64", g64,
+        torch.as_tensor(sc.R_true, dtype=torch.float64, device=dev),
+        torch.as_tensor(sc.p_true, dtype=torch.float64, device=dev),
+        f64=True)
+    rec["kernels_f64"]["groups"] = _group_info(g64)
+
+
+def _a3b_aligned(torch, dev, rec, paths, bs, R, p, W):
+    """[a3b-2c-aligned]: stage 1's LM on path 2c's map with
+    lm.BANDED_ALIGNED against the gather layout's (_a3b_lm), then the
+    no-(6W)²-operand check on the aligned plan."""
+    from global_lvba_tpu_torch.factors.plane_eigen import (
+        banded_plan, build_banded_groups)
+    from global_lvba_tpu_torch.solver import lm as lm_mod
+
+    def switch(on):
+        lm_mod.BANDED_ALIGNED = on
+
+    rec["aligned_lm"], paths["a3b-aligned"] = _a3b_lm(
+        torch, "a3b-2c-aligned", bs, R, p, LARGE_LM_ITERS, {}, {},
+        "split-banded", "split-banded-aligned", setup=switch)
+    if not all(paths["a3b-aligned"][k] > 0 for k in A3B_ALIGNED_KERNELS):
+        _fail(f"a3b-2c-aligned: a kernel of the aligned banded path was "
+              f"never launched: {paths['a3b-aligned']}")
+    plan = banded_plan([build_banded_groups(fa, W, aligned=True)
+                        for fa in bs], W)
+    rec["aligned_largest_operand"] = _no_dense_operand(
+        torch, "a3b-2c-aligned", plan, R, p, W,
+        torch.full((), 0.01, dtype=R.dtype, device=dev))
+
 
 def main() -> int:
     import torch
@@ -5011,7 +5391,7 @@ def main() -> int:
     # ---- 6-9. slice 2: the bucketed layout ----
     _slice2(torch, np, dev, kern, results, paths)
     # ---- 11-13. slice 4: large W (paths 2c, [banded-cg], [2c-dense]) ----
-    _large_w(torch, np, dev, kern, results, paths)
+    large = _large_w(torch, np, dev, kern, results, paths)
     # ---- 10. slice 3: the SIFT frontend ----
     _frontend(torch, np, dev, kern, results, paths)
     # ---- 14-16. slice 10: the visual stage; 17. slice 11: the system ----
@@ -5024,7 +5404,9 @@ def main() -> int:
             ("17", lambda: _system(torch, np, dev, kern, results, paths,
                                    *scene)),
             ("18", lambda: _mesh(torch, np, dev, kern, results, paths,
-                                 bench))):
+                                 bench)),
+            ("19", lambda: _a3b(torch, np, dev, kern, results, paths,
+                                large))):
         t0 = time.time()
         run()
         results[f"phase_{phase}_s"] = time.time() - t0

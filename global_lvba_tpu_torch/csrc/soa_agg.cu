@@ -48,10 +48,13 @@
 //    a bucket's bits would depend on its companions' K (seen on the
 //    card at K = 1 in float32).
 //
-// The pose operand is read at poses + v·vstride + 12·k: the (K, 12) pose
-// table with vstride 0 on the aligned layout (entry (v, k) takes pose k),
-// per-entry pose rows (V, K, 12) with vstride K·12 on the bucketed layout
-// (table_select's output).
+// The pose operand is read at poses + (v / vper)·vstride + 12·k: the
+// (K, 12) pose table with vstride 0 on the aligned layout (entry (v, k)
+// takes pose k), per-entry pose rows (V, K, 12) with vper 1 and vstride
+// K·12 on the bucketed layout (table_select's output), and the group form
+// of aligned banded groups: a (G, 2B, 12) table of pose windows, one a
+// group of vper = Vp voxels of a (G·Vp, 2B) stack, vstride 2B·12 (voxel
+// v's slot k takes window v / Vp's pose k).
 //
 // Templated on the scalar: lvba_soa_agg launches the float instances
 // (float32 solves), lvba_soa_agg_f64 the double ones (float64 solves).
@@ -71,6 +74,7 @@ struct AggBucket {
   T* residv;
   T* pv;
   int64_t vstride;
+  int vper;  // voxels a pose block: poses + (v / vper)·vstride
   int V, K, lg;
 };
 
@@ -128,7 +132,8 @@ soa_agg_kernel(const AggLaunch<T> L) {
                     + (t >> lg);
   const bool vok = v < V;
   const int64_t row = vok ? v * K : 0;
-  const T* __restrict__ pose_v = poses + (vok ? v * L.b[b].vstride : 0);
+  const T* __restrict__ pose_v =
+      poses + (vok ? (int64_t)((int)v / L.b[b].vper) * L.b[b].vstride : 0);
   const bool vec = (reinterpret_cast<uintptr_t>(poses) & 15) == 0;
 
   // the running (N, mean, scatter) over the rounds so far
@@ -234,22 +239,23 @@ soa_agg_kernel(const AggLaunch<T> L) {
 
 // Launches soa_agg_kernel<T, ept> once over nb <= kMaxBuckets buckets,
 // bucket i given by the i-th entry of each array.  A bucket's group is the
-// least power of two G >= K / ept threads, at most a warp.
+// least power of two G >= K / ept threads, at most a warp.  vper >= 1.
 template <typename T>
 int launch_agg(int nb, const T* const* n, const T* const* mu,
                const T* const* Pc, const T* const* poses, const int* vstride,
-               const int* V, const int* K, int ept, T* const* residv,
-               T* const* pv, void* stream) {
+               const int* vper, const int* V, const int* K, int ept,
+               T* const* residv, T* const* pv, void* stream) {
   if (nb < 1 || nb > kMaxBuckets)
     return static_cast<int>(cudaErrorInvalidValue);
   AggLaunch<T> L;
   L.nb = nb;
   int blocks = 0;
   for (int i = 0; i < nb; ++i) {
+    if (vper[i] < 1) return static_cast<int>(cudaErrorInvalidValue);
     int lg = 0;
     while ((1 << lg) * ept < K[i] && lg < 5) ++lg;
     L.b[i] = {n[i], mu[i], Pc[i], poses[i], residv[i], pv[i],
-              (int64_t)vstride[i], V[i], K[i], lg};
+              (int64_t)vstride[i], vper[i], V[i], K[i], lg};
     L.first[i] = blocks;
     const int vpb = kThreads >> lg;
     blocks += (V[i] + vpb - 1) / vpb;
@@ -273,20 +279,21 @@ int launch_agg(int nb, const T* const* n, const T* const* mu,
 extern "C" int lvba_soa_agg(int nb, const float* const* n,
                             const float* const* mu, const float* const* Pc,
                             const float* const* poses, const int* vstride,
-                            const int* V, const int* K, int ept,
-                            float* const* residv, float* const* pv,
+                            const int* vper, const int* V, const int* K,
+                            int ept, float* const* residv, float* const* pv,
                             void* stream) {
-  return launch_agg(nb, n, mu, Pc, poses, vstride, V, K, ept, residv, pv,
-                    stream);
+  return launch_agg(nb, n, mu, Pc, poses, vstride, vper, V, K, ept, residv,
+                    pv, stream);
 }
 
 extern "C" int lvba_soa_agg_f64(int nb, const double* const* n,
                                 const double* const* mu,
                                 const double* const* Pc,
                                 const double* const* poses,
-                                const int* vstride, const int* V,
-                                const int* K, int ept, double* const* residv,
-                                double* const* pv, void* stream) {
-  return launch_agg(nb, n, mu, Pc, poses, vstride, V, K, ept, residv, pv,
-                    stream);
+                                const int* vstride, const int* vper,
+                                const int* V, const int* K, int ept,
+                                double* const* residv, double* const* pv,
+                                void* stream) {
+  return launch_agg(nb, n, mu, Pc, poses, vstride, vper, V, K, ept, residv,
+                    pv, stream);
 }

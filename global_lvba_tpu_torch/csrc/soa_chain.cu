@@ -48,6 +48,20 @@
 //    aligned (the main path), spans and rows move as whole 16-byte chunks
 //    with no skew or ends (kFast).
 //
+// The group form (kGroups), for the aligned banded groups of large W
+// (factors/plane_eigen.py AlignedBandedGroups): a stack of G groups of Vp
+// voxels at local width W = 2B, n (G·Vp, W), whose group g reads its own
+// window of the pose operand, a (G, W, 12) table (frame offset[g] + k at
+// row k).  The grid is a set of voxel blocks a group (no block spans two
+// groups), each block's lanes load their group's window, and the sums are
+// the group's own: the last block of a (group, frame tile) writes them as
+// entry rows vals (G·W, 30) — row g·W + k holds window g's slot k in the
+// layout of soa_chain_entries' vals (jjt 6 | the 24 distinct d36) — for
+// entry_reduce to fold by frame with the other entries of an evaluation.
+// A (3·G·Vp, 6W) is the groups' operands stacked (a torch.bmm gives each
+// group's Gram).  The W-wide form is the group form's G = 1 with g and Hd
+// written out, compiled as its own instance.
+//
 // soa_chain_entries_kernel, the bucketed layout: `_chain_kernel` on its
 // native layout (poses pre-gathered per entry, plane_eigen.py:1388-1390),
 // entries e = v·K + k.  It writes
@@ -459,14 +473,16 @@ struct Spans {
 // so every span and staged row is whole 16-byte chunks (the main path's
 // W = 512); otherwise spans and rows go through their ends one value at
 // a time.
-template <typename T, bool kFast>
+// kGroups: the group form (groups of Vp voxels, each with its pose window
+// and its sums as entry rows in vals); otherwise Vp == V, one group.
+template <typename T, bool kFast, bool kGroups>
 __global__ void __launch_bounds__(Chain<T>::kThreads,
                                   ChainOcc<T>::kMinBlocks)
 soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
                  const T* __restrict__ Pc, const T* __restrict__ pose12,
-                 const T* __restrict__ pv, int V, int W, int vt,
+                 const T* __restrict__ pv, int V, int W, int vt, int Vp,
                  T* __restrict__ A, T* __restrict__ g, T* __restrict__ Hd,
-                 int accumulate, T* __restrict__ part,
+                 T* __restrict__ vals, int accumulate, T* __restrict__ part,
                  int* __restrict__ arrivals) {
   using namespace lvba;
   using L = ChainSmem<T>;
@@ -477,13 +493,20 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   T* const wsm = smem + warp * L::kWarp;
-  const int tile = blockIdx.x, vb = blockIdx.y, nvb = gridDim.y;
+  const int tile = blockIdx.x;
+  // the voxel blocks of a group, this block's group and its voxel block
+  const int nvb = kGroups ? (Vp + vt - 1) / vt : gridDim.y;
+  const int grp = kGroups ? blockIdx.y / nvb : 0;
+  const int vb = kGroups ? blockIdx.y - grp * nvb : blockIdx.y;
+  const int vbase = kGroups ? grp * Vp : 0;       // the group's first voxel
+  const int vend = kGroups ? vbase + Vp : V;
+  const int slot0 = grp * gridDim.x + tile;        // (group, tile)
   const int k0 = tile * kTile;
   const int nt = min(kTile, W - k0);  // frames in the tile
   const bool on = lane < nt;
   const int64_t ld = 6 * (int64_t)W;  // row stride of A
   Pose<T> P{};
-  if (on) P = load_pose(pose12, k0 + lane);
+  if (on) P = load_pose(pose12 + (int64_t)grp * W * 12, k0 + lane);
   T acc[kCh];
 #pragma unroll
   for (int i = 0; i < kCh; ++i) acc[i] = T(0.);
@@ -504,9 +527,9 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
       async_span(s.pv, pv + 16 * (int64_t)v, 16, lane);
     }
   };
-  const int v1 = min(V, (vb + 1) * vt);
+  const int v1 = min(vend, vbase + (vb + 1) * vt);
   constexpr int kStep = C::kWarps;  // a warp's voxels: warp, warp + kStep...
-  int v = vb * vt + warp;
+  int v = vbase + vb * vt + warp;
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (v + i * kStep < v1) stage(v + i * kStep, wsm + i * L::kBuf);
@@ -573,7 +596,7 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
   for (int i = 0; i < kCh; ++i) wsm[i * kTile + lane] = acc[i];
   __syncthreads();
   constexpr int kSlot = kCh * kTile;
-  T* const mine = part + ((int64_t)tile * nvb + vb) * kSlot;
+  T* const mine = part + ((int64_t)slot0 * nvb + vb) * kSlot;
   for (int j = threadIdx.x; j < kSlot; j += C::kThreads) {
     T s = smem[j];
     for (int w = 1; w < C::kWarps; ++w) s += smem[w * L::kWarp + j];
@@ -581,13 +604,14 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(arrivals + tile, 1) == nvb - 1;
+  if (threadIdx.x == 0) last = atomicAdd(arrivals + slot0, 1) == nvb - 1;
   __syncthreads();
   if (!last) return;
   // the tile's last block: the running g and Hd of its frames loaded
   // first (kOut values a thread), then the tile's slots added in
   // voxel-block order (kCols columns a thread, kAhead slots' loads in
-  // flight at once), then g and Hd stored
+  // flight at once), then g and Hd stored (kGroups: the group's entry
+  // rows)
   __threadfence();
   constexpr int kOut = (42 * kTile + C::kThreads - 1) / C::kThreads;
   T* o[kOut];
@@ -599,7 +623,7 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
     o[u] = nullptr;
     old[u] = T(0.);
     col[u] = 0;
-    if (j < 42 * nt) {
+    if (!kGroups && j < 42 * nt) {
       const int l = j / 42, q = j - 42 * l;
       col[u] = (q < 6 ? q : 6 + kD24To36[q - 6]) * kTile + l;
       o[u] = q < 6 ? g + 6 * (int64_t)(k0 + l) + q
@@ -607,7 +631,7 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
       if (accumulate) old[u] = __ldcg(o[u]);
     }
   }
-  const T* const slots = part + (int64_t)tile * nvb * kSlot;
+  const T* const slots = part + (int64_t)slot0 * nvb * kSlot;
   constexpr int kCols = (kSlot + C::kThreads - 1) / C::kThreads;
   constexpr int kAhead = 8;
   T sum[kCols];
@@ -637,12 +661,21 @@ soa_chain_kernel(const T* __restrict__ n, const T* __restrict__ mu,
     if (j < kSlot) smem[j] = sum[c];
   }
   __syncthreads();
+  if constexpr (kGroups) {
+    // rows g·W + k0 .. + nt of vals, kCh values each, contiguous
+    T* const rows = vals + ((int64_t)grp * W + k0) * kCh;
+    for (int j = threadIdx.x; j < kCh * nt; j += C::kThreads) {
+      const int l = j / kCh;
+      rows[j] = smem[(j - kCh * l) * kTile + l];
+    }
+  } else {
 #pragma unroll
-  for (int u = 0; u < kOut; ++u) {
-    if (o[u] != nullptr)
-      *o[u] = accumulate ? old[u] + smem[col[u]] : smem[col[u]];
+    for (int u = 0; u < kOut; ++u) {
+      if (o[u] != nullptr)
+        *o[u] = accumulate ? old[u] + smem[col[u]] : smem[col[u]];
+    }
   }
-  if (threadIdx.x == 0) arrivals[tile] = 0;
+  if (threadIdx.x == 0) arrivals[slot0] = 0;
 }
 
 // The limits of chain_entries_tile (kernels/soa.py CHAIN_MAX_ENTRIES and
@@ -766,43 +799,60 @@ template <typename T>
 int chain_smem_attr() {
   constexpr int bytes = ChainSmem<T>::kBytes;
   if (bytes <= 48 * 1024) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      soa_chain_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(soa_chain_kernel<T, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  return static_cast<int>(e);
+  const void* const fns[] = {
+      reinterpret_cast<const void*>(soa_chain_kernel<T, true, false>),
+      reinterpret_cast<const void*>(soa_chain_kernel<T, false, false>),
+      reinterpret_cast<const void*>(soa_chain_kernel<T, true, true>),
+      reinterpret_cast<const void*>(soa_chain_kernel<T, false, true>)};
+  for (const void* f : fns) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        f, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// G == 0: the W-wide form (g, Hd); G >= 1: the group form, V == G·Vp
+// (vals).
 template <typename T>
 int launch_chain(const T* n, const T* mu, const T* Pc, const T* pose12,
-                 const T* pv, int V, int W, int vt, T* A, T* g, T* Hd,
-                 int accumulate, T* part, int* arrivals, void* stream) {
-  if (V < 1 || W < 1 || vt < 1)
+                 const T* pv, int V, int W, int vt, int G, int Vp, T* A,
+                 T* g, T* Hd, T* vals, int accumulate, T* part,
+                 int* arrivals, void* stream) {
+  if (V < 1 || W < 1 || vt < 1 || G < 0 ||
+      (G > 0 && (Vp < 1 || (int64_t)G * Vp != V)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = chain_smem_attr<T>();
   if (err != 0) return err;
-  const dim3 grid((W + kTile - 1) / kTile, (V + vt - 1) / vt);
+  const int64_t gy = G > 0 ? (int64_t)G * ((Vp + vt - 1) / vt)
+                           : (V + vt - 1) / vt;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((W + kTile - 1) / kTile, static_cast<unsigned>(gy));
   const bool fast = (W * sizeof(T)) % 16 == 0 && aligned16(n) &&
                     aligned16(mu) && aligned16(Pc) && aligned16(pv) &&
                     aligned16(A);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast)
-    soa_chain_kernel<T, true><<<grid, Chain<T>::kThreads,
-                                ChainSmem<T>::kBytes, s>>>(
-        n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate, part,
-        arrivals);
+  constexpr int kT = Chain<T>::kThreads, kB = ChainSmem<T>::kBytes;
+  if (G > 0 && fast)
+    soa_chain_kernel<T, true, true><<<grid, kT, kB, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, Vp, A, g, Hd, vals, accumulate,
+        part, arrivals);
+  else if (G > 0)
+    soa_chain_kernel<T, false, true><<<grid, kT, kB, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, Vp, A, g, Hd, vals, accumulate,
+        part, arrivals);
+  else if (fast)
+    soa_chain_kernel<T, true, false><<<grid, kT, kB, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, V, A, g, Hd, vals, accumulate,
+        part, arrivals);
   else
-    soa_chain_kernel<T, false><<<grid, Chain<T>::kThreads,
-                                 ChainSmem<T>::kBytes, s>>>(
-        n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate, part,
-        arrivals);
+    soa_chain_kernel<T, false, false><<<grid, kT, kB, s>>>(
+        n, mu, Pc, pose12, pv, V, W, vt, V, A, g, Hd, vals, accumulate,
+        part, arrivals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -811,7 +861,7 @@ int chain_occupancy(int* blocks) {
   const int err = chain_smem_attr<T>();
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, soa_chain_kernel<T, true>, Chain<T>::kThreads,
+      blocks, soa_chain_kernel<T, true, false>, Chain<T>::kThreads,
       ChainSmem<T>::kBytes));
 }
 
@@ -839,27 +889,33 @@ int launch_chain_entries(const T* n, const T* mu, const T* Pc,
 
 }  // namespace
 
-// A (3V, 6W) is written in full; g (W, 6) and Hd (W, 6, 6) are stored,
-// or added to with `accumulate`.  vt voxels a block (kernels/soa.py
-// chain_tile); part holds ceil(W / 32) · ceil(V / vt) slots of 30 · 32
-// values; arrivals[ceil(W / 32)] must be zero, and the launch leaves it so.
+// A (3V, 6W) is written in full.  G == 0 (the W-wide form): pose12 is
+// (W, 12), g (W, 6) and Hd (W, 6, 6) are stored, or added to with
+// `accumulate`; vals is unused.  G >= 1 (the group form): V == G·Vp,
+// pose12 is (G, W, 12), vals (G·W, 30) is stored; g, Hd and accumulate
+// are unused.  vt voxels a block (kernels/soa.py chain_tile); part holds
+// ceil(W / 32) · max(G, 1) · (voxel blocks a group) slots of 30 · 32
+// values; arrivals[ceil(W / 32) · max(G, 1)] must be zero, and the launch
+// leaves it so.
 extern "C" int lvba_soa_chain(const float* n, const float* mu,
                               const float* Pc, const float* pose12,
-                              const float* pv, int V, int W, int vt,
-                              float* A, float* g, float* Hd, int accumulate,
-                              float* part, int* arrivals, void* stream) {
-  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate,
-                      part, arrivals, stream);
+                              const float* pv, int V, int W, int vt, int G,
+                              int Vp, float* A, float* g, float* Hd,
+                              float* vals, int accumulate, float* part,
+                              int* arrivals, void* stream) {
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, G, Vp, A, g, Hd, vals,
+                      accumulate, part, arrivals, stream);
 }
 
 extern "C" int lvba_soa_chain_f64(const double* n, const double* mu,
                                   const double* Pc, const double* pose12,
                                   const double* pv, int V, int W, int vt,
-                                  double* A, double* g, double* Hd,
-                                  int accumulate, double* part, int* arrivals,
+                                  int G, int Vp, double* A, double* g,
+                                  double* Hd, double* vals, int accumulate,
+                                  double* part, int* arrivals,
                                   void* stream) {
-  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, A, g, Hd, accumulate,
-                      part, arrivals, stream);
+  return launch_chain(n, mu, Pc, pose12, pv, V, W, vt, G, Vp, A, g, Hd, vals,
+                      accumulate, part, arrivals, stream);
 }
 
 // Resident blocks a SM of soa_chain_kernel's float (f64 == 0) or double

@@ -55,6 +55,17 @@ layout:
   torch.bmm a stack for the group Grams: into the dense H
   (banded_cost_grad_hess) or kept per group (banded_cost_grad_compact,
   for solver.dist_solve.solve_damped_cg_banded);
+* aligned banded groups (build_banded_groups(aligned=True), the JAX
+  package's AlignedBandedGroups): each group a dense (Vp, 2B) grid whose
+  slot k is frame offset[g] + k.  The select step gathers each stack's
+  (G, 2B, 12) pose windows, and one launch a stack of the group forms of
+  soa_agg and soa_chain (kernels/soa.py) evaluates it, the chain writing
+  each group's sums as (group, slot) rows of the vals buffer, which
+  entry_reduce folds by frame with the stragglers' entries; the Grams and
+  the solves as above;
+* gather plans (GatherPlan, plane_cost_grad_hess(inv=plan)): the JAX
+  package's _cgh_gather, a bucket's evaluation reducing g and Hd through
+  the plan's frame table, chunked by the (3V, 6W) operand alone;
 * compact rows (rows_plan, plane_cost_grad_rows): the chain_entries launch
   at width K on the slot ids writes each entry's three factor rows at
   columns 6k (row-block layout (3V, 6K)), the operand of the matrix-free
@@ -447,14 +458,16 @@ class EvalSteps(NamedTuple):
     select: object
     chain_entries: object
     reduce: object
+    chain_groups: object    # the chain's group form (aligned banded groups)
 
 
 KERNEL_STEPS = EvalSteps(_soa.soa_agg_buckets, _soa.soa_chain, _gram.syrk_,
                          _sel.table_select_buckets, _soa.soa_chain_entries,
-                         _sel.entry_reduce)
+                         _sel.entry_reduce, _soa.soa_chain_groups)
 PLAIN_STEPS = EvalSteps(_soa.soa_agg_buckets_plain, _soa.soa_chain_plain,
                         _gram.syrk_plain_, _sel.table_select_buckets_plain,
-                        _soa.soa_chain_entries_plain, _sel.entry_reduce_plain)
+                        _soa.soa_chain_entries_plain, _sel.entry_reduce_plain,
+                        _soa.soa_chain_groups_plain)
 
 
 def _check_width(fa: AlignedPlaneFactorArrays, W: int):
@@ -527,6 +540,7 @@ def plane_cost_grad_hess(
     num_frames: int,
     chunk_bytes: int = 256 * 1024 * 1024,
     tbl: torch.Tensor = None,
+    inv=None,
 ):
     """Total (residual, gradient (W, 6), Hessian (W, 6, W, 6)) of one
     factor-array set, aligned or bucketed: plane_cost_grad_hess_buckets of
@@ -535,8 +549,17 @@ def plane_cost_grad_hess(
     H = diag-blocks(Hd) - Σ_chunks A_cᵀ A_c, chunked over voxels so the
     (3V, 6W) factor rows stay within `chunk_bytes`.  tbl: the bucketed
     layout's frame_gather_table(fa, W), built here when not given (a
-    solve builds it once).  On CUDA tensors every step is a kernel
-    launch (float32 or float64); on CPU tensors the plain versions run."""
+    solve builds it once).  inv (the JAX package's option, bucketed
+    only): a frame_slot_table(fa, W), which switches nothing here (the
+    chain writes its rows at their frame's columns already), or a
+    GatherPlan, whose evaluation (the JAX package's _cgh_gather) reduces
+    g and Hd through plan.tbl and chunks by the (3V, 6W) operand alone
+    (chunk_bytes // (W·18·4·2) voxels).  On CUDA tensors every step is a
+    kernel launch (float32 or float64); on CPU tensors the plain versions
+    run."""
+    if isinstance(inv, GatherPlan):
+        return _cost_grad_hess_buckets(KERNEL_STEPS, [fa], R, p, num_frames,
+                                       chunk_bytes, inv.tbl, plan_chunks=True)
     return _cost_grad_hess(KERNEL_STEPS, fa, R, p, num_frames, chunk_bytes,
                            tbl)
 
@@ -572,7 +595,7 @@ def _cost_grad_hess(steps: EvalSteps, fa, R, p, num_frames: int,
 
 def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
                             chunk_bytes: int = 256 * 1024 * 1024,
-                            table=None):
+                            table=None, plan_chunks: bool = False):
     W = num_frames
     pose12 = pose_table(R, p)
     dev, dt = R.device, R.dtype
@@ -593,7 +616,7 @@ def _cost_grad_hess_buckets(steps: EvalSteps, buckets, R, p, num_frames: int,
         if isinstance(fa, PlaneFactorArrays):
             VK = fa.n.numel()
             _bucketed_pass(steps, fa, ps, pv, W, gram, chunk_bytes,
-                           vals[off:off + VK])
+                           vals[off:off + VK], 0 if plan_chunks else None)
             off += VK
         else:
             g, Hd = _aligned_pass(steps, fa, pose12, pv, W, gram,
@@ -621,12 +644,15 @@ def _aligned_pass(steps, fa, pose12, pv, W, gram, chunk_bytes, g, Hd):
     return g, Hd
 
 
-def _bucketed_pass(steps, fa, poses, pv, W, gram, chunk_bytes, vals):
+def _bucketed_pass(steps, fa, poses, pv, W, gram, chunk_bytes, vals,
+                   chunk_k=None):
     """A bucketed bucket with its per-entry pose rows and soa_agg output
     pv: its AᵀA added into gram, its per-entry g/Hd channels written to
-    vals (V·K, 30)."""
+    vals (V·K, 30).  Chunked by voxel_chunks with K = chunk_k (None: the
+    bucket's K; 0: the GatherPlan budget, the (3V, 6W) operand alone)."""
     V, K = fa.n.shape
-    for lo, hi in voxel_chunks(V, W, chunk_bytes, K=K):
+    for lo, hi in voxel_chunks(V, W, chunk_bytes,
+                               K=K if chunk_k is None else chunk_k):
         A, _ = steps.chain_entries(fa.n[lo:hi], fa.mu[lo:hi], fa.Pc[lo:hi],
                                    poses[lo:hi], fa.frame[lo:hi], pv[lo:hi],
                                    W, vals[lo * K:hi * K])
@@ -652,11 +678,16 @@ def add_block_diag(H: torch.Tensor, Hd: torch.Tensor, W: int) -> torch.Tensor:
 
 
 class BandedHost(NamedTuple):
-    """The host side of one bucket's BandedGroups: what a solve's plan
-    (banded_plan) builds its tables from, so nothing is read back."""
+    """The host side of one bucket's BandedGroups or AlignedBandedGroups:
+    what a solve's plan (banded_plan) builds its tables from, so nothing
+    is read back.  frame and live describe the stack's rows of the
+    evaluation's vals: an entry each on the gather layout, a (group,
+    slot) sum each on the aligned one."""
 
-    frame: np.ndarray           # (G, Vp, K) global frame ids of the stack
-    live: np.ndarray            # (G, Vp, K) bool, n > 0
+    frame: np.ndarray           # (G, Vp, K) global frame ids of the stack;
+                                # aligned: (G, 2B) each slot's frame
+    live: np.ndarray            # (G, Vp, K) bool, n > 0; aligned: (G, 2B),
+                                # a voxel of the group observes the slot
     offsets: tuple              # the G window offsets
     wide_frame: np.ndarray      # (Vw, K)
     wide_live: np.ndarray       # (Vw, K)
@@ -674,6 +705,28 @@ class BandedGroups(NamedTuple):
     wide_fa: PlaneFactorArrays  # straggler voxels, full width
     wide_inv: torch.Tensor      # (Vw, W) int32
     host: BandedHost
+
+
+class AlignedBandedGroups(NamedTuple):
+    """Banded groups in the frame-aligned local layout (the JAX package's
+    AlignedBandedGroups, its LVBA_BANDED_ALIGNED): slot k of group g IS
+    frame offset[g] + k, so a group evaluates as an aligned bucket of
+    width 2B on its window of poses (the group forms of soa_agg and
+    soa_chain) and its Gram operand is its rows.  Stragglers keep the
+    gather layout (full width)."""
+
+    fa: AlignedPlaneFactorArrays  # each leaf (G, Vp, 2B[, ...])
+    offset: torch.Tensor          # (G,) int32 frame offset of each window
+    wide_fa: PlaneFactorArrays    # straggler voxels, full width
+    wide_inv: torch.Tensor        # (Vw, W) int32
+    host: BandedHost
+
+
+def group_width(bg) -> int:
+    """The local width 2B of a bucket's banded groups, either layout."""
+    if isinstance(bg, AlignedBandedGroups):
+        return int(bg.fa.n.shape[-1])
+    return int(bg.inv.shape[-1])
 
 
 def _ids_to_host(fa: PlaneFactorArrays):
@@ -713,6 +766,29 @@ def frame_slot_table(fa: PlaneFactorArrays, W: int) -> torch.Tensor:
     is the k-slot of voxel v's observation of frame w, or K where v does
     not observe w (each voxel observes a frame at most once)."""
     return _slot_table(fa.frame, fa.n > 0, 0, W)
+
+
+class GatherPlan(NamedTuple):
+    """The gather tables of one bucket (the JAX package's GatherPlan, its
+    LVBA_GATHER_M evaluation): `tbl` (W, Kf) the frame table through which
+    entry_reduce sums g and Hd (frame_gather_table), `inv` (V, W) the
+    frame -> slot table (frame_slot_table).  The JAX package expands its
+    factor rows to the (3V, 6W) Gram operand through `inv`; here
+    soa_chain_entries writes that operand straight from the frame ids, so
+    `inv` is carried for the JAX package's interface and no evaluation
+    reads it."""
+
+    inv: torch.Tensor   # (V, W) int32
+    tbl: torch.Tensor   # (W, Kf) int32
+
+
+def build_gather_plan(fa: PlaneFactorArrays, W: int) -> GatherPlan:
+    """The GatherPlan of a bucket on its device: the slot table made there,
+    the frame table on the host from the bucket's ids and counts (one
+    read, one copy)."""
+    frame, live = _ids_to_host(fa)
+    tbl = to_device([_frame_table_np(frame, live, W)], fa.n.device)[0]
+    return GatherPlan(frame_slot_table(fa, W), tbl)
 
 
 def _banded_layout(frame: np.ndarray, valid: np.ndarray, W: int,
@@ -765,20 +841,42 @@ def _gather_voxels(fa: PlaneFactorArrays, idx: torch.Tensor,
     return PlaneFactorArrays(*(take(x) for x in fa))
 
 
+def _aligned_grid(stack: PlaneFactorArrays, off: torch.Tensor,
+                  width: int) -> AlignedPlaneFactorArrays:
+    """The dense (G, Vp, width) local grids of a gathered group stack
+    (G, Vp, K) on its device: entry (v, k) of group g lands at slot
+    frame − off[g]; a dead entry (n == 0) or one outside the window lands
+    nowhere (on a spare cell, dropped), so those cells stay zero.  A voxel
+    observes a frame at most once: no two entries share a cell."""
+    G, Vp, K = stack.n.shape
+    dev = stack.n.device
+    loc = stack.frame.long() - off.long().view(G, 1, 1)
+    keep = (stack.n > 0) & (loc >= 0) & (loc < width)
+    spare = G * Vp * width
+    cell = torch.arange(G * Vp, device=dev).view(G, Vp, 1) * width + loc
+    cell = torch.where(keep, cell, spare).reshape(-1)
+
+    def grid(x):
+        tail = tuple(x.shape[3:])
+        out = x.new_zeros((spare + 1,) + tail)
+        out[cell] = x.reshape((-1,) + tail)
+        return out[:-1].view((G, Vp, width) + tail)
+
+    return AlignedPlaneFactorArrays(grid(stack.n), grid(stack.mu),
+                                    grid(stack.Pc))
+
+
 def build_banded_groups(fa: PlaneFactorArrays, W: int, block: int = None,
-                        aligned: bool = False) -> BandedGroups:
+                        aligned: bool = False):
     """Stacked banded voxel groups of one bucket (the JAX package's
     plane_eigen.build_banded_groups, its rules in _banded_layout).  The
     plan is host numpy from the bucket's frame ids and counts (one read
     to the host), its index arrays go to the bucket's device in one copy,
     and the groups and their slot tables are made there; the host plan is
-    kept (`host`).
-    aligned=True (the JAX package's AlignedBandedGroups, opt-in there) is
-    not ported: ROADMAP A3b."""
-    if aligned:
-        raise NotImplementedError(
-            "aligned banded groups (AlignedBandedGroups) are not ported: "
-            "ROADMAP A3b")
+    kept (`host`).  aligned=True gives AlignedBandedGroups (the JAX
+    package's pack_aligned): each group's entries scattered on the device
+    into its dense (Vp, 2B) local grid, slot k at frame offset[g] + k; the
+    stragglers as on the gather layout."""
     frame, live = _ids_to_host(fa)
     V, K = frame.shape
     idxs, offs, Vp, width, wid, Vw = _banded_layout(frame, live, W, block)
@@ -796,6 +894,18 @@ def build_banded_groups(fa: PlaneFactorArrays, W: int, block: int = None,
         [gidx, widx, np.asarray(offs, np.int32)], fa.n.device)
     stack = _gather_voxels(fa, gidx_d, gidx.shape)
     wide = _gather_voxels(fa, widx_d, (Vw,))
+    if aligned:
+        # the rows of an aligned stack's vals: a (group, slot) sum each, at
+        # frame offset[g] + k, live where a voxel of the group observes it
+        offs_np = np.asarray(offs, np.int64)
+        win = offs_np[:, None] + np.arange(width)
+        slot_live = np.zeros(win.shape, bool)
+        g_i, v_i, k_i = np.nonzero(host.live)
+        slot_live[g_i, host.frame[g_i, v_i, k_i] - offs_np[g_i]] = True
+        return AlignedBandedGroups(
+            fa=_aligned_grid(stack, off_d, width), offset=off_d,
+            wide_fa=wide, wide_inv=_slot_table(wide.frame, wide.n > 0, 0, W),
+            host=host._replace(frame=win, live=slot_live))
     return BandedGroups(
         fa=stack, inv=_slot_table(stack.frame, stack.n > 0, off_d, width),
         offset=off_d, wide_fa=wide,
@@ -807,12 +917,17 @@ class BandedPlan(NamedTuple):
     read, built once per solve (banded_plan): each bucket's group stack
     flattened to one (G·Vp, K) bucket with its global frame ids (the pose
     selection) and its local ids frame − offset[g] (the chain's columns at
-    width 2B), the straggler buckets at full width, one frame table over
-    all their entries, stacks first (entry_reduce), and the compact
-    solve's window operands (solver.dist_solve.banded_windows)."""
+    width 2B), or, for aligned groups, to one (G·Vp, 2B) aligned bucket
+    with its window frames offset[g] + k (the pose selection: one
+    (G, 2B, 12) window table); the straggler buckets at full width, one
+    frame table over all their vals rows, stacks first (entry_reduce),
+    and the compact solve's window operands
+    (solver.dist_solve.banded_windows)."""
 
-    stacks: list    # PlaneFactorArrays (G·Vp, K) per bucket
-    local: list     # (G·Vp, K) int32 local frame ids per bucket
+    stacks: list    # PlaneFactorArrays (G·Vp, K) or
+                    # AlignedPlaneFactorArrays (G·Vp, 2B) per bucket
+    local: list     # (G·Vp, K) int32 local frame ids per bucket, or the
+                    # aligned stack's (G·2B,) int32 window frames
     dims: list      # (G, Vp, width) per bucket
     offsets: list   # tuple of G window offsets (host ints) per bucket
     wide: list      # straggler PlaneFactorArrays (Vw > 0 only)
@@ -829,11 +944,18 @@ def banded_plan(groups, W: int) -> BandedPlan:
     frames, lives = [], []
     for bg in groups:
         G, Vp, K = bg.fa.n.shape
-        stacks.append(PlaneFactorArrays(*(
-            x.reshape((G * Vp,) + tuple(x.shape[2:])) for x in bg.fa)))
-        loc = bg.fa.frame - bg.offset.view(G, 1, 1)
-        local.append(loc.reshape(G * Vp, K).to(torch.int32).contiguous())
-        dims.append((G, Vp, bg.inv.shape[-1]))
+        w = group_width(bg)
+        flat = tuple(x.reshape((G * Vp,) + tuple(x.shape[2:])) for x in bg.fa)
+        if isinstance(bg, AlignedBandedGroups):
+            stacks.append(AlignedPlaneFactorArrays(*flat))
+            win = bg.offset.view(G, 1) + torch.arange(
+                w, dtype=torch.int32, device=bg.offset.device)
+            local.append(win.reshape(-1).to(torch.int32))
+        else:
+            stacks.append(PlaneFactorArrays(*flat))
+            loc = bg.fa.frame - bg.offset.view(G, 1, 1)
+            local.append(loc.reshape(G * Vp, K).to(torch.int32).contiguous())
+        dims.append((G, Vp, w))
         offsets.append(bg.host.offsets)
         frames.append(bg.host.frame)
         lives.append(bg.host.live)
@@ -855,9 +977,37 @@ def banded_cost(groups, buckets, W: int):
     """(banded, dense) Gram costs of the JAX package's probe
     (solver/lm.py:246-257): Σ G·Vp·width² + Vw·W² against Σ V·W²."""
     dense = sum(fa.n.shape[0] * W * W for fa in buckets)
-    banded = sum(bg.fa.n.shape[0] * bg.fa.n.shape[1] * bg.inv.shape[-1] ** 2
+    banded = sum(bg.fa.n.shape[0] * bg.fa.n.shape[1] * group_width(bg) ** 2
                  + bg.wide_fa.n.shape[0] * W * W for bg in groups)
     return banded, dense
+
+
+def _banded_poses(steps: EvalSteps, plan: BandedPlan, pose12: torch.Tensor):
+    """The soa_agg pose operand of each stack and straggler bucket, from
+    one select step: per-entry rows (V, K, 12) on the gather layout, the
+    (G, 2B, 12) window table of an aligned stack."""
+    fas = plan.stacks + plan.wide
+    ids = [loc.reshape(-1) if isinstance(fa, AlignedPlaneFactorArrays)
+           else fa.frame.reshape(-1)
+           for fa, loc in zip(plan.stacks, plan.local)]
+    ids += [fa.frame.reshape(-1) for fa in plan.wide]
+    sel = steps.select(ids, pose12)
+    out = []
+    for i, (fa, rows) in enumerate(zip(fas, sel)):
+        if isinstance(fa, AlignedPlaneFactorArrays):
+            G, _, w = plan.dims[i]
+            out.append(rows.view(G, w, 12))
+        else:
+            out.append(rows.view(*fa.n.shape, 12))
+    return out
+
+
+def _vals_rows(fa, dims) -> int:
+    """A stack's or straggler bucket's rows of the evaluation's vals: an
+    entry each, or a (group, slot) sum each on an aligned stack."""
+    if isinstance(fa, AlignedPlaneFactorArrays):
+        return dims[0] * dims[2]
+    return fa.n.numel()
 
 
 def _banded_eval(steps: EvalSteps, plan: BandedPlan, R, p, W: int,
@@ -865,9 +1015,10 @@ def _banded_eval(steps: EvalSteps, plan: BandedPlan, R, p, W: int,
     """One banded evaluation -> (resid, g (W, 6), Hd (W, 6, 6), grams,
     wide).  One select and one soa_agg pass over every stack and straggler
     bucket; each stack's chain is one chain_entries launch at width 2B on
-    its local ids, whose A (3·G·Vp, 12B) is the stacked group operand, and
-    its group Grams +AᵀA (G, 12B, 12B) one torch.bmm; one entry_reduce
-    sums g and Hd over the merged table.  With `compact`, the last output
+    its local ids (an aligned stack: one chain_groups launch on its
+    windows, writing a (group, slot) row each), whose A (3·G·Vp, 12B) is
+    the stacked group operand, and its group Grams +AᵀA (G, 12B, 12B) one
+    torch.bmm; one entry_reduce sums g and Hd over the merged table.  With `compact`, the last output
     is the stragglers' full-width A (3Vw, 6W) per straggler bucket; else
     it is the (6W, 6W) Gram accumulator with the stragglers' AᵀA (syrk_,
     chunked as the bucketed pass) and every group's Gram added into its
@@ -876,22 +1027,26 @@ def _banded_eval(steps: EvalSteps, plan: BandedPlan, R, p, W: int,
     pose12 = pose_table(R, p)
     dev, dt = R.device, R.dtype
     fas = plan.stacks + plan.wide
-    poses = _pose_operands(steps, fas, pose12, W)
+    poses = _banded_poses(steps, plan, pose12)
     aggs = steps.agg([(fa.n, fa.mu, fa.Pc, ps) for fa, ps in zip(fas, poses)])
     resid = torch.zeros((), dtype=dt, device=dev)
     for residv, _ in aggs:
         resid = resid + residv.sum()
-    vals = torch.empty((sum(fa.n.numel() for fa in fas), 30), dtype=dt,
-                       device=dev)
+    rows = [_vals_rows(fa, d) for fa, d in zip(plan.stacks, plan.dims)]
+    vals = torch.empty((sum(rows) + sum(fa.n.numel() for fa in plan.wide),
+                        30), dtype=dt, device=dev)
     grams, off = [], 0
-    for fa, ps, (_, pv), loc, (G, Vp, w) in zip(
-            plan.stacks, poses, aggs, plan.local, plan.dims):
-        VK = fa.n.numel()
-        A, _ = steps.chain_entries(fa.n, fa.mu, fa.Pc, ps, loc, pv, w,
-                                   vals[off:off + VK])
+    for fa, ps, (_, pv), loc, (G, Vp, w), nr in zip(
+            plan.stacks, poses, aggs, plan.local, plan.dims, rows):
+        if isinstance(fa, AlignedPlaneFactorArrays):
+            A, _ = steps.chain_groups(fa.n, fa.mu, fa.Pc, ps, pv,
+                                      vals[off:off + nr])
+        else:
+            A, _ = steps.chain_entries(fa.n, fa.mu, fa.Pc, ps, loc, pv, w,
+                                       vals[off:off + nr])
         A3 = A.view(G, 3 * Vp, 6 * w)
         grams.append(torch.bmm(A3.transpose(1, 2), A3))
-        off += VK
+        off += nr
     wide = []
     gram = None if compact else torch.zeros((6 * W, 6 * W), dtype=dt,
                                             device=dev)

@@ -50,9 +50,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # each launcher: its source, C name and argument types (it returns an int)
 SIGNATURES = {
     "soa_agg": ("soa_agg", "lvba_soa_agg",
-                [_I] + [_P] * 7 + [_I] + [_P] * 3),
+                [_I] + [_P] * 8 + [_I] + [_P] * 3),
     "soa_chain": ("soa_chain", "lvba_soa_chain",
-                  [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3),
+                  [_P] * 5 + [_I] * 5 + [_P] * 4 + [_I] + [_P] * 3),
     "soa_chain_entries": ("soa_chain", "lvba_soa_chain_entries",
                           [_P] * 6 + [_I] * 4 + [_P] * 3),
     "syrk_split": ("syrk", "lvba_syrk_split", [_P] + [_I] * 4 + [_P] * 3),
@@ -62,9 +62,9 @@ SIGNATURES = {
     "entry_reduce": ("selection", "lvba_entry_reduce",
                      [_P, _P, _L, _I, _I, _I, _P, _P]),
     "soa_agg_f64": ("soa_agg", "lvba_soa_agg_f64",
-                    [_I] + [_P] * 7 + [_I] + [_P] * 3),
+                    [_I] + [_P] * 8 + [_I] + [_P] * 3),
     "soa_chain_f64": ("soa_chain", "lvba_soa_chain_f64",
-                      [_P] * 5 + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 3),
+                      [_P] * 5 + [_I] * 5 + [_P] * 4 + [_I] + [_P] * 3),
     "soa_chain_entries_f64": ("soa_chain", "lvba_soa_chain_entries_f64",
                               [_P] * 6 + [_I] * 4 + [_P] * 3),
     "syrk_f64": ("syrk", "lvba_syrk_f64", [_P] + [_I] * 4 + [_P] * 4),

@@ -54,9 +54,21 @@ as one coalesced span.  The wrapper allocates A with torch.empty: nothing
 else fills it.
 
 soa_agg's pose operand is a (K, 12) pose table read with voxel stride 0
-(aligned: entry (v, k) takes pose k) or per-entry pose rows (V, K, 12)
-with voxel stride K·12 (bucketed: table_select's output), so the pose
-expansion happens in one place and no wrapper reads ids back to the host.
+(aligned: entry (v, k) takes pose k), per-entry pose rows (V, K, 12) with
+voxel stride K·12 (bucketed: table_select's output), or a (G, K, 12)
+table of pose windows, one a group of V / G voxels (the group form of the
+aligned banded groups: voxel v's slot k takes window v // (V / G)'s row
+k), so the pose expansion happens in one place and no wrapper reads ids
+back to the host.
+
+Group forms (the aligned banded groups of large W, factors/plane_eigen.py
+AlignedBandedGroups): a stack of G groups of Vp voxels at local width 2B,
+(G·Vp, 2B), each group with its window of poses, a (G, 2B, 12) table
+(table_select over the frame ids offset[g] + k).  soa_agg takes it as its
+pose operand (above); soa_chain_groups is soa_chain's group form: the
+same kernel, its blocks never spanning two groups, each group's sums
+written as entry rows (G·2B, 30) in soa_chain_entries' vals layout, for
+entry_reduce to fold by frame.  One launch of each per stack.
 
 Each kernel takes float32 or float64 operands (all of one dtype): a
 float64 solve launches the kernel's double instance (`<name>_f64`, its
@@ -102,14 +114,14 @@ def _stream(dev):
 
 
 def _check_operands(n, mu, Pc, poses, *more):
-    """Shapes of the moments and the pose operand (a (P, 12) table or
-    (V, K, 12) per-entry rows); device, dtype (float32 or float64, n's
-    for all) and contiguity of every tensor, `more` as (name, tensor)
-    pairs."""
+    """Shapes of the moments and the pose operand (a (P, 12) table, or
+    (G, K, 12) rows: per entry when G == V, windows of a group form
+    otherwise); device, dtype (float32 or float64, n's for all) and
+    contiguity of every tensor, `more` as (name, tensor) pairs."""
     V, K = n.shape
     if mu.shape != (V, K, 3) or Pc.shape != (V, K, 3, 3) or not (
             (poses.dim() == 2 and poses.shape[1] == 12)
-            or poses.shape == (V, K, 12)):
+            or (poses.dim() == 3 and poses.shape[1:] == (K, 12))):
         raise ValueError(
             f"bad operand shapes n {tuple(n.shape)} mu {tuple(mu.shape)} "
             f"Pc {tuple(Pc.shape)} poses {tuple(poses.shape)}")
@@ -152,10 +164,26 @@ def soa_agg(n, mu, Pc, poses):
     [u(3), B1(3), B2(3), v̄(3), 1/N, 0, 0, 0].
 
     n (V, K), mu (V, K, 3), Pc (V, K, 3, 3).  poses: the (K, 12) pose table
-    on the aligned layout (entry (v, k) takes pose k: voxel stride 0) or
+    on the aligned layout (entry (v, k) takes pose k: voxel stride 0),
     per-entry pose rows (V, K, 12) on the bucketed layout (table_select's
-    output: voxel stride K·12)."""
+    output: voxel stride K·12), or (G, K, 12) pose windows, G dividing V
+    (the group form: voxel v takes window v // (V / G); G == V is the
+    per-entry case)."""
     return soa_agg_buckets([(n, mu, Pc, poses)])[0]
+
+
+def _pose_blocks(poses, V, K):
+    """(vstride, vper) of soa_agg's pose operand: voxel v reads block
+    v // vper at stride vstride."""
+    if poses.dim() == 2:
+        if poses.shape[0] != K:
+            raise ValueError(f"aligned layout needs K == poses, got {K} != "
+                             f"{poses.shape[0]}")
+        return 0, 1
+    G = poses.shape[0]
+    if G < 1 or V % G:
+        raise ValueError(f"{G} pose windows do not divide {V} voxels")
+    return K * 12, V // G
 
 
 def soa_agg_buckets(ops):
@@ -181,26 +209,20 @@ def soa_agg_buckets(ops):
         if n.device != dev or n.dtype != dt:
             raise ValueError("soa_agg: the buckets' operands must share one "
                              "device and dtype")
-        if poses.dim() == 2:
-            if poses.shape[0] != K:
-                raise ValueError(f"aligned layout needs K == poses, got {K} "
-                                 f"!= {poses.shape[0]}")
-            vstride = 0
-        else:
-            vstride = K * 12
+        vstride, vper = _pose_blocks(poses, V, K)
         residv = torch.empty((V,), dtype=dt, device=dev)
         pv = torch.empty((V, 16), dtype=dt, device=dev)
         outs.append((residv, pv))
         groups.setdefault(agg_group(K)[1], []).append(
-            (n, mu, Pc, poses, vstride, V, K, residv, pv))
+            (n, mu, Pc, poses, vstride, vper, V, K, residv, pv))
     launch = build.launcher(name)
     for ept, args in groups.items():
         for i0 in range(0, len(args), AGG_MAX_BUCKETS):
             cols = list(zip(*args[i0:i0 + AGG_MAX_BUCKETS]))
             nb = len(cols[0])
             ptrs = [(ctypes.c_void_p * nb)(*(t.data_ptr() for t in col))
-                    for col in cols[:4] + cols[7:]]
-            ints = [(ctypes.c_int * nb)(*col) for col in cols[4:7]]
+                    for col in cols[:4] + cols[8:]]
+            ints = [(ctypes.c_int * nb)(*col) for col in cols[4:8]]
             with torch.cuda.device(dev):
                 err = launch(nb, *ptrs[:4], *ints, ept, *ptrs[4:],
                              _stream(dev))
@@ -214,13 +236,23 @@ def soa_agg_buckets_plain(ops):
     return [soa_agg_plain(*o) for o in ops]
 
 
+def _voxel_poses(poses, V):
+    """The pose operand with a leading voxel axis, as _pose_channels reads
+    it: the (K, 12) table as it is (broadcast over voxels), (G, K, 12)
+    windows repeated to (V, K, 12) (the per-entry rows when G == V)."""
+    if poses.dim() == 2 or poses.shape[0] == V:
+        return poses
+    _pose_blocks(poses, V, poses.shape[1])
+    return poses.repeat_interleave(V // poses.shape[0], dim=0)
+
+
 def soa_agg_plain(n, mu, Pc, poses):
     """Plain torch version of soa_agg: _soa_agg + _soa_eig."""
     from ..factors.plane_eigen import (
         _moment_channels, _pose_channels, _soa_agg, _soa_eig)
 
     mu3, P6 = _moment_channels(mu, Pc)
-    R9, p3 = _pose_channels(poses)
+    R9, p3 = _pose_channels(_voxel_poses(poses, n.shape[0]))
     _, _, N, invN, vb, _, _, cov6 = _soa_agg(n, mu3, P6, R9, p3)
     residv, u, B1, B2 = _soa_eig(cov6, N)
     zero = torch.zeros_like(invN)
@@ -228,7 +260,8 @@ def soa_agg_plain(n, mu, Pc, poses):
     return residv, pv
 
 
-def chain_tile(V: int, W: int, slots: int, warps: int) -> int:
+def chain_tile(V: int, W: int, slots: int, warps: int,
+               groups: int = 1) -> int:
     """Voxels per block of soa_chain_kernel for V voxels of W frames when
     the card holds `slots` blocks of `warps` warps at once (its SMs times
     the kernel's resident blocks a SM): the grid of ceil(W /
@@ -236,8 +269,9 @@ def chain_tile(V: int, W: int, slots: int, warps: int) -> int:
     slots about once, each of a block's warps walking the same number of
     voxels, so a warp's staging ring has a run of voxels to overlap and a
     tile's last block has few blocks' sums to add; a multiple of warps, at
-    least warps."""
-    tiles = -(-W // CHAIN_FRAME_TILE)
+    least warps.  The group form: `groups` groups of V voxels each, the
+    grid their frame tiles by each group's ceil(V / vt) voxel blocks."""
+    tiles = -(-W // CHAIN_FRAME_TILE) * groups
     per_tile = max(1, slots // tiles)
     return warps * max(1, -(-V // (per_tile * warps)))
 
@@ -316,22 +350,69 @@ def soa_chain(n, mu, Pc, pose12, pv, g=None, Hd=None):
             g.zero_()
             Hd.zero_()
         return A, g, Hd
-    vt = chain_tile(V, W, _chain_slots(dev, dt), CHAIN_WARPS[dt])
-    tiles, nvb = -(-W // CHAIN_FRAME_TILE), -(-V // vt)
-    if nvb > 65535:
+    _chain_launch(n, mu, Pc, pose12, pv, 0, V, A, g, Hd, None, accumulate)
+    return A, g, Hd
+
+
+def _chain_launch(n, mu, Pc, poses, pv, G, Vp, A, g, Hd, vals, accumulate):
+    """One launch of soa_chain_kernel: the W-wide form (G = 0: g, Hd) or
+    the group form (G groups of Vp voxels: vals)."""
+    dev, dt = n.device, n.dtype
+    V, W = n.shape
+    vt = chain_tile(Vp, W, _chain_slots(dev, dt), CHAIN_WARPS[dt],
+                    max(G, 1))
+    tiles, nvb = -(-W // CHAIN_FRAME_TILE) * max(G, 1), -(-Vp // vt)
+    if max(G, 1) * nvb > 65535:
         raise ValueError(f"too many voxels for one launch: {V}")
     part = torch.empty((tiles * nvb * 30 * CHAIN_FRAME_TILE,), dtype=dt,
                        device=dev)
     name = build.dtype_launcher("soa_chain", dt)
     launch = build.launcher(name)
+
+    def ptr(t):
+        return None if t is None else _ptr(t)
+
     with torch.cuda.device(dev):
-        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(pose12), _ptr(pv),
-                     V, W, vt, _ptr(A), _ptr(g), _ptr(Hd), int(accumulate),
-                     _ptr(part), _ptr(_chain_arrivals(dev, tiles)),
-                     _stream(dev))
+        err = launch(_ptr(n), _ptr(mu), _ptr(Pc), _ptr(poses), _ptr(pv),
+                     V, W, vt, G, Vp, _ptr(A), ptr(g), ptr(Hd), ptr(vals),
+                     int(accumulate), _ptr(part),
+                     _ptr(_chain_arrivals(dev, tiles)), _stream(dev))
     build.check(name, err)
     LAUNCHES[name] += 1
-    return A, g, Hd
+
+
+def soa_chain_groups(n, mu, Pc, poses, pv, vals=None):
+    """soa_chain's group form -> (A (3V, 6W), vals (G·W, 30)) for a stack of
+    G groups of Vp = V / G voxels at local width W, n (V, W), poses the
+    (G, W, 12) pose windows (group g's slot k takes poses[g, k]).  A is
+    the groups' Gram operands stacked (group g's rows 3·g·Vp ..
+    3·(g + 1)·Vp); vals row g·W + k holds the sums over group g's voxels
+    of slot k's 30 unique g/Hd channels (jjt 6 | the _D_UNIQUE diagonal
+    extras 24), soa_chain_entries' layout.  vals, when given, is the
+    (G·W, 30) output (a slice of an evaluation's buffer)."""
+    V, W = n.shape
+    G = poses.shape[0] if poses.dim() == 3 else 0
+    if vals is None:
+        vals = torch.empty((G * W, 30), dtype=n.dtype, device=n.device)
+    if n.device.type == "cpu":
+        return soa_chain_groups_plain(n, mu, Pc, poses, pv, vals)
+    if n.device.type != "cuda":
+        raise ValueError(f"soa_chain_groups: unsupported device {n.device}")
+    _check_operands(n, mu, Pc, poses, ("pv", pv), ("vals", vals))
+    if poses.shape != (G, W, 12) or G < 1 or V % G:
+        raise ValueError(f"poses must be (G, W, 12) windows of G dividing "
+                         f"{V} voxels, got {tuple(poses.shape)}")
+    if pv.shape != (V, 16) or vals.shape != (G * W, 30):
+        raise ValueError(f"pv {tuple(pv.shape)} / vals {tuple(vals.shape)} "
+                         f"do not fit {G} groups of {V // G} voxels at "
+                         f"width {W}")
+    A = torch.empty((3 * V, 6 * W), dtype=n.dtype, device=n.device)
+    if V:
+        _chain_launch(n, mu, Pc, poses, pv, G, V // G, A, None, None, vals,
+                      False)
+    else:
+        vals.zero_()
+    return A, vals
 
 
 def d24_to_36(device):
@@ -346,25 +427,30 @@ def d24_to_36(device):
     return idx
 
 
-def soa_chain_plain(n, mu, Pc, pose12, pv, g=None, Hd=None):
-    """Plain torch version of soa_chain: _soa_chain + voxel-axis sums, the
-    rows relaid out to the Gram operand (3V, 6W); the sums added in place
-    to the running g and Hd when given."""
+def _chain_channels(n, mu, Pc, poses, pv):
+    """_soa_chain over every cell of n (V, K) with poses as soa_agg takes
+    them -> (rows_ch (18,), jjt_ch (6,), d36_ch (36,)) of (V, K) planes."""
     from ..factors.plane_eigen import (
         _moment_channels, _pose_channels, _soa_agg, _soa_chain)
 
-    V, W = n.shape
-    _check_sums(g, Hd, W, n)
     mu3, P6 = _moment_channels(mu, Pc)
-    R9, p3 = _pose_channels(pose12)
+    R9, p3 = _pose_channels(_voxel_poses(poses, n.shape[0]))
     mask, nm, _, _, _, Rm, RP, _ = _soa_agg(n, mu3, P6, R9, p3)
     u = (pv[:, 0], pv[:, 1], pv[:, 2])
     B1 = (pv[:, 3], pv[:, 4], pv[:, 5])
     B2 = (pv[:, 6], pv[:, 7], pv[:, 8])
     vb = (pv[:, 9], pv[:, 10], pv[:, 11])
     invN = pv[:, 12]
-    rows_ch, jjt_ch, d36_ch = _soa_chain(
-        mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
+    return _soa_chain(mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
+
+
+def soa_chain_plain(n, mu, Pc, pose12, pv, g=None, Hd=None):
+    """Plain torch version of soa_chain: _soa_chain + voxel-axis sums, the
+    rows relaid out to the Gram operand (3V, 6W); the sums added in place
+    to the running g and Hd when given."""
+    V, W = n.shape
+    _check_sums(g, Hd, W, n)
+    rows_ch, jjt_ch, d36_ch = _chain_channels(n, mu, Pc, pose12, pv)
     gs = torch.stack([c.sum(dim=0) for c in jjt_ch], dim=-1)
     Hds = torch.stack([c.sum(dim=0) for c in d36_ch], dim=-1).reshape(W, 6, 6)
     if g is None:
@@ -374,6 +460,25 @@ def soa_chain_plain(n, mu, Pc, pose12, pv, g=None, Hd=None):
         Hd.add_(Hds)
     A = torch.stack(rows_ch, dim=-1).reshape(V, W, 3, 6)
     return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), g, Hd
+
+
+def soa_chain_groups_plain(n, mu, Pc, poses, pv, vals=None):
+    """Plain torch version of soa_chain_groups: _soa_chain with each
+    voxel's group window, the rows relaid out to (3V, 6W), the 30 unique
+    channels summed over each group's voxels."""
+    from ..factors.plane_eigen import _D_UNIQUE
+
+    V, W = n.shape
+    G = poses.shape[0]
+    rows_ch, jjt_ch, d36_ch = _chain_channels(n, mu, Pc, poses, pv)
+    uniq = torch.stack(jjt_ch + tuple(d36_ch[i] for i in _D_UNIQUE), dim=-1)
+    sums = uniq.reshape(G, V // G, W, 30).sum(dim=1).reshape(G * W, 30)
+    if vals is None:
+        vals = sums
+    else:
+        vals.copy_(sums)
+    A = torch.stack(rows_ch, dim=-1).reshape(V, W, 3, 6)
+    return A.permute(0, 2, 1, 3).reshape(3 * V, 6 * W), vals
 
 
 def chain_entries_tile(V: int, K: int, sms: int) -> int:
@@ -436,20 +541,10 @@ def soa_chain_entries(n, mu, Pc, poses, frame, pv, W, vals=None):
 def soa_chain_entries_plain(n, mu, Pc, poses, frame, pv, W, vals=None):
     """Plain torch version of soa_chain_entries: _soa_chain on every
     entry, the rows scattered into A by index_put_."""
-    from ..factors.plane_eigen import (
-        _D_UNIQUE, _moment_channels, _pose_channels, _soa_agg, _soa_chain)
+    from ..factors.plane_eigen import _D_UNIQUE
 
     V, K = n.shape
-    mu3, P6 = _moment_channels(mu, Pc)
-    R9, p3 = _pose_channels(poses)
-    mask, nm, _, _, _, Rm, RP, _ = _soa_agg(n, mu3, P6, R9, p3)
-    u = (pv[:, 0], pv[:, 1], pv[:, 2])
-    B1 = (pv[:, 3], pv[:, 4], pv[:, 5])
-    B2 = (pv[:, 6], pv[:, 7], pv[:, 8])
-    vb = (pv[:, 9], pv[:, 10], pv[:, 11])
-    invN = pv[:, 12]
-    rows_ch, jjt_ch, d36_ch = _soa_chain(
-        mask, nm, invN, vb, Rm, RP, mu3, P6, R9, p3, u, B1, B2)
+    rows_ch, jjt_ch, d36_ch = _chain_channels(n, mu, Pc, poses, pv)
     uniq = torch.stack(jjt_ch + tuple(d36_ch[i] for i in _D_UNIQUE), dim=-1)
     if vals is None:
         vals = torch.empty((V * K, 30), dtype=n.dtype, device=n.device)

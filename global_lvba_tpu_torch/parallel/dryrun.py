@@ -70,7 +70,8 @@ def dryrun_multichip(n_devices: int, devices=None,
     """The sharded paths on an n-shard mesh (make_mesh(n, devices=devices):
     the first n CUDA devices without `devices`), each against its
     single-device result on the mesh's first device: the factor-sharded
-    LiDAR LM (lu, cg), the sharded banded evaluation, the sharded banded
+    LiDAR LM (lu, cg), the GatherPlan LM (gather-plan, single-device, as
+    in the JAX dry run), the sharded banded evaluation, the sharded banded
     and compact-banded LMs, the LM on Morton-partitioned buckets
     (morton+cg), the spatial halo exchange, and the visual Schur solve
     (auto, cg, cg_mf).  In float64 every sharded result must lie within
@@ -122,6 +123,13 @@ def dryrun_multichip(n_devices: int, devices=None,
     for solver in ("lu", "cg"):
         check_lidar(lm_damping_iter_sharded(buckets, R, p, mesh, max_iters=10,
                                             reduced_solver=solver), solver)
+
+    # the GatherPlan evaluation (g and Hd through each plan's frame table,
+    # the (3V, 6W) Gram operand) on the mesh's first device against the
+    # local solve, as the JAX dry run certifies it (a single-device route:
+    # its plans are per-bucket data, not mesh communication)
+    check_lidar(lm_damping_iter(buckets, R, p, max_iters=10,
+                                gather_tables=True), "gather-plan")
 
     # the banded evaluation sharded, on a span-limited corridor
     Wc = 48

@@ -26,9 +26,13 @@ Routes (plan_route; the JAX package's lm_damping_iter:136-272):
   route         taken when                       evaluation        solve
   dense         W < SPLIT_W, no banded, no       dense Gram        LU if 6W < 1536,
                 cg_mf (_lm_jitted)                                 else 48-trip CG
-  banded        bucketed, W < SPLIT_W, banded    group Grams into  LU or 96-trip CG
-                (W >= 1024 with a >= 4x saving,  the dense H
-                or hessian="banded")
+  gather        gather_tables=True, bucketed,    a GatherPlan      LU if 6W < 1536,
+                no banded, any W (never split;   evaluation a      else 48-trip CG
+                _lm_jitted with invs)            bucket, summed
+  banded        bucketed, W < SPLIT_W or gather  group Grams into  LU or 96-trip CG
+                tables, banded (W >= 1024 with   the dense H
+                a >= 4x saving, or
+                hessian="banded")
                 (_lm_banded_jitted)
   split-dense   W >= SPLIT_W without banded      dense Gram        LU or 96-trip CG
                 (every aligned solve)
@@ -37,12 +41,18 @@ Routes (plan_route; the JAX package's lm_damping_iter:136-272):
   rows          reduced_solver="cg_mf",          compact rows      256-trip rows CG
                 bucketed (_lm_rows_jitted)
 
+With BANDED_ALIGNED the banded routes build aligned banded groups
+(factors.plane_eigen.AlignedBandedGroups: the group forms of kernels 1 and
+2 on each group's window of poses) and are named banded-aligned and
+split-banded-aligned; the sharded routes (parallel.shard) build
+gather-layout groups whatever it says, as the JAX package's do.
+
 The JAX package splits its loop into executables at W >= LVBA_SPLIT_W for
 its compiler; this loop is host-driven already, so its split route is the
 same loop with the split's evaluation and solve.  The JAX package's
-environment switches are module constants here (SPLIT_W and the trip
-counts).  Its opt-in gather tables (LVBA_GATHER_M) and aligned banded
-groups (LVBA_BANDED_ALIGNED) raise NotImplementedError (ROADMAP A3b).
+environment switches are module constants here (SPLIT_W, BANDED_ALIGNED
+and the trip counts); its LVBA_GATHER_M is lm_damping_iter's
+gather_tables.
 """
 
 from __future__ import annotations
@@ -54,8 +64,8 @@ import torch
 from ..factors.plane_eigen import (
     KERNEL_STEPS, AlignedPlaneFactorArrays, PlaneFactorArrays, _rows_eval,
     banded_cost, banded_cost_grad_compact, banded_cost_grad_hess,
-    banded_plan, build_banded_groups, buckets_frame_table,
-    plane_cost_grad_hess_buckets, rows_plan)
+    banded_plan, build_banded_groups, build_gather_plan, buckets_frame_table,
+    plane_cost_grad_hess, plane_cost_grad_hess_buckets, rows_plan)
 from ..geometry.se3 import boxplus_pose
 from .dist_solve import (
     solve_damped_cg, solve_damped_cg_banded, solve_damped_cg_rows)
@@ -72,6 +82,9 @@ ROWS_CG_ITERS = 256
 # the split LM from SPLIT_W (LVBA_SPLIT_W, lm.py:198)
 BANDED_MIN_W = 1024
 SPLIT_W = 3072
+# the banded routes' groups in the frame-aligned local layout
+# (LVBA_BANDED_ALIGNED, lm.py:72-83; off by default, as there)
+BANDED_ALIGNED = False
 
 
 class LMResult(NamedTuple):
@@ -133,6 +146,21 @@ def _solve_damped(H, g, u, refine: bool = True):
     return dx[:, 0]
 
 
+def _gather_cgh(buckets, plans, R, p, W):
+    """(resid, g (6W,), H (6W, 6W)) over all buckets, a GatherPlan
+    evaluation each (plane_cost_grad_hess(inv=plan)), summed in bucket
+    order (the JAX package's _total_cgh with invs)."""
+    resid = g = H = None
+    for fa, plan in zip(buckets, plans):
+        r_, g_, H_ = plane_cost_grad_hess(fa, R, p, W, inv=plan)
+        if H is None:
+            resid, g, H = r_, g_, H_
+        else:
+            resid, g = resid + r_, g + g_
+            H.add_(H_)
+    return resid, g.reshape(W * 6), H.reshape(W * 6, W * 6)
+
+
 def _dense_solve(solver: str, trips: int):
     """The damped solve of an assembled H: LU or `trips` CG trips."""
     def solve(state, u):
@@ -153,8 +181,10 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
     docstring), with the operands it reads built once: a bucketed solve
     reads its buckets' ids and counts to the host here (its frame tables;
     the banded groups and their tables), before its first evaluation.
-    split: None takes the split route at W >= SPLIT_W (but for cg_mf);
-    True forces it (lm_damping_iter_split).
+    gather_tables: a GatherPlan a bucket (the gather route, or banded
+    where the probe engages; never split).
+    split: None takes the split route at W >= SPLIT_W (but for cg_mf and
+    gather tables); True forces it (lm_damping_iter_split).
     mesh: a parallel.mesh.Mesh; the sharded routes of parallel.shard
     (sharded_route: the factor-sharded dense route, the sharded banded
     route, and with split the compact banded route with the pair-window
@@ -167,6 +197,10 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
     if hessian not in ("auto", "dense", "banded"):
         raise ValueError(f"unknown hessian {hessian!r}")
     aligned = any(isinstance(fa, AlignedPlaneFactorArrays) for fa in buckets)
+    if gather_tables and mesh is not None:
+        raise ValueError("gather_tables=True has no sharded route (the JAX "
+                         "package's lm_damping_iter_sharded has no such "
+                         "option)")
     if aligned:
         # the aligned layout has no frame selection for gather tables,
         # banded groups or the rows path to replace
@@ -175,19 +209,19 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
                 "reduced_solver='cg_mf' needs bucketed factor arrays; "
                 "build them with buckets_to_device (bucketed layout)")
         hessian = "dense"
-    elif gather_tables:
-        raise NotImplementedError(
-            "gather_tables=True (the JAX package's GatherPlan / _cgh_gather "
-            "evaluation) is not ported: ROADMAP A3b")
+        gather_tables = False
     if mesh is not None:
         # lazy import: parallel.shard imports this module
         from ..parallel.shard import sharded_route
         return sharded_route(buckets, W, reduced_solver, hessian,
                              bool(split), mesh, axis, block)
     if split is None:
-        split = W >= SPLIT_W and reduced_solver != "cg_mf"
+        split = W >= SPLIT_W and reduced_solver != "cg_mf" \
+            and not gather_tables
     elif split and reduced_solver == "cg_mf":
         raise ValueError("the split LM does not take reduced_solver='cg_mf'")
+    elif split and gather_tables:
+        raise ValueError("the split LM does not take gather tables")
     solver = reduced_solver
     if solver == "auto":
         solver = "cg" if 6 * W >= 1536 else "lu"
@@ -211,8 +245,10 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
         return Route("rows", ROWS_CG_ITERS, cgh, solve, g_size)
 
     groups = None
+    sfx = "-aligned" if BANDED_ALIGNED else ""
     if hessian != "dense" and (hessian == "banded" or W >= BANDED_MIN_W):
-        groups = [build_banded_groups(fa, W, block) for fa in buckets]
+        groups = [build_banded_groups(fa, W, block, aligned=BANDED_ALIGNED)
+                  for fa in buckets]
         banded, dense = banded_cost(groups, buckets, W)
         if hessian != "banded" and banded * 4 > dense:
             groups = None
@@ -229,7 +265,8 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
                                           u, max_iters=BANDED_CG_ITERS,
                                           windows=plan.windows)
 
-        return Route("split-banded", BANDED_CG_ITERS, cgh, solve, g_size)
+        return Route("split-banded" + sfx, BANDED_CG_ITERS, cgh, solve,
+                     g_size)
     if groups is not None:
         plan = banded_plan(groups, W)
 
@@ -237,7 +274,15 @@ def plan_route(buckets: Sequence, W: int, reduced_solver: str = "auto",
             r, g, H = banded_cost_grad_hess(plan, R, p, W)
             return r / g_size, g.reshape(W * 6), H.reshape(W * 6, W * 6)
 
-        name, trips = "banded", BANDED_CG_ITERS
+        name, trips = "banded" + sfx, BANDED_CG_ITERS
+    elif gather_tables:
+        plans = [build_gather_plan(fa, W) for fa in buckets]
+
+        def cgh(R, p):
+            r, g, H = _gather_cgh(buckets, plans, R, p, W)
+            return r / g_size, g, H
+
+        name, trips = "gather", LIDAR_CG_ITERS
     else:
         table = (buckets_frame_table(buckets, W) if any(
             isinstance(fa, PlaneFactorArrays) for fa in buckets) else None)
@@ -313,8 +358,10 @@ def lm_damping_iter(
     full width; "banded" groups voxels by observer-span frame block and
     Grams at local width 2B; "auto" takes banded at W >= BANDED_MIN_W when
     the Gram flops drop at least 4x.  At W >= SPLIT_W the split route
-    runs (the compact banded solve where banded).  The result's `route`
-    names the route taken."""
+    runs (the compact banded solve where banded).  gather_tables: the
+    JAX package's GatherPlan evaluation (LVBA_GATHER_M), one plan a
+    bucket, never split (bucketed only; an aligned solve ignores it, as
+    in the JAX package).  The result's `route` names the route taken."""
     route = plan_route(buckets, R0.shape[0], reduced_solver, hessian,
                        gather_tables)
     return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)

@@ -13,9 +13,8 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
-
-from .robust import compute_mad  # noqa: F401  (the reference's nth_element MAD)
 
 
 class MetricsRegistry:
@@ -92,3 +91,16 @@ def hbm_stats(device) -> Dict[str, int]:
         "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
         "bytes_limit": int(torch.cuda.mem_get_info(device)[1]),
     }
+
+
+def compute_mad(residuals) -> float:
+    """Median absolute deviation x 1.4826 (computeMAD, utils.hpp:294-303),
+    the JAX package's metrics copy: np.median, which averages the two
+    middle values of an even-length input (utils.robust.compute_mad, which
+    utils exports, takes the reference's nth_element element instead).
+    Returns -1.0 for empty input."""
+    r = np.asarray(residuals, dtype=np.float64)
+    if r.size == 0:
+        return -1.0
+    med = np.median(r)
+    return float(np.median(np.abs(r - med)) * 1.4826)

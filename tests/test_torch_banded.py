@@ -81,8 +81,19 @@ def test_build_banded_groups_matches_jax(w64, block):
     # block 8 puts voxels into the straggler group; the p99 block leaves
     # none (Vw = 0), as in the JAX package
     assert max(walls) > 0 if block == 8 else max(walls) == 0
-    with pytest.raises(NotImplementedError, match="A3b"):
-        pe.build_banded_groups(tb[1], W, aligned=True)
+    # the aligned layout (the JAX package's pack_aligned) array for array
+    ja_b = jpe.build_banded_groups(ja[1], W, block=block, aligned=True)
+    tg_b = pe.build_banded_groups(tb[1], W, block=block, aligned=True)
+    assert isinstance(tg_b, pe.AlignedBandedGroups)
+    for part, names in (("fa", ("n", "mu", "Pc")),
+                        ("wide_fa", ("n", "mu", "Pc", "frame"))):
+        for name in names:
+            a = np.asarray(getattr(getattr(ja_b, part), name))
+            b = getattr(getattr(tg_b, part), name).numpy()
+            assert a.shape == b.shape and np.array_equal(a, b), (part, name)
+    for name in ("offset", "wide_inv"):
+        a, b = np.asarray(getattr(ja_b, name)), getattr(tg_b, name).numpy()
+        assert a.shape == b.shape and np.array_equal(a, b), name
 
 
 @pytest.mark.parametrize("block", [None, 8])

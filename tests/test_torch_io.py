@@ -19,6 +19,7 @@ from global_lvba_tpu.native import runtime as jnative
 from global_lvba_tpu.pipeline import downsample as jdown
 from global_lvba_tpu.utils import checkpoint as jck, metrics as jmet
 from global_lvba_tpu.utils import robust as jrob
+from global_lvba_tpu_torch import utils
 from global_lvba_tpu_torch.config import LvbaConfig
 from global_lvba_tpu_torch.frontend import colmap_db
 from global_lvba_tpu_torch.io import dataset, pcd, tum
@@ -407,13 +408,19 @@ def test_stage_timer_and_host_memory():
 
 
 def test_metrics_compute_mad_matches_jax():
-    # the port keeps one MAD, the reference's nth_element one (robust);
-    # the JAX metrics copy averages the two middle values, so the two
-    # agree on odd lengths only
-    assert metrics.compute_mad is robust.compute_mad
+    # metrics keeps the JAX metrics copy's np.median MAD (the two middle
+    # values averaged on even lengths); robust keeps the reference's
+    # nth_element one, which utils exports, as the JAX package's utils
+    # does
+    assert metrics.compute_mad is not robust.compute_mad
+    assert utils.compute_mad is robust.compute_mad
     r = np.random.default_rng(8).normal(size=1001)
     assert metrics.compute_mad(r) == jmet.compute_mad(r) == jrob.compute_mad(r)
-    assert metrics.compute_mad(r[:1000]) == jrob.compute_mad(r[:1000])
+    assert metrics.compute_mad(r[:1000]) == jmet.compute_mad(r[:1000])
+    assert robust.compute_mad(r[:1000]) == jrob.compute_mad(r[:1000])
+    assert metrics.compute_mad(r[:1000]) != robust.compute_mad(r[:1000])
+    assert metrics.compute_mad([1.0, 2.0, 4.0, 8.0]) == jmet.compute_mad(
+        [1.0, 2.0, 4.0, 8.0])
     assert metrics.compute_mad([]) == jmet.compute_mad([]) == -1.0
 
 

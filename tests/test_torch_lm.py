@@ -1,8 +1,9 @@
 """Damped LM of the PyTorch port against the JAX package (float64, CPU):
 poses at the 1e-8 of tests/test_aligned_layout.py on both reduced-solve
 branches and on both layouts (aligned; bucketed on a box room and a
-corridor), the zero-observation frame of tests/test_lm.py, and the
-options the port refuses (ROADMAP A3b)."""
+corridor), the zero-observation frame of tests/test_lm.py, the JAX
+package's opt-in gather tables and aligned banded groups on a small
+bucketed scene, and the inputs the port refuses."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -125,22 +126,34 @@ def test_bucketed_lm_matches_jax(scene):
 
 
 def test_bucketed_input_raises(w64):
-    """What the port still refuses raises before any evaluation: the JAX
-    package's opt-in gather tables and aligned banded groups name ROADMAP
-    A3b (NotImplementedError, no other route taken), cg_mf on aligned
-    factor arrays raises ValueError as in the JAX package, and anything
-    but factor arrays TypeError (a tiny synthetic bucket)."""
-    fa = PlaneFactorArrays(
-        n=torch.ones(1, 2, dtype=F64), mu=torch.zeros(1, 2, 3, dtype=F64),
-        Pc=torch.zeros(1, 2, 3, 3, dtype=F64),
-        frame=torch.tensor([[0, 1]], dtype=torch.int32))
-    W = lm.BANDED_MIN_W
-    R0 = torch.eye(3, dtype=F64).expand(W, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        lm.lm_damping_iter([fa], R0, torch.zeros(W, 3, dtype=F64),
-                           gather_tables=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        build_banded_groups(fa, W, aligned=True)
+    """The JAX package's opt-in gather tables and aligned banded groups
+    agree with the JAX package on a small bucketed plane scene: the
+    gather LM's poses within 1e-8, the aligned groups array for array.
+    cg_mf on aligned factor arrays raises ValueError as in the JAX
+    package, and anything but factor arrays TypeError."""
+    W = 8
+    sc = make_plane_scene(num_frames=W, points_per_frame=400, seed=0)
+    vm = build_voxel_map(sc.points_body, sc.frame_ids, sc.R_true, sc.p_true,
+                         voxel_size=1.0, eigen_ratios=(0.2,) * 4)
+    Rq, pq = perturb_poses(sc.R_true, sc.p_true, 0.004, 0.012, seed=2)
+    ja = jpad.buckets_to_device(vm, dtype=jnp.float64, W=W,
+                                layout="bucketed")
+    fas = [from_jax_arrays(b.n, b.mu, b.Pc, device="cpu", dtype=F64,
+                           frame=b.frame) for b in ja]
+    got = lm.lm_damping_iter(fas, torch.as_tensor(Rq), torch.as_tensor(pq),
+                             max_iters=4, gather_tables=True)
+    ref = jlm.lm_damping_iter(ja, jnp.asarray(Rq), jnp.asarray(pq),
+                              max_iters=4, gather_tables=True)
+    assert got.route == "gather" and got.iters == int(ref.iters)
+    np.testing.assert_allclose(got.p.numpy(), np.asarray(ref.p), rtol=0,
+                               atol=1e-8)
+    from global_lvba_tpu.factors.plane_eigen import (
+        build_banded_groups as jbuild)
+    jb, tg = jbuild(ja[0], W, aligned=True), build_banded_groups(
+        fas[0], W, aligned=True)
+    for a, b in zip(jb.fa, tg.fa):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    assert np.array_equal(np.asarray(jb.offset), tg.offset.numpy())
     _, _, fa_al, Rp, pp = w64
     with pytest.raises(ValueError, match="cg_mf"):
         lm.lm_damping_iter([fa_al], torch.as_tensor(Rp), torch.as_tensor(pp),

@@ -253,13 +253,17 @@ def test_new_routes_read_ids_first_then_converged(plane24, corridor96,
 
 
 def test_raises_name_a3b(plane24):
-    """gather_tables=True (the JAX package's GatherPlan evaluation) raises
-    NotImplementedError naming ROADMAP A3b on a bucketed solve; an unknown
-    hessian raises ValueError."""
-    _, _, tb, Rp, pp = plane24
+    """gather_tables=True (the JAX package's GatherPlan evaluation) takes
+    the gather route on a bucketed solve and lands on the JAX package's
+    poses within 1e-8; an unknown hessian
+    raises ValueError, and so does cg_mf on the split LM."""
+    _, ja, tb, Rp, pp = plane24
     R, p = torch.as_tensor(Rp), torch.as_tensor(pp)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        lm.lm_damping_iter(tb, R, p, gather_tables=True)
+    got = lm.lm_damping_iter(tb, R, p, max_iters=4, gather_tables=True)
+    ref = jlm.lm_damping_iter(ja, jnp.asarray(Rp), jnp.asarray(pp),
+                              max_iters=4, gather_tables=True)
+    assert got.route == "gather" and got.iters == int(ref.iters)
+    _close(got, ref)
     with pytest.raises(ValueError, match="hessian"):
         lm.lm_damping_iter(tb, R, p, hessian="sparse")
     with pytest.raises(ValueError, match="cg_mf"):

@@ -221,9 +221,11 @@ def test_chain_limits_reach_the_kernel(monkeypatch):
     """soa_chain.cu takes its warps a block per dtype from kernels/soa.py
     through the build's -D flags (a changed count rebuilds the library),
     its frame tile is CHAIN_FRAME_TILE, its 24 -> 36 channel table is
-    plane_eigen's, and its launcher takes the running sums, the
-    accumulate flag, the partial slots and the arrival counters (float32
-    and float64 alike); the occupancy query is bound beside it."""
+    plane_eigen's, and its launcher takes the group form's group count
+    and voxels a group, the running sums, the group form's entry rows,
+    the accumulate flag, the partial slots and the arrival counters
+    (float32 and float64 alike); the occupancy query is bound beside
+    it."""
     flags = build._defines("soa_chain")
     assert (f"-DLVBA_CHAIN_WARPS_F32={soa.CHAIN_WARPS[torch.float32]}"
             in flags)
@@ -237,8 +239,8 @@ def test_chain_limits_reach_the_kernel(monkeypatch):
     table = [int(x) for x in body.replace("\n", " ").split(",")]
     assert table == pe._D24_TO_36.tolist()
     for name in ("soa_chain", "soa_chain_f64"):
-        assert build.SIGNATURES[name][2] == ([build._P] * 5 + [build._I] * 3
-                                             + [build._P] * 3 + [build._I]
+        assert build.SIGNATURES[name][2] == ([build._P] * 5 + [build._I] * 5
+                                             + [build._P] * 4 + [build._I]
                                              + [build._P] * 3)
     assert build.SIGNATURES["soa_chain_occupancy"][:2] == (
         "soa_chain", "lvba_soa_chain_occupancy")
@@ -349,9 +351,10 @@ def test_agg_group(K, lg, ept):
 def test_agg_block_matches_the_kernel():
     """agg_group sizes groups for soa_agg_kernel's block and instances,
     soa_agg_buckets' launches hold at most the kernel's bucket table, and
-    the launcher takes the bucket count, seven per-bucket arrays, one EPT
-    for the launch (each bucket's group follows from its K and EPT), the
-    two output arrays and the stream."""
+    the launcher takes the bucket count, eight per-bucket arrays (the
+    pose operand's voxel stride and voxels a pose block among them), one
+    EPT for the launch (each bucket's group follows from its K and EPT),
+    the two output arrays and the stream."""
     src = (build.CSRC / "soa_agg.cu").read_text()
     assert f"constexpr int kThreads = {soa.AGG_THREADS};" in src
     assert f"constexpr int kMaxBuckets = {soa.AGG_MAX_BUCKETS};" in src
@@ -362,5 +365,5 @@ def test_agg_block_matches_the_kernel():
         assert f"soa_agg_kernel<T, {e}><<<" in src
         e *= 2
     for name in ("soa_agg", "soa_agg_f64"):
-        assert build.SIGNATURES[name][2] == ([build._I] + [build._P] * 7
+        assert build.SIGNATURES[name][2] == ([build._I] + [build._P] * 8
                                              + [build._I] + [build._P] * 3)
