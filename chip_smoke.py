@@ -6,8 +6,10 @@ NVIDIA GPU.  Run from the repository root:
 
 Phases (any failure raises, so the exit code is non-zero):
   1. set-up: the card's name and power limit, TF32 off, the kernels built
-     from global_lvba_tpu_torch/csrc (timed), the DMMA (fp64 tensor-core)
-     instructions counted in syrk_f64_kernel's SASS (cuobjdump; none fails);
+     from global_lvba_tpu_torch/csrc (timed), the native host library built
+     from global_lvba_tpu_torch/native with g++ (timed), the DMMA (fp64
+     tensor-core) instructions counted in syrk_f64_kernel's SASS
+     (cuobjdump; none fails);
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the shapes the main path gives it (the W=512 scene below,
      every voxel chunk of one evaluation), with the tolerance printed,
@@ -214,10 +216,14 @@ it in XLA, the port in plain torch; its LiDAR stage runs the kernels):
      float64 on the card and on the CPU, both at 10 LM iterations (from
      ~15 on, two cameras seen once each follow the rounding): the card's
      cost and post px within 1e-6 relative of the CPU's.  The depth maps
-     (host numpy, the same in every run) are rendered by the first run
-     and reused by the other three.  The stage times (depth, fuse,
-     planes, solve), and the solve again alone, warm, on the stage's
-     problem (equal cost; ms per iteration and the checks of phase 14).
+     are rendered by the first run on each device: on the card by the
+     z-buffer kernel (the launch counts set to 0 just before: one launch),
+     on the CPU by numpy's _zbuffer_host; the later run on each reuses
+     them, and the two sets differ in under 1e-3 of an image's pixels
+     (bitwise, where the host's BLAS forms R p as the kernel does).  The
+     stage times (depth, fuse, planes, solve), and the solve again alone,
+     warm, on the stage's problem (equal cost; ms per iteration and the
+     checks of phase 14).
 Slice 11, the system (dataset IO, checkpoints, exports, the CLI):
  17. [system]: phase 16's scene and odometry written as a dataset in the
      reference's layout with the port's own writers (200 binary PCDs, the
@@ -234,7 +240,8 @@ Slice 11, the system (dataset IO, checkpoints, exports, the CLI):
      a few views with no LiDAR point in range), Colmap/sparse/images.txt
      (400 lines) and points3D.txt (a line a track point),
      viz/tracks_{before,after}.pcd and metrics.json.  The kernels at
-     run A's own solves' shapes, as in [visual-e2e]: the first window
+     run A's own solves' shapes, as in [visual-e2e] (run A's depth maps
+     one z-buffer launch): the first window
      from the dataset's poses as read back from lidar_poses.txt
      ([system-window-kernels]) and global stage 2 at run A's final anchor
      poses ([system-global-kernels]; the TUM round trip moves where the
@@ -294,10 +301,30 @@ Slice 13, the JAX package's opt-in large-W evaluations:
      launches an evaluation, no (6W)² operand; [a3b-gather-2b] path 2b's
      stage-1 map with gather_tables=True (route gather) against the dense
      route the same way.  scripts/a3b_phase.py runs the phase alone.
+Slice 14, the native host runtime and the card's z-buffer:
+ 20. [native]: [native-zbuffer] phase 16's depth stage (200 images, ~2.0 M
+     covisible points each) in numpy (_zbuffer_host) and on the card (the
+     grid map's keys by the native library, image_ranges on the host, one
+     z-buffer launch), the card's parts timed (host ranges, upload, the
+     kernel's device time, copy back); (a) the kernel against
+     zbuffer_plain on the card, bitwise (else its share, below 1e-3),
+     (b) against the numpy maps: per image the share of pixels off by
+     more than 1e-6 below 1e-3, (c) two launches bitwise; [native-host]
+     at path 2a's 2.0 M points the transform (within 1e-14 of max |w|),
+     keys and argsort exactly (keys of the native transform that flip
+     against numpy's counted), segment sums and moments (within 1e-12 of
+     each max), every build_voxel_map of path 2a's run (plane counts and
+     keys equal) and the plane lookup in turns numpy, native, native,
+     numpy; build_components on ladder 3's match graph (the same tracks);
+     LZF (the native decoder, the port's only one) on binary_compressed
+     PCDs of path 2a's first 10 frames (the payloads byte for byte,
+     read_pcd the clouds); [native-system] phase 17's run A with its host
+     paths and depth maps numpy, then native: each wall.
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
-2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, system, mesh-dryrun,
-mesh-w512, mesh-w4096, a3b-aligned, a3b-gather); the last line is
+2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, visual-e2e-stage, system,
+mesh-dryrun, mesh-w512, mesh-w4096, a3b-aligned, a3b-gather); the last
+line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -305,6 +332,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import json
 import math
@@ -1703,6 +1731,47 @@ def _bucketed_f64(torch, kern, results, bs, frames, tbl_m, chunks, live, wc,
                                       per_kernel=per)
 
 
+@contextlib.contextmanager
+def _recording_builds(builds):
+    """While the block runs, pipeline.lidar_ba._build_vm appends its
+    arguments (points, frame ids, poses, voxel size, eigen ratios) to
+    builds."""
+    from global_lvba_tpu_torch.pipeline import lidar_ba
+
+    build_vm = lidar_ba._build_vm
+
+    def recorded(*a):
+        builds.append(a[:6])
+        return build_vm(*a)
+
+    lidar_ba._build_vm = recorded
+    try:
+        yield
+    finally:
+        lidar_ba._build_vm = build_vm
+
+
+def _keep_2a(torch, np):
+    """Path 2a's scene and its card run's voxel map builds in KEEP, as
+    phase 8 leaves them, for phase 20 run alone
+    (scripts/visual_phases.py)."""
+    from global_lvba_tpu_torch.models.synthetic import (
+        make_plane_scene, perturb_poses)
+    from global_lvba_tpu_torch.pipeline.lidar_ba import run_lidar_ba
+
+    sc = make_plane_scene(num_frames=WINDOW_FRAMES,
+                          points_per_frame=WINDOW_PPF, seed=0)
+    Ra, pa = perturb_poses(sc.R_true, sc.p_true, 0.003, 0.01, seed=1)
+    builds = []
+    with _recording_builds(builds):
+        run_lidar_ba([sc.points_body[sc.frame_ids == i]
+                      for i in range(WINDOW_FRAMES)], Ra, pa,
+                     _window_config("float32"), device="cuda")
+        torch.cuda.synchronize()
+    KEEP["2a"] = (sc.points_body, sc.frame_ids, Ra, pa)
+    KEEP["2a_builds"] = builds
+
+
 def _stage_lines(tag, stats):
     w = stats["window"]
     print(f"[{tag}] window stage: {w['windows']} windows, {w['skipped']} "
@@ -2033,11 +2102,13 @@ def _slice2(torch, np, dev, kern, results, paths):
     sc_a = make_plane_scene(num_frames=F, points_per_frame=WINDOW_PPF, seed=0)
     Ra, pa = perturb_poses(sc_a.R_true, sc_a.p_true, 0.003, 0.01, seed=1)
     clouds = [sc_a.points_body[sc_a.frame_ids == i] for i in range(F)]
+    builds = []      # the run's voxel map builds, for phase 20
     reset_launch_counts()
     t0 = time.time()
-    res = run_lidar_ba(clouds, Ra, pa, _window_config("float32"),
-                       device="cuda")
-    torch.cuda.synchronize()
+    with _recording_builds(builds):
+        res = run_lidar_ba(clouds, Ra, pa, _window_config("float32"),
+                           device="cuda")
+        torch.cuda.synchronize()
     wall = time.time() - t0
     counts = paths["2a"] = launch_counts()
     ate0, ate = ate_rmse(pa, sc_a.p_true), ate_rmse(res.p_opt, sc_a.p_true)
@@ -2083,6 +2154,7 @@ def _slice2(torch, np, dev, kern, results, paths):
         _fail(f"2a in float64 on the card: ATE {ate64} vs the CPU's "
               f"{ate_ref}, launches {counts64}")
     KEEP["2a"] = (sc_a.points_body, sc_a.frame_ids, Ra, pa)
+    KEEP["2a_builds"] = builds
     del clouds, sc_a, res, ref, res64
 
     # ---- 9. path 2b: the sparse corridor at W=512 ----
@@ -3682,7 +3754,7 @@ def _path_kernels(torch, np, dev, kern, results, tag, cfg, clouds, R0, p0,
     vm = _build_vm(np.concatenate(clouds[:Ww]), np.concatenate(
         [np.full(len(c), j, np.int32) for j, c in enumerate(clouds[:Ww])]),
         R0[:Ww], p0[:Ww], cfg.BALM_stage1.root_voxel_size,
-        cfg.window_ba.eigen_ratio_array, cfg)
+        cfg.window_ba.eigen_ratio_array, cfg, dev)
     _e2e_kernels(torch, kern, results, f"{tag}-window-kernels",
                  buckets_to_device(vm, W=Ww, device=dev, merge="always"),
                  R0[:Ww], p0[:Ww], Ww)
@@ -3692,7 +3764,7 @@ def _path_kernels(torch, np, dev, kern, results, tag, cfg, clouds, R0, p0,
         [np.full(len(c), j, np.int32)
          for j, c in enumerate(lid.anchor_clouds)]),
         lid.anchor_R, lid.anchor_p, st.root_voxel_size,
-        st.eigen_ratio_array, cfg)
+        st.eigen_ratio_array, cfg, dev)
     _e2e_kernels(torch, kern, results, f"{tag}-global-kernels",
                  buckets_to_device(vm, W=A, device=dev), lid.anchor_R,
                  lid.anchor_p, A)
@@ -3702,25 +3774,31 @@ def _path_kernels(torch, np, dev, kern, results, tag, cfg, clouds, R0, p0,
 
 
 def _reused_depth_maps(np, visual_ba):
-    """visual_ba.render_depth_maps computed by its first call and handed
-    back to later calls with the same camera poses (host numpy, the same
-    for every device and dtype); a call with other poses fails.  Returns
-    the function to put back."""
+    """visual_ba.render_depth_maps computed by the first call on each kind
+    of device and handed back to that kind's later calls with the same
+    camera poses: the card's runs share the z-buffer kernel's maps, the
+    CPU's runs _zbuffer_host's (numpy), so the card-vs-CPU comparison
+    keeps an independent depth source; a call with other poses fails.
+    Returns the function to put back and the memo ({"cuda": ..., "cpu":
+    ...}, each with its "maps")."""
+    import torch
+
     render = visual_ba.render_depth_maps
     memo = {}
 
-    def reused(cam, gm, lidar_times, image_times, Rcw, tcw):
-        if not memo:
-            memo.update(Rcw=Rcw, tcw=tcw, maps=render(
-                cam, gm, lidar_times, image_times, Rcw, tcw))
-        elif not (np.array_equal(memo["Rcw"], Rcw)
-                  and np.array_equal(memo["tcw"], tcw)):
+    def reused(cam, gm, lidar_times, image_times, Rcw, tcw, device):
+        m = memo.setdefault(torch.device(device).type, {})
+        if not m:
+            m.update(Rcw=Rcw, tcw=tcw, maps=render(
+                cam, gm, lidar_times, image_times, Rcw, tcw, device=device))
+        elif not (np.array_equal(m["Rcw"], Rcw)
+                  and np.array_equal(m["tcw"], tcw)):
             _fail("[visual-e2e]: a run's camera poses differ from the "
                   "first run's")
-        return memo["maps"]
+        return m["maps"]
 
     visual_ba.render_depth_maps = reused
-    return render
+    return render, memo
 
 
 def _visual_e2e(torch, np, dev, kern, results, paths):
@@ -3785,7 +3863,8 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
     cfg64_n = _window_config("float64")
     cfg64_n.solver.visual_max_iters = E2E_FLOAT64_ITERS
     fuse32 = visual_ba.fuse_tracks
-    render = _reused_depth_maps(np, visual_ba)
+    render, memo = _reused_depth_maps(np, visual_ba)
+    reuse = ("card-float64", "cpu-float64-short")   # the memo's maps
     runs = {}
     try:
         for name, c, d in (("card", cfg, dev), ("cpu-float64", cfg64, "cpu"),
@@ -3794,8 +3873,16 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
             # the float64 runs fuse their tracks in float64 too
             visual_ba.fuse_tracks = fuse32 if c is cfg else functools.partial(
                 fuse32, dtype=torch.float64)
+            if name == "card":
+                reset_launch_counts()
             t0 = time.time()
             v = runs[name] = visual_ba.run_visual_ba(cfg=c, device=d, **kw)
+            if name == "card":
+                torch.cuda.synchronize()
+                zc = paths["visual-e2e-stage"] = launch_counts()
+                if zc["zbuffer"] != 1:
+                    _fail(f"[visual-e2e]: the card run's depth maps took "
+                          f"{zc['zbuffer']} z-buffer launches, not one")
             s = v.stats
             print(f"[visual-e2e] run_visual_ba {name} ({time.time() - t0:.2f} "
                   f"s): reprojection {v.mean_reproj_pre:.4f} -> "
@@ -3806,7 +3893,7 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
                   f"{s['cost0']:.9g} -> {s['cost']:.9g} in "
                   f"{s['solve_iters']} iterations on route "
                   f"{s['solve_route']}; stages depth {s['depth_s']:.3f} s"
-                  f"{'' if name == 'card' else ' (the first run maps reused)'}"
+                  f"{' (maps reused)' if name in reuse else ''}"
                   f", fuse {s['fuse_s']:.3f} s, planes {s['planes_s']:.3f} s, "
                   f"solve {s['solve_s']:.3f} s (set-up included)", flush=True)
     finally:
@@ -3814,10 +3901,17 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
         visual_ba.render_depth_maps = render
     v, ref = runs["card"], runs["cpu-float64"]
     v64, ref_n = runs["card-float64"], runs["cpu-float64-short"]
+    maps, maps_np = memo["cuda"]["maps"], memo["cpu"]["maps"]
+    map_share = max(float(np.mean(np.abs(a - b) > 1e-6))
+                    for a, b in zip(maps, maps_np))
+    print(f"[visual-e2e] the card runs' depth maps (the kernel) against the "
+          f"CPU runs' (numpy _zbuffer_host): bitwise "
+          f"{bool(np.array_equal(maps, maps_np))}, worst image's share off "
+          f"by > 1e-6 {map_share:.3e} (limit {ZBUF_SHARE})", flush=True)
     # the solve alone, warm, on the card run's problem: its plane priors
     # looked up again
     lookup = visual_ba.build_anchor_plane_lookup(clouds, lid.R_opt,
-                                                 lid.p_opt, cfg)
+                                                 lid.p_opt, cfg, device=dev)
     idx = lookup.query(v.points_pre)
     obs_cam, obs_pt, obs_uv = v.track_obs
     prob = schur.VisualBAProblem(
@@ -3854,15 +3948,18 @@ def _visual_e2e(torch, np, dev, kern, results, paths):
         runs={k: dict(reproj=[r.mean_reproj_pre, r.mean_reproj_post],
                       stats=r.stats) for k, r in runs.items()},
         solve=rec, counts_rel=e_counts, post_rel=e_post, cost_rel=e_cost,
-        float64_cost_rel=f_cost, float64_post_rel=f_post)
+        float64_cost_rel=f_cost, float64_post_rel=f_post,
+        depth_map_share=map_share)
     if not (v.mean_reproj_post < v.mean_reproj_pre
             and v.mean_reproj_post < 1.0
             and all(e <= TOL_E2E_COUNT for e in e_counts.values())
             and e_post <= TOL_E2E_POST and e_cost <= TOL_VISUAL_COST
             and f_cost <= TOL_VISUAL_F64 and f_post <= TOL_VISUAL_F64
             and v64.stats["solve_iters"] == ref_n.stats["solve_iters"]
-            and sol.cost == v.stats["cost"]):
+            and sol.cost == v.stats["cost"] and map_share < ZBUF_SHARE):
         _fail("[visual-e2e]: the visual stage misses its limits")
+    KEEP["e2e"] = dict(clouds=clouds, lid=lid, cfg=cfg, maps=maps,
+                       Rcw=memo["cuda"]["Rcw"], tcw=memo["cuda"]["tcw"])
     return js, R_odom, p_odom
 
 
@@ -4042,6 +4139,9 @@ def _system(torch, np, dev, kern, results, paths, js, R_odom, p_odom):
           f"diff {e_counts} (tol {TOL_E2E_COUNT})", flush=True)
     if not all(counts[k] > 0 for k in BUCKETED_PATH_KERNELS):
         _fail(f"[system]: a bucketed kernel was never launched: {counts}")
+    if counts["zbuffer"] != 1:
+        _fail(f"[system]: run A's depth maps took {counts['zbuffer']} "
+              f"z-buffer launches, not one")
     if not (np.isfinite(sysA.p_opt).all() and ate < ate0
             and e_ate <= 0.1 and v.mean_reproj_post < 1.0
             and v.mean_reproj_post < v.mean_reproj_pre
@@ -4515,7 +4615,7 @@ def _mesh_spatial(torch, np, dev, results):
     from global_lvba_tpu_torch.parallel.spatial import (
         distributed_voxel_moments, host_voxel_moments)
 
-    pts_b, fid, Ra, pa = KEEP.pop("2a")
+    pts_b, fid, Ra, pa = KEEP["2a"]     # phase 20 reads it too
     pts = (np.einsum("nij,nj->ni", Ra[fid], pts_b) + pa[fid]).astype(
         np.float32)
     t0 = time.perf_counter()
@@ -4992,6 +5092,411 @@ def _a3b_aligned(torch, dev, rec, paths, bs, R, p, W):
         torch.full((), 0.01, dtype=R.dtype, device=dev))
 
 
+# ---- phase 20 [native]: the native host runtime and the card's z-buffer ----
+NATIVE_LZF_FRAMES = 10     # path 2a frames written as binary_compressed PCDs
+ZBUF_SHARE = 1e-3          # pixels off _zbuffer_host by > 1e-6, per image
+TOL_TRANSFORM_REL = 1e-14  # transform_points vs einsum, of max |w|
+TOL_MOMENTS_REL = 1e-12    # bin_moments vs reduceat, of each max |.|
+
+
+def _lzf_compress(data: bytes) -> bytes:
+    """A greedy LZF encoder (liblzf's scheme): the last earlier position of
+    each 3-byte string in a table; a match of at least 3 bytes within 8,192
+    back (at most 264 long) becomes a back reference, the rest literal
+    runs of at most 32 bytes."""
+    out = bytearray()
+    last = {}
+    n = len(data)
+    lit = i = 0
+
+    def literals(end):
+        for a in range(lit, end, 32):
+            run = data[a:min(a + 32, end)]
+            out.append(len(run) - 1)
+            out.extend(run)
+
+    while i + 2 < n:
+        key = data[i:i + 3]
+        j = last.get(key)
+        last[key] = i
+        if j is None or i - j > 8192:
+            i += 1
+            continue
+        k = 3
+        while i + k < n and k < 264 and data[j + k] == data[i + k]:
+            k += 1
+        literals(i)
+        off, ln = i - j - 1, k - 2
+        if ln < 7:
+            out.append((ln << 5) | (off >> 8))
+        else:
+            out += bytes(((7 << 5) | (off >> 8), ln - 7))
+        out.append(off & 0xFF)
+        i += k
+        lit = i
+    literals(n)
+    return bytes(out)
+
+
+def _write_compressed_pcd(path, pts, fields=("x", "y", "z", "intensity")):
+    """A binary_compressed PCD of pts (N, len(fields)) float32 in PCL's
+    layout (each field's column in turn, LZF-compressed, behind the
+    compressed and the raw size): returns (payload, compressed)."""
+    import numpy as np
+
+    pts = np.asarray(pts, np.float32)
+    n = pts.shape[0]
+    k = len(fields)
+    payload = b"".join(np.ascontiguousarray(pts[:, j]).tobytes()
+                       for j in range(k))
+    comp = _lzf_compress(payload)
+    head = (f"# .PCD v0.7\nVERSION 0.7\nFIELDS {' '.join(fields)}\n"
+            f"SIZE {' '.join(['4'] * k)}\nTYPE {' '.join(['F'] * k)}\n"
+            f"COUNT {' '.join(['1'] * k)}\nWIDTH {n}\nHEIGHT 1\n"
+            f"VIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary_compressed\n")
+    Path(path).write_bytes(
+        head.encode("ascii")
+        + np.array([len(comp), len(payload)], "<u4").tobytes() + comp)
+    return payload, comp
+
+
+def _in_turns(fn, order=("numpy", "native", "native", "numpy")):
+    """fn(host) for each host path in turn: {path: [s, s]} and the first
+    result of each."""
+    secs, first = collections.defaultdict(list), {}
+    for host in order:
+        t0 = time.time()
+        out = fn(host)
+        secs[host].append(time.time() - t0)
+        first.setdefault(host, out)
+    return dict(secs), first
+
+
+def _native_zbuffer(torch, np, dev, kern, rec, js):
+    """[native-zbuffer]: phase 16's depth stage on the card and in numpy:
+    the numpy stage (grid map, _zbuffer_host an image on 4 threads), the
+    card's (native keys, image_ranges, one launch), its parts timed; the
+    kernel against zbuffer_plain on the card (a), against the numpy maps
+    image by image (b), against itself (c); its kernels-line entry.
+    Returns the depth stage's numbers."""
+    from global_lvba_tpu_torch.kernels.zbuffer import (
+        ZBUFFER_OPS, ZBUFFER_Z_OPS, points_in_front, zbuffer, zbuffer_plain)
+    from global_lvba_tpu_torch.pipeline import depth
+
+    e = KEEP["e2e"]
+    clouds, lid, Rcw, tcw = e["clouds"], e["lid"], e["Rcw"], e["tcw"]
+    sc, cam, M = js.lidar, js.cam, len(js.image_times)
+    grid_s, gms = _in_turns(lambda host: depth.build_grid_map(
+        clouds, lid.R_opt, lid.p_opt, device=dev if host == "native"
+        else "cpu"))
+    gm_np, gm = gms["numpy"], gms["native"]
+    t0 = time.time()
+    maps_np = depth.render_depth_maps(cam, gm_np, sc.times, js.image_times,
+                                      Rcw, tcw)
+    render_np_s = time.time() - t0
+    same_grid = all(np.array_equal(getattr(gm, f), getattr(gm_np, f))
+                    for f in ("keys", "starts", "counts", "points")) and all(
+        np.array_equal(a, b) for a, b in zip(gm.frame_voxel_keys,
+                                             gm_np.frame_voxel_keys))
+    t0 = time.time()
+    maps_card = depth.render_depth_maps(cam, gm, sc.times, js.image_times,
+                                        Rcw, tcw, device=dev)
+    render_s = time.time() - t0
+    # the card stage's parts: host ranges, upload, kernel, copy back
+    t0 = time.time()
+    starts, counts, offsets = depth.image_ranges(gm, sc.times,
+                                                 js.image_times)
+    ranges_s = time.time() - t0
+    t0 = time.time()
+    args = [torch.as_tensor(a).to(dev) for a in (
+        np.ascontiguousarray(gm.points, np.float32), starts, counts, offsets,
+        np.asarray(Rcw, np.float64), np.asarray(tcw, np.float64))]
+    torch.cuda.synchronize()
+    upload_s = time.time() - t0
+    maps = zbuffer(*args, cam)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = maps.cpu().numpy()
+    copy_s = time.time() - t0
+    same_path = (np.array_equal(maps_card, host)
+                 and np.array_equal(host, e["maps"]))
+    # (a) the plain version on the card, (c) the kernel again
+    ref = zbuffer_plain(*args, cam)
+    again = zbuffer(*args, cam)
+    torch.cuda.synchronize()
+    bit_a = bool(torch.equal(maps, ref))
+    share_a = float((maps != ref).double().mean())
+    err = float((maps - ref).abs().max())
+    bit_c = bool(torch.equal(maps, again))
+    # (b) the numpy maps, image by image
+    shares = np.array([np.mean(np.abs(host[i] - maps_np[i]) > 1e-6)
+                       for i in range(M)])
+    bit_b = bool(np.array_equal(host, maps_np))
+    del ref, again
+    ms, ahead = _timed(torch, lambda: zbuffer(*args, cam))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    zbuffer_plain(*args, cam)
+    ev[1].record()
+    torch.cuda.synchronize()
+    plain_ms = ev[0].elapsed_time(ev[1])
+    n_proj = int(counts.astype(np.int64).sum())
+    n_front = points_in_front(*args)
+    nbytes = (gm.points.shape[0] * 12 + starts.shape[0] * 12
+              + offsets.shape[0] * 8 + M * 48 + host.nbytes)
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    # every point its Z row, a point in front the rest of the projection;
+    # none of it fused, so each operation takes an FMA's issue slot: half
+    # the data sheet's rates, which count an FMA as two
+    ops = [z * n_proj + (a - z) * n_front
+           for a, z in zip(ZBUFFER_OPS, ZBUFFER_Z_OPS)]
+    to = max(ops[0] / (FP32_FLOP_PER_S / 2),
+             ops[1] / (FP64_FLOP_PER_S / 2)) * 1e3
+    bound = (tb, "bytes") if tb >= to else (to, "operations")
+    kern["zbuffer"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bound=bound,
+                           queued_ahead={"ms": ahead})
+    stage = dict(numpy=dict(grid_s=grid_s["numpy"], render_s=render_np_s),
+                 card=dict(grid_s=grid_s["native"], render_s=render_s,
+                           ranges_s=ranges_s, upload_s=upload_s,
+                           kernel_ms=ms, copy_s=copy_s),
+                 covisible_points=n_proj, in_front=n_front, ops=ops,
+                 ranges=int(starts.shape[0]),
+                 grid_points=int(gm.points.shape[0]), images=M,
+                 bytes=nbytes, bound=bound)
+    rec["zbuffer"] = dict(stage=stage, bitwise_plain=bit_a,
+                          share_plain=share_a, max_abs_err=err,
+                          bitwise_numpy=bit_b, worst_share_numpy=float(
+                              shares.max()), repeat_bitwise=bit_c,
+                          grid_equal=same_grid, maps_equal=same_path)
+    print(f"[native-zbuffer] {M} images, {n_proj} covisible points "
+          f"({n_front} in front of the camera) in {starts.shape[0]} ranges "
+          f"over {gm.points.shape[0]} grid points: "
+          f"grid map in turns (numpy, native, native, numpy) {grid_s} s; "
+          f"numpy maps {render_np_s:.3f} s; card maps {render_s:.3f} s "
+          f"(host ranges {ranges_s:.3f} s, upload "
+          f"{upload_s:.3f} s, kernel {ms:.4f} ms device time (queued ahead "
+          f"{ahead}), copy back {copy_s:.3f} s); plain on the card "
+          f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{ops[0]} float32 and {ops[1]} float64 operations at half the "
+          f"data sheet's rates; {nbytes / 1e6:.1f} MB once)", flush=True)
+    print(f"[native-zbuffer] (a) kernel vs zbuffer_plain on the card: "
+          f"bitwise {bit_a} (differing share {share_a:.3e}, max abs "
+          f"{err:.3e}); (b) vs numpy _zbuffer_host: bitwise {bit_b}, worst "
+          f"image's share off by > 1e-6 {shares.max():.3e} (limit "
+          f"{ZBUF_SHARE}); (c) two launches bitwise {bit_c}; native grid map "
+          f"== numpy's {same_grid}; render_depth_maps' maps == this launch's "
+          f"== phase 16's {same_path}", flush=True)
+    if not (same_grid and same_path and bit_c and shares.max() < ZBUF_SHARE
+            and (bit_a or share_a < ZBUF_SHARE)):
+        _fail("[native-zbuffer]: the card's depth maps miss their checks")
+    return stage
+
+
+def _native_host(torch, np, dev, rec, js):
+    """[native-host]: each host entry point against its numpy path at path
+    2a's 2.0 M points (the transform, keys, argsort, segment moments),
+    build_voxel_map over path 2a's recorded builds and the plane lookup in
+    turns, build_components on ladder 3's match graph, LZF on
+    binary_compressed PCDs of path 2a frames.  Returns the times."""
+    import shutil
+
+    from global_lvba_tpu_torch.io import pcd
+    from global_lvba_tpu_torch.map import voxelize
+    from global_lvba_tpu_torch.native import runtime
+    from global_lvba_tpu_torch.pipeline import visual_ba
+    from global_lvba_tpu_torch.tracks import build as tbuild
+
+    host_of = {"numpy": "cpu", "native": dev}
+    pts_b, fids, Ra, pa = KEEP["2a"]
+    pts = np.asarray(pts_b, np.float64)
+    fid = np.asarray(fids, np.int32)
+    t = {}
+    t0 = time.time()
+    w_np = np.einsum("nij,nj->ni", Ra[fid], pts) + pa[fid]
+    t["transform"] = [time.time() - t0]
+    t0 = time.time()
+    w = runtime.transform_points(pts, fid, Ra, pa)
+    t["transform"].append(time.time() - t0)
+    e_w = float(np.abs(w - w_np).max() / np.abs(w_np).max())
+    t0 = time.time()
+    k_np = voxelize.pack_voxel_keys(voxelize.voxel_coords(w_np, VOXEL))
+    t["keys"] = [time.time() - t0]
+    t0 = time.time()
+    k = runtime.voxel_keys64(w_np, VOXEL)
+    t["keys"].append(time.time() - t0)
+    keys_eq = bool(np.array_equal(k, k_np))
+    flips = int((runtime.voxel_keys64(w, VOXEL) != k_np).sum())
+    t0 = time.time()
+    o_np = np.argsort(k_np, kind="stable")
+    t["argsort"] = [time.time() - t0]
+    t0 = time.time()
+    o = runtime.radix_argsort(k_np)
+    t["argsort"].append(time.time() - t0)
+    sort_eq = bool(np.array_equal(o, o_np))
+    sk = k_np[o_np]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    t0 = time.time()
+    _, s_np, m_np = voxelize._reduceat_moments(w_np, o_np, starts)
+    t["moments"] = [time.time() - t0]
+    t0 = time.time()
+    s_n, m_n = runtime.bin_moments(w_np, o_np, starts)
+    t["moments"].append(time.time() - t0)
+    e_s = max(float(np.abs(s_n[:, c] - s_np[:, c]).max()
+                    / np.abs(s_np[:, c]).max()) for c in range(3))
+    e_m = max(float(np.abs(m_n[:, c] - m_np[:, c]).max()
+                    / np.abs(m_np[:, c]).max()) for c in range(6))
+    del w, w_np, k, k_np, o, o_np, sk, s_np, m_np, s_n, m_n
+    print(f"[native-host] path 2a's {pts.shape[0]} points, numpy | native s: "
+          f"{ {n: [round(x, 4) for x in v] for n, v in t.items()} }; "
+          f"transform {e_w:.2e} of max |w| (tol {TOL_TRANSFORM_REL}); keys "
+          f"exact {keys_eq}, keys of the native transform off numpy's: "
+          f"{flips}; argsort exact {sort_eq}; {starts.shape[0]} voxels' "
+          f"sums {e_s:.2e}, moments {e_m:.2e} of each max (tol "
+          f"{TOL_MOMENTS_REL})", flush=True)
+    # build_voxel_map over path 2a's own builds (20 windows, 2 stages)
+    builds = KEEP["2a_builds"]
+    cfg2a = _window_config("float32")
+
+    def voxelize_2a(host):
+        return [voxelize.build_voxel_map(
+            *b, min_ps=cfg2a.solver.min_ps,
+            layer_limit=cfg2a.solver.layer_limit, device=host_of[host])
+            for b in builds]
+
+    vox_s, vms = _in_turns(voxelize_2a)
+    same_maps = all(
+        a.num_planes == b.num_planes and all(
+            np.array_equal(x, y) for x, y in zip(a.lookup.plane_keys,
+                                                 b.lookup.plane_keys))
+        for a, b in zip(vms["numpy"], vms["native"]))
+    planes = sum(v.num_planes for v in vms["native"])
+    del vms
+    e = KEEP["e2e"]
+    lookup_s, lks = _in_turns(lambda host: visual_ba.build_anchor_plane_lookup(
+        e["clouds"], e["lid"].R_opt, e["lid"].p_opt, e["cfg"],
+        device=host_of[host]))
+    same_lookup = all(np.array_equal(x, y) for x, y in zip(
+        lks["numpy"].plane_keys + lks["numpy"].subdiv_keys,
+        lks["native"].plane_keys + lks["native"].subdiv_keys))
+    print(f"[native-host] path 2a's voxelization ({len(builds)} "
+          f"build_voxel_map calls, in turns numpy, native, native, numpy): "
+          f"{vox_s} s, {planes} planes, plane counts and keys equal "
+          f"{same_maps}; the plane lookup of phase 16's stage {lookup_s} s, "
+          f"keys equal {same_lookup}", flush=True)
+    # the track build on ladder 3's match graph
+    comp_s, ts = _in_turns(lambda host: tbuild.build_components(
+        js.keypoints, js.matches, obser_thr=e["cfg"].track_fusion.obser_thr,
+        device=host_of[host]), order=("numpy", "native"))
+
+    def rows(tr):
+        return sorted(map(tuple, np.concatenate(
+            [tr.obs_img, tr.obs_kp], axis=1).tolist()))
+
+    same_tracks = (rows(ts["numpy"]) == rows(ts["native"])
+                   and ts["numpy"].stats == ts["native"].stats)
+    # LZF: binary_compressed PCDs of path 2a's first frames
+    work = Path(__file__).resolve().parent / "build" / "native_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.time()
+    files = []
+    for i in range(NATIVE_LZF_FRAMES):
+        c = np.asarray(pts_b[fids == i], np.float32)
+        ring = (np.arange(c.shape[0]) % 16).astype(np.float32)
+        cloud = np.c_[c, ring]
+        files.append((work / f"{i}.pcd", cloud, *_write_compressed_pcd(
+            work / f"{i}.pcd", cloud)))
+    enc_s = time.time() - t0
+    lzf_s = 0.0
+    same_lzf = True
+    nbytes = 0
+    for path, cloud, payload, comp in files:
+        nbytes += len(payload)
+        t0 = time.time()
+        out = pcd._lzf_decompress(comp, len(payload))
+        lzf_s += time.time() - t0
+        same_lzf &= out == payload and np.array_equal(
+            pcd.read_pcd(path), cloud)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[native-host] build_components on ladder 3's match graph "
+          f"(numpy, native) {comp_s} s, the same tracks {same_tracks}; LZF "
+          f"over {len(files)} binary_compressed PCDs ({nbytes} bytes, "
+          f"encoded in {enc_s:.2f} s): decoded in {lzf_s:.4f} s, the "
+          f"payloads byte-equal and read_pcd's clouds equal {same_lzf}",
+          flush=True)
+    rec["host"] = dict(points=int(pts.shape[0]), entry_s=t,
+                       transform_rel=e_w, keys_exact=keys_eq,
+                       key_flips=flips, argsort_exact=sort_eq,
+                       sums_rel=e_s, moments_rel=e_m,
+                       voxelize_2a_s=vox_s, voxelize_2a_equal=same_maps,
+                       lookup_s=lookup_s, lookup_equal=same_lookup,
+                       components_s=comp_s, components_equal=same_tracks,
+                       lzf_s=lzf_s, lzf_bytes=nbytes, lzf_equal=same_lzf)
+    if not (keys_eq and sort_eq and e_w <= TOL_TRANSFORM_REL
+            and e_s <= TOL_MOMENTS_REL and e_m <= TOL_MOMENTS_REL
+            and same_maps and same_lookup and same_tracks and same_lzf):
+        _fail("[native-host]: a host entry point disagrees with its numpy "
+              "path")
+
+
+def _native_system(torch, np, rec, js, R_odom, p_odom):
+    """[native-system]: phase 17's run A again, its host paths and depth
+    maps numpy (native.on_device patched to False, render_depth_maps sent
+    to the CPU) and then native (the library, the z-buffer kernel), in
+    one process on the card: each run's wall and stages."""
+    import shutil
+
+    from global_lvba_tpu_torch import native
+    from global_lvba_tpu_torch.config import LvbaConfig
+    from global_lvba_tpu_torch.pipeline import system, visual_ba
+
+    work = Path(__file__).resolve().parent / "build" / "native_system"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg_path = _write_ladder3(np, work, js, R_odom, p_odom)
+    on_device, render = native.on_device, visual_ba.render_depth_maps
+    runs = {}
+    for host in ("numpy", "native"):
+        if host == "numpy":
+            native.on_device = lambda d: False
+            visual_ba.render_depth_maps = lambda *a, **k: render(
+                *a, **{**k, "device": "cpu"})
+        try:
+            t0 = time.time()
+            s = system.LvbaSystem(LvbaConfig.from_yaml(cfg_path),
+                                  out_dir=work / host)
+            res = s.run_full_pipeline()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            native.on_device, visual_ba.render_depth_maps = on_device, render
+        m = res["metrics"]
+        runs[host] = dict(
+            wall_s=wall, stages={k: m[k] for k in m if k.startswith("time/")},
+            visual={k: s.visual_result.stats[k] for k in (
+                "depth_s", "fuse_s", "planes_s", "solve_s")},
+            reproj=[s.visual_result.mean_reproj_pre,
+                    s.visual_result.mean_reproj_post])
+    shutil.rmtree(work, ignore_errors=True)
+    rec["system"] = runs
+    print(f"[native-system] LvbaSystem run A on ladder 3, its host paths "
+          f"numpy then native: {runs}", flush=True)
+    post = [r["reproj"][1] for r in runs.values()]
+    if not (max(post) < 1.0 and abs(post[0] - post[1]) <= TOL_E2E_POST
+            * post[0]):
+        _fail("[native-system]: the two runs' post-BA reprojections differ")
+
+
+def _native(torch, np, dev, kern, results, js, R_odom, p_odom):
+    """Phase 20, [native]: the native host runtime and the card's z-buffer
+    at ladder 3's and path 2a's sizes (_native_zbuffer, _native_host,
+    _native_system)."""
+    rec = results["native"] = {}
+    _native_zbuffer(torch, np, dev, kern, rec, js)
+    _native_host(torch, np, dev, rec, js)
+    _native_system(torch, np, rec, js, R_odom, p_odom)
+
+
 def main() -> int:
     import torch
 
@@ -5046,6 +5551,14 @@ def main() -> int:
         build.launcher(name)
     results["build_s"] = time.time() - t0
     print(f"[setup] kernels built in {results['build_s']:.1f} s", flush=True)
+    from global_lvba_tpu_torch.native import runtime
+    t0 = time.time()
+    runtime.library()
+    results["host_build_s"] = time.time() - t0
+    print(f"[setup] the native host library ({build.HOST_CXX} "
+          f"{' '.join(build.HOST_FLAGS)}) built in "
+          f"{results['host_build_s']:.1f} s: {build.host_library().name}",
+          flush=True)
     for name, log in build.build_logs().items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "(reused)" in line:
@@ -5406,7 +5919,8 @@ def main() -> int:
             ("18", lambda: _mesh(torch, np, dev, kern, results, paths,
                                  bench)),
             ("19", lambda: _a3b(torch, np, dev, kern, results, paths,
-                                large))):
+                                large)),
+            ("20", lambda: _native(torch, np, dev, kern, results, *scene))):
         t0 = time.time()
         run()
         results[f"phase_{phase}_s"] = time.time() - t0
@@ -5422,7 +5936,7 @@ def main() -> int:
                "table_select": "selection.cu",
                "soa_chain_entries": "soa_chain.cu",
                "entry_reduce": "selection.cu",
-               "top2_similarity": "matcher.cu"}
+               "top2_similarity": "matcher.cu", "zbuffer": "zbuffer.cu"}
     # a float64 instance lives in its float32 kernel's source and replaces
     # the same TPU kernel
     base = {k: k[:-len("_f64")] if k.endswith("_f64") else k for k in kern}
@@ -5435,6 +5949,8 @@ def main() -> int:
         "soa_chain_entries": "global_lvba_tpu/ops/pallas/soa_fused.py:73",
         "entry_reduce": "global_lvba_tpu/ops/pallas/selection.py:84",
         "top2_similarity": "global_lvba_tpu/ops/pallas/matcher.py:30",
+        # no Pallas original: the JAX package's host rasterizer
+        "zbuffer": "global_lvba_tpu/native/lvba_native.cpp:688",
     }
     results["launches_by_path"] = paths
     line = {"kernels": [

@@ -4,8 +4,9 @@ minimal binary writer; the port's own copy of global_lvba_tpu.io.pcd.
 Replaces the reference's PCL loadPCDFile dependency
 (src/dataset_io.cpp:270).  Returns an (N, len(fields)) float32 array of
 the requested fields (default x, y, z[, intensity]).  binary_compressed
-uses PCL's LZF scheme (per-field column blocks), decoded here in pure
-Python: the port carries no native library.
+uses PCL's LZF scheme (per-field column blocks), decoded by the native
+host library (native/, the JAX package's C++ decoder, built with g++ at
+first use) on any machine.
 """
 
 from __future__ import annotations
@@ -15,37 +16,21 @@ from typing import Sequence
 
 import numpy as np
 
+from ..native import runtime
+
 _SIZES = {("F", 4): np.float32, ("F", 8): np.float64,
           ("I", 1): np.int8, ("I", 2): np.int16, ("I", 4): np.int32,
           ("U", 1): np.uint8, ("U", 2): np.uint16, ("U", 4): np.uint32}
 
 
 def _lzf_decompress(data: bytes, expected: int) -> bytes:
-    """LZF decompression (PCL binary_compressed payload): a control byte
-    below 32 starts a literal run of ctrl + 1 bytes; any other is a back
-    reference of (ctrl >> 5) + 2 bytes (7 means a length byte follows),
-    ((ctrl & 0x1F) << 8) + next byte + 1 bytes back."""
-    out = bytearray()
-    i = 0
-    n = len(data)
-    while i < n and len(out) < expected:
-        ctrl = data[i]
-        i += 1
-        if ctrl < 32:  # literal run of ctrl+1 bytes
-            cnt = ctrl + 1
-            out += data[i : i + cnt]
-            i += cnt
-        else:  # back reference
-            length = ctrl >> 5
-            if length == 7:
-                length += data[i]
-                i += 1
-            ref = len(out) - ((ctrl & 0x1F) << 8) - data[i] - 1
-            i += 1
-            for _ in range(length + 2):
-                out.append(out[ref])
-                ref += 1
-    return bytes(out)
+    """LZF decompression of a PCL binary_compressed payload, by the native
+    library (native/runtime.lzf_decompress, the JAX package's C++
+    decoder): a control byte below 32 starts a literal run of ctrl + 1
+    bytes; any other is a back reference of (ctrl >> 5) + 2 bytes (7
+    means a length byte follows), ((ctrl & 0x1F) << 8) + next byte + 1
+    bytes back."""
+    return runtime.lzf_decompress(data, expected)
 
 
 def read_pcd(path, fields: Sequence[str] = ("x", "y", "z", "intensity")) -> np.ndarray:

@@ -5,10 +5,10 @@ it launches its kernel or raises.  Each launch adds one to the wrapper's
 count (launch_counts), so a run can show that its path went through the
 kernels."""
 
-from . import gram, matcher, selection, soa
+from . import gram, matcher, selection, soa, zbuffer
 
 _COUNTS = (soa.LAUNCHES, gram.LAUNCHES, selection.LAUNCHES,
-           matcher.LAUNCHES)
+           matcher.LAUNCHES, zbuffer.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -21,9 +21,18 @@ aligned and the per-entry chain, and the aligned chain's occupancy query
 that kernels/soa.py sizes its grid with; selection.cu: table_select and
 entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's
 launcher runs its two kernels (the work units and the reduction of their
-partials).  The LiDAR kernels have a float64 instance each for float64
-solves, bound as `<name>_f64` (dtype_launcher picks it); the matcher and
-the tf32 split are float32 only.
+partials); zbuffer.cu's runs its fill, rasterization and finish kernels.
+The LiDAR kernels have a float64 instance each for float64 solves, bound
+as `<name>_f64` (dtype_launcher picks it); the matcher, the tf32 split and
+the z-buffer are float32 only.
+
+host_library builds the native host runtime (native/lvba_native.cpp) with
+g++ the same way (a digest of the source, the flags and the machine, a
+per-process temporary file renamed into place, so several test workers may
+build it at once).  It needs no nvcc: the CPU tests build it too.  Its
+flags: -ffp-contract=off keeps each product and sum separately rounded in
+the order written (numpy's order is not FMA's), and no -march=native,
+since a copy of the tree may carry build/ to another host.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -38,13 +48,18 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher")
+SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher", "zbuffer")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+HOST_SOURCE = Path(__file__).resolve().parent.parent / "native" / \
+    "lvba_native.cpp"
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+              "-ffp-contract=off")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # each launcher: its source, C name and argument types (it returns an int)
@@ -79,6 +94,9 @@ SIGNATURES = {
     "top2_similarity": ("matcher", "lvba_top2_similarity",
                         [_P, _P, _P, _I, _P, _P, _P, _I] + [_I] * 4
                         + [_P] * 8),
+    "zbuffer": ("zbuffer", "lvba_zbuffer",
+                [_P] * 4 + [_I] * 2 + [_P] + [ctypes.c_float] * 8
+                + [_I] * 2 + [_P] * 2),
 }
 
 _lock = threading.Lock()
@@ -183,6 +201,31 @@ def launcher(name: str):
                 _build_all()
         fn = _launchers[name]
     return fn
+
+
+def host_library() -> Path:
+    """The native host library (HOST_SOURCE built by HOST_CXX with
+    HOST_FLAGS), built on the first call of any process and reused after;
+    RuntimeError with the compiler's output if the build fails."""
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(" ".join((HOST_CXX, *HOST_FLAGS, platform.machine())).encode())
+    out = BUILD_DIR / f"liblvba_native-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    cxx = shutil.which(HOST_CXX)
+    if cxx is None:
+        raise RuntimeError(f"{HOST_CXX} not found: the native host library "
+                           f"cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{HOST_CXX} failed for {HOST_SOURCE.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def build_logs() -> dict:

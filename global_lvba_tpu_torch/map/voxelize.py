@@ -1,7 +1,10 @@
 """Adaptive planar voxel map as flat sorted arrays (no pointer octree).
 
-The port's own copy of global_lvba_tpu.map.voxelize, numpy path only (the
-JAX package's optional native accelerators are not carried over).
+The port's own copy of global_lvba_tpu.map.voxelize.  The device of the
+stage that builds the map picks the host path (native.on_device): on the
+CPU numpy, on a CUDA device the port's native library (native/: the
+transform, keys, radix argsort and segment moments in C++), above 2^16
+points as in the JAX package, whose native helpers these are.
 
 Re-designs the reference's pointer-based adaptive octree
 (cut_voxel / OCTO_TREE_NODE::recut / judge_eigen / tras_opt at
@@ -35,13 +38,21 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native as _native
+from ..native import runtime as _runtime
+
 _KEY_BITS = 20  # per-axis voxel coordinates in [-2^19, 2^19)
 _KEY_OFF = 1 << (_KEY_BITS - 1)
 _DEFAULT_EIGEN_RATIOS = (0.3, 0.1, 0.06, 0.03)  # bavoxel.hpp:17
+_NATIVE_MIN = 1 << 16  # the JAX package's size gate for its native helpers
 
 
-def _argsort_keys(keys: np.ndarray) -> np.ndarray:
-    """Stable int64 argsort."""
+def _argsort_keys(keys: np.ndarray, native: bool = False) -> np.ndarray:
+    """Stable int64 argsort: with `native`, above _NATIVE_MIN keys, the
+    native library's radix sort, else np.argsort(kind="stable"); the two
+    give the same permutation."""
+    if native and keys.shape[0] > _NATIVE_MIN:
+        return _runtime.radix_argsort(keys)
     return np.argsort(keys, kind="stable")
 
 
@@ -152,10 +163,17 @@ class VoxelMap:
 
 
 def _reduceat_moments(
-    pts: np.ndarray, sort_idx: np.ndarray, starts: np.ndarray
+    pts: np.ndarray, sort_idx: np.ndarray, starts: np.ndarray,
+    native: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Per-segment (count, sum, raw second moment) via reduceat (host, f64)."""
+    """Per-segment (count, sum, raw second moment) in float64: with
+    `native`, above _NATIVE_MIN points, the native library's threaded
+    segment sums (each segment in order), else np.add.reduceat (pairwise
+    within a segment); the two agree to float64 rounding."""
     counts = np.diff(np.append(starts, sort_idx.shape[0]))
+    if native and sort_idx.shape[0] > _NATIVE_MIN:
+        s, m = _runtime.bin_moments(pts, sort_idx, starts)
+        return counts, s, m
     p = pts[sort_idx].astype(np.float64)
     s = np.add.reduceat(p, starts, axis=0)
     # second moments: Σ x xᵀ as 6 unique entries
@@ -194,6 +212,7 @@ def build_voxel_map(
     min_frames: int = 2,
     bucket_sizes: Sequence[int] = (4, 8, 16, 32, 64, 128, 256, 512),
     build_factors: bool = True,
+    device="cpu",
 ) -> VoxelMap:
     """Build the adaptive planar voxel map.
 
@@ -205,17 +224,24 @@ def build_voxel_map(
         re-transforms body moments with the *current* LM iterate).
       voxel_size: root voxel edge length.
       eigen_ratios: per-layer planarity thresholds λ0/λ2.
+      device: the device of the stage the map is for; a CUDA device takes
+        the native host path (the map is host arrays either way).
     """
+    native = _native.on_device(device)
     pts = np.asarray(points_body, dtype=np.float64)
     fid = np.asarray(frame_ids, dtype=np.int32)
     R64 = np.asarray(R, dtype=np.float64)
     p64 = np.asarray(p, dtype=np.float64)
     W = R64.shape[0]
-    world = np.einsum("nij,nj->ni", R64[fid], pts) + p64[fid]
+    if native and pts.shape[0] > _NATIVE_MIN:
+        world = _runtime.transform_points(pts, fid, R64, p64)
+        keys = _runtime.voxel_keys64(world, voxel_size)
+    else:
+        world = np.einsum("nij,nj->ni", R64[fid], pts) + p64[fid]
+        keys = pack_voxel_keys(voxel_coords(world, voxel_size))
 
     # running state: which points are still active; their current-level key
     active = np.arange(pts.shape[0])
-    keys = pack_voxel_keys(voxel_coords(world, voxel_size))
 
     plane_keys: List[np.ndarray] = []
     plane_index: List[np.ndarray] = []
@@ -235,14 +261,15 @@ def build_voxel_map(
                 plane_index.append(np.zeros(0, np.int64))
                 subdiv_keys.append(np.zeros(0, np.int64))
             break
-        order = _argsort_keys(keys)
+        order = _argsort_keys(keys, native)
         skeys = keys[order]
         change = np.empty(skeys.shape[0], dtype=bool)
         change[0] = True
         np.not_equal(skeys[1:], skeys[:-1], out=change[1:])
         starts = np.flatnonzero(change)
         ukeys = skeys[starts]
-        counts, sums, moms = _reduceat_moments(world[active], order, starts)
+        counts, sums, moms = _reduceat_moments(world[active], order, starts,
+                                               native)
 
         big = counts >= min_ps
         # covariance & eigen ratio (f64 host; once per stage, not hot)
@@ -335,7 +362,7 @@ def build_voxel_map(
     fsel = fid[sel].astype(np.int64)
     psel = pts[sel]
     pair = vsel * W + fsel
-    order = _argsort_keys(pair)
+    order = _argsort_keys(pair, native)
     spair = pair[order]
     if spair.size:
         change = np.empty(spair.shape[0], dtype=bool)
@@ -343,7 +370,7 @@ def build_voxel_map(
         np.not_equal(spair[1:], spair[:-1], out=change[1:])
         starts = np.flatnonzero(change)
         upair = spair[starts]
-        cnts, sums, moms = _reduceat_moments(psel, order, starts)
+        cnts, sums, moms = _reduceat_moments(psel, order, starts, native)
         e_vox = upair // W
         e_frm = (upair % W).astype(np.int32)
         e_mu = sums / cnts[:, None]

@@ -11,10 +11,15 @@ Replicates buildGridMapFromOptimized + generateDepthWithVoxel
   * those points are projected through the distorted pinhole model and
     z-buffered to a min-depth map per integer pixel (Z >= 1e-3 gate).
 
-All of it runs on the host: the points live there, and the maps feed the
-host's bilinear depth fetch (tracks/fuse.py).  The JAX package also has a
-C++ rasterizer, a float-exact mirror of _zbuffer_host; the port carries
-the numpy path only.
+The stage's device picks the path.  On the CPU all of it is host numpy
+(_zbuffer_host rasterizes an image at a time).  On a CUDA device the grid
+map's keys come from the native host library (native.on_device), and
+render_depth_maps builds each image's covisible CSR ranges on a host
+pool, uploads the points once and rasterizes every image in one launch
+of the card's z-buffer (kernels/zbuffer.py), where the JAX package runs
+its C++ rasterizer on the host.  Either way the maps come back as host numpy
+(M, H, W) float32: they feed the host's bilinear depth fetch
+(tracks/fuse.py) and the PNG writer.
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..geometry.camera import CameraModel
 from ..map.voxelize import _argsort_keys, pack_voxel_keys
+from ..native import runtime
 
 GRID_VOX = 0.5   # lvba_system.cpp:1277
 HALF_W = 0.5     # ±0.5 s covisibility window (:1300)
@@ -48,18 +55,29 @@ def build_grid_map(
     R: np.ndarray,
     p: np.ndarray,
     voxel: float = GRID_VOX,
+    device="cpu",
 ) -> GridMap:
+    """The grid map of the clouds at poses (R, p).  On a CUDA device
+    (native.on_device) the voxel keys come from the native library, as
+    the JAX package's do from its own; the same keys as numpy's."""
+    nat = native.on_device(device)
+
+    def keys_of(w, n_threads):
+        if nat:
+            return runtime.voxel_keys64(w, voxel, n_threads)
+        return pack_voxel_keys(np.floor(w / voxel).astype(np.int64))
+
     world_all = []
     fkeys = []
     for i, c in enumerate(clouds):
         w = (R[i] @ c.T).T + p[i]
         world_all.append(w.astype(np.float32))
-        fkeys.append(np.unique(pack_voxel_keys(
-            np.floor(w / voxel).astype(np.int64))))
+        # one thread a frame: for ~10^4 points, starting threads costs
+        # more than they save
+        fkeys.append(np.unique(keys_of(w, 1)))
     world = np.concatenate(world_all)
-    keys = pack_voxel_keys(
-        np.floor(world.astype(np.float64) / voxel).astype(np.int64))
-    order = _argsort_keys(keys)
+    keys = keys_of(world.astype(np.float64), 0)
+    order = _argsort_keys(keys, nat)
     sk = keys[order]
     firsts = np.concatenate([[True], sk[1:] != sk[:-1]])
     starts = np.flatnonzero(firsts)
@@ -88,7 +106,8 @@ def covisible_voxels(
 def gather_voxel_ranges(
     gm: GridMap, voxel_keys: np.ndarray
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """CSR (starts, counts) of the grid-map rows matching the given keys."""
+    """CSR (starts, counts) of the grid-map rows matching the given keys
+    (what the card's z-buffer reads in place)."""
     pos = np.searchsorted(gm.keys, voxel_keys)
     ok = pos < gm.keys.shape[0]
     pos = pos[ok]
@@ -149,10 +168,17 @@ def render_depth_maps(
     tcw_all: np.ndarray,
     half_w: float = HALF_W,
     workers: int = 4,
+    device="cpu",
 ) -> np.ndarray:
-    """Depth maps (M, H, W) float32 for all images.  Images are
-    independent; a small thread pool overlaps the numpy work (sorts and
-    ufuncs release the GIL)."""
+    """Depth maps (M, H, W) float32 for all images: on a CUDA device
+    through the card's z-buffer (_render_zbuffer), on the CPU an image at
+    a time through _zbuffer_host.  Images are independent; a small thread
+    pool overlaps the host work (sorts and ufuncs release the GIL)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        return _render_zbuffer(cam, gm, lidar_times, image_times, Rcw_all,
+                               tcw_all, half_w, workers, device)
     M = len(image_times)
     out = np.zeros((M, cam.height, cam.width), dtype=np.float32)
 
@@ -165,6 +191,55 @@ def render_depth_maps(
     with ThreadPoolExecutor(max_workers=workers) as ex:
         list(ex.map(one, range(M)))
     return out
+
+
+def _render_zbuffer(cam, gm, lidar_times, image_times, Rcw_all, tcw_all,
+                    half_w=HALF_W, workers=4, device="cuda") -> np.ndarray:
+    """render_depth_maps' card route: the pool builds only the images'
+    ranges (image_ranges), the points are uploaded once, one
+    kernels/zbuffer.py call rasterizes every image and the maps are
+    copied back once (on CPU tensors zbuffer runs its plain version)."""
+    import torch
+
+    from ..kernels.zbuffer import zbuffer
+
+    starts, counts, offsets = image_ranges(gm, lidar_times, image_times,
+                                           half_w, workers)
+    dev = torch.device(device)
+
+    def up(a):
+        return torch.as_tensor(a).to(dev)
+
+    maps = zbuffer(up(np.ascontiguousarray(gm.points, np.float32)),
+                   up(starts), up(counts), up(offsets),
+                   up(np.asarray(Rcw_all, np.float64)),
+                   up(np.asarray(tcw_all, np.float64)), cam)
+    return maps.cpu().numpy()
+
+
+def image_ranges(
+    gm: GridMap,
+    lidar_times: np.ndarray,
+    image_times: np.ndarray,
+    half_w: float = HALF_W,
+    workers: int = 4,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Every image's covisible grid-map rows as one flat CSR list: starts
+    (R,) int64, counts (R,) int32 and offsets (M + 1,) int64 (image m owns
+    ranges offsets[m] to offsets[m + 1]), built on a thread pool."""
+    def one(i):
+        vox = covisible_voxels(gm, lidar_times, float(image_times[i]), half_w)
+        return gather_voxel_ranges(gm, vox)
+
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        ranges = list(ex.map(one, range(len(image_times))))
+    offsets = np.zeros(len(ranges) + 1, dtype=np.int64)
+    np.cumsum([s.shape[0] for s, _ in ranges], out=offsets[1:])
+    starts = np.concatenate([np.zeros(0, np.int64)]
+                            + [s for s, _ in ranges]).astype(np.int64)
+    counts = np.concatenate([np.zeros(0, np.int64)]
+                            + [c for _, c in ranges]).astype(np.int32)
+    return starts, counts, offsets
 
 
 def update_camera_poses_from_lidar(

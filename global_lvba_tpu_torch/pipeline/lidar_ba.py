@@ -17,8 +17,10 @@ Replicates the stage structure of runWindowBA / runLidarBA
   4. compose anchor ∘ relative to recover all-frame optimized poses
      (:393-404); frames of skipped windows keep their input poses.
 
-Host numpy handles the once-per-stage binning; all per-iteration math runs
-on `device` through factors/plane_eigen.py + solver/lm.py.  Each solve's
+The host handles the once-per-stage binning (numpy on the CPU, the
+native library's helpers on a CUDA device: map/voxelize.py); all
+per-iteration math runs on `device` through factors/plane_eigen.py +
+solver/lm.py.  Each solve's
 layout comes from the density gate (factors/padding.py): the window
 stage's solves (W = window size < 64) are bucketed, with the occupancy
 tiers merged into one (V, K_max) bucket per window (merge="always", as in
@@ -60,12 +62,14 @@ class LidarBAResult:
     stats: dict
 
 
-def _build_vm(pts_body, fids, R, p, voxel_size, eigen_ratios, cfg: LvbaConfig):
+def _build_vm(pts_body, fids, R, p, voxel_size, eigen_ratios, cfg: LvbaConfig,
+              device):
     return build_voxel_map(
         pts_body, fids, R, p, voxel_size,
         eigen_ratios=eigen_ratios,
         min_ps=cfg.solver.min_ps,
         layer_limit=cfg.solver.layer_limit,
+        device=device,
     )
 
 
@@ -102,7 +106,8 @@ def _solve_ba(
     min_voxels: int = 0,
 ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], int, dict]:
     """Voxelize + LM-solve one BA problem; returns (R, p, num_planes, lm stats)."""
-    vm = _build_vm(pts_body, fids, R, p, voxel_size, eigen_ratios, cfg)
+    vm = _build_vm(pts_body, fids, R, p, voxel_size, eigen_ratios, cfg,
+                   device)
     return _solve_from_vm(vm, R, p, cfg, device, min_voxels)
 
 
@@ -155,6 +160,7 @@ def run_window_ba(
         return _build_vm(
             pts, fids, R_full[start:end], p_full[start:end],
             cfg.BALM_stage1.root_voxel_size, wcfg.eigen_ratio_array, cfg,
+            device,
         )
 
     import os as _os

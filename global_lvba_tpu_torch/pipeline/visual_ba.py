@@ -15,8 +15,12 @@ by stage:
      and point-to-plane residuals (:1571-1665)
   8. pre/post mean reprojection metrics (:1830-1833)
 
-Stages 1-3 and 6 run on the host (numpy); fusion and the joint solve run
-on `device` (default the card), the solve in cfg.solver.dtype.
+Stages 1, 2, 5's union-find and 6 run on the host, the depth maps of 3 on
+`device` (default the card: one launch of kernels/zbuffer.py over all
+images); fusion and the joint solve run on `device`, the solve in
+cfg.solver.dtype.  The device also picks the host helpers' path
+(native.on_device): the native library on a CUDA device, numpy on the
+CPU.
 """
 
 from __future__ import annotations
@@ -72,11 +76,12 @@ def build_anchor_plane_lookup(
     R_opt: np.ndarray,
     p_opt: np.ndarray,
     cfg: LvbaConfig,
+    device="cpu",
 ):
     """Anchor-cloud planar map for track plane priors
     (lvba_system.cpp:1461-1507): merge optimized-pose windows into anchor
-    frames, compress, voxelize at the stage-2 root size, return the plane
-    lookup."""
+    frames, compress, voxelize at the stage-2 root size (its host path
+    picked by `device`), return the plane lookup."""
     F = len(clouds)
     window = cfg.window_ba.size
     anchor_pts = []
@@ -109,6 +114,7 @@ def build_anchor_plane_lookup(
         layer_limit=cfg.solver.layer_limit,
         min_frames=1,  # priors only need the plane geometry
         build_factors=False,  # lookup only: no factor buckets
+        device=device,
     )
     return vm.lookup
 
@@ -138,7 +144,7 @@ def run_visual_ba(
     stats: dict = {}
 
     # 1. grid map + covisibility
-    gm = build_grid_map(clouds, R_opt, p_opt)
+    gm = build_grid_map(clouds, R_opt, p_opt, device=dev)
 
     # 2. propagate LiDAR deltas to camera body poses
     cam_R_upd, cam_p_upd = update_camera_poses_from_lidar(
@@ -150,7 +156,7 @@ def run_visual_ba(
     # 3. depth maps
     t0 = time.time()
     depth_maps = render_depth_maps(
-        cam, gm, lidar_times, image_times, Rcw_pre, tcw_pre
+        cam, gm, lidar_times, image_times, Rcw_pre, tcw_pre, device=dev
     )
     stats["depth_s"] = time.time() - t0
     if depth_out_dir is not None:
@@ -167,7 +173,7 @@ def run_visual_ba(
     # 4-5. tracks
     t0 = time.time()
     ts = build_components(
-        keypoints, matches, obser_thr=cfg.track_fusion.obser_thr
+        keypoints, matches, obser_thr=cfg.track_fusion.obser_thr, device=dev
     )
     stats.update(ts.stats)
     fr = fuse_tracks(
@@ -195,7 +201,7 @@ def run_visual_ba(
 
     # 6. plane priors per fused track point
     t0 = time.time()
-    lookup = build_anchor_plane_lookup(clouds, R_opt, p_opt, cfg)
+    lookup = build_anchor_plane_lookup(clouds, R_opt, p_opt, cfg, device=dev)
     track_ids = np.flatnonzero(ok)
     plane_idx = (lookup.query(Xw[track_ids]) if track_ids.size
                  else np.zeros(0, np.int64))

@@ -4,8 +4,9 @@ global_lvba_tpu.tracks.build, numpy).
 The reference builds tracks by BFS over the keypoint match graph
 (BuildTracksAndFuse3D): components with >= obser_thr observations over
 >= obser_thr distinct images survive.  The labelling is a host union-find
-(graph connectivity is sequential and irregular; the port carries no
-native library, so this is the numpy/Python path only).
+(graph connectivity is sequential and irregular): the Python _UnionFind on
+the CPU, the native library's (native/: union by size, the JAX package's
+native roots, so its track order) for a stage on a CUDA device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,9 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
+
+from .. import native
+from ..native import runtime
 
 
 class _UnionFind:
@@ -52,6 +56,7 @@ def build_components(
     matches: Dict[Tuple[int, int], np.ndarray],
     obser_thr: int = 3,
     max_obs: int = 64,
+    device="cpu",
 ) -> TrackSet:
     """Union-find over keypoint matches.
 
@@ -61,6 +66,8 @@ def build_components(
       obser_thr: minimum observations AND distinct images per component.
       max_obs: observation capacity per track; overlong components keep
         their first max_obs observations (sorted by (image, kp)).
+      device: the stage's device; a CUDA device labels the components
+        through the native library (the same partition, other roots).
     """
     N = len(keypoints)
     offsets = np.zeros(N + 1, dtype=np.int64)
@@ -79,10 +86,13 @@ def build_components(
     edges = (
         np.concatenate(edge_list) if edge_list else np.zeros((0, 2), np.int64)
     )
-    uf = _UnionFind(total)
-    for a, b in edges:
-        uf.union(int(a), int(b))
-    roots = np.array([uf.find(x) for x in range(total)], dtype=np.int64)
+    if native.on_device(device):
+        roots = runtime.union_find(total, edges)
+    else:
+        uf = _UnionFind(total)
+        for a, b in edges:
+            uf.union(int(a), int(b))
+        roots = np.array([uf.find(x) for x in range(total)], dtype=np.int64)
     node_img = np.zeros(total, dtype=np.int32)
     for i in range(N):
         node_img[offsets[i]:offsets[i + 1]] = i

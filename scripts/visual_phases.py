@@ -1,12 +1,14 @@
 """Runs chip_smoke.py's visual and system phases (14-16: the JAX bench's
 visual solver problems, every visual route at M=100, ladder 3 end to end;
-17: ladder 3 through LvbaSystem and the CLI, held to phase 16's values)
-alone on one CUDA card, and writes their results to
+17: ladder 3 through LvbaSystem and the CLI, held to phase 16's values;
+20: the native host runtime and the card's z-buffer at ladder 3's and
+path 2a's sizes, path 2a's run made first) alone on one CUDA card, and
+writes their results to
 chiprun_out/visual_phases.json.
 
-    python3 scripts/visual_phases.py [14] [15] [16] [17]
+    python3 scripts/visual_phases.py [14] [15] [16] [17] [20]
 
-With no arguments it runs 14-16; 17 needs 16 before it.  It fails, as chip_smoke.py does,
+With no arguments it runs 14-16; 17 and 20 need 16 before them.  It fails, as chip_smoke.py does,
 when a check misses its limit or no CUDA device is available."""
 
 import json
@@ -47,9 +49,13 @@ def main() -> int:
         elif name == "17" and scene:
             cs._system(torch, np, dev, kern, results, paths, *scene)
             results["launches_by_path"] = paths
+        elif name == "20" and scene:
+            cs._keep_2a(torch, np)
+            cs._native(torch, np, dev, kern, results, *scene)
+            results["zbuffer"] = kern["zbuffer"]
         else:
-            raise SystemExit(f"unknown phase {name!r}: 14, 15, 16 or 17 "
-                             "(after 16)")
+            raise SystemExit(f"unknown phase {name!r}: 14, 15, 16, 17 or "
+                             "20 (17 and 20 after 16)")
         print(f"[phase {name}] {time.time() - t1:.1f} s", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -76,3 +76,29 @@ def test_parallel_modules_walked_and_distributed_builds_no_kernel():
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_native_modules_walked_and_build_nothing_at_import():
+    """The native host runtime and the z-buffer's wrapper are among the
+    modules walked above; importing them (and the pipeline modules that
+    route through them) builds neither the host library nor a kernel."""
+    names = _port_modules()
+    for m in ("native", "native.runtime", "kernels.zbuffer"):
+        assert f"global_lvba_tpu_torch.{m}" in names
+    assert (PKG / "native" / "lvba_native.cpp").exists()
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'global_lvba_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import global_lvba_tpu_torch.pipeline.system\n"
+        "import global_lvba_tpu_torch.kernels.zbuffer\n"
+        "from global_lvba_tpu_torch.native import runtime\n"
+        "from global_lvba_tpu_torch.kernels import build\n"
+        "assert runtime._lib is None and not build._libs\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -292,7 +292,8 @@ def test_depth_out_dir_pngs_decode_to_depth_maps(scene, tmp_path,
     maps = []
     render = visual_ba.render_depth_maps
     monkeypatch.setattr(visual_ba, "render_depth_maps",
-                        lambda *a: maps.append(render(*a)) or maps[-1])
+                        lambda *a, **k: maps.append(render(*a, **k))
+                        or maps[-1])
     cfg = LvbaConfig()
     cfg.solver.dtype = "float64"
     visual_ba.run_visual_ba(
