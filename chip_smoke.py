@@ -320,11 +320,42 @@ Slice 14, the native host runtime and the card's z-buffer:
      PCDs of path 2a's first 10 frames (the payloads byte for byte,
      read_pcd the clouds); [native-system] phase 17's run A with its host
      paths and depth maps numpy, then native: each wall.
+Slice 15, images without cv2:
+ 21. [images]: make_plane_scene's box room rendered on the card through
+     the reference camera unscaled (1280 x 1024) from 48 views along a
+     sideways path (models/synthetic.room_views: 0.15 m a view, 2 m from
+     the wall, so that track fusion's 8-degree view-angle rule keeps
+     tracks; phase 10's sweep on a 0.6 m circle turns a ray by about 1
+     degree a view; texture 32 cycles/m), written with the port's writers as colour PNGs
+     whose three channels are different functions of the render, every
+     8th view a 24-bit BMP, with 96 LiDAR frames of 10,000 points under
+     perturbed odometry and cfg.yaml at the reference scale 0.5, the
+     COLMAP export on and no match.db, under build/images_smoke/
+     (removed after).  Each file decoded by the port equals the array
+     written (decode ms per PNG and per BMP, resize ms).  Then
+     LvbaSystem.run_full_pipeline(images=[resize_linear(imread_color(p),
+     640, 512) ...]) on the card with the launch counts set to 0 just
+     before: top2_similarity (the SIFT fallback from the files), the
+     LiDAR kernels, undistort once and colorize twice must launch; the
+     post-BA reprojection below the pre-BA one and below 1 px; the tree:
+     48 JPEGs (SOF0 640 x 512, a second encode of the kernel's images
+     byte-equal), non-empty colored clouds, points3D.txt with a line a
+     downsampled colored point, reproj/*.png and 48 track_features/*.png
+     decoded by the port at 640 x 512.  SIFT device ms an image and the
+     all-pairs match ms; the system's wall, stage and export times
+     (undistort, JPEG, colorize, overlays, track images).  undistort and
+     colorize on the run's images and poses: each bitwise its plain
+     version on the card and two launches bitwise equal, timed beside
+     the plain version (undistort also beside grid_sample, float
+     bilinear, not the same function) and the bound (undistort: bytes at
+     3.35 TB/s; colorize: 43 float64 operations a window point at half
+     the fp64 rate), each kernel's own device time under torch.profiler.
+     scripts/images_phase.py runs the phase alone.
 The line before the last lists the kernels as JSON (launches summed over
 the paths' runs, each counted from 0: aligned, float64, 2a, 2a-float64,
 2b, cg_mf, 2c, 2c-dense, frontend, visual-e2e, visual-e2e-stage, system,
-mesh-dryrun, mesh-w512, mesh-w4096, a3b-aligned, a3b-gather); the last
-line is
+mesh-dryrun, mesh-w512, mesh-w4096, a3b-aligned, a3b-gather, images);
+the last line is
 {"ok": true, "device": {...}}.  A copy of the results goes to
 chiprun_out/chip_smoke.json.
 """
@@ -5095,6 +5126,27 @@ def _a3b_aligned(torch, dev, rec, paths, bs, R, p, W):
 # ---- phase 20 [native]: the native host runtime and the card's z-buffer ----
 NATIVE_LZF_FRAMES = 10     # path 2a frames written as binary_compressed PCDs
 ZBUF_SHARE = 1e-3          # pixels off _zbuffer_host by > 1e-6, per image
+
+# phase 21, images from files: make_plane_scene's box room rendered through
+# the reference camera unscaled (1280 x 1024) from a sideways path of
+# IMAGES_VIEWS views (models/synthetic.room_views: IMAGES_STEP a view, 2 m
+# from the wall, about 4.3 degrees of parallax a view for track fusion's
+# 8-degree rule), every IMAGES_BMP_EVERY-th a 24-bit BMP; IMAGES_FRAMES LiDAR frames
+# of IMAGES_PPF points; the configuration at the reference scale 0.5 (640 x
+# 512), float32, the COLMAP export on
+IMAGES_VIEWS = 48
+IMAGES_STEP = 0.15         # metres a view: 7.05 m of path, 4.3 degrees
+IMAGES_TEXTURE = 32.0      # cycles/m: phase 10's 16 at its 4 m, here at 2 m
+IMAGES_FRAMES = 96
+IMAGES_PPF = 10000
+IMAGES_BMP_EVERY = 8
+IMAGES_SETTINGS = {
+    "window_ba": dict(size=6, anchor_leaf_size=0.02, use_window_ba_rel=True),
+    "BALM_stage1": dict(root_voxel_size=1.0, eigen_ratio_array=[0.2] * 4),
+    "BALM_stage2": dict(root_voxel_size=0.5, eigen_ratio_array=[0.08] * 4),
+    "solver": dict(dtype="float32"),
+    "colmap_output": dict(enable=True, filter_size_points3D=0.05),
+}
 TOL_TRANSFORM_REL = 1e-14  # transform_points vs einsum, of max |w|
 TOL_MOMENTS_REL = 1e-12    # bin_moments vs reduceat, of each max |.|
 
@@ -5496,6 +5548,311 @@ def _native(torch, np, dev, kern, results, js, R_odom, p_odom):
     _native_host(torch, np, dev, rec, js)
     _native_system(torch, np, rec, js, R_odom, p_odom)
 
+
+
+def _jpeg_size(data: bytes):
+    """(width, height, baseline) from a JPEG's first SOF marker."""
+    k = 2
+    while k + 4 <= len(data) and data[k] == 0xFF:
+        m, n = data[k + 1], data[k + 2] * 256 + data[k + 3]
+        if m in (0xC0, 0xC1, 0xC2):
+            h = data[k + 5] * 256 + data[k + 6]
+            w = data[k + 7] * 256 + data[k + 8]
+            return w, h, m == 0xC0
+        k += 2 + n
+    return None
+
+
+def _pcd_points(path) -> int:
+    for line in path.read_bytes().split(b"\n")[:12]:
+        if line.startswith(b"POINTS"):
+            return int(line.split()[1])
+    return -1
+
+
+def _images(torch, np, dev, kern, results, paths):
+    """Phase 21, [images]: the box room as a dataset of image files with no
+    COLMAP db under build/images_smoke/ (removed after), decoded by the
+    port, then LvbaSystem.run_full_pipeline on the card with the launch
+    counts from 0: the SIFT fallback from the files (kernel 6), the LiDAR
+    kernels, one undistort launch and two colorize launches; the output
+    tree checked; undistort and colorize against their plain versions on
+    the card, bitwise, and against themselves; their times and bounds."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from global_lvba_tpu_torch.config import LvbaConfig
+    from global_lvba_tpu_torch.frontend.sift import (
+        SiftParams, extract_sift_batch)
+    from global_lvba_tpu_torch.geometry.camera import CameraModel
+    from global_lvba_tpu_torch.io.image import (
+        encode_jpeg, imread_color, resize_linear)
+    from global_lvba_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from global_lvba_tpu_torch.kernels.colorize import (
+        COLORIZE_OPS, colorize, colorize_plain)
+    from global_lvba_tpu_torch.kernels.undistort import (
+        undistort, undistort_bytes, undistort_map, undistort_plain)
+    from global_lvba_tpu_torch.models.synthetic import write_room_dataset
+    from global_lvba_tpu_torch.pipeline import system
+    from global_lvba_tpu_torch.pipeline.sift_frontend import (
+        load_gray_image, match_and_compact)
+
+    rec = results["images"] = {}
+    cm = LvbaConfig().cam_model
+    cam_full = CameraModel(fx=cm.cam_fx, fy=cm.cam_fy, cx=cm.cam_cx,
+                           cy=cm.cam_cy, k1=cm.cam_d0, k2=cm.cam_d1,
+                           p1=cm.cam_d2, p2=cm.cam_d3, width=cm.cam_width,
+                           height=cm.cam_height)
+    work = Path(__file__).resolve().parent / "build" / "images_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.time()
+    cfg_path, bgr, sc, _ = write_room_dataset(
+        work / "dataset", cam_full, cm.scale, IMAGES_VIEWS, IMAGES_FRAMES,
+        IMAGES_PPF, seed=5, bmp_every=IMAGES_BMP_EVERY,
+        texture=IMAGES_TEXTURE, settings=IMAGES_SETTINGS, device=dev,
+        step=IMAGES_STEP)
+    write_s = time.time() - t0
+    cfg = LvbaConfig.from_yaml(cfg_path)
+    W, H = int(cm.cam_width * cm.scale), int(cm.cam_height * cm.scale)
+
+    # ---- the files decode to the arrays written; decode and resize ms ----
+    files = sorted((work / "dataset" / "all_image").iterdir())
+    files = [f for f in files if f.suffix in (".png", ".bmp")]
+    dec = {".png": [], ".bmp": []}
+    decoded = []
+    for k, f in enumerate(files):
+        t0 = time.perf_counter()
+        img = imread_color(f)
+        dec[f.suffix].append((time.perf_counter() - t0) * 1e3)
+        decoded.append(img)
+    same_files = all(np.array_equal(a, b) for a, b in zip(decoded, bgr))
+    t0 = time.perf_counter()
+    images = [resize_linear(img, W, H) for img in decoded]
+    resize_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    decode = {k: float(np.mean(v)) for k, v in dec.items()}
+    print(f"[images] {len(files)} files ({len(dec['.png'])} PNG, "
+          f"{len(dec['.bmp'])} BMP) of {cam_full.width} x {cam_full.height} "
+          f"and {IMAGES_FRAMES} LiDAR frames of {IMAGES_PPF} points written "
+          f"in {write_s:.1f} s (renders on the card); decode ms per PNG "
+          f"{decode['.png']:.1f}, per BMP {decode['.bmp']:.1f}; resize to "
+          f"{W} x {H} {resize_ms:.1f} ms an image; every file decodes to the "
+          f"array written: {same_files}", flush=True)
+    if not same_files:
+        _fail("[images]: a decoded file differs from the array written")
+
+    # ---- the main path: the system from the files ----
+    spans = collections.defaultdict(float)
+    sysA = system.LvbaSystem(cfg, out_dir=work / "out")
+    load_frontend = sysA._load_frontend
+
+    def frontend():
+        t = time.time()
+        try:
+            return load_frontend()
+        finally:
+            torch.cuda.synchronize()
+            spans["frontend_s"] = time.time() - t
+
+    sysA._load_frontend = frontend
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    res = sysA.run_full_pipeline(images=images)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = paths["images"] = launch_counts()
+    v = sysA.visual_result
+    stages = {k: v_ for k, v_ in res["metrics"].items()
+              if k.startswith("time/")}
+    ex = dict(sysA.export_times)
+    print(f"[images] LvbaSystem.run_full_pipeline {wall:.2f} s: frontend "
+          f"(SIFT from the files, all pairs) {spans['frontend_s']:.2f} s, "
+          f"stages { {k: round(x, 3) for k, x in stages.items()} }, export "
+          f"{ {k: round(x, 4) for k, x in ex.items()} }; reprojection "
+          f"{v.mean_reproj_pre:.4f} -> {v.mean_reproj_post:.4f} px; tracks "
+          f"{v.stats['tracks_fused']} (with plane "
+          f"{v.stats['tracks_with_plane']}), observations "
+          f"{v.stats['observations']}; launches {counts}", flush=True)
+    lidar_ok = (all(counts.get(k, 0) > 0 for k in BUCKETED_PATH_KERNELS)
+                or all(counts.get(k, 0) > 0 for k in ALIGNED_PATH_KERNELS))
+    if not (counts.get("top2_similarity", 0) > 0 and lidar_ok
+            and counts.get("undistort") == 1 and counts.get("colorize") == 2):
+        _fail(f"[images]: the path's launches miss a kernel: {counts}")
+    if not (v.mean_reproj_post < v.mean_reproj_pre
+            and v.mean_reproj_post < 1.0):
+        _fail("[images]: the post-BA reprojection is not below the pre-BA "
+              "one and 1 px")
+
+    # ---- the output tree ----
+    out = work / "out"
+    cdir = out / "Colmap"
+    jpgs = sorted((cdir / "images").glob("*.jpg"),
+                  key=lambda q: int(q.stem))
+    sizes = [_jpeg_size(q.read_bytes()) for q in jpgs]
+    stack = torch.from_numpy(np.stack(images)).to(dev)
+    und = undistort(stack, sysA.ds.cam)
+    again = encode_jpeg(und.cpu().numpy())
+    jpeg_same = len(again) == len(jpgs) and all(
+        a == q.read_bytes() for a, q in zip(again, jpgs))
+    n_after = _pcd_points(cdir / "colored_merged_after.pcd")
+    n_before = _pcd_points(cdir / "colored_merged_before.pcd")
+    n_p3d = len((cdir / "sparse" / "points3D.txt").read_text().splitlines())
+    pngs = sorted((out / "reproj").glob("*.png"))
+    tracks = sorted((out / "track_features").glob("*.png"))
+    png_ok = all(imread_color(q).shape == (H, W, 3) for q in pngs + tracks)
+    tree_ok = (len(jpgs) == IMAGES_VIEWS and jpeg_same
+               and all(sz == (W, H, True) for sz in sizes) and n_after > 0
+               and n_before > 0 and n_p3d == n_after and len(pngs) > 0
+               and len(tracks) == IMAGES_VIEWS and png_ok)
+    print(f"[images] tree: {len(jpgs)} JPEGs (SOF0 {W} x {H}: "
+          f"{all(sz == (W, H, True) for sz in sizes)}; a second encode "
+          f"byte-equal: {jpeg_same}), colored clouds after {n_after} / "
+          f"before {n_before} points, points3D.txt {n_p3d} lines, reproj "
+          f"{len(pngs)} and track_features {len(tracks)} PNGs decoded at "
+          f"{W} x {H}: {png_ok}", flush=True)
+    if not tree_ok:
+        _fail("[images]: the output tree misses its checks")
+
+    # ---- SIFT device ms per image, all-pairs match ms ----
+    params = SiftParams()
+    gray = np.stack([load_gray_image(f, W, H) for f in files])
+    batch = torch.as_tensor(gray[:FRONTEND_BATCH]).to(dev)
+    sift_ms, _ = _timed(torch, lambda: extract_sift_batch(batch, params,
+                                                          dev), reps=3)
+    sift_ms /= FRONTEND_BATCH
+    from global_lvba_tpu_torch.pipeline.sift_frontend import extract_images
+    kps, descs, valids = extract_images(list(gray), params, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    match_and_compact(kps, descs, valids, device=dev)
+    torch.cuda.synchronize()
+    match_ms = (time.time() - t0) * 1e3
+    print(f"[images] SIFT {sift_ms:.2f} device ms an image at {W} x {H} "
+          f"(a batch of {FRONTEND_BATCH} timed); all {len(files) * (len(files) - 1) // 2} "
+          f"pairs matched in {match_ms:.1f} ms wall", flush=True)
+
+    # ---- undistort: bitwise its plain version and itself; timed ----
+    cam = sysA.ds.cam
+    ref = undistort_plain(stack, cam)
+    und2 = undistort(stack, cam)
+    torch.cuda.synchronize()
+    u_bit = bool(torch.equal(und, ref))
+    u_rep = bool(torch.equal(und, und2))
+    u_err = float((und.int() - ref.int()).abs().max())
+    del ref, und2
+    u_ms, u_ahead = _timed(torch, lambda: undistort(stack, cam))
+    u_plain, _ = _timed(torch, lambda: undistort_plain(stack, cam), reps=2)
+    # the nearest library call: float bilinear sampling of the same images
+    # at the map's positions (grid_sample; not the same function)
+    xy, frac = undistort_map(cam, W, H)
+    gx = (xy[..., 0] + (frac & 31) / 32.0 + 0.5) / W * 2 - 1
+    gy = (xy[..., 1] + (frac >> 5) / 32.0 + 0.5) / H * 2 - 1
+    grid = torch.as_tensor(np.stack([gx, gy], -1), dtype=torch.float32,
+                           device=dev)[None].expand(len(images), H, W, 2)
+    fimg = stack.permute(0, 3, 1, 2).float().contiguous()
+    lib_ms, _ = _timed(torch, lambda: torch.nn.functional.grid_sample(
+        fimg, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=False))
+    nbytes = undistort_bytes(len(images), H, W)
+    u_bound = (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+
+    # ---- colorize: the run's two clouds' picks, bitwise; timed ----
+    world = np.concatenate([(sysA.R_opt[i] @ sysA.ds.clouds[i].T).T
+                            + sysA.p_opt[i]
+                            for i in range(len(sysA.ds.clouds))]).astype(
+        np.float64)
+    sizes_f = np.array([c.shape[0] for c in sysA.ds.clouds], np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes_f)])
+    lt, it = np.asarray(sysA.ds.lidar_times), np.asarray(
+        sysA.ds.image_times)
+    lo = np.searchsorted(lt, it - 0.5, side="left")
+    hi = np.searchsorted(lt, it + 0.5, side="right")
+    lo, hi = offs[lo], np.where(hi > lo, offs[hi], offs[lo])
+    pts = torch.from_numpy(np.ascontiguousarray(world)).to(dev)
+    lo_t, hi_t = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+    args = (pts, lo_t, hi_t, v.Rcw, v.tcw, cam)
+    a = colorize(*args)
+    b = colorize(*args)
+    pl = colorize_plain(*args)
+    torch.cuda.synchronize()
+    c_bit = all(torch.equal(x, y) for x, y in zip(a, pl))
+    c_rep = all(torch.equal(x, y) for x, y in zip(a, b))
+    c_err = 0.0 if c_bit else float("inf")
+    picks = int(a[0].numel())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    colorize(*args)
+    ev[1].record()
+    colorize_plain(*args)
+    ev[2].record()
+    torch.cuda.synchronize()
+    c_ms, c_plain = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    n_win = int((hi - lo).sum())
+    c_ops = COLORIZE_OPS * n_win
+    c_bytes = world.nbytes + len(it) * 112 + picks * 32
+    c_to = c_ops / (FP64_FLOP_PER_S / 2) * 1e3
+    c_tb = c_bytes / HBM_BYTES_PER_S * 1e3
+    c_bound = (c_to, "operations") if c_to >= c_tb else (c_tb, "bytes")
+
+    # ---- each kernel's own device time under torch.profiler ----
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            undistort(stack, cam)
+            colorize(*args)
+        torch.cuda.synchronize()
+    dms = _device_ms(prof)
+    u_kern = [x for k_, x in dms.items() if "undistort_kernel" in k_]
+    c_kern = [x for k_, x in dms.items() if "colorize" in k_]
+    u_dev = u_kern[0][0] / u_kern[0][1] if u_kern else None
+    c_dev = sum(x[0] for x in c_kern) / 3 if c_kern else None
+    print(f"[images] undistort: {len(images)} images {W} x {H} in one "
+          f"launch, bitwise undistort_plain {u_bit} (max abs {u_err}), two "
+          f"launches bitwise {u_rep}; {u_ms:.4f} device ms (queued ahead "
+          f"{u_ahead}; the kernel under torch.profiler {u_dev}), plain "
+          f"{u_plain:.3f} ms, grid_sample (float bilinear, not the same "
+          f"function) {lib_ms:.4f} ms; bound {u_bound[0]:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+    print(f"[images] colorize: {len(it)} images, {n_win} window points, "
+          f"{picks} picks; bitwise colorize_plain {c_bit}, two launches "
+          f"bitwise {c_rep}; {c_ms:.3f} ms a call (device time with the "
+          f"compaction's read back; its three kernels under torch.profiler "
+          f"{c_dev} ms), plain {c_plain:.1f} ms; bound {c_bound[0]:.4f} ms "
+          f"({c_bound[1]}: {c_ops} float64 operations at half the data "
+          f"sheet's fp64 rate, {c_bytes / 1e6:.1f} MB)", flush=True)
+    if not (u_bit and u_rep and c_bit and c_rep):
+        _fail("[images]: undistort or colorize is not bitwise its plain "
+              "version and itself")
+    kern["undistort"] = dict(max_abs_err=u_err, ms=u_ms, plain_ms=u_plain,
+                             library_ms=lib_ms, bound=u_bound,
+                             queued_ahead={"ms": u_ahead},
+                             kernel_device_ms=u_dev)
+    kern["colorize"] = dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain,
+                            library_ms=None, bound=c_bound,
+                            queued_ahead={"ms": False},
+                            kernel_device_ms=c_dev)
+    rec.update(write_s=write_s, decode_ms=decode, resize_ms=resize_ms,
+               system_wall_s=wall, frontend_s=spans["frontend_s"],
+               stages=stages, export=ex, reproj=(v.mean_reproj_pre,
+                                                 v.mean_reproj_post),
+               stats={k: v.stats[k] for k in (
+                   "tracks_fused", "tracks_with_plane", "observations")},
+               launches=counts, sift_device_ms=sift_ms, match_ms=match_ms,
+               undistort=dict(bitwise=u_bit, repeat=u_rep, ms=u_ms,
+                              kernel_device_ms=u_dev, plain_ms=u_plain,
+                              grid_sample_ms=lib_ms, bound=u_bound,
+                              bytes=nbytes),
+               colorize=dict(bitwise=c_bit, repeat=c_rep, ms=c_ms,
+                             kernel_device_ms=c_dev, plain_ms=c_plain,
+                             bound=c_bound, window_points=n_win,
+                             picks=picks, ops=c_ops),
+               tree=dict(jpegs=len(jpgs), after=n_after, before=n_before,
+                         points3d=n_p3d, reproj=len(pngs),
+                         track_features=len(tracks)))
+    del stack, und, pts, a, b, pl
+    shutil.rmtree(work, ignore_errors=True)
 
 def main() -> int:
     import torch
@@ -5920,7 +6277,8 @@ def main() -> int:
                                  bench)),
             ("19", lambda: _a3b(torch, np, dev, kern, results, paths,
                                 large)),
-            ("20", lambda: _native(torch, np, dev, kern, results, *scene))):
+            ("20", lambda: _native(torch, np, dev, kern, results, *scene)),
+            ("21", lambda: _images(torch, np, dev, kern, results, paths))):
         t0 = time.time()
         run()
         results[f"phase_{phase}_s"] = time.time() - t0
@@ -5936,7 +6294,8 @@ def main() -> int:
                "table_select": "selection.cu",
                "soa_chain_entries": "soa_chain.cu",
                "entry_reduce": "selection.cu",
-               "top2_similarity": "matcher.cu", "zbuffer": "zbuffer.cu"}
+               "top2_similarity": "matcher.cu", "zbuffer": "zbuffer.cu",
+               "undistort": "undistort.cu", "colorize": "colorize.cu"}
     # a float64 instance lives in its float32 kernel's source and replaces
     # the same TPU kernel
     base = {k: k[:-len("_f64")] if k.endswith("_f64") else k for k in kern}
@@ -5951,6 +6310,10 @@ def main() -> int:
         "top2_similarity": "global_lvba_tpu/ops/pallas/matcher.py:30",
         # no Pallas original: the JAX package's host rasterizer
         "zbuffer": "global_lvba_tpu/native/lvba_native.cpp:688",
+        # no Pallas original: the JAX package's cv2 remap and numpy
+        # z-buffer of its exports
+        "undistort": "global_lvba_tpu/pipeline/outputs.py:292",
+        "colorize": "global_lvba_tpu/pipeline/outputs.py:81",
     }
     results["launches_by_path"] = paths
     line = {"kernels": [

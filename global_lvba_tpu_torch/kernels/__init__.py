@@ -5,10 +5,11 @@ it launches its kernel or raises.  Each launch adds one to the wrapper's
 count (launch_counts), so a run can show that its path went through the
 kernels."""
 
-from . import gram, matcher, selection, soa, zbuffer
+from . import colorize, gram, matcher, selection, soa, undistort, zbuffer
 
 _COUNTS = (soa.LAUNCHES, gram.LAUNCHES, selection.LAUNCHES,
-           matcher.LAUNCHES, zbuffer.LAUNCHES)
+           matcher.LAUNCHES, zbuffer.LAUNCHES, undistort.LAUNCHES,
+           colorize.LAUNCHES)
 
 
 def launch_counts() -> dict:

@@ -21,10 +21,12 @@ aligned and the per-entry chain, and the aligned chain's occupancy query
 that kernels/soa.py sizes its grid with; selection.cu: table_select and
 entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's
 launcher runs its two kernels (the work units and the reduction of their
-partials); zbuffer.cu's runs its fill, rasterization and finish kernels.
+partials); zbuffer.cu's runs its fill, rasterization and finish kernels,
+colorize.cu's its fill and two passes.
 The LiDAR kernels have a float64 instance each for float64 solves, bound
 as `<name>_f64` (dtype_launcher picks it); the matcher, the tf32 split and
-the z-buffer are float32 only.
+the z-buffer are float32 only, the undistortion integer only and the
+colorization float64 only.
 
 host_library builds the native host runtime (native/lvba_native.cpp) with
 g++ the same way (a digest of the source, the flags and the machine, a
@@ -48,7 +50,8 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher", "zbuffer")
+SOURCES = ("soa_agg", "soa_chain", "syrk", "selection", "matcher", "zbuffer",
+           "undistort", "colorize")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -97,6 +100,11 @@ SIGNATURES = {
     "zbuffer": ("zbuffer", "lvba_zbuffer",
                 [_P] * 4 + [_I] * 2 + [_P] + [ctypes.c_float] * 8
                 + [_I] * 2 + [_P] * 2),
+    "undistort": ("undistort", "lvba_undistort",
+                  [_P] * 4 + [_I] * 3 + [_P] * 2),
+    "colorize": ("colorize", "lvba_colorize",
+                 [_P] * 4 + [_I] * 2 + [ctypes.c_double] * 8
+                 + [_I] * 2 + [_P] * 3),
 }
 
 _lock = threading.Lock()

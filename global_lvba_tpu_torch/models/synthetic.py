@@ -466,49 +466,52 @@ def make_visual_bench_problem(kind: str, num_cams: int = None,
 # ---------------------------------------------------------------------------
 # Each pixel ray-casts the scene's planes through the full distorted camera
 # model and samples a multi-octave value-noise texture at the world hit
-# point: high-entropy imagery whose geometry is known exactly.  numpy, with
-# the same uint32 lattice hash as the JAX package's copy, so a seed gives
-# the same image in both.
+# point: high-entropy imagery whose geometry is known exactly.  torch
+# float64 on any device, with the same 32-bit lattice hash as the JAX
+# package's copy (kept in int64, masked to 32 bits), so a seed gives the
+# same image in both.
+
+_MASK32 = 0xFFFFFFFF
 
 
 def _hash01(ix, iy, iz, seed):
-    """Deterministic lattice hash -> [0, 1) (uint32 wrap-around math)."""
-    n = (
-        ix * np.uint32(374761393)
-        + iy * np.uint32(668265263)
-        + iz * np.uint32(2246822519)
-        + np.uint32(seed) * np.uint32(974711)
-    )
-    n = (n ^ (n >> np.uint32(13))) * np.uint32(1274126177)
-    return ((n ^ (n >> np.uint32(16))) & np.uint32(0xFFFFFF)).astype(
-        np.float32
-    ) / np.float32(1 << 24)
+    """Deterministic lattice hash -> [0, 1) (uint32 wrap-around math on
+    int64 tensors; int64 wrap keeps the low 32 bits)."""
+    import torch
+
+    n = (ix * 374761393 + iy * 668265263 + iz * 2246822519
+         + (seed * 974711 & _MASK32)) & _MASK32
+    n = ((n ^ (n >> 13)) * 1274126177) & _MASK32
+    return ((n ^ (n >> 16)) & 0xFFFFFF).to(torch.float32) / float(1 << 24)
 
 
 def _value_noise(X, scale, seed):
     """Smooth trilinear value noise over an integer lattice at `scale`."""
+    import torch
+
     Xs = X * scale
-    i0 = np.floor(Xs)
-    f = (Xs - i0).astype(np.float32)
+    i0 = torch.floor(Xs)
+    f = (Xs - i0).to(torch.float32)
     f = f * f * (3.0 - 2.0 * f)                       # smoothstep
-    iu = (i0.astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
-    ix, iy, iz = iu[..., 0], iu[..., 1], iu[..., 2]
-    one = np.uint32(1)
-    acc = np.zeros(X.shape[:-1], np.float32)
+    iu = i0.to(torch.int64) & _MASK32
+    acc = torch.zeros(X.shape[:-1], dtype=torch.float32, device=X.device)
     for dx in (0, 1):
         wx = f[..., 0] if dx else 1.0 - f[..., 0]
         for dy in (0, 1):
             wy = f[..., 1] if dy else 1.0 - f[..., 1]
             for dz in (0, 1):
                 wz = f[..., 2] if dz else 1.0 - f[..., 2]
-                h = _hash01(ix + (one if dx else 0), iy + (one if dy else 0),
-                            iz + (one if dz else 0), seed)
+                h = _hash01((iu[..., 0] + dx) & _MASK32,
+                            (iu[..., 1] + dy) & _MASK32,
+                            (iu[..., 2] + dz) & _MASK32, seed)
                 acc += wx * wy * wz * h
     return acc
 
 
 def _multi_octave_noise(X, octaves, base_scale, seed):
-    acc = np.zeros(X.shape[:-1], np.float32)
+    import torch
+
+    acc = torch.zeros(X.shape[:-1], dtype=torch.float32, device=X.device)
     wsum = 0.0
     for o in range(octaves):
         w = 0.5 ** o
@@ -526,54 +529,179 @@ def render_textured_views(
     base_scale: float = 4.0,
     seed: int = 0,
     return_depth: bool = False,
+    device="cpu",
 ):
     """Ray-cast grayscale renders (M, H, W) float32 in [0, 1] of the
     scene's planes through the distorted camera model `cam` (a
-    geometry.camera.CameraModel).
+    geometry.camera.CameraModel), computed on `device` a view at a time;
+    numpy arrays back.
 
-    Per-pixel rays come from undistort_pixel_to_normalized (float64 on the
-    CPU), so rendered keypoints are consistent with the projection model.
-    With return_depth, also returns the (M, H, W) z-depth of each hit."""
+    Per-pixel rays come from undistort_pixel_to_normalized (float64), so
+    rendered keypoints are consistent with the projection model.  With
+    return_depth, also returns the (M, H, W) z-depth of each hit."""
     import torch
 
     from ..geometry.camera import undistort_pixel_to_normalized
 
+    dev = torch.device(device)
+    f64 = torch.float64
     H, W = cam.height, cam.width
-    uu, vv = np.meshgrid(
-        np.arange(W, dtype=np.float64) + 0.5,
-        np.arange(H, dtype=np.float64) + 0.5,
-    )
-    uv = np.stack([uu.ravel(), vv.ravel()], axis=-1)
-    xy, ok = undistort_pixel_to_normalized(cam, torch.as_tensor(uv))
-    xy = xy.numpy()
-    ok = ok.numpy()
-    d_c = np.concatenate([xy, np.ones((xy.shape[0], 1))], axis=-1)
-    n = np.asarray(scene.planes_n, np.float64)
-    d0 = np.asarray(scene.planes_d, np.float64)
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=f64, device=dev) + 0.5,
+                            torch.arange(W, dtype=f64, device=dev) + 0.5,
+                            indexing="ij")
+    xy, ok = undistort_pixel_to_normalized(
+        cam, torch.stack([uu.reshape(-1), vv.reshape(-1)], dim=-1))
+    d_c = torch.cat([xy, torch.ones_like(xy[:, :1])], dim=-1)
+    n = torch.as_tensor(np.asarray(scene.planes_n, np.float64), device=dev)
+    d0 = torch.as_tensor(np.asarray(scene.planes_d, np.float64), device=dev)
     M = len(Rcw)
     imgs = np.zeros((M, H, W), np.float32)
     depths = np.zeros((M, H, W), np.float32) if return_depth else None
     for m in range(M):
-        C = -np.asarray(Rcw[m]).T @ np.asarray(tcw[m])
-        dw = d_c @ np.asarray(Rcw[m])                  # Rcwᵀ · d_c per pixel
-        denom = dw @ n.T                               # (N, P)
-        tnum = -(C @ n.T + d0)                         # (P,)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            t = tnum[None, :] / denom
-        t = np.where(t > 1e-6, t, np.inf)
-        pi = np.argmin(t, axis=1)
-        tmin = t[np.arange(t.shape[0]), pi]
-        hit = np.isfinite(tmin) & ok
-        X = C[None, :] + dw * np.where(hit, tmin, 0.0)[:, None]
+        R = torch.as_tensor(np.asarray(Rcw[m], np.float64), device=dev)
+        t = torch.as_tensor(np.asarray(tcw[m], np.float64), device=dev)
+        C = -R.T @ t
+        dw = d_c @ R                                   # Rcwᵀ · d_c per pixel
+        tt = -(C @ n.T + d0)[None, :] / (dw @ n.T)     # (N, P)
+        tt = torch.where(tt > 1e-6, tt, torch.full_like(tt, float("inf")))
+        tmin, pi = tt.min(dim=1)
+        hit = torch.isfinite(tmin) & ok
+        X = C[None, :] + dw * torch.where(hit, tmin, 0.0)[:, None]
         val = _multi_octave_noise(X, octaves, base_scale, seed)
         # mild per-plane albedo so plane borders carry edges too
-        shade = 0.75 + 0.25 * (((pi.astype(np.uint32) * np.uint32(2654435761))
-                                % np.uint32(97)).astype(np.float32) / 97.0)
-        img = np.where(hit, (0.25 + 0.6 * val) * shade, 0.05)
-        imgs[m] = img.reshape(H, W).astype(np.float32)
+        shade = 0.75 + 0.25 * ((pi * 2654435761 & _MASK32) % 97).to(
+            torch.float32) / 97.0
+        img = torch.where(hit, (0.25 + 0.6 * val) * shade,
+                          torch.full_like(val, 0.05))
+        imgs[m] = img.reshape(H, W).cpu().numpy()
         if return_depth:
-            z = np.where(hit, tmin, 0.0)  # d_c has unit z: ray t is z-depth
-            depths[m] = z.reshape(H, W).astype(np.float32)
+            # d_c has unit z: the ray's t is the z-depth
+            depths[m] = torch.where(hit, tmin, 0.0).reshape(H, W).to(
+                torch.float32).cpu().numpy()
     if return_depth:
         return imgs, depths
     return imgs
+
+
+def room_views(num_views: int, step: float = 0.125, distance: float = 2.0):
+    """make_plane_scene's box room (walls at +-4 m) seen by a camera moving
+    sideways along the x = +4 wall at `distance` from it, `step` metres a
+    view, looking at it along the body's x axis (camera <- body Rci, the
+    z_cam = x_body extrinsic); the height rises and falls by 0.1 m.  A
+    point stays in view over about 2 distance tan(26 deg) of the path,
+    and the rays to it turn by about step / distance a view: enough
+    parallax for track fusion's 8-degree view-angle rule.  Returns (Rci,
+    R_wb (M, 3, 3), C (M, 3) body = camera centres, Rcw, tcw)."""
+    Rci = np.array([[0.0, -1.0, 0.0], [0.0, 0.0, -1.0], [1.0, 0.0, 0.0]])
+    k = np.arange(num_views, dtype=np.float64)
+    C = np.stack([np.full(num_views, 4.0 - distance),
+                  (k - (num_views - 1) / 2) * step, 0.1 * np.sin(k / 3)], 1)
+    R_wb = np.stack([_rot_z(0.02 * np.sin(kk / 5)) for kk in k])
+    Rcw = np.einsum("ab,mcb->mac", Rci, R_wb)
+    tcw = -np.einsum("mab,mb->ma", Rcw, C)
+    return Rci, R_wb, C, Rcw, tcw
+
+
+def _gray_to_bgr(gray: np.ndarray) -> np.ndarray:
+    """(..., H, W) renders in [0, 1] as BGR uint8 whose channels are three
+    different functions of the render (B: the render, G: its square root,
+    R: its square)."""
+    g = np.clip(gray, 0.0, 1.0)
+    return np.round(np.stack([g, np.sqrt(g), g * g], axis=-1) * 255).astype(
+        np.uint8)
+
+
+def write_room_dataset(root, cam, scale: float, num_views: int,
+                       num_frames: int, points_per_frame: int, seed: int = 0,
+                       bmp_every: int = 8, texture: float = 16.0,
+                       settings=None, device="cpu", step: float = 0.125):
+    """The box room as a dataset in the reference's layout with no COLMAP
+    db, so the system takes the SIFT frontend from the image files:
+      * all_pcd_body/<t>.pcd + lidar_poses.txt: make_plane_scene's frames
+        (num_frames x points_per_frame, frame i at 0.1 i s) under
+        perturbed odometry (perturb_poses 0.004 rad, 0.01 m);
+      * all_image/<t>.png + image_poses.txt: num_views renders of the room
+        through `cam` (unscaled) from room_views(num_views, step), view k
+        at the time of
+        frame round(k F / V) + 0.03 s; BGR via _gray_to_bgr, every
+        bmp_every-th view a 24-bit BMP; the body poses carry the odometry
+        error of their nearest frame, as a LIVO system's would;
+      * cfg.yaml: the camera at `scale`, the extrinsic Rci of room_views,
+        the COLMAP export on, then `settings` ({group: {field: value}}).
+    Returns (config path, the BGR images (V, H, W, 3) as written, the
+    scene, the body odometry (R, p) of the frames)."""
+    import dataclasses
+    from pathlib import Path
+
+    import yaml
+
+    from ..config import LvbaConfig
+    from ..io.image import imwrite_png
+    from ..io.pcd import write_pcd
+    from ..io.tum import write_tum_poses
+
+    root = Path(root)
+    sc = make_plane_scene(num_frames=num_frames,
+                          points_per_frame=points_per_frame, seed=seed)
+    R_odom, p_odom = perturb_poses(sc.R_true, sc.p_true, 0.004, 0.01,
+                                   seed=seed + 1)
+    Rci, R_wb, C, Rcw, tcw = room_views(num_views, step)
+    frame = np.round(np.arange(num_views) * num_frames / num_views).astype(
+        int).clip(0, num_frames - 1)
+    times = sc.times[frame] + 0.03
+    # the odometry error of each view's nearest frame: T_odom T_true^-1
+    dR = np.einsum("mab,mcb->mac", R_odom[frame], sc.R_true[frame])
+    dp = p_odom[frame] - np.einsum("mab,mb->ma", dR, sc.p_true[frame])
+    R_img = np.einsum("mab,mbc->mac", dR, R_wb)
+    p_img = np.einsum("mab,mb->ma", dR, C) + dp
+    gray = render_textured_views(sc, cam, Rcw, tcw, base_scale=texture,
+                                 device=device)
+    bgr = _gray_to_bgr(gray)
+    img_dir, pcd_dir = root / "all_image", root / "all_pcd_body"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    pcd_dir.mkdir(parents=True, exist_ok=True)
+    for k, t in enumerate(times):
+        if bmp_every and k % bmp_every == bmp_every - 1:
+            _write_bmp24(img_dir / f"{t:.6f}.bmp", bgr[k])
+        else:
+            imwrite_png(img_dir / f"{t:.6f}.png", bgr[k])
+    write_tum_poses(img_dir / "image_poses.txt", times, R_img, p_img)
+    for i, t in enumerate(sc.times):
+        write_pcd(pcd_dir / f"{t:.6f}.pcd", sc.points_body[sc.frame_ids == i])
+    write_tum_poses(pcd_dir / "lidar_poses.txt", sc.times, R_odom, p_odom)
+    cfg = LvbaConfig()
+    cm = cfg.cam_model
+    cm.cam_width, cm.cam_height, cm.scale = cam.width, cam.height, scale
+    cm.cam_fx, cm.cam_fy, cm.cam_cx, cm.cam_cy = (
+        float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    cm.cam_d0, cm.cam_d1, cm.cam_d2, cm.cam_d3 = (
+        float(cam.k1), float(cam.k2), float(cam.p1), float(cam.p2))
+    ex = cfg.extrin_calib
+    ex.extrinsic_R = [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0]
+    ex.extrinsic_T = [0.0, 0.0, 0.0]
+    ex.Rcl = [float(v) for v in Rci.reshape(-1)]
+    ex.Pcl = [0.0, 0.0, 0.0]
+    dc = cfg.data_config
+    dc.data_path, dc.colmap_db_path, dc.image_sample_step = str(root), "", 1
+    cfg.colmap_output.enable = True
+    for group, vals in (settings or {}).items():
+        for k, v in vals.items():
+            setattr(getattr(cfg, group), k, v)
+    path = root / "cfg.yaml"
+    path.write_text(yaml.safe_dump(dataclasses.asdict(cfg)))
+    return path, bgr, sc, (R_odom, p_odom)
+
+
+def _write_bmp24(path, bgr: np.ndarray):
+    """A bottom-up 24-bit BMP (BITMAPINFOHEADER, rows padded to 4 bytes)."""
+    import struct
+
+    h, w = bgr.shape[:2]
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = bgr.reshape(h, -1)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    dib = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835,
+                      2835, 0, 0)
+    with open(path, "wb") as f:
+        f.write(head + dib + rows[::-1].tobytes())

@@ -25,6 +25,8 @@ SIGNATURES = {
     "lvba_union_find": ([_L, _P, _P, _L, _P], None),
     "lvba_transform_points": ([_P, _P, _L, _P, _P, _I, _P], None),
     "lvba_bin_moments": ([_P, _P, _L, _P, _L, _I, _P, _P], None),
+    "lvba_png_unfilter": ([_P, _L, _L, _I, _P], _I),
+    "lvba_jpeg_encode": ([_P, _I, _I, _I, _P, _L, _P], _I),
 }
 
 _lock = threading.Lock()

@@ -12,12 +12,15 @@ Replicates the reference's file outputs:
   * track_features/*.png: all keypoints red, tracked inliers green
     (:1340-1420)
 
-The depth PNGs are written and read with zlib and struct from the
-standard library, so the depth maps persist where cv2 is not installed;
-the files hold the JAX package's pixels (clip(depth * 2000, 0, 65535) as
-uint16, 16-bit grayscale) and read back as cv2 reads them.  The image
-writers (overlays, track features, matches, undistorted images) import
-cv2 inside, as the JAX package does.
+Nothing here needs cv2.  The PNGs are the port's own (io/image.py: zlib,
+the native library's row unfilter): the depth maps hold the JAX package's
+pixels (clip(depth * 2000, 0, 65535) as uint16, 16-bit grayscale) and
+the overlays and track images cv2's drawing (pipeline/draw.py), and read
+back as cv2 reads them; the JPEGs are the native encoder's, byte for byte
+cv2.imwrite's.  The undistortion and the colorization's z-buffer are
+kernels (kernels/undistort.py, kernels/colorize.py): an export's images
+go through one launch of each on a CUDA device, through their plain torch
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -30,14 +33,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from ..geometry.camera import CameraModel
+from ..io.image import (_PNG_SIGNATURE, _png_chunk, imwrite_jpeg, imwrite_png,
+                        read_png)
+from .draw import Canvas
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 DEPTH_SCALE = 2000.0  # depth PNG units per metre (lvba_system.cpp:913)
-
-
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
 def save_depth_png(path, depth: np.ndarray):
@@ -55,68 +55,15 @@ def save_depth_png(path, depth: np.ndarray):
                 + _png_chunk(b"IEND", b""))
 
 
-def _unfilter_row(ft: int, f: np.ndarray, prior: np.ndarray,
-                  bpp: int) -> np.ndarray:
-    """One PNG scanline's bytes from its filtered bytes (filter types 0-4:
-    None, Sub, Up, Average, Paeth) and the reconstructed row before it."""
-    if ft == 0:
-        return f.copy()
-    if ft == 2:
-        return ((f.astype(np.uint16) + prior) & 0xFF).astype(np.uint8)
-    if ft == 1:
-        out = np.empty_like(f)
-        for j in range(bpp):
-            out[j::bpp] = np.cumsum(f[j::bpp], dtype=np.int64) & 0xFF
-        return out
-    if ft not in (3, 4):
-        raise ValueError(f"PNG filter type {ft} is not one of 0-4")
-    fl, pl = f.tolist(), prior.tolist()
-    c = [0] * len(fl)
-    for x in range(len(fl)):
-        a = c[x - bpp] if x >= bpp else 0
-        b = pl[x]
-        if ft == 3:
-            c[x] = (fl[x] + ((a + b) >> 1)) & 0xFF
-            continue
-        cc = pl[x - bpp] if x >= bpp else 0
-        pa, pb, pc = abs(b - cc), abs(a - cc), abs(a + b - 2 * cc)
-        pred = a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
-        c[x] = (fl[x] + pred) & 0xFF
-    return np.asarray(c, dtype=np.uint8)
-
-
 def load_depth_png(path) -> np.ndarray:
     """A 16-bit grayscale, non-interlaced PNG (save_depth_png's, or cv2's
     with any of the five row filters) as metres."""
-    data = Path(path).read_bytes()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    W, H, depth_bits, color, _, _, interlace = hdr
-    if (depth_bits, color, interlace) != (16, 0, 0):
+    px, color, depth, _ = read_png(Path(path).read_bytes(), path)
+    if (depth, color) != (16, 0):
         raise ValueError(
-            f"{path}: bit depth {depth_bits}, color type {color}, interlace "
-            f"{interlace}; a 16-bit grayscale non-interlaced PNG is needed")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    rows = raw[:H * (1 + 2 * W)].reshape(H, 1 + 2 * W)
-    out = np.empty((H, 2 * W), dtype=np.uint8)
-    prior = np.zeros(2 * W, dtype=np.uint8)
-    for y in range(H):
-        prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, 2)
-    img = out.view(">u2").astype(np.uint16)
-    return img.astype(np.float32) / DEPTH_SCALE
+            f"{path}: bit depth {depth}, color type {color}; a 16-bit "
+            f"grayscale non-interlaced PNG is needed")
+    return px[:, :, 0].astype(np.float32) / DEPTH_SCALE
 
 
 def _rot_to_quat(R: np.ndarray) -> np.ndarray:
@@ -164,20 +111,27 @@ def colorize_clouds(
     lidar_times: np.ndarray,
     R_body: np.ndarray, p_body: np.ndarray,
     image_times: np.ndarray,
-    images: Sequence[np.ndarray],          # per image (H, W, 3) BGR uint8
+    images,          # per image (H, W, 3) BGR uint8, or a (M, H, W, 3) tensor
     Rcw: np.ndarray, tcw: np.ndarray,
     half_w: float = 0.5,
+    device="cpu",
 ) -> np.ndarray:
     """Merged colored world cloud: per image, z-buffer the ±half_w-window
     LiDAR points and take each pixel's nearest point with its image color
     (VisualizeOptComparison, lvba_system.cpp:2033-2069).
 
-    Returns (N, 6): xyz + rgb (0-255)."""
-    H, W = cam.height, cam.width
-    out = []
+    The world transform and the windows are the JAX package's numpy; the
+    z-buffer of every image is one colorize launch on `device` (its plain
+    version on the CPU), the same rows in the same order.  `images` may be
+    a uint8 tensor on `device` already (an export uploads its images
+    once).  Returns (N, 6) float32: xyz + rgb (0-255)."""
+    import torch
+
+    from ..kernels.colorize import colorize
+
+    dev = torch.device(device)
     # world-transform every frame ONCE; per image the ±half_w window is a
-    # contiguous slice of the concatenated array (lidar_times sorted) —
-    # the old per-image transform+concat was O(M * window) re-work
+    # contiguous slice of the concatenated array (lidar_times sorted)
     F = len(clouds)
     world_all = np.concatenate(
         [(R_body[i] @ clouds[i].T).T + p_body[i] for i in range(F)]
@@ -185,46 +139,28 @@ def colorize_clouds(
     sizes = np.array([c.shape[0] for c in clouds], dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     lt = np.asarray(lidar_times)
-    for k in range(len(image_times)):
-        lo = int(np.searchsorted(lt, image_times[k] - half_w, side="left"))
-        hi = int(np.searchsorted(lt, image_times[k] + half_w, side="right"))
-        if hi <= lo:
-            continue
-        pts_w = world_all[offsets[lo] : offsets[hi]]
-        Xc = pts_w @ Rcw[k].T + tcw[k]
-        Z = Xc[:, 2]
-        ok = Z > 1e-12
-        z = np.where(ok, Z, 1.0)
-        x, y = Xc[:, 0] / z, Xc[:, 1] / z
-        r2 = x * x + y * y
-        radial = 1 + cam.k1 * r2 + cam.k2 * r2 * r2
-        xd = x * radial + 2 * cam.p1 * x * y + cam.p2 * (r2 + 2 * x * x)
-        yd = y * radial + cam.p1 * (r2 + 2 * y * y) + 2 * cam.p2 * x * y
-        # points far outside the FOV can blow `radial` up to inf/NaN —
-        # clip before the int cast (UB otherwise) and drop non-finite
-        # coordinates; the in-bounds mask below keeps semantics unchanged
-        with np.errstate(invalid="ignore"):
-            ok &= np.isfinite(xd) & np.isfinite(yd)
-            u = np.round(
-                np.clip(cam.fx * np.nan_to_num(xd) + cam.cx, -1, W)
-            ).astype(np.int64)
-            v = np.round(
-                np.clip(cam.fy * np.nan_to_num(yd) + cam.cy, -1, H)
-            ).astype(np.int64)
-        ok &= (u >= 0) & (u < W) & (v >= 0) & (v < H)
-        lin = v * W + u
-        # per-pixel argmin depth
-        order = np.lexsort((Z, np.where(ok, lin, H * W)))
-        lin_s = np.where(ok, lin, H * W)[order]
-        firsts = np.concatenate([[True], lin_s[1:] != lin_s[:-1]])
-        chosen = order[firsts & (lin_s < H * W)]
-        img = images[k]
-        bgr = img[v[chosen], u[chosen]]
-        rgb = bgr[:, ::-1].astype(np.float32)
-        out.append(np.concatenate([pts_w[chosen], rgb], axis=1))
-    if not out:
+    it = np.asarray(image_times)
+    lo = np.searchsorted(lt, it - half_w, side="left")
+    hi = np.searchsorted(lt, it + half_w, side="right")
+    lo, hi = offsets[lo], np.where(hi > lo, offsets[hi], offsets[lo])
+    if not len(it):
         return np.zeros((0, 6), dtype=np.float32)
-    return np.concatenate(out).astype(np.float32)
+    # the concatenated transposes are column-major: the kernel reads rows
+    pts = torch.from_numpy(np.ascontiguousarray(world_all)).to(dev)
+    m, v, u, pt = colorize(pts, torch.from_numpy(lo).to(dev),
+                           torch.from_numpy(hi).to(dev),
+                           np.asarray(Rcw, np.float64),
+                           np.asarray(tcw, np.float64), cam)
+    if torch.is_tensor(images):
+        stack = images.to(dev)
+    else:
+        stack = torch.from_numpy(np.stack(images)).to(dev)
+    bgr = stack[m, v, u].cpu().numpy()
+    if not bgr.shape[0]:
+        return np.zeros((0, 6), dtype=np.float32)
+    rgb = bgr[:, ::-1].astype(np.float32)
+    return np.concatenate([world_all[pt.cpu().numpy()], rgb],
+                          axis=1).astype(np.float32)
 
 
 def write_colored_pcd(path, cloud_rgb: np.ndarray):
@@ -255,32 +191,38 @@ def draw_reprojection_overlay(
     header: str = "",
 ) -> Tuple[np.ndarray, float, float]:
     """Overlay: measured green cross, pre blue dot, post red rect
-    (visualizeProj, lvba_system.cpp:1786-1822). Returns (img, mean_pre,
-    mean_post)."""
-    import cv2
-
-    img = image.copy()
+    (visualizeProj, lvba_system.cpp:1786-1822), drawn as cv2 draws them
+    (pipeline/draw.py). Returns (img, mean_pre, mean_post)."""
+    cv = Canvas(image)
+    n = uv_meas.shape[0]
+    pre_ok = np.asarray(pre_ok, bool)
+    post_ok = np.asarray(post_ok, bool)
+    m = np.round(uv_meas).astype(int)
+    # each observation's marks in cv2's order: the cross, the pre dot, the
+    # post rect; one observation's after the one before
+    obs = 4 * np.arange(n)
+    cv.begin_batch()
+    cv.marks(("hline", 5), m, (0, 255, 0), obs)
+    cv.marks(("vline", 5), m, (0, 255, 0), obs + 1)
+    cv.marks(("dot", 2), np.round(uv_pre[pre_ok]).astype(int),
+             (255, 128, 0), obs[pre_ok] + 2)
+    cv.marks(("rect", 1), np.round(uv_post[post_ok]).astype(int),
+             (0, 0, 255), obs[post_ok] + 3)
+    cv.end_batch()
     sum_pre = sum_post = 0.0
     n_pre = n_post = 0
-    for i in range(uv_meas.shape[0]):
-        m = tuple(np.round(uv_meas[i]).astype(int))
-        cv2.line(img, (m[0] - 5, m[1]), (m[0] + 5, m[1]), (0, 255, 0), 1, cv2.LINE_AA)
-        cv2.line(img, (m[0], m[1] - 5), (m[0], m[1] + 5), (0, 255, 0), 1, cv2.LINE_AA)
+    for i in range(n):
         if pre_ok[i]:
-            c = tuple(np.round(uv_pre[i]).astype(int))
-            cv2.circle(img, c, 2, (255, 128, 0), -1, cv2.LINE_AA)
             sum_pre += float(np.linalg.norm(uv_pre[i] - uv_meas[i]))
             n_pre += 1
         if post_ok[i]:
-            c = tuple(np.round(uv_post[i]).astype(int))
-            cv2.rectangle(img, (c[0] - 1, c[1] - 1), (c[0] + 1, c[1] + 1), (0, 0, 255), -1)
             sum_post += float(np.linalg.norm(uv_post[i] - uv_meas[i]))
             n_post += 1
     mean_pre = sum_pre / n_pre if n_pre else -1.0
     mean_post = sum_post / n_post if n_post else -1.0
     text = f"{header} N={uv_meas.shape[0]} mean_pre={mean_pre:.3f} mean_post={mean_post:.3f}"
-    cv2.putText(img, text, (12, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.5, (0, 0, 0), 1, cv2.LINE_AA)
-    return img, mean_pre, mean_post
+    cv.text(text, (12, 24), 0.5, (0, 0, 0), 1)
+    return cv.finish(), mean_pre, mean_post
 
 
 def project_observations(cam: CameraModel, Rcw, tcw, X, obs_cam, obs_pt):
@@ -313,8 +255,6 @@ def save_reprojection_overlays(
 ) -> Tuple[float, float]:
     """Per-image overlays + global mean pre/post (averaged over images,
     lvba_system.cpp:1830-1833). images entries may be None (blank canvas)."""
-    import cv2
-
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     uv_pre, ok_pre = project_observations(cam, Rcw_pre, tcw_pre, X_pre,
@@ -335,7 +275,7 @@ def save_reprojection_overlays(
             img, obs_uv[sel], uv_pre[sel], ok_pre[sel], uv_post[sel], ok_post[sel],
             header=f"img={k}",
         )
-        cv2.imwrite(str(out_dir / name), over)
+        imwrite_png(out_dir / name, over)
         if m_pre >= 0:
             g_pre.append(m_pre)
         if m_post >= 0:
@@ -356,39 +296,42 @@ def save_track_feature_images(
 ):
     """All keypoints red, tracked inliers green (saveTrackFeaturesOnImages,
     lvba_system.cpp:1340-1420)."""
-    import cv2
-
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     for k in range(len(keypoints)):
         img = images[k]
         if img is None:
             img = np.full((cam.height, cam.width, 3), 230, dtype=np.uint8)
-        else:
-            img = img.copy()
+        cv = Canvas(img)
         kps = keypoints[k]
-        for i in range(kps.shape[0]):
-            c = tuple(np.round(kps[i][:2]).astype(int))
-            color = (0, 255, 0) if used_mask[k][i] else (0, 0, 255)
-            cv2.circle(img, c, 2, color, -1, cv2.LINE_AA)
+        used = np.asarray(used_mask[k], bool)[:, None]
+        cv.marks(("dot", 2), np.round(kps[:, :2]).astype(int),
+                 np.where(used, (0, 255, 0), (0, 0, 255)))
         text = f"sift={kps.shape[0]} track={int(np.sum(used_mask[k]))}"
-        cv2.putText(img, text, (12, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.6, (255, 255, 255), 2, cv2.LINE_AA)
-        cv2.putText(img, text, (12, 24), cv2.FONT_HERSHEY_SIMPLEX, 0.6, (0, 0, 0), 1, cv2.LINE_AA)
+        cv.text(text, (12, 24), 0.6, (255, 255, 255), 2)
+        cv.text(text, (12, 24), 0.6, (0, 0, 0), 1)
         name = image_names[k] if image_names else f"{k}.png"
-        cv2.imwrite(str(out_dir / name), img)
+        imwrite_png(out_dir / name, cv.finish())
+
+
+def undistort_images(cam: CameraModel, images, device="cpu"):
+    """The images (M, H, W, 3) BGR uint8 (a stack or a tensor) undistorted
+    with the same-intrinsics rectify map in one undistort launch on
+    `device` (its plain version on the CPU): a uint8 tensor on `device`."""
+    import torch
+
+    from ..kernels.undistort import undistort
+
+    if not torch.is_tensor(images):
+        images = torch.from_numpy(np.ascontiguousarray(np.stack(images)))
+    return undistort(images.to(device).contiguous(), cam)
 
 
 def undistort_image(cam: CameraModel, img: np.ndarray) -> np.ndarray:
     """Undistort with the same-intrinsics rectify map
-    (DatasetIO::undistortImage, dataset_io.cpp:15-26)."""
-    import cv2
-
-    K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]], np.float64)
-    D = np.array([cam.k1, cam.k2, cam.p1, cam.p2, 0.0], np.float64)
-    m1, m2 = cv2.initUndistortRectifyMap(
-        K, D, np.eye(3), K, (img.shape[1], img.shape[0]), cv2.CV_16SC2
-    )
-    return cv2.remap(img, m1, m2, cv2.INTER_LINEAR)
+    (DatasetIO::undistortImage, dataset_io.cpp:15-26): cv2's
+    initUndistortRectifyMap + remap(INTER_LINEAR) bit for bit."""
+    return undistort_images(cam, img[None])[0].numpy()
 
 
 def draw_matches(
@@ -398,23 +341,24 @@ def draw_matches(
     path=None,
 ) -> np.ndarray:
     """Side-by-side match visualization (drawAndSaveMatchesGPU,
-    lvba_system.cpp:1880-1920): random colors, dot + dot + line."""
-    import cv2
-
+    lvba_system.cpp:1880-1920): random colors, dot + dot + line; written
+    as a JPEG when `path` is given."""
     H = max(img1.shape[0], img2.shape[0])
     W = img1.shape[1] + img2.shape[1]
     canvas = np.full((H, W, 3), 20, dtype=np.uint8)
     canvas[: img1.shape[0], : img1.shape[1]] = img1
     canvas[: img2.shape[0], img1.shape[1] :] = img2
+    cv = Canvas(canvas)
     rng = np.random.default_rng(12345)
     off = img1.shape[1]
     for i1, i2 in matches:
         col = tuple(int(c) for c in rng.integers(64, 255, 3))
         p1 = tuple(np.round(kps1[i1][:2]).astype(int))
         p2 = tuple(np.round(kps2[i2][:2]).astype(int) + [off, 0])
-        cv2.circle(canvas, p1, 3, col, -1, cv2.LINE_AA)
-        cv2.circle(canvas, p2, 3, col, -1, cv2.LINE_AA)
-        cv2.line(canvas, p1, p2, col, 1, cv2.LINE_AA)
+        cv.dot(p1, 3, col)
+        cv.dot(p2, 3, col)
+        cv.line(p1, p2, col)
+    canvas = cv.finish()
     if path is not None:
-        cv2.imwrite(str(path), canvas)
+        imwrite_jpeg(path, canvas)
     return canvas

@@ -20,19 +20,18 @@ from .. import resolve_device
 from ..config import LvbaConfig
 from ..frontend.matching import match_all_pairs
 from ..frontend.sift import SiftParams, extract_sift_batch
+from ..io.image import imread_color, imread_gray, resize_linear
 from ..utils.progress import progress_bar
 
 log = logging.getLogger("global_lvba_tpu_torch.frontend")
 
 
 def load_gray_image(path, width: int, height: int) -> np.ndarray:
-    import cv2
-
-    img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
-    if img is None:
-        raise FileNotFoundError(path)
+    """The image file as gray float32 in [0, 1] at width x height: cv2's
+    IMREAD_GRAYSCALE and INTER_LINEAR resize, bit for bit (io/image.py)."""
+    img = imread_gray(path)
     if img.shape[1] != width or img.shape[0] != height:
-        img = cv2.resize(img, (width, height), interpolation=cv2.INTER_LINEAR)
+        img = resize_linear(img, width, height)
     return img.astype(np.float32) / 255.0
 
 
@@ -176,17 +175,13 @@ def extract_and_match_sift(
     if cfg.solver.save_match_images and result_dir is not None:
         # per-pair match visualizations, the reference's
         # drawAndSaveMatchesGPU into result/ (lvba_system.cpp:823)
-        import cv2
-
         from .outputs import draw_matches
 
         rdir = Path(result_dir)
         rdir.mkdir(parents=True, exist_ok=True)
         for (i, j), m in matches_out.items():
-            img1 = cv2.imread(str(ds.image_paths[i]), cv2.IMREAD_COLOR)
-            img2 = cv2.imread(str(ds.image_paths[j]), cv2.IMREAD_COLOR)
-            if img1 is None or img2 is None:
-                continue
+            img1 = imread_color(ds.image_paths[i])
+            img2 = imread_color(ds.image_paths[j])
             draw_matches(
                 img1, img2, kps_out[i], kps_out[j], m,
                 path=rdir / f"matches_{i:04d}_{j:04d}.jpg",

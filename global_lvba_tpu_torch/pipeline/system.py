@@ -11,6 +11,7 @@ either package resumes from the other's.  The stages run on `device`
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -54,6 +55,7 @@ class LvbaSystem:
         self.R_opt = self.ds.lidar_R.copy()
         self.p_opt = self.ds.lidar_p.copy()
         self.visual_result = None
+        self.export_times: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
     def run_lidar_ba(self):
@@ -164,7 +166,11 @@ class LvbaSystem:
         filter_size_points3D), and Colmap/sparse/points3D.txt derived from
         the downsampled AFTER cloud (:2126-2137) — not from track points.
         Without images only the sparse model (from the track points) and
-        the viz track clouds are written: the image exports need cv2.
+        the viz track clouds are written.  The images (BGR uint8 at the
+        camera's size) go to the stage's device once: one undistort launch
+        for all of them, then the JPEG encoder on host threads, and one
+        colorize launch for each of the two clouds (their plain versions
+        on the CPU).  The host seconds of each part are in export_times.
         """
         if self.visual_result is None or not self.cfg.colmap_output.enable:
             return
@@ -179,14 +185,24 @@ class LvbaSystem:
             # no imagery: emit the sparse model from track points only
             write_colmap_sparse(cdir, res.Rcw, res.tcw, res.points)
             return
-        # diagnostic imagery (reproj overlays + tracked-feature images,
-        # lvba_system.cpp:1672-1837 / 1340-1420)
-        import cv2
+        import torch
 
+        from ..io.image import encode_jpeg
         from .outputs import (
             save_reprojection_overlays, save_track_feature_images,
-            undistort_image)
+            undistort_images)
 
+        times = self.export_times = {}
+
+        def lap(name, t0):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times[name] = time.perf_counter() - t0
+            return time.perf_counter()
+
+        # diagnostic imagery (reproj overlays + tracked-feature images,
+        # lvba_system.cpp:1672-1837 / 1340-1420)
+        t0 = time.perf_counter()
         oc, op, ouv = res.track_obs
         save_reprojection_overlays(
             self.out_dir / "reproj", self.ds.cam, images,
@@ -194,27 +210,38 @@ class LvbaSystem:
             res.points_pre, res.points,
             res.Rcw_orig, res.tcw_orig, res.Rcw, res.tcw,
         )
+        t0 = lap("overlays_s", t0)
         if res.keypoints is not None and res.used_kp_mask is not None:
             save_track_feature_images(
                 self.out_dir / "track_features", self.ds.cam, images,
                 res.keypoints, res.used_kp_mask,
             )
+        t0 = lap("track_images_s", t0)
+        stack = torch.from_numpy(np.ascontiguousarray(np.stack(images)))
+        stack = stack.to(self.device)
+        t0 = lap("upload_s", t0)
         # undistorted images for the COLMAP model (lvba_system.cpp:2026-2030)
+        undist = undistort_images(self.ds.cam, stack, self.device)
+        t0 = lap("undistort_s", t0)
+        undist = undist.cpu().numpy()
+        t0 = lap("undistort_copy_s", t0)
         idir = cdir / "images"
         idir.mkdir(parents=True, exist_ok=True)
-        for k, img in enumerate(images):
-            cv2.imwrite(str(idir / f"{k}.jpg"), undistort_image(self.ds.cam, img))
+        for k, data in enumerate(encode_jpeg(undist)):
+            (idir / f"{k}.jpg").write_bytes(data)
+        t0 = lap("jpeg_s", t0)
         leaf = self.cfg.colmap_output.filter_size_points3D
         colored_after = colorize_clouds(
             self.ds.cam, self.ds.clouds, self.ds.lidar_times,
-            self.R_opt, self.p_opt, self.ds.image_times, images,
-            res.Rcw, res.tcw,
+            self.R_opt, self.p_opt, self.ds.image_times, stack,
+            res.Rcw, res.tcw, device=self.device,
         )
         colored_before = colorize_clouds(
             self.ds.cam, self.ds.clouds, self.ds.lidar_times,
-            self.ds.lidar_R, self.ds.lidar_p, self.ds.image_times, images,
-            res.Rcw_orig, res.tcw_orig,
+            self.ds.lidar_R, self.ds.lidar_p, self.ds.image_times, stack,
+            res.Rcw_orig, res.tcw_orig, device=self.device,
         )
+        t0 = lap("colorize_s", t0)
         pts3d = res.points
         rgb3d = None
         if colored_after.shape[0]:
@@ -230,6 +257,7 @@ class LvbaSystem:
                 cdir / "colored_merged_before.pcd", colored_before[idx]
             )
         write_colmap_sparse(cdir, res.Rcw, res.tcw, pts3d, points_rgb=rgb3d)
+        lap("clouds_s", t0)
 
     # ------------------------------------------------------------------
     def run_full_pipeline(self, images=None) -> Dict:

@@ -1,7 +1,8 @@
 """Robust-statistics and image-preprocessing utilities.
 
-The port's own copy of global_lvba_tpu.utils.robust (host numpy; cv2
-imported inside the image function).  Completes the reference's utils
+The port's own copy of global_lvba_tpu.utils.robust (host numpy; the
+image function's cv2 steps are utils.imgproc's bit-exact copies).
+Completes the reference's utils
 surface (include/utils.hpp:294-446): `compute_mad`,
 `pick_largest_cluster_as_inliers`, `preprocess_low_texture_bgr`.  The
 reference pipeline defines but does not call these; they are provided for
@@ -13,6 +14,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+
+from .imgproc import (bgr_to_lab, clahe, gaussian_blur_sigma1, lab_to_bgr,
+                      upsample_cubic_x2)
 
 
 def compute_mad(resid: Sequence[float]) -> float:
@@ -100,19 +104,16 @@ def preprocess_low_texture_bgr(
 ) -> np.ndarray:
     """CLAHE-on-L + light unsharp mask for low-texture imagery
     (utils.hpp:428-446): optional x2 cubic upsample, CLAHE(clip=2.0,
-    tile=8x8) on the Lab L channel, then img*1.5 - blur(sigma=1)*0.5."""
-    import cv2
-
-    img = bgr.copy()
+    tile=8x8) on the Lab L channel, then img*1.5 - blur(sigma=1)*0.5.
+    BGR uint8 in and out, bit for bit the cv2 calls of the JAX package's
+    copy (utils.imgproc)."""
+    img = np.asarray(bgr, np.uint8)
     if enable_x2_upsample:
-        img = cv2.resize(
-            img, (img.shape[1] * 2, img.shape[0] * 2),
-            interpolation=cv2.INTER_CUBIC,
-        )
-    lab = cv2.cvtColor(img, cv2.COLOR_BGR2Lab)
-    l, a, b = cv2.split(lab)
-    clahe = cv2.createCLAHE(clipLimit=2.0, tileGridSize=(8, 8))
-    l = clahe.apply(l)
-    img = cv2.cvtColor(cv2.merge([l, a, b]), cv2.COLOR_Lab2BGR)
-    blur = cv2.GaussianBlur(img, (0, 0), 1.0)
-    return cv2.addWeighted(img, 1.5, blur, -0.5, 0)
+        img = upsample_cubic_x2(img)
+    lab = bgr_to_lab(img)
+    lab[..., 0] = clahe(lab[..., 0])
+    img = lab_to_bgr(lab)
+    blur = gaussian_blur_sigma1(img)
+    # cv2.addWeighted(img, 1.5, blur, -0.5, 0): exact in float, then
+    # rounded half to even and saturated
+    return np.clip(np.rint(img * 1.5 - blur * 0.5), 0, 255).astype(np.uint8)

@@ -5,7 +5,12 @@ skip without one).  No JAX here: the card's machine has none.
 
 The z-buffer (csrc/zbuffer.cu) bit for bit its plain version, twice, on
 seeded points and ranges (empty ranges and an image with none
-included); a CPU tensor takes the plain version and counts no launch."""
+included); the undistortion (csrc/undistort.cu) bit for bit its plain
+version on the card and on the CPU, at the example configuration's
+camera and on random maps; the colorization's z-buffer (csrc/colorize.cu)
+bit for bit its plain version with planted equal-depth ties, an empty
+window and points behind the camera.  A CPU tensor takes the plain
+version and counts no launch."""
 
 import numpy as np
 import pytest
@@ -13,7 +18,8 @@ import torch
 from scipy.spatial.transform import Rotation
 
 from global_lvba_tpu_torch.geometry.camera import CameraModel
-from global_lvba_tpu_torch.kernels import launch_counts, zbuffer as zb
+from global_lvba_tpu_torch.kernels import (
+    colorize as ck, launch_counts, undistort as ud, zbuffer as zb)
 
 CAM = dict(fx=400.0, fy=410.0, cx=320.0, cy=240.0, k1=-0.05, k2=0.08,
            p1=-0.001, p2=0.0005, width=640, height=480)
@@ -52,3 +58,53 @@ def test_zbuffer_kernel_matches_plain(card):
     cpu = zb.zbuffer(*[torch.as_tensor(x) for x in host], cam)
     assert launch_counts()["zbuffer"] == before + 2
     assert torch.equal(cpu, ref.cpu())
+
+
+@pytest.mark.cuda
+def test_undistort_kernel_matches_plain(card):
+    cam = CameraModel(fx=1293.56944, fy=1293.3155, cx=626.91359,
+                      cy=522.799224, k1=-0.07616, k2=0.123001, p1=-0.00113,
+                      p2=0.000251, width=1280, height=1024).scaled(0.5)
+    rng = np.random.default_rng(11)
+    host = rng.integers(0, 256, (5, cam.height, cam.width, 3), np.uint8)
+    imgs = torch.as_tensor(host).to(card)
+    before = launch_counts()["undistort"]
+    a = ud.undistort(imgs, cam)
+    b = ud.undistort(imgs, cam)
+    ref = ud.undistort_plain(imgs, cam)
+    torch.cuda.synchronize()
+    assert launch_counts()["undistort"] == before + 2
+    assert torch.equal(a, b) and torch.equal(a, ref)
+    cpu = ud.undistort(torch.as_tensor(host), cam)
+    assert launch_counts()["undistort"] == before + 2
+    assert torch.equal(cpu, a.cpu())
+
+
+@pytest.mark.cuda
+def test_colorize_kernel_matches_plain(card):
+    cam = CameraModel(**CAM)
+    rng = np.random.default_rng(12)
+    n = 200_000
+    pts = rng.uniform(-6, 6, size=(n, 3))
+    pts[:, 2] = rng.uniform(-3, 25, size=n)
+    pts[1000:3000] = pts[:2000]          # equal depths at a pixel: ties
+    lo = np.array([0, 50_000, 120_000, 7], np.int64)
+    hi = np.array([60_000, 50_000, n, 190_000], np.int64)
+    R = np.stack([Rotation.from_rotvec([0.02 * i, -0.05, 0.01]).as_matrix()
+                  for i in range(4)])
+    t = np.stack([[0.05 * i, 0.1, -0.3] for i in range(4)])
+    args = [torch.as_tensor(a).to(card) for a in (pts, lo, hi)]
+    before = launch_counts()["colorize"]
+    a = ck.colorize(*args, R, t, cam)
+    b = ck.colorize(*args, R, t, cam)
+    ref = ck.colorize_plain(*args, R, t, cam)
+    torch.cuda.synchronize()
+    assert launch_counts()["colorize"] == before + 2
+    for x, y, z in zip(a, b, ref):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert a[0].numel() > 1000 and not (a[0] == 1).any()
+    cpu = ck.colorize(*[torch.as_tensor(x) for x in (pts, lo, hi)], R, t,
+                      cam)
+    assert launch_counts()["colorize"] == before + 2
+    for x, y in zip(cpu, a):
+        assert torch.equal(x, y.cpu())
