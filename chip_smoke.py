@@ -305,11 +305,17 @@ Slice 14, the native host runtime and the card's z-buffer:
  20. [native]: [native-zbuffer] phase 16's depth stage (200 images, ~2.0 M
      covisible points each) in numpy (_zbuffer_host) and on the card (the
      grid map's keys by the native library, image_ranges on the host, one
-     z-buffer launch), the card's parts timed (host ranges, upload, the
-     kernel's device time, copy back); (a) the kernel against
-     zbuffer_plain on the card, bitwise (else its share, below 1e-3),
-     (b) against the numpy maps: per image the share of pixels off by
-     more than 1e-6 below 1e-3, (c) two launches bitwise; [native-host]
+     z-buffer launch), the card's parts timed (host ranges, upload, a
+     call's device time, its kernels under torch.profiler, copy back);
+     (a) the kernel against zbuffer_plain on the card, bitwise (else its
+     share, below 1e-3), (b) against the
+     numpy maps: per image the share of pixels off by more than 1e-6
+     below 1e-3, (c) two launches bitwise, (d) the (piece, image) pairs
+     and points the kernel's cull kept equal to its plain mirror's
+     (kernels/zbuffer.py work), with the pairs it culled, and no
+     synchronizing call in a call; the bound from work(): the operations
+     the kept pairs need, the bytes once, and beside them the bytes the
+     design asks of L2; [native-host]
      at path 2a's 2.0 M points the transform (within 1e-14 of max |w|),
      keys and argsort exactly (keys of the native transform that flip
      against numpy's counted), segment sums and moments (within 1e-12 of
@@ -345,7 +351,8 @@ Slice 15, images without cv2:
      all-pairs match ms; the system's wall, stage and export times
      (undistort, JPEG, colorize, overlays, track images).  undistort and
      colorize on the run's images and poses: each bitwise its plain
-     version on the card and two launches bitwise equal, timed beside
+     version on the card and two launches bitwise equal, a colorize call
+     synchronizing once (its pick count and status read back), timed beside
      the plain version (undistort also beside grid_sample, float
      bilinear, not the same function) and the bound (undistort: bytes at
      3.35 TB/s; colorize: 43 float64 operations a window point at half
@@ -5231,8 +5238,10 @@ def _native_zbuffer(torch, np, dev, kern, rec, js):
     kernel against zbuffer_plain on the card (a), against the numpy maps
     image by image (b), against itself (c); its kernels-line entry.
     Returns the depth stage's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
     from global_lvba_tpu_torch.kernels.zbuffer import (
-        ZBUFFER_OPS, ZBUFFER_Z_OPS, points_in_front, zbuffer, zbuffer_plain)
+        work, zbuffer, zbuffer_plain)
     from global_lvba_tpu_torch.pipeline import depth
 
     e = KEEP["e2e"]
@@ -5244,7 +5253,7 @@ def _native_zbuffer(torch, np, dev, kern, rec, js):
     gm_np, gm = gms["numpy"], gms["native"]
     t0 = time.time()
     maps_np = depth.render_depth_maps(cam, gm_np, sc.times, js.image_times,
-                                      Rcw, tcw)
+                                      Rcw, tcw, device="cpu")
     render_np_s = time.time() - t0
     same_grid = all(np.array_equal(getattr(gm, f), getattr(gm_np, f))
                     for f in ("keys", "starts", "counts", "points")) and all(
@@ -5285,29 +5294,45 @@ def _native_zbuffer(torch, np, dev, kern, rec, js):
                        for i in range(M)])
     bit_b = bool(np.array_equal(host, maps_np))
     del ref, again
+    # the cull: the kernel's kept (piece, image) pairs and their points
+    # against its plain mirror; a call reads nothing back
+    kept = torch.zeros(2, dtype=torch.int64, device=dev)
+    zbuffer(*args, cam, stats=kept)
+    w = work(*args, cam)
+    kept = kept.tolist()
+    same_cull = kept == [w["kept"], w["kept_points"]]
+    _, syncs = _count_syncs(torch, lambda: zbuffer(*args, cam))
+    # a call's device time (the sort of the pairs, the launch) and its
+    # kernels' under the profiler
     ms, ahead = _timed(torch, lambda: zbuffer(*args, cam))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            zbuffer(*args, cam)
+        torch.cuda.synchronize()
+    z_kern = [x for k_, x in _device_ms(prof).items()
+              if "zbuffer" in k_ or "Memset" in k_]
+    k_ms = sum(x[0] for x in z_kern) / 3 if z_kern else None
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
     zbuffer_plain(*args, cam)
     ev[1].record()
     torch.cuda.synchronize()
     plain_ms = ev[0].elapsed_time(ev[1])
-    n_proj = int(counts.astype(np.int64).sum())
-    n_front = points_in_front(*args)
-    nbytes = (gm.points.shape[0] * 12 + starts.shape[0] * 12
-              + offsets.shape[0] * 8 + M * 48 + host.nbytes)
+    n_proj, n_front, ops = w["covisible"], w["in_front"], w["ops"]
+    nbytes = w["nbytes"]
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    # every point its Z row, a point in front the rest of the projection;
-    # none of it fused, so each operation takes an FMA's issue slot: half
-    # the data sheet's rates, which count an FMA as two
-    ops = [z * n_proj + (a - z) * n_front
-           for a, z in zip(ZBUFFER_OPS, ZBUFFER_Z_OPS)]
+    # the Z row of every point in a (piece, image) pair the cull keeps, a
+    # point in front the rest of the projection; none of it fused, so each
+    # operation takes an FMA's issue slot: half the data sheet's rates,
+    # which count an FMA as two
     to = max(ops[0] / (FP32_FLOP_PER_S / 2),
              ops[1] / (FP64_FLOP_PER_S / 2)) * 1e3
     bound = (tb, "bytes") if tb >= to else (to, "operations")
     kern["zbuffer"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            library_ms=None, bound=bound,
-                           queued_ahead={"ms": ahead})
+                           queued_ahead={"ms": ahead},
+                           kernel_device_ms=k_ms)
     stage = dict(numpy=dict(grid_s=grid_s["numpy"], render_s=render_np_s),
                  card=dict(grid_s=grid_s["native"], render_s=render_s,
                            ranges_s=ranges_s, upload_s=upload_s,
@@ -5315,23 +5340,36 @@ def _native_zbuffer(torch, np, dev, kern, rec, js):
                  covisible_points=n_proj, in_front=n_front, ops=ops,
                  ranges=int(starts.shape[0]),
                  grid_points=int(gm.points.shape[0]), images=M,
-                 bytes=nbytes, bound=bound)
+                 bytes=nbytes, bound=bound, bound_ops_ms=to,
+                 bound_bytes_ms=tb, l2_bytes=w["l2_bytes"],
+                 pieces=w["pieces"], pairs=w["pairs"], culled=w["culled"],
+                 kept_points=w["kept_points"], kernel_device_ms=k_ms,
+                 syncs=syncs)
     rec["zbuffer"] = dict(stage=stage, bitwise_plain=bit_a,
                           share_plain=share_a, max_abs_err=err,
                           bitwise_numpy=bit_b, worst_share_numpy=float(
                               shares.max()), repeat_bitwise=bit_c,
-                          grid_equal=same_grid, maps_equal=same_path)
+                          grid_equal=same_grid, maps_equal=same_path,
+                          cull_equal=same_cull)
     print(f"[native-zbuffer] {M} images, {n_proj} covisible points "
           f"({n_front} in front of the camera) in {starts.shape[0]} ranges "
           f"over {gm.points.shape[0]} grid points: "
           f"grid map in turns (numpy, native, native, numpy) {grid_s} s; "
           f"numpy maps {render_np_s:.3f} s; card maps {render_s:.3f} s "
           f"(host ranges {ranges_s:.3f} s, upload "
-          f"{upload_s:.3f} s, kernel {ms:.4f} ms device time (queued ahead "
-          f"{ahead}), copy back {copy_s:.3f} s); plain on the card "
-          f"{plain_ms:.1f} ms; bound {bound[0]:.4f} ms ({bound[1]}: "
-          f"{ops[0]} float32 and {ops[1]} float64 operations at half the "
-          f"data sheet's rates; {nbytes / 1e6:.1f} MB once)", flush=True)
+          f"{upload_s:.3f} s, a call {ms:.4f} ms device time (queued "
+          f"ahead {ahead}), its kernels under torch.profiler "
+          f"{k_ms} ms, copy back {copy_s:.3f} s); plain on the card "
+          f"{plain_ms:.1f} ms", flush=True)
+    print(f"[native-zbuffer] the cull: {w['pieces']} pieces, {w['pairs']} "
+          f"(piece, image) pairs, {w['culled']} culled; the kernel kept "
+          f"{kept[0]} pairs of {kept[1]} points, its plain mirror "
+          f"{w['kept']} of {w['kept_points']} ({same_cull}); {syncs} "
+          f"synchronizing calls a call; bound {bound[0]:.4f} ms "
+          f"({bound[1]}): {ops[0]} float32 and {ops[1]} float64 operations "
+          f"at half the data sheet's rates {to:.4f} ms, {nbytes / 1e6:.1f} "
+          f"MB once {tb:.4f} ms; the design's L2 bytes "
+          f"{w['l2_bytes'] / 1e6:.1f} MB", flush=True)
     print(f"[native-zbuffer] (a) kernel vs zbuffer_plain on the card: "
           f"bitwise {bit_a} (differing share {share_a:.3e}, max abs "
           f"{err:.3e}); (b) vs numpy _zbuffer_host: bitwise {bit_b}, worst "
@@ -5340,7 +5378,8 @@ def _native_zbuffer(torch, np, dev, kern, rec, js):
           f"== numpy's {same_grid}; render_depth_maps' maps == this launch's "
           f"== phase 16's {same_path}", flush=True)
     if not (same_grid and same_path and bit_c and shares.max() < ZBUF_SHARE
-            and (bit_a or share_a < ZBUF_SHARE)):
+            and (bit_a or share_a < ZBUF_SHARE) and same_cull
+            and syncs == 0):
         _fail("[native-zbuffer]: the card's depth maps miss their checks")
     return stage
 
@@ -5789,6 +5828,8 @@ def _images(torch, np, dev, kern, results, paths):
     ev[2].record()
     torch.cuda.synchronize()
     c_ms, c_plain = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    # one read back a call: the pick count and the kernel's status
+    _, c_syncs = _count_syncs(torch, lambda: colorize(*args))
     n_win = int((hi - lo).sum())
     c_ops = COLORIZE_OPS * n_win
     c_bytes = world.nbytes + len(it) * 112 + picks * 32
@@ -5817,14 +5858,18 @@ def _images(torch, np, dev, kern, results, paths):
           f"({nbytes / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
     print(f"[images] colorize: {len(it)} images, {n_win} window points, "
           f"{picks} picks; bitwise colorize_plain {c_bit}, two launches "
-          f"bitwise {c_rep}; {c_ms:.3f} ms a call (device time with the "
-          f"compaction's read back; its three kernels under torch.profiler "
-          f"{c_dev} ms), plain {c_plain:.1f} ms; bound {c_bound[0]:.4f} ms "
+          f"bitwise {c_rep}; {c_ms:.3f} ms a call (device time with its "
+          f"read back; {c_syncs} synchronizing call a call; its kernel "
+          f"under torch.profiler {c_dev} ms), plain {c_plain:.1f} ms; "
+          f"bound {c_bound[0]:.4f} ms "
           f"({c_bound[1]}: {c_ops} float64 operations at half the data "
           f"sheet's fp64 rate, {c_bytes / 1e6:.1f} MB)", flush=True)
     if not (u_bit and u_rep and c_bit and c_rep):
         _fail("[images]: undistort or colorize is not bitwise its plain "
               "version and itself")
+    if c_syncs != 1:
+        _fail(f"[images]: a colorize call synchronized {c_syncs} times, "
+              f"not once")
     kern["undistort"] = dict(max_abs_err=u_err, ms=u_ms, plain_ms=u_plain,
                              library_ms=lib_ms, bound=u_bound,
                              queued_ahead={"ms": u_ahead},
@@ -5846,6 +5891,7 @@ def _images(torch, np, dev, kern, results, paths):
                               bytes=nbytes),
                colorize=dict(bitwise=c_bit, repeat=c_rep, ms=c_ms,
                              kernel_device_ms=c_dev, plain_ms=c_plain,
+                             syncs=c_syncs,
                              bound=c_bound, window_points=n_win,
                              picks=picks, ops=c_ops),
                tree=dict(jpegs=len(jpgs), after=n_after, before=n_before,

@@ -19,10 +19,11 @@ when the library loads; `launcher(name)` is a dictionary lookup after the
 first call.  A source may hold several launchers (soa_chain.cu: the
 aligned and the per-entry chain, and the aligned chain's occupancy query
 that kernels/soa.py sizes its grid with; selection.cu: table_select and
-entry_reduce; syrk.cu: the tf32 split and the Gram); matcher.cu's
-launcher runs its two kernels (the work units and the reduction of their
-partials); zbuffer.cu's runs its fill, rasterization and finish kernels,
-colorize.cu's its fill and two passes.
+entry_reduce; syrk.cu: the tf32 split and the Gram; colorize.cu: the
+colorization and its occupancy query); matcher.cu's launcher runs its
+two kernels (the work units and the reduction of their partials);
+zbuffer.cu's fills the maps with a memset and rasterizes, colorize.cu's
+launches one cooperative kernel.
 The LiDAR kernels have a float64 instance each for float64 solves, bound
 as `<name>_f64` (dtype_launcher picks it); the matcher, the tf32 split and
 the z-buffer are float32 only, the undistortion integer only and the
@@ -98,13 +99,16 @@ SIGNATURES = {
                         [_P, _P, _P, _I, _P, _P, _P, _I] + [_I] * 4
                         + [_P] * 8),
     "zbuffer": ("zbuffer", "lvba_zbuffer",
-                [_P] * 4 + [_I] * 2 + [_P] + [ctypes.c_float] * 8
-                + [_I] * 2 + [_P] * 2),
+                [_P, _L, _P, _P, _P, _L, _I, _P, _P]
+                + [ctypes.c_float] * 8 + [_I] * 2 + [_P] * 3),
     "undistort": ("undistort", "lvba_undistort",
                   [_P] * 4 + [_I] * 3 + [_P] * 2),
     "colorize": ("colorize", "lvba_colorize",
-                 [_P] * 4 + [_I] * 2 + [ctypes.c_double] * 8
-                 + [_I] * 2 + [_P] * 3),
+                 [_P, _L] + [_P] * 3 + [_I] + [ctypes.c_double] * 8
+                 + [_I, _I, _L, _I] + [_P] * 4 + [_L] + [_P] * 2),
+    # not a launcher: colorize_kernel's resident blocks a SM, for
+    # kernels/colorize.py's cooperative grid
+    "colorize_occupancy": ("colorize", "lvba_colorize_occupancy", [_P]),
 }
 
 _lock = threading.Lock()
@@ -139,7 +143,20 @@ def _defines(name: str) -> tuple:
     """The -D flags of csrc/<name>.cu: soa_chain.cu takes its per-entry
     block limits from kernels/soa.py, whose chain_entries_tile picks the
     voxels a block within them, and the aligned chain's warps a block per
-    dtype, with which chain_tile sizes its grid."""
+    dtype, with which chain_tile sizes its grid; zbuffer.cu the points of
+    a piece and the pairs of a block's chunk, with which kernels/zbuffer.py
+    cuts the ranges and counts L2's bytes; colorize.cu
+    its block, whose pixels kernels/colorize.py's slabs count on, and the
+    most images of a slab."""
+    if name == "zbuffer":
+        from . import zbuffer
+        return (f"-DLVBA_ZBUF_PIECE={zbuffer.PIECE}",
+                f"-DLVBA_ZBUF_CHUNK={zbuffer.CHUNK}")
+    if name == "colorize":
+        from . import colorize
+        return (f"-DLVBA_COLORIZE_THREADS={colorize.THREADS}",
+                f"-DLVBA_COLORIZE_STASH={colorize.STASH}",
+                f"-DLVBA_COLORIZE_SLAB_IMAGES={colorize.SLAB_IMAGES}")
     if name != "soa_chain":
         return ()
     from . import soa

@@ -14,11 +14,13 @@ operation as numpy rounds it:
     -1, W)), v likewise, a pixel when 0 <= u < W and 0 <= v < H;
 and each pixel keeps its nearest point, the least point index among
 equal depths: numpy's stable lexsort((Z, lin)) and its first row per
-pixel.  The kernel takes the least Z by atomicMin on its float64 bits (Z
-is positive, so its bits order as its value) and then, among the points
-at that Z, the least index by a second atomicMin, so its picks are
-bitwise repeatable and bitwise the plain version's; the picks come out
-image by image in ascending pixel order, the JAX function's row order.
+pixel.  The kernel projects each window point once and keeps the pair
+(Z, index) of a pixel by a 16-byte compare-and-swap, in slabs of whole
+images whose cells fit in L2 (slab_pixels), and compacts each slab's
+picks on the card, image by image in ascending pixel order, the JAX
+function's row order; its picks are bitwise repeatable and bitwise the
+plain version's.  The same launch checks the windows; the wrapper reads
+the pick count and that status back once a call.
 The plain version emulates each FMA exactly (error-free product and sum,
 the low parts added rounded to odd: Boldo and Melquiond's emulation),
 since torch has no fused multiply-add.
@@ -40,6 +42,16 @@ LAUNCHES = {"colorize": 0}
 # 2 quotients, r2 (3), radial (4), xd and yd (9 each), u and v (4)
 COLORIZE_OPS = 43
 NONE = 2 ** 31 - 1     # a pixel no point reached
+# the kernel's block, the pixels a block compacts (a bitmap word a
+# thread), the most images of a slab and the most cells of a slab (16
+# bytes each: 32 MiB of the card's 50 MB L2); csrc/colorize.cu takes the
+# first three as -D flags
+THREADS = 256
+STASH = 32 * THREADS
+SLAB_IMAGES = 64
+SLAB_CELLS = 1 << 21
+_BLOCKS_ON: dict = {}
+_SCRATCH_ON: dict = {}
 
 
 def _intrinsics(cam):
@@ -48,10 +60,16 @@ def _intrinsics(cam):
 
 
 def _cams(Rcw, tcw, dev):
+    """The poses (M, 12) float64 on `dev`; host poses go to the card from
+    pinned memory without a wait, so a call's one synchronization stays
+    its read back."""
     M = Rcw.shape[0]
-    return torch.cat([torch.as_tensor(Rcw).reshape(M, 9),
-                      torch.as_tensor(tcw).reshape(M, 3)], dim=1).to(
-        device=dev, dtype=torch.float64).contiguous()
+    c = torch.cat([torch.as_tensor(Rcw).reshape(M, 9),
+                   torch.as_tensor(tcw).reshape(M, 3)], dim=1).to(
+        dtype=torch.float64)
+    if dev.type == "cuda" and c.device.type == "cpu":
+        return c.contiguous().pin_memory().to(dev, non_blocking=True)
+    return c.to(dev).contiguous()
 
 
 def _picks(idx: torch.Tensor, W: int):
@@ -63,11 +81,84 @@ def _picks(idx: torch.Tensor, W: int):
 
 
 def _check_windows(lo, hi, n):
-    """The windows are runs of the points: 0 <= lo <= hi <= n (one read of
-    a flag, so a synchronization on the card)."""
+    """The windows are runs of the points: 0 <= lo <= hi <= n (the plain
+    version's check; the kernel makes the same one)."""
     if bool(((lo < 0) | (lo > hi) | (hi > n)).any()):
         raise ValueError(f"colorize: each window [lo, hi) must lie in "
                          f"[0, {n}] with lo <= hi")
+
+
+def slab_pixels(HW: int, blocks: int) -> int:
+    """Pixels a slab of the kernel walks for images of HW pixels and a
+    grid of `blocks` blocks: whole images (at most SLAB_IMAGES) whose
+    cells fit in SLAB_CELLS and the blocks' STASH pixels each; an image
+    larger than that is cut into slabs of that many pixels."""
+    cap = min(SLAB_CELLS, blocks * STASH)
+    if HW <= cap:
+        return min(SLAB_IMAGES, cap // HW) * HW
+    return cap
+
+
+def slabs(M: int, HW: int, S: int):
+    """The kernel's slabs over the call's M * HW pixels, image-major:
+    [(first pixel, end), ...] of S pixels each, the last shorter."""
+    return [(g, min(g + S, M * HW)) for g in range(0, M * HW, S)]
+
+
+def compact_plain(idx: torch.Tensor, S: int, blocks: int) -> torch.Tensor:
+    """The kernel's compaction of the (M, H * W) pick map, in its order:
+    slab by slab, block by block (STASH pixels each), word by word, bit by
+    bit; each pick packed as (image * H * W + pixel) << 32 | point."""
+    flat = idx.reshape(-1).long()
+    out = []
+    for g0, g1 in slabs(idx.shape[0], idx.shape[1], S):
+        for b in range(blocks):
+            a = g0 + b * STASH
+            if a >= g1:
+                break
+            part = flat[a:min(a + STASH, g1)]
+            at = torch.nonzero(part != NONE).squeeze(1)
+            out.append(((at + a) << 32) | part[at])
+    return torch.cat(out) if out else flat.new_zeros(0)
+
+
+def unpack_picks(packed: torch.Tensor, H: int, W: int):
+    """(image, v, u, point) int64 of the kernel's packed picks."""
+    g = packed >> 32
+    HW = H * W
+    m = g // HW
+    lin = g - m * HW
+    v = lin // W
+    return m, v, lin - v * W, packed & 0xFFFFFFFF
+
+
+def _blocks(dev) -> int:
+    """The cooperative grid on `dev`: the kernel's resident blocks an SM
+    times the SMs."""
+    n = _BLOCKS_ON.get(dev)
+    if n is None:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = build.launcher("colorize_occupancy")(ctypes.byref(per_sm))
+        build.check("colorize_occupancy", err)
+        if per_sm.value < 1:
+            raise RuntimeError("colorize_kernel does not fit on an SM")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n = _BLOCKS_ON[dev] = sms * per_sm.value
+    return n
+
+
+def _scratch(dev, S: int, blocks: int):
+    """The kernel's empty cells (S, 16 bytes of 0xff), its bitmap (0) and
+    its blocks' counts on `dev`: made once; each launch leaves the cells
+    and the bitmap empty."""
+    buf = _SCRATCH_ON.get(dev)
+    if buf is None or buf[0].shape[0] < S or buf[2].shape[0] < blocks:
+        buf = _SCRATCH_ON[dev] = (
+            torch.full((S, 2), -1, dtype=torch.int64, device=dev),
+            torch.zeros(((S + 31) // 32,), dtype=torch.int32, device=dev),
+            torch.empty((blocks,), dtype=torch.int64, device=dev))
+    return buf
 
 
 def colorize(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -78,9 +169,9 @@ def colorize(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     points (N, 3) float64 world points; image k projects points[lo[k] :
     hi[k]] (lo, hi int64 (M,)) through Rcw[k] (3, 3), tcw[k] (3,) and the
     camera `cam`.  CPU tensors take colorize_plain; on a CUDA tensor the
-    kernel runs or this raises.  A window outside the points raises.  The
-    picks' count is read back once (the compaction), so a call
-    synchronizes."""
+    kernel runs or this raises.  A window outside the points raises.  On
+    the card the call reads the pick count and the kernel's status back
+    once, so it synchronizes once."""
     dev = points.device
     if dev.type == "cpu":
         _check_windows(lo, hi, points.shape[0])
@@ -90,7 +181,8 @@ def colorize(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     if points.dim() != 2 or points.shape[1] != 3 \
             or points.dtype != torch.float64 or not points.is_contiguous():
         raise ValueError("points must be a contiguous (N, 3) float64 tensor")
-    if points.shape[0] >= NONE:
+    N = points.shape[0]
+    if N >= NONE:
         raise ValueError("colorize takes fewer than 2^31 - 1 points")
     M = lo.shape[0]
     for t, what in ((lo, "lo"), (hi, "hi")):
@@ -98,31 +190,42 @@ def colorize(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"{what} must be a contiguous (M,) int64 tensor "
                              f"on the points' device")
-    _check_windows(lo, hi, points.shape[0])
     H, W = int(cam.height), int(cam.width)
+    if M * H * W >= 2 ** 32:
+        raise ValueError("colorize takes fewer than 2^32 pixels a call")
     cams = _cams(Rcw, tcw, dev)
     if cams.shape != (M, 12):
         raise ValueError(f"Rcw must be ({M}, 3, 3) and tcw ({M}, 3)")
-    idx = torch.empty((M, H * W), dtype=torch.int32, device=dev)
-    if M:
-        zbits = torch.empty((M, H * W), dtype=torch.int64, device=dev)
-        # a window holds at most every point: the grid needs no read of
-        # lo, hi (blocks past a window's end return)
-        max_n = points.shape[0]
-        launch = build.launcher("colorize")
-        with torch.cuda.device(dev):
-            err = launch(ctypes.c_void_p(points.data_ptr()),
-                         ctypes.c_void_p(lo.data_ptr()),
-                         ctypes.c_void_p(hi.data_ptr()),
-                         ctypes.c_void_p(cams.data_ptr()), M, max_n,
-                         *_intrinsics(cam), W, H,
-                         ctypes.c_void_p(zbits.data_ptr()),
-                         ctypes.c_void_p(idx.data_ptr()),
-                         ctypes.c_void_p(torch.cuda.current_stream(dev)
-                                         .cuda_stream))
-        build.check("colorize", err)
-        LAUNCHES["colorize"] += 1
-    return _picks(idx, W)
+    blocks = _blocks(dev) if M else 1
+    S = slab_pixels(H * W, blocks) if H * W else STASH
+    cells, words, counts = _scratch(dev, S, blocks)
+    # at most one pick a pixel and a window point
+    cap = max(1, M * min(H * W, N))
+    packed = torch.empty((cap,), dtype=torch.int64, device=dev)
+    meta = torch.empty((2,), dtype=torch.int64, device=dev)
+    launch = build.launcher("colorize")
+    with torch.cuda.device(dev):
+        err = launch(ctypes.c_void_p(points.data_ptr()), N,
+                     ctypes.c_void_p(lo.data_ptr()),
+                     ctypes.c_void_p(hi.data_ptr()),
+                     ctypes.c_void_p(cams.data_ptr()), M,
+                     *_intrinsics(cam), W, H, S, blocks,
+                     ctypes.c_void_p(cells.data_ptr()),
+                     ctypes.c_void_p(words.data_ptr()),
+                     ctypes.c_void_p(counts.data_ptr()),
+                     ctypes.c_void_p(packed.data_ptr()), cap,
+                     ctypes.c_void_p(meta.data_ptr()),
+                     ctypes.c_void_p(torch.cuda.current_stream(dev)
+                                     .cuda_stream))
+    build.check("colorize", err)
+    LAUNCHES["colorize"] += 1
+    n, status = meta.tolist()      # the call's one read back
+    if status & 1:
+        raise ValueError(f"colorize: each window [lo, hi) must lie in "
+                         f"[0, {N}] with lo <= hi")
+    if status:
+        raise RuntimeError(f"colorize: kernel status {status}")
+    return unpack_picks(packed[:n], H, W)
 
 
 # ---------------------------------------------------------------------------

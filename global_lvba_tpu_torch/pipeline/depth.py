@@ -30,7 +30,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from .. import native
+from .. import native, resolve_device
 from ..geometry.camera import CameraModel
 from ..map.voxelize import _argsort_keys, pack_voxel_keys
 from ..native import runtime
@@ -168,17 +168,17 @@ def render_depth_maps(
     tcw_all: np.ndarray,
     half_w: float = HALF_W,
     workers: int = 4,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
-    """Depth maps (M, H, W) float32 for all images: on a CUDA device
-    through the card's z-buffer (_render_zbuffer), on the CPU an image at
-    a time through _zbuffer_host.  Images are independent; a small thread
-    pool overlaps the host work (sorts and ufuncs release the GIL)."""
-    import torch
-
-    if torch.device(device).type == "cuda":
+    """Depth maps (M, H, W) float32 for all images: on the card (the
+    default; resolve_device raises where there is none) through its
+    z-buffer (_render_zbuffer), with device="cpu" an image at a time
+    through _zbuffer_host.  Images are independent; a small thread pool
+    overlaps the host work (sorts and ufuncs release the GIL)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
         return _render_zbuffer(cam, gm, lidar_times, image_times, Rcw_all,
-                               tcw_all, half_w, workers, device)
+                               tcw_all, half_w, workers, dev)
     M = len(image_times)
     out = np.zeros((M, cam.height, cam.width), dtype=np.float32)
 

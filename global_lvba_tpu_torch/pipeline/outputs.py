@@ -32,6 +32,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import resolve_device
 from ..geometry.camera import CameraModel
 from ..io.image import (_PNG_SIGNATURE, _png_chunk, imwrite_jpeg, imwrite_png,
                         read_png)
@@ -114,22 +115,23 @@ def colorize_clouds(
     images,          # per image (H, W, 3) BGR uint8, or a (M, H, W, 3) tensor
     Rcw: np.ndarray, tcw: np.ndarray,
     half_w: float = 0.5,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """Merged colored world cloud: per image, z-buffer the ±half_w-window
     LiDAR points and take each pixel's nearest point with its image color
     (VisualizeOptComparison, lvba_system.cpp:2033-2069).
 
     The world transform and the windows are the JAX package's numpy; the
-    z-buffer of every image is one colorize launch on `device` (its plain
-    version on the CPU), the same rows in the same order.  `images` may be
-    a uint8 tensor on `device` already (an export uploads its images
-    once).  Returns (N, 6) float32: xyz + rgb (0-255)."""
+    z-buffer of every image is one colorize launch on `device` (the card
+    by default: resolve_device raises where there is none; its plain
+    version with device="cpu"), the same rows in the same order.  `images`
+    may be a uint8 tensor on `device` already (an export uploads its
+    images once).  Returns (N, 6) float32: xyz + rgb (0-255)."""
     import torch
 
     from ..kernels.colorize import colorize
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     # world-transform every frame ONCE; per image the ±half_w window is a
     # contiguous slice of the concatenated array (lidar_times sorted)
     F = len(clouds)
@@ -314,24 +316,29 @@ def save_track_feature_images(
         imwrite_png(out_dir / name, cv.finish())
 
 
-def undistort_images(cam: CameraModel, images, device="cpu"):
+def undistort_images(cam: CameraModel, images, device="cuda"):
     """The images (M, H, W, 3) BGR uint8 (a stack or a tensor) undistorted
     with the same-intrinsics rectify map in one undistort launch on
-    `device` (its plain version on the CPU): a uint8 tensor on `device`."""
+    `device` (the card by default: resolve_device raises where there is
+    none; its plain version with device="cpu"): a uint8 tensor on
+    `device`."""
     import torch
 
     from ..kernels.undistort import undistort
 
+    dev = resolve_device(device)
     if not torch.is_tensor(images):
         images = torch.from_numpy(np.ascontiguousarray(np.stack(images)))
-    return undistort(images.to(device).contiguous(), cam)
+    return undistort(images.to(dev).contiguous(), cam)
 
 
-def undistort_image(cam: CameraModel, img: np.ndarray) -> np.ndarray:
+def undistort_image(cam: CameraModel, img: np.ndarray,
+                    device="cuda") -> np.ndarray:
     """Undistort with the same-intrinsics rectify map
     (DatasetIO::undistortImage, dataset_io.cpp:15-26): cv2's
-    initUndistortRectifyMap + remap(INTER_LINEAR) bit for bit."""
-    return undistort_images(cam, img[None])[0].numpy()
+    initUndistortRectifyMap + remap(INTER_LINEAR) bit for bit, on
+    `device` (as undistort_images)."""
+    return undistort_images(cam, img[None], device)[0].cpu().numpy()
 
 
 def draw_matches(

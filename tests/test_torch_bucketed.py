@@ -222,12 +222,22 @@ def test_chain_entries_tile(V, K, want):
 def test_chain_entries_limits_reach_the_kernel(monkeypatch):
     """soa_chain.cu takes the limits chain_entries_tile works within from
     kernels/soa.py through the build's -D flags, and a changed limit
-    rebuilds the library."""
+    rebuilds the library; zbuffer.cu and colorize.cu take theirs from
+    their wrappers' modules the same way, the other sources none."""
+    from global_lvba_tpu_torch.kernels import colorize, zbuffer
+
     flags = build._defines("soa_chain")
     assert f"-DLVBA_CHAIN_MAX_TILE={soa.CHAIN_MAX_TILE}" in flags
     assert f"-DLVBA_CHAIN_MAX_ENTRIES={soa.CHAIN_MAX_ENTRIES}" in flags
+    assert build._defines("zbuffer") == (
+        f"-DLVBA_ZBUF_PIECE={zbuffer.PIECE}",
+        f"-DLVBA_ZBUF_CHUNK={zbuffer.CHUNK}")
+    assert build._defines("colorize") == (
+        f"-DLVBA_COLORIZE_THREADS={colorize.THREADS}",
+        f"-DLVBA_COLORIZE_STASH={colorize.STASH}",
+        f"-DLVBA_COLORIZE_SLAB_IMAGES={colorize.SLAB_IMAGES}")
     assert all(build._defines(n) == () for n in build.SOURCES
-               if n != "soa_chain")
+               if n not in ("soa_chain", "zbuffer", "colorize"))
     src = (build.CSRC / "soa_chain.cu").read_text()
     assert "kMaxTile = LVBA_CHAIN_MAX_TILE;" in src
     assert "kEntryThreads = LVBA_CHAIN_MAX_ENTRIES;" in src

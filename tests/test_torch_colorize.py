@@ -58,7 +58,7 @@ def _problem(seed, F=12, M=5, ppf=3000):
 def test_colorize_clouds_matches_jax(seed):
     args = _problem(seed)
     before = launch_counts()["colorize"]
-    got = outputs.colorize_clouds(CAM, *args)
+    got = outputs.colorize_clouds(CAM, *args, device="cpu")
     assert launch_counts()["colorize"] == before
     want = jout.colorize_clouds(jcamera.CameraModel(*CAM), *args)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -106,3 +106,48 @@ def test_window_outside_the_points_raises(lo, hi):
         ck.colorize(torch.zeros((3, 3), dtype=torch.float64),
                     torch.tensor([0, lo]), torch.tensor([3, hi]),
                     np.stack([np.eye(3)] * 2), np.zeros((2, 3)), CAM)
+
+
+@pytest.mark.parametrize("H,W,M,blocks", [
+    (512, 640, 48, 264), (60, 80, 150, 264), (2000, 2800, 3, 264),
+    (512, 640, 5, 2), (1, 1, 7, 1), (96, 128, 0, 264)])
+def test_slabs_cover_every_image_once(H, W, M, blocks):
+    """The kernel's slab plan: slabs tile the call's pixels in order; each
+    fits the L2 budget, the blocks' pixels and SLAB_IMAGES images; an
+    image that fits a slab lies in exactly one, a larger one is cut into
+    consecutive slabs."""
+    HW = H * W
+    S = ck.slab_pixels(HW, blocks)
+    assert 0 < S <= min(ck.SLAB_CELLS, blocks * ck.STASH)
+    assert S <= ck.SLAB_IMAGES * HW
+    sl = ck.slabs(M, HW, S)
+    assert [a for a, _ in sl] == list(range(0, M * HW, S))
+    assert sl == [] or (sl[-1][1] == M * HW and all(
+        b == a2 for (_, b), (a2, _) in zip(sl, sl[1:])))
+    for m in range(M):
+        holds = [k for k, (a, b) in enumerate(sl)
+                 if a < (m + 1) * HW and b > m * HW]
+        if HW <= S:
+            assert len(holds) == 1 and S % HW == 0
+        else:
+            assert holds == list(range(holds[0], holds[0] + len(holds)))
+            assert len(holds) >= 2
+
+
+@pytest.mark.parametrize("H,W,S,blocks", [
+    (12, 16, 2 * 192, 3), (12, 16, ck.STASH, 1), (100, 120, ck.STASH, 2)])
+def test_compaction_order_equals_picks(H, W, S, blocks):
+    """compact_plain (the kernel's compaction: slab, block, word, bit) and
+    unpack_picks give _picks' rows in _picks' order, with points picked at
+    several pixels, an image with no pick and images cut across slabs."""
+    rng = np.random.default_rng(H + S)
+    M = 5
+    idx = torch.full((M, H * W), ck.NONE, dtype=torch.int32)
+    hit = torch.as_tensor(rng.random((M, H * W)) < 0.3)
+    idx[hit] = torch.as_tensor(rng.integers(0, 50, int(hit.sum())),
+                               dtype=torch.int32)
+    idx[2] = ck.NONE
+    packed = ck.compact_plain(idx, S, blocks)
+    assert packed.dtype == torch.int64
+    for got, want in zip(ck.unpack_picks(packed, H, W), ck._picks(idx, W)):
+        assert torch.equal(got, want)

@@ -9,8 +9,10 @@ included); the undistortion (csrc/undistort.cu) bit for bit its plain
 version on the card and on the CPU, at the example configuration's
 camera and on random maps; the colorization's z-buffer (csrc/colorize.cu)
 bit for bit its plain version with planted equal-depth ties, an empty
-window and points behind the camera.  A CPU tensor takes the plain
-version and counts no launch."""
+window and points behind the camera, on images cut into slabs and on a
+slab of many small images, and a window outside the points raising from
+the kernel's status; the z-buffer's cull equal to its plain mirror.  A
+CPU tensor takes the plain version and counts no launch."""
 
 import numpy as np
 import pytest
@@ -61,6 +63,44 @@ def test_zbuffer_kernel_matches_plain(card):
 
 
 @pytest.mark.cuda
+def test_zbuffer_kernel_culls_as_its_mirror(card):
+    """Points around the camera (half behind it) in voxel-like ranges,
+    some longer than a piece: the maps bitwise the plain version's, and
+    the kernel's kept (piece, image) pairs and their points equal the
+    cull's plain mirror (cull_pairs), which removes some."""
+    cam = CameraModel(**CAM)
+    rng = np.random.default_rng(9)
+    n = 400_000
+    pts = rng.uniform(-10, 10, size=(n, 3)).astype(np.float32)
+    order = np.lexsort((pts[:, 2], (pts[:, 0] // 2.5) * 8
+                        + pts[:, 1] // 2.5))
+    pts = np.ascontiguousarray(pts[order])
+    cuts = np.unique(np.concatenate([[0], rng.integers(1, n, 150), [n]]))
+    starts = cuts[:-1].astype(np.int64)
+    counts = np.diff(cuts).astype(np.int32)
+    keep = [np.flatnonzero(rng.random(starts.shape[0]) < f)
+            for f in (0.9, 0.5, 0.0, 1.0)]
+    offsets = np.concatenate([[0], np.cumsum([k.size for k in keep])])
+    sel = np.concatenate(keep)
+    R = np.stack([Rotation.from_rotvec([0.3 * i, 0.1, -0.2 * i]).as_matrix()
+                  for i in range(4)])
+    t = rng.normal(size=(4, 3))
+    host = (pts, starts[sel], counts[sel], offsets, R, t)
+    args = [torch.as_tensor(a).to(card) for a in host]
+    stats = torch.zeros(2, dtype=torch.int64, device=card)
+    a = zb.zbuffer(*args, cam, stats=stats)
+    ref = zb.zbuffer_plain(*args, cam)
+    torch.cuda.synchronize()
+    assert torch.equal(a, ref) and (a > 0).sum() > 1000
+    pc = zb.range_pieces(zb.transpose_ranges(*args[1:4]))
+    piece, _, kept = zb.cull_pairs(args[0], pc, args[4], args[5])
+    assert 0 < int(kept.sum()) < kept.numel()
+    assert stats.tolist() == [int(kept.sum()), int(
+        pc.count.long()[piece[kept]].sum())]
+    assert int(pc.count.max()) == zb.PIECE
+
+
+@pytest.mark.cuda
 def test_undistort_kernel_matches_plain(card):
     cam = CameraModel(fx=1293.56944, fy=1293.3155, cx=626.91359,
                       cy=522.799224, k1=-0.07616, k2=0.123001, p1=-0.00113,
@@ -108,3 +148,41 @@ def test_colorize_kernel_matches_plain(card):
     assert launch_counts()["colorize"] == before + 2
     for x, y in zip(cpu, a):
         assert torch.equal(x, y.cpu())
+
+
+@pytest.mark.cuda
+def test_colorize_kernel_slabs_and_windows(card):
+    """Images larger than a slab (cut mid-image) and many small images
+    (a slab of SLAB_IMAGES) bitwise the plain version; a window outside
+    the points raises the plain version's ValueError from the kernel's
+    status, and the next call is right again (the cells left empty)."""
+    rng = np.random.default_rng(21)
+    n = 150_000
+    pts = rng.uniform(-6, 6, size=(n, 3))
+    pts[:, 2] = rng.uniform(0.5, 25, size=n)
+    pts[5000:9000] = pts[:4000]
+    for cam, M in ((CameraModel(fx=900.0, fy=900.0, cx=1400.0, cy=1000.0,
+                                k1=-0.05, k2=0.08, p1=-0.001, p2=0.0005,
+                                width=2800, height=2000), 3),
+                   (CameraModel(fx=60.0, fy=60.0, cx=40.0, cy=30.0,
+                                k1=-0.05, k2=0.08, p1=-0.001, p2=0.0005,
+                                width=80, height=60), 150)):
+        lo = np.sort(rng.integers(0, n, M)).astype(np.int64)
+        hi = np.minimum(lo + rng.integers(0, 60_000, M), n).astype(np.int64)
+        R = np.stack([Rotation.from_rotvec(rng.normal(size=3) * 0.1)
+                      .as_matrix() for _ in range(M)])
+        t = rng.normal(size=(M, 3)) * 0.1
+        args = [torch.as_tensor(a).to(card) for a in (pts, lo, hi)]
+        a = ck.colorize(*args, R, t, cam)
+        ref = ck.colorize_plain(*args, R, t, cam)
+        for x, y in zip(a, ref):
+            assert torch.equal(x, y)
+        assert a[0].numel() > 1000
+        bad = hi.copy()
+        bad[M // 2] = n + 1
+        with pytest.raises(ValueError, match="window"):
+            ck.colorize(args[0], args[1], torch.as_tensor(bad).to(card), R,
+                        t, cam)
+        again = ck.colorize(*args, R, t, cam)
+        for x, y in zip(again, ref):
+            assert torch.equal(x, y)

@@ -193,7 +193,7 @@ class TestColorize:
         img[:, :] = (255, 128, 64)  # BGR
         args = (clouds, np.array([0.0]), np.eye(3)[None], np.zeros((1, 3)),
                 np.array([0.0]), [img], np.eye(3)[None], np.zeros((1, 3)))
-        out = outputs.colorize_clouds(CAM, *args)
+        out = outputs.colorize_clouds(CAM, *args, device="cpu")
         ref = jout.colorize_clouds(JCAM, *args)
         assert out.dtype == ref.dtype and np.array_equal(out, ref)
         assert out.shape[0] == 2
@@ -220,7 +220,7 @@ class TestColorize:
         Rcw = np.tile(np.eye(3), (3, 1, 1))
         tcw = rng.normal(scale=0.05, size=(3, 3))
         args = (clouds, lt, Rb, pb, it, imgs, Rcw, tcw)
-        out = outputs.colorize_clouds(cam, *args)
+        out = outputs.colorize_clouds(cam, *args, device="cpu")
         ref = jout.colorize_clouds(jcamera.CameraModel(*cam), *args)
         assert out.shape[0] > 100 and np.array_equal(out, ref)
 
@@ -305,7 +305,7 @@ class TestOverlays:
 def test_undistort_image_matches_jax():
     img = np.random.default_rng(6).integers(0, 256, (96, 128, 3)).astype(
         np.uint8)
-    got = outputs.undistort_image(DIST, img)
+    got = outputs.undistort_image(DIST, img, device="cpu")
     want = jout.undistort_image(jcamera.CameraModel(*DIST), img)
     assert got.dtype == want.dtype and np.array_equal(got, want)
 

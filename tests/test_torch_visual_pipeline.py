@@ -129,7 +129,7 @@ def test_grid_map_and_depth_match_jax(scene):
                                         sc.p_true[jsc.image_frame])
     assert np.array_equal(Rcw, Rj) and np.array_equal(tcw, tj)
     maps = depth.render_depth_maps(tsc.cam, gt, sc.times, jsc.image_times,
-                                   Rcw, tcw)
+                                   Rcw, tcw, device="cpu")
     for i, t_img in enumerate(jsc.image_times):
         vj = jdepth.covisible_voxels(gj, sc.times, float(t_img))
         assert np.array_equal(vj, depth.covisible_voxels(gt, sc.times,
@@ -164,7 +164,7 @@ def _fuse_inputs(scene):
                                          p_odom[jsc.image_frame])
     gm = depth.build_grid_map(clouds, sc.R_true, sc.p_true)
     maps = depth.render_depth_maps(tsc.cam, gm, sc.times, jsc.image_times,
-                                   Rcw, tcw)
+                                   Rcw, tcw, device="cpu")
     return jsc, tsc, ts, maps, Rcw, tcw
 
 

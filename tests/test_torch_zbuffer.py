@@ -17,6 +17,8 @@ card, tests/test_torch_cuda.py) is bit for bit."""
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 from scipy.spatial.transform import Rotation
 
 from global_lvba_tpu.geometry.camera import CameraModel as JCameraModel
@@ -198,7 +200,7 @@ def test_render_depth_maps_card_path_on_the_cpu(scene, monkeypatch):
     js, gm, Rcw, tcw = scene
     sc = js.lidar
     cpu = depth.render_depth_maps(js.cam, gm, sc.times, js.image_times, Rcw,
-                                  tcw)
+                                  tcw, device="cpu")
     before = launch_counts()["zbuffer"]
     calls = []
     plain = zb.zbuffer
@@ -217,3 +219,183 @@ def test_render_depth_maps_card_path_on_the_cpu(scene, monkeypatch):
         share = np.mean(np.abs(got[i] - cpu[i]) > 1e-6)
         assert share < SHARE, (i, share)
     assert (got > 0).sum() > 10_000
+
+
+def _ranges(seed, N=5000, R=40, M=7):
+    """Random CSR ranges over N points with repeated ranges, a range of no
+    points, ranges that share a start but not a count, an image with no
+    ranges and one with a range twice."""
+    rng = np.random.default_rng(seed)
+    base_s = np.sort(rng.integers(0, N - 600, size=R)).astype(np.int64)
+    base_c = rng.integers(1, 600, size=R).astype(np.int32)
+    base_c[3] = 0
+    base_s[5], base_c[5] = base_s[4], base_c[4] + 7
+    lists = [rng.choice(R, size=rng.integers(1, R), replace=False)
+             for _ in range(M)]
+    lists[2] = np.zeros(0, int)
+    lists[4] = np.concatenate([lists[4], lists[4][:1]])
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+    sel = np.concatenate(lists).astype(int)
+    return (torch.as_tensor(base_s[sel]), torch.as_tensor(base_c[sel]),
+            torch.as_tensor(offsets))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_transposed_ranges_equal_image_lists(seed):
+    """transpose_ranges: each image's multiset of ranges (start, count) is
+    its CSR list, empty images and repeats included; the keys ascend and a
+    range's images ascend; `first` opens each distinct range once."""
+    starts, counts, offsets = _ranges(seed)
+    tr = zb.transpose_ranges(starts, counts, offsets)
+    M = offsets.shape[0] - 1
+    assert tr.start.shape == starts.shape and tr.image.dtype == torch.int32
+    key = (tr.start << 32) | tr.count
+    assert bool((key[1:] >= key[:-1]).all())
+    same = key[1:] == key[:-1]
+    assert bool((tr.image[1:][same] >= tr.image[:-1][same]).all())
+    assert tr.first.tolist() == [True] + (~same).tolist()
+    for m in range(M):
+        lo, hi = int(offsets[m]), int(offsets[m + 1])
+        want = sorted(zip(starts[lo:hi].tolist(), counts[lo:hi].tolist()))
+        at = tr.image == m
+        got = sorted(zip(tr.start[at].tolist(), tr.count[at].tolist()))
+        assert got == want, m
+    assert not bool((tr.image == 2).any())
+
+
+@pytest.mark.parametrize("piece", [64, zb.PIECE])
+def test_range_pieces_cover_each_range_once(piece):
+    """range_pieces: a distinct range's pieces tile its points in order,
+    each at most `piece` long (an empty range has none), and carry the
+    range's run of sorted pairs."""
+    starts, counts, offsets = _ranges(4)
+    tr = zb.transpose_ranges(starts, counts, offsets)
+    pc = zb.range_pieces(tr, piece)
+    assert int(pc.count.max()) <= piece and int(pc.count.min()) > 0
+    key = (tr.start << 32) | tr.count
+    firsts = torch.nonzero(tr.first).squeeze(1).tolist() + [key.shape[0]]
+    covered = {}
+    for p in range(pc.start.shape[0]):
+        lo, hi = int(pc.pair_lo[p]), int(pc.pair_hi[p])
+        assert lo in firsts and hi == firsts[firsts.index(lo) + 1]
+        k = int(key[lo])
+        covered.setdefault(k, []).append((int(pc.start[p]),
+                                          int(pc.count[p])))
+    for a, b in zip(firsts[:-1], firsts[1:]):
+        s, c = int(tr.start[a]), int(tr.count[a])
+        runs = covered.get(int(key[a]), [])
+        assert sum(n for _, n in runs) == c
+        at = s
+        for s_p, n in runs:
+            assert s_p == at
+            at += n
+
+
+def _behind_all(points, r, t):
+    """True where every point fails the kernel's Z gate through the Z row
+    r (3,), t (float32)."""
+    R = [torch.tensor(0.0)] * 6 + [torch.tensor(float(v)) for v in r] \
+        + [torch.tensor(0.0)] * 2 + [torch.tensor(float(t))]
+    R = [x.float() for x in R]
+    Z = zb._row(R, 2, *torch.as_tensor(points).unbind(1))
+    return bool((Z < 1e-3).all()), Z
+
+
+@settings(max_examples=300, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(rot=st.tuples(*[st.floats(-3.1, 3.1)] * 3),
+       scale=st.sampled_from([1e-3, 0.1, 1.0, 30.0, 1e4]),
+       shift=st.floats(-3.0, 3.0), ulps=st.integers(-6, 6),
+       seed=st.integers(0, 2 ** 31 - 1))
+def test_cull_never_drops_a_point_in_front(rot, scale, shift, ulps, seed):
+    """The cull's plain mirror (cull_z, the kernel's test): where it
+    culls a box, no point of the box passes Z >= 1e-3 through the float32
+    chain (_row).  Each pose puts the box's nearest point a few ulps from
+    Z = 1e-3 after a shift of up to three times the cull's margin either
+    way (about a sixth of 300 boxes are culled), the box's eight corners
+    among its points."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.uniform(-1, 1, size=(40, 3)) * scale).astype(np.float32)
+    lo, hi = pts.min(0), pts.max(0)
+    pts[:8] = [[(lo, hi)[(c >> d) & 1][d] for d in range(3)]
+               for c in range(8)]
+    r = Rotation.from_rotvec(rot).as_matrix()[2].astype(np.float32)
+    _, Z0 = _behind_all(pts, r, np.float32(0.0))
+    j = int(torch.argmax(Z0))
+    mag = float(np.maximum(np.abs(r * lo), np.abs(r * hi)).sum())
+    t = np.float32(1e-3 - float(Z0[j]) + shift * zb.CULL_MARGIN * mag)
+    for _ in range(abs(ulps)):
+        t = np.nextafter(t, np.float32(np.sign(ulps) * np.inf))
+    behind, Z = _behind_all(pts, r, t)
+    culled = bool(zb.cull_z(torch.as_tensor(r)[None], torch.tensor([t]),
+                            torch.as_tensor(lo)[None],
+                            torch.as_tensor(hi)[None])[0])
+    assert behind or not culled, (float(Z.max()), t)
+
+
+def test_cull_removes_boxes_behind_and_keeps_the_rest():
+    """cull_z culls a box wholly behind the camera, keeps one that
+    straddles Z = 1e-3 or lies in front, one seen through a NaN pose and
+    the empty box of points whose Z coordinate is all NaN (lo = +inf,
+    hi = -inf, as the kernel's fminf / fmaxf leave it)."""
+    inf = float("inf")
+    r = torch.tensor([[0.0, 0.0, 1.0]] * 5)
+    t = torch.tensor([0.0, 0.0, 0.0, float("nan"), 0.0])
+    lo = torch.tensor([[-1, -1, -5.0], [-1, -1, -1.0], [-1, -1, 2.0],
+                       [-1, -1, -5.0], [-1, -1, inf]])
+    hi = torch.tensor([[1, 1, -2.0], [1, 1, 1.0], [1, 1, 3.0],
+                       [1, 1, -2.0], [1, 1, -inf]])
+    assert zb.cull_z(r, t, lo, hi).tolist() == [True, False, False, False,
+                                                 False]
+
+
+def test_work_counts_the_cull(scene):
+    """work(): every (piece, image) pair the mirror culls has no point in
+    front; the kept pairs' points and the pairs add up; the bound's
+    operations count the kept pairs' Z rows."""
+    js, gm, Rcw, tcw = scene
+    sc = js.lidar
+    starts, counts, offsets = depth.image_ranges(gm, sc.times, js.image_times)
+    args = [torch.as_tensor(a) for a in (gm.points, starts, counts, offsets,
+                                         Rcw, tcw)]
+    w = zb.work(*args, js.cam)
+    pc = zb.range_pieces(zb.transpose_ranges(*args[1:4]))
+    piece, img, kept = zb.cull_pairs(args[0], pc, args[4], args[5])
+    assert w["pairs"] == kept.numel() and w["culled"] == int((~kept).sum())
+    assert 0 < w["culled"] < w["pairs"]
+    assert w["covisible"] == int(counts.sum())
+    cams = zb._cams(args[4], args[5], torch.device("cpu"))
+    for p, m in zip(piece[~kept].tolist(), img[~kept].tolist()):
+        s, c = int(pc.start[p]), int(pc.count[p])
+        Z = zb._row(cams[m].unbind(), 2, *args[0][s:s + c].unbind(1))
+        assert not bool((Z >= 1e-3).any())
+    assert w["ops"][1] == zb.ZBUFFER_Z_OPS[1] * w["kept_points"] + (
+        zb.ZBUFFER_OPS[1] - zb.ZBUFFER_Z_OPS[1]) * w["in_front"]
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(scene,
+                                                           monkeypatch):
+    """render_depth_maps, colorize_clouds and undistort_images run on the
+    card by default: with no card they raise, and run with
+    device="cpu"."""
+    from global_lvba_tpu_torch.pipeline import outputs
+
+    js, gm, Rcw, tcw = scene
+    sc = js.lidar
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((js.cam.height, js.cam.width, 3), np.uint8)
+    clouds = [sc.points_body[sc.frame_ids == i] for i in range(2)]
+    calls = {
+        "render_depth_maps": lambda **k: depth.render_depth_maps(
+            js.cam, gm, sc.times, js.image_times[:1], Rcw[:1], tcw[:1],
+            **k),
+        "colorize_clouds": lambda **k: outputs.colorize_clouds(
+            js.cam, clouds, sc.times[:2], sc.R_true[:2], sc.p_true[:2],
+            js.image_times[:1], [img], Rcw[:1], tcw[:1], **k),
+        "undistort_images": lambda **k: outputs.undistort_images(
+            js.cam, [img], **k),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu") is not None, name
