@@ -354,7 +354,11 @@ Slice 15, images without cv2:
      version on the card and two launches bitwise equal, a colorize call
      synchronizing once (its pick count and status read back), timed beside
      the plain version (undistort also beside grid_sample, float
-     bilinear, not the same function) and the bound (undistort: bytes at
+     bilinear, not the same function; and its other routes, each
+     bitwise in one launch: k1 = -0.4, whose corner tiles exceed the box
+     cap, at 640 x 512 by TMA and at 333 x 257 by global taps, and the
+     run's stack one byte off by global taps, timed) and the
+     bound (undistort: bytes at
      3.35 TB/s; colorize: 43 float64 operations a window point at half
      the fp64 rate), each kernel's own device time under torch.profiler.
      scripts/images_phase.py runs the phase alone.
@@ -5632,7 +5636,8 @@ def _images(torch, np, dev, kern, results, paths):
     from global_lvba_tpu_torch.kernels.colorize import (
         COLORIZE_OPS, colorize, colorize_plain)
     from global_lvba_tpu_torch.kernels.undistort import (
-        undistort, undistort_bytes, undistort_map, undistort_plain)
+        staging_route, undistort, undistort_bytes, undistort_map,
+        undistort_plain, undistort_plan)
     from global_lvba_tpu_torch.models.synthetic import write_room_dataset
     from global_lvba_tpu_torch.pipeline import system
     from global_lvba_tpu_torch.pipeline.sift_frontend import (
@@ -5781,8 +5786,53 @@ def _images(torch, np, dev, kern, results, paths):
     u_rep = bool(torch.equal(und, und2))
     u_err = float((und.int() - ref.int()).abs().max())
     del ref, und2
+    u_route = staging_route(stack)
+    u_plan = undistort_plan(cam, W, H, dev)
     u_ms, u_ahead = _timed(torch, lambda: undistort(stack, cam))
     u_plain, _ = _timed(torch, lambda: undistort_plain(stack, cam), reps=2)
+    # the kernel's other routes, each one launch bitwise its plain version:
+    # k1 = -0.4 puts corner tiles over the box cap (their taps from global
+    # memory), on the TMA route (W % 16 == 0) and on the global route (an
+    # odd width and height); phase 21's stack one byte past a 16-byte
+    # boundary takes the global route at full size, timed
+    u_paths = {}
+    strong = cam._replace(k1=-0.4)
+    off = torch.empty(stack.numel() + 16, dtype=torch.uint8, device=dev)
+    lead = (1 - off.data_ptr()) % 16
+    off = off[lead:lead + stack.numel()].view(stack.shape)
+    off.copy_(stack)
+    for tag, ucam, imgs in (
+            ("tma, tiles over the cap", strong, None),
+            ("global, tiles over the cap",
+             strong.scaled(0.5)._replace(width=333, height=257), None),
+            ("global, phase 21's stack one byte off", cam, off)):
+        if imgs is None:
+            imgs = torch.randint(
+                0, 256, (3, ucam.height, ucam.width, 3), dtype=torch.uint8,
+                device=dev, generator=torch.Generator(dev).manual_seed(21))
+        uplan = undistort_plan(ucam, ucam.width, ucam.height, dev)
+        before = launch_counts()["undistort"]
+        got = undistort(imgs, ucam)
+        launches = launch_counts()["undistort"] - before
+        ok = bool(torch.equal(got, undistort_plain(imgs, ucam)))
+        u_paths[tag] = dict(route=staging_route(imgs), bitwise=ok,
+                            launches=launches, staged=uplan.staged,
+                            tiles=int(uplan.tiles.shape[0]),
+                            box=(uplan.pitch, uplan.rows))
+        if imgs is off:
+            u_paths[tag]["ms"] = _timed(torch, lambda: undistort(off, cam))[0]
+    del off, got
+    print(f"[images] undistort's routes: phase 21's stack {u_route}, box "
+          f"{u_plan.pitch} bytes x {u_plan.rows} rows, {u_plan.staged} of "
+          f"{u_plan.tiles.shape[0]} tiles staged; {u_paths}", flush=True)
+    paths_ok = all(v["bitwise"] and v["launches"] == 1
+                   for v in u_paths.values()) and all(
+        v["staged"] < v["tiles"] for k, v in u_paths.items()
+        if "over the cap" in k)
+    if not paths_ok or {v["route"] for v in u_paths.values()} | {
+            u_route} != {"tma", "global"}:
+        _fail("[images]: an undistort route is not bitwise its plain "
+              "version in one launch, or a route did not run")
     # the nearest library call: float bilinear sampling of the same images
     # at the map's positions (grid_sample; not the same function)
     xy, frac = undistort_map(cam, W, H)
@@ -5888,7 +5938,9 @@ def _images(torch, np, dev, kern, results, paths):
                undistort=dict(bitwise=u_bit, repeat=u_rep, ms=u_ms,
                               kernel_device_ms=u_dev, plain_ms=u_plain,
                               grid_sample_ms=lib_ms, bound=u_bound,
-                              bytes=nbytes),
+                              bytes=nbytes, route=u_route,
+                              box=(u_plan.pitch, u_plan.rows),
+                              staged=u_plan.staged, routes=u_paths),
                colorize=dict(bitwise=c_bit, repeat=c_rep, ms=c_ms,
                              kernel_device_ms=c_dev, plain_ms=c_plain,
                              syncs=c_syncs,

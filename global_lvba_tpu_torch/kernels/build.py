@@ -102,7 +102,7 @@ SIGNATURES = {
                 [_P, _L, _P, _P, _P, _L, _I, _P, _P]
                 + [ctypes.c_float] * 8 + [_I] * 2 + [_P] * 3),
     "undistort": ("undistort", "lvba_undistort",
-                  [_P] * 4 + [_I] * 3 + [_P] * 2),
+                  [_P] * 5 + [_I] * 5 + [_P] * 2),
     "colorize": ("colorize", "lvba_colorize",
                  [_P, _L] + [_P] * 3 + [_I] + [ctypes.c_double] * 8
                  + [_I, _I, _L, _I] + [_P] * 4 + [_L] + [_P] * 2),
@@ -145,13 +145,23 @@ def _defines(name: str) -> tuple:
     voxels a block within them, and the aligned chain's warps a block per
     dtype, with which chain_tile sizes its grid; zbuffer.cu the points of
     a piece and the pairs of a block's chunk, with which kernels/zbuffer.py
-    cuts the ranges and counts L2's bytes; colorize.cu
+    cuts the ranges and counts L2's bytes; undistort.cu the output tile and
+    the box cap that kernels/undistort.py's tile plan
+    is made for, and the byte permutes that its tests mirror; colorize.cu
     its block, whose pixels kernels/colorize.py's slabs count on, and the
     most images of a slab."""
     if name == "zbuffer":
         from . import zbuffer
         return (f"-DLVBA_ZBUF_PIECE={zbuffer.PIECE}",
                 f"-DLVBA_ZBUF_CHUNK={zbuffer.CHUNK}")
+    if name == "undistort":
+        from . import undistort
+        return (f"-DLVBA_UNDISTORT_TILE_W={undistort.TILE_W}",
+                f"-DLVBA_UNDISTORT_TILE_H={undistort.TILE_H}",
+                f"-DLVBA_UNDISTORT_MAX_PITCH={undistort.MAX_PITCH}",
+                f"-DLVBA_UNDISTORT_MAX_ROWS={undistort.MAX_ROWS}",
+                f"-DLVBA_UNDISTORT_SEL01={undistort.SEL01:#x}",
+                f"-DLVBA_UNDISTORT_SEL2={undistort.SEL2:#x}")
     if name == "colorize":
         from . import colorize
         return (f"-DLVBA_COLORIZE_THREADS={colorize.THREADS}",

@@ -82,15 +82,17 @@ VARIANTS = {
 }
 
 
-def _build_parent(parent: Path):
-    """The earlier tree's zbuffer.cu and colorize.cu, each by one nvcc,
-    both started together: {name: bound C launcher}."""
+def _build_parent(parent: Path, signatures=None):
+    """The earlier tree's sources named in `signatures` ({source: (C name,
+    argument types)}; zbuffer.cu and colorize.cu by default), each by one
+    nvcc, all started together: {name: bound C launcher}."""
     from global_lvba_tpu_torch.kernels import build
 
+    signatures = signatures or PARENT_SIGNATURES
     OUT.mkdir(parents=True, exist_ok=True)
     csrc = parent / "global_lvba_tpu_torch" / "csrc"
     jobs = []
-    for name in PARENT_SIGNATURES:
+    for name in signatures:
         so = OUT / f"libparent_{name}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
                str(so), str(csrc / f"{name}.cu")]
@@ -103,55 +105,57 @@ def _build_parent(parent: Path):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the parent's {name}.cu:\n"
                                f"{log}")
-        cname, argtypes = PARENT_SIGNATURES[name]
+        cname, argtypes = signatures[name]
         fn = getattr(ctypes.CDLL(str(so)), cname)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = fn
     return libs
 
 
-def _build_variants():
-    """The package's zbuffer.cu with each VARIANTS change, each by one
+def _build_variants(source="zbuffer", variants=None):
+    """The package's csrc/<source>.cu with each change of `variants`
+    ({name: (old text, new text)}; VARIANTS by default), each by one
     nvcc, all started together: {name: bound C launcher}."""
     from global_lvba_tpu_torch.kernels import build
 
+    variants = VARIANTS if variants is None else variants
     OUT.mkdir(parents=True, exist_ok=True)
-    src = (build.CSRC / "zbuffer.cu").read_text()
+    src = (build.CSRC / f"{source}.cu").read_text()
     jobs = []
-    for k, (name, (old, new)) in enumerate(VARIANTS.items()):
+    for k, (name, (old, new)) in enumerate(variants.items()):
         if old not in src:
             raise RuntimeError(f"variant {name!r}: its line is not in "
-                               f"zbuffer.cu")
-        cu = OUT / f"zbuffer_variant{k}.cu"
+                               f"{source}.cu")
+        cu = OUT / f"{source}_variant{k}.cu"
         cu.write_text(src.replace(old, new))
-        so = OUT / f"libzbuffer_variant{k}.so"
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, *build._defines("zbuffer"),
+        so = OUT / f"lib{source}_variant{k}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, *build._defines(source),
                "-I", str(build.CSRC), "-o", str(so), str(cu)]
         jobs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     libs = {}
-    argtypes = build.SIGNATURES["zbuffer"][2]
+    _, cname, argtypes = build.SIGNATURES[source]
     for name, so, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log}")
-        fn = ctypes.CDLL(str(so)).lvba_zbuffer
+        fn = getattr(ctypes.CDLL(str(so)), cname)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = fn
     return libs
 
 
-def _with_launcher(fn, run):
-    """run() with the package's zbuffer launcher swapped for fn."""
+def _with_launcher(fn, run, name="zbuffer"):
+    """run() with the package's launcher `name` swapped for fn."""
     from global_lvba_tpu_torch.kernels import build
 
-    keep = build._launchers["zbuffer"]
-    build._launchers["zbuffer"] = fn
+    keep = build._launchers[name]
+    build._launchers[name] = fn
     try:
         return run()
     finally:
-        build._launchers["zbuffer"] = keep
+        build._launchers[name] = keep
 
 
 def _stream(torch):
@@ -301,9 +305,10 @@ def _same(torch, a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _sweep(torch, name, configs, plain, calls, counter):
+def _sweep(torch, name, configs, plain, calls, counter, keys=None):
     """Checks and times each configuration in turns (in order, then in
-    reverse): {config: numbers}."""
+    reverse): {config: numbers}.  `keys`: the profiler keys of its
+    kernels (KERNEL_KEYS[name] by default)."""
     import chip_smoke as cs
 
     plain_ms, ref = _plain_ms(torch, plain)
@@ -321,7 +326,8 @@ def _sweep(torch, name, configs, plain, calls, counter):
                                      else None)
         del a, b
     for c in [*configs, *reversed(list(configs))]:
-        ms, parts = _kernel_ms(torch, configs[c], KERNEL_KEYS[name], calls)
+        ms, parts = _kernel_ms(torch, configs[c], keys or KERNEL_KEYS[name],
+                               calls)
         res[c]["kernel_ms"].append(ms)
         res[c]["kernels"] = parts
         res[c]["call_ms"].append(_call_ms(torch, configs[c], calls))

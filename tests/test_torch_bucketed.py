@@ -222,9 +222,10 @@ def test_chain_entries_tile(V, K, want):
 def test_chain_entries_limits_reach_the_kernel(monkeypatch):
     """soa_chain.cu takes the limits chain_entries_tile works within from
     kernels/soa.py through the build's -D flags, and a changed limit
-    rebuilds the library; zbuffer.cu and colorize.cu take theirs from
-    their wrappers' modules the same way, the other sources none."""
-    from global_lvba_tpu_torch.kernels import colorize, zbuffer
+    rebuilds the library; zbuffer.cu, colorize.cu and undistort.cu take
+    theirs from their wrappers' modules the same way, the other sources
+    none."""
+    from global_lvba_tpu_torch.kernels import colorize, undistort, zbuffer
 
     flags = build._defines("soa_chain")
     assert f"-DLVBA_CHAIN_MAX_TILE={soa.CHAIN_MAX_TILE}" in flags
@@ -236,8 +237,15 @@ def test_chain_entries_limits_reach_the_kernel(monkeypatch):
         f"-DLVBA_COLORIZE_THREADS={colorize.THREADS}",
         f"-DLVBA_COLORIZE_STASH={colorize.STASH}",
         f"-DLVBA_COLORIZE_SLAB_IMAGES={colorize.SLAB_IMAGES}")
+    assert build._defines("undistort") == (
+        f"-DLVBA_UNDISTORT_TILE_W={undistort.TILE_W}",
+        f"-DLVBA_UNDISTORT_TILE_H={undistort.TILE_H}",
+        f"-DLVBA_UNDISTORT_MAX_PITCH={undistort.MAX_PITCH}",
+        f"-DLVBA_UNDISTORT_MAX_ROWS={undistort.MAX_ROWS}",
+        f"-DLVBA_UNDISTORT_SEL01={undistort.SEL01:#x}",
+        f"-DLVBA_UNDISTORT_SEL2={undistort.SEL2:#x}")
     assert all(build._defines(n) == () for n in build.SOURCES
-               if n not in ("soa_chain", "zbuffer", "colorize"))
+               if n not in ("soa_chain", "zbuffer", "colorize", "undistort"))
     src = (build.CSRC / "soa_chain.cu").read_text()
     assert "kMaxTile = LVBA_CHAIN_MAX_TILE;" in src
     assert "kEntryThreads = LVBA_CHAIN_MAX_ENTRIES;" in src

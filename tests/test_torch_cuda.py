@@ -6,9 +6,10 @@ skip without one).  No JAX here: the card's machine has none.
 The z-buffer (csrc/zbuffer.cu) bit for bit its plain version, twice, on
 seeded points and ranges (empty ranges and an image with none
 included); the undistortion (csrc/undistort.cu) bit for bit its plain
-version on the card and on the CPU, at the example configuration's
-camera and on random maps; the colorization's z-buffer (csrc/colorize.cu)
-bit for bit its plain version with planted equal-depth ties, an empty
+version on the card and on the CPU on both routes (TMA boxes, global
+taps), with tiles over the box cap, at the example configuration's
+camera, a strongly distorted one and on random maps; the colorization's
+z-buffer (csrc/colorize.cu) bit for bit its plain version with planted equal-depth ties, an empty
 window and points behind the camera, on images cut into slabs and on a
 slab of many small images, and a window outside the points raising from
 the kernel's status; the z-buffer's cull equal to its plain mirror.  A
@@ -19,6 +20,7 @@ import pytest
 import torch
 from scipy.spatial.transform import Rotation
 
+from global_lvba_tpu_torch.config import LvbaConfig
 from global_lvba_tpu_torch.geometry.camera import CameraModel
 from global_lvba_tpu_torch.kernels import (
     colorize as ck, launch_counts, undistort as ud, zbuffer as zb)
@@ -100,22 +102,91 @@ def test_zbuffer_kernel_culls_as_its_mirror(card):
     assert int(pc.count.max()) == zb.PIECE
 
 
+def _example_cam():
+    """configs/example.yaml's camera (the config's defaults)."""
+    cm = LvbaConfig().cam_model
+    return CameraModel(fx=cm.cam_fx, fy=cm.cam_fy, cx=cm.cam_cx, cy=cm.cam_cy,
+                       k1=cm.cam_d0, k2=cm.cam_d1, p1=cm.cam_d2, p2=cm.cam_d3,
+                       width=cm.cam_width, height=cm.cam_height)
+
+
+def _random_map(seed, H, W):
+    """A map near the identity (taps off every border), every fraction,
+    and three tiles with one tap anywhere (boxes over the cap)."""
+    rng = np.random.default_rng(seed)
+    jj, ii = np.meshgrid(np.arange(W), np.arange(H))
+    x = jj + rng.integers(-2, 3, (H, W))
+    y = ii + rng.integers(-2, 3, (H, W))
+    ty, tx = -(-H // ud.TILE_H), -(-W // ud.TILE_W)
+    for t in rng.choice(ty * tx, 3, replace=False):
+        i = (t // tx) * ud.TILE_H + rng.integers(0, min(ud.TILE_H, H))
+        j = (t % tx) * ud.TILE_W + rng.integers(0, min(ud.TILE_W, W))
+        i, j = min(i, H - 1), min(j, W - 1)
+        x[i, j] = W + 1 if x[i, j] < W // 2 else -3
+        y[i, j] = H + 1 if y[i, j] < H // 2 else -3
+    xy = np.stack([x, y], -1).astype(np.int16)
+    frac = rng.permutation(np.arange(H * W) % 1024).reshape(H, W)
+    return xy, frac.astype(np.int16)
+
+
+# (camera or random map (seed, H, W), images, route, tiles over the cap,
+# the stack's first byte past a 16-byte boundary)
+UNDISTORT_CASES = {
+    "example-0.5": (_example_cam().scaled(0.5), 5, "tma", False, 0),
+    "odd": (_example_cam().scaled(0.25)._replace(
+        width=321, height=241, cx=160.2, cy=120.7), 3, "global", False, 0),
+    "strong": (_example_cam().scaled(0.5)._replace(k1=-0.4), 4, "tma", True,
+               0),
+    "strong-odd": (_example_cam().scaled(0.25)._replace(
+        k1=-0.4, width=333, height=257), 4, "global", True, 0),
+    "one-image": (_example_cam().scaled(0.5), 1, "tma", False, 0),
+    "13-images": (_example_cam().scaled(0.5), 13, "tma", False, 0),
+    "unaligned-base": (_example_cam().scaled(0.5), 3, "global", False, 1),
+    "random-16": ((5, 24, 272), 6, "tma", True, 0),
+    "random-odd": ((4, 45, 301), 6, "global", True, 3),
+}
+
+
 @pytest.mark.cuda
-def test_undistort_kernel_matches_plain(card):
-    cam = CameraModel(fx=1293.56944, fy=1293.3155, cx=626.91359,
-                      cy=522.799224, k1=-0.07616, k2=0.123001, p1=-0.00113,
-                      p2=0.000251, width=1280, height=1024).scaled(0.5)
+@pytest.mark.parametrize("case", list(UNDISTORT_CASES))
+def test_undistort_kernel_matches_plain(card, case):
+    """Each route (TMA for W % 16 == 0 on a 16-byte aligned stack, global
+    taps otherwise: an odd width, a stack one byte past the boundary),
+    with and without tiles over the box cap, one image and an image count
+    that the blocks' runs do not divide: bitwise the plain version, twice,
+    one launch a call; a CPU tensor takes the plain version."""
+    src, n, route, over_cap, offset = UNDISTORT_CASES[case]
+    if isinstance(src, CameraModel):
+        H, W = src.height, src.width
+        plan = ud.undistort_plan(src, W, H, card)
+        run = lambda x: ud.undistort(x, src)
+        plain = lambda x: ud.undistort_plain(x, src)
+    else:
+        _, H, W = src
+        xy, frac = _random_map(*src)
+        plan = ud.remap_plan(xy, frac, card)
+        run = lambda x: (ud.remap(x, plan) if x.is_cuda else ud.remap_plain(
+            x, torch.from_numpy(xy), torch.from_numpy(frac)))
+        plain = lambda x: ud.remap_plain(x, *(torch.as_tensor(a).to(x.device)
+                                              for a in (xy, frac)))
+    assert (plan.staged < plan.tiles.shape[0]) == over_cap
     rng = np.random.default_rng(11)
-    host = rng.integers(0, 256, (5, cam.height, cam.width, 3), np.uint8)
-    imgs = torch.as_tensor(host).to(card)
+    host = rng.integers(0, 256, (n, H, W, 3), np.uint8)
+    buf = torch.empty(host.size + 16, dtype=torch.uint8, device=card)
+    lead = (offset - buf.data_ptr()) % 16
+    imgs = buf[lead:lead + host.size].view(host.shape)
+    imgs.copy_(torch.as_tensor(host))
+    assert imgs.data_ptr() % 16 == offset
+    assert ud.staging_route(imgs) == route
     before = launch_counts()["undistort"]
-    a = ud.undistort(imgs, cam)
-    b = ud.undistort(imgs, cam)
-    ref = ud.undistort_plain(imgs, cam)
+    a = run(imgs)
+    assert launch_counts()["undistort"] == before + 1
+    b = run(imgs)
+    ref = plain(imgs)
     torch.cuda.synchronize()
     assert launch_counts()["undistort"] == before + 2
     assert torch.equal(a, b) and torch.equal(a, ref)
-    cpu = ud.undistort(torch.as_tensor(host), cam)
+    cpu = run(torch.as_tensor(host))
     assert launch_counts()["undistort"] == before + 2
     assert torch.equal(cpu, a.cpu())
 
