@@ -334,11 +334,19 @@ Slice 15, images without cv2:
      tracks; phase 10's sweep on a 0.6 m circle turns a ray by about 1
      degree a view; texture 32 cycles/m), written with the port's writers as colour PNGs
      whose three channels are different functions of the render, every
-     8th view a 24-bit BMP, with 96 LiDAR frames of 10,000 points under
-     perturbed odometry and cfg.yaml at the reference scale 0.5, the
-     COLMAP export on and no match.db, under build/images_smoke/
-     (removed after).  Each file decoded by the port equals the array
-     written (decode ms per PNG and per BMP, resize ms).  Then
+     8th view a 24-bit BMP, of the others every 3rd a baseline JPEG (the
+     port's encode_jpeg: quality 95, 4:2:0; 14 views) and view 0 an
+     Adam7-interlaced PNG (tests/png_writer.py), with 96 LiDAR frames of
+     10,000 points under perturbed odometry and cfg.yaml at the
+     reference scale 0.5, the COLMAP export on and no match.db, under
+     build/images_smoke/ (removed after).  Each PNG and BMP decoded by
+     the port equals the array written (the Adam7 one too), each JPEG
+     lies within PSNR 40 dB of it and decodes twice bitwise alike; the
+     committed cv2 fixtures (tests/data/images/*, decodes.npz: progressive,
+     4:2:2, 4:1:1, restart-interval, gray and EXIF-6 JPEGs, a 16-bit Adam7
+     PNG) decode bit for bit as cv2 decoded them; decode ms per JPEG
+     (colour and gray), per Adam7 PNG, per PNG and per BMP at 1280 x
+     1024, resize ms.  Then
      LvbaSystem.run_full_pipeline(images=[resize_linear(imread_color(p),
      640, 512) ...]) on the card with the launch counts set to 0 just
      before: top2_similarity (the SIFT fallback from the files), the
@@ -5151,6 +5159,9 @@ IMAGES_TEXTURE = 32.0      # cycles/m: phase 10's 16 at its 4 m, here at 2 m
 IMAGES_FRAMES = 96
 IMAGES_PPF = 10000
 IMAGES_BMP_EVERY = 8
+IMAGES_JPEG_EVERY = 3      # of the views not BMP: 14 of the 48
+IMAGES_JPEG_PSNR_DB = 40.0  # a JPEG view against the array encoded
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGES_SETTINGS = {
     "window_ba": dict(size=6, anchor_leaf_size=0.02, use_window_ba_rel=True),
     "BALM_stage1": dict(root_voxel_size=1.0, eigen_ratio_array=[0.2] * 4),
@@ -5613,6 +5624,20 @@ def _pcd_points(path) -> int:
     return -1
 
 
+def _image_fixtures(np):
+    """The committed cv2 fixtures decoded by the port: {file: bit for bit
+    cv2's colour and gray decodes}."""
+    from global_lvba_tpu_torch.io.image import imread_color, imread_gray
+
+    ref = np.load(IMAGE_FIXTURES / "decodes.npz")
+    names = sorted({k.split(":")[0] for k in ref.files})
+    return {name: bool(
+        np.array_equal(imread_color(IMAGE_FIXTURES / name),
+                       ref[f"{name}:color"])
+        and np.array_equal(imread_gray(IMAGE_FIXTURES / name),
+                           ref[f"{name}:gray"])) for name in names}
+
+
 def _images(torch, np, dev, kern, results, paths):
     """Phase 21, [images]: the box room as a dataset of image files with no
     COLMAP db under build/images_smoke/ (removed after), decoded by the
@@ -5630,7 +5655,7 @@ def _images(torch, np, dev, kern, results, paths):
         SiftParams, extract_sift_batch)
     from global_lvba_tpu_torch.geometry.camera import CameraModel
     from global_lvba_tpu_torch.io.image import (
-        encode_jpeg, imread_color, resize_linear)
+        encode_jpeg, imread_color, imread_gray, resize_linear)
     from global_lvba_tpu_torch.kernels import (
         launch_counts, reset_launch_counts)
     from global_lvba_tpu_torch.kernels.colorize import (
@@ -5643,6 +5668,9 @@ def _images(torch, np, dev, kern, results, paths):
     from global_lvba_tpu_torch.pipeline.sift_frontend import (
         load_gray_image, match_and_compact)
 
+    sys.path.insert(0, str(IMAGE_FIXTURES.parents[1]))
+    from png_writer import png  # the tests' writer: the port writes no Adam7
+
     rec = results["images"] = {}
     cm = LvbaConfig().cam_model
     cam_full = CameraModel(fx=cm.cam_fx, fy=cm.cam_fy, cx=cm.cam_cx,
@@ -5651,40 +5679,71 @@ def _images(torch, np, dev, kern, results, paths):
                            height=cm.cam_height)
     work = Path(__file__).resolve().parent / "build" / "images_smoke"
     shutil.rmtree(work, ignore_errors=True)
-    t0 = time.time()
+    phase_t0 = t0 = time.time()
     cfg_path, bgr, sc, _ = write_room_dataset(
         work / "dataset", cam_full, cm.scale, IMAGES_VIEWS, IMAGES_FRAMES,
         IMAGES_PPF, seed=5, bmp_every=IMAGES_BMP_EVERY,
         texture=IMAGES_TEXTURE, settings=IMAGES_SETTINGS, device=dev,
-        step=IMAGES_STEP)
+        step=IMAGES_STEP, jpeg_every=IMAGES_JPEG_EVERY)
+    # view 0 again as an Adam7 PNG
+    first = sorted((work / "dataset" / "all_image").glob("*.png"))[0]
+    first.write_bytes(png(np.ascontiguousarray(bgr[0][:, :, ::-1]), 2, 8,
+                          (1,), interlace=1))
     write_s = time.time() - t0
     cfg = LvbaConfig.from_yaml(cfg_path)
     W, H = int(cm.cam_width * cm.scale), int(cm.cam_height * cm.scale)
 
     # ---- the files decode to the arrays written; decode and resize ms ----
     files = sorted((work / "dataset" / "all_image").iterdir())
-    files = [f for f in files if f.suffix in (".png", ".bmp")]
-    dec = {".png": [], ".bmp": []}
-    decoded = []
+    files = [f for f in files if f.suffix in (".png", ".bmp", ".jpg")]
+
+    def kind(f):
+        return "adam7" if f == first else f.suffix[1:]
+
+    dec = {"png": [], "adam7": [], "bmp": [], "jpg": [], "jpg_gray": []}
+    decoded, psnr, jpeg_twice = [], [], True
     for k, f in enumerate(files):
         t0 = time.perf_counter()
         img = imread_color(f)
-        dec[f.suffix].append((time.perf_counter() - t0) * 1e3)
+        dec[kind(f)].append((time.perf_counter() - t0) * 1e3)
         decoded.append(img)
-    same_files = all(np.array_equal(a, b) for a, b in zip(decoded, bgr))
+        if f.suffix == ".jpg":
+            t0 = time.perf_counter()
+            imread_gray(f)
+            dec["jpg_gray"].append((time.perf_counter() - t0) * 1e3)
+            err = img.astype(np.float64) - bgr[k]
+            psnr.append(float(10 * np.log10(255.0 ** 2 / np.mean(err ** 2))))
+            jpeg_twice &= bool(np.array_equal(imread_color(f), img))
+    same_files = all(np.array_equal(a, b) for a, b, f in zip(
+        decoded, bgr, files) if f.suffix != ".jpg")
+    n_kind = {k: len(v) for k, v in dec.items()}
+    fixtures = _image_fixtures(np)
     t0 = time.perf_counter()
     images = [resize_linear(img, W, H) for img in decoded]
     resize_ms = (time.perf_counter() - t0) * 1e3 / len(images)
     decode = {k: float(np.mean(v)) for k, v in dec.items()}
-    print(f"[images] {len(files)} files ({len(dec['.png'])} PNG, "
-          f"{len(dec['.bmp'])} BMP) of {cam_full.width} x {cam_full.height} "
+    print(f"[images] {len(files)} files ({n_kind['png']} PNG, "
+          f"{n_kind['adam7']} Adam7 PNG, {n_kind['jpg']} JPEG, "
+          f"{n_kind['bmp']} BMP) of {cam_full.width} x {cam_full.height} "
           f"and {IMAGES_FRAMES} LiDAR frames of {IMAGES_PPF} points written "
           f"in {write_s:.1f} s (renders on the card); decode ms per PNG "
-          f"{decode['.png']:.1f}, per BMP {decode['.bmp']:.1f}; resize to "
-          f"{W} x {H} {resize_ms:.1f} ms an image; every file decodes to the "
-          f"array written: {same_files}", flush=True)
+          f"{decode['png']:.2f}, per Adam7 PNG {decode['adam7']:.2f}, per "
+          f"JPEG {decode['jpg']:.2f} (colour) and {decode['jpg_gray']:.2f} "
+          f"(gray), per BMP {decode['bmp']:.2f}; resize to {W} x {H} "
+          f"{resize_ms:.1f} ms an image; every PNG and BMP decodes to the "
+          f"array written: {same_files}; JPEG PSNR min {min(psnr):.2f} dB "
+          f"(limit {IMAGES_JPEG_PSNR_DB}), two decodes bitwise alike: "
+          f"{jpeg_twice}; the cv2 fixtures bit for bit: {fixtures}",
+          flush=True)
     if not same_files:
         _fail("[images]: a decoded file differs from the array written")
+    if not (n_kind["jpg"] >= 12 and n_kind["adam7"] == 1
+            and min(psnr) >= IMAGES_JPEG_PSNR_DB and jpeg_twice):
+        _fail("[images]: the JPEG views miss their checks, or the file mix "
+              "is not the one planned")
+    if not (fixtures and all(fixtures.values())):
+        _fail(f"[images]: a committed fixture does not decode as cv2 "
+              f"decoded it: {fixtures}")
 
     # ---- the main path: the system from the files ----
     spans = collections.defaultdict(float)
@@ -5928,7 +5987,11 @@ def _images(torch, np, dev, kern, results, paths):
                             library_ms=None, bound=c_bound,
                             queued_ahead={"ms": False},
                             kernel_device_ms=c_dev)
-    rec.update(write_s=write_s, decode_ms=decode, resize_ms=resize_ms,
+    phase_s = time.time() - phase_t0
+    print(f"[images] phase wall {phase_s:.1f} s", flush=True)
+    rec.update(write_s=write_s, decode_ms=decode, decode_counts=n_kind,
+               jpeg_psnr_db=psnr, fixtures=fixtures, phase_s=phase_s,
+               resize_ms=resize_ms,
                system_wall_s=wall, frontend_s=spans["frontend_s"],
                stages=stages, export=ex, reproj=(v.mean_reproj_pre,
                                                  v.mean_reproj_post),

@@ -1,22 +1,34 @@
-"""Image files without cv2: PNG and BMP decoding, the linear resize and
-the PNG and JPEG writers (host numpy and the native library; the port's
-own copy of what the JAX package takes from cv2's imread, resize and
-imwrite).
+"""Image files without cv2: PNG, JPEG and BMP decoding, the linear resize
+and the PNG and JPEG writers (host numpy and the native library; the
+port's own copy of what the JAX package takes from cv2's imread, resize
+and imwrite).
 
 imread_gray / imread_color give cv2.imread's pixels bit for bit
 (IMREAD_GRAYSCALE / IMREAD_COLOR, BGR uint8):
-  * PNG, every non-interlaced colour type (0, 2, 3, 4, 6) and bit depth
-    (1, 2, 4, 8, 16), as libpng transforms it for cv2: gray below 8 bits
-    scaled to 8, the palette expanded, alpha dropped, 16 bits cut to
-    their high byte, and RGB to gray with libpng's fixed-point weights
-    for 0.299 / 0.587 ((9797 R + 19234 G + 3737 B) >> 15 at 8 bits, the
-    same plus 16384 at 16 bits, before the cut).  The rows are inflated
-    with zlib and unfiltered by the native library (lvba_png_unfilter).
+  * PNG, every colour type (0, 2, 3, 4, 6) and bit depth (1, 2, 4, 8,
+    16), plain or Adam7-interlaced, as libpng transforms it for cv2: gray
+    below 8 bits scaled to 8, the palette expanded, alpha dropped, 16 bits
+    cut to their high byte, and RGB to gray with libpng's fixed-point
+    weights for 0.299 / 0.587 ((9797 R + 19234 G + 3737 B) >> 15 at 8
+    bits, the same plus 16384 at 16 bits, before the cut).  The rows are
+    inflated with zlib and unfiltered by the native library
+    (lvba_png_unfilter), an Adam7 pass at a time.
+  * JPEG: baseline, extended sequential and progressive Huffman-coded,
+    8 bits, one or three components, by the native library's
+    lvba_jpeg_decode: libjpeg-turbo's decompressor with cv2's settings
+    (islow IDCT, fancy upsampling, BGR or the Y plane out; read_jpeg).
+    Arithmetic coding, lossless and hierarchical frames, 12-bit samples
+    and two- or four-component (CMYK / YCCK) frames raise ValueError
+    naming the format, and so does a damaged file, where libjpeg warns
+    and cv2 returns what it decoded.
   * BMP, uncompressed 8-bit (palette), 24- and 32-bit, bottom-up and
     top-down, with cv2's own gray weights ((4899 R + 9617 G + 1868 B +
     8192) >> 14).
-Other inputs raise ValueError naming the format: JPEG and interlaced PNG
-are not read yet.
+Both reads turn the image by its EXIF orientation as cv2.imread does
+(a PNG's eXIf chunk, a JPEG's first Exif APP1; exif_orientation,
+apply_orientation); read_png, the depth maps' reader, does not, as
+cv2's IMREAD_UNCHANGED does not.  Other inputs raise ValueError naming
+the format.
 
 resize_linear is cv2.resize(INTER_LINEAR) on uint8 bit for bit: an exact
 2:1 reduction is cv2's 2x2 average ((a + b + c + d + 2) >> 2), any other
@@ -66,12 +78,32 @@ def png_unfilter(raw: np.ndarray, H: int, rowbytes: int,
     return out
 
 
-def read_png(data: bytes, name="PNG"):
-    """(pixels (H, W, C) uint8 or >u2-decoded uint16 as stored, colour type,
-    bit depth, palette (n, 3) uint8 or None) of a non-interlaced PNG."""
+# Adam7's seven passes: (x0, y0, dx, dy) of each pass's pixel lattice
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(rows: np.ndarray, h: int, w: int, ch: int,
+                 depth: int) -> np.ndarray:
+    """(h, w, ch) samples of unfiltered rows (h, rowbytes): 16-bit as
+    big-endian pairs, below 8 bits one channel packed from the high
+    bits."""
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    per = 8 // depth
+    shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+    return ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+        h, -1)[:, :w, None]
+
+
+def _read_png(data: bytes, name="PNG"):
+    """read_png's four results and the first eXIf chunk's bytes (None
+    without one)."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
-    pos, idat, hdr, plte = 8, [], None, None
+    pos, idat, hdr, plte, exif = 8, [], None, None, None
     while pos + 8 <= len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -86,32 +118,50 @@ def read_png(data: bytes, name="PNG"):
             plte = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
+        elif tag == b"eXIf" and exif is None and body[:2] in (b"II", b"MM"):
+            # libpng keeps the first eXIf whose byte order is II or MM
+            exif = body
         elif tag == b"IEND":
             break
     if hdr is None:
         raise ValueError(f"{name}: no IHDR chunk")
     W, H, depth, color, _, _, interlace = hdr
-    if interlace:
-        raise ValueError(f"{name}: interlaced (Adam7) PNG is not supported")
+    if interlace > 1:
+        raise ValueError(f"{name}: PNG interlace method {interlace} is not "
+                         f"valid")
     if color not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[color]:
         raise ValueError(f"{name}: PNG colour type {color} at bit depth "
                          f"{depth} is not valid")
     if color == 3 and plte is None:
         raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[color]
-    rowbytes = (W * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    rows = png_unfilter(raw, H, rowbytes, max(1, ch * depth // 8))
-    if depth == 16:
-        px = rows.view(">u2").astype(np.uint16).reshape(H, W, ch)
-    elif depth == 8:
-        px = rows.reshape(H, W, ch)
-    else:  # 1, 2, 4 bits: one channel, packed from the high bits
-        per = 8 // depth
-        shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
-        px = ((rows[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
-            H, rowbytes * per)[:, :W, None]
-    return px, color, depth, plte
+    if not interlace:
+        rowbytes = (W * ch * depth + 7) // 8
+        px = _png_samples(png_unfilter(raw, H, rowbytes, bpp), H, W, ch,
+                          depth)
+        return px, color, depth, plte, exif
+    # Adam7: the inflated stream holds the passes one after the other, each
+    # a filtered image of its own; an empty pass has no rows at all
+    px = np.zeros((H, W, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = max(0, -(-(W - x0) // dx)), max(0, -(-(H - y0) // dy))
+        if pw == 0 or ph == 0:
+            continue
+        rowbytes = (pw * ch * depth + 7) // 8
+        rows = png_unfilter(raw[pos:], ph, rowbytes, bpp)
+        pos += ph * (rowbytes + 1)
+        px[y0::dy, x0::dx] = _png_samples(rows, ph, pw, ch, depth)
+    return px, color, depth, plte, exif
+
+
+def read_png(data: bytes, name="PNG"):
+    """(pixels (H, W, C) uint8 or >u2-decoded uint16 as stored, colour type,
+    bit depth, palette (n, 3) uint8 or None) of a PNG, interlaced or not;
+    no EXIF orientation applied."""
+    return _read_png(data, name)[:4]
 
 
 def _png_rgb(px, color, depth, plte):
@@ -198,6 +248,144 @@ def _bgr_to_gray_cv(bgr: np.ndarray) -> np.ndarray:
     return ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14).astype(np.uint8)
 
 
+# ---------------------------------------------------------------------------
+# EXIF orientation
+
+
+class _ExifCut(Exception):
+    pass
+
+
+# IFD0 tags whose values cv2's ExifReader reads (and may find cut short):
+# strings, rationals (with their count), 16-bit values
+_EXIF_STRINGS = {0x010E, 0x010F, 0x0110, 0x0131, 0x0132, 0x8298}
+_EXIF_RATIONALS = {0x011A: 1, 0x011B: 1, 0x013E: 2, 0x013F: 6, 0x0211: 3,
+                   0x0214: 6}
+_EXIF_SHORTS = {0x0112, 0x0128, 0x0213}
+_ORIENTATION = 0x0112
+
+
+def exif_orientation(tiff: bytes) -> int:
+    """The orientation (1-8) that cv2.imread applies from an EXIF block
+    (a TIFF header: byte order II or MM, 42, the offset of IFD0), 1 where
+    it applies none.  It reads IFD0 as cv2's ExifReader does: entry by
+    entry, the value of tag 0x0112 as 16 bits at the entry's value field
+    whatever its type and count, the first such entry kept.  A read past
+    the block's end stops the walk (an entry read before it still counts),
+    and so does a string or rational entry whose data lies past the end;
+    a value outside 1-8 is ignored."""
+    n = len(tiff)
+    order = "<" if tiff[:2] == b"II" else ">"
+
+    def u16(o):
+        if o + 1 >= n:
+            raise _ExifCut
+        return struct.unpack_from(order + "H", tiff, o)[0]
+
+    def u32(o):
+        if o + 3 >= n:
+            raise _ExifCut
+        return struct.unpack_from(order + "I", tiff, o)[0]
+
+    found = None
+    try:
+        if u16(2) != 42:
+            return 1
+        off = u32(4)
+        count = u16(off)
+        off += 2
+        for _ in range(count):
+            tag = u16(off)
+            if tag in _EXIF_STRINGS:
+                size = u32(off + 4)
+                at = u32(off + 8) if size > 4 else 8
+                if at > n or at + size > n:
+                    raise _ExifCut
+            elif tag in _EXIF_RATIONALS:
+                at = u32(off + 8)
+                for i in range(_EXIF_RATIONALS[tag]):
+                    u32(at + 8 * i)
+                    u32(at + 8 * i + 4)
+            elif tag in _EXIF_SHORTS:
+                v = u16(off + 8)
+                if tag == _ORIENTATION and found is None:
+                    found = v
+            off += 12
+    except _ExifCut:
+        pass
+    return found if found is not None and 1 <= found <= 8 else 1
+
+
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+    """img (H, W) or (H, W, C) turned as cv2.imread turns it for an EXIF
+    orientation: 2 flip horizontally, 3 rotate 180 degrees, 4 flip
+    vertically, 5 transpose, 6 rotate 90 degrees clockwise, 7 transverse,
+    8 rotate 90 degrees counter-clockwise; 1 (and any other value) as it
+    is."""
+    t = img.swapaxes(0, 1) if orientation in (5, 6, 7, 8) else img
+    if orientation in (2, 3, 6, 7):
+        t = t[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        t = t[::-1]
+    return t if t is img else np.ascontiguousarray(t)
+
+
+# ---------------------------------------------------------------------------
+# JPEG reader (the native library's lvba_jpeg_info / lvba_jpeg_decode)
+
+JPEG_FORMATS = ("baseline", "extended sequential", "progressive")
+JPEG_COLOR_SPACES = ("gray", "YCbCr", "RGB")
+_JPEG_ERR = 512
+
+
+def jpeg_info(data: bytes, name="JPEG") -> dict:
+    """The header of a JPEG up to its first scan: height, width,
+    components, sampling ((h, v) a component), format (JPEG_FORMATS),
+    color_space (as libjpeg picks it from JFIF, Adobe APP14 and the
+    component ids), orientation (its EXIF APP1's, 1 without one).
+    ValueError naming the format for a file the decoder does not read."""
+    import ctypes
+
+    from ..native.runtime import _ptr, library
+
+    buf = np.frombuffer(data, dtype=np.uint8)
+    info = np.zeros(16, dtype=np.int64)
+    err = ctypes.create_string_buffer(_JPEG_ERR)
+    if library().lvba_jpeg_info(_ptr(buf), buf.size, _ptr(info), err,
+                                _JPEG_ERR) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    H, W, nc, kind, color, eoff, elen = (int(v) for v in info[:7])
+    return dict(height=H, width=W, components=nc,
+                sampling=tuple((int(info[7 + 2 * c]), int(info[8 + 2 * c]))
+                               for c in range(nc)),
+                format=JPEG_FORMATS[kind],
+                color_space=JPEG_COLOR_SPACES[color],
+                orientation=exif_orientation(data[eoff:eoff + elen])
+                if eoff >= 0 else 1)
+
+
+def read_jpeg(data: bytes, gray: bool, name="JPEG", info=None) -> np.ndarray:
+    """(H, W) uint8 (gray: libjpeg's JCS_GRAYSCALE output, the Y plane of
+    a YCbCr file) or (H, W, 3) BGR uint8 of a JPEG, libjpeg-turbo's
+    decode with cv2's settings bit for bit; no EXIF orientation applied.
+    info is jpeg_info(data) where the caller has it already.
+    ValueError on a file the decoder does not read or finds damaged."""
+    import ctypes
+
+    from ..native.runtime import _ptr, library
+
+    if info is None:
+        info = jpeg_info(data, name)
+    shape = (info["height"], info["width"]) + (() if gray else (3,))
+    out = np.empty(shape, dtype=np.uint8)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    err = ctypes.create_string_buffer(_JPEG_ERR)
+    if library().lvba_jpeg_decode(_ptr(buf), buf.size, int(bool(gray)),
+                                  _ptr(out), err, _JPEG_ERR) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
+
+
 def _read(path) -> bytes:
     p = Path(path)
     if not p.is_file():
@@ -211,25 +399,37 @@ def _format(data: bytes, path) -> str:
     if data[:2] == b"BM":
         return "bmp"
     if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: JPEG input is not supported yet (PNG and "
-                         f"BMP are)")
-    raise ValueError(f"{path}: unknown image format (PNG and BMP are read)")
+        return "jpeg"
+    raise ValueError(f"{path}: unknown image format (PNG, JPEG and BMP are "
+                     f"read)")
+
+
+def _imread(path, gray: bool) -> np.ndarray:
+    data = _read(path)
+    kind = _format(data, path)
+    if kind == "bmp":
+        bgr = read_bmp(data, path)
+        return _bgr_to_gray_cv(bgr) if gray else bgr
+    if kind == "jpeg":
+        info = jpeg_info(data, path)
+        return apply_orientation(read_jpeg(data, gray, path, info),
+                                 info["orientation"])
+    *png, exif = _read_png(data, path)
+    img = _png_gray(*png) if gray else _png_color(*png)
+    return apply_orientation(img, 1 if exif is None
+                             else exif_orientation(exif))
 
 
 def imread_gray(path) -> np.ndarray:
-    """(H, W) uint8, cv2.imread(path, IMREAD_GRAYSCALE) bit for bit."""
-    data = _read(path)
-    if _format(data, path) == "png":
-        return _png_gray(*read_png(data, path))
-    return _bgr_to_gray_cv(read_bmp(data, path))
+    """(H, W) uint8, cv2.imread(path, IMREAD_GRAYSCALE) bit for bit (the
+    EXIF orientation applied)."""
+    return _imread(path, True)
 
 
 def imread_color(path) -> np.ndarray:
-    """(H, W, 3) BGR uint8, cv2.imread(path, IMREAD_COLOR) bit for bit."""
-    data = _read(path)
-    if _format(data, path) == "png":
-        return _png_color(*read_png(data, path))
-    return read_bmp(data, path)
+    """(H, W, 3) BGR uint8, cv2.imread(path, IMREAD_COLOR) bit for bit (the
+    EXIF orientation applied)."""
+    return _imread(path, False)
 
 
 # ---------------------------------------------------------------------------

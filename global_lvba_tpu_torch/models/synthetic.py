@@ -614,7 +614,8 @@ def _gray_to_bgr(gray: np.ndarray) -> np.ndarray:
 def write_room_dataset(root, cam, scale: float, num_views: int,
                        num_frames: int, points_per_frame: int, seed: int = 0,
                        bmp_every: int = 8, texture: float = 16.0,
-                       settings=None, device="cpu", step: float = 0.125):
+                       settings=None, device="cpu", step: float = 0.125,
+                       jpeg_every: int = 0):
     """The box room as a dataset in the reference's layout with no COLMAP
     db, so the system takes the SIFT frontend from the image files:
       * all_pcd_body/<t>.pcd + lidar_poses.txt: make_plane_scene's frames
@@ -624,19 +625,22 @@ def write_room_dataset(root, cam, scale: float, num_views: int,
         through `cam` (unscaled) from room_views(num_views, step), view k
         at the time of
         frame round(k F / V) + 0.03 s; BGR via _gray_to_bgr, every
-        bmp_every-th view a 24-bit BMP; the body poses carry the odometry
-        error of their nearest frame, as a LIVO system's would;
+        bmp_every-th view a 24-bit BMP, else every jpeg_every-th a
+        baseline JPEG (encode_jpeg: quality 95, 4:2:0; 0 writes none);
+        the body poses carry the odometry error of their nearest frame,
+        as a LIVO system's would;
       * cfg.yaml: the camera at `scale`, the extrinsic Rci of room_views,
         the COLMAP export on, then `settings` ({group: {field: value}}).
-    Returns (config path, the BGR images (V, H, W, 3) as written, the
-    scene, the body odometry (R, p) of the frames)."""
+    Returns (config path, the BGR images (V, H, W, 3) before encoding (a
+    JPEG view reads back within the codec's loss), the scene, the body
+    odometry (R, p) of the frames)."""
     import dataclasses
     from pathlib import Path
 
     import yaml
 
     from ..config import LvbaConfig
-    from ..io.image import imwrite_png
+    from ..io.image import encode_jpeg, imwrite_png
     from ..io.pcd import write_pcd
     from ..io.tum import write_tum_poses
 
@@ -660,9 +664,16 @@ def write_room_dataset(root, cam, scale: float, num_views: int,
     img_dir, pcd_dir = root / "all_image", root / "all_pcd_body"
     img_dir.mkdir(parents=True, exist_ok=True)
     pcd_dir.mkdir(parents=True, exist_ok=True)
+    is_bmp = [bool(bmp_every) and k % bmp_every == bmp_every - 1
+              for k in range(num_views)]
+    is_jpeg = [bool(jpeg_every) and not is_bmp[k]
+               and k % jpeg_every == jpeg_every - 1 for k in range(num_views)]
+    jpegs = iter(encode_jpeg(bgr[is_jpeg])) if any(is_jpeg) else None
     for k, t in enumerate(times):
-        if bmp_every and k % bmp_every == bmp_every - 1:
+        if is_bmp[k]:
             _write_bmp24(img_dir / f"{t:.6f}.bmp", bgr[k])
+        elif is_jpeg[k]:
+            (img_dir / f"{t:.6f}.jpg").write_bytes(next(jpegs))
         else:
             imwrite_png(img_dir / f"{t:.6f}.png", bgr[k])
     write_tum_poses(img_dir / "image_poses.txt", times, R_img, p_img)

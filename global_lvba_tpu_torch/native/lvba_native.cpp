@@ -1,7 +1,9 @@
 // Native host runtime of global_lvba_tpu_torch: the port's own copy of
 // global_lvba_tpu/native/lvba_native.cpp, limited to the six entry points
 // that the pipeline calls on a CUDA device (LZF, voxel keys, the radix
-// argsort, union-find, the body->world transform and the segment moments).
+// argsort, union-find, the body->world transform and the segment moments),
+// and the image codecs that stand in for cv2's (the PNG row unfilter, the
+// JPEG encoder and decoder).
 // The reference's equivalents are PCL's PCD reader (+LZF), std::
 // unordered_map voxel binning and the BFS track construction
 // (src/dataset_io.cpp:263-288, src/lvba_system.cpp:965-986); here they are
@@ -25,6 +27,7 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -683,6 +686,947 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
     });
   for (auto& th : threads) th.join();
   return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG decoder: libjpeg-turbo's decompressor as cv2.imread drives it
+// (jpeg_read_header's defaults: JDCT_ISLOW, do_fancy_upsampling; output
+// JCS_EXT_BGR or JCS_GRAYSCALE), bit for bit.  The stages follow libjpeg's
+// files:
+//   * jdmarker.c: SOI, APPn (JFIF APP0, the first APP1 that begins with
+//     "Exif\0\0", Adobe APP14's transform), DQT of 8- and 16-bit entries,
+//     SOF0/1/2, DHT, SOS, DRI, RSTn, DNL (skipped, as libjpeg does), COM,
+//     EOI; 0xFF fill bytes and FF00 stuffing.  Huffman table slots 0 and
+//     1 start as the Annex K tables (jstdhuff.c, for streams that carry
+//     none).  A component's quantization table is latched at its first
+//     scan (jdinput.c latch_quant_tables).
+//   * jdhuff.c / jdphuff.c: sequential scans, interleaved or not (a
+//     non-interleaved scan walks the component's own ceil(w / 8) x
+//     ceil(h / 8) blocks), the four progressive scan kinds (DC first and
+//     refine, AC first with EOB runs, AC refine with correction bits),
+//     restart intervals resetting the DC predictors and the EOB run.
+//   * jidctint.c: jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) with the
+//     range-limit table of jdmaster.c (x & 1023 around CENTERJSAMPLE).
+//   * jdsample.c: h2v1 and h2v2 fancy upsampling where the downsampled
+//     width is above 2 (replication otherwise), h1v2 fancy, int_upsample
+//     for any other integral ratio; the edge rows repeat, as jdmainct.c's
+//     context rows do.
+//   * jdcolor.c: ycc_rgb_convert's tables (Cr_r_tab, Cb_b_tab, Cr_g_tab,
+//     Cb_g_tab, ONE_HALF rounding), rgb_gray_convert, gray_rgb_convert,
+//     and the colour space that jdapimin.c default_decompress_parms
+//     picks.  For gray output of a YCbCr file only Y is transformed.
+// Not read (an error naming the format): arithmetic coding, lossless and
+// hierarchical frames, precision other than 8 bits, 2 or 4 components,
+// fractional sampling ratios, and a progressive file whose scans leave one
+// of the first nine AC coefficients unrefined (libjpeg smooths those
+// blocks).  Where libjpeg warns and goes on (data cut short, a Huffman
+// code that is not in its table, a restart marker missing, no EOI), this
+// decoder fails.
+namespace {
+
+struct JpegFail {
+  std::string msg;
+};
+
+[[noreturn]] void jfail(const std::string& m) { throw JpegFail{m}; }
+
+// the zigzag order with libjpeg's 16 guard entries (jutils.c)
+int natural80(int k) { return k < 64 ? kNatural[k] : 63; }
+
+struct HuffDec {
+  int maxcode[17];
+  int valoff[17];
+  unsigned char bits[16];
+  unsigned char vals[256];
+  unsigned short look[512];  // (length << 8) | symbol for codes of <= 9 bits
+  bool defined = false, built = false;
+  // a table as a DHT defines it (jdmarker.c get_dht); checked and derived
+  // only by build, at a scan that uses it, as libjpeg does: a bad table
+  // that a later DHT replaces before any scan reads it is no error
+  void set(const unsigned char* b, const unsigned char* v) {
+    int count = 0;
+    for (int l = 0; l < 16; ++l) count += b[l];
+    if (count > 256) jfail("bad JPEG Huffman table");
+    std::memcpy(bits, b, 16);
+    std::memcpy(vals, v, count);
+    defined = true;
+    built = false;
+  }
+  // jdhuff.c jpeg_make_d_derived_tbl
+  void build(bool dc) {
+    if (built) return;
+    std::memset(look, 0, sizeof(look));
+    int code = 0, k = 0;
+    for (int l = 1; l <= 16; ++l) {
+      const int nl = bits[l - 1];
+      // the codes must fit in l bits and none may be all ones; checked
+      // before the lookahead fill, which relies on it to stay inside look[]
+      if (code + nl >= (1 << l)) jfail("bad JPEG Huffman table");
+      valoff[l] = k - code;
+      for (int i = 0; i < nl; ++i, ++k, ++code)
+        if (l <= 9)
+          for (int f = 0; f < (1 << (9 - l)); ++f)
+            look[(code << (9 - l)) | f] = (unsigned short)((l << 8) | vals[k]);
+      maxcode[l] = nl ? code - 1 : -1;
+      code <<= 1;
+    }
+    if (dc)
+      for (int i = 0; i < k; ++i)
+        if (vals[i] > 15) jfail("bad JPEG Huffman table");
+    built = true;
+  }
+};
+
+// Entropy-coded bits.  Past a marker (or the end of the data) the reader
+// supplies zero bits, as libjpeg does, but a symbol that consumes one of
+// them fails: libjpeg warns there and fills the image with zeros.
+struct BitReader {
+  const unsigned char* d;
+  long n, pos;
+  unsigned long long acc = 0;  // next bit at bit 63
+  int cnt = 0;                 // bits in acc
+  int fake = 0;                // of them, zero bits past the data
+  bool at_marker = false;
+  void reset(long p) {
+    pos = p;
+    acc = 0;
+    cnt = fake = 0;
+    at_marker = false;
+  }
+  void fill() {
+    while (cnt <= 56) {
+      unsigned c = 0;
+      if (!at_marker) {
+        if (pos >= n) {
+          at_marker = true;
+        } else if (d[pos] != 0xFF) {
+          c = d[pos++];
+        } else {
+          long p = pos + 1;
+          while (p < n && d[p] == 0xFF) ++p;  // fill bytes
+          if (p < n && d[p] == 0) {
+            c = 0xFF;
+            pos = p + 1;
+          } else {
+            at_marker = true;  // pos stays on the marker
+          }
+        }
+      }
+      if (at_marker) fake += 8;
+      acc |= (unsigned long long)c << (56 - cnt);
+      cnt += 8;
+    }
+  }
+  unsigned peek(int k) {
+    if (cnt < k) fill();
+    return (unsigned)(acc >> (64 - k));
+  }
+  void skip(int k) {
+    acc <<= k;
+    cnt -= k;
+    if (cnt < fake) jfail("JPEG data is cut short or corrupt");
+  }
+  int get(int k) {
+    const int v = (int)peek(k);
+    skip(k);
+    return v;
+  }
+  int decode(const HuffDec& h) {
+    const unsigned p = peek(16);
+    const int e = h.look[p >> 7];
+    if (e) {
+      skip(e >> 8);
+      return e & 0xFF;
+    }
+    for (int l = 10; l <= 16; ++l) {
+      const int c = (int)(p >> (16 - l));
+      if (c <= h.maxcode[l]) {
+        skip(l);
+        return h.vals[h.valoff[l] + c];
+      }
+    }
+    jfail("corrupt JPEG data: a Huffman code outside its table");
+  }
+};
+
+inline int extend(int r, int s) {
+  return r < (1 << (s - 1)) ? r + (int)(~0u << s) + 1 : r;
+}
+
+struct JComp {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dw = 0, dh = 0;    // downsampled size (jdinput.c initial_setup)
+  int wib = 0, hib = 0;  // the component's own blocks
+  int bw = 0, bh = 0;    // blocks stored (the padded MCU grid)
+  int td = 0, ta = 0;    // Huffman tables of the current scan
+  bool latched = false;
+  int q[64] = {0};       // latched quantization table, natural order
+  int coef_bits[64];
+  std::vector<short> coef;
+};
+
+struct JpegFrame {
+  const unsigned char* d = nullptr;
+  long n = 0;
+  int H = 0, W = 0, ncomp = 0, kind = -1;  // 0 baseline, 1 extended, 2 progressive
+  int max_h = 1, max_v = 1, mcux = 0, mcuy = 0;
+  int color = 0;  // 0 gray, 1 YCbCr, 2 RGB
+  bool jfif = false, adobe = false;
+  int adobe_transform = -1;
+  long exif_off = -1, exif_len = 0;
+  int restart = 0;
+  int qt[4][64];
+  bool qdef[4] = {false, false, false, false};
+  HuffDec dc[4], ac[4];
+  JComp comp[3];
+  bool started = false;  // a SOS was read
+};
+
+int be16(const unsigned char* p) { return (p[0] << 8) | p[1]; }
+
+void std_huff(JpegFrame& f) {
+  f.dc[0].set(kDcLumaBits, kDcVals);
+  f.dc[1].set(kDcChromaBits, kDcVals);
+  f.ac[0].set(kAcLumaBits, kAcLumaVals);
+  f.ac[1].set(kAcChromaBits, kAcChromaVals);
+}
+
+const char* sof_name(int m) {
+  switch (m) {
+    case 0xC3: return "lossless JPEG (SOF3)";
+    case 0xC5: return "hierarchical JPEG (SOF5)";
+    case 0xC6: return "hierarchical progressive JPEG (SOF6)";
+    case 0xC7: return "hierarchical lossless JPEG (SOF7)";
+    case 0xC9: return "arithmetic-coded JPEG (SOF9)";
+    case 0xCA: return "arithmetic-coded progressive JPEG (SOF10)";
+    case 0xCB: return "arithmetic-coded lossless JPEG (SOF11)";
+    case 0xCD: return "hierarchical arithmetic-coded JPEG (SOF13)";
+    case 0xCE: return "hierarchical arithmetic-coded progressive JPEG (SOF14)";
+    case 0xCF: return "hierarchical arithmetic-coded lossless JPEG (SOF15)";
+  }
+  return nullptr;
+}
+
+void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
+  if (f.kind >= 0) jfail("JPEG with two frame headers");
+  if (len < 6) jfail("JPEG frame header is cut short");
+  const int prec = p[0];
+  f.H = be16(p + 1);
+  f.W = be16(p + 3);
+  f.ncomp = p[5];
+  if (prec != 8)
+    jfail(std::to_string(prec) + "-bit JPEG (precision " +
+          std::to_string(prec) + ") is not supported (8-bit only)");
+  if (f.ncomp == 2 || f.ncomp == 4)
+    jfail("JPEG of " + std::to_string(f.ncomp) + " components" +
+          (f.ncomp == 4 ? " (CMYK/YCCK)" : "") +
+          " is not supported (1 or 3 components)");
+  if (f.ncomp != 1 && f.ncomp != 3)
+    jfail("JPEG of " + std::to_string(f.ncomp) + " components is not valid");
+  if (len < 6 + 3 * f.ncomp) jfail("JPEG frame header is cut short");
+  if (f.H == 0) jfail("JPEG height 0 (set by a DNL marker) is not supported");
+  if (f.W == 0) jfail("JPEG width 0 is not valid");
+  if (f.H > 65500 || f.W > 65500) jfail("JPEG larger than 65500 pixels");
+  f.kind = m == 0xC0 ? 0 : (m == 0xC1 ? 1 : 2);
+  for (int c = 0; c < f.ncomp; ++c) {
+    JComp& k = f.comp[c];
+    k.id = p[6 + 3 * c];
+    k.h = p[7 + 3 * c] >> 4;
+    k.v = p[7 + 3 * c] & 15;
+    k.tq = p[8 + 3 * c];
+    if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4 || k.tq > 3)
+      jfail("JPEG sampling factors or table ids are not valid");
+    f.max_h = std::max(f.max_h, k.h);
+    f.max_v = std::max(f.max_v, k.v);
+  }
+  f.mcux = (f.W + 8 * f.max_h - 1) / (8 * f.max_h);
+  f.mcuy = (f.H + 8 * f.max_v - 1) / (8 * f.max_v);
+  for (int c = 0; c < f.ncomp; ++c) {
+    JComp& k = f.comp[c];
+    if (f.max_h % k.h || f.max_v % k.v)
+      jfail("JPEG with fractional sampling ratios is not supported");
+    k.dw = (int)(((long)f.W * k.h + f.max_h - 1) / f.max_h);
+    k.dh = (int)(((long)f.H * k.v + f.max_v - 1) / f.max_v);
+    k.wib = (k.dw + 7) / 8;
+    k.hib = (k.dh + 7) / 8;
+    k.bw = f.mcux * k.h;
+    k.bh = f.mcuy * k.v;
+    for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+  }
+}
+
+void read_dqt(JpegFrame& f, const unsigned char* p, int len) {
+  int k = 0;
+  while (k < len) {
+    const int pq = p[k] >> 4, tq = p[k] & 15;
+    const int sz = pq ? 129 : 65;
+    if (tq > 3 || pq > 1 || k + sz > len) jfail("bad JPEG quantization table");
+    for (int i = 0; i < 64; ++i)
+      f.qt[tq][kNatural[i]] = pq ? be16(p + k + 1 + 2 * i) : p[k + 1 + i];
+    f.qdef[tq] = true;
+    k += sz;
+  }
+}
+
+void read_dht(JpegFrame& f, const unsigned char* p, int len) {
+  int k = 0;
+  while (k < len) {
+    if (k + 17 > len) jfail("bad JPEG Huffman table");
+    const int tc = p[k] >> 4, th = p[k] & 15;
+    int count = 0;
+    for (int i = 0; i < 16; ++i) count += p[k + 1 + i];
+    if (tc > 1 || th > 3 || count > 256 || k + 17 + count > len)
+      jfail("bad JPEG Huffman table");
+    (tc ? f.ac : f.dc)[th].set(p + k + 1, p + k + 17);
+    k += 17 + count;
+  }
+}
+
+// the colour space as jdapimin.c default_decompress_parms picks it
+void pick_color(JpegFrame& f) {
+  if (f.ncomp == 1) {
+    f.color = 0;
+  } else if (f.jfif) {
+    f.color = 1;
+  } else if (f.adobe) {
+    f.color = f.adobe_transform == 0 ? 2 : 1;
+  } else {
+    const int a = f.comp[0].id, b = f.comp[1].id, c = f.comp[2].id;
+    f.color = (a == 82 && b == 71 && c == 66) ? 2 : 1;  // 'R', 'G', 'B'
+  }
+}
+
+// the position of the next marker's 0xFF at or after p (fill bytes and
+// stray entropy bytes skipped), or n
+long next_marker(const unsigned char* d, long n, long p) {
+  while (p + 1 < n) {
+    if (d[p] == 0xFF) {
+      long q = p + 1;
+      while (q < n && d[q] == 0xFF) ++q;
+      if (q < n && d[q] != 0) return q - 1;
+      p = q + 1;
+    } else {
+      ++p;
+    }
+  }
+  return n;
+}
+
+struct Scan {
+  int ns = 0;
+  int ci[4];
+  int ss = 0, se = 63, ah = 0, al = 0;
+};
+
+void block_seq(BitReader& br, const HuffDec& dc, const HuffDec& ac,
+               short* blk, int& last_dc) {
+  int s = br.decode(dc);
+  if (s) s = extend(br.get(s), s);
+  s += last_dc;
+  last_dc = s;
+  blk[0] = (short)s;
+  for (int k = 1; k < 64; ++k) {
+    const int rs = br.decode(ac);
+    int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      blk[natural80(k)] = (short)extend(br.get(s), s);
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+}
+
+void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
+  const bool prog = f.kind == 2;
+  const bool dc_scan = sc.ss == 0;
+  if (prog) {
+    // jdphuff.c start_pass_phuff_decoder's checks
+    bool bad = dc_scan ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
+    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+    if (sc.al > 13) bad = true;
+    if (bad) jfail("bad progressive JPEG scan parameters");
+    for (int i = 0; i < sc.ns; ++i) {
+      JComp& k = f.comp[sc.ci[i]];
+      for (int c = sc.ss; c <= sc.se; ++c) k.coef_bits[c] = sc.al;
+    }
+  }
+  for (int i = 0; i < sc.ns; ++i) {
+    const JComp& k = f.comp[sc.ci[i]];
+    const bool need_dc = !prog || (dc_scan && sc.ah == 0);
+    const bool need_ac = !prog || !dc_scan;
+    if ((need_dc && !f.dc[k.td].defined) || (need_ac && !f.ac[k.ta].defined))
+      jfail("JPEG scan names a Huffman table that is not defined");
+    if (need_dc) f.dc[k.td].build(true);
+    if (need_ac) f.ac[k.ta].build(false);
+  }
+  int mx_n, my_n;
+  if (sc.ns == 1) {
+    mx_n = f.comp[sc.ci[0]].wib;
+    my_n = f.comp[sc.ci[0]].hib;
+  } else {
+    mx_n = f.mcux;
+    my_n = f.mcuy;
+    int blocks = 0;
+    for (int i = 0; i < sc.ns; ++i)
+      blocks += f.comp[sc.ci[i]].h * f.comp[sc.ci[i]].v;
+    if (blocks > 10) jfail("JPEG MCU of more than 10 blocks");
+  }
+  int last_dc[4] = {0, 0, 0, 0};
+  long eobrun = 0;
+  int next_rst = 0, togo = f.restart;
+  const int p1 = 1 << sc.al, m1 = -p1;
+  const long total = (long)mx_n * my_n;
+  for (long m = 0; m < total; ++m) {
+    if (f.restart) {
+      if (togo == 0) {
+        const long mp = next_marker(br.d, br.n, br.pos);
+        if (mp + 1 >= br.n || br.d[mp + 1] != 0xD0 + next_rst)
+          jfail("JPEG restart marker missing or out of order");
+        br.reset(mp + 2);
+        next_rst = (next_rst + 1) & 7;
+        togo = f.restart;
+        last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
+        eobrun = 0;
+      }
+      --togo;
+    }
+    const int mx = (int)(m % mx_n), my = (int)(m / mx_n);
+    for (int i = 0; i < sc.ns; ++i) {
+      JComp& k = f.comp[sc.ci[i]];
+      const int hb = sc.ns == 1 ? 1 : k.h, vb = sc.ns == 1 ? 1 : k.v;
+      for (int by = 0; by < vb; ++by)
+        for (int bx = 0; bx < hb; ++bx) {
+          const int x = mx * hb + bx, y = my * vb + by;
+          short* blk = k.coef.data() + ((size_t)y * k.bw + x) * 64;
+          if (!prog) {
+            block_seq(br, f.dc[k.td], f.ac[k.ta], blk, last_dc[i]);
+          } else if (dc_scan && sc.ah == 0) {  // DC first
+            int s = br.decode(f.dc[k.td]);
+            if (s) s = extend(br.get(s), s);
+            s += last_dc[i];
+            last_dc[i] = s;
+            blk[0] = (short)(unsigned)((unsigned)s << sc.al);
+          } else if (dc_scan) {  // DC refine
+            if (br.get(1)) blk[0] = (short)(blk[0] | p1);
+          } else if (sc.ah == 0) {  // AC first
+            if (eobrun > 0) {
+              --eobrun;
+              continue;
+            }
+            const HuffDec& ac = f.ac[k.ta];
+            for (int c = sc.ss; c <= sc.se; ++c) {
+              const int rs = br.decode(ac);
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                c += r;
+                s = extend(br.get(s), s);
+                blk[natural80(c)] = (short)(unsigned)((unsigned)s << sc.al);
+              } else if (r == 15) {
+                c += 15;
+              } else {
+                eobrun = 1L << r;
+                if (r) eobrun += br.get(r);
+                --eobrun;
+                break;
+              }
+            }
+          } else {  // AC refine
+            const HuffDec& ac = f.ac[k.ta];
+            int c = sc.ss;
+            if (eobrun == 0) {
+              for (; c <= sc.se; ++c) {
+                const int rs = br.decode(ac);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                  s = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                  eobrun = 1L << r;
+                  if (r) eobrun += br.get(r);
+                  break;
+                }
+                do {
+                  short* t = blk + natural80(c);
+                  if (*t != 0) {
+                    if (br.get(1) && (*t & p1) == 0)
+                      *t = (short)(*t + (*t >= 0 ? p1 : m1));
+                  } else if (--r < 0) {
+                    break;
+                  }
+                  ++c;
+                } while (c <= sc.se);
+                if (s) blk[natural80(c)] = (short)s;
+              }
+            }
+            if (eobrun > 0) {
+              for (; c <= sc.se; ++c) {
+                short* t = blk + natural80(c);
+                if (*t != 0 && br.get(1) && (*t & p1) == 0)
+                  *t = (short)(*t + (*t >= 0 ? p1 : m1));
+              }
+              --eobrun;
+            }
+          }
+        }
+    }
+  }
+}
+
+void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
+  if (f.kind < 0) jfail("JPEG scan before its frame header");
+  if (len < 1) jfail("JPEG scan header is cut short");
+  sc.ns = p[0];
+  if (sc.ns < 1 || sc.ns > 4 || len != 4 + 2 * sc.ns)
+    jfail("bad JPEG scan header");
+  for (int i = 0; i < sc.ns; ++i) {
+    const int id = p[1 + 2 * i];
+    int c = 0;
+    while (c < f.ncomp && f.comp[c].id != id) ++c;
+    if (c == f.ncomp) jfail("JPEG scan names a component not in the frame");
+    for (int j = 0; j < i; ++j)
+      if (sc.ci[j] == c) jfail("JPEG scan names a component twice");
+    sc.ci[i] = c;
+    f.comp[c].td = p[2 + 2 * i] >> 4;
+    f.comp[c].ta = p[2 + 2 * i] & 15;
+    if (f.comp[c].td > 3 || f.comp[c].ta > 3) jfail("bad JPEG scan header");
+  }
+  const unsigned char* t = p + 1 + 2 * sc.ns;
+  sc.ss = t[0];
+  sc.se = t[1];
+  sc.ah = t[2] >> 4;
+  sc.al = t[2] & 15;
+  for (int i = 0; i < sc.ns; ++i) {  // jdinput.c latch_quant_tables
+    JComp& k = f.comp[sc.ci[i]];
+    if (k.latched) continue;
+    if (!f.qdef[k.tq]) jfail("JPEG component without its quantization table");
+    std::memcpy(k.q, f.qt[k.tq], sizeof(k.q));
+    k.latched = true;
+  }
+}
+
+// Markers up to the first SOS (header only) or to EOI (decode: every
+// scan entropy-decoded into the components' coefficients).
+void parse(JpegFrame& f, bool decode) {
+  const unsigned char* d = f.d;
+  const long n = f.n;
+  if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) jfail("not a JPEG file");
+  long p = 2;
+  std_huff(f);
+  for (;;) {
+    p = next_marker(d, n, p);
+    if (p + 1 >= n) jfail("JPEG data ends before its EOI marker");
+    const int m = d[p + 1];
+    p += 2;
+    if (m == 0xD9) {
+      if (!f.started) jfail("JPEG without a scan");
+      return;
+    }
+    if (m == 0xD8 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+    if (p + 2 > n) jfail("JPEG marker segment is cut short");
+    const int len = be16(d + p) - 2;
+    const unsigned char* body = d + p + 2;
+    if (len < 0 || p + 2 + len > n) jfail("JPEG marker segment is cut short");
+    p += 2 + len;
+    if (const char* name = sof_name(m))
+      jfail(std::string(name) + " is not supported (baseline, extended "
+                                "and progressive Huffman only)");
+    switch (m) {
+      case 0xC0:
+      case 0xC1:
+      case 0xC2:
+        read_sof(f, m, body, len);
+        break;
+      case 0xC4:
+        read_dht(f, body, len);
+        break;
+      case 0xCC:
+        jfail("arithmetic-coded JPEG (DAC) is not supported");
+      case 0xDB:
+        read_dqt(f, body, len);
+        break;
+      case 0xDD:
+        if (len < 2) jfail("bad JPEG DRI marker");
+        f.restart = be16(body);
+        break;
+      case 0xDE:
+      case 0xDF:
+        jfail("hierarchical JPEG (DHP/EXP) is not supported");
+      case 0xE0:
+        if (!f.started && len >= 14 && std::memcmp(body, "JFIF\0", 5) == 0)
+          f.jfif = true;
+        break;
+      case 0xE1:
+        if (!f.started && f.exif_off < 0 && len > 6 &&
+            std::memcmp(body, "Exif\0\0", 6) == 0) {
+          f.exif_off = (long)(body - d) + 6;
+          f.exif_len = len - 6;
+        }
+        break;
+      case 0xEE:
+        if (!f.started && len >= 12 && std::memcmp(body, "Adobe", 5) == 0) {
+          f.adobe = true;
+          f.adobe_transform = body[11];
+        }
+        break;
+      case 0xDA: {
+        Scan sc;
+        read_sos(f, body, len, sc);
+        if (!f.started) {
+          pick_color(f);
+          f.started = true;
+          if (!decode) return;
+          for (int c = 0; c < f.ncomp; ++c)
+            f.comp[c].coef.assign((size_t)f.comp[c].bw * f.comp[c].bh * 64, 0);
+        }
+        BitReader br{d, n, p};
+        decode_scan(f, sc, br);
+        p = br.at_marker ? br.pos : next_marker(d, n, br.pos);
+        break;
+      }
+      default:  // other APPn, COM, DNL, JPG, ...: skipped
+        break;
+    }
+  }
+}
+
+// the tables of jdmaster.c prepare_range_limit_table and jdcolor.c
+struct DecodeTables {
+  unsigned char idct_limit[1024];  // the post-IDCT table at x & 1023
+  int cr_r[256], cb_b[256];
+  long cr_g[256], cb_g[256];
+  long y_tab[3 * 256];
+  DecodeTables() {
+    for (int i = 0; i < 1024; ++i)
+      idct_limit[i] = (unsigned char)(i < 128 ? i + 128
+                                      : i < 512 ? 255
+                                      : i < 896 ? 0
+                                                : i - 896);
+    const long one_half = 1L << 15;
+    auto fix = [](double x) { return (long)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; ++i) {
+      const long x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + one_half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + one_half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + one_half;
+      y_tab[i] = fix(0.29900) * i;
+      y_tab[256 + i] = fix(0.58700) * i;
+      y_tab[512 + i] = fix(0.11400) * i + one_half;
+    }
+  }
+};
+
+inline unsigned char clamp255(int x) {
+  return (unsigned char)(x < 0 ? 0 : (x > 255 ? 255 : x));
+}
+
+// jidctint.c jpeg_idct_islow: one block of coefficients, dequantized by q,
+// into 8 rows of out (stride bytes apart)
+void idct_islow(const DecodeTables& T, const short* in, const int* q,
+                unsigned char* out, long stride) {
+  const long c0298 = 2446, c0390 = 3196, c0541 = 4433, c0765 = 6270,
+             c0899 = 7373, c1175 = 9633, c1501 = 12299, c1847 = 15137,
+             c1961 = 16069, c2053 = 16819, c2562 = 20995, c3072 = 25172;
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {  // columns
+    const short* s = in + c;
+    const int* qq = q + c;
+    int* w = ws + c;
+    if (!s[8] && !s[16] && !s[24] && !s[32] && !s[40] && !s[48] && !s[56]) {
+      const int dc = (int)((unsigned)(s[0] * qq[0]) << 2);
+      for (int r = 0; r < 8; ++r) w[8 * r] = dc;
+      continue;
+    }
+    long z2 = (long)s[16] * qq[16], z3 = (long)s[48] * qq[48];
+    long z1 = (z2 + z3) * c0541;
+    long t2 = z1 + z3 * -c1847, t3 = z1 + z2 * c0765;
+    z2 = (long)s[0] * qq[0];
+    z3 = (long)s[32] * qq[32];
+    long t0 = (z2 + z3) * 8192, t1 = (z2 - z3) * 8192;
+    const long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    t0 = (long)s[56] * qq[56];
+    t1 = (long)s[40] * qq[40];
+    t2 = (long)s[24] * qq[24];
+    t3 = (long)s[8] * qq[8];
+    z1 = t0 + t3;
+    z2 = t1 + t2;
+    z3 = t0 + t2;
+    long z4 = t1 + t3;
+    const long z5 = (z3 + z4) * c1175;
+    t0 *= c0298;
+    t1 *= c2053;
+    t2 *= c3072;
+    t3 *= c1501;
+    z1 *= -c0899;
+    z2 *= -c2562;
+    z3 *= -c1961;
+    z4 *= -c0390;
+    z3 += z5;
+    z4 += z5;
+    t0 += z1 + z3;
+    t1 += z2 + z4;
+    t2 += z2 + z3;
+    t3 += z1 + z4;
+    const int sh = 13 - 2;
+    const long rnd = 1L << (sh - 1);
+    w[0] = (int)((t10 + t3 + rnd) >> sh);
+    w[56] = (int)((t10 - t3 + rnd) >> sh);
+    w[8] = (int)((t11 + t2 + rnd) >> sh);
+    w[48] = (int)((t11 - t2 + rnd) >> sh);
+    w[16] = (int)((t12 + t1 + rnd) >> sh);
+    w[40] = (int)((t12 - t1 + rnd) >> sh);
+    w[24] = (int)((t13 + t0 + rnd) >> sh);
+    w[32] = (int)((t13 - t0 + rnd) >> sh);
+  }
+  const unsigned char* lim = T.idct_limit;
+  for (int r = 0; r < 8; ++r) {  // rows
+    const int* w = ws + 8 * r;
+    unsigned char* o = out + r * stride;
+    const int sh = 13 + 2 + 3;
+    const long rnd = 1L << (sh - 1);
+    long z2 = w[2], z3 = w[6];
+    long z1 = (z2 + z3) * c0541;
+    long t2 = z1 + z3 * -c1847, t3 = z1 + z2 * c0765;
+    long t0 = ((long)w[0] + w[4]) * 8192, t1 = ((long)w[0] - w[4]) * 8192;
+    const long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+    t0 = w[7];
+    t1 = w[5];
+    t2 = w[3];
+    t3 = w[1];
+    z1 = t0 + t3;
+    z2 = t1 + t2;
+    z3 = t0 + t2;
+    long z4 = t1 + t3;
+    const long z5 = (z3 + z4) * c1175;
+    t0 *= c0298;
+    t1 *= c2053;
+    t2 *= c3072;
+    t3 *= c1501;
+    z1 *= -c0899;
+    z2 *= -c2562;
+    z3 *= -c1961;
+    z4 *= -c0390;
+    z3 += z5;
+    z4 += z5;
+    t0 += z1 + z3;
+    t1 += z2 + z4;
+    t2 += z2 + z3;
+    t3 += z1 + z4;
+    o[0] = lim[((t10 + t3 + rnd) >> sh) & 1023];
+    o[7] = lim[((t10 - t3 + rnd) >> sh) & 1023];
+    o[1] = lim[((t11 + t2 + rnd) >> sh) & 1023];
+    o[6] = lim[((t11 - t2 + rnd) >> sh) & 1023];
+    o[2] = lim[((t12 + t1 + rnd) >> sh) & 1023];
+    o[5] = lim[((t12 - t1 + rnd) >> sh) & 1023];
+    o[3] = lim[((t13 + t0 + rnd) >> sh) & 1023];
+    o[4] = lim[((t13 - t0 + rnd) >> sh) & 1023];
+  }
+}
+
+// A component's samples at full size: rows [0, H) of width >= W, stride
+// `ostride`, from its IDCT plane (dw x dh samples, stride `stride`) as
+// jdsample.c upsamples it.
+void upsample(const JpegFrame& f, const JComp& k, const unsigned char* pl,
+              long stride, unsigned char* out, long ostride) {
+  const int hf = f.max_h / k.h, vf = f.max_v / k.v;
+  const int dw = k.dw, dh = k.dh;
+  const bool fancy_h = dw > 2;
+  for (int y = 0; y < f.H; ++y) {
+    unsigned char* o = out + (long)y * ostride;
+    if (hf == 1 && vf == 1) {
+      std::memcpy(o, pl + (long)y * stride, dw);
+    } else if (hf == 2 && vf == 1 && fancy_h) {  // h2v1_fancy_upsample
+      const unsigned char* in = pl + (long)y * stride;
+      o[0] = in[0];
+      o[1] = (unsigned char)((in[0] * 3 + in[1] + 2) >> 2);
+      for (int c = 1; c < dw - 1; ++c) {
+        const int v = in[c] * 3;
+        o[2 * c] = (unsigned char)((v + in[c - 1] + 1) >> 2);
+        o[2 * c + 1] = (unsigned char)((v + in[c + 1] + 2) >> 2);
+      }
+      o[2 * dw - 2] = (unsigned char)((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      o[2 * dw - 1] = in[dw - 1];
+    } else if (hf == 1 && vf == 2) {  // h1v2_fancy_upsample
+      const int i = y >> 1, v = y & 1;
+      const unsigned char* in0 = pl + (long)i * stride;
+      const unsigned char* in1 =
+          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
+      const int bias = v ? 2 : 1;
+      for (int c = 0; c < dw; ++c)
+        o[c] = (unsigned char)((in0[c] * 3 + in1[c] + bias) >> 2);
+    } else if (hf == 2 && vf == 2 && fancy_h) {  // h2v2_fancy_upsample
+      const int i = y >> 1, v = y & 1;
+      const unsigned char* in0 = pl + (long)i * stride;
+      const unsigned char* in1 =
+          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
+      int last = in0[0] * 3 + in1[0];
+      int cur = in0[1] * 3 + in1[1];
+      o[0] = (unsigned char)((last * 4 + 8) >> 4);
+      o[1] = (unsigned char)((last * 3 + cur + 7) >> 4);
+      for (int c = 1; c < dw - 1; ++c) {
+        const int next = in0[c + 1] * 3 + in1[c + 1];
+        o[2 * c] = (unsigned char)((cur * 3 + last + 8) >> 4);
+        o[2 * c + 1] = (unsigned char)((cur * 3 + next + 7) >> 4);
+        last = cur;
+        cur = next;
+      }
+      o[2 * dw - 2] = (unsigned char)((cur * 3 + last + 8) >> 4);
+      o[2 * dw - 1] = (unsigned char)((cur * 4 + 7) >> 4);
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+      const unsigned char* in = pl + (long)(y / vf) * stride;
+      for (int c = 0; c < dw; ++c)
+        for (int r = 0; r < hf; ++r) o[c * hf + r] = in[c];
+    }
+  }
+}
+
+// smoothing_ok() of jdcoefct.c on the final coefficient precision
+bool would_smooth(const JpegFrame& f) {
+  if (f.kind != 2) return false;
+  bool useful = false;
+  for (int c = 0; c < f.ncomp; ++c) {
+    const JComp& k = f.comp[c];
+    if (!k.latched) return false;
+    for (int i = 0; i < 10; ++i)
+      if (k.q[kNatural[i]] == 0) return false;
+    if (k.coef_bits[0] < 0) return false;
+    for (int i = 1; i < 10; ++i)
+      if (k.coef_bits[i] != 0) useful = true;
+  }
+  return useful;
+}
+
+void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
+                  unsigned char* out) {
+  parse(f, true);
+  if (would_smooth(f))
+    jfail("progressive JPEG whose scans leave AC coefficients unrefined "
+          "(block smoothing) is not supported");
+  const int H = f.H, W = f.W;
+  const bool only_y = gray && f.color != 2;
+  const int nc = only_y ? 1 : f.ncomp;
+  std::vector<unsigned char> full[3];
+  long fstride[3];
+  for (int c = 0; c < nc; ++c) {
+    const JComp& k = f.comp[c];
+    const long stride = (long)k.bw * 8;
+    std::vector<unsigned char> plane((size_t)stride * k.hib * 8);
+    for (int by = 0; by < k.hib; ++by)
+      for (int bx = 0; bx < k.wib; ++bx)
+        idct_islow(T, k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.q,
+                   plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+    const int hf = f.max_h / k.h, vf = f.max_v / k.v;
+    if (hf == 1 && vf == 1) {
+      full[c].swap(plane);
+      fstride[c] = stride;
+    } else {
+      fstride[c] = (long)k.dw * hf;
+      full[c].assign((size_t)fstride[c] * H, 0);
+      upsample(f, k, plane.data(), stride, full[c].data(), fstride[c]);
+    }
+  }
+  for (int y = 0; y < H; ++y) {
+    const unsigned char* a = full[0].data() + (long)y * fstride[0];
+    if (gray) {
+      unsigned char* o = out + (long)y * W;
+      if (only_y) {
+        std::memcpy(o, a, W);
+      } else {  // rgb_gray_convert
+        const unsigned char* g = full[1].data() + (long)y * fstride[1];
+        const unsigned char* b = full[2].data() + (long)y * fstride[2];
+        for (int x = 0; x < W; ++x)
+          o[x] = (unsigned char)((T.y_tab[a[x]] + T.y_tab[256 + g[x]] +
+                                  T.y_tab[512 + b[x]]) >> 16);
+      }
+      continue;
+    }
+    unsigned char* o = out + (long)y * W * 3;
+    if (f.ncomp == 1) {  // gray_rgb_convert
+      for (int x = 0; x < W; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = a[x];
+      continue;
+    }
+    const unsigned char* b1 = full[1].data() + (long)y * fstride[1];
+    const unsigned char* b2 = full[2].data() + (long)y * fstride[2];
+    if (f.color == 2) {  // rgb_rgb_convert into BGR
+      for (int x = 0; x < W; ++x) {
+        o[3 * x] = b2[x];
+        o[3 * x + 1] = b1[x];
+        o[3 * x + 2] = a[x];
+      }
+      continue;
+    }
+    for (int x = 0; x < W; ++x) {  // ycc_rgb_convert into BGR
+      const int yy = a[x], cb = b1[x], cr = b2[x];
+      o[3 * x + 2] = clamp255(yy + T.cr_r[cr]);
+      o[3 * x + 1] = clamp255(yy + (int)((T.cb_g[cb] + T.cr_g[cr]) >> 16));
+      o[3 * x] = clamp255(yy + T.cb_b[cb]);
+    }
+  }
+}
+
+void put_err(const std::string& m, char* err, int errlen) {
+  if (errlen <= 0) return;
+  const size_t k = std::min((size_t)errlen - 1, m.size());
+  std::memcpy(err, m.data(), k);
+  err[k] = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The header of a JPEG of n bytes, up to its first scan, into info[16]:
+// H, W, components, kind (0 baseline, 1 extended sequential, 2
+// progressive), colour space (0 gray, 1 YCbCr, 2 RGB), the offset and
+// length of the first APP1 Exif payload after "Exif\0\0" (-1, 0 if none),
+// then (h, v) sampling of each component.  Returns 0, or -1 with a message
+// in err (errlen bytes) for a file it does not read.
+int lvba_jpeg_info(const unsigned char* data, long n, long* info, char* err,
+                   int errlen) {
+  try {
+    JpegFrame f;
+    f.d = data;
+    f.n = n;
+    parse(f, false);
+    long v[16] = {f.H, f.W, f.ncomp, f.kind, f.color, f.exif_off, f.exif_len};
+    for (int c = 0; c < f.ncomp; ++c) {
+      v[7 + 2 * c] = f.comp[c].h;
+      v[8 + 2 * c] = f.comp[c].v;
+    }
+    std::memcpy(info, v, sizeof(v));
+    return 0;
+  } catch (const JpegFail& e) {
+    put_err(e.msg, err, errlen);
+    return -1;
+  } catch (const std::bad_alloc&) {
+    put_err("out of memory decoding a JPEG", err, errlen);
+    return -1;
+  }
+}
+
+// Decode a JPEG into out: (H, W) uint8 Y (gray != 0, cv2's
+// IMREAD_GRAYSCALE) or (H, W, 3) BGR (cv2's IMREAD_COLOR), with H and W
+// as lvba_jpeg_info gives them.  Returns 0, or -1 with a message in err.
+int lvba_jpeg_decode(const unsigned char* data, long n, int gray,
+                     unsigned char* out, char* err, int errlen) {
+  static const DecodeTables T;
+  try {
+    JpegFrame f;
+    f.d = data;
+    f.n = n;
+    decode_image(T, f, gray != 0, out);
+    return 0;
+  } catch (const JpegFail& e) {
+    put_err(e.msg, err, errlen);
+    return -1;
+  } catch (const std::bad_alloc&) {
+    put_err("out of memory decoding a JPEG", err, errlen);
+    return -1;
+  }
 }
 
 }  // extern "C"

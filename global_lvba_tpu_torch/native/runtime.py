@@ -27,6 +27,8 @@ SIGNATURES = {
     "lvba_bin_moments": ([_P, _P, _L, _P, _L, _I, _P, _P], None),
     "lvba_png_unfilter": ([_P, _L, _L, _I, _P], _I),
     "lvba_jpeg_encode": ([_P, _I, _I, _I, _P, _L, _P], _I),
+    "lvba_jpeg_info": ([_P, _L, _P, ctypes.c_char_p, _I], _I),
+    "lvba_jpeg_decode": ([_P, _L, _I, _P, ctypes.c_char_p, _I], _I),
 }
 
 _lock = threading.Lock()

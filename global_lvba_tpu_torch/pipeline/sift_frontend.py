@@ -28,7 +28,8 @@ log = logging.getLogger("global_lvba_tpu_torch.frontend")
 
 def load_gray_image(path, width: int, height: int) -> np.ndarray:
     """The image file as gray float32 in [0, 1] at width x height: cv2's
-    IMREAD_GRAYSCALE and INTER_LINEAR resize, bit for bit (io/image.py)."""
+    IMREAD_GRAYSCALE (the EXIF orientation applied first) and
+    INTER_LINEAR resize, bit for bit (io/image.py)."""
     img = imread_gray(path)
     if img.shape[1] != width or img.shape[0] != height:
         img = resize_linear(img, width, height)

@@ -1,13 +1,14 @@
 """The port's image files (io/image.py) against cv2 on the CPU: PNG of every
-colour type and bit depth (written by cv2, by PIL and by a filter-choosing
-encoder here), BMP of 8, 24 and 32 bits bottom-up and top-down, both reads
-bit for bit cv2.imread's; resize_linear bit for bit cv2.resize(INTER_LINEAR)
-at 2:1, 0.37 and upward; the PNG writer read back by cv2; the frontend's
-load_gray_image bit for bit the JAX package's; formats the port does not
-read raising ValueError with their name."""
+colour type and bit depth (written by cv2, by PIL and by the filter-choosing
+writer png_writer.py), BMP of 8, 24 and 32 bits bottom-up and top-down,
+both reads bit for bit cv2.imread's; resize_linear bit for bit
+cv2.resize(INTER_LINEAR) at 2:1, 0.37 and upward; the PNG writer read back
+by cv2; the frontend's load_gray_image bit for bit the JAX package's (PNG,
+BMP, baseline and progressive JPEG, Adam7 PNG, an EXIF-oriented JPEG); the
+JPEG formats the port does not read, and damaged files, raising ValueError
+with their name."""
 
 import struct
-import zlib
 
 import cv2
 import numpy as np
@@ -17,6 +18,7 @@ from PIL import Image
 from global_lvba_tpu.pipeline import sift_frontend as jsf
 from global_lvba_tpu_torch.io import image as gi
 from global_lvba_tpu_torch.pipeline import sift_frontend as psf
+from png_writer import png as _png
 
 H, W = 23, 37
 
@@ -30,67 +32,6 @@ def _same_reads(path):
     assert np.array_equal(pg, g)
     assert pc.dtype == np.uint8 and pc.shape == c.shape
     assert np.array_equal(pc, c)
-
-
-def _paeth(a, b, c):
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-
-
-def _filter_rows(raw: np.ndarray, bpp: int, filters) -> bytes:
-    """PNG scanlines of raw (H, rowbytes) uint8, row y under filter
-    filters[y % len(filters)] (the PNG specification's five)."""
-    out = bytearray()
-    prior = np.zeros(raw.shape[1], np.int64)
-    for y, row in enumerate(raw.astype(np.int64)):
-        ft = filters[y % len(filters)]
-        f = np.empty_like(row)
-        for x in range(row.size):
-            a = row[x - bpp] if x >= bpp else 0
-            b = prior[x]
-            c = prior[x - bpp] if x >= bpp else 0
-            pred = (0, a, b, (a + b) >> 1, _paeth(a, b, c))[ft]
-            f[x] = (row[x] - pred) & 0xFF
-        out += bytes([ft]) + f.astype(np.uint8).tobytes()
-        prior = row
-    return bytes(out)
-
-
-def _chunk(tag, data):
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def _png(samples: np.ndarray, color: int, depth: int, filters=(0,),
-         plte=None, trns=None, interlace=0) -> bytes:
-    """A PNG of samples (H, W, C) (palette indices or gray levels below 8
-    bits packed high bits first), its rows under the given filters."""
-    h, w, ch = samples.shape
-    if depth == 16:
-        raw = samples.astype(">u2").view(np.uint8).reshape(h, -1)
-    elif depth == 8:
-        raw = samples.astype(np.uint8).reshape(h, -1)
-    else:
-        per = 8 // depth
-        padded = np.zeros((h, -(-w // per) * per), np.uint8)
-        padded[:, :w] = samples[:, :, 0]
-        raw = np.zeros((h, padded.shape[1] // per), np.uint8)
-        for k in range(per):
-            raw |= (padded[:, k::per] << (8 - depth * (k + 1))).astype(
-                np.uint8)
-    bpp = max(1, ch * depth // 8)
-    body = (_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
-                                        0, interlace)))
-    if plte is not None:
-        body += _chunk(b"PLTE", plte.astype(np.uint8).tobytes())
-    if trns is not None:
-        body += _chunk(b"tRNS", trns)
-    data = zlib.compress(_filter_rows(raw, bpp, filters))
-    # two IDAT chunks: a reader joins them
-    body += _chunk(b"IDAT", data[:len(data) // 2])
-    body += _chunk(b"IDAT", data[len(data) // 2:])
-    return b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b"")
 
 
 CASES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
@@ -257,32 +198,100 @@ def test_imwrite_png_read_back_by_cv2(tmp_path, ch):
     _same_reads(p)
 
 
-@pytest.mark.parametrize("name", ["a.png", "b.bmp"])
+def exif_tiff(orientation: int, order: str = "II") -> bytes:
+    """An EXIF block (TIFF header, IFD0 of one SHORT entry: tag 0x0112)."""
+    e = "<" if order == "II" else ">"
+    return (order.encode() + struct.pack(e + "HIH", 42, 8, 1)
+            + struct.pack(e + "HHIH", 0x0112, 3, 1, orientation) + b"\0\0"
+            + struct.pack(e + "I", 0))
+
+
+def jpeg_with_app1(jpg: bytes, payload: bytes) -> bytes:
+    """jpg with an APP1 segment holding payload right after SOI."""
+    return (jpg[:2] + b"\xff\xe1" + struct.pack(">H", len(payload) + 2)
+            + payload + jpg[2:])
+
+
+def _write_for_jax_parity(p, img):
+    """img (H, W, 3) BGR written as the file name says: cv2's PNG, BMP,
+    baseline or progressive JPEG, an Adam7 PNG (the writer above), or a
+    baseline JPEG with EXIF orientation 6."""
+    name = p.name
+    if "progressive" in name:
+        cv2.imwrite(str(p), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    elif "adam7" in name:
+        p.write_bytes(_png(img[:, :, ::-1], 2, 8, (0, 1, 2, 3, 4),
+                           interlace=1))
+    elif "exif6" in name:
+        jpg = cv2.imencode(".jpg", img)[1].tobytes()
+        p.write_bytes(jpeg_with_app1(jpg, b"Exif\0\0" + exif_tiff(6)))
+    else:
+        cv2.imwrite(str(p), img)
+
+
+@pytest.mark.parametrize("name", ["a.png", "b.bmp", "c.jpg",
+                                  "d_progressive.jpg", "e_adam7.png",
+                                  "f_exif6.jpg"])
 def test_load_gray_image_matches_jax(tmp_path, name):
     """The frontend's decode + resize, as the JAX package's (cv2) loads it,
-    at the deployment's 2:1 and at another size."""
+    at the deployment's 2:1 and at another size; an EXIF-oriented file is
+    turned before the resize, as cv2.imread turns it."""
     img = np.random.default_rng(4).integers(0, 256, (64, 96, 3), np.uint8)
     p = tmp_path / name
-    cv2.imwrite(str(p), img)
+    _write_for_jax_parity(p, img)
+    if "exif6" in name:
+        assert gi.imread_gray(p).shape == (96, 64)
     for w, h in ((48, 32), (70, 45), (96, 64)):
         got = psf.load_gray_image(p, w, h)
         want = jsf.load_gray_image(p, w, h)
         assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
+def _splice_sof(jpg: bytes, marker: int, precision=8, ncomp=None) -> bytes:
+    """jpg with its SOF0 segment rewritten: another SOF marker, precision
+    or component count (extra components copy the last one's fields)."""
+    k = jpg.index(b"\xff\xc0")
+    n = struct.unpack(">H", jpg[k + 2:k + 4])[0]
+    body = bytearray(jpg[k + 4:k + 2 + n])
+    body[0] = precision
+    comps = [bytes(body[6 + 3 * c:9 + 3 * c]) for c in range(body[5])]
+    if ncomp is not None:
+        comps = (comps + [bytes([9 + c]) + comps[-1][1:]
+                          for c in range(ncomp)])[:ncomp]
+    body = bytes(body[:5]) + bytes([len(comps)]) + b"".join(comps)
+    return (jpg[:k] + bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2)
+            + body + jpg[k + 2 + n:])
+
+
+OUT_OF_SCOPE = [
+    (0xC9, 8, None, "arithmetic-coded JPEG"),
+    (0xCA, 8, None, "arithmetic-coded progressive JPEG"),
+    (0xC3, 8, None, "lossless JPEG"),
+    (0xC5, 8, None, "hierarchical JPEG"),
+    (0xC0, 12, None, "12-bit JPEG"),
+    (0xC0, 8, 4, "4 components \\(CMYK/YCCK\\)"),
+    (0xC0, 8, 2, "2 components"),
+]
+
+
 def test_unsupported_inputs_raise(tmp_path):
-    img = np.zeros((8, 8, 3), np.uint8)
-    jpg = tmp_path / "x.jpg"
-    cv2.imwrite(str(jpg), img)
-    with pytest.raises(ValueError, match="JPEG"):
-        gi.imread_color(jpg)
-    with pytest.raises(ValueError, match="JPEG"):
-        psf.load_gray_image(jpg, 8, 8)
-    inter = tmp_path / "i.png"
-    inter.write_bytes(_png(np.zeros((4, 4, 1), np.uint8), 0, 8,
-                           interlace=1))
-    with pytest.raises(ValueError, match="interlaced"):
-        gi.imread_gray(inter)
+    """The JPEG formats still out of scope raise ValueError by name (made
+    by splicing the SOF marker of a cv2 JPEG), as does a JPEG cut short;
+    an unknown format, a cut PNG and a missing file raise too."""
+    img = np.random.default_rng(2).integers(0, 256, (16, 24, 3), np.uint8)
+    jpg = cv2.imencode(".jpg", img)[1].tobytes()
+    spliced = tmp_path / "x.jpg"
+    for marker, precision, ncomp, match in OUT_OF_SCOPE:
+        spliced.write_bytes(_splice_sof(jpg, marker, precision, ncomp))
+        with pytest.raises(ValueError, match=match):
+            gi.imread_color(spliced)
+        with pytest.raises(ValueError, match=match):
+            psf.load_gray_image(spliced, 24, 16)
+    cut = tmp_path / "cut.jpg"
+    for end in (len(jpg) // 2, len(jpg) - 40, len(jpg) - 2):
+        cut.write_bytes(jpg[:end])
+        with pytest.raises(ValueError, match="JPEG"):
+            gi.imread_gray(cut)
     other = tmp_path / "o.gif"
     other.write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="unknown image format"):

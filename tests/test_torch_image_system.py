@@ -1,6 +1,8 @@
 """The system from image files with no COLMAP db, both packages on the CPU:
 models/synthetic.write_room_dataset's box room (8 views at 160 x 128 from
-320 x 256 files at scale 0.5, PNG and one BMP; 12 LiDAR frames) through
+320 x 256 files at scale 0.5: PNG (one of them Adam7-interlaced), two
+BMPs, a baseline JPEG of the port's encoder and a progressive one of
+cv2's; 12 LiDAR frames) through
 the port's LvbaSystem.run_full_pipeline(images=...) and the JAX package's.
 The SIFT fallback reads the files (the port's decoders, cv2 in the JAX
 package); both run SiftParams(max_kp=256, n_octaves=3) for time, the solve
@@ -29,11 +31,13 @@ from global_lvba_tpu.tracks import fuse as jfuse
 from global_lvba_tpu_torch.config import LvbaConfig
 from global_lvba_tpu_torch.frontend import sift as psift
 from global_lvba_tpu_torch.geometry.camera import CameraModel
-from global_lvba_tpu_torch.io.image import imread_color, resize_linear
+from global_lvba_tpu_torch.io.image import (
+    imread_color, jpeg_info, read_png, resize_linear)
 from global_lvba_tpu_torch.models.synthetic import write_room_dataset
 from global_lvba_tpu_torch.pipeline import sift_frontend as psf, visual_ba
 from global_lvba_tpu_torch.pipeline.system import LvbaSystem
 from global_lvba_tpu_torch.tracks import fuse
+from png_writer import png as _png
 
 CAM = CameraModel(fx=1293.56944 / 4, fy=1293.3155 / 4, cx=626.91359 / 4,
                   cy=522.799224 / 4, k1=-0.07616, k2=0.123001, p1=-0.00113,
@@ -74,10 +78,16 @@ def runs(tmp_path_factory):
     cfg_path, bgr, _, _ = write_room_dataset(
         root / "data", CAM, 0.5, num_views=8, num_frames=12,
         points_per_frame=5000, seed=3, bmp_every=4, settings=SETTINGS,
-        step=0.3)
+        step=0.3, jpeg_every=3)
     psys = LvbaSystem(LvbaConfig.from_yaml(cfg_path), out_dir=root / "port",
                       device="cpu")
     paths = psys.ds.image_paths
+    # view 5 (a baseline JPEG of the port's encoder) again as cv2's
+    # progressive JPEG, view 0 (a PNG) as an Adam7 PNG
+    assert paths[5].suffix == ".jpg" and paths[0].suffix == ".png"
+    cv2.imwrite(str(paths[5]), bgr[5], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    paths[0].write_bytes(_png(bgr[0][:, :, ::-1], 2, 8, (0, 1, 2, 3, 4),
+                              interlace=1))
     images = [resize_linear(imread_color(p), 160, 128) for p in paths]
     pres = psys.run_full_pipeline(images=images)
     jsys = jsystem.LvbaSystem(JConfig.from_yaml(cfg_path),
@@ -88,12 +98,24 @@ def runs(tmp_path_factory):
 
 
 def test_dataset_files_decode_as_written(runs):
+    """PNG (one of them Adam7) and BMP views decode to the arrays written,
+    JPEG views (the port's baseline, cv2's progressive) to cv2.imread's
+    pixels bit for bit and within the codec's loss of the arrays."""
     paths = runs["paths"]
-    assert [p.suffix for p in paths].count(".bmp") == 2
+    suffixes = [p.suffix for p in paths]
+    assert (suffixes.count(".bmp"), suffixes.count(".jpg")) == (2, 2)
+    assert jpeg_info(paths[2].read_bytes())["format"] == "baseline"
+    assert jpeg_info(paths[5].read_bytes())["format"] == "progressive"
+    assert read_png(paths[0].read_bytes())[0].shape == (256, 320, 3)
+    assert paths[0].read_bytes()[28] == 1       # IHDR's interlace byte
     for k, p in enumerate(paths):
         got = imread_color(p)
-        assert np.array_equal(got, runs["bgr"][k])
         assert np.array_equal(got, cv2.imread(str(p), cv2.IMREAD_COLOR))
+        if p.suffix == ".jpg":
+            err = got.astype(np.float64) - runs["bgr"][k]
+            assert 10 * np.log10(255.0 ** 2 / np.mean(err ** 2)) >= 35.0
+        else:
+            assert np.array_equal(got, runs["bgr"][k])
         assert np.array_equal(runs["images"][k], cv2.resize(
             got, (160, 128), interpolation=cv2.INTER_LINEAR))
 
