@@ -336,17 +336,23 @@ Slice 15, images without cv2:
      whose three channels are different functions of the render, every
      8th view a 24-bit BMP, of the others every 3rd a baseline JPEG (the
      port's encode_jpeg: quality 95, 4:2:0; 14 views) and view 0 an
-     Adam7-interlaced PNG (tests/png_writer.py), with 96 LiDAR frames of
-     10,000 points under perturbed odometry and cfg.yaml at the
-     reference scale 0.5, the COLMAP export on and no match.db, under
-     build/images_smoke/ (removed after).  Each PNG and BMP decoded by
-     the port equals the array written (the Adam7 one too), each JPEG
-     lies within PSNR 40 dB of it and decodes twice bitwise alike; the
-     committed cv2 fixtures (tests/data/images/*, decodes.npz: progressive,
-     4:2:2, 4:1:1, restart-interval, gray and EXIF-6 JPEGs, a 16-bit Adam7
-     PNG) decode bit for bit as cv2 decoded them; decode ms per JPEG
-     (colour and gray), per Adam7 PNG, per PNG and per BMP at 1280 x
-     1024, resize ms.  Then
+     Adam7-interlaced PNG (tests/png_writer.py); then one PNG view
+     rewritten as a CMYK JPEG and another as an arithmetic-coded
+     progressive JPEG (tests/jpeg_writer.py), and the first BMP view as an
+     RLE8 BMP of its 256-colour quantisation (tests/bmp_writer.py); with
+     96 LiDAR frames of 10,000 points under perturbed odometry and
+     cfg.yaml at the reference scale 0.5, the COLMAP export on and no
+     match.db, under build/images_smoke/ (removed after).  Each PNG and
+     BMP decoded by the port equals the array written (the Adam7 one and
+     the quantised RLE8 one too), each JPEG lies within PSNR 40 dB of it
+     and decodes twice bitwise alike; the committed cv2 fixtures
+     (tests/data/images/*, decodes.npz: progressive, 4:2:2, 4:1:1,
+     restart-interval, gray, EXIF-6, block-smoothed, CMYK (PIL), YCCK,
+     arithmetic-coded and lossless JPEGs, a 16-bit Adam7 PNG, 1-bit,
+     565, RLE8, RLE4 and OS/2 BMPs) decode bit for bit as cv2 decoded
+     them, and raise where cv2 read nothing; decode ms of each format
+     (colour and gray) at 1280 x 1024 and of each fixture at its size,
+     resize ms.  Then
      LvbaSystem.run_full_pipeline(images=[resize_linear(imread_color(p),
      640, 512) ...]) on the card with the launch counts set to 0 just
      before: top2_similarity (the SIFT fallback from the files), the
@@ -5150,9 +5156,10 @@ ZBUF_SHARE = 1e-3          # pixels off _zbuffer_host by > 1e-6, per image
 # the reference camera unscaled (1280 x 1024) from a sideways path of
 # IMAGES_VIEWS views (models/synthetic.room_views: IMAGES_STEP a view, 2 m
 # from the wall, about 4.3 degrees of parallax a view for track fusion's
-# 8-degree rule), every IMAGES_BMP_EVERY-th a 24-bit BMP; IMAGES_FRAMES LiDAR frames
-# of IMAGES_PPF points; the configuration at the reference scale 0.5 (640 x
-# 512), float32, the COLMAP export on
+# 8-degree rule), every IMAGES_BMP_EVERY-th a 24-bit BMP (the first an RLE8
+# one), two PNG views a CMYK and an arithmetic-coded JPEG; IMAGES_FRAMES
+# LiDAR frames of IMAGES_PPF points; the configuration at the reference
+# scale 0.5 (640 x 512), float32, the COLMAP export on
 IMAGES_VIEWS = 48
 IMAGES_STEP = 0.15         # metres a view: 7.05 m of path, 4.3 degrees
 IMAGES_TEXTURE = 32.0      # cycles/m: phase 10's 16 at its 4 m, here at 2 m
@@ -5625,17 +5632,29 @@ def _pcd_points(path) -> int:
 
 
 def _image_fixtures(np):
-    """The committed cv2 fixtures decoded by the port: {file: bit for bit
-    cv2's colour and gray decodes}."""
+    """The committed cv2 fixtures decoded by the port: ({file: bit for bit
+    cv2's colour and gray decodes, and a ValueError where cv2 read nothing
+    that way}, {file: (height, width, ms of one colour or gray decode)})."""
     from global_lvba_tpu_torch.io.image import imread_color, imread_gray
 
     ref = np.load(IMAGE_FIXTURES / "decodes.npz")
     names = sorted({k.split(":")[0] for k in ref.files})
-    return {name: bool(
-        np.array_equal(imread_color(IMAGE_FIXTURES / name),
-                       ref[f"{name}:color"])
-        and np.array_equal(imread_gray(IMAGE_FIXTURES / name),
-                           ref[f"{name}:gray"])) for name in names}
+    same, ms = {}, {}
+    for name in names:
+        ok = True
+        for kind, read in (("color", imread_color), ("gray", imread_gray)):
+            key = f"{name}:{kind}"
+            t0 = time.perf_counter()
+            try:
+                img = read(IMAGE_FIXTURES / name)
+            except ValueError:
+                ok &= key not in ref.files
+                continue
+            dt = (time.perf_counter() - t0) * 1e3
+            ok &= key in ref.files and bool(np.array_equal(img, ref[key]))
+            ms.setdefault(name, (img.shape[0], img.shape[1], dt))
+        same[name] = bool(ok)
+    return same, ms
 
 
 def _images(torch, np, dev, kern, results, paths):
@@ -5669,7 +5688,11 @@ def _images(torch, np, dev, kern, results, paths):
         load_gray_image, match_and_compact)
 
     sys.path.insert(0, str(IMAGE_FIXTURES.parents[1]))
-    from png_writer import png  # the tests' writer: the port writes no Adam7
+    # the tests' writers: the port writes no Adam7 PNG, CMYK or
+    # arithmetic-coded JPEG and no RLE8 BMP
+    import bmp_writer as bw
+    import jpeg_writer as jw
+    from png_writer import png
 
     rec = results["images"] = {}
     cm = LvbaConfig().cam_model
@@ -5690,6 +5713,34 @@ def _images(torch, np, dev, kern, results, paths):
     first.write_bytes(png(np.ascontiguousarray(bgr[0][:, :, ::-1]), 2, 8,
                           (1,), interlace=1))
     write_s = time.time() - t0
+    # two more PNG views as a CMYK JPEG and an arithmetic-coded progressive
+    # JPEG (4:2:0), a BMP view as an RLE8 BMP of its 256-colour
+    # quantisation, which is what it then decodes to
+    img_dir = work / "dataset" / "all_image"
+    listed = sorted(f for f in img_dir.iterdir()
+                    if f.suffix in (".png", ".bmp", ".jpg"))
+    pngs = [f for f in listed if f.suffix == ".png" and f != first]
+    special, expect, convert_s = {}, {}, {}
+    for f, kd in ((pngs[0], "jpg_cmyk"), (pngs[len(pngs) // 2], "jpg_arith"),
+                  (next(f for f in listed if f.suffix == ".bmp"),
+                   "bmp_rle8")):
+        k = listed.index(f)
+        t0 = time.perf_counter()
+        if kd == "jpg_cmyk":
+            data = jw.lossy(jw.cmyk_from_bgr(bgr[k]), quality=95, adobe=0)
+        elif kd == "jpg_arith":
+            data = jw.lossy(jw.ycc_from_bgr(bgr[k]), quality=95,
+                            coding="arith", progressive=True,
+                            sampling=[(2, 2), (1, 1), (1, 1)])
+        else:
+            idx, pal = bw.quantize(bgr[k])
+            data = bw.bmp(idx, 8, palette=pal, compression=bw.BI_RLE8)
+            expect[k] = pal[idx]
+        out = f.with_suffix(".bmp" if kd == "bmp_rle8" else ".jpg")
+        f.unlink()
+        out.write_bytes(data)
+        special[out.name] = kd
+        convert_s[kd] = time.perf_counter() - t0
     cfg = LvbaConfig.from_yaml(cfg_path)
     W, H = int(cm.cam_width * cm.scale), int(cm.cam_height * cm.scale)
 
@@ -5698,47 +5749,71 @@ def _images(torch, np, dev, kern, results, paths):
     files = [f for f in files if f.suffix in (".png", ".bmp", ".jpg")]
 
     def kind(f):
-        return "adam7" if f == first else f.suffix[1:]
+        return "adam7" if f == first else special.get(f.name, f.suffix[1:])
 
-    dec = {"png": [], "adam7": [], "bmp": [], "jpg": [], "jpg_gray": []}
-    decoded, psnr, jpeg_twice = [], [], True
+    dec = {k: [] for k in ("png", "adam7", "bmp", "bmp_rle8", "jpg",
+                           "jpg_gray", "jpg_cmyk", "jpg_cmyk_gray",
+                           "jpg_arith", "jpg_arith_gray")}
+    decoded, psnr, jpeg_twice = [], {}, True
     for k, f in enumerate(files):
+        kd = kind(f)
         t0 = time.perf_counter()
         img = imread_color(f)
-        dec[kind(f)].append((time.perf_counter() - t0) * 1e3)
+        dec[kd].append((time.perf_counter() - t0) * 1e3)
         decoded.append(img)
         if f.suffix == ".jpg":
             t0 = time.perf_counter()
             imread_gray(f)
-            dec["jpg_gray"].append((time.perf_counter() - t0) * 1e3)
+            dec[kd + "_gray"].append((time.perf_counter() - t0) * 1e3)
             err = img.astype(np.float64) - bgr[k]
-            psnr.append(float(10 * np.log10(255.0 ** 2 / np.mean(err ** 2))))
+            psnr.setdefault(kd, []).append(
+                float(10 * np.log10(255.0 ** 2 / np.mean(err ** 2))))
             jpeg_twice &= bool(np.array_equal(imread_color(f), img))
-    same_files = all(np.array_equal(a, b) for a, b, f in zip(
-        decoded, bgr, files) if f.suffix != ".jpg")
+    same_files = all(np.array_equal(a, expect.get(k, bgr[k]))
+                     for k, (a, f) in enumerate(zip(decoded, files))
+                     if f.suffix != ".jpg")
     n_kind = {k: len(v) for k, v in dec.items()}
-    fixtures = _image_fixtures(np)
+    fixtures, fixture_ms = _image_fixtures(np)
     t0 = time.perf_counter()
     images = [resize_linear(img, W, H) for img in decoded]
     resize_ms = (time.perf_counter() - t0) * 1e3 / len(images)
-    decode = {k: float(np.mean(v)) for k, v in dec.items()}
+    decode = {k: float(np.mean(v)) if v else float("nan")
+              for k, v in dec.items()}
+    min_psnr = {k: min(v) for k, v in psnr.items()}
     print(f"[images] {len(files)} files ({n_kind['png']} PNG, "
-          f"{n_kind['adam7']} Adam7 PNG, {n_kind['jpg']} JPEG, "
-          f"{n_kind['bmp']} BMP) of {cam_full.width} x {cam_full.height} "
-          f"and {IMAGES_FRAMES} LiDAR frames of {IMAGES_PPF} points written "
-          f"in {write_s:.1f} s (renders on the card); decode ms per PNG "
-          f"{decode['png']:.2f}, per Adam7 PNG {decode['adam7']:.2f}, per "
-          f"JPEG {decode['jpg']:.2f} (colour) and {decode['jpg_gray']:.2f} "
-          f"(gray), per BMP {decode['bmp']:.2f}; resize to {W} x {H} "
-          f"{resize_ms:.1f} ms an image; every PNG and BMP decodes to the "
-          f"array written: {same_files}; JPEG PSNR min {min(psnr):.2f} dB "
-          f"(limit {IMAGES_JPEG_PSNR_DB}), two decodes bitwise alike: "
-          f"{jpeg_twice}; the cv2 fixtures bit for bit: {fixtures}",
+          f"{n_kind['adam7']} Adam7 PNG, {n_kind['jpg']} baseline JPEG, "
+          f"{n_kind['jpg_cmyk']} CMYK JPEG, {n_kind['jpg_arith']} "
+          f"arithmetic-coded progressive JPEG, {n_kind['bmp']} BMP, "
+          f"{n_kind['bmp_rle8']} RLE8 BMP) of {cam_full.width} x "
+          f"{cam_full.height} and {IMAGES_FRAMES} LiDAR frames of "
+          f"{IMAGES_PPF} points written in {write_s:.1f} s (renders on the "
+          f"card), the CMYK, arithmetic-coded and RLE8 views converted by "
+          f"the tests' writers in "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in convert_s.items())}; "
+          f"resize to {W} x {H} {resize_ms:.1f} ms an image; every PNG and "
+          f"BMP decodes to the array written: {same_files}; JPEG PSNR min "
+          f"{min_psnr} dB (limit {IMAGES_JPEG_PSNR_DB}), two decodes "
+          f"bitwise alike: {jpeg_twice}", flush=True)
+    print(f"[images] decode ms at {cam_full.width} x {cam_full.height}, "
+          f"colour (gray): PNG {decode['png']:.2f}, Adam7 PNG "
+          f"{decode['adam7']:.2f}, baseline JPEG {decode['jpg']:.2f} "
+          f"({decode['jpg_gray']:.2f}), CMYK JPEG {decode['jpg_cmyk']:.2f} "
+          f"({decode['jpg_cmyk_gray']:.2f}), arithmetic-coded progressive "
+          f"JPEG {decode['jpg_arith']:.2f} ({decode['jpg_arith_gray']:.2f}), "
+          f"BMP {decode['bmp']:.2f}, RLE8 BMP {decode['bmp_rle8']:.2f}",
+          flush=True)
+    print("[images] the cv2 fixtures bit for bit (decode ms of the first "
+          "read at its size): " + ", ".join(
+              f"{n} {fixtures[n]} ({fixture_ms[n][1]} x {fixture_ms[n][0]} "
+              f"{fixture_ms[n][2]:.3f} ms)" for n in sorted(fixtures)),
           flush=True)
     if not same_files:
         _fail("[images]: a decoded file differs from the array written")
     if not (n_kind["jpg"] >= 12 and n_kind["adam7"] == 1
-            and min(psnr) >= IMAGES_JPEG_PSNR_DB and jpeg_twice):
+            and n_kind["jpg_cmyk"] == 1 and n_kind["jpg_arith"] == 1
+            and n_kind["bmp_rle8"] == 1
+            and min(min_psnr.values()) >= IMAGES_JPEG_PSNR_DB
+            and jpeg_twice):
         _fail("[images]: the JPEG views miss their checks, or the file mix "
               "is not the one planned")
     if not (fixtures and all(fixtures.values())):
@@ -5989,8 +6064,9 @@ def _images(torch, np, dev, kern, results, paths):
                             kernel_device_ms=c_dev)
     phase_s = time.time() - phase_t0
     print(f"[images] phase wall {phase_s:.1f} s", flush=True)
-    rec.update(write_s=write_s, decode_ms=decode, decode_counts=n_kind,
-               jpeg_psnr_db=psnr, fixtures=fixtures, phase_s=phase_s,
+    rec.update(write_s=write_s, convert_s=convert_s, decode_ms=decode,
+               decode_counts=n_kind, jpeg_psnr_db=psnr, fixtures=fixtures,
+               fixture_decode_ms=fixture_ms, phase_s=phase_s,
                resize_ms=resize_ms,
                system_wall_s=wall, frontend_s=spans["frontend_s"],
                stages=stages, export=ex, reproj=(v.mean_reproj_pre,

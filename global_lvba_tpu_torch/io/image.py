@@ -13,22 +13,32 @@ imread_gray / imread_color give cv2.imread's pixels bit for bit
     bits, the same plus 16384 at 16 bits, before the cut).  The rows are
     inflated with zlib and unfiltered by the native library
     (lvba_png_unfilter), an Adam7 pass at a time.
-  * JPEG: baseline, extended sequential and progressive Huffman-coded,
-    8 bits, one or three components, by the native library's
-    lvba_jpeg_decode: libjpeg-turbo's decompressor with cv2's settings
-    (islow IDCT, fancy upsampling, BGR or the Y plane out; read_jpeg).
-    Arithmetic coding, lossless and hierarchical frames, 12-bit samples
-    and two- or four-component (CMYK / YCCK) frames raise ValueError
-    naming the format, and so does a damaged file, where libjpeg warns
-    and cv2 returns what it decoded.
-  * BMP, uncompressed 8-bit (palette), 24- and 32-bit, bottom-up and
-    top-down, with cv2's own gray weights ((4899 R + 9617 G + 1868 B +
-    8192) >> 14).
+  * JPEG, by the native library's lvba_jpeg_decode: libjpeg-turbo's
+    decompressor with cv2's settings (islow IDCT, fancy upsampling, block
+    smoothing, BGR or the Y plane out; read_jpeg): baseline, extended
+    sequential and progressive frames, Huffman- or arithmetic-coded, of
+    one, three or four components (CMYK, or YCCK under Adobe transform
+    2, turned into BGR or gray as cv2 turns libjpeg's CMYK:
+    x' = K - (((255 - x) K) >> 8), gray (4899 R + 9617 G + 1868 B +
+    8192) >> 14); lossless frames of 2-8 bits (gray from one component,
+    colour from RGB, as libjpeg converts nothing else in lossless mode);
+    progressive files whose later scans are missing, smoothed as libjpeg
+    smooths them.  Hierarchical and arithmetic-coded lossless frames,
+    precision other than 8 bits (2-8 lossless) and two components raise
+    ValueError naming the format, as cv2 reads none of them, and so does
+    a damaged file, where libjpeg warns and cv2 returns what it decoded.
+  * BMP as cv2's grfmt_bmp reads it: 1-, 4- and 8-bit palettes
+    (uncompressed, RLE4, RLE8 with its end of line, delta and end of
+    bitmap), 16 bits (555, bit fields 555 or 565), 24 and 32 bits (bit
+    fields after a 40- or 52-byte header), BITMAPINFOHEADER, V4, V5 and
+    OS/2 headers, bottom-up and top-down (read_bmp); gray with cv2's own
+    weights ((4899 R + 9617 G + 1868 B + 8192) >> 14).
 Both reads turn the image by its EXIF orientation as cv2.imread does
 (a PNG's eXIf chunk, a JPEG's first Exif APP1; exif_orientation,
 apply_orientation); read_png, the depth maps' reader, does not, as
 cv2's IMREAD_UNCHANGED does not.  Other inputs raise ValueError naming
-the format.
+the format, and so do a JPEG or BMP of more than 2^30 pixels, which cv2
+refuses before decoding.
 
 resize_linear is cv2.resize(INTER_LINEAR) on uint8 bit for bit: an exact
 2:1 reduction is cv2's 2x2 average ((a + b + c + d + 2) >> 2), any other
@@ -205,42 +215,208 @@ def _png_color(px, color, depth, plte) -> np.ndarray:
     return np.ascontiguousarray(a[:, :, ::-1])
 
 
+def _fill_run(out, p, line_end, y, count, value, W, H):
+    """cv2's FillUniColor in palette indices: count pixels of value from p
+    on, wrapping to the next row at its end; returns (p, line_end, y)."""
+    while True:
+        end = min(p + count, line_end)
+        count -= end - p
+        out[p:end] = value
+        p = end
+        if p >= line_end:
+            line_end += W
+            p = line_end - W
+            y += 1
+            if y >= H:
+                break
+        if count <= 0:
+            break
+    return p, line_end, y
+
+
+def _rle_indices(data: bytes, pos: int, W: int, H: int, four: bool, name):
+    """Palette indices (H * W, file order) of an RLE8 or RLE4 stream from
+    pos, as cv2's grfmt_bmp walks it: encoded runs (RLE4: two alternating
+    nibbles), absolute runs padded to 16 bits, end of line, delta and end
+    of bitmap filling what they skip with entry 0.  A run past the row's
+    end, or a stream that ends first, raises (cv2 reads nothing).  In RLE8
+    an encoded run that reaches the row's end moves to the next row, and
+    an end of line right after it is then passed over.  In RLE4 a delta
+    moves dx pixels along the row (its dy is not read) and an end of
+    bitmap ends the row only, as an end of line does."""
+    out = np.zeros(H * W, np.uint8)
+    n = len(data)
+    p, line_end, y, flag = 0, W, 0, 0
+
+    def cut():
+        return ValueError(f"{name}: BMP RLE data ends before the image")
+
+    while True:
+        if pos + 2 > n:
+            raise cut()
+        ln, code = data[pos], data[pos + 1]
+        pos += 2
+        if ln:  # encoded
+            if p + ln > line_end:
+                raise ValueError(f"{name}: a BMP RLE run passes the end of "
+                                 f"its row")
+            if four:
+                pair = np.array([code >> 4, code & 15], np.uint8)
+                out[p:p + ln] = np.resize(pair, ln)
+                p += ln
+            elif p + ln < line_end:  # the common case: inside the row
+                out[p:p + ln] = code
+                p += ln
+                flag = 0
+            else:
+                prev_y = y
+                p, line_end, y = _fill_run(out, p, line_end, y, ln, code, W,
+                                           H)
+                flag = y - prev_y
+                if y >= H:
+                    break
+        elif code > 2:  # absolute
+            if p + code > line_end:
+                raise ValueError(f"{name}: a BMP RLE run passes the end of "
+                                 f"its row")
+            nb = (code + 1) // 2 if four else code
+            sz = (nb + 1) & ~1
+            if pos + sz > n:
+                raise cut()
+            raw = np.frombuffer(data, np.uint8, nb, pos)
+            if four:
+                raw = np.stack([raw >> 4, raw & 15], 1).ravel()[:code]
+            out[p:p + code] = raw
+            p += code
+            pos += sz
+            flag = 0
+        else:  # end of line (0), end of bitmap (1), delta (2)
+            x_shift, y_shift = line_end - p, H - y
+            if four or code or not flag or x_shift < W:
+                if code == 2:
+                    if pos + 2 > n:
+                        raise cut()
+                    x_shift, y_shift = data[pos], data[pos + 1]
+                    pos += 2
+                if code and not four:  # RLE4 moves along the row only
+                    x_shift += y_shift * W
+                if y >= H:
+                    break
+                p, line_end, y = _fill_run(out, p, line_end, y, x_shift, 0,
+                                           W, H)
+                if y >= H:
+                    break
+            flag = 0
+            if y >= H:
+                break
+    return out
+
+
 def read_bmp(data: bytes, name="BMP"):
-    """(BGR pixels (H, W, 3) uint8 top row first, per-pixel palette or
-    direct) of an uncompressed 8-, 24- or 32-bit BMP."""
-    if data[:2] != b"BM" or len(data) < 54:
+    """(BGR pixels (H, W, 3) uint8 top row first) of a BMP as cv2's
+    grfmt_bmp reads it: a header of 36 bytes or more (BITMAPINFOHEADER, V4,
+    V5) or an OS/2 BITMAPCOREHEADER (12 bytes: 16-bit sizes, 3-byte
+    palette entries); palette images of 1, 4 and 8 bits, uncompressed, RLE4
+    and RLE8; 16 bits as 555, or bit fields 555 / 565 (other masks are not
+    read); 24 bits; 32 bits plain, or with bit fields after a 40- or
+    52-byte header (the masks ignored: bytes B, G, R, A); bottom-up or
+    top-down.  The palette follows the
+    header, of clrUsed entries (2^bits when 0), the 16-bit masks too (after
+    the whole header, as cv2 reads them even where a V4 or V5 header holds
+    them).  Other files raise ValueError naming the format."""
+    n = len(data)
+    if data[:2] != b"BM" or n < 18:
         raise ValueError(f"{name}: not a BMP file")
-    off = struct.unpack("<I", data[10:14])[0]
-    hsize = struct.unpack("<I", data[14:18])[0]
-    if hsize < 40:
-        raise ValueError(f"{name}: OS/2 BMP headers are not supported")
-    W, Hs, _, bits, comp = struct.unpack("<iiHHI", data[18:34])
-    ncol = struct.unpack("<I", data[46:50])[0]
-    top_down = Hs < 0
+    off, hsize = struct.unpack_from("<Ii", data, 10)
+
+    def bad(what):
+        return ValueError(f"{name}: BMP {what} is not supported")
+
+    def need(end):
+        if end > n:
+            raise ValueError(f"{name}: BMP file is cut short")
+
+    pal = np.zeros((256, 3), np.uint8)
+    if hsize >= 36:
+        need(14 + 36)
+        W, Hs = struct.unpack_from("<ii", data, 18)
+        bits, comp = struct.unpack_from("<Hi", data, 28)
+        clr_used = struct.unpack_from("<i", data, 46)[0]
+        ok = ((bits in (1, 4, 8, 16, 24, 32) and comp == 0)
+              or (bits in (16, 32) and comp == 3)
+              or (bits == 4 and comp == 2) or (bits == 8 and comp == 1))
+        if not (ok and W > 0 and Hs != 0):
+            raise bad(f"of {bits} bits, compression {comp}")
+        at = 14 + hsize
+        if bits <= 8:
+            if not 0 <= clr_used <= 256:
+                raise bad(f"palette of {clr_used} colours")
+            k = clr_used or 1 << bits
+            need(at + 4 * k)
+            pal[:k] = np.frombuffer(data, np.uint8, 4 * k, at).reshape(
+                k, 4)[:, :3]
+        elif bits == 16 and comp == 3:
+            need(at + 12)
+            masks = struct.unpack_from("<III", data, at)
+            if masks == (0x7C00, 0x3E0, 0x1F):
+                bits = 15
+            elif masks != (0xF800, 0x7E0, 0x1F):
+                raise bad(f"bit fields {tuple(hex(m) for m in masks)}")
+        elif bits == 16:
+            bits = 15
+        elif comp == 3 and hsize >= 56:
+            # cv2 5.0 takes a V3+ header's own masks here, scaling and
+            # rounding to gray in a path of its own
+            raise bad("of 32 bits with bit fields under a header of "
+                      f"{hsize} bytes")
+    elif hsize == 12:
+        need(26)
+        W, Hs, planes, bits = struct.unpack_from("<HHHH", data, 18)
+        comp = 0
+        if not (W > 0 and Hs != 0 and planes == 1
+                and bits in (1, 4, 8, 24, 32)):
+            raise bad(f"(OS/2) of {bits} bits, {planes} planes")
+        if bits <= 8:
+            k = 1 << bits
+            need(26 + 3 * k)
+            pal[:k] = np.frombuffer(data, np.uint8, 3 * k, 26).reshape(k, 3)
+    else:
+        raise bad(f"header of {hsize} bytes")
     H = abs(Hs)
-    if bits not in (8, 24, 32) or comp not in (0, 3) or \
-            (comp == 3 and bits != 32) or W <= 0 or H == 0:
-        raise ValueError(f"{name}: BMP of {bits} bits, compression {comp} "
-                         f"is not supported (8/24/32-bit uncompressed only)")
-    if comp == 3:
-        masks = struct.unpack("<III", data[54:66])
-        if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise ValueError(f"{name}: BMP bit fields {masks} are not "
-                             f"supported")
-    stride = (W * bits // 8 + 3) & ~3
-    buf = np.frombuffer(data, dtype=np.uint8, count=stride * H, offset=off)
-    rows = buf.reshape(H, stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bits == 8:
-        n = ncol if ncol else 256
-        pal = np.frombuffer(data, dtype=np.uint8, count=4 * n,
-                            offset=14 + hsize).reshape(n, 4)[:, :3]
-        full = np.zeros((256, 3), dtype=np.uint8)
-        full[:n] = pal
-        return full[rows[:, :W]]
-    k = bits // 8
-    return np.ascontiguousarray(rows[:, :W * k].reshape(H, W, k)[:, :, :3])
+    # cv2's validateInputImageSize: each side up to 2^20, 2^30 pixels
+    if W > 1 << 20 or H > 1 << 20 or W * H > 1 << 30:
+        raise bad(f"of {W} x {H} pixels (larger than cv2 reads)")
+    if comp in (1, 2):
+        idx = _rle_indices(data, off, W, H, comp == 2, name).reshape(H, W)
+        bgr = pal[idx]
+    else:
+        stride = ((W * (16 if bits == 15 else bits) + 7) // 8 + 3) & ~3
+        need(off + stride * H)
+        rows = np.frombuffer(data, np.uint8, stride * H, off).reshape(
+            H, stride)
+        if bits < 8:
+            per = 8 // bits
+            shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
+            idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(
+                H, -1)[:, :W]
+            bgr = pal[idx]
+        elif bits == 8:
+            bgr = pal[rows[:, :W]]
+        elif bits in (15, 16):
+            t = rows[:, :2 * W].view("<u2").astype(np.int32)
+            if bits == 15:
+                g = (t >> 2) & 0xF8
+                r = (t >> 7) & 0xF8
+            else:
+                g = (t >> 3) & 0xFC
+                r = (t >> 8) & 0xF8
+            bgr = np.stack([(t << 3) & 0xF8, g, r], -1).astype(np.uint8)
+        else:
+            k = bits // 8
+            bgr = rows[:, :W * k].reshape(H, W, k)[:, :, :3]
+    if Hs > 0:
+        bgr = bgr[::-1]
+    return np.ascontiguousarray(bgr)
 
 
 def _bgr_to_gray_cv(bgr: np.ndarray) -> np.ndarray:
@@ -333,8 +509,10 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # JPEG reader (the native library's lvba_jpeg_info / lvba_jpeg_decode)
 
-JPEG_FORMATS = ("baseline", "extended sequential", "progressive")
-JPEG_COLOR_SPACES = ("gray", "YCbCr", "RGB")
+JPEG_FORMATS = ("baseline", "extended sequential", "progressive", "lossless",
+                "arithmetic-coded sequential",
+                "arithmetic-coded progressive")
+JPEG_COLOR_SPACES = ("gray", "YCbCr", "RGB", "CMYK", "YCCK")
 _JPEG_ERR = 512
 
 
@@ -366,8 +544,9 @@ def jpeg_info(data: bytes, name="JPEG") -> dict:
 
 def read_jpeg(data: bytes, gray: bool, name="JPEG", info=None) -> np.ndarray:
     """(H, W) uint8 (gray: libjpeg's JCS_GRAYSCALE output, the Y plane of
-    a YCbCr file) or (H, W, 3) BGR uint8 of a JPEG, libjpeg-turbo's
-    decode with cv2's settings bit for bit; no EXIF orientation applied.
+    a YCbCr file, or cv2's gray of a four-component one) or (H, W, 3) BGR
+    uint8 of a JPEG, libjpeg-turbo's decode with cv2's settings bit for
+    bit; no EXIF orientation applied.
     info is jpeg_info(data) where the caller has it already.
     ValueError on a file the decoder does not read or finds damaged."""
     import ctypes

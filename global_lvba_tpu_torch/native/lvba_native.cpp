@@ -692,14 +692,16 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
 
 // ---------------------------------------------------------------------------
 // JPEG decoder: libjpeg-turbo's decompressor as cv2.imread drives it
-// (jpeg_read_header's defaults: JDCT_ISLOW, do_fancy_upsampling; output
-// JCS_EXT_BGR or JCS_GRAYSCALE), bit for bit.  The stages follow libjpeg's
-// files:
+// (jpeg_read_header's defaults: JDCT_ISLOW, do_fancy_upsampling,
+// do_block_smoothing; output JCS_EXT_BGR or JCS_GRAYSCALE, or JCS_CMYK for
+// four components, which cv2 turns into BGR or gray itself), bit for bit.
+// The stages follow libjpeg's files:
 //   * jdmarker.c: SOI, APPn (JFIF APP0, the first APP1 that begins with
 //     "Exif\0\0", Adobe APP14's transform), DQT of 8- and 16-bit entries,
-//     SOF0/1/2, DHT, SOS, DRI, RSTn, DNL (skipped, as libjpeg does), COM,
-//     EOI; 0xFF fill bytes and FF00 stuffing.  Huffman table slots 0 and
-//     1 start as the Annex K tables (jstdhuff.c, for streams that carry
+//     SOF0/1/2/3/9/10, DHT, DAC (conditioning L, U and Kx; 0, 1 and 5 by
+//     default), SOS, DRI, RSTn, DNL (skipped, as libjpeg does), COM, EOI;
+//     0xFF fill bytes and FF00 stuffing.  Huffman table slots 0 and 1
+//     start as the Annex K tables (jstdhuff.c, for streams that carry
 //     none).  A component's quantization table is latched at its first
 //     scan (jdinput.c latch_quant_tables).
 //   * jdhuff.c / jdphuff.c: sequential scans, interleaved or not (a
@@ -707,23 +709,44 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
 //     ceil(h / 8) blocks), the four progressive scan kinds (DC first and
 //     refine, AC first with EOB runs, AC refine with correction bits),
 //     restart intervals resetting the DC predictors and the EOB run.
+//   * jdarith.c: the QM decoder (jaricom.c's Qe table; past a marker it
+//     reads zero bytes, which is no damage here), 64 DC and 256 AC
+//     statistics bins a table, DC conditioning on the last difference,
+//     the sequential MCU decoder and the four progressive ones; a restart
+//     resets the statistics, the predictions and the decoder.
+//   * jdlhuff.c / jddiffct.c / jdlossls.c: lossless frames, precision 2-8
+//     (the 8-bit API that cv2 reads through), predictors 1-7, the first
+//     row of a scan or restart interval predicted from 2^(P - Pt - 1) and
+//     its left neighbour, the first column from the row above, samples
+//     modulo 2^16, scaled back by the point transform into 8 bits; rows
+//     are undifferenced an iMCU row at a time, as libjpeg does (a restart
+//     inside one resets the first row of the iMCU row).
 //   * jidctint.c: jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) with the
 //     range-limit table of jdmaster.c (x & 1023 around CENTERJSAMPLE).
+//   * jdcoefct.c: block smoothing of a progressive file whose scans leave
+//     one of the first nine AC coefficients imprecise (smoothing_ok,
+//     decompress_smooth_data of libjpeg-turbo 2.1 and later: a 5 x 5
+//     neighbourhood of DC values; the DC itself too where no AC scan came).
 //   * jdsample.c: h2v1 and h2v2 fancy upsampling where the downsampled
-//     width is above 2 (replication otherwise), h1v2 fancy, int_upsample
-//     for any other integral ratio; the edge rows repeat, as jdmainct.c's
-//     context rows do.
+//     width is above 2 (replication otherwise, and always in lossless
+//     frames), h1v2 fancy, int_upsample for any other integral ratio; the
+//     edge rows repeat, as jdmainct.c's context rows do.
 //   * jdcolor.c: ycc_rgb_convert's tables (Cr_r_tab, Cb_b_tab, Cr_g_tab,
-//     Cb_g_tab, ONE_HALF rounding), rgb_gray_convert, gray_rgb_convert,
-//     and the colour space that jdapimin.c default_decompress_parms
-//     picks.  For gray output of a YCbCr file only Y is transformed.
-// Not read (an error naming the format): arithmetic coding, lossless and
-// hierarchical frames, precision other than 8 bits, 2 or 4 components,
-// fractional sampling ratios, and a progressive file whose scans leave one
-// of the first nine AC coefficients unrefined (libjpeg smooths those
-// blocks).  Where libjpeg warns and goes on (data cut short, a Huffman
-// code that is not in its table, a restart marker missing, no EOI), this
-// decoder fails.
+//     Cb_g_tab, ONE_HALF rounding), ycck_cmyk_convert, rgb_gray_convert,
+//     gray_rgb_convert, and the colour space that jdapimin.c
+//     default_decompress_parms picks (four components: CMYK, or YCCK under
+//     Adobe transform other than 0).  For gray output of a YCbCr file only
+//     Y is transformed.  A lossless frame converts nothing but RGB to BGR
+//     (gray out of a gray frame, CMYK out of a CMYK one).
+//   * cv2's CMYK to BGR (y', m', c') and to gray, x' = k - (((255 - x) k)
+//     >> 8), gray (4899 R + 9617 G + 1868 B + 8192) >> 14.
+// Not read (an error naming the format), as cv2 reads none of them:
+// hierarchical frames, arithmetic-coded lossless frames, precision other
+// than 8 bits (2-8 lossless), 2 or more than 4 components, fractional
+// sampling ratios, and the colour conversions a lossless frame refuses.
+// Where libjpeg warns and goes on (data cut short, a Huffman code that is
+// not in its table, an arithmetic code it flags as bad, a restart marker
+// missing, no EOI), this decoder fails.
 namespace {
 
 struct JpegFail {
@@ -754,8 +777,9 @@ struct HuffDec {
     defined = true;
     built = false;
   }
-  // jdhuff.c jpeg_make_d_derived_tbl
-  void build(bool dc) {
+  // jdhuff.c jpeg_make_d_derived_tbl; a DC table's symbols stop at 15, or
+  // 16 in a lossless frame
+  void build(bool dc, int max_dc = 15) {
     if (built) return;
     std::memset(look, 0, sizeof(look));
     int code = 0, k = 0;
@@ -774,7 +798,7 @@ struct HuffDec {
     }
     if (dc)
       for (int i = 0; i < k; ++i)
-        if (vals[i] > 15) jfail("bad JPEG Huffman table");
+        if (vals[i] > max_dc) jfail("bad JPEG Huffman table");
     built = true;
   }
 };
@@ -851,6 +875,125 @@ struct BitReader {
   }
 };
 
+// jaricom.c's Table D.2: (Qe << 16) | (Next_Index_MPS << 8) |
+// (Switch_MPS << 7) | Next_Index_LPS; state 113 is the fixed 0.5 bin
+#define V(qe, lps, mps, sw) ((qe << 16) | (mps << 8) | (sw << 7) | lps)
+const long kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// jdarith.c arith_decode: the C register holds the interval's base and the
+// bits read ahead, CT the bits left of them (-16 before the first two
+// bytes).  At a marker the decoder reads zero bytes, as arithmetic coding
+// allows; the end of the data without a marker fails (libjpeg inserts an
+// EOI and warns).
+struct ArithDec {
+  const unsigned char* d;
+  long n, pos;
+  long c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false;
+  void reset(long p) {
+    pos = p;
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+  }
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= n) jfail("JPEG data is cut short or corrupt");
+    const int v = d[pos];
+    if (v != 0xFF) {
+      ++pos;
+      return v;
+    }
+    long p = pos + 1;
+    while (p < n && d[p] == 0xFF) ++p;  // fill bytes
+    if (p >= n) jfail("JPEG data is cut short or corrupt");
+    if (d[p] == 0) {
+      pos = p + 1;
+      return 0xFF;
+    }
+    at_marker = true;  // pos stays on the marker
+    return 0;
+  }
+  int decode(unsigned char* st) {
+    while (a < 0x8000L) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000L;  // the first two bytes are in
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    long qe = kAritab[sv & 0x7F];
+    const unsigned char nl = qe & 0xFF;
+    qe >>= 8;
+    const unsigned char nm = qe & 0xFF;
+    qe >>= 8;
+    long temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (unsigned char)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (unsigned char)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000L) {
+      if (a < qe) {
+        *st = (unsigned char)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (unsigned char)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 inline int extend(int r, int s) {
   return r < (1 << (s - 1)) ? r + (int)(~0u << s) + 1 : r;
 }
@@ -858,21 +1001,27 @@ inline int extend(int r, int s) {
 struct JComp {
   int id = 0, h = 1, v = 1, tq = 0;
   int dw = 0, dh = 0;    // downsampled size (jdinput.c initial_setup)
-  int wib = 0, hib = 0;  // the component's own blocks
+  int wib = 0, hib = 0;  // the component's own blocks (samples if lossless)
   int bw = 0, bh = 0;    // blocks stored (the padded MCU grid)
-  int td = 0, ta = 0;    // Huffman tables of the current scan
+  int td = 0, ta = 0;    // entropy tables of the current scan
+  int pt = 0;            // lossless: the point transform of its scan
   bool latched = false;
   int q[64] = {0};       // latched quantization table, natural order
   int coef_bits[64];
   std::vector<short> coef;
+  std::vector<unsigned short> samp;  // lossless: dw x dh samples mod 2^16
 };
+
+enum { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 
 struct JpegFrame {
   const unsigned char* d = nullptr;
   long n = 0;
-  int H = 0, W = 0, ncomp = 0, kind = -1;  // 0 baseline, 1 extended, 2 progressive
+  int H = 0, W = 0, ncomp = 0, prec = 8;
+  int kind = -1;  // 0 baseline, 1 extended, 2 progressive, 3 lossless
+  bool arith = false;
   int max_h = 1, max_v = 1, mcux = 0, mcuy = 0;
-  int color = 0;  // 0 gray, 1 YCbCr, 2 RGB
+  int color = kGray;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   long exif_off = -1, exif_len = 0;
@@ -880,7 +1029,16 @@ struct JpegFrame {
   int qt[4][64];
   bool qdef[4] = {false, false, false, false};
   HuffDec dc[4], ac[4];
-  JComp comp[3];
+  // arithmetic conditioning of the 16 table slots (jdmarker.c get_soi)
+  int dac_l[16], dac_u[16], dac_k[16];
+  JpegFrame() {
+    for (int t = 0; t < 16; ++t) {
+      dac_l[t] = 0;
+      dac_u[t] = 1;
+      dac_k[t] = 5;
+    }
+  }
+  JComp comp[4];
   bool started = false;  // a SOS was read
 };
 
@@ -895,12 +1053,9 @@ void std_huff(JpegFrame& f) {
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC3: return "lossless JPEG (SOF3)";
     case 0xC5: return "hierarchical JPEG (SOF5)";
     case 0xC6: return "hierarchical progressive JPEG (SOF6)";
     case 0xC7: return "hierarchical lossless JPEG (SOF7)";
-    case 0xC9: return "arithmetic-coded JPEG (SOF9)";
-    case 0xCA: return "arithmetic-coded progressive JPEG (SOF10)";
     case 0xCB: return "arithmetic-coded lossless JPEG (SOF11)";
     case 0xCD: return "hierarchical arithmetic-coded JPEG (SOF13)";
     case 0xCE: return "hierarchical arithmetic-coded progressive JPEG (SOF14)";
@@ -912,24 +1067,33 @@ const char* sof_name(int m) {
 void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
   if (f.kind >= 0) jfail("JPEG with two frame headers");
   if (len < 6) jfail("JPEG frame header is cut short");
-  const int prec = p[0];
+  f.prec = p[0];
   f.H = be16(p + 1);
   f.W = be16(p + 3);
   f.ncomp = p[5];
-  if (prec != 8)
-    jfail(std::to_string(prec) + "-bit JPEG (precision " +
-          std::to_string(prec) + ") is not supported (8-bit only)");
-  if (f.ncomp == 2 || f.ncomp == 4)
-    jfail("JPEG of " + std::to_string(f.ncomp) + " components" +
-          (f.ncomp == 4 ? " (CMYK/YCCK)" : "") +
-          " is not supported (1 or 3 components)");
-  if (f.ncomp != 1 && f.ncomp != 3)
-    jfail("JPEG of " + std::to_string(f.ncomp) + " components is not valid");
+  const bool lossless = m == 0xC3;
+  if (lossless && (f.prec < 2 || f.prec > 8))
+    jfail(std::to_string(f.prec) + "-bit lossless JPEG (precision " +
+          std::to_string(f.prec) + ") is not supported (2 to 8 bits)");
+  if (!lossless && f.prec != 8)
+    jfail(std::to_string(f.prec) + "-bit JPEG (precision " +
+          std::to_string(f.prec) + ") is not supported (8-bit only)");
+  if (f.ncomp == 2)
+    jfail("JPEG of 2 components is not supported (no colour conversion "
+          "reads it)");
+  if (f.ncomp < 1 || f.ncomp > 4)
+    jfail("JPEG of " + std::to_string(f.ncomp) +
+          " components is not supported (1, 3 or 4)");
   if (len < 6 + 3 * f.ncomp) jfail("JPEG frame header is cut short");
   if (f.H == 0) jfail("JPEG height 0 (set by a DNL marker) is not supported");
   if (f.W == 0) jfail("JPEG width 0 is not valid");
   if (f.H > 65500 || f.W > 65500) jfail("JPEG larger than 65500 pixels");
-  f.kind = m == 0xC0 ? 0 : (m == 0xC1 ? 1 : 2);
+  // cv2's validateInputImageSize: at most 2^30 pixels
+  if ((long)f.H * f.W > (1L << 30))
+    jfail("JPEG of " + std::to_string(f.W) + " x " + std::to_string(f.H) +
+          " pixels is larger than cv2 reads");
+  f.kind = lossless ? 3 : ((m & 3) == 0 ? 0 : (m & 3));
+  f.arith = m == 0xC9 || m == 0xCA;
   for (int c = 0; c < f.ncomp; ++c) {
     JComp& k = f.comp[c];
     k.id = p[6 + 3 * c];
@@ -941,16 +1105,17 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
     f.max_h = std::max(f.max_h, k.h);
     f.max_v = std::max(f.max_v, k.v);
   }
-  f.mcux = (f.W + 8 * f.max_h - 1) / (8 * f.max_h);
-  f.mcuy = (f.H + 8 * f.max_v - 1) / (8 * f.max_v);
+  const int bs = lossless ? 1 : 8;  // a lossless "block" is one sample
+  f.mcux = (f.W + bs * f.max_h - 1) / (bs * f.max_h);
+  f.mcuy = (f.H + bs * f.max_v - 1) / (bs * f.max_v);
   for (int c = 0; c < f.ncomp; ++c) {
     JComp& k = f.comp[c];
     if (f.max_h % k.h || f.max_v % k.v)
       jfail("JPEG with fractional sampling ratios is not supported");
     k.dw = (int)(((long)f.W * k.h + f.max_h - 1) / f.max_h);
     k.dh = (int)(((long)f.H * k.v + f.max_v - 1) / f.max_v);
-    k.wib = (k.dw + 7) / 8;
-    k.hib = (k.dh + 7) / 8;
+    k.wib = (k.dw + bs - 1) / bs;
+    k.hib = (k.dh + bs - 1) / bs;
     k.bw = f.mcux * k.h;
     k.bh = f.mcuy * k.v;
     for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
@@ -984,17 +1149,38 @@ void read_dht(JpegFrame& f, const unsigned char* p, int len) {
   }
 }
 
+// jdmarker.c get_dac
+void read_dac(JpegFrame& f, const unsigned char* p, int len) {
+  if (len % 2) jfail("bad JPEG DAC marker");
+  for (int k = 0; k < len; k += 2) {
+    const int index = p[k], val = p[k + 1];
+    if (index >= 32) jfail("bad JPEG DAC marker");
+    if (index >= 16) {
+      f.dac_k[index - 16] = val;
+    } else {
+      f.dac_l[index] = val & 15;
+      f.dac_u[index] = val >> 4;
+      if (f.dac_l[index] > f.dac_u[index]) jfail("bad JPEG DAC marker");
+    }
+  }
+}
+
 // the colour space as jdapimin.c default_decompress_parms picks it
 void pick_color(JpegFrame& f) {
   if (f.ncomp == 1) {
-    f.color = 0;
+    f.color = kGray;
+  } else if (f.ncomp == 4) {
+    f.color = f.adobe && f.adobe_transform != 0 ? kYCCK : kCMYK;
   } else if (f.jfif) {
-    f.color = 1;
+    f.color = kYCbCr;
   } else if (f.adobe) {
-    f.color = f.adobe_transform == 0 ? 2 : 1;
+    f.color = f.adobe_transform == 0 ? kRGB : kYCbCr;
   } else {
     const int a = f.comp[0].id, b = f.comp[1].id, c = f.comp[2].id;
-    f.color = (a == 82 && b == 71 && c == 66) ? 2 : 1;  // 'R', 'G', 'B'
+    if (a == 82 && b == 71 && c == 66)  // 'R', 'G', 'B'
+      f.color = kRGB;
+    else  // ids 1, 2, 3 or unknown: JFIF's YCbCr, or RGB if lossless
+      f.color = f.kind == 3 ? kRGB : kYCbCr;
   }
 }
 
@@ -1020,6 +1206,14 @@ struct Scan {
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
+// past the restart marker RSTn that must come next at or after p
+long expect_restart(const JpegFrame& f, long p, int rst) {
+  const long mp = next_marker(f.d, f.n, p);
+  if (mp + 1 >= f.n || f.d[mp + 1] != 0xD0 + rst)
+    jfail("JPEG restart marker missing or out of order");
+  return mp + 2;
+}
+
 void block_seq(BitReader& br, const HuffDec& dc, const HuffDec& ac,
                short* blk, int& last_dc) {
   int s = br.decode(dc);
@@ -1041,20 +1235,39 @@ void block_seq(BitReader& br, const HuffDec& dc, const HuffDec& ac,
   }
 }
 
+// jdphuff.c / jdarith.c start_pass: a progressive scan's parameters
+// checked, the coefficients' precision recorded
+void progressive_pass(JpegFrame& f, const Scan& sc) {
+  const bool dc_scan = sc.ss == 0;
+  bool bad = dc_scan ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
+  if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+  if (sc.al > 13) bad = true;
+  if (bad) jfail("bad progressive JPEG scan parameters");
+  for (int i = 0; i < sc.ns; ++i) {
+    JComp& k = f.comp[sc.ci[i]];
+    for (int c = sc.ss; c <= sc.se; ++c) k.coef_bits[c] = sc.al;
+  }
+}
+
+// the MCU grid of a scan: (MCUs a row, MCU rows)
+void scan_grid(const JpegFrame& f, const Scan& sc, int& mx_n, int& my_n) {
+  if (sc.ns == 1) {
+    mx_n = f.comp[sc.ci[0]].wib;
+    my_n = f.comp[sc.ci[0]].hib;
+    return;
+  }
+  mx_n = f.mcux;
+  my_n = f.mcuy;
+  int blocks = 0;
+  for (int i = 0; i < sc.ns; ++i)
+    blocks += f.comp[sc.ci[i]].h * f.comp[sc.ci[i]].v;
+  if (blocks > 10) jfail("JPEG MCU of more than 10 blocks");
+}
+
 void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
   const bool prog = f.kind == 2;
   const bool dc_scan = sc.ss == 0;
-  if (prog) {
-    // jdphuff.c start_pass_phuff_decoder's checks
-    bool bad = dc_scan ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.ns != 1);
-    if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
-    if (sc.al > 13) bad = true;
-    if (bad) jfail("bad progressive JPEG scan parameters");
-    for (int i = 0; i < sc.ns; ++i) {
-      JComp& k = f.comp[sc.ci[i]];
-      for (int c = sc.ss; c <= sc.se; ++c) k.coef_bits[c] = sc.al;
-    }
-  }
+  if (prog) progressive_pass(f, sc);
   for (int i = 0; i < sc.ns; ++i) {
     const JComp& k = f.comp[sc.ci[i]];
     const bool need_dc = !prog || (dc_scan && sc.ah == 0);
@@ -1065,17 +1278,7 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
     if (need_ac) f.ac[k.ta].build(false);
   }
   int mx_n, my_n;
-  if (sc.ns == 1) {
-    mx_n = f.comp[sc.ci[0]].wib;
-    my_n = f.comp[sc.ci[0]].hib;
-  } else {
-    mx_n = f.mcux;
-    my_n = f.mcuy;
-    int blocks = 0;
-    for (int i = 0; i < sc.ns; ++i)
-      blocks += f.comp[sc.ci[i]].h * f.comp[sc.ci[i]].v;
-    if (blocks > 10) jfail("JPEG MCU of more than 10 blocks");
-  }
+  scan_grid(f, sc, mx_n, my_n);
   int last_dc[4] = {0, 0, 0, 0};
   long eobrun = 0;
   int next_rst = 0, togo = f.restart;
@@ -1084,10 +1287,7 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
   for (long m = 0; m < total; ++m) {
     if (f.restart) {
       if (togo == 0) {
-        const long mp = next_marker(br.d, br.n, br.pos);
-        if (mp + 1 >= br.n || br.d[mp + 1] != 0xD0 + next_rst)
-          jfail("JPEG restart marker missing or out of order");
-        br.reset(mp + 2);
+        br.reset(expect_restart(f, br.pos, next_rst));
         next_rst = (next_rst + 1) & 7;
         togo = f.restart;
         last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
@@ -1176,6 +1376,283 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
   }
 }
 
+[[noreturn]] void bad_arith() {
+  jfail("corrupt JPEG data: an arithmetic code that libjpeg flags as bad");
+}
+
+// jdarith.c: the statistics of a scan and its MCU decoders
+struct ArithScan {
+  ArithDec ad;
+  const JpegFrame& f;
+  unsigned char dc_stats[16][64], ac_stats[16][256];
+  unsigned char fixed = 113;
+  int last_dc[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
+  ArithScan(const JpegFrame& fr, long p) : f(fr) {
+    ad.d = fr.d;
+    ad.n = fr.n;
+    ad.reset(p);
+  }
+  // Figures F.19-F.24: a DC difference, with its conditioning
+  void dc_diff(int i, int tbl) {
+    unsigned char* st = dc_stats[tbl] + dc_ctx[i];
+    if (ad.decode(st) == 0) {
+      dc_ctx[i] = 0;
+      return;
+    }
+    const int sign = ad.decode(st + 1);
+    st += 2 + sign;
+    int m = ad.decode(st);
+    if (m != 0) {
+      st = dc_stats[tbl] + 20;
+      while (ad.decode(st)) {
+        if ((m <<= 1) == 0x8000) bad_arith();
+        st += 1;
+      }
+    }
+    if (m < (int)((1L << f.dac_l[tbl]) >> 1))
+      dc_ctx[i] = 0;
+    else if (m > (int)((1L << f.dac_u[tbl]) >> 1))
+      dc_ctx[i] = 12 + sign * 4;
+    else
+      dc_ctx[i] = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    last_dc[i] = (last_dc[i] + v) & 0xffff;
+  }
+  // an AC value's magnitude category and bits (Figures F.23, F.24) after
+  // its sign; st at S0 + 3 (k - 1) + 2
+  int ac_value(unsigned char* st, int k, int tbl) {
+    int m = ad.decode(st);
+    if (m != 0) {
+      if (ad.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= f.dac_k[tbl] ? 189 : 217);
+        while (ad.decode(st)) {
+          if ((m <<= 1) == 0x8000) bad_arith();
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ad.decode(st)) v |= m;
+    return v + 1;
+  }
+  // decode_mcu's AC part (sequential) and decode_mcu_AC_first
+  void ac_first(short* blk, int tbl, int ss, int se, int al, bool seq) {
+    for (int k = ss; k <= se; k++) {
+      unsigned char* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ad.decode(st)) break;  // EOB
+      while (ad.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) bad_arith();
+      }
+      const int sign = ad.decode(&fixed);
+      int v = ac_value(st + 2, k, tbl);
+      if (sign) v = -v;
+      blk[kNatural[k]] =
+          seq ? (short)v : (short)(unsigned)((unsigned)v << al);
+    }
+  }
+  // decode_mcu_AC_refine
+  void ac_refine(short* blk, int tbl, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -p1;
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      unsigned char* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex)
+        if (ad.decode(st)) break;  // EOB
+      for (;;) {
+        short* t = blk + kNatural[k];
+        if (*t) {
+          if (ad.decode(st + 2)) *t = (short)(*t + (*t < 0 ? m1 : p1));
+          break;
+        }
+        if (ad.decode(st + 1)) {
+          *t = (short)(ad.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) bad_arith();
+      }
+    }
+  }
+};
+
+void decode_arith_scan(JpegFrame& f, const Scan& sc, ArithScan& as) {
+  const bool prog = f.kind == 2;
+  if (prog) progressive_pass(f, sc);
+  const bool dc_pass = !prog || (sc.ss == 0 && sc.ah == 0);
+  const bool ac_pass = !prog || sc.ss;
+  int mx_n, my_n;
+  scan_grid(f, sc, mx_n, my_n);
+  auto reset_stats = [&]() {
+    for (int i = 0; i < sc.ns; ++i) {
+      const JComp& k = f.comp[sc.ci[i]];
+      if (dc_pass) {
+        std::memset(as.dc_stats[k.td], 0, 64);
+        as.last_dc[i] = as.dc_ctx[i] = 0;
+      }
+      if (ac_pass) std::memset(as.ac_stats[k.ta], 0, 256);
+    }
+  };
+  reset_stats();
+  int next_rst = 0, togo = f.restart;
+  const long total = (long)mx_n * my_n;
+  for (long m = 0; m < total; ++m) {
+    if (f.restart) {
+      if (togo == 0) {  // jdarith.c process_restart
+        as.ad.reset(expect_restart(f, as.ad.pos, next_rst));
+        next_rst = (next_rst + 1) & 7;
+        togo = f.restart;
+        reset_stats();
+      }
+      --togo;
+    }
+    const int mx = (int)(m % mx_n), my = (int)(m / mx_n);
+    for (int i = 0; i < sc.ns; ++i) {
+      JComp& k = f.comp[sc.ci[i]];
+      const int hb = sc.ns == 1 ? 1 : k.h, vb = sc.ns == 1 ? 1 : k.v;
+      for (int by = 0; by < vb; ++by)
+        for (int bx = 0; bx < hb; ++bx) {
+          const int x = mx * hb + bx, y = my * vb + by;
+          short* blk = k.coef.data() + ((size_t)y * k.bw + x) * 64;
+          if (!prog) {  // decode_mcu
+            as.dc_diff(i, k.td);
+            blk[0] = (short)as.last_dc[i];
+            as.ac_first(blk, k.ta, 1, 63, 0, true);
+          } else if (sc.ss == 0 && sc.ah == 0) {  // decode_mcu_DC_first
+            as.dc_diff(i, k.td);
+            blk[0] = (short)(unsigned)((unsigned)as.last_dc[i] << sc.al);
+          } else if (sc.ss == 0) {  // decode_mcu_DC_refine
+            if (as.ad.decode(&as.fixed)) blk[0] = (short)(blk[0] | (1 << sc.al));
+          } else if (sc.ah == 0) {
+            as.ac_first(blk, k.ta, sc.ss, sc.se, sc.al, false);
+          } else {
+            as.ac_refine(blk, k.ta, sc.ss, sc.se, sc.al);
+          }
+        }
+    }
+  }
+}
+
+// jdlossls.c: one row of samples from its differences; the first row of a
+// scan or restart interval from 2^(P - Pt - 1) and its left neighbour,
+// the others' first column from the row above and the rest by the
+// scan's predictor
+void undifference(int psv, bool first, int initial, const int* diff,
+                  const unsigned short* prev, unsigned short* out, int width) {
+  if (first || psv == 1) {
+    int ra = (diff[0] + (first ? initial : prev[0])) & 0xFFFF;
+    out[0] = (unsigned short)ra;
+    for (int x = 1; x < width; ++x) {
+      ra = (diff[x] + ra) & 0xFFFF;
+      out[x] = (unsigned short)ra;
+    }
+    return;
+  }
+  long rb = prev[0], rc = 0;
+  long ra = (diff[0] + rb) & 0xFFFF;
+  out[0] = (unsigned short)ra;
+  for (int x = 1; x < width; ++x) {
+    rc = rb;
+    rb = prev[x];
+    long p;
+    switch (psv) {
+      case 2: p = rb; break;
+      case 3: p = rc; break;
+      case 4: p = ra + rb - rc; break;
+      case 5: p = ra + ((rb - rc) >> 1); break;
+      case 6: p = rb + ((ra - rc) >> 1); break;
+      default: p = (ra + rb) >> 1; break;
+    }
+    ra = (diff[x] + p) & 0xFFFF;
+    out[x] = (unsigned short)ra;
+  }
+}
+
+// jddiffct.c decompress_data with jdlhuff.c decode_mcus: a lossless scan
+// an iMCU row at a time, its MCU rows decoded (restarts between them),
+// then its rows undifferenced
+void decode_lossless_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
+  const int psv = sc.ss, pt = sc.al;
+  if (psv < 1 || psv > 7 || sc.se != 0 || sc.ah != 0 || pt >= f.prec)
+    jfail("bad lossless JPEG scan parameters");
+  for (int i = 0; i < sc.ns; ++i) {
+    JComp& k = f.comp[sc.ci[i]];
+    if (!f.dc[k.td].defined)
+      jfail("JPEG scan names a Huffman table that is not defined");
+    f.dc[k.td].build(true, 16);
+    k.pt = pt;
+  }
+  const bool one = sc.ns == 1;
+  int mx_n, my_n;
+  scan_grid(f, sc, mx_n, my_n);
+  if (f.restart && f.restart % mx_n)
+    jfail("lossless JPEG restart interval is not a whole number of MCU rows");
+  const int rows_a_restart = f.restart / mx_n;
+  const int initial = 1 << (f.prec - pt - 1);
+  std::vector<int> diff[4];
+  int width[4];
+  for (int i = 0; i < sc.ns; ++i) {
+    const JComp& k = f.comp[sc.ci[i]];
+    width[i] = one ? k.dw : mx_n * k.h;
+    diff[i].assign((size_t)width[i] * k.v, 0);
+  }
+  bool first[4] = {true, true, true, true};
+  int togo = rows_a_restart, next_rst = 0;
+  const int total = f.mcuy;
+  for (int r = 0; r < total; ++r) {
+    const JComp& k0 = f.comp[sc.ci[0]];
+    const int last_rows = k0.hib % k0.v ? k0.hib % k0.v : k0.v;
+    const int mcu_rows = one ? (r < total - 1 ? k0.v : last_rows) : 1;
+    for (int yo = 0; yo < mcu_rows; ++yo) {
+      if (f.restart) {
+        if (togo == 0) {
+          br.reset(expect_restart(f, br.pos, next_rst));
+          next_rst = (next_rst + 1) & 7;
+          togo = rows_a_restart;
+          first[0] = first[1] = first[2] = first[3] = true;
+        }
+      }
+      for (int mx = 0; mx < mx_n; ++mx)
+        for (int i = 0; i < sc.ns; ++i) {
+          const JComp& k = f.comp[sc.ci[i]];
+          const HuffDec& h = f.dc[k.td];
+          const int hb = one ? 1 : k.h, vb = one ? 1 : k.v;
+          for (int y = 0; y < vb; ++y)
+            for (int x = 0; x < hb; ++x) {
+              int s = br.decode(h);
+              if (s == 16)
+                s = 32768;
+              else if (s)
+                s = extend(br.get(s), s);
+              diff[i][(size_t)(one ? yo : y) * width[i] + mx * hb + x] = s;
+            }
+        }
+      if (f.restart) --togo;
+    }
+    for (int i = 0; i < sc.ns; ++i) {
+      JComp& k = f.comp[sc.ci[i]];
+      const int rows = r < total - 1 ? k.v : (k.hib % k.v ? k.hib % k.v : k.v);
+      for (int row = 0; row < rows; ++row) {
+        const long y = (long)r * k.v + row;
+        unsigned short* out = k.samp.data() + y * k.dw;
+        undifference(psv, first[i], initial, diff[i].data() + (size_t)row * width[i],
+                     y ? out - k.dw : out, out, k.dw);
+        first[i] = false;
+      }
+    }
+  }
+}
+
 void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
   if (f.kind < 0) jfail("JPEG scan before its frame header");
   if (len < 1) jfail("JPEG scan header is cut short");
@@ -1192,13 +1669,16 @@ void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
     sc.ci[i] = c;
     f.comp[c].td = p[2 + 2 * i] >> 4;
     f.comp[c].ta = p[2 + 2 * i] & 15;
-    if (f.comp[c].td > 3 || f.comp[c].ta > 3) jfail("bad JPEG scan header");
+    // Huffman slots 0-3; the arithmetic decoder's 16 conditioning slots
+    if (!f.arith && (f.comp[c].td > 3 || f.comp[c].ta > 3))
+      jfail("bad JPEG scan header");
   }
   const unsigned char* t = p + 1 + 2 * sc.ns;
   sc.ss = t[0];
   sc.se = t[1];
   sc.ah = t[2] >> 4;
   sc.al = t[2] & 15;
+  if (f.kind == 3) return;  // lossless: no quantization
   for (int i = 0; i < sc.ns; ++i) {  // jdinput.c latch_quant_tables
     JComp& k = f.comp[sc.ci[i]];
     if (k.latched) continue;
@@ -1209,7 +1689,7 @@ void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
 }
 
 // Markers up to the first SOS (header only) or to EOI (decode: every
-// scan entropy-decoded into the components' coefficients).
+// scan entropy-decoded into the components' coefficients or samples).
 void parse(JpegFrame& f, bool decode) {
   const unsigned char* d = f.d;
   const long n = f.n;
@@ -1232,19 +1712,23 @@ void parse(JpegFrame& f, bool decode) {
     if (len < 0 || p + 2 + len > n) jfail("JPEG marker segment is cut short");
     p += 2 + len;
     if (const char* name = sof_name(m))
-      jfail(std::string(name) + " is not supported (baseline, extended "
-                                "and progressive Huffman only)");
+      jfail(std::string(name) + " is not supported (libjpeg does not decode "
+                                "it)");
     switch (m) {
       case 0xC0:
       case 0xC1:
       case 0xC2:
+      case 0xC3:
+      case 0xC9:
+      case 0xCA:
         read_sof(f, m, body, len);
         break;
       case 0xC4:
         read_dht(f, body, len);
         break;
       case 0xCC:
-        jfail("arithmetic-coded JPEG (DAC) is not supported");
+        read_dac(f, body, len);
+        break;
       case 0xDB:
         read_dqt(f, body, len);
         break;
@@ -1279,12 +1763,26 @@ void parse(JpegFrame& f, bool decode) {
           pick_color(f);
           f.started = true;
           if (!decode) return;
-          for (int c = 0; c < f.ncomp; ++c)
-            f.comp[c].coef.assign((size_t)f.comp[c].bw * f.comp[c].bh * 64, 0);
+          for (int c = 0; c < f.ncomp; ++c) {
+            JComp& k = f.comp[c];
+            if (f.kind == 3)
+              k.samp.assign((size_t)k.dw * k.dh, 0);
+            else
+              k.coef.assign((size_t)k.bw * k.bh * 64, 0);
+          }
         }
-        BitReader br{d, n, p};
-        decode_scan(f, sc, br);
-        p = br.at_marker ? br.pos : next_marker(d, n, br.pos);
+        if (f.arith) {
+          ArithScan as(f, p);
+          decode_arith_scan(f, sc, as);
+          p = as.ad.at_marker ? as.ad.pos : next_marker(d, n, as.ad.pos);
+        } else {
+          BitReader br{d, n, p};
+          if (f.kind == 3)
+            decode_lossless_scan(f, sc, br);
+          else
+            decode_scan(f, sc, br);
+          p = br.at_marker ? br.pos : next_marker(d, n, br.pos);
+        }
         break;
       }
       default:  // other APPn, COM, DNL, JPG, ...: skipped
@@ -1323,6 +1821,101 @@ struct DecodeTables {
 inline unsigned char clamp255(int x) {
   return (unsigned char)(x < 0 ? 0 : (x > 255 ? 255 : x));
 }
+
+// A component's samples at full size: rows [0, H) of width >= W, stride
+// `ostride`, from its plane (dw x dh samples, stride `stride`) as
+// jdsample.c upsamples it; `replicate` (lossless frames) never fancy.
+void upsample(const JpegFrame& f, const JComp& k, const unsigned char* pl,
+              long stride, unsigned char* out, long ostride, bool replicate) {
+  const int hf = f.max_h / k.h, vf = f.max_v / k.v;
+  const int dw = k.dw, dh = k.dh;
+  const bool fancy_h = dw > 2 && !replicate;
+  for (int y = 0; y < f.H; ++y) {
+    unsigned char* o = out + (long)y * ostride;
+    if (hf == 1 && vf == 1) {
+      std::memcpy(o, pl + (long)y * stride, dw);
+    } else if (hf == 2 && vf == 1 && fancy_h) {  // h2v1_fancy_upsample
+      const unsigned char* in = pl + (long)y * stride;
+      o[0] = in[0];
+      o[1] = (unsigned char)((in[0] * 3 + in[1] + 2) >> 2);
+      for (int c = 1; c < dw - 1; ++c) {
+        const int v = in[c] * 3;
+        o[2 * c] = (unsigned char)((v + in[c - 1] + 1) >> 2);
+        o[2 * c + 1] = (unsigned char)((v + in[c + 1] + 2) >> 2);
+      }
+      o[2 * dw - 2] = (unsigned char)((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+      o[2 * dw - 1] = in[dw - 1];
+    } else if (hf == 1 && vf == 2 && !replicate) {  // h1v2_fancy_upsample
+      const int i = y >> 1, v = y & 1;
+      const unsigned char* in0 = pl + (long)i * stride;
+      const unsigned char* in1 =
+          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
+      const int bias = v ? 2 : 1;
+      for (int c = 0; c < dw; ++c)
+        o[c] = (unsigned char)((in0[c] * 3 + in1[c] + bias) >> 2);
+    } else if (hf == 2 && vf == 2 && fancy_h) {  // h2v2_fancy_upsample
+      const int i = y >> 1, v = y & 1;
+      const unsigned char* in0 = pl + (long)i * stride;
+      const unsigned char* in1 =
+          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
+      int last = in0[0] * 3 + in1[0];
+      int cur = in0[1] * 3 + in1[1];
+      o[0] = (unsigned char)((last * 4 + 8) >> 4);
+      o[1] = (unsigned char)((last * 3 + cur + 7) >> 4);
+      for (int c = 1; c < dw - 1; ++c) {
+        const int next = in0[c + 1] * 3 + in1[c + 1];
+        o[2 * c] = (unsigned char)((cur * 3 + last + 8) >> 4);
+        o[2 * c + 1] = (unsigned char)((cur * 3 + next + 7) >> 4);
+        last = cur;
+        cur = next;
+      }
+      o[2 * dw - 2] = (unsigned char)((cur * 3 + last + 8) >> 4);
+      o[2 * dw - 1] = (unsigned char)((cur * 4 + 7) >> 4);
+    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
+      const unsigned char* in = pl + (long)(y / vf) * stride;
+      for (int c = 0; c < dw; ++c)
+        for (int r = 0; r < hf; ++r) o[c * hf + r] = in[c];
+    }
+  }
+}
+
+// smoothing_ok() of jdcoefct.c on the final coefficient precision
+bool would_smooth(const JpegFrame& f) {
+  if (f.kind != 2) return false;
+  bool useful = false;
+  for (int c = 0; c < f.ncomp; ++c) {
+    const JComp& k = f.comp[c];
+    if (!k.latched) return false;
+    for (int i = 0; i < 10; ++i)
+      if (k.q[kNatural[i]] == 0) return false;
+    if (k.coef_bits[0] < 0) return false;
+    for (int i = 1; i < 10; ++i)
+      if (k.coef_bits[i] != 0) useful = true;
+  }
+  return useful;
+}
+
+// an estimate of a coefficient known to Al bits (or not at all) from num
+inline int smooth_pred(long num, long q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = (int)(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = (int)(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return pred;
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1 and later): each of
+// a component's blocks with its first nine AC coefficients, where still
+// zero and imprecise, estimated from the DC values of the 5 x 5 blocks
+// around it (and the DC itself where no AC scan came), then the IDCT.
+// Rows and edges as libjpeg walks them, an iMCU row at a time.
+void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
+                   unsigned char* plane, long stride);
 
 // jidctint.c jpeg_idct_islow: one block of coefficients, dequantized by q,
 // into 8 rows of out (stride bytes apart)
@@ -1427,98 +2020,184 @@ void idct_islow(const DecodeTables& T, const short* in, const int* q,
   }
 }
 
-// A component's samples at full size: rows [0, H) of width >= W, stride
-// `ostride`, from its IDCT plane (dw x dh samples, stride `stride`) as
-// jdsample.c upsamples it.
-void upsample(const JpegFrame& f, const JComp& k, const unsigned char* pl,
-              long stride, unsigned char* out, long ostride) {
-  const int hf = f.max_h / k.h, vf = f.max_v / k.v;
-  const int dw = k.dw, dh = k.dh;
-  const bool fancy_h = dw > 2;
-  for (int y = 0; y < f.H; ++y) {
-    unsigned char* o = out + (long)y * ostride;
-    if (hf == 1 && vf == 1) {
-      std::memcpy(o, pl + (long)y * stride, dw);
-    } else if (hf == 2 && vf == 1 && fancy_h) {  // h2v1_fancy_upsample
-      const unsigned char* in = pl + (long)y * stride;
-      o[0] = in[0];
-      o[1] = (unsigned char)((in[0] * 3 + in[1] + 2) >> 2);
-      for (int c = 1; c < dw - 1; ++c) {
-        const int v = in[c] * 3;
-        o[2 * c] = (unsigned char)((v + in[c - 1] + 1) >> 2);
-        o[2 * c + 1] = (unsigned char)((v + in[c + 1] + 2) >> 2);
+void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
+                   unsigned char* plane, long stride) {
+  const int* cb = k.coef_bits;
+  bool change_dc = true;
+  for (int i = 1; i < 10; ++i)
+    if (cb[i] != -1) change_dc = false;
+  const long Q00 = k.q[0], Q01 = k.q[1], Q10 = k.q[8], Q20 = k.q[16],
+             Q11 = k.q[9], Q02 = k.q[2], Q03 = k.q[3], Q12 = k.q[10],
+             Q21 = k.q[17], Q30 = k.q[24];
+  const int total = f.mcuy, last_row = total - 1, v = k.v;
+  const int last_col = k.wib - 1;
+  auto dc = [&](int row, int col) {
+    return (int)k.coef[((size_t)row * k.bw + col) * 64];
+  };
+  short ws[64];
+  for (int r = 0; r < total; ++r) {
+    const int block_rows = r < last_row ? v : (k.hib % v ? k.hib % v : v);
+    const int image_block_rows = block_rows * total;
+    for (int br = 0; br < block_rows; ++br) {
+      const int ibr = r * block_rows + br, cur = r * v + br;
+      const int pv = ibr > 0 ? cur - 1 : cur;
+      const int pp = ibr > 1 ? cur - 2 : pv;
+      const int nx = ibr < image_block_rows - 1 ? cur + 1 : cur;
+      const int nn = ibr < image_block_rows - 2 ? cur + 2 : nx;
+      int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11,
+          DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22,
+          DC23, DC24, DC25;
+      DC01 = DC02 = DC03 = DC04 = DC05 = dc(pp, 0);
+      DC06 = DC07 = DC08 = DC09 = DC10 = dc(pv, 0);
+      DC11 = DC12 = DC13 = DC14 = DC15 = dc(cur, 0);
+      DC16 = DC17 = DC18 = DC19 = DC20 = dc(nx, 0);
+      DC21 = DC22 = DC23 = DC24 = DC25 = dc(nn, 0);
+      for (int b = 0; b <= last_col; ++b) {
+        std::memcpy(ws, k.coef.data() + ((size_t)cur * k.bw + b) * 64,
+                    sizeof(ws));
+        if (b == 0 && b < last_col) {
+          DC04 = DC05 = dc(pp, 1);
+          DC09 = DC10 = dc(pv, 1);
+          DC14 = DC15 = dc(cur, 1);
+          DC19 = DC20 = dc(nx, 1);
+          DC24 = DC25 = dc(nn, 1);
+        }
+        if (b + 1 < last_col) {
+          DC05 = dc(pp, b + 2);
+          DC10 = dc(pv, b + 2);
+          DC15 = dc(cur, b + 2);
+          DC20 = dc(nx, b + 2);
+          DC25 = dc(nn, b + 2);
+        }
+        int al;
+        if ((al = cb[1]) != 0 && ws[1] == 0) {  // AC01
+          const long num = Q00 * (change_dc
+              ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                 13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                 3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                 DC21 - DC22 + DC24 + DC25)
+              : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+          ws[1] = (short)smooth_pred(num, Q01, al);
+        }
+        if ((al = cb[2]) != 0 && ws[8] == 0) {  // AC10
+          const long num = Q00 * (change_dc
+              ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                 13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                 13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+              : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+          ws[8] = (short)smooth_pred(num, Q10, al);
+        }
+        if ((al = cb[3]) != 0 && ws[16] == 0) {  // AC20
+          const long num = Q00 * (change_dc
+              ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                 14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+                 DC23)
+              : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+          ws[16] = (short)smooth_pred(num, Q20, al);
+        }
+        if ((al = cb[4]) != 0 && ws[9] == 0) {  // AC11
+          const long num = Q00 * (change_dc
+              ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                 DC21 - DC25)
+              : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                 DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+          ws[9] = (short)smooth_pred(num, Q11, al);
+        }
+        if ((al = cb[5]) != 0 && ws[2] == 0) {  // AC02
+          const long num = Q00 * (change_dc
+              ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                 14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+                 2 * DC19)
+              : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+          ws[2] = (short)smooth_pred(num, Q02, al);
+        }
+        if (change_dc) {
+          if ((al = cb[6]) != 0 && ws[3] == 0) {  // AC03
+            const long num =
+                Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+            ws[3] = (short)smooth_pred(num, Q03, al);
+          }
+          if ((al = cb[7]) != 0 && ws[10] == 0) {  // AC12
+            const long num =
+                Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+            ws[10] = (short)smooth_pred(num, Q12, al);
+          }
+          if ((al = cb[8]) != 0 && ws[17] == 0) {  // AC21
+            const long num =
+                Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+            ws[17] = (short)smooth_pred(num, Q21, al);
+          }
+          if ((al = cb[9]) != 0 && ws[24] == 0) {  // AC30
+            const long num =
+                Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+            ws[24] = (short)smooth_pred(num, Q30, al);
+          }
+          // the DC from the 5 x 5 DC values (its precision is known)
+          const long num = Q00 *
+              (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+               6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+               8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+               6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+               2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+          ws[0] = (short)smooth_pred(num, Q00, 0);
+        }
+        idct_islow(T, ws, k.q, plane + (size_t)cur * 8 * stride + b * 8,
+                   stride);
+        DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+        DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+        DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+        DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+        DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
       }
-      o[2 * dw - 2] = (unsigned char)((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
-      o[2 * dw - 1] = in[dw - 1];
-    } else if (hf == 1 && vf == 2) {  // h1v2_fancy_upsample
-      const int i = y >> 1, v = y & 1;
-      const unsigned char* in0 = pl + (long)i * stride;
-      const unsigned char* in1 =
-          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
-      const int bias = v ? 2 : 1;
-      for (int c = 0; c < dw; ++c)
-        o[c] = (unsigned char)((in0[c] * 3 + in1[c] + bias) >> 2);
-    } else if (hf == 2 && vf == 2 && fancy_h) {  // h2v2_fancy_upsample
-      const int i = y >> 1, v = y & 1;
-      const unsigned char* in0 = pl + (long)i * stride;
-      const unsigned char* in1 =
-          pl + (long)(v ? std::min(i + 1, dh - 1) : std::max(i - 1, 0)) * stride;
-      int last = in0[0] * 3 + in1[0];
-      int cur = in0[1] * 3 + in1[1];
-      o[0] = (unsigned char)((last * 4 + 8) >> 4);
-      o[1] = (unsigned char)((last * 3 + cur + 7) >> 4);
-      for (int c = 1; c < dw - 1; ++c) {
-        const int next = in0[c + 1] * 3 + in1[c + 1];
-        o[2 * c] = (unsigned char)((cur * 3 + last + 8) >> 4);
-        o[2 * c + 1] = (unsigned char)((cur * 3 + next + 7) >> 4);
-        last = cur;
-        cur = next;
-      }
-      o[2 * dw - 2] = (unsigned char)((cur * 3 + last + 8) >> 4);
-      o[2 * dw - 1] = (unsigned char)((cur * 4 + 7) >> 4);
-    } else {  // h2v1_upsample, h2v2_upsample, int_upsample: replication
-      const unsigned char* in = pl + (long)(y / vf) * stride;
-      for (int c = 0; c < dw; ++c)
-        for (int r = 0; r < hf; ++r) o[c * hf + r] = in[c];
     }
   }
 }
 
-// smoothing_ok() of jdcoefct.c on the final coefficient precision
-bool would_smooth(const JpegFrame& f) {
-  if (f.kind != 2) return false;
-  bool useful = false;
-  for (int c = 0; c < f.ncomp; ++c) {
-    const JComp& k = f.comp[c];
-    if (!k.latched) return false;
-    for (int i = 0; i < 10; ++i)
-      if (k.q[kNatural[i]] == 0) return false;
-    if (k.coef_bits[0] < 0) return false;
-    for (int i = 1; i < 10; ++i)
-      if (k.coef_bits[i] != 0) useful = true;
-  }
-  return useful;
-}
+// cv2's CMYK (libjpeg's raw, Adobe-inverted samples) to its B, G, R
+inline int cmyk_channel(int x, int k) { return k - (((255 - x) * k) >> 8); }
 
 void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
                   unsigned char* out) {
   parse(f, true);
-  if (would_smooth(f))
-    jfail("progressive JPEG whose scans leave AC coefficients unrefined "
-          "(block smoothing) is not supported");
+  // the output space cv2 asks for, and what jdcolor.c converts into it
+  const bool four = f.ncomp == 4;
+  if (f.kind == 3) {  // lossless: no colour conversion but RGB -> BGR
+    const bool ok = four ? f.color == kCMYK
+                         : (gray ? f.color == kGray : f.color == kRGB);
+    if (!ok)
+      jfail("lossless JPEG with " + std::to_string(f.ncomp) +
+            (f.ncomp == 1 ? " component" : " components") + " has no " +
+            (gray ? "gray" : "colour") +
+            " output in libjpeg (it converts nothing in lossless mode)");
+  }
   const int H = f.H, W = f.W;
-  const bool only_y = gray && f.color != 2;
+  const bool only_y = gray && (f.color == kGray || f.color == kYCbCr);
   const int nc = only_y ? 1 : f.ncomp;
-  std::vector<unsigned char> full[3];
-  long fstride[3];
+  const bool smooth = would_smooth(f);
+  std::vector<unsigned char> full[4];
+  long fstride[4];
   for (int c = 0; c < nc; ++c) {
     const JComp& k = f.comp[c];
-    const long stride = (long)k.bw * 8;
-    std::vector<unsigned char> plane((size_t)stride * k.hib * 8);
-    for (int by = 0; by < k.hib; ++by)
-      for (int bx = 0; bx < k.wib; ++bx)
-        idct_islow(T, k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.q,
-                   plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+    std::vector<unsigned char> plane;
+    long stride;
+    if (f.kind == 3) {  // jdlossls.c simple_upscale / noscale into 8 bits
+      stride = k.dw;
+      plane.resize((size_t)k.dw * k.dh);
+      for (size_t i = 0; i < plane.size(); ++i)
+        plane[i] = (unsigned char)(k.samp[i] << k.pt);
+    } else {
+      stride = (long)k.bw * 8;
+      plane.resize((size_t)stride * k.hib * 8);
+      if (smooth) {
+        idct_smoothed(T, f, k, plane.data(), stride);
+      } else {
+        for (int by = 0; by < k.hib; ++by)
+          for (int bx = 0; bx < k.wib; ++bx)
+            idct_islow(T, k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.q,
+                       plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
+      }
+    }
     const int hf = f.max_h / k.h, vf = f.max_v / k.v;
     if (hf == 1 && vf == 1) {
       full[c].swap(plane);
@@ -1526,11 +2205,40 @@ void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
     } else {
       fstride[c] = (long)k.dw * hf;
       full[c].assign((size_t)fstride[c] * H, 0);
-      upsample(f, k, plane.data(), stride, full[c].data(), fstride[c]);
+      upsample(f, k, plane.data(), stride, full[c].data(), fstride[c],
+               f.kind == 3);
     }
   }
   for (int y = 0; y < H; ++y) {
     const unsigned char* a = full[0].data() + (long)y * fstride[0];
+    if (four) {  // CMYK or YCCK to cv2's BGR or gray
+      const unsigned char* p1 = full[1].data() + (long)y * fstride[1];
+      const unsigned char* p2 = full[2].data() + (long)y * fstride[2];
+      const unsigned char* p3 = full[3].data() + (long)y * fstride[3];
+      for (int x = 0; x < W; ++x) {
+        int c = a[x], m = p1[x], yy = p2[x];
+        const int k = p3[x];
+        if (f.color == kYCCK) {  // ycck_cmyk_convert
+          const int l = a[x], cb = p1[x], cr = p2[x];
+          c = clamp255(255 - (l + T.cr_r[cr]));
+          m = clamp255(255 - (l + (int)((T.cb_g[cb] + T.cr_g[cr]) >> 16)));
+          yy = clamp255(255 - (l + T.cb_b[cb]));
+        }
+        c = cmyk_channel(c, k);
+        m = cmyk_channel(m, k);
+        yy = cmyk_channel(yy, k);
+        if (gray)
+          out[(long)y * W + x] =
+              (unsigned char)((yy * 1868 + m * 9617 + c * 4899 + 8192) >> 14);
+        else {
+          unsigned char* o = out + ((long)y * W + x) * 3;
+          o[0] = (unsigned char)yy;
+          o[1] = (unsigned char)m;
+          o[2] = (unsigned char)c;
+        }
+      }
+      continue;
+    }
     if (gray) {
       unsigned char* o = out + (long)y * W;
       if (only_y) {
@@ -1551,7 +2259,7 @@ void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
     }
     const unsigned char* b1 = full[1].data() + (long)y * fstride[1];
     const unsigned char* b2 = full[2].data() + (long)y * fstride[2];
-    if (f.color == 2) {  // rgb_rgb_convert into BGR
+    if (f.color == kRGB) {  // rgb_rgb_convert into BGR
       for (int x = 0; x < W; ++x) {
         o[3 * x] = b2[x];
         o[3 * x + 1] = b1[x];
@@ -1580,11 +2288,13 @@ void put_err(const std::string& m, char* err, int errlen) {
 extern "C" {
 
 // The header of a JPEG of n bytes, up to its first scan, into info[16]:
-// H, W, components, kind (0 baseline, 1 extended sequential, 2
-// progressive), colour space (0 gray, 1 YCbCr, 2 RGB), the offset and
-// length of the first APP1 Exif payload after "Exif\0\0" (-1, 0 if none),
-// then (h, v) sampling of each component.  Returns 0, or -1 with a message
-// in err (errlen bytes) for a file it does not read.
+// H, W, components, format (0 baseline, 1 extended sequential, 2
+// progressive, 3 lossless, 4 arithmetic-coded sequential, 5
+// arithmetic-coded progressive), colour space (0 gray, 1 YCbCr, 2 RGB, 3
+// CMYK, 4 YCCK), the offset and length of the first APP1 Exif payload
+// after "Exif\0\0" (-1, 0 if none), then (h, v) sampling of each
+// component.  Returns 0, or -1 with a message in err (errlen bytes) for a
+// file it does not read.
 int lvba_jpeg_info(const unsigned char* data, long n, long* info, char* err,
                    int errlen) {
   try {
@@ -1592,7 +2302,8 @@ int lvba_jpeg_info(const unsigned char* data, long n, long* info, char* err,
     f.d = data;
     f.n = n;
     parse(f, false);
-    long v[16] = {f.H, f.W, f.ncomp, f.kind, f.color, f.exif_off, f.exif_len};
+    long v[16] = {f.H,     f.W,        f.ncomp,   f.kind + (f.arith ? 3 : 0),
+                  f.color, f.exif_off, f.exif_len};
     for (int c = 0; c < f.ncomp; ++c) {
       v[7 + 2 * c] = f.comp[c].h;
       v[8 + 2 * c] = f.comp[c].v;
@@ -1608,9 +2319,10 @@ int lvba_jpeg_info(const unsigned char* data, long n, long* info, char* err,
   }
 }
 
-// Decode a JPEG into out: (H, W) uint8 Y (gray != 0, cv2's
-// IMREAD_GRAYSCALE) or (H, W, 3) BGR (cv2's IMREAD_COLOR), with H and W
-// as lvba_jpeg_info gives them.  Returns 0, or -1 with a message in err.
+// Decode a JPEG into out: (H, W) uint8 gray (gray != 0, cv2's
+// IMREAD_GRAYSCALE: Y, or cv2's gray of CMYK) or (H, W, 3) BGR (cv2's
+// IMREAD_COLOR), with H and W as lvba_jpeg_info gives them.  Returns 0,
+// or -1 with a message in err.
 int lvba_jpeg_decode(const unsigned char* data, long n, int gray,
                      unsigned char* out, char* err, int errlen) {
   static const DecodeTables T;

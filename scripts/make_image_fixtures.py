@@ -2,8 +2,8 @@
 decoders read (io/image.py), and cv2's decodes of each, so that a machine
 without cv2 can hold the port's decoders to cv2 bit for bit.
 
-Run where cv2 is installed (it is the reference here, never a dependency
-of the port):
+Run where cv2 and PIL are installed (they are the reference here, never a
+dependency of the port):
 
     python scripts/make_image_fixtures.py
 
@@ -14,25 +14,45 @@ The files (odd sizes, made from seed 18):
   restart.jpg       IMWRITE_JPEG_RST_INTERVAL 2, 4:2:0, quality 95
   gray.jpg          one component, quality 95
   exif6.jpg         4:2:0, an APP1 EXIF block with orientation 6
+  smoothed.jpg      progressive.jpg's kind cut after its third scan (an EOI
+                    appended): libjpeg's block smoothing
+  cmyk_pil.jpg      CMYK written by PIL (Adobe APP14)
+  ycck.jpg          YCCK (Adobe transform 2), Y and K 2x2
+  arith.jpg         arithmetic-coded sequential, 4:2:0, restart interval
+                    2, a DAC segment
+  arith_prog.jpg    arithmetic-coded progressive, 4:2:0
+  lossless.jpg      lossless, one component, predictor 7, Pt 1, restarts
+                    (cv2 reads no colour from it)
+  lossless_rgb.jpg  lossless, RGB, predictor 4 (cv2 reads no gray from it)
   adam7_16.png      RGB of 16 bits, Adam7-interlaced, every row filter
-                    (tests/png_writer.py: cv2 writes no interlaced PNG)
-and decodes.npz: for each file name, "<name>:color" (cv2.imread
-IMREAD_COLOR) and "<name>:gray" (IMREAD_GRAYSCALE).  Every file is read
-back with cv2 before the archive is written; the whole set stays under
-1 MB.
+  pal1.bmp          1-bit palette
+  bf565.bmp         16 bits, bit fields 565
+  rle8_delta.bmp    RLE8 with a delta escape (its gap is palette entry 0)
+  rle4.bmp          RLE4
+  os2_4.bmp         4-bit palette under an OS/2 BITMAPCOREHEADER
+(tests/png_writer.py, jpeg_writer.py and bmp_writer.py write what cv2
+does not) and decodes.npz: for each file name, "<name>:color" (cv2.imread
+IMREAD_COLOR) and "<name>:gray" (IMREAD_GRAYSCALE), each where cv2 reads
+the file that way.  Every file is read back with cv2 before the archive is
+written; the whole set stays under 1 MB.
 """
 
 import struct
 import sys
 from pathlib import Path
 
+import io
+
 import cv2
 import numpy as np
+from PIL import Image
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "images"
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
-from png_writer import png  # noqa: E402  (the tests' PNG writer)
+import bmp_writer as bw  # noqa: E402  (the tests' writers)
+import jpeg_writer as jw  # noqa: E402
+from png_writer import png  # noqa: E402
 
 
 def _scene(h, w, seed):
@@ -84,6 +104,42 @@ def files() -> dict:
              ).astype(np.uint16)
     out["adam7_16.png"] = png(rgb16, 2, 16, (0, 1, 2, 3, 4),
                               interlace=1)
+    prog = jpg(_scene(41, 23, 9), jq, 75, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    scans = [k for k in range(len(prog) - 1)
+             if prog[k:k + 2] == b"\xff\xda"]
+    out["smoothed.jpg"] = prog[:scans[3]] + b"\xff\xd9"
+    buf = io.BytesIO()
+    Image.fromarray(_scene(27, 35, 10)[:, :, ::-1]).convert("CMYK").save(
+        buf, "JPEG", quality=90)
+    out["cmyk_pil.jpg"] = buf.getvalue()
+    out["ycck.jpg"] = jw.lossy(
+        jw.ycck_from_cmyk(jw.cmyk_from_bgr(_scene(25, 33, 11))), quality=90,
+        adobe=2, sampling=[(2, 2), (1, 1), (1, 1), (2, 2)])
+    s420 = [(2, 2), (1, 1), (1, 1)]
+    out["arith.jpg"] = jw.lossy(
+        jw.ycc_from_bgr(_scene(29, 43, 12)), quality=90, coding="arith",
+        restart=2, sampling=s420, dac={"dc": {0: (1, 4)}, "ac": {0: 8}})
+    out["arith_prog.jpg"] = jw.lossy(
+        jw.ycc_from_bgr(_scene(31, 39, 13)), quality=90, coding="arith",
+        progressive=True, sampling=s420)
+    out["lossless.jpg"] = jw.lossless([_scene(21, 27, 14)[:, :, 1]],
+                                      predictor=7, pt=1, restart_rows=4)
+    rgb = _scene(19, 23, 15)
+    out["lossless_rgb.jpg"] = jw.lossless(
+        [rgb[:, :, 2], rgb[:, :, 1], rgb[:, :, 0]], predictor=4)
+    rng = np.random.default_rng(16)
+    out["pal1.bmp"] = bw.bmp(rng.integers(0, 2, (19, 29)), 1,
+                             palette=rng.integers(0, 256, (2, 3)))
+    out["bf565.bmp"] = bw.bmp(rng.integers(0, 65536, (17, 21)), 16,
+                              compression=bw.BI_BITFIELDS,
+                              masks=bw.MASKS_565)
+    idx, pal = bw.quantize(_scene(23, 37, 17))
+    out["rle8_delta.bmp"] = bw.bmp(
+        idx, 8, palette=pal, compression=bw.BI_RLE8,
+        stream=bw.rle(idx[::-1], 8, deltas={(5, 7): (4, 2)}))
+    out["rle4.bmp"] = bw.bmp(idx >> 4, 4, palette=pal[::16],
+                             compression=bw.BI_RLE4)
+    out["os2_4.bmp"] = bw.bmp(idx & 15, 4, palette=pal[:16], header=12)
     return out
 
 
@@ -98,16 +154,17 @@ def main() -> int:
         for kind, flag in (("color", cv2.IMREAD_COLOR),
                            ("gray", cv2.IMREAD_GRAYSCALE)):
             img = cv2.imread(str(path), flag)
-            if img is None:
-                raise RuntimeError(f"cv2 does not read {name}")
-            decodes[f"{name}:{kind}"] = img
+            if img is not None:
+                decodes[f"{name}:{kind}"] = img
+        if not any(k.startswith(name + ":") for k in decodes):
+            raise RuntimeError(f"cv2 does not read {name}")
     if decodes["exif6.jpg:gray"].shape != (47, 29):
         raise RuntimeError("cv2 did not apply exif6.jpg's orientation")
     np.savez_compressed(OUT / "decodes.npz", **decodes)
     total += (OUT / "decodes.npz").stat().st_size
     if total >= 1 << 20:
         raise RuntimeError(f"the fixtures take {total} bytes, 1 MB at most")
-    print(f"{len(decodes) // 2} files and decodes.npz written to {OUT} "
+    print(f"{len(decodes)} decodes of the files in decodes.npz, {OUT} "
           f"({total} bytes)")
     return 0
 

@@ -368,16 +368,26 @@ def test_adam7_png_cut_short_raises(tmp_path):
 
 
 @pytest.mark.parametrize("name", sorted(
-    p.name for p in FIXTURES.glob("*") if p.suffix in (".jpg", ".png")))
+    p.name for p in FIXTURES.glob("*") if p.suffix in (".jpg", ".png",
+                                                       ".bmp")))
 def test_committed_fixtures(name):
     """The committed files decode to the committed cv2 decodes (which
     chip_smoke.py holds the port to on a machine without cv2) and to this
-    cv2's."""
+    cv2's; where cv2 reads a file one way only (a lossless JPEG), the
+    port raises the other way."""
     ref = np.load(FIXTURES / "decodes.npz")
     p = FIXTURES / name
-    assert np.array_equal(gi.imread_color(p), ref[f"{name}:color"])
-    assert np.array_equal(gi.imread_gray(p), ref[f"{name}:gray"])
-    _same_reads(p)
+    for kind, read, flag in (("color", gi.imread_color, cv2.IMREAD_COLOR),
+                             ("gray", gi.imread_gray, cv2.IMREAD_GRAYSCALE)):
+        key = f"{name}:{kind}"
+        if key in ref.files:
+            assert np.array_equal(read(p), ref[key])
+            assert np.array_equal(read(p), cv2.imread(str(p), flag))
+        else:
+            assert cv2.imread(str(p), flag) is None
+            with pytest.raises(ValueError):
+                read(p)
+    assert any(k.startswith(name + ":") for k in ref.files)
 
 
 def test_decodes_on_threads_agree(tmp_path):
@@ -446,15 +456,15 @@ def test_marker_segments_libjpeg_skips(tmp_path):
         _same_reads(p)
 
 
-def test_unrefined_progressive_raises(tmp_path):
+def test_unrefined_progressive_smoothed_as_cv2(tmp_path):
     """A progressive file cut after any of its scans but the last (an EOI
     appended) leaves AC coefficients unrefined, which libjpeg smooths
-    across blocks: the port raises, naming it."""
+    across blocks (jdcoefct.c decompress_smooth_data): the port reads
+    each cut as cv2 does."""
     jpg = _jpeg(_image(33, 65, 7), *MODES["progressive"])
     starts = [k for k in range(len(jpg) - 1) if jpg[k:k + 2] == b"\xff\xda"]
     assert len(starts) == 10
     p = tmp_path / "u.jpg"
     for k in starts[1:]:
         p.write_bytes(jpg[:k] + b"\xff\xd9")
-        with pytest.raises(ValueError, match="block smoothing"):
-            gi.imread_color(p)
+        _same_reads(p)
