@@ -339,17 +339,23 @@ Slice 15, images without cv2:
      Adam7-interlaced PNG (tests/png_writer.py); then one PNG view
      rewritten as a CMYK JPEG and another as an arithmetic-coded
      progressive JPEG (tests/jpeg_writer.py), and the first BMP view as an
-     RLE8 BMP of its 256-colour quantisation (tests/bmp_writer.py); with
+     RLE8 BMP of its 256-colour quantisation (tests/bmp_writer.py), and
+     the last baseline JPEG view cut at 80% of its bytes with no EOI (a
+     killed recorder's file, read with libjpeg's recovery); with
      96 LiDAR frames of 10,000 points under perturbed odometry and
      cfg.yaml at the reference scale 0.5, the COLMAP export on and no
      match.db, under build/images_smoke/ (removed after).  Each PNG and
      BMP decoded by the port equals the array written (the Adam7 one and
      the quantised RLE8 one too), each JPEG lies within PSNR 40 dB of it
-     and decodes twice bitwise alike; the committed cv2 fixtures
+     (the cut one in its top half, whose data was kept) and decodes twice
+     bitwise alike; the committed cv2 fixtures
      (tests/data/images/*, decodes.npz: progressive, 4:2:2, 4:1:1,
      restart-interval, gray, EXIF-6, block-smoothed, CMYK (PIL), YCCK,
      arithmetic-coded and lossless JPEGs, a 16-bit Adam7 PNG, 1-bit,
-     565, RLE8, RLE4 and OS/2 BMPs) decode bit for bit as cv2 decoded
+     565, RLE8, RLE4 and OS/2 BMPs; the damaged and unusual ones: cut
+     baseline, progressive and arithmetic-coded JPEGs, one with a restart
+     marker removed, a PNG with a bad ancillary CRC, a V5 BMP of 10-bit
+     bit fields) decode bit for bit as cv2 decoded
      them, and raise where cv2 read nothing; decode ms of each format
      (colour and gray) at 1280 x 1024 and of each fixture at its size,
      resize ms.  Then
@@ -5157,7 +5163,9 @@ ZBUF_SHARE = 1e-3          # pixels off _zbuffer_host by > 1e-6, per image
 # IMAGES_VIEWS views (models/synthetic.room_views: IMAGES_STEP a view, 2 m
 # from the wall, about 4.3 degrees of parallax a view for track fusion's
 # 8-degree rule), every IMAGES_BMP_EVERY-th a 24-bit BMP (the first an RLE8
-# one), two PNG views a CMYK and an arithmetic-coded JPEG; IMAGES_FRAMES
+# one), two PNG views a CMYK and an arithmetic-coded JPEG, one baseline
+# JPEG view cut at IMAGES_CUT of its bytes with no EOI (a killed recorder's
+# file: libjpeg's recovery, its top half held to the render); IMAGES_FRAMES
 # LiDAR frames of IMAGES_PPF points; the configuration at the reference
 # scale 0.5 (640 x 512), float32, the COLMAP export on
 IMAGES_VIEWS = 48
@@ -5168,6 +5176,7 @@ IMAGES_PPF = 10000
 IMAGES_BMP_EVERY = 8
 IMAGES_JPEG_EVERY = 3      # of the views not BMP: 14 of the 48
 IMAGES_JPEG_PSNR_DB = 40.0  # a JPEG view against the array encoded
+IMAGES_CUT = 0.8           # of the cut JPEG view's bytes kept
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "images"
 IMAGES_SETTINGS = {
     "window_ba": dict(size=6, anchor_leaf_size=0.02, use_window_ba_rel=True),
@@ -5715,7 +5724,8 @@ def _images(torch, np, dev, kern, results, paths):
     write_s = time.time() - t0
     # two more PNG views as a CMYK JPEG and an arithmetic-coded progressive
     # JPEG (4:2:0), a BMP view as an RLE8 BMP of its 256-colour
-    # quantisation, which is what it then decodes to
+    # quantisation, which is what it then decodes to, and the last baseline
+    # JPEG view cut at IMAGES_CUT of its bytes, no EOI
     img_dir = work / "dataset" / "all_image"
     listed = sorted(f for f in img_dir.iterdir()
                     if f.suffix in (".png", ".bmp", ".jpg"))
@@ -5723,10 +5733,14 @@ def _images(torch, np, dev, kern, results, paths):
     special, expect, convert_s = {}, {}, {}
     for f, kd in ((pngs[0], "jpg_cmyk"), (pngs[len(pngs) // 2], "jpg_arith"),
                   (next(f for f in listed if f.suffix == ".bmp"),
-                   "bmp_rle8")):
+                   "bmp_rle8"),
+                  ([f for f in listed if f.suffix == ".jpg"][-1], "jpg_cut")):
         k = listed.index(f)
         t0 = time.perf_counter()
-        if kd == "jpg_cmyk":
+        if kd == "jpg_cut":
+            whole = f.read_bytes()
+            data = whole[:int(len(whole) * IMAGES_CUT)]
+        elif kd == "jpg_cmyk":
             data = jw.lossy(jw.cmyk_from_bgr(bgr[k]), quality=95, adobe=0)
         elif kd == "jpg_arith":
             data = jw.lossy(jw.ycc_from_bgr(bgr[k]), quality=95,
@@ -5753,7 +5767,8 @@ def _images(torch, np, dev, kern, results, paths):
 
     dec = {k: [] for k in ("png", "adam7", "bmp", "bmp_rle8", "jpg",
                            "jpg_gray", "jpg_cmyk", "jpg_cmyk_gray",
-                           "jpg_arith", "jpg_arith_gray")}
+                           "jpg_arith", "jpg_arith_gray", "jpg_cut",
+                           "jpg_cut_gray")}
     decoded, psnr, jpeg_twice = [], {}, True
     for k, f in enumerate(files):
         kd = kind(f)
@@ -5765,7 +5780,9 @@ def _images(torch, np, dev, kern, results, paths):
             t0 = time.perf_counter()
             imread_gray(f)
             dec[kd + "_gray"].append((time.perf_counter() - t0) * 1e3)
-            err = img.astype(np.float64) - bgr[k]
+            # the cut view's top half only: its data was kept
+            rows = img.shape[0] // 2 if kd == "jpg_cut" else img.shape[0]
+            err = img[:rows].astype(np.float64) - bgr[k][:rows]
             psnr.setdefault(kd, []).append(
                 float(10 * np.log10(255.0 ** 2 / np.mean(err ** 2))))
             jpeg_twice &= bool(np.array_equal(imread_color(f), img))
@@ -5783,7 +5800,8 @@ def _images(torch, np, dev, kern, results, paths):
     print(f"[images] {len(files)} files ({n_kind['png']} PNG, "
           f"{n_kind['adam7']} Adam7 PNG, {n_kind['jpg']} baseline JPEG, "
           f"{n_kind['jpg_cmyk']} CMYK JPEG, {n_kind['jpg_arith']} "
-          f"arithmetic-coded progressive JPEG, {n_kind['bmp']} BMP, "
+          f"arithmetic-coded progressive JPEG, {n_kind['jpg_cut']} baseline "
+          f"JPEG cut at {IMAGES_CUT:.0%} of its bytes, {n_kind['bmp']} BMP, "
           f"{n_kind['bmp_rle8']} RLE8 BMP) of {cam_full.width} x "
           f"{cam_full.height} and {IMAGES_FRAMES} LiDAR frames of "
           f"{IMAGES_PPF} points written in {write_s:.1f} s (renders on the "
@@ -5797,7 +5815,10 @@ def _images(torch, np, dev, kern, results, paths):
     print(f"[images] decode ms at {cam_full.width} x {cam_full.height}, "
           f"colour (gray): PNG {decode['png']:.2f}, Adam7 PNG "
           f"{decode['adam7']:.2f}, baseline JPEG {decode['jpg']:.2f} "
-          f"({decode['jpg_gray']:.2f}), CMYK JPEG {decode['jpg_cmyk']:.2f} "
+          f"({decode['jpg_gray']:.2f}), baseline JPEG cut at "
+          f"{IMAGES_CUT:.0%} {decode['jpg_cut']:.2f} "
+          f"({decode['jpg_cut_gray']:.2f}; its top half "
+          f"{min_psnr['jpg_cut']:.2f} dB), CMYK JPEG {decode['jpg_cmyk']:.2f} "
           f"({decode['jpg_cmyk_gray']:.2f}), arithmetic-coded progressive "
           f"JPEG {decode['jpg_arith']:.2f} ({decode['jpg_arith_gray']:.2f}), "
           f"BMP {decode['bmp']:.2f}, RLE8 BMP {decode['bmp_rle8']:.2f}",
@@ -5811,7 +5832,7 @@ def _images(torch, np, dev, kern, results, paths):
         _fail("[images]: a decoded file differs from the array written")
     if not (n_kind["jpg"] >= 12 and n_kind["adam7"] == 1
             and n_kind["jpg_cmyk"] == 1 and n_kind["jpg_arith"] == 1
-            and n_kind["bmp_rle8"] == 1
+            and n_kind["bmp_rle8"] == 1 and n_kind["jpg_cut"] == 1
             and min(min_psnr.values()) >= IMAGES_JPEG_PSNR_DB
             and jpeg_twice):
         _fail("[images]: the JPEG views miss their checks, or the file mix "

@@ -23,16 +23,25 @@ imread_gray / imread_color give cv2.imread's pixels bit for bit
     8192) >> 14); lossless frames of 2-8 bits (gray from one component,
     colour from RGB, as libjpeg converts nothing else in lossless mode);
     progressive files whose later scans are missing, smoothed as libjpeg
-    smooths them.  Hierarchical and arithmetic-coded lossless frames,
-    precision other than 8 bits (2-8 lossless) and two components raise
-    ValueError naming the format, as cv2 reads none of them, and so does
-    a damaged file, where libjpeg warns and cv2 returns what it decoded.
+    smooths them; damaged files as libjpeg recovers them under cv2.imread
+    (cut anywhere, a missing EOI, restart markers lost or out of order,
+    bad Huffman or arithmetic codes, coefficients past an encoder's range
+    through the SIMD IDCT's 16-bit arithmetic: lvba_native.cpp).
+    Hierarchical and arithmetic-coded lossless frames, precision other
+    than 8 bits (2-8 lossless), two components and what libjpeg finds
+    fatal (a cut header, bad tables, no scan) raise ValueError naming the
+    format, as cv2 reads none of them.
   * BMP as cv2's grfmt_bmp reads it: 1-, 4- and 8-bit palettes
     (uncompressed, RLE4, RLE8 with its end of line, delta and end of
     bitmap), 16 bits (555, bit fields 555 or 565), 24 and 32 bits (bit
-    fields after a 40- or 52-byte header), BITMAPINFOHEADER, V4, V5 and
-    OS/2 headers, bottom-up and top-down (read_bmp); gray with cv2's own
-    weights ((4899 R + 9617 G + 1868 B + 8192) >> 14).
+    fields after a 40- or 52-byte header as bytes, inside a V3+ header
+    scaled by their masks), BITMAPINFOHEADER, V4, V5 and OS/2 headers,
+    bottom-up and top-down (read_bmp); gray with cv2's own weights ((4899
+    R + 9617 G + 1868 B + 8192) >> 14), or in float32 for the masked
+    fields (_gray_float).
+  * PNG chunks under cv2 5.0's rules (_read_png): an ancillary chunk with
+    a bad CRC dropped, IEND's CRC unread, a refusal where cv2 reads
+    nothing.
 Both reads turn the image by its EXIF orientation as cv2.imread does
 (a PNG's eXIf chunk, a JPEG's first Exif APP1; exif_orientation,
 apply_orientation); read_png, the depth maps' reader, does not, as
@@ -110,31 +119,91 @@ def _png_samples(rows: np.ndarray, h: int, w: int, ch: int,
 
 def _read_png(data: bytes, name="PNG"):
     """read_png's four results and the first eXIf chunk's bytes (None
-    without one)."""
+    without one), under cv2 5.0's chunk rules (its own chunk reader, then
+    libpng's; the same for IMREAD_COLOR, IMREAD_GRAYSCALE and
+    IMREAD_UNCHANGED).  Found by a sweep against cv2.imread of flipped
+    CRCs, inserted, repeated and missing chunks and cuts at every chunk
+    boundary (tests/test_torch_image_damage.py):
+      * the first chunk is IHDR with a valid CRC; the chunks up to IEND
+        are read whole (length, type, data, CRC), their types four
+        letters: a file that ends before IEND's CRC, or has no IEND,
+        reads nothing;
+      * IEND ends the file, its CRC and data unread, and what follows it
+        is never read;
+      * a bad CRC on IDAT, or on PLTE in a palette image, reads nothing;
+        an ancillary chunk (lowercase first letter) with a bad CRC is
+        dropped, and so is PLTE in an image without a palette;
+      * a second IHDR, a second palette PLTE, a PLTE after the image
+        data and an unknown critical chunk (uppercase first letter) read
+        nothing;
+      * the IDAT chunks follow one another: a chunk between them before
+        the zlib stream ends, or an IDAT after another chunk, reads
+        nothing; data after the stream's end is ignored.
+    Every refusal is a ValueError naming the format."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
-    pos, idat, hdr, plte, exif = 8, [], None, None, None
-    while pos + 8 <= len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        crc = data[pos + 8 + n:pos + 12 + n]
-        if len(body) != n or len(crc) != 4 or struct.unpack(">I", crc)[0] \
-                != zlib.crc32(tag + body) & 0xFFFFFFFF:
-            raise ValueError(f"{name}: chunk {tag!r} is cut or corrupt")
-        pos += 12 + n
-        if tag == b"IHDR":
+
+    def refuse(what):
+        return ValueError(f"{name}: PNG {what}")
+
+    pos, n, hdr, plte, exif = 8, len(data), None, None, None
+    z, out, in_idat, after_idat = zlib.decompressobj(), [], False, False
+    while True:
+        if pos + 12 > n:
+            raise refuse("file ends before its IEND chunk" if hdr else
+                          "file has no IHDR chunk")
+        size, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if pos + 12 + size > n:
+            raise refuse(f"chunk {tag!r} is cut short")
+        body = data[pos + 8:pos + 8 + size]
+        crc_ok = struct.unpack(">I", data[pos + 8 + size:pos + 12 + size])[
+            0] == zlib.crc32(tag + body) & 0xFFFFFFFF
+        pos += 12 + size
+        if not tag.isalpha() or not tag.isascii():
+            raise refuse(f"chunk type {tag!r} is not valid")
+        if hdr is None:
+            if tag != b"IHDR" or not crc_ok or size != 13:
+                raise refuse("does not start with a valid IHDR chunk")
             hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            plte = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"eXIf" and exif is None and body[:2] in (b"II", b"MM"):
+            continue
+        if tag == b"IEND":
+            break
+        palette = hdr[3] == 3
+        if tag == b"IDAT":
+            if not crc_ok:
+                raise refuse("IDAT chunk has a bad CRC")
+            if after_idat:
+                raise refuse("IDAT chunk after the image data")
+            in_idat = True
+            if not z.eof:
+                try:
+                    out.append(z.decompress(body))
+                except zlib.error as e:
+                    raise refuse(f"image data does not inflate ({e})")
+            continue
+        if in_idat:
+            if not z.eof:
+                raise refuse(f"chunk {tag!r} inside the image data")
+            after_idat = True
+        if tag == b"IHDR":
+            raise refuse("has a second IHDR chunk")
+        if tag == b"PLTE":
+            if palette:
+                if not crc_ok:
+                    raise refuse("PLTE chunk has a bad CRC")
+                if plte is not None or in_idat:
+                    raise refuse("PLTE chunk repeated or after the image "
+                                 "data")
+                plte = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
+        elif not tag[0] & 0x20:
+            raise refuse(f"unknown critical chunk {tag!r}")
+        elif (crc_ok and tag == b"eXIf" and exif is None
+              and body[:2] in (b"II", b"MM")):
             # libpng keeps the first eXIf whose byte order is II or MM
             exif = body
-        elif tag == b"IEND":
-            break
-    if hdr is None:
-        raise ValueError(f"{name}: no IHDR chunk")
+    if not z.eof:
+        raise refuse("image data is cut short" if in_idat
+                     else "has no IDAT chunk")
     W, H, depth, color, _, _, interlace = hdr
     if interlace > 1:
         raise ValueError(f"{name}: PNG interlace method {interlace} is not "
@@ -146,7 +215,7 @@ def _read_png(data: bytes, name="PNG"):
         raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[color]
     bpp = max(1, ch * depth // 8)
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
+    raw = np.frombuffer(b"".join(out), dtype=np.uint8)
     if not interlace:
         rowbytes = (W * ch * depth + 7) // 8
         px = _png_samples(png_unfilter(raw, H, rowbytes, bpp), H, W, ch,
@@ -319,11 +388,42 @@ def read_bmp(data: bytes, name="BMP"):
     palette entries); palette images of 1, 4 and 8 bits, uncompressed, RLE4
     and RLE8; 16 bits as 555, or bit fields 555 / 565 (other masks are not
     read); 24 bits; 32 bits plain, or with bit fields after a 40- or
-    52-byte header (the masks ignored: bytes B, G, R, A); bottom-up or
-    top-down.  The palette follows the
+    52-byte header (the masks ignored: bytes B, G, R, A) or inside a
+    header of 56 bytes or more (V3, V4, V5): there, where the red, green
+    and blue masks are all nonzero, each channel is its field scaled as
+    cv2 5.0 scales it in float32, (int)(field * (255.0f / (mask >>
+    shift))), shift the mask's trailing zeros (any mask, contiguous or
+    not; the alpha mask unread), and a zero mask leaves the bytes B, G, R;
+    bottom-up or top-down.  The palette follows the
     header, of clrUsed entries (2^bits when 0), the 16-bit masks too (after
     the whole header, as cv2 reads them even where a V4 or V5 header holds
     them).  Other files raise ValueError naming the format."""
+    return _read_bmp(data, name)[0]
+
+
+def _field_channel(words: np.ndarray, mask: int) -> np.ndarray:
+    """uint8 channel of 32-bit pixels under a nonzero bit-field mask, as
+    cv2 5.0 scales it: (int)((float)field * (255.0f / (float)max))."""
+    shift = (mask & -mask).bit_length() - 1
+    field = (words & np.uint32(mask)) >> np.uint32(shift)
+    scale = np.float32(255) / np.float32(mask >> shift)
+    return (field.astype(np.float32) * scale).astype(np.uint8)
+
+
+def _gray_float(bgr: np.ndarray) -> np.ndarray:
+    """cv2 5.0's gray of the masked 32-bit path: floor((0.299f R +
+    0.587f G) + 0.114f B) in float32 (exact against cv2 on all 2^24
+    colours)."""
+    b, g, r = (bgr[:, :, i].astype(np.float32) for i in range(3))
+    s = (np.float32(0.299) * r + np.float32(0.587) * g) \
+        + np.float32(0.114) * b
+    return s.astype(np.uint8)
+
+
+def _read_bmp(data: bytes, name):
+    """read_bmp's pixels and whether cv2 takes their gray in float32
+    (_gray_float: 32-bit bit fields under a header of 56 bytes or more)
+    rather than by cvtColor's fixed point."""
     n = len(data)
     if data[:2] != b"BM" or n < 18:
         raise ValueError(f"{name}: not a BMP file")
@@ -337,6 +437,7 @@ def read_bmp(data: bytes, name="BMP"):
             raise ValueError(f"{name}: BMP file is cut short")
 
     pal = np.zeros((256, 3), np.uint8)
+    masked = False
     if hsize >= 36:
         need(14 + 36)
         W, Hs = struct.unpack_from("<ii", data, 18)
@@ -365,10 +466,9 @@ def read_bmp(data: bytes, name="BMP"):
         elif bits == 16:
             bits = 15
         elif comp == 3 and hsize >= 56:
-            # cv2 5.0 takes a V3+ header's own masks here, scaling and
-            # rounding to gray in a path of its own
-            raise bad("of 32 bits with bit fields under a header of "
-                      f"{hsize} bytes")
+            need(14 + 52)
+            masks = struct.unpack_from("<III", data, 14 + 40)
+            masked = all(masks)
     elif hsize == 12:
         need(26)
         W, Hs, planes, bits = struct.unpack_from("<HHHH", data, 18)
@@ -411,12 +511,16 @@ def read_bmp(data: bytes, name="BMP"):
                 g = (t >> 3) & 0xFC
                 r = (t >> 8) & 0xF8
             bgr = np.stack([(t << 3) & 0xF8, g, r], -1).astype(np.uint8)
+        elif masked:
+            words = rows[:, :4 * W].view("<u4")
+            bgr = np.stack([_field_channel(words, m) for m in masks[::-1]],
+                           -1)
         else:
             k = bits // 8
             bgr = rows[:, :W * k].reshape(H, W, k)[:, :, :3]
     if Hs > 0:
         bgr = bgr[::-1]
-    return np.ascontiguousarray(bgr)
+    return np.ascontiguousarray(bgr), masked
 
 
 def _bgr_to_gray_cv(bgr: np.ndarray) -> np.ndarray:
@@ -548,7 +652,8 @@ def read_jpeg(data: bytes, gray: bool, name="JPEG", info=None) -> np.ndarray:
     uint8 of a JPEG, libjpeg-turbo's decode with cv2's settings bit for
     bit; no EXIF orientation applied.
     info is jpeg_info(data) where the caller has it already.
-    ValueError on a file the decoder does not read or finds damaged."""
+    ValueError on a file the decoder does not read (libjpeg's fatal
+    errors); damage libjpeg recovers from is recovered from alike."""
     import ctypes
 
     from ..native.runtime import _ptr, library
@@ -587,8 +692,10 @@ def _imread(path, gray: bool) -> np.ndarray:
     data = _read(path)
     kind = _format(data, path)
     if kind == "bmp":
-        bgr = read_bmp(data, path)
-        return _bgr_to_gray_cv(bgr) if gray else bgr
+        bgr, masked = _read_bmp(data, path)
+        if not gray:
+            return bgr
+        return _gray_float(bgr) if masked else _bgr_to_gray_cv(bgr)
     if kind == "jpeg":
         info = jpeg_info(data, path)
         return apply_orientation(read_jpeg(data, gray, path, info),
@@ -609,6 +716,16 @@ def imread_color(path) -> np.ndarray:
     """(H, W, 3) BGR uint8, cv2.imread(path, IMREAD_COLOR) bit for bit (the
     EXIF orientation applied)."""
     return _imread(path, False)
+
+
+def imread_color_or_none(path):
+    """imread_color(path), or None exactly where cv2.imread(path,
+    IMREAD_COLOR) returns None: a missing file, or one the readers refuse
+    (their ValueError naming the format).  Any other error is raised."""
+    try:
+        return _imread(path, False)
+    except (FileNotFoundError, ValueError):
+        return None
 
 
 # ---------------------------------------------------------------------------

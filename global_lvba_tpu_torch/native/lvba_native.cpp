@@ -710,8 +710,8 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
 //     refine, AC first with EOB runs, AC refine with correction bits),
 //     restart intervals resetting the DC predictors and the EOB run.
 //   * jdarith.c: the QM decoder (jaricom.c's Qe table; past a marker it
-//     reads zero bytes, which is no damage here), 64 DC and 256 AC
-//     statistics bins a table, DC conditioning on the last difference,
+//     reads zero bytes), 64 DC and 256 AC statistics bins a table, DC
+//     conditioning on the last difference,
 //     the sequential MCU decoder and the four progressive ones; a restart
 //     resets the statistics, the predictions and the decoder.
 //   * jdlhuff.c / jddiffct.c / jdlossls.c: lossless frames, precision 2-8
@@ -721,8 +721,10 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
 //     modulo 2^16, scaled back by the point transform into 8 bits; rows
 //     are undifferenced an iMCU row at a time, as libjpeg does (a restart
 //     inside one resets the first row of the iMCU row).
-//   * jidctint.c: jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) with the
-//     range-limit table of jdmaster.c (x & 1023 around CENTERJSAMPLE).
+//   * jidctint.c: jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2) as
+//     libjpeg-turbo's SIMD version computes it (16-bit lanes: wrapping
+//     sums, saturating passes; the same as the C version within an
+//     encoder's range).
 //   * jdcoefct.c: block smoothing of a progressive file whose scans leave
 //     one of the first nine AC coefficients imprecise (smoothing_ok,
 //     decompress_smooth_data of libjpeg-turbo 2.1 and later: a 5 x 5
@@ -744,9 +746,33 @@ int lvba_jpeg_encode(const unsigned char* imgs, int n, int H, int W,
 // hierarchical frames, arithmetic-coded lossless frames, precision other
 // than 8 bits (2-8 lossless), 2 or more than 4 components, fractional
 // sampling ratios, and the colour conversions a lossless frame refuses.
-// Where libjpeg warns and goes on (data cut short, a Huffman code that is
-// not in its table, an arithmetic code it flags as bad, a restart marker
-// missing, no EOI), this decoder fails.
+// Damaged data is read as libjpeg reads it through the stdio source that
+// cv2.imread hands it (jdatasrc.c, jdhuff.c, jdphuff.c, jdlhuff.c,
+// jdarith.c, jdmarker.c), warning and going on where libjpeg does:
+//   * the file is followed by a fake EOI, again at every read past its end
+//     (JWRN_JPEG_EOF): the stream reads as the file then FF D9 FF D9 ...;
+//   * a Huffman scan that reaches a marker reads zero bits; a bit taken
+//     from them sets insufficient_data (JWRN_HIT_MARKER), the MCU is
+//     finished from zeros, and later MCUs of its restart interval are not
+//     decoded (zero coefficients, the DC predictors kept; a lossless MCU
+//     row zero differences, its predictor back at the first row);
+//   * a Huffman code outside its table takes 17 bits and decodes as 0
+//     (JWRN_HUFF_BAD_CODE);
+//   * a restart marker missing or out of order goes through
+//     jpeg_resync_to_restart (discard it, scan on, or leave it unread for
+//     an empty interval); insufficient_data is cleared unless a marker is
+//     left unread;
+//   * an arithmetic scan reads zeros past a marker, and a code libjpeg
+//     flags as bad (JWRN_ARITH_BAD_CODE) ends its MCU and the rest of its
+//     restart interval;
+//   * a file of one scan is done when its scan is: what follows is read
+//     by jpeg_finish_decompress, after cv2 has its image;
+//   * the block smoothing of a progressive file takes the previous scan's
+//     coefficient precision for iMCU rows past the last one decoded with
+//     data (last_good_iMCU_row).
+// What libjpeg treats as fatal fails here too: no SOI, a cut header (its
+// fake EOI comes before any scan), bad tables or scan parameters, a second
+// SOI or SOF, reserved markers, and the formats above.
 namespace {
 
 struct JpegFail {
@@ -803,42 +829,94 @@ struct HuffDec {
   }
 };
 
-// Entropy-coded bits.  Past a marker (or the end of the data) the reader
-// supplies zero bits, as libjpeg does, but a symbol that consumes one of
-// them fails: libjpeg warns there and fills the image with zeros.
-struct BitReader {
+// The byte stream as libjpeg's stdio source gives it: the file, then FF D9
+// over and over (a fake EOI at each read past the end).  pos is the next
+// byte; unread a marker read but not yet acted on (libjpeg's
+// unread_marker), pos then past it.
+struct Stream {
   const unsigned char* d;
   long n, pos;
+  int unread = 0;
+  int at(long p) const { return p < n ? d[p] : ((p - n) & 1 ? 0xD9 : 0xFF); }
+  // jdmarker.c next_marker: bytes up to an FF skipped, fill bytes and FF 00
+  // passed over; the marker's code, pos past it
+  int next_marker() {
+    for (;;) {
+      while (at(pos) != 0xFF) ++pos;
+      int c;
+      do c = at(++pos); while (c == 0xFF);
+      ++pos;
+      if (c != 0) return c;
+    }
+  }
+};
+
+// jdmarker.c read_restart_marker and jpeg_resync_to_restart: past RSTn
+// (next_rst), or resynchronised as libjpeg chooses by the marker's
+// distance from it
+void read_restart(Stream& s, int& next_rst) {
+  if (!s.unread) s.unread = s.next_marker();
+  if (s.unread == 0xD0 + next_rst) {
+    s.unread = 0;
+  } else {
+    for (;;) {
+      const int m = s.unread;
+      int action;
+      if (m < 0xC0)
+        action = 2;  // not a valid marker: scan on
+      else if (m < 0xD0 || m > 0xD7)
+        action = 3;  // a marker that is no RSTn: leave it unread
+      else if (m == 0xD0 + ((next_rst + 1) & 7) ||
+               m == 0xD0 + ((next_rst + 2) & 7))
+        action = 3;  // one of the next two restarts
+      else if (m == 0xD0 + ((next_rst - 1) & 7) ||
+               m == 0xD0 + ((next_rst - 2) & 7))
+        action = 2;  // an earlier restart: scan on
+      else
+        action = 1;  // the one wanted, or too far away: discard it
+      if (action == 1) s.unread = 0;
+      if (action != 2) break;
+      s.unread = s.next_marker();
+    }
+  }
+  next_rst = (next_rst + 1) & 7;
+}
+
+// Entropy-coded bits.  Past a marker the reader supplies zero bits, as
+// libjpeg does, and a symbol that takes one of them sets insufficient.
+struct BitReader {
+  Stream s;
   unsigned long long acc = 0;  // next bit at bit 63
   int cnt = 0;                 // bits in acc
-  int fake = 0;                // of them, zero bits past the data
-  bool at_marker = false;
-  void reset(long p) {
-    pos = p;
+  int fake = 0;                // of them, zero bits past a marker
+  bool insufficient = false;
+  // jdhuff.c process_restart: the bits left thrown away, past the RSTn
+  void restart(int& next_rst) {
     acc = 0;
     cnt = fake = 0;
-    at_marker = false;
+    read_restart(s, next_rst);
+    if (!s.unread) insufficient = false;
   }
   void fill() {
     while (cnt <= 56) {
       unsigned c = 0;
-      if (!at_marker) {
-        if (pos >= n) {
-          at_marker = true;
-        } else if (d[pos] != 0xFF) {
-          c = d[pos++];
+      if (!s.unread) {
+        const int b = s.at(s.pos);
+        if (b != 0xFF) {
+          c = b;
+          ++s.pos;
         } else {
-          long p = pos + 1;
-          while (p < n && d[p] == 0xFF) ++p;  // fill bytes
-          if (p < n && d[p] == 0) {
+          long p = s.pos + 1;
+          while (s.at(p) == 0xFF) ++p;  // fill bytes
+          if (s.at(p) == 0) {
             c = 0xFF;
-            pos = p + 1;
           } else {
-            at_marker = true;  // pos stays on the marker
+            s.unread = s.at(p);
           }
+          s.pos = p + 1;
         }
       }
-      if (at_marker) fake += 8;
+      if (s.unread) fake += 8;
       acc |= (unsigned long long)c << (56 - cnt);
       cnt += 8;
     }
@@ -850,13 +928,19 @@ struct BitReader {
   void skip(int k) {
     acc <<= k;
     cnt -= k;
-    if (cnt < fake) jfail("JPEG data is cut short or corrupt");
+    if (cnt < fake) {
+      insufficient = true;
+      fake = cnt;
+    }
   }
   int get(int k) {
     const int v = (int)peek(k);
     skip(k);
     return v;
   }
+  // a code of up to 9 bits from the lookahead table, longer ones a bit
+  // length at a time (jpeg_huff_decode); one that no length matches takes
+  // 17 bits and reads as 0
   int decode(const HuffDec& h) {
     const unsigned p = peek(16);
     const int e = h.look[p >> 7];
@@ -871,7 +955,9 @@ struct BitReader {
         return h.vals[h.valoff[l] + c];
       }
     }
-    jfail("corrupt JPEG data: a Huffman code outside its table");
+    peek(17);
+    skip(17);
+    return 0;
   }
 };
 
@@ -921,37 +1007,25 @@ const long kAritab[114] = {
 
 // jdarith.c arith_decode: the C register holds the interval's base and the
 // bits read ahead, CT the bits left of them (-16 before the first two
-// bytes).  At a marker the decoder reads zero bytes, as arithmetic coding
-// allows; the end of the data without a marker fails (libjpeg inserts an
-// EOI and warns).
+// bytes).  Past a marker (the fake EOI at the end of the file too) the
+// decoder reads zero bytes, as arithmetic coding allows.
 struct ArithDec {
-  const unsigned char* d;
-  long n, pos;
+  Stream s;
   long c = 0, a = 0;
   int ct = -16;
-  bool at_marker = false;
-  void reset(long p) {
-    pos = p;
+  // jdarith.c process_restart's reset of the decoder
+  void reset() {
     c = a = 0;
     ct = -16;
-    at_marker = false;
   }
   int byte() {
-    if (at_marker) return 0;
-    if (pos >= n) jfail("JPEG data is cut short or corrupt");
-    const int v = d[pos];
-    if (v != 0xFF) {
-      ++pos;
-      return v;
-    }
-    long p = pos + 1;
-    while (p < n && d[p] == 0xFF) ++p;  // fill bytes
-    if (p >= n) jfail("JPEG data is cut short or corrupt");
-    if (d[p] == 0) {
-      pos = p + 1;
-      return 0xFF;
-    }
-    at_marker = true;  // pos stays on the marker
+    if (s.unread) return 0;
+    const int v = s.at(s.pos++);
+    if (v != 0xFF) return v;
+    int m = s.at(s.pos++);
+    while (m == 0xFF) m = s.at(s.pos++);  // fill bytes
+    if (m == 0) return 0xFF;
+    s.unread = m;
     return 0;
   }
   int decode(unsigned char* st) {
@@ -1008,6 +1082,9 @@ struct JComp {
   bool latched = false;
   int q[64] = {0};       // latched quantization table, natural order
   int coef_bits[64];
+  // the precision before the last scan of this component that touched
+  // coefficients 1-9 (libjpeg-turbo's second half of coef_bits)
+  int prev_bits[64];
   std::vector<short> coef;
   std::vector<unsigned short> samp;  // lossless: dw x dh samples mod 2^16
 };
@@ -1040,6 +1117,9 @@ struct JpegFrame {
   }
   JComp comp[4];
   bool started = false;  // a SOS was read
+  int scans = 0;         // SOS markers read (input_scan_number)
+  bool multi = false;    // has_multiple_scans: the image is read whole first
+  int last_good = 0;     // last_good_iMCU_row
 };
 
 int be16(const unsigned char* p) { return (p[0] << 8) | p[1]; }
@@ -1056,6 +1136,7 @@ const char* sof_name(int m) {
     case 0xC5: return "hierarchical JPEG (SOF5)";
     case 0xC6: return "hierarchical progressive JPEG (SOF6)";
     case 0xC7: return "hierarchical lossless JPEG (SOF7)";
+    case 0xC8: return "JPEG extension frame (JPG)";
     case 0xCB: return "arithmetic-coded lossless JPEG (SOF11)";
     case 0xCD: return "hierarchical arithmetic-coded JPEG (SOF13)";
     case 0xCE: return "hierarchical arithmetic-coded progressive JPEG (SOF14)";
@@ -1084,7 +1165,7 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
   if (f.ncomp < 1 || f.ncomp > 4)
     jfail("JPEG of " + std::to_string(f.ncomp) +
           " components is not supported (1, 3 or 4)");
-  if (len < 6 + 3 * f.ncomp) jfail("JPEG frame header is cut short");
+  if (len != 6 + 3 * f.ncomp) jfail("bad JPEG frame header length");
   if (f.H == 0) jfail("JPEG height 0 (set by a DNL marker) is not supported");
   if (f.W == 0) jfail("JPEG width 0 is not valid");
   if (f.H > 65500 || f.W > 65500) jfail("JPEG larger than 65500 pixels");
@@ -1118,7 +1199,7 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
     k.hib = (k.dh + bs - 1) / bs;
     k.bw = f.mcux * k.h;
     k.bh = f.mcuy * k.v;
-    for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+    for (int i = 0; i < 64; ++i) k.coef_bits[i] = k.prev_bits[i] = -1;
   }
 }
 
@@ -1184,43 +1265,18 @@ void pick_color(JpegFrame& f) {
   }
 }
 
-// the position of the next marker's 0xFF at or after p (fill bytes and
-// stray entropy bytes skipped), or n
-long next_marker(const unsigned char* d, long n, long p) {
-  while (p + 1 < n) {
-    if (d[p] == 0xFF) {
-      long q = p + 1;
-      while (q < n && d[q] == 0xFF) ++q;
-      if (q < n && d[q] != 0) return q - 1;
-      p = q + 1;
-    } else {
-      ++p;
-    }
-  }
-  return n;
-}
-
 struct Scan {
   int ns = 0;
   int ci[4];
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
-// past the restart marker RSTn that must come next at or after p
-long expect_restart(const JpegFrame& f, long p, int rst) {
-  const long mp = next_marker(f.d, f.n, p);
-  if (mp + 1 >= f.n || f.d[mp + 1] != 0xD0 + rst)
-    jfail("JPEG restart marker missing or out of order");
-  return mp + 2;
-}
-
 void block_seq(BitReader& br, const HuffDec& dc, const HuffDec& ac,
                short* blk, int& last_dc) {
   int s = br.decode(dc);
   if (s) s = extend(br.get(s), s);
-  s += last_dc;
-  last_dc = s;
-  blk[0] = (short)s;
+  last_dc = (int)((unsigned)s + (unsigned)last_dc);
+  blk[0] = (short)last_dc;
   for (int k = 1; k < 64; ++k) {
     const int rs = br.decode(ac);
     int r = rs >> 4;
@@ -1245,6 +1301,8 @@ void progressive_pass(JpegFrame& f, const Scan& sc) {
   if (bad) jfail("bad progressive JPEG scan parameters");
   for (int i = 0; i < sc.ns; ++i) {
     JComp& k = f.comp[sc.ci[i]];
+    for (int c = std::min(sc.ss, 1); c <= std::max(sc.se, 9); ++c)
+      k.prev_bits[c] = f.scans > 1 ? k.coef_bits[c] : 0;
     for (int c = sc.ss; c <= sc.se; ++c) k.coef_bits[c] = sc.al;
   }
 }
@@ -1284,11 +1342,12 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
   int next_rst = 0, togo = f.restart;
   const int p1 = 1 << sc.al, m1 = -p1;
   const long total = (long)mx_n * my_n;
+  // a one-component scan's MCU is a block: its iMCU row is v block rows
+  const int row_div = sc.ns == 1 ? f.comp[sc.ci[0]].v : 1;
   for (long m = 0; m < total; ++m) {
     if (f.restart) {
       if (togo == 0) {
-        br.reset(expect_restart(f, br.pos, next_rst));
-        next_rst = (next_rst + 1) & 7;
+        br.restart(next_rst);
         togo = f.restart;
         last_dc[0] = last_dc[1] = last_dc[2] = last_dc[3] = 0;
         eobrun = 0;
@@ -1296,6 +1355,9 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
       --togo;
     }
     const int mx = (int)(m % mx_n), my = (int)(m / mx_n);
+    // out of data: the MCU left as it is, for the rest of the interval
+    if (br.insufficient) continue;
+    if (f.multi) f.last_good = my / row_div;
     for (int i = 0; i < sc.ns; ++i) {
       JComp& k = f.comp[sc.ci[i]];
       const int hb = sc.ns == 1 ? 1 : k.h, vb = sc.ns == 1 ? 1 : k.v;
@@ -1308,9 +1370,8 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
           } else if (dc_scan && sc.ah == 0) {  // DC first
             int s = br.decode(f.dc[k.td]);
             if (s) s = extend(br.get(s), s);
-            s += last_dc[i];
-            last_dc[i] = s;
-            blk[0] = (short)(unsigned)((unsigned)s << sc.al);
+            last_dc[i] = (int)((unsigned)s + (unsigned)last_dc[i]);
+            blk[0] = (short)((unsigned)last_dc[i] << sc.al);
           } else if (dc_scan) {  // DC refine
             if (br.get(1)) blk[0] = (short)(blk[0] | p1);
           } else if (sc.ah == 0) {  // AC first
@@ -1376,9 +1437,9 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
   }
 }
 
-[[noreturn]] void bad_arith() {
-  jfail("corrupt JPEG data: an arithmetic code that libjpeg flags as bad");
-}
+// JWRN_ARITH_BAD_CODE: the MCU ends where the code does
+struct ArithBad {};
+[[noreturn]] void bad_arith() { throw ArithBad{}; }
 
 // jdarith.c: the statistics of a scan and its MCU decoders
 struct ArithScan {
@@ -1387,11 +1448,7 @@ struct ArithScan {
   unsigned char dc_stats[16][64], ac_stats[16][256];
   unsigned char fixed = 113;
   int last_dc[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
-  ArithScan(const JpegFrame& fr, long p) : f(fr) {
-    ad.d = fr.d;
-    ad.n = fr.n;
-    ad.reset(p);
-  }
+  ArithScan(const JpegFrame& fr, const Stream& s) : ad{s}, f(fr) {}
   // Figures F.19-F.24: a DC difference, with its conditioning
   void dc_diff(int i, int tbl) {
     unsigned char* st = dc_stats[tbl] + dc_ctx[i];
@@ -1506,17 +1563,23 @@ void decode_arith_scan(JpegFrame& f, const Scan& sc, ArithScan& as) {
   reset_stats();
   int next_rst = 0, togo = f.restart;
   const long total = (long)mx_n * my_n;
+  const int row_div = sc.ns == 1 ? f.comp[sc.ci[0]].v : 1;
+  bool dead = false;  // a bad code ends the restart interval (ct = -1)
   for (long m = 0; m < total; ++m) {
     if (f.restart) {
       if (togo == 0) {  // jdarith.c process_restart
-        as.ad.reset(expect_restart(f, as.ad.pos, next_rst));
-        next_rst = (next_rst + 1) & 7;
+        read_restart(as.ad.s, next_rst);
+        as.ad.reset();
         togo = f.restart;
         reset_stats();
+        dead = false;
       }
       --togo;
     }
     const int mx = (int)(m % mx_n), my = (int)(m / mx_n);
+    if (f.multi) f.last_good = my / row_div;  // never out of data
+    if (dead) continue;
+    try {
     for (int i = 0; i < sc.ns; ++i) {
       JComp& k = f.comp[sc.ci[i]];
       const int hb = sc.ns == 1 ? 1 : k.h, vb = sc.ns == 1 ? 1 : k.v;
@@ -1539,6 +1602,9 @@ void decode_arith_scan(JpegFrame& f, const Scan& sc, ArithScan& as) {
             as.ac_refine(blk, k.ta, sc.ss, sc.se, sc.al);
           }
         }
+    }
+    } catch (const ArithBad&) {
+      dead = true;
     }
   }
 }
@@ -1616,11 +1682,23 @@ void decode_lossless_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
     for (int yo = 0; yo < mcu_rows; ++yo) {
       if (f.restart) {
         if (togo == 0) {
-          br.reset(expect_restart(f, br.pos, next_rst));
-          next_rst = (next_rst + 1) & 7;
+          br.restart(next_rst);
           togo = rows_a_restart;
           first[0] = first[1] = first[2] = first[3] = true;
         }
+      }
+      if (br.insufficient) {
+        // jdlhuff.c decode_mcus out of data: the MCU row's differences
+        // zero, every component's predictor back at the first row
+        for (int i = 0; i < sc.ns; ++i) {
+          const int rows = one ? 1 : f.comp[sc.ci[i]].v;
+          const size_t at = (size_t)(one ? yo : 0) * width[i];
+          std::fill(diff[i].begin() + at,
+                    diff[i].begin() + at + (size_t)rows * width[i], 0);
+        }
+        first[0] = first[1] = first[2] = first[3] = true;
+        if (f.restart) --togo;
+        continue;
       }
       for (int mx = 0; mx < mx_n; ++mx)
         for (int i = 0; i < sc.ns; ++i) {
@@ -1689,28 +1767,38 @@ void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
 }
 
 // Markers up to the first SOS (header only) or to EOI (decode: every
-// scan entropy-decoded into the components' coefficients or samples).
+// scan entropy-decoded into the components' coefficients or samples; a
+// file of one scan ends with it).  The stream runs on past the file as
+// FF D9 ... (Stream), so a file cut anywhere reads as libjpeg reads it.
 void parse(JpegFrame& f, bool decode) {
-  const unsigned char* d = f.d;
-  const long n = f.n;
-  if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) jfail("not a JPEG file");
-  long p = 2;
+  if (f.n < 4 || f.d[0] != 0xFF || f.d[1] != 0xD8) jfail("not a JPEG file");
+  Stream st{f.d, f.n, 2};
   std_huff(f);
+  std::vector<unsigned char> tail;
   for (;;) {
-    p = next_marker(d, n, p);
-    if (p + 1 >= n) jfail("JPEG data ends before its EOI marker");
-    const int m = d[p + 1];
-    p += 2;
+    const int m = st.unread ? st.unread : st.next_marker();
+    st.unread = 0;
     if (m == 0xD9) {
       if (!f.started) jfail("JPEG without a scan");
       return;
     }
-    if (m == 0xD8 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
-    if (p + 2 > n) jfail("JPEG marker segment is cut short");
-    const int len = be16(d + p) - 2;
-    const unsigned char* body = d + p + 2;
-    if (len < 0 || p + 2 + len > n) jfail("JPEG marker segment is cut short");
-    p += 2 + len;
+    if (m == 0xD8) jfail("JPEG with a second SOI marker");
+    if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;  // no parameters
+    const int len = ((st.at(st.pos) << 8) | st.at(st.pos + 1)) - 2;
+    st.pos += 2;
+    const bool skipped = (m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC;
+    if (len < 0) {
+      if (!skipped) jfail("bad JPEG marker segment length");
+      continue;  // libjpeg skips nothing after a bogus length
+    }
+    const unsigned char* body = f.d + st.pos;
+    const bool whole = st.pos + len <= f.n;
+    if (!whole) {  // read on into the fake EOIs, as libjpeg does
+      tail.resize(len);
+      for (int i = 0; i < len; ++i) tail[i] = (unsigned char)st.at(st.pos + i);
+      body = tail.data();
+    }
+    st.pos += len;
     if (const char* name = sof_name(m))
       jfail(std::string(name) + " is not supported (libjpeg does not decode "
                                 "it)");
@@ -1733,20 +1821,17 @@ void parse(JpegFrame& f, bool decode) {
         read_dqt(f, body, len);
         break;
       case 0xDD:
-        if (len < 2) jfail("bad JPEG DRI marker");
+        if (len != 2) jfail("bad JPEG DRI marker");
         f.restart = be16(body);
         break;
-      case 0xDE:
-      case 0xDF:
-        jfail("hierarchical JPEG (DHP/EXP) is not supported");
       case 0xE0:
         if (!f.started && len >= 14 && std::memcmp(body, "JFIF\0", 5) == 0)
           f.jfif = true;
         break;
       case 0xE1:
-        if (!f.started && f.exif_off < 0 && len > 6 &&
+        if (!f.started && whole && f.exif_off < 0 && len > 6 &&
             std::memcmp(body, "Exif\0\0", 6) == 0) {
-          f.exif_off = (long)(body - d) + 6;
+          f.exif_off = (long)(body - f.d) + 6;
           f.exif_len = len - 6;
         }
         break;
@@ -1759,9 +1844,11 @@ void parse(JpegFrame& f, bool decode) {
       case 0xDA: {
         Scan sc;
         read_sos(f, body, len, sc);
+        ++f.scans;
         if (!f.started) {
           pick_color(f);
           f.started = true;
+          f.multi = sc.ns < f.ncomp || f.kind == 2;
           if (!decode) return;
           for (int c = 0; c < f.ncomp; ++c) {
             JComp& k = f.comp[c];
@@ -1772,37 +1859,39 @@ void parse(JpegFrame& f, bool decode) {
           }
         }
         if (f.arith) {
-          ArithScan as(f, p);
+          ArithScan as(f, st);
           decode_arith_scan(f, sc, as);
-          p = as.ad.at_marker ? as.ad.pos : next_marker(d, n, as.ad.pos);
+          st = as.ad.s;
         } else {
-          BitReader br{d, n, p};
+          BitReader br{st};
           if (f.kind == 3)
             decode_lossless_scan(f, sc, br);
           else
             decode_scan(f, sc, br);
-          p = br.at_marker ? br.pos : next_marker(d, n, br.pos);
+          st = br.s;
         }
+        // one scan: the image is whole, and libjpeg reads what follows
+        // only in jpeg_finish_decompress, after cv2 has taken it
+        if (!f.multi) return;
         break;
       }
-      default:  // other APPn, COM, DNL, JPG, ...: skipped
-        break;
+      default:
+        if (skipped) break;  // APPn, COM, DNL
+        // DHP, EXP, JPGn and the reserved codes: libjpeg's
+        // JERR_UNKNOWN_MARKER (JPG itself is an unsupported SOF)
+        if (m == 0xDE || m == 0xDF)
+          jfail("hierarchical JPEG (DHP/EXP) is not supported");
+        jfail("JPEG marker " + std::to_string(m) + " is not supported");
     }
   }
 }
 
-// the tables of jdmaster.c prepare_range_limit_table and jdcolor.c
+// the tables of jdcolor.c
 struct DecodeTables {
-  unsigned char idct_limit[1024];  // the post-IDCT table at x & 1023
   int cr_r[256], cb_b[256];
   long cr_g[256], cb_g[256];
   long y_tab[3 * 256];
   DecodeTables() {
-    for (int i = 0; i < 1024; ++i)
-      idct_limit[i] = (unsigned char)(i < 128 ? i + 128
-                                      : i < 512 ? 255
-                                      : i < 896 ? 0
-                                                : i - 896);
     const long one_half = 1L << 15;
     auto fix = [](double x) { return (long)(x * 65536.0 + 0.5); };
     for (int i = 0; i < 256; ++i) {
@@ -1914,118 +2003,89 @@ inline int smooth_pred(long num, long q, int al) {
 // zero and imprecise, estimated from the DC values of the 5 x 5 blocks
 // around it (and the DC itself where no AC scan came), then the IDCT.
 // Rows and edges as libjpeg walks them, an iMCU row at a time.
-void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
-                   unsigned char* plane, long stride);
+void idct_smoothed(const JpegFrame& f, const JComp& k, unsigned char* plane,
+                   long stride);
 
-// jidctint.c jpeg_idct_islow: one block of coefficients, dequantized by q,
-// into 8 rows of out (stride bytes apart)
-void idct_islow(const DecodeTables& T, const short* in, const int* q,
-                unsigned char* out, long stride) {
-  const long c0298 = 2446, c0390 = 3196, c0541 = 4433, c0765 = 6270,
-             c0899 = 7373, c1175 = 9633, c1501 = 12299, c1847 = 15137,
-             c1961 = 16069, c2053 = 16819, c2562 = 20995, c3072 = 25172;
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {  // columns
-    const short* s = in + c;
-    const int* qq = q + c;
-    int* w = ws + c;
-    if (!s[8] && !s[16] && !s[24] && !s[32] && !s[40] && !s[48] && !s[56]) {
-      const int dc = (int)((unsigned)(s[0] * qq[0]) << 2);
-      for (int r = 0; r < 8; ++r) w[8 * r] = dc;
-      continue;
+// jidctint.c's islow IDCT as libjpeg-turbo's SIMD version computes it
+// (jsimd_idct_islow_sse2 / _avx2, which cv2's build runs on x86-64): one
+// block of coefficients, dequantized by q, into 8 rows of out (stride bytes
+// apart).  Within an encoder's range it is the C jpeg_idct_islow; beyond
+// it, in the coefficients of damaged data, the 16-bit lanes decide: the
+// dequantized values, in0 +- in4, in7 + in3 and in5 + in1 wrap at 16 bits,
+// each pass's results saturate to 16 bits, the samples to 8 bits around
+// CENTERJSAMPLE, and a block whose rows 1-7 are all zero takes the DC path
+// (dequantized DC << 2, wrapping) for every column.
+inline int wrap16(int x) { return (int)(short)(unsigned short)(x & 0xFFFF); }
+inline int sat16(int x) { return std::max(-32768, std::min(32767, x)); }
+
+// one 8-point pass of the SIMD IDCT on 16-bit inputs; the sums before the
+// descale, in the order out[0..7] takes them, in 32-bit lanes that wrap as
+// paddd's do (the products of 16-bit values and constants are exact)
+inline void idct_pass(const int* in, int* sum) {
+  typedef unsigned U;
+  const int c0298 = 2446, c0390 = 3196, c0541 = 4433, c0765 = 6270,
+            c0899 = 7373, c1175 = 9633, c1501 = 12299, c1847 = 15137,
+            c1961 = 16069, c2053 = 16819, c2562 = 20995, c3072 = 25172;
+  const int z2 = in[2], z3 = in[6];
+  const U t2 = (U)(z2 * c0541) + (U)(z3 * (c0541 - c1847));
+  const U t3 = (U)(z2 * (c0541 + c0765)) + (U)(z3 * c0541);
+  const U t0 = (U)wrap16(in[0] + in[4]) << 13;
+  const U t1 = (U)wrap16(in[0] - in[4]) << 13;
+  const U t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+  const int o0 = in[7], o1 = in[5], o2 = in[3], o3 = in[1];
+  const int z3s = wrap16(o0 + o2), z4s = wrap16(o1 + o3);
+  const U zz3 = (U)(z3s * (c1175 - c1961)) + (U)(z4s * c1175);
+  const U zz4 = (U)(z3s * c1175) + (U)(z4s * (c1175 - c0390));
+  const U u0 = (U)(o0 * (c0298 - c0899)) + (U)(o3 * -c0899) + zz3;
+  const U u3 = (U)(o0 * -c0899) + (U)(o3 * (c1501 - c0899)) + zz4;
+  const U u1 = (U)(o1 * (c2053 - c2562)) + (U)(o2 * -c2562) + zz4;
+  const U u2 = (U)(o1 * -c2562) + (U)(o2 * (c3072 - c2562)) + zz3;
+  sum[0] = (int)(t10 + u3);
+  sum[7] = (int)(t10 - u3);
+  sum[1] = (int)(t11 + u2);
+  sum[6] = (int)(t11 - u2);
+  sum[2] = (int)(t12 + u1);
+  sum[5] = (int)(t12 - u1);
+  sum[3] = (int)(t13 + u0);
+  sum[4] = (int)(t13 - u0);
+}
+
+void idct_islow(const short* in, const int* q, unsigned char* out,
+                long stride) {
+  int ws[64];  // pass 1's 16-bit results, row-major
+  bool ac = false;
+  for (int i = 8; i < 64 && !ac; ++i) ac = in[i] != 0;
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int dc = wrap16(wrap16(in[c] * q[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
     }
-    long z2 = (long)s[16] * qq[16], z3 = (long)s[48] * qq[48];
-    long z1 = (z2 + z3) * c0541;
-    long t2 = z1 + z3 * -c1847, t3 = z1 + z2 * c0765;
-    z2 = (long)s[0] * qq[0];
-    z3 = (long)s[32] * qq[32];
-    long t0 = (z2 + z3) * 8192, t1 = (z2 - z3) * 8192;
-    const long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
-    t0 = (long)s[56] * qq[56];
-    t1 = (long)s[40] * qq[40];
-    t2 = (long)s[24] * qq[24];
-    t3 = (long)s[8] * qq[8];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    long z4 = t1 + t3;
-    const long z5 = (z3 + z4) * c1175;
-    t0 *= c0298;
-    t1 *= c2053;
-    t2 *= c3072;
-    t3 *= c1501;
-    z1 *= -c0899;
-    z2 *= -c2562;
-    z3 *= -c1961;
-    z4 *= -c0390;
-    z3 += z5;
-    z4 += z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    const int sh = 13 - 2;
-    const long rnd = 1L << (sh - 1);
-    w[0] = (int)((t10 + t3 + rnd) >> sh);
-    w[56] = (int)((t10 - t3 + rnd) >> sh);
-    w[8] = (int)((t11 + t2 + rnd) >> sh);
-    w[48] = (int)((t11 - t2 + rnd) >> sh);
-    w[16] = (int)((t12 + t1 + rnd) >> sh);
-    w[40] = (int)((t12 - t1 + rnd) >> sh);
-    w[24] = (int)((t13 + t0 + rnd) >> sh);
-    w[32] = (int)((t13 - t0 + rnd) >> sh);
+  } else {
+    for (int c = 0; c < 8; ++c) {  // columns
+      int col[8], sum[8];
+      for (int r = 0; r < 8; ++r) col[r] = wrap16(in[8 * r + c] * q[8 * r + c]);
+      idct_pass(col, sum);
+      for (int r = 0; r < 8; ++r)
+        ws[8 * r + c] = sat16((int)((unsigned)sum[r] + (1u << 10)) >> 11);
+    }
   }
-  const unsigned char* lim = T.idct_limit;
   for (int r = 0; r < 8; ++r) {  // rows
-    const int* w = ws + 8 * r;
+    int sum[8];
+    idct_pass(ws + 8 * r, sum);
     unsigned char* o = out + r * stride;
-    const int sh = 13 + 2 + 3;
-    const long rnd = 1L << (sh - 1);
-    long z2 = w[2], z3 = w[6];
-    long z1 = (z2 + z3) * c0541;
-    long t2 = z1 + z3 * -c1847, t3 = z1 + z2 * c0765;
-    long t0 = ((long)w[0] + w[4]) * 8192, t1 = ((long)w[0] - w[4]) * 8192;
-    const long t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
-    t0 = w[7];
-    t1 = w[5];
-    t2 = w[3];
-    t3 = w[1];
-    z1 = t0 + t3;
-    z2 = t1 + t2;
-    z3 = t0 + t2;
-    long z4 = t1 + t3;
-    const long z5 = (z3 + z4) * c1175;
-    t0 *= c0298;
-    t1 *= c2053;
-    t2 *= c3072;
-    t3 *= c1501;
-    z1 *= -c0899;
-    z2 *= -c2562;
-    z3 *= -c1961;
-    z4 *= -c0390;
-    z3 += z5;
-    z4 += z5;
-    t0 += z1 + z3;
-    t1 += z2 + z4;
-    t2 += z2 + z3;
-    t3 += z1 + z4;
-    o[0] = lim[((t10 + t3 + rnd) >> sh) & 1023];
-    o[7] = lim[((t10 - t3 + rnd) >> sh) & 1023];
-    o[1] = lim[((t11 + t2 + rnd) >> sh) & 1023];
-    o[6] = lim[((t11 - t2 + rnd) >> sh) & 1023];
-    o[2] = lim[((t12 + t1 + rnd) >> sh) & 1023];
-    o[5] = lim[((t12 - t1 + rnd) >> sh) & 1023];
-    o[3] = lim[((t13 + t0 + rnd) >> sh) & 1023];
-    o[4] = lim[((t13 - t0 + rnd) >> sh) & 1023];
+    for (int c = 0; c < 8; ++c) {
+      const int v = sat16((int)((unsigned)sum[c] + (1u << 17)) >> 18);
+      o[c] = (unsigned char)(std::max(-128, std::min(127, v)) + 128);
+    }
   }
 }
 
-void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
-                   unsigned char* plane, long stride) {
-  const int* cb = k.coef_bits;
-  bool change_dc = true;
-  for (int i = 1; i < 10; ++i)
-    if (cb[i] != -1) change_dc = false;
+void idct_smoothed(const JpegFrame& f, const JComp& k, unsigned char* plane,
+                   long stride) {
+  // smoothing_ok's latches: the precision now, and before the last scan
+  // (-1 after a single scan) for the iMCU rows that scan did not reach
+  int prev[10];
+  for (int i = 0; i < 10; ++i) prev[i] = f.scans > 1 ? k.prev_bits[i] : -1;
   const long Q00 = k.q[0], Q01 = k.q[1], Q10 = k.q[8], Q20 = k.q[16],
              Q11 = k.q[9], Q02 = k.q[2], Q03 = k.q[3], Q12 = k.q[10],
              Q21 = k.q[17], Q30 = k.q[24];
@@ -2036,6 +2096,10 @@ void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
   };
   short ws[64];
   for (int r = 0; r < total; ++r) {
+    const int* cb = r > f.last_good ? prev : k.coef_bits;
+    bool change_dc = true;
+    for (int i = 1; i < 10; ++i)
+      if (cb[i] != -1) change_dc = false;
     const int block_rows = r < last_row ? v : (k.hib % v ? k.hib % v : v);
     const int image_block_rows = block_rows * total;
     for (int br = 0; br < block_rows; ++br) {
@@ -2142,7 +2206,7 @@ void idct_smoothed(const DecodeTables& T, const JpegFrame& f, const JComp& k,
                2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
           ws[0] = (short)smooth_pred(num, Q00, 0);
         }
-        idct_islow(T, ws, k.q, plane + (size_t)cur * 8 * stride + b * 8,
+        idct_islow(ws, k.q, plane + (size_t)cur * 8 * stride + b * 8,
                    stride);
         DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
         DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
@@ -2190,11 +2254,11 @@ void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
       stride = (long)k.bw * 8;
       plane.resize((size_t)stride * k.hib * 8);
       if (smooth) {
-        idct_smoothed(T, f, k, plane.data(), stride);
+        idct_smoothed(f, k, plane.data(), stride);
       } else {
         for (int by = 0; by < k.hib; ++by)
           for (int bx = 0; bx < k.wib; ++bx)
-            idct_islow(T, k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.q,
+            idct_islow(k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.q,
                        plane.data() + (size_t)by * 8 * stride + bx * 8, stride);
       }
     }

@@ -20,7 +20,7 @@ from .. import resolve_device
 from ..config import LvbaConfig
 from ..frontend.matching import match_all_pairs
 from ..frontend.sift import SiftParams, extract_sift_batch
-from ..io.image import imread_color, imread_gray, resize_linear
+from ..io.image import imread_color_or_none, imread_gray, resize_linear
 from ..utils.progress import progress_bar
 
 log = logging.getLogger("global_lvba_tpu_torch.frontend")
@@ -181,8 +181,12 @@ def extract_and_match_sift(
         rdir = Path(result_dir)
         rdir.mkdir(parents=True, exist_ok=True)
         for (i, j), m in matches_out.items():
-            img1 = imread_color(ds.image_paths[i])
-            img2 = imread_color(ds.image_paths[j])
+            # a pair is skipped where cv2.imread(IMREAD_COLOR) would
+            # return None, as the reference's is
+            img1 = imread_color_or_none(ds.image_paths[i])
+            img2 = imread_color_or_none(ds.image_paths[j])
+            if img1 is None or img2 is None:
+                continue
             draw_matches(
                 img1, img2, kps_out[i], kps_out[j], m,
                 path=rdir / f"matches_{i:04d}_{j:04d}.jpg",

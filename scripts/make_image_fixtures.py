@@ -30,6 +30,16 @@ The files (odd sizes, made from seed 18):
   rle8_delta.bmp    RLE8 with a delta escape (its gap is palette entry 0)
   rle4.bmp          RLE4
   os2_4.bmp         4-bit palette under an OS/2 BITMAPCOREHEADER
+and damaged or unusual files, read as libjpeg, cv2's PNG reader and its
+grfmt_bmp recover them:
+  cut_baseline.jpg  4:2:0 cut inside its scan at 60% of its bytes, no
+                    EOI (a killed recorder's file)
+  rst_removed.jpg   restart interval 2, its first RST marker removed
+  cut_progressive.jpg  progressive, cut in the middle of its last scan
+                    that starts before 70% of its bytes
+  cut_arith.jpg     arithmetic-coded sequential, cut inside its scan
+  badcrc_text.png   a tEXt chunk with a bad CRC before the IDAT
+  v5_bitfields.bmp  32 bits, 10-bit bit fields inside a V5 header
 (tests/png_writer.py, jpeg_writer.py and bmp_writer.py write what cv2
 does not) and decodes.npz: for each file name, "<name>:color" (cv2.imread
 IMREAD_COLOR) and "<name>:gray" (IMREAD_GRAYSCALE), each where cv2 reads
@@ -52,7 +62,7 @@ OUT = ROOT / "tests" / "data" / "images"
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 import bmp_writer as bw  # noqa: E402  (the tests' writers)
 import jpeg_writer as jw  # noqa: E402
-from png_writer import png  # noqa: E402
+from png_writer import chunk as png_chunk, png  # noqa: E402
 
 
 def _scene(h, w, seed):
@@ -140,6 +150,33 @@ def files() -> dict:
     out["rle4.bmp"] = bw.bmp(idx >> 4, 4, palette=pal[::16],
                              compression=bw.BI_RLE4)
     out["os2_4.bmp"] = bw.bmp(idx & 15, 4, palette=pal[:16], header=12)
+    cut = jpg(_scene(43, 57, 19), jq, 90)
+    out["cut_baseline.jpg"] = cut[:len(cut) * 6 // 10]
+    rst = jpg(_scene(35, 49, 20), jq, 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+    k = rst.index(b"\xff\xd0")
+    out["rst_removed.jpg"] = rst[:k] + rst[k + 2:]
+    prog = jpg(_scene(39, 51, 21), jq, 90, cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    # the middle of the last scan that starts before 70% of the bytes
+    sos = [k for k in range(len(prog) - 1) if prog[k:k + 2] == b"\xff\xda"
+           and k < len(prog) * 7 // 10]
+    end = next(k for k in range(sos[-1] + 2, len(prog) - 1)
+               if prog[k] == 0xFF and prog[k + 1] not in (0, 0xFF))
+    out["cut_progressive.jpg"] = prog[:(sos[-1] + end) // 2]
+    arith = jw.lossy(jw.ycc_from_bgr(_scene(33, 45, 22)), quality=90,
+                     coding="arith", sampling=s420)
+    out["cut_arith.jpg"] = arith[:len(arith) * 6 // 10]
+    gray = _scene(21, 25, 23)[:, :, 0]
+    ok, buf = cv2.imencode(".png", gray)
+    assert ok
+    text = png_chunk(b"tEXt", b"Comment\0damaged")
+    text = text[:-1] + bytes([text[-1] ^ 0x5A])
+    out["badcrc_text.png"] = buf.tobytes()[:33] + text + buf.tobytes()[33:]
+    words = rng.integers(0, 1 << 32, (15, 19), dtype=np.uint64).astype(
+        np.uint32)
+    out["v5_bitfields.bmp"] = bw.bmp(
+        words.view(np.uint8).reshape(15, 19, 4), 32,
+        compression=bw.BI_BITFIELDS, masks=(0x3FF00000, 0xFFC00, 0x3FF),
+        header=124)
     return out
 
 

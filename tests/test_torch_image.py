@@ -272,8 +272,9 @@ OUT_OF_SCOPE = [
 
 def test_unsupported_inputs_raise(tmp_path):
     """The JPEG formats cv2 reads nothing of raise ValueError by name (made
-    by splicing the SOF marker of a cv2 JPEG), as does a JPEG cut short;
-    an unknown format, a cut PNG and a missing file raise too."""
+    by splicing the SOF marker of a cv2 JPEG), as does a JPEG cut inside
+    its header; one cut inside its scan reads as cv2 reads it (libjpeg's
+    fake EOI); an unknown format, a cut PNG and a missing file raise."""
     img = np.random.default_rng(2).integers(0, 256, (16, 24, 3), np.uint8)
     jpg = cv2.imencode(".jpg", img)[1].tobytes()
     spliced = tmp_path / "x.jpg"
@@ -284,10 +285,16 @@ def test_unsupported_inputs_raise(tmp_path):
         with pytest.raises(ValueError, match=match):
             psf.load_gray_image(spliced, 24, 16)
     cut = tmp_path / "cut.jpg"
-    for end in (len(jpg) // 2, len(jpg) - 40, len(jpg) - 2):
+    sos = jpg.index(b"\xff\xda")
+    for end in (sos // 2, sos + 4):
         cut.write_bytes(jpg[:end])
+        assert cv2.imread(str(cut), cv2.IMREAD_GRAYSCALE) is None
         with pytest.raises(ValueError, match="JPEG"):
             gi.imread_gray(cut)
+    for end in ((sos + len(jpg)) // 2, len(jpg) - 40, len(jpg) - 2):
+        cut.write_bytes(jpg[:end])
+        assert np.array_equal(gi.imread_gray(cut), cv2.imread(
+            str(cut), cv2.IMREAD_GRAYSCALE))
     other = tmp_path / "o.gif"
     other.write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="unknown image format"):

@@ -14,6 +14,7 @@ lossless frames, colour from a one-component lossless file), the port
 raises a ValueError naming the format."""
 
 import io
+import struct
 
 import cv2
 import numpy as np
@@ -139,16 +140,34 @@ def test_bmp_32_bit_bitfields(tmp_path, masks, top_down):
         _same_reads(p)
 
 
-def test_bmp_32_bit_bitfields_in_a_v5_header_raise(tmp_path):
-    """Under a V4 or V5 header cv2 5.0 applies the header's own masks with
-    a gray rounding of its own; the port does not read these, and raises
-    naming them."""
-    px = np.random.default_rng(5).integers(0, 256, (5, 7, 4))
-    p = tmp_path / "v5.bmp"
-    p.write_bytes(bw.bmp(px, 32, compression=bw.BI_BITFIELDS,
-                         masks=(0xFF0000, 0xFF00, 0xFF), header=124))
-    with pytest.raises(ValueError, match="bit fields under a header"):
-        gi.imread_color(p)
+@pytest.mark.parametrize("masks", [
+    (0xFF0000, 0xFF00, 0xFF), (0xFF, 0xFF00, 0xFF0000),
+    (0x3FF00000, 0xFFC00, 0x3FF), (0xFF000000, 0xFF0000, 0xFF00),
+    (0x3F, 0xFC0, 0x3F000), (0xFF0000, 0xFF00, 0)])
+@pytest.mark.parametrize("alpha", [0, 0xFF000000])
+@pytest.mark.parametrize("header", [56, 108, 124])
+def test_bmp_32_bit_bitfields_under_a_v3_v4_v5_header(tmp_path, masks,
+                                                      alpha, header):
+    """32 bits with bit fields inside a header of 56 bytes or more: cv2
+    5.0 scales each masked field in float32 ((int)(field * (255.0f /
+    max)); 8-bit masks plain, reversed and shifted, 10- and 6-bit masks)
+    and takes gray as floor((0.299f R + 0.587f G) + 0.114f B); a zero
+    mask leaves the bytes B, G, R and cv2's fixed-point gray.  The alpha
+    mask changes nothing.  Bit for bit, colour and gray, bottom-up and
+    top-down."""
+    rng = np.random.default_rng(header + len(masks))
+    p = tmp_path / "v.bmp"
+    for top_down in (False, True):
+        for h, w in SIZES:
+            words = rng.integers(0, 1 << 32, (h, w), dtype=np.uint64).astype(
+                np.uint32)
+            data = bytearray(bw.bmp(
+                words.view(np.uint8).reshape(h, w, 4), 32,
+                compression=bw.BI_BITFIELDS, masks=masks, header=header,
+                top_down=top_down))
+            struct.pack_into("<I", data, 14 + 52, alpha)
+            p.write_bytes(bytes(data))
+            _same_reads(p)
 
 
 @pytest.mark.parametrize("bits", [1, 4, 8, 24, 32])
@@ -385,29 +404,24 @@ def test_arith_progressive(tmp_path, restart, sampling):
 
 def test_arith_damage(tmp_path):
     """Bytes of an arithmetic-coded scan changed: libjpeg decodes on where
-    the codes stay valid, and warns and stops the scan at a code it flags
-    as bad.  The port reads a file of the same shape wherever cv2 reads
-    one, or raises; at least one variant hits a flagged code, where the
-    port raises naming it.  (The pixels may differ: garbage decodes into
-    coefficients far outside any encoder's range, where libjpeg-turbo's
-    SIMD IDCT wraps in 16 bits and the port's, libjpeg's C, does not.)"""
+    the codes stay valid, and at a code it flags as bad
+    (JWRN_ARITH_BAD_CODE) ends the MCU and the rest of the scan's restart
+    interval.  Every variant reads as cv2 reads it, bit for bit, colour and
+    gray: garbage decodes into coefficients far outside any encoder's
+    range, which the port's IDCT saturates and wraps in 16 bits as
+    libjpeg-turbo's SIMD IDCT does."""
     jpg = jw.lossy(jw.ycc_from_bgr(_scene(37, 53, 2)), quality=90,
                    coding="arith")
     sos = jpg.index(b"\xff\xda") + 14
     p = tmp_path / "x.jpg"
-    flagged = 0
     for k in range(sos, len(jpg) - 2, 7):
         bad = bytearray(jpg)
         bad[k] = 0xFE if bad[k] != 0xFE else 0x01
         p.write_bytes(bytes(bad))
-        try:
-            got = gi.imread_color(p)
-        except ValueError as e:
-            flagged += "flags as bad" in str(e)
-            continue
-        want = cv2.imread(str(p), cv2.IMREAD_COLOR)
-        assert want is not None and got.shape == want.shape
-    assert flagged
+        for flag, read in ((cv2.IMREAD_COLOR, gi.imread_color),
+                           (cv2.IMREAD_GRAYSCALE, gi.imread_gray)):
+            want = cv2.imread(str(p), flag)
+            assert want is not None and np.array_equal(read(p), want), k
 
 
 # ---------------------------------------------------------------------------

@@ -135,3 +135,41 @@ def test_save_match_images_match_jax_draw_matches(dataset, tmp_path):
         draw_matches(*imgs, kps[i], kps[j], m, path=tmp_path / "want.jpg")
         got = tmp_path / "result" / f"matches_{i:04d}_{j:04d}.jpg"
         assert got.read_bytes() == (tmp_path / "want.jpg").read_bytes()
+
+
+def test_save_match_images_skip_a_view_cv2_reads_only_in_gray(dataset,
+                                                                tmp_path):
+    """A dataset whose view 2 is a one-component lossless JPEG (cv2 reads
+    it in gray for SIFT, and returns None in colour): with
+    solver.save_match_images both packages match every pair, skip the
+    drawings of the pairs with view 2, write the others, and finish; the
+    same set of matches_*.jpg files."""
+    import cv2
+
+    import jpeg_writer as jw
+    from global_lvba_tpu.frontend.sift import SiftParams as JParams
+
+    paths = list(dataset.image_paths)
+    gray = cv2.imread(str(paths[2]), cv2.IMREAD_GRAYSCALE)
+    paths[2] = tmp_path / "2.jpg"
+    paths[2].write_bytes(jw.lossless([gray], predictor=1))
+    assert cv2.imread(str(paths[2]), cv2.IMREAD_COLOR) is None
+    ds = SimpleNamespace(image_paths=paths, cam=dataset.cam)
+    names = {}
+    for pkg in ("port", "jax"):
+        cfg = LvbaConfig() if pkg == "port" else JConfig()
+        cfg.solver.save_match_images = True
+        out = tmp_path / pkg
+        if pkg == "port":
+            _, matches = psf.extract_and_match_sift(
+                ds, cfg, params=SiftParams(**PARAMS), result_dir=out,
+                device="cpu")
+        else:
+            _, matches = jsf.extract_and_match_sift(
+                ds, cfg, params=JParams(**PARAMS), result_dir=out)
+        assert any(2 in pair for pair in matches)
+        names[pkg] = sorted(p.name for p in out.iterdir())
+        assert names[pkg] == sorted(
+            f"matches_{i:04d}_{j:04d}.jpg" for i, j in matches
+            if 2 not in (i, j))
+    assert names["port"] == names["jax"] and names["port"]
