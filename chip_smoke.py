@@ -355,8 +355,12 @@ Slice 15, images without cv2:
      565, RLE8, RLE4 and OS/2 BMPs; the damaged and unusual ones: cut
      baseline, progressive and arithmetic-coded JPEGs, one with a restart
      marker removed, a PNG with a bad ancillary CRC, a V5 BMP of 10-bit
-     bit fields) decode bit for bit as cv2 decoded
-     them, and raise where cv2 read nothing; decode ms of each format
+     bit fields; gamma PNGs (RGB with sRGB, RGBA 16-bit with gAMA 22000,
+     a palette with gAMA 45455), a PNG of IHDR filter method 64, an OS/2
+     BMP of planes 0, an 8-bit gray and a 16-bit RGB PNG) decode bit for
+     bit as cv2 decoded them, colour, gray and unchanged (imread_unchanged,
+     and load_depth_png over two scales), and raise where cv2 read
+     nothing; decode ms of each format
      (colour and gray) at 1280 x 1024 and of each fixture at its size,
      resize ms.  Then
      LvbaSystem.run_full_pipeline(images=[resize_linear(imread_color(p),
@@ -5642,16 +5646,23 @@ def _pcd_points(path) -> int:
 
 def _image_fixtures(np):
     """The committed cv2 fixtures decoded by the port: ({file: bit for bit
-    cv2's colour and gray decodes, and a ValueError where cv2 read nothing
-    that way}, {file: (height, width, ms of one colour or gray decode)})."""
-    from global_lvba_tpu_torch.io.image import imread_color, imread_gray
+    cv2's colour, gray and unchanged decodes (dtype too), load_depth_png
+    the unchanged one in float32 over 2000 and over 1000, and a
+    ValueError where cv2 read nothing that way}, {file: (height, width,
+    ms of its first decode)}).  Every image file of the folder counts, so
+    one that cv2 reads in no way (filter64.png) must raise in every way."""
+    from global_lvba_tpu_torch.io.image import (
+        imread_color, imread_gray, imread_unchanged)
+    from global_lvba_tpu_torch.pipeline.outputs import load_depth_png
 
     ref = np.load(IMAGE_FIXTURES / "decodes.npz")
-    names = sorted({k.split(":")[0] for k in ref.files})
+    names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
+                   if p.suffix in (".png", ".jpg", ".bmp"))
     same, ms = {}, {}
     for name in names:
         ok = True
-        for kind, read in (("color", imread_color), ("gray", imread_gray)):
+        for kind, read in (("color", imread_color), ("gray", imread_gray),
+                           ("unchanged", imread_unchanged)):
             key = f"{name}:{kind}"
             t0 = time.perf_counter()
             try:
@@ -5660,8 +5671,18 @@ def _image_fixtures(np):
                 ok &= key not in ref.files
                 continue
             dt = (time.perf_counter() - t0) * 1e3
-            ok &= key in ref.files and bool(np.array_equal(img, ref[key]))
+            ok &= (key in ref.files and img.dtype == ref[key].dtype
+                   and bool(np.array_equal(img, ref[key])))
             ms.setdefault(name, (img.shape[0], img.shape[1], dt))
+        key = f"{name}:unchanged"
+        for scale in (2000.0, 1000.0):
+            try:
+                depth = load_depth_png(IMAGE_FIXTURES / name, scale)
+            except ValueError:
+                ok &= key not in ref.files
+                continue
+            ok &= key in ref.files and bool(np.array_equal(
+                depth, ref[key].astype(np.float32) / scale))
         same[name] = bool(ok)
     return same, ms
 
@@ -5823,11 +5844,12 @@ def _images(torch, np, dev, kern, results, paths):
           f"JPEG {decode['jpg_arith']:.2f} ({decode['jpg_arith_gray']:.2f}), "
           f"BMP {decode['bmp']:.2f}, RLE8 BMP {decode['bmp_rle8']:.2f}",
           flush=True)
-    print("[images] the cv2 fixtures bit for bit (decode ms of the first "
-          "read at its size): " + ", ".join(
+    print(f"[images] the {len(fixtures)} cv2 fixtures bit for bit (decode "
+          f"ms of the first read at its size): " + ", ".join(
               f"{n} {fixtures[n]} ({fixture_ms[n][1]} x {fixture_ms[n][0]} "
-              f"{fixture_ms[n][2]:.3f} ms)" for n in sorted(fixtures)),
-          flush=True)
+              f"{fixture_ms[n][2]:.3f} ms)" if n in fixture_ms else
+              f"{n} {fixtures[n]} (refused in every mode, as by cv2)"
+              for n in sorted(fixtures)), flush=True)
     if not same_files:
         _fail("[images]: a decoded file differs from the array written")
     if not (n_kind["jpg"] >= 12 and n_kind["adam7"] == 1

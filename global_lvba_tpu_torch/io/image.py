@@ -42,12 +42,18 @@ imread_gray / imread_color give cv2.imread's pixels bit for bit
   * PNG chunks under cv2 5.0's rules (_read_png): an ancillary chunk with
     a bad CRC dropped, IEND's CRC unread, a refusal where cv2 reads
     nothing.
+  * The gray read of a colour PNG (RGB, RGBA, palette) that states a
+    significant gamma (gAMA, or sRGB's 45455) as libpng 1.6.58 makes it
+    for cv2: each channel to linear light and back through libpng's gamma
+    tables (_png_gamma_gray).
 Both reads turn the image by its EXIF orientation as cv2.imread does
 (a PNG's eXIf chunk, a JPEG's first Exif APP1; exif_orientation,
-apply_orientation); read_png, the depth maps' reader, does not, as
-cv2's IMREAD_UNCHANGED does not.  Other inputs raise ValueError naming
-the format, and so do a JPEG or BMP of more than 2^30 pixels, which cv2
-refuses before decoding.
+apply_orientation).  imread_unchanged is cv2.imread(IMREAD_UNCHANGED):
+no orientation, 16-bit PNG samples kept, alpha kept (BGRA), and BMP and
+JPEG with the channels cv2 gives them.  Other inputs raise ValueError
+naming the format, where cv2.imread returns None; an image past cv2's
+size limit (a side over 2^20 or more than 2^30 pixels) raises
+ImageSizeError once its header is read, where cv2.imread raises.
 
 resize_linear is cv2.resize(INTER_LINEAR) on uint8 bit for bit: an exact
 2:1 reduction is cv2's 2x2 average ((a + b + c + d + 2) >> 2), any other
@@ -61,9 +67,12 @@ libjpeg's integer arithmetic; its bytes are cv2's), an image a thread.
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
+from functools import lru_cache
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -71,6 +80,28 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
                6: (8, 16)}
+
+
+# cv2's validateInputImageSize (loadsave.cpp): each side up to 2^20, at
+# most 2^30 pixels
+MAX_SIDE = 1 << 20
+MAX_PIXELS = 1 << 30
+# libpng's default user limits on an IHDR's width and height
+PNG_USER_MAX = 1_000_000
+
+
+class ImageSizeError(Exception):
+    """An image past cv2's size limit (a side over 2^20, or more than 2^30
+    pixels): cv2.imread raises cv2.error there, once the header is read,
+    where it returns None for a file it cannot read.  Not a ValueError, so
+    imread_color_or_none lets it through."""
+
+
+def _check_size(W: int, H: int, name):
+    if W > MAX_SIDE or H > MAX_SIDE or W * H > MAX_PIXELS:
+        raise ImageSizeError(f"{name}: an image of {W} x {H} pixels is "
+                             f"larger than cv2 reads (sides up to 2^20, "
+                             f"2^30 pixels)")
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:
@@ -117,17 +148,37 @@ def _png_samples(rows: np.ndarray, h: int, w: int, ch: int,
         h, -1)[:, :w, None]
 
 
-def _read_png(data: bytes, name="PNG"):
-    """read_png's four results and the first eXIf chunk's bytes (None
-    without one), under cv2 5.0's chunk rules (its own chunk reader, then
-    libpng's; the same for IMREAD_COLOR, IMREAD_GRAYSCALE and
-    IMREAD_UNCHANGED).  Found by a sweep against cv2.imread of flipped
-    CRCs, inserted, repeated and missing chunks and cuts at every chunk
-    boundary (tests/test_torch_image_damage.py):
-      * the first chunk is IHDR with a valid CRC; the chunks up to IEND
-        are read whole (length, type, data, CRC), their types four
-        letters: a file that ends before IEND's CRC, or has no IEND,
-        reads nothing;
+class _Png(NamedTuple):
+    """A PNG as _read_png reads it: the stored samples and what libpng
+    keeps of the ancillary chunks that change cv2's reads."""
+    px: np.ndarray        # (H, W, C) uint8, or uint16 at 16 bits
+    color: int            # colour type
+    depth: int            # bit depth
+    plte: Optional[np.ndarray]  # (n, 3) uint8 palette
+    exif: Optional[bytes]  # the first eXIf chunk's bytes
+    trns: Optional[bytes]  # a tRNS chunk libpng accepts
+    gamma: int            # the file gamma x 100000 (0: none stated)
+    sbit: int             # sBIT's largest colour channel (0: none)
+
+
+def _ihdr_ok(W, H, depth, color, compression, filt, interlace) -> bool:
+    """libpng's png_check_IHDR under its default user limits (filter method
+    64 is MNG's, refused in a PNG stream)."""
+    return (0 < W <= PNG_USER_MAX and 0 < H <= PNG_USER_MAX
+            and color in _PNG_CHANNELS and depth in _PNG_DEPTHS[color]
+            and interlace <= 1 and compression == 0 and filt == 0)
+
+
+def _read_png(data: bytes, name="PNG") -> _Png:
+    """A PNG's samples and chunks under cv2 5.0's chunk rules (its own
+    chunk reader, then libpng's; the same for IMREAD_COLOR,
+    IMREAD_GRAYSCALE and IMREAD_UNCHANGED).  Found by a sweep against
+    cv2.imread of flipped CRCs, inserted, repeated and missing chunks and
+    cuts at every chunk boundary (tests/test_torch_image_damage.py):
+      * the first chunk is IHDR with a valid CRC and fields libpng's
+        png_check_IHDR accepts; the chunks up to IEND are read whole
+        (length, type, data, CRC), their types four letters: a file that
+        ends before IEND's CRC, or has no IEND, reads nothing;
       * IEND ends the file, its CRC and data unread, and what follows it
         is never read;
       * a bad CRC on IDAT, or on PLTE in a palette image, reads nothing;
@@ -138,7 +189,18 @@ def _read_png(data: bytes, name="PNG"):
         nothing;
       * the IDAT chunks follow one another: a chunk between them before
         the zlib stream ends, or an IDAT after another chunk, reads
-        nothing; data after the stream's end is ignored.
+        nothing; data after the stream's end is ignored;
+      * cv2 has the header once the first IDAT chunk is read whole: a
+        palette image without PLTE reads nothing there, and an image past
+        cv2's size limit raises ImageSizeError there, before any inflation
+        (and before IDAT's CRC is checked);
+      * gAMA, sRGB and sBIT count before PLTE and IDAT, tRNS before IDAT
+        (after PLTE in a palette image), each the first of its kind that
+        libpng accepts: gAMA of 4 bytes up to 2^31 - 1 (0 counts, and
+        states no gamma), sRGB of one byte, intent 0-3 (gamma 45455,
+        before any gAMA), sBIT of one byte a channel, each 1 to the sample
+        depth, tRNS of 2 bytes (gray), 6 (RGB) or 1 to the palette's
+        entries (none with an alpha channel).
     Every refusal is a ValueError naming the format."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{name}: not a PNG file")
@@ -148,6 +210,8 @@ def _read_png(data: bytes, name="PNG"):
 
     pos, n, hdr, plte, exif = 8, len(data), None, None, None
     z, out, in_idat, after_idat = zlib.decompressobj(), [], False, False
+    gamma = srgb = sbit = trns = None
+    any_plte = False  # a suggested palette in an RGB(A) image
     while True:
         if pos + 12 > n:
             raise refuse("file ends before its IEND chunk" if hdr else
@@ -165,11 +229,20 @@ def _read_png(data: bytes, name="PNG"):
             if tag != b"IHDR" or not crc_ok or size != 13:
                 raise refuse("does not start with a valid IHDR chunk")
             hdr = struct.unpack(">IIBBBBB", body)
+            if not _ihdr_ok(*hdr):
+                raise refuse("IHDR {} x {}, bit depth {}, colour type {}, "
+                             "compression {}, filter {}, interlace {} is "
+                             "not valid".format(*hdr))
+            W, H, depth, color, _, _, interlace = hdr
             continue
         if tag == b"IEND":
             break
-        palette = hdr[3] == 3
+        palette = color == 3
         if tag == b"IDAT":
+            if not in_idat and not after_idat:
+                if palette and plte is None:
+                    raise refuse("palette image without PLTE before IDAT")
+                _check_size(W, H, name)
             if not crc_ok:
                 raise refuse("IDAT chunk has a bad CRC")
             if after_idat:
@@ -195,52 +268,79 @@ def _read_png(data: bytes, name="PNG"):
                     raise refuse("PLTE chunk repeated or after the image "
                                  "data")
                 plte = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
+            elif color & 2:  # a suggested palette in an RGB(A) image
+                if size == 0:
+                    raise refuse("PLTE chunk is empty")
+                # counted whatever its CRC; one of a bad length is dropped
+                any_plte |= size % 3 == 0 and size <= 768
         elif not tag[0] & 0x20:
             raise refuse(f"unknown critical chunk {tag!r}")
-        elif (crc_ok and tag == b"eXIf" and exif is None
-              and body[:2] in (b"II", b"MM")):
-            # libpng keeps the first eXIf whose byte order is II or MM
-            exif = body
+        elif not crc_ok:
+            continue
+        elif tag == b"eXIf":
+            if exif is None and body[:2] in (b"II", b"MM"):
+                # libpng keeps the first eXIf whose byte order is II or MM
+                exif = body
+        elif in_idat:
+            continue  # libpng reads no gamma, sBIT or tRNS after IDAT
+        elif tag == b"tRNS":
+            if trns is None and (
+                    (color == 0 and size == 2) or (color == 2 and size == 6)
+                    or (palette and plte is not None
+                        and 0 < size <= plte.shape[0])):
+                trns = body
+        elif any_plte or plte is not None:
+            continue  # gAMA, sRGB and sBIT come before PLTE
+        elif tag == b"gAMA":
+            if gamma is None and size == 4 and body[0] < 0x80:
+                gamma = struct.unpack(">I", body)[0]
+        elif tag == b"sRGB":
+            if srgb is None and size == 1 and body[0] <= 3:
+                srgb = _SRGB_GAMMA
+        elif tag == b"sBIT":
+            ch = 3 if palette else _PNG_CHANNELS[color]
+            top = 8 if palette else depth
+            if sbit is None and size == ch and all(
+                    1 <= b <= top for b in body):
+                sbit = max(body[:3]) if color & 2 else body[0]
     if not z.eof:
         raise refuse("image data is cut short" if in_idat
                      else "has no IDAT chunk")
-    W, H, depth, color, _, _, interlace = hdr
-    if interlace > 1:
-        raise ValueError(f"{name}: PNG interlace method {interlace} is not "
-                         f"valid")
-    if color not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[color]:
-        raise ValueError(f"{name}: PNG colour type {color} at bit depth "
-                         f"{depth} is not valid")
-    if color == 3 and plte is None:
-        raise ValueError(f"{name}: palette PNG without PLTE")
     ch = _PNG_CHANNELS[color]
     bpp = max(1, ch * depth // 8)
     raw = np.frombuffer(b"".join(out), dtype=np.uint8)
+    file_gamma = srgb or gamma or 0
     if not interlace:
         rowbytes = (W * ch * depth + 7) // 8
         px = _png_samples(png_unfilter(raw, H, rowbytes, bpp), H, W, ch,
                           depth)
-        return px, color, depth, plte, exif
+        return _Png(px, color, depth, plte, exif, trns, file_gamma,
+                    sbit or 0)
     # Adam7: the inflated stream holds the passes one after the other, each
     # a filtered image of its own; an empty pass has no rows at all
+    passes = [(x0, y0, dx, dy, max(0, -(-(W - x0) // dx)),
+               max(0, -(-(H - y0) // dy))) for x0, y0, dx, dy in ADAM7]
+    need = sum(ph * ((pw * ch * depth + 7) // 8 + 1)
+               for *_, pw, ph in passes if pw and ph)
+    if raw.size < need:
+        raise ValueError(f"PNG data holds {raw.size} bytes, {need} needed")
     px = np.zeros((H, W, ch), np.uint16 if depth == 16 else np.uint8)
     pos = 0
-    for x0, y0, dx, dy in ADAM7:
-        pw, ph = max(0, -(-(W - x0) // dx)), max(0, -(-(H - y0) // dy))
+    for x0, y0, dx, dy, pw, ph in passes:
         if pw == 0 or ph == 0:
             continue
         rowbytes = (pw * ch * depth + 7) // 8
         rows = png_unfilter(raw[pos:], ph, rowbytes, bpp)
         pos += ph * (rowbytes + 1)
         px[y0::dy, x0::dx] = _png_samples(rows, ph, pw, ch, depth)
-    return px, color, depth, plte, exif
+    return _Png(px, color, depth, plte, exif, trns, file_gamma, sbit or 0)
 
 
 def read_png(data: bytes, name="PNG"):
     """(pixels (H, W, C) uint8 or >u2-decoded uint16 as stored, colour type,
     bit depth, palette (n, 3) uint8 or None) of a PNG, interlaced or not;
     no EXIF orientation applied."""
-    return _read_png(data, name)[:4]
+    return tuple(_read_png(data, name)[:4])
 
 
 def _png_rgb(px, color, depth, plte):
@@ -265,10 +365,144 @@ def _strip16(a: np.ndarray) -> np.ndarray:
     return (a >> 8).astype(np.uint8) if a.dtype == np.uint16 else a
 
 
-def _png_gray(px, color, depth, plte) -> np.ndarray:
-    a, is_color = _png_rgb(px, color, depth, plte)
+# ---------------------------------------------------------------------------
+# libpng 1.6.58's gamma in png_do_rgb_to_gray (pngrtran.c), which cv2's
+# IMREAD_GRAYSCALE reaches through png_set_rgb_to_gray(1, 0.299, 0.587)
+# with no screen gamma set: the screen gamma is then 1 / file gamma, and
+# the tables are built where either gamma is significant.  Gamma values
+# are png_fixed_point (x 100000); the arithmetic is libpng's floating
+# point (png.c), exact against cv2 on all 2^24 colours of an 8-bit image.
+
+_FP1 = 100000
+_SRGB_GAMMA = 45455  # PNG_GAMMA_sRGB_INVERSE
+_RGB_TO_GRAY = (9797, 19234, 3737)  # 0.299, 0.587 in 1/32768 (truncated)
+
+
+def _gamma_significant(g: int) -> bool:
+    return g < _FP1 - 5000 or g > _FP1 + 5000  # PNG_GAMMA_THRESHOLD 0.05
+
+
+def _fixed(r: float) -> int:
+    """floor(r + .5) as a png_fixed_point, 0 on overflow."""
+    r = math.floor(r + .5)
+    return int(r) if -2147483648 <= r <= 2147483647 else 0
+
+
+def _reciprocal(a: int) -> int:  # png_reciprocal
+    return _fixed(1e10 / a) if a else 0
+
+
+def _reciprocal2(a: int, b: int) -> int:  # png_reciprocal2
+    return _fixed(1e15 / a / b)
+
+
+def _product2(a: int, b: int) -> int:  # png_product2
+    return _fixed(a * 1e-5 * b)
+
+
+def _correct16(v: int, g: int) -> int:  # png_gamma_16bit_correct
+    if 0 < v < 65535:
+        return int(math.floor(65535 * math.pow(v / 65535., g * .00001)
+                              + .5)) & 0xFFFF
+    return v
+
+
+@lru_cache(maxsize=64)
+def _table8(g: int) -> np.ndarray:
+    """png_build_8bit_table: png_gamma_8bit_correct of 0-255, or the
+    identity where g is not significant."""
+    t = np.arange(256, dtype=np.uint8)
+    if _gamma_significant(g):
+        for v in range(1, 255):
+            t[v] = int(math.floor(255 * math.pow(v / 255., g * .00001)
+                                  + .5)) & 0xFF
+    t.flags.writeable = False  # shared by every caller
+    return t
+
+
+@lru_cache(maxsize=64)
+def _table16(shift: int, g: int) -> np.ndarray:
+    """png_build_16bit_table: (2^(8 - shift), 256) uint16, looked up as
+    t[(v & 0xFF) >> shift, v >> 8]."""
+    num, top = 1 << (8 - shift), (1 << (16 - shift)) - 1
+    ig = (np.arange(256)[None, :] << (8 - shift)) + np.arange(num)[:, None]
+    if not _gamma_significant(g):
+        if shift:
+            ig = (ig * 65535 + (1 << (15 - shift))) // top
+        t = ig.astype(np.uint16)
+    else:
+        fmax = 1.0 / top
+        t = np.array([[int(math.floor(65535. * math.pow(int(v) * fmax,
+                                                        g * .00001) + .5))
+                       & 0xFFFF for v in row] for row in ig], np.uint16)
+    t.flags.writeable = False
+    return t
+
+
+@lru_cache(maxsize=64)
+def _table16to8(shift: int, g: int) -> np.ndarray:
+    """png_build_16to8_table as libpng 1.6.58 builds it (cv2 strips 16 to
+    8 bits): each (16 - shift)-bit input up to the rounded boundary of
+    output i takes i * 257, the rest 65535."""
+    num, top = 1 << (8 - shift), (1 << (16 - shift)) - 1
+    flat = np.full(num << 8, 65535, np.uint16)
+    last = 0
+    for i in range(255):
+        bound = (_correct16(i * 257 + 128, g) * top + 32767) // 65535 + 1
+        flat[last:max(last, bound)] = i * 257
+        last = max(last, bound)
+    # the input v11 = v >> shift is looked up at t[v11 & (num - 1),
+    # v11 >> (8 - shift)]
+    v11 = np.arange(num << 8)
+    t = np.empty((num, 256), np.uint16)
+    t[v11 & (num - 1), v11 >> (8 - shift)] = flat
+    t.flags.writeable = False
+    return t
+
+
+def _png_gamma_gray(a: np.ndarray, file_gamma: int, sbit: int):
+    """libpng's rgb-to-gray of (H, W, 3) RGB, uint8 or uint16, under a
+    file gamma, cut to 8 bits as cv2's png_set_strip_16 cuts it; None
+    where neither the file nor the screen gamma is significant (the plain
+    weights apply)."""
+    screen = _reciprocal(file_gamma)
+    if not (_gamma_significant(file_gamma) or _gamma_significant(screen)):
+        return None
+    rc, gc, bc = _RGB_TO_GRAY
+    r, g, b = (a[:, :, i].astype(np.int64) for i in range(3))
+    same = (r == g) & (r == b)
+    from_gamma = _reciprocal(screen) if screen > 0 else file_gamma
+    if a.dtype == np.uint8:
+        to1 = _table8(_reciprocal(file_gamma)).astype(np.int64)
+        gray = _table8(from_gamma)[(rc * to1[r] + gc * to1[g] + bc * to1[b]
+                                    + 16384) >> 15]
+        table = _table8(_reciprocal2(file_gamma, screen) if screen > 0
+                        else _FP1)
+        return np.where(same, table[r], gray)
+    # gamma_shift: the bits below sBIT's, at least 16 - PNG_MAX_GAMMA_8
+    shift = 16 - sbit if 0 < sbit < 16 else 0
+    shift = min(max(shift, 16 - 11), 8)
+
+    def look(t, v):
+        return t[(v & 0xFF) >> shift, v >> 8].astype(np.int64)
+
+    to1 = _table16(shift, _reciprocal(file_gamma))
+    s = (rc * look(to1, r) + gc * look(to1, g) + bc * look(to1, b)
+         + 16384) >> 15
+    w = np.where(same, look(_table16to8(shift, _product2(file_gamma, screen)
+                                        if screen > 0 else _FP1), r),
+                 look(_table16(shift, from_gamma), s))
+    return (w >> 8).astype(np.uint8)
+
+
+def _png_gray(png: _Png) -> np.ndarray:
+    a, is_color = _png_rgb(png.px, png.color, png.depth, png.plte)
     if not is_color:
         return _strip16(a[:, :, 0])
+    if png.gamma:
+        gray = _png_gamma_gray(a, png.gamma, png.sbit)
+        if gray is not None:
+            return gray
     r, g, b = (a[:, :, i].astype(np.int64) for i in range(3))
     if a.dtype == np.uint16:
         return _strip16(((9797 * r + 19234 * g + 3737 * b + 16384) >> 15)
@@ -276,12 +510,44 @@ def _png_gray(px, color, depth, plte) -> np.ndarray:
     return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
 
 
-def _png_color(px, color, depth, plte) -> np.ndarray:
-    a, is_color = _png_rgb(px, color, depth, plte)
+def _png_color(png: _Png) -> np.ndarray:
+    a, is_color = _png_rgb(png.px, png.color, png.depth, png.plte)
     a = _strip16(a)
     if not is_color:
         return np.repeat(a, 3, axis=2)
     return np.ascontiguousarray(a[:, :, ::-1])
+
+
+def _png_unchanged(png: _Png) -> np.ndarray:
+    """cv2's IMREAD_UNCHANGED of a PNG: gray (H, W) (below 8 bits scaled,
+    tRNS dropped), gray + alpha as (G, G, G, A), RGB as BGR, RGBA as BGRA,
+    a palette expanded to BGR; RGB and palette images with a tRNS libpng
+    accepts as BGRA (alpha 0 where an RGB pixel equals the tRNS colour,
+    8-bit samples against its low bytes, else the maximum; a palette entry
+    past tRNS's opaque).  16-bit samples stay uint16."""
+    px, color = png.px, png.color
+    if color in (0, 4):
+        g = _png_rgb(px, color, png.depth, png.plte)[0][:, :, 0]
+        return (g if color == 0 else
+                np.stack([g, g, g, px[:, :, 1]], -1))
+    if color == 3:
+        bgr = _png_rgb(px, color, png.depth, png.plte)[0][:, :, ::-1]
+        if png.trns is None:
+            return np.ascontiguousarray(bgr)
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(png.trns)] = np.frombuffer(png.trns, np.uint8)
+        return np.concatenate([bgr, alpha[px[:, :, :1]]], -1)
+    if color == 6:
+        return np.ascontiguousarray(px[:, :, [2, 1, 0, 3]])
+    bgr = px[:, :, ::-1]
+    if png.trns is None:
+        return np.ascontiguousarray(bgr)
+    key = np.array(struct.unpack(">HHH", png.trns), np.uint16)
+    if px.dtype == np.uint8:
+        key = key & 0xFF
+    opaque = np.iinfo(px.dtype).max
+    alpha = np.where((px == key.astype(px.dtype)).all(-1), 0, opaque)
+    return np.concatenate([bgr, alpha[:, :, None].astype(px.dtype)], -1)
 
 
 def _fill_run(out, p, line_end, y, count, value, W, H):
@@ -398,7 +664,7 @@ def read_bmp(data: bytes, name="BMP"):
     header, of clrUsed entries (2^bits when 0), the 16-bit masks too (after
     the whole header, as cv2 reads them even where a V4 or V5 header holds
     them).  Other files raise ValueError naming the format."""
-    return _read_bmp(data, name)[0]
+    return _read_bmp(data, name).bgr
 
 
 def _field_channel(words: np.ndarray, mask: int) -> np.ndarray:
@@ -420,10 +686,26 @@ def _gray_float(bgr: np.ndarray) -> np.ndarray:
     return s.astype(np.uint8)
 
 
-def _read_bmp(data: bytes, name):
-    """read_bmp's pixels and whether cv2 takes their gray in float32
-    (_gray_float: 32-bit bit fields under a header of 56 bytes or more)
-    rather than by cvtColor's fixed point."""
+class _Bmp(NamedTuple):
+    """A BMP as _read_bmp reads it, and what cv2's three reads take."""
+    bgr: np.ndarray  # (H, W, 3) uint8, the top row first
+    # cv2 takes the gray in float32 (_gray_float: 32-bit bit fields under a
+    # header of 56 bytes or more) rather than by cvtColor's fixed point
+    masked: bool
+    # IMREAD_UNCHANGED gives the gray read: an OS/2 header, or a palette of
+    # 2^bits entries (zeros past the file's) all gray
+    gray_unchanged: bool
+    # IMREAD_UNCHANGED's fourth channel at 32 bits with bit fields: the
+    # fourth byte, or with masked fields the alpha mask's field scaled as
+    # the others (255 under a zero alpha mask); None elsewhere
+    alpha: Optional[np.ndarray]
+
+
+def _bmp_gray(bmp: _Bmp) -> np.ndarray:
+    return _gray_float(bmp.bgr) if bmp.masked else _bgr_to_gray_cv(bmp.bgr)
+
+
+def _read_bmp(data: bytes, name) -> _Bmp:
     n = len(data)
     if data[:2] != b"BM" or n < 18:
         raise ValueError(f"{name}: not a BMP file")
@@ -437,7 +719,7 @@ def _read_bmp(data: bytes, name):
             raise ValueError(f"{name}: BMP file is cut short")
 
     pal = np.zeros((256, 3), np.uint8)
-    masked = False
+    masked, alpha = False, None
     if hsize >= 36:
         need(14 + 36)
         W, Hs = struct.unpack_from("<ii", data, 18)
@@ -471,11 +753,11 @@ def _read_bmp(data: bytes, name):
             masked = all(masks)
     elif hsize == 12:
         need(26)
-        W, Hs, planes, bits = struct.unpack_from("<HHHH", data, 18)
+        # the planes field (bytes 22-23) is not read, as cv2 reads none
+        W, Hs, _, bits = struct.unpack_from("<HHHH", data, 18)
         comp = 0
-        if not (W > 0 and Hs != 0 and planes == 1
-                and bits in (1, 4, 8, 24, 32)):
-            raise bad(f"(OS/2) of {bits} bits, {planes} planes")
+        if not (W > 0 and Hs != 0 and bits in (1, 4, 8, 24, 32)):
+            raise bad(f"(OS/2) of {bits} bits")
         if bits <= 8:
             k = 1 << bits
             need(26 + 3 * k)
@@ -483,9 +765,9 @@ def _read_bmp(data: bytes, name):
     else:
         raise bad(f"header of {hsize} bytes")
     H = abs(Hs)
-    # cv2's validateInputImageSize: each side up to 2^20, 2^30 pixels
-    if W > 1 << 20 or H > 1 << 20 or W * H > 1 << 30:
-        raise bad(f"of {W} x {H} pixels (larger than cv2 reads)")
+    _check_size(W, H, name)
+    gray_unchanged = hsize == 12 or (bits <= 8 and not (
+        pal[:1 << bits] != pal[:1 << bits, :1]).any())
     if comp in (1, 2):
         idx = _rle_indices(data, off, W, H, comp == 2, name).reshape(H, W)
         bgr = pal[idx]
@@ -515,12 +797,19 @@ def _read_bmp(data: bytes, name):
             words = rows[:, :4 * W].view("<u4")
             bgr = np.stack([_field_channel(words, m) for m in masks[::-1]],
                            -1)
+            am = struct.unpack_from("<I", data, 66)[0] if n >= 70 else 0
+            alpha = (_field_channel(words, am) if am else
+                     np.full((H, W), 255, np.uint8))
         else:
             k = bits // 8
-            bgr = rows[:, :W * k].reshape(H, W, k)[:, :, :3]
+            px = rows[:, :W * k].reshape(H, W, k)
+            bgr = px[:, :, :3]
+            if k == 4 and comp == 3:
+                alpha = px[:, :, 3]
     if Hs > 0:
         bgr = bgr[::-1]
-    return np.ascontiguousarray(bgr), masked
+        alpha = None if alpha is None else alpha[::-1]
+    return _Bmp(np.ascontiguousarray(bgr), masked, gray_unchanged, alpha)
 
 
 def _bgr_to_gray_cv(bgr: np.ndarray) -> np.ndarray:
@@ -625,7 +914,10 @@ def jpeg_info(data: bytes, name="JPEG") -> dict:
     components, sampling ((h, v) a component), format (JPEG_FORMATS),
     color_space (as libjpeg picks it from JFIF, Adobe APP14 and the
     component ids), orientation (its EXIF APP1's, 1 without one).
-    ValueError naming the format for a file the decoder does not read."""
+    ValueError naming the format for a file whose header libjpeg refuses
+    (jpeg_read_header), ImageSizeError past cv2's size limit; what libjpeg
+    refuses later (a missing table, two components) is read_jpeg's
+    ValueError."""
     import ctypes
 
     from ..native.runtime import _ptr, library
@@ -637,6 +929,7 @@ def jpeg_info(data: bytes, name="JPEG") -> dict:
                                 _JPEG_ERR) != 0:
         raise ValueError(f"{name}: {err.value.decode()}")
     H, W, nc, kind, color, eoff, elen = (int(v) for v in info[:7])
+    _check_size(W, H, name)
     return dict(height=H, width=W, components=nc,
                 sampling=tuple((int(info[7 + 2 * c]), int(info[8 + 2 * c]))
                                for c in range(nc)),
@@ -692,18 +985,16 @@ def _imread(path, gray: bool) -> np.ndarray:
     data = _read(path)
     kind = _format(data, path)
     if kind == "bmp":
-        bgr, masked = _read_bmp(data, path)
-        if not gray:
-            return bgr
-        return _gray_float(bgr) if masked else _bgr_to_gray_cv(bgr)
+        bmp = _read_bmp(data, path)
+        return _bmp_gray(bmp) if gray else bmp.bgr
     if kind == "jpeg":
         info = jpeg_info(data, path)
         return apply_orientation(read_jpeg(data, gray, path, info),
                                  info["orientation"])
-    *png, exif = _read_png(data, path)
-    img = _png_gray(*png) if gray else _png_color(*png)
-    return apply_orientation(img, 1 if exif is None
-                             else exif_orientation(exif))
+    png = _read_png(data, path)
+    img = _png_gray(png) if gray else _png_color(png)
+    return apply_orientation(img, 1 if png.exif is None
+                             else exif_orientation(png.exif))
 
 
 def imread_gray(path) -> np.ndarray:
@@ -718,10 +1009,31 @@ def imread_color(path) -> np.ndarray:
     return _imread(path, False)
 
 
+def imread_unchanged(path) -> np.ndarray:
+    """cv2.imread(path, IMREAD_UNCHANGED) bit for bit: no EXIF orientation;
+    PNG as _png_unchanged gives it (16-bit samples as uint16, alpha and
+    tRNS as a fourth channel); JPEG as the gray read (H, W) of one
+    component, else the colour read; BMP as the gray read under an OS/2
+    header or a gray palette, BGRA at 32 bits with bit fields, else the
+    colour read."""
+    data = _read(path)
+    kind = _format(data, path)
+    if kind == "bmp":
+        bmp = _read_bmp(data, path)
+        if bmp.alpha is not None:
+            return np.concatenate([bmp.bgr, bmp.alpha[:, :, None]], -1)
+        return _bmp_gray(bmp) if bmp.gray_unchanged else bmp.bgr
+    if kind == "jpeg":
+        info = jpeg_info(data, path)
+        return read_jpeg(data, info["components"] == 1, path, info)
+    return _png_unchanged(_read_png(data, path))
+
+
 def imread_color_or_none(path):
     """imread_color(path), or None exactly where cv2.imread(path,
     IMREAD_COLOR) returns None: a missing file, or one the readers refuse
-    (their ValueError naming the format).  Any other error is raised."""
+    (their ValueError naming the format).  Any other error is raised,
+    ImageSizeError among them (cv2.imread raises past its size limit)."""
     try:
         return _imread(path, False)
     except (FileNotFoundError, ValueError):

@@ -791,6 +791,10 @@ struct HuffDec {
   unsigned char vals[256];
   unsigned short look[512];  // (length << 8) | symbol for codes of <= 9 bits
   bool defined = false, built = false;
+  // set by a DHT: the standard tables (std_huff) serve sequential frames
+  // only (jdhuff.c jinit_huff_decoder); libjpeg's progressive and lossless
+  // decoders load none
+  bool dht = false;
   // a table as a DHT defines it (jdmarker.c get_dht); checked and derived
   // only by build, at a scan that uses it, as libjpeg does: a bad table
   // that a later DHT replaces before any scan reads it is no error
@@ -1119,6 +1123,7 @@ struct JpegFrame {
   bool started = false;  // a SOS was read
   int scans = 0;         // SOS markers read (input_scan_number)
   bool multi = false;    // has_multiple_scans: the image is read whole first
+  bool gray_out = false;  // decoding for IMREAD_GRAYSCALE
   int last_good = 0;     // last_good_iMCU_row
 };
 
@@ -1159,9 +1164,6 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
   if (!lossless && f.prec != 8)
     jfail(std::to_string(f.prec) + "-bit JPEG (precision " +
           std::to_string(f.prec) + ") is not supported (8-bit only)");
-  if (f.ncomp == 2)
-    jfail("JPEG of 2 components is not supported (no colour conversion "
-          "reads it)");
   if (f.ncomp < 1 || f.ncomp > 4)
     jfail("JPEG of " + std::to_string(f.ncomp) +
           " components is not supported (1, 3 or 4)");
@@ -1169,10 +1171,6 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
   if (f.H == 0) jfail("JPEG height 0 (set by a DNL marker) is not supported");
   if (f.W == 0) jfail("JPEG width 0 is not valid");
   if (f.H > 65500 || f.W > 65500) jfail("JPEG larger than 65500 pixels");
-  // cv2's validateInputImageSize: at most 2^30 pixels
-  if ((long)f.H * f.W > (1L << 30))
-    jfail("JPEG of " + std::to_string(f.W) + " x " + std::to_string(f.H) +
-          " pixels is larger than cv2 reads");
   f.kind = lossless ? 3 : ((m & 3) == 0 ? 0 : (m & 3));
   f.arith = m == 0xC9 || m == 0xCA;
   for (int c = 0; c < f.ncomp; ++c) {
@@ -1191,8 +1189,6 @@ void read_sof(JpegFrame& f, int m, const unsigned char* p, int len) {
   f.mcuy = (f.H + bs * f.max_v - 1) / (bs * f.max_v);
   for (int c = 0; c < f.ncomp; ++c) {
     JComp& k = f.comp[c];
-    if (f.max_h % k.h || f.max_v % k.v)
-      jfail("JPEG with fractional sampling ratios is not supported");
     k.dw = (int)(((long)f.W * k.h + f.max_h - 1) / f.max_h);
     k.dh = (int)(((long)f.H * k.v + f.max_v - 1) / f.max_v);
     k.wib = (k.dw + bs - 1) / bs;
@@ -1225,7 +1221,9 @@ void read_dht(JpegFrame& f, const unsigned char* p, int len) {
     for (int i = 0; i < 16; ++i) count += p[k + 1 + i];
     if (tc > 1 || th > 3 || count > 256 || k + 17 + count > len)
       jfail("bad JPEG Huffman table");
-    (tc ? f.ac : f.dc)[th].set(p + k + 1, p + k + 17);
+    HuffDec& t = (tc ? f.ac : f.dc)[th];
+    t.set(p + k + 1, p + k + 17);
+    t.dht = true;
     k += 17 + count;
   }
 }
@@ -1330,7 +1328,9 @@ void decode_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
     const JComp& k = f.comp[sc.ci[i]];
     const bool need_dc = !prog || (dc_scan && sc.ah == 0);
     const bool need_ac = !prog || !dc_scan;
-    if ((need_dc && !f.dc[k.td].defined) || (need_ac && !f.ac[k.ta].defined))
+    const HuffDec &dc = f.dc[k.td], &ac = f.ac[k.ta];
+    if ((need_dc && !(prog ? dc.dht : dc.defined)) ||
+        (need_ac && !(prog ? ac.dht : ac.defined)))
       jfail("JPEG scan names a Huffman table that is not defined");
     if (need_dc) f.dc[k.td].build(true);
     if (need_ac) f.ac[k.ta].build(false);
@@ -1653,7 +1653,7 @@ void decode_lossless_scan(JpegFrame& f, const Scan& sc, BitReader& br) {
     jfail("bad lossless JPEG scan parameters");
   for (int i = 0; i < sc.ns; ++i) {
     JComp& k = f.comp[sc.ci[i]];
-    if (!f.dc[k.td].defined)
+    if (!f.dc[k.td].dht)
       jfail("JPEG scan names a Huffman table that is not defined");
     f.dc[k.td].build(true, 16);
     k.pt = pt;
@@ -1747,15 +1747,43 @@ void read_sos(JpegFrame& f, const unsigned char* p, int len, Scan& sc) {
     sc.ci[i] = c;
     f.comp[c].td = p[2 + 2 * i] >> 4;
     f.comp[c].ta = p[2 + 2 * i] & 15;
-    // Huffman slots 0-3; the arithmetic decoder's 16 conditioning slots
-    if (!f.arith && (f.comp[c].td > 3 || f.comp[c].ta > 3))
-      jfail("bad JPEG scan header");
   }
   const unsigned char* t = p + 1 + 2 * sc.ns;
   sc.ss = t[0];
   sc.se = t[1];
   sc.ah = t[2] >> 4;
   sc.al = t[2] & 15;
+}
+
+// What libjpeg refuses only once jpeg_start_decompress runs, after
+// jpeg_read_header has given cv2 the size (so cv2's size limit comes
+// first): two components (no colour conversion), fractional sampling
+// ratios in a component the output needs (jdsample.c; a gray read of
+// gray or YCbCr needs only Y); and, as a guard for direct callers, more
+// pixels than cv2 reads (io/image.py raises its own error before a
+// decode).
+void check_decodable(const JpegFrame& f) {
+  if (f.ncomp == 2)
+    jfail("JPEG of 2 components is not supported (no colour conversion "
+          "reads it)");
+  const bool only_y = f.gray_out && (f.color == kGray || f.color == kYCbCr);
+  for (int c = 0; c < (only_y ? 1 : f.ncomp); ++c)
+    if (f.max_h % f.comp[c].h || f.max_v % f.comp[c].v)
+      jfail("JPEG with fractional sampling ratios is not supported");
+  if ((long)f.H * f.W > (1L << 30))
+    jfail("JPEG of " + std::to_string(f.W) + " x " + std::to_string(f.H) +
+          " pixels is larger than cv2 reads");
+}
+
+// A scan's tables at its start (jdinput.c start_input_pass, jdhuff.c
+// start_pass): Huffman slots 0-3, each component's quantization table
+// latched at its first scan.
+void start_scan(JpegFrame& f, const Scan& sc) {
+  for (int i = 0; i < sc.ns; ++i) {
+    const JComp& k = f.comp[sc.ci[i]];
+    // the arithmetic decoder's 16 conditioning slots are read as given
+    if (!f.arith && (k.td > 3 || k.ta > 3)) jfail("bad JPEG scan header");
+  }
   if (f.kind == 3) return;  // lossless: no quantization
   for (int i = 0; i < sc.ns; ++i) {  // jdinput.c latch_quant_tables
     JComp& k = f.comp[sc.ci[i]];
@@ -1845,11 +1873,16 @@ void parse(JpegFrame& f, bool decode) {
         Scan sc;
         read_sos(f, body, len, sc);
         ++f.scans;
-        if (!f.started) {
+        const bool first = !f.started;
+        if (first) {
           pick_color(f);
           f.started = true;
           f.multi = sc.ns < f.ncomp || f.kind == 2;
           if (!decode) return;
+          check_decodable(f);
+        }
+        start_scan(f, sc);
+        if (first) {
           for (int c = 0; c < f.ncomp; ++c) {
             JComp& k = f.comp[c];
             if (f.kind == 3)
@@ -2223,6 +2256,7 @@ inline int cmyk_channel(int x, int k) { return k - (((255 - x) * k) >> 8); }
 
 void decode_image(const DecodeTables& T, JpegFrame& f, bool gray,
                   unsigned char* out) {
+  f.gray_out = gray;
   parse(f, true);
   // the output space cv2 asks for, and what jdcolor.c converts into it
   const bool four = f.ncomp == 4;

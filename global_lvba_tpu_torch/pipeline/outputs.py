@@ -34,8 +34,8 @@ import numpy as np
 
 from .. import resolve_device
 from ..geometry.camera import CameraModel
-from ..io.image import (_PNG_SIGNATURE, _png_chunk, imwrite_jpeg, imwrite_png,
-                        read_png)
+from ..io.image import (_PNG_SIGNATURE, _png_chunk, imread_unchanged,
+                        imwrite_jpeg, imwrite_png)
 from .draw import Canvas
 
 DEPTH_SCALE = 2000.0  # depth PNG units per metre (lvba_system.cpp:913)
@@ -56,15 +56,14 @@ def save_depth_png(path, depth: np.ndarray):
                 + _png_chunk(b"IEND", b""))
 
 
-def load_depth_png(path) -> np.ndarray:
-    """A 16-bit grayscale, non-interlaced PNG (save_depth_png's, or cv2's
-    with any of the five row filters) as metres."""
-    px, color, depth, _ = read_png(Path(path).read_bytes(), path)
-    if (depth, color) != (16, 0):
-        raise ValueError(
-            f"{path}: bit depth {depth}, color type {color}; a 16-bit "
-            f"grayscale non-interlaced PNG is needed")
-    return px[:, :, 0].astype(np.float32) / DEPTH_SCALE
+def load_depth_png(path, scale: float = DEPTH_SCALE) -> np.ndarray:
+    """The image at path as cv2.imread(IMREAD_UNCHANGED) reads it
+    (io/image.imread_unchanged: a 16-bit gray PNG such as save_depth_png's
+    as (H, W) uint16, other files with their own channels and depth), in
+    float32 divided by scale, as the reference's loader.  A missing file
+    raises FileNotFoundError and an unreadable one ValueError, where the
+    reference fails on cv2's None."""
+    return imread_unchanged(path).astype(np.float32) / scale
 
 
 def _rot_to_quat(R: np.ndarray) -> np.ndarray:

@@ -40,11 +40,23 @@ grfmt_bmp recover them:
   cut_arith.jpg     arithmetic-coded sequential, cut inside its scan
   badcrc_text.png   a tEXt chunk with a bad CRC before the IDAT
   v5_bitfields.bmp  32 bits, 10-bit bit fields inside a V5 header
+files whose gamma, header or channels change what cv2 reads:
+  srgb_rgb.png      RGB of 8 bits with an sRGB chunk (libpng's gray read
+                    through its gamma tables, gamma 45455)
+  gamma22_rgba16.png  RGBA of 16 bits with gAMA 22000
+  gamma_pal.png     a 256-colour palette with gAMA 45455
+  filter64.png      RGB with IHDR filter method 64 (MNG's: cv2 reads
+                    nothing in any mode)
+  os2_planes0.bmp   os2_4.bmp's kind with its planes field 0 (cv2 does
+                    not read the field)
+  gray8.png         8-bit gray written by cv2 (the unchanged read: (H, W))
+  rgb16.png         16-bit RGB written by cv2 (the unchanged read: uint16)
 (tests/png_writer.py, jpeg_writer.py and bmp_writer.py write what cv2
 does not) and decodes.npz: for each file name, "<name>:color" (cv2.imread
-IMREAD_COLOR) and "<name>:gray" (IMREAD_GRAYSCALE), each where cv2 reads
-the file that way.  Every file is read back with cv2 before the archive is
-written; the whole set stays under 1 MB.
+IMREAD_COLOR), "<name>:gray" (IMREAD_GRAYSCALE) and "<name>:unchanged"
+(IMREAD_UNCHANGED), each where cv2 reads the file that way; a file cv2
+reads in no mode (UNREADABLE) has no key.  Every file is read back with
+cv2 before the archive is written; the whole set stays under 1 MB.
 """
 
 import struct
@@ -177,7 +189,44 @@ def files() -> dict:
         words.view(np.uint8).reshape(15, 19, 4), 32,
         compression=bw.BI_BITFIELDS, masks=(0x3FF00000, 0xFFC00, 0x3FF),
         header=124)
+
+    def after_ihdr(data, tag, body):
+        return data[:33] + png_chunk(tag, body) + data[33:]
+
+    out["srgb_rgb.png"] = after_ihdr(
+        png(_scene(27, 33, 24)[:, :, ::-1], 2, 8, (0, 1, 2, 3, 4)),
+        b"sRGB", b"\0")
+    rng = np.random.default_rng(25)
+    rgba16 = np.concatenate(
+        [_scene(21, 29, 26)[:, :, ::-1], _scene(21, 29, 27)[:, :, :1]], -1
+    ).astype(np.uint16) * 257 + rng.integers(0, 257, (21, 29, 4))
+    out["gamma22_rgba16.png"] = after_ihdr(
+        png(rgba16.astype(np.uint16), 6, 16, (0, 4)), b"gAMA",
+        struct.pack(">I", 22000))
+    idx, pal = bw.quantize(_scene(25, 31, 28))
+    out["gamma_pal.png"] = after_ihdr(
+        png(idx[:, :, None], 3, 8, plte=pal[:, ::-1]), b"gAMA",
+        struct.pack(">I", 45455))
+    rgb = png(_scene(9, 11, 29), 2, 8)
+    ihdr = bytearray(rgb[16:29])
+    ihdr[11] = 64
+    out["filter64.png"] = rgb[:8] + png_chunk(b"IHDR", bytes(ihdr)) + rgb[33:]
+    os2 = bytearray(bw.bmp(idx & 15, 4, palette=pal[:16], header=12))
+    os2[22:24] = bytes(2)
+    out["os2_planes0.bmp"] = bytes(os2)
+    ok, buf = cv2.imencode(".png", _scene(23, 27, 30)[:, :, 1])
+    assert ok
+    out["gray8.png"] = buf.tobytes()
+    ok, buf = cv2.imencode(".png", (_scene(19, 25, 31).astype(np.uint16)
+                                    * 257 + rng.integers(0, 257, (19, 25, 3))
+                                    ).astype(np.uint16))
+    assert ok
+    out["rgb16.png"] = buf.tobytes()
     return out
+
+
+# files cv2 reads in no mode: their reads must raise
+UNREADABLE = ("filter64.png",)
 
 
 def main() -> int:
@@ -189,12 +238,15 @@ def main() -> int:
         path.write_bytes(data)
         total += len(data)
         for kind, flag in (("color", cv2.IMREAD_COLOR),
-                           ("gray", cv2.IMREAD_GRAYSCALE)):
+                           ("gray", cv2.IMREAD_GRAYSCALE),
+                           ("unchanged", cv2.IMREAD_UNCHANGED)):
             img = cv2.imread(str(path), flag)
             if img is not None:
                 decodes[f"{name}:{kind}"] = img
-        if not any(k.startswith(name + ":") for k in decodes):
-            raise RuntimeError(f"cv2 does not read {name}")
+        read = any(k.startswith(name + ":") for k in decodes)
+        if read == (name in UNREADABLE):
+            raise RuntimeError(f"cv2 reads {name}" if read else
+                               f"cv2 does not read {name}")
     if decodes["exif6.jpg:gray"].shape != (47, 29):
         raise RuntimeError("cv2 did not apply exif6.jpg's orientation")
     np.savez_compressed(OUT / "decodes.npz", **decodes)

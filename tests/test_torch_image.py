@@ -249,7 +249,8 @@ def test_load_gray_image_matches_jax(tmp_path, name):
 
 def _splice_sof(jpg: bytes, marker: int, precision=8, ncomp=None) -> bytes:
     """jpg with its SOF0 segment rewritten: another SOF marker, precision
-    or component count (extra components copy the last one's fields)."""
+    or component count (extra components copy the last one's fields; with
+    fewer, the scan names only the frame's)."""
     k = jpg.index(b"\xff\xc0")
     n = struct.unpack(">H", jpg[k + 2:k + 4])[0]
     body = bytearray(jpg[k + 4:k + 2 + n])
@@ -259,8 +260,16 @@ def _splice_sof(jpg: bytes, marker: int, precision=8, ncomp=None) -> bytes:
         comps = (comps + [bytes([9 + c]) + comps[-1][1:]
                           for c in range(ncomp)])[:ncomp]
     body = bytes(body[:5]) + bytes([len(comps)]) + b"".join(comps)
+    rest = jpg[k + 2 + n:]
+    s = rest.index(b"\xff\xda")
+    ns = rest[s + 4]
+    if len(comps) < ns:
+        scan = (bytes([len(comps)]) + rest[s + 5:s + 5 + 2 * len(comps)]
+                + rest[s + 5 + 2 * ns:s + 8 + 2 * ns])
+        rest = (rest[:s + 2] + struct.pack(">H", len(scan) + 2) + scan
+                + rest[s + 8 + 2 * ns:])
     return (jpg[:k] + bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2)
-            + body + jpg[k + 2 + n:])
+            + body + rest)
 
 
 OUT_OF_SCOPE = [

@@ -16,8 +16,8 @@ port a ValueError naming the format), colour and gray.
   * PNG: cv2 5.0's chunk rules (io/image.py _read_png) on a sweep of bad
     CRCs on each chunk type, inserted unknown, repeated and misplaced
     chunks, a missing IEND, data after IEND and cuts at every chunk
-    boundary; read_png, the depth maps' reader, against
-    IMREAD_UNCHANGED on the same files.
+    boundary; read_png and imread_unchanged, the depth maps' reader,
+    against IMREAD_UNCHANGED on the same files.
 Each source is one test case (seeded with its name), so that a failure
 names its file and mutation.  The whole file runs in ~6 s on one
 worker."""
@@ -323,8 +323,9 @@ def _png_mutations(data: bytes):
 @pytest.mark.parametrize("source", list(_png_sources()))
 def test_png_chunk_sweep_matches_cv2(tmp_path, source):
     """Every mutation reads as cv2.imread reads it, colour and gray, and
-    read_png (the depth maps' reader) refuses exactly where
-    IMREAD_UNCHANGED returns None and gives its samples elsewhere."""
+    read_png refuses exactly where IMREAD_UNCHANGED returns None and gives
+    its samples elsewhere, which imread_unchanged (the depth maps'
+    reader) gives bit for bit."""
     data = _png_sources()[source]
     p = tmp_path / "m.png"
     cases = 0
@@ -335,9 +336,13 @@ def test_png_chunk_sweep_matches_cv2(tmp_path, source):
         if want is None:
             with pytest.raises(ValueError):
                 gi.read_png(mutated)
+            with pytest.raises(ValueError):
+                gi.imread_unchanged(p)
         else:
             px = gi.read_png(mutated)[0]
             assert px.shape[:2] == want.shape[:2], what
+            got = gi.imread_unchanged(p)
+            assert got.dtype == want.dtype and np.array_equal(got, want), what
         cases += 1
     assert cases >= 45
 

@@ -367,27 +367,37 @@ def test_adam7_png_cut_short_raises(tmp_path):
         gi.imread_gray(p)
 
 
+# the fixtures cv2 reads in no mode (scripts/make_image_fixtures.py)
+UNREADABLE_FIXTURES = ("filter64.png",)
+
+
 @pytest.mark.parametrize("name", sorted(
     p.name for p in FIXTURES.glob("*") if p.suffix in (".jpg", ".png",
                                                        ".bmp")))
 def test_committed_fixtures(name):
     """The committed files decode to the committed cv2 decodes (which
     chip_smoke.py holds the port to on a machine without cv2) and to this
-    cv2's; where cv2 reads a file one way only (a lossless JPEG), the
-    port raises the other way."""
+    cv2's, colour, gray and unchanged; where cv2 reads a file one way only
+    (a lossless JPEG), the port raises the other way, and where cv2 reads
+    it in no way (filter64.png), the port raises in every way."""
     ref = np.load(FIXTURES / "decodes.npz")
     p = FIXTURES / name
-    for kind, read, flag in (("color", gi.imread_color, cv2.IMREAD_COLOR),
-                             ("gray", gi.imread_gray, cv2.IMREAD_GRAYSCALE)):
+    for kind, read, flag in (
+            ("color", gi.imread_color, cv2.IMREAD_COLOR),
+            ("gray", gi.imread_gray, cv2.IMREAD_GRAYSCALE),
+            ("unchanged", gi.imread_unchanged, cv2.IMREAD_UNCHANGED)):
         key = f"{name}:{kind}"
         if key in ref.files:
-            assert np.array_equal(read(p), ref[key])
-            assert np.array_equal(read(p), cv2.imread(str(p), flag))
+            got = read(p)
+            assert got.dtype == ref[key].dtype
+            assert np.array_equal(got, ref[key])
+            assert np.array_equal(got, cv2.imread(str(p), flag))
         else:
             assert cv2.imread(str(p), flag) is None
             with pytest.raises(ValueError):
                 read(p)
-    assert any(k.startswith(name + ":") for k in ref.files)
+    assert any(k.startswith(name + ":") for k in ref.files) == (
+        name not in UNREADABLE_FIXTURES)
 
 
 def test_decodes_on_threads_agree(tmp_path):

@@ -107,6 +107,34 @@ def _encode_png16(img: np.ndarray, filters) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def _cv2_bytes(ext, img):
+    ok, buf = cv2.imencode(ext, img)
+    assert ok
+    return buf.tobytes()
+
+
+def _palette_trns_png():
+    from png_writer import png
+
+    rng = np.random.default_rng(4)
+    return png(rng.integers(0, 16, (12, 10, 1)), 3, 4,
+               plte=rng.integers(0, 256, (16, 3)), trns=bytes([0, 90, 200]))
+
+
+_OTHER_FORMATS = {
+    "gray8_png": lambda: _cv2_bytes(".png", (_depth(2) * 12).astype(
+        np.uint8)),
+    "rgb16_png": lambda: _cv2_bytes(".png", np.stack(
+        [np.clip(_depth(k) * 2000, 0, 65535) for k in (3, 4, 5)],
+        -1).astype(np.uint16)),
+    "palette_trns_png": _palette_trns_png,
+    "gray_bmp": lambda: _cv2_bytes(".bmp", (_depth(6) * 12).astype(
+        np.uint8)),
+    "color_jpg": lambda: _cv2_bytes(".jpg", np.stack(
+        [(_depth(k) * 12).astype(np.uint8) for k in (7, 8, 9)], -1)),
+}
+
+
 class TestDepthPng:
     def test_roundtrip(self, tmp_path):
         depth = np.random.default_rng(0).uniform(0, 20, (96, 128)).astype(
@@ -145,17 +173,33 @@ class TestDepthPng:
         assert np.array_equal(got, img.astype(np.float32) / 2000.0)
         assert np.array_equal(got, jout.load_depth_png(p))
 
-    def test_rejects_other_formats(self, tmp_path):
-        p = tmp_path / "rgb.png"
-        cv2.imwrite(str(p), np.zeros((4, 4, 3), np.uint8))
-        with pytest.raises(ValueError, match="16-bit grayscale"):
-            outputs.load_depth_png(p)
-        (tmp_path / "x.png").write_bytes(b"GIF89a")
-        with pytest.raises(ValueError, match="not a PNG"):
-            outputs.load_depth_png(tmp_path / "x.png")
-        (tmp_path / "y.png").write_bytes(outputs._PNG_SIGNATURE)
-        with pytest.raises(ValueError, match="no IHDR"):
-            outputs.load_depth_png(tmp_path / "y.png")
+    @pytest.mark.parametrize("kind", list(_OTHER_FORMATS) + [
+        "not_an_image", "bare_signature", "missing"])
+    def test_other_formats(self, tmp_path, kind):
+        """Files other than a 16-bit gray PNG read as the reference reads
+        them (cv2's IMREAD_UNCHANGED in float32 over scale, the default and
+        1000), and a file that is no image raises ValueError (a missing
+        one FileNotFoundError), where the reference fails on cv2's None."""
+        p = tmp_path / f"d.{kind.rsplit('_', 1)[-1]}"
+        if kind in _OTHER_FORMATS:
+            p.write_bytes(_OTHER_FORMATS[kind]())
+            for kw in ({}, {"scale": 1000.0}):
+                got = outputs.load_depth_png(p, **kw)
+                want = jout.load_depth_png(p, **kw)
+                assert got.dtype == want.dtype == np.float32
+                assert got.shape == want.shape and np.array_equal(got, want)
+            return
+        if kind == "not_an_image":
+            p.write_bytes(b"GIF89a")
+            with pytest.raises(ValueError, match="unknown image format"):
+                outputs.load_depth_png(p)
+        elif kind == "bare_signature":
+            p.write_bytes(outputs._PNG_SIGNATURE)
+            with pytest.raises(ValueError, match="no IHDR"):
+                outputs.load_depth_png(p)
+        else:
+            with pytest.raises(FileNotFoundError):
+                outputs.load_depth_png(p)
 
 
 # ------------------------------------------------------- COLMAP export ----

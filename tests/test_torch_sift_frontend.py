@@ -173,3 +173,51 @@ def test_save_match_images_skip_a_view_cv2_reads_only_in_gray(dataset,
             f"matches_{i:04d}_{j:04d}.jpg" for i, j in matches
             if 2 not in (i, j))
     assert names["port"] == names["jax"] and names["port"]
+
+
+def test_save_match_images_stop_at_an_image_past_cv2s_size_limit(dataset,
+                                                                 tmp_path):
+    """View 2 swapped, after the gray reads of the SIFT stage, for the
+    header of a 40000 x 40000 PNG: with solver.save_match_images both
+    packages stop in the export (cv2.error from cv2.imread, the port's
+    ImageSizeError, which imread_color_or_none lets through), having drawn
+    the same pairs before it."""
+    import struct
+    import zlib
+
+    import cv2
+
+    from global_lvba_tpu.frontend.sift import SiftParams as JParams
+    from global_lvba_tpu_torch.io.image import ImageSizeError
+    from png_writer import chunk
+
+    paths = list(dataset.image_paths)
+    big = tmp_path / "big.png"
+    big.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 40000, 40000, 8, 0, 0, 0, 0)) + chunk(
+        b"IDAT", zlib.compress(bytes(16))) + chunk(b"IEND", b""))
+    ds = SimpleNamespace(image_paths=paths[:2] + [big] + paths[3:],
+                         cam=dataset.cam)
+    drawn = {}
+    for pkg, mod, error in (("port", psf, ImageSizeError),
+                            ("jax", jsf, cv2.error)):
+        load = mod.load_gray_image
+
+        def gray_of_view_2(path, *a, load=load):
+            return load(paths[2] if path == big else path, *a)
+
+        cfg = LvbaConfig() if pkg == "port" else JConfig()
+        cfg.solver.save_match_images = True
+        out = tmp_path / pkg
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mod, "load_gray_image", gray_of_view_2)
+            with pytest.raises(error):
+                if pkg == "port":
+                    mod.extract_and_match_sift(
+                        ds, cfg, params=SiftParams(**PARAMS),
+                        result_dir=out, device="cpu")
+                else:
+                    mod.extract_and_match_sift(
+                        ds, cfg, params=JParams(**PARAMS), result_dir=out)
+        drawn[pkg] = sorted(p.name for p in out.iterdir())
+    assert drawn["port"] == drawn["jax"] and drawn["port"]
