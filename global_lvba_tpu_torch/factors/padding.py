@@ -20,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..map.voxelize import PlaneFactorBucket, VoxelMap
+from ..utils.profiling import traced
 from .plane_eigen import (
     AlignedPlaneFactorArrays, PlaneFactorArrays, bucket_to_device)
 
@@ -59,6 +60,7 @@ def _pad_k(x: np.ndarray, kmax: int) -> np.ndarray:
     return np.pad(x, cfg)
 
 
+@traced("map.upload")
 def buckets_to_device(
     vm: VoxelMap, W: int, dtype=torch.float32, device="cuda",
     merge: str = "auto",

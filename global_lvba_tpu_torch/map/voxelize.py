@@ -40,6 +40,7 @@ import numpy as np
 
 from .. import native as _native
 from ..native import runtime as _runtime
+from ..utils.profiling import traced
 
 _KEY_BITS = 20  # per-axis voxel coordinates in [-2^19, 2^19)
 _KEY_OFF = 1 << (_KEY_BITS - 1)
@@ -200,6 +201,7 @@ def _sym6_to_mat(m: np.ndarray) -> np.ndarray:
     return out
 
 
+@traced("map.voxelize")
 def build_voxel_map(
     points_body: np.ndarray,
     frame_ids: np.ndarray,

@@ -50,6 +50,7 @@ from ..solver.dist_solve import (
 from ..solver.lm import (
     BANDED_CG_ITERS, LIDAR_CG_ITERS, LMResult, Route, _dense_solve,
     _run, _solve_damped, _total_cgh, plan_route)
+from ..utils.profiling import span
 from .mesh import Mesh, psum, shard_bounds
 
 log = logging.getLogger("global_lvba_tpu_torch.parallel")
@@ -349,9 +350,11 @@ def sharded_route(buckets, W: int, reduced_solver: str, hessian: str,
 
 
 def _lm(buckets, R0, p0, mesh, max_iters, **route) -> LMResult:
-    route = plan_route(buckets, R0.shape[0], mesh=mesh, **route)
-    return _run(route, R0.to(mesh.first), p0.to(mesh.first), int(max_iters),
-                0.01, 2.0, 1e-6)
+    with span("lm.solve", mesh.first):
+        with span("lm.plan_route", mesh.first):
+            route = plan_route(buckets, R0.shape[0], mesh=mesh, **route)
+        return _run(route, R0.to(mesh.first), p0.to(mesh.first),
+                    int(max_iters), 0.01, 2.0, 1e-6)
 
 
 def lm_damping_iter_sharded(buckets: Sequence, R0: torch.Tensor,

@@ -20,10 +20,13 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -182,13 +185,16 @@ def _pcg(matvec, precond, b: torch.Tensor, max_iters: int, tol: float):
     Nothing is read to the host.  x, r and p are the rows of one (3, n)
     state, so a trip's freeze is one torch.where: in a CUDA graph the
     count of a trip's small launches (18 beside the matvec's two) sets
-    its time."""
+    its time.  Each trip writes its done flag into one (max_iters,)
+    buffer, from which the traced count of live trips is taken
+    (_live_trips)."""
     z = precond(b)
     S = torch.stack([torch.zeros_like(b), b, z])      # x, r, p
     rz = torch.dot(b, z)
     b2 = torch.clamp(torch.dot(b, b), min=torch.finfo(b.dtype).tiny)
     done = torch.zeros((), dtype=torch.bool, device=b.device)
-    for _ in range(max_iters):
+    dones = torch.empty(max_iters, dtype=torch.bool, device=b.device)
+    for i in range(max_iters):
         x, r, p = S
         Ap = matvec(p)
         denom = torch.dot(p, Ap)
@@ -203,8 +209,36 @@ def _pcg(matvec, precond, b: torch.Tensor, max_iters: int, tol: float):
         conv = torch.dot(S_n[1], S_n[1]) / b2 < tol * tol
         S = torch.where(done, S, S_n)
         rz = torch.where(done, rz, rz_n)
-        done = done | conv
+        done = torch.bitwise_or(done, conv, out=dones[i])
+    _live_trips(dones)
     return S[0]
+
+
+# while a CapturedSolve captures: the list that takes the done buffers of
+# the _pcg runs it captures (None otherwise)
+_DONES = None
+
+
+@contextmanager
+def _collect_dones():
+    """Hand the done buffers of the _pcg runs inside to a list (yielded)
+    instead of counting them: a capture counts at each replay."""
+    global _DONES
+    prev, _DONES = _DONES, []
+    try:
+        yield _DONES
+    finally:
+        _DONES = prev
+
+
+def _live_trips(dones: torch.Tensor):
+    """Count a CG run's live trips into cg.live_trips, on the device: the
+    first trip and every trip after one that left the state not done.  In
+    a capture the buffer goes to the CapturedSolve instead."""
+    if _DONES is not None:
+        _DONES.append(dones)
+    elif profiling.enabled() and dones.numel():
+        profiling.count("cg.live_trips", (~dones[:-1]).sum() + 1)
 
 
 def _damped_cg(H: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
@@ -542,7 +576,9 @@ class CapturedSolve:
     ~0.1 s a capture, to save a copy of ~1 ms a solve.)  Capture runs one
     trip first on a side stream (cuBLAS' handle and workspace), then
     captures the preamble and all `max_iters` trips; a capture that fails
-    raises."""
+    raises.  Traced, a replay counts the captured CG runs' live trips
+    from the done buffers the graph writes (launches after the replay,
+    none in the graph)."""
 
     def __init__(self, fn, specs, device: torch.device, max_iters: int):
         t0 = time.perf_counter()
@@ -552,11 +588,12 @@ class CapturedSolve:
             cur = torch.cuda.current_stream(device)
             side = torch.cuda.Stream(device)
             side.wait_stream(cur)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), _collect_dones():
                 fn(1, *self.inputs)
             cur.wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with _collect_dones() as self.dones, \
+                    torch.cuda.graph(self.graph):
                 self.out = fn(max_iters, *self.inputs)
         self.capture_s = time.perf_counter() - t0
 
@@ -564,6 +601,9 @@ class CapturedSolve:
         for s, x in zip(self.inputs, operands):
             s.copy_(x)
         self.graph.replay()
+        if profiling.enabled():
+            for dones in self.dones:
+                _live_trips(dones)
         if isinstance(self.out, tuple):
             return tuple(o.clone() for o in self.out)
         return self.out.clone()
@@ -581,6 +621,7 @@ def _captured(key, fn, specs, device, max_iters) -> CapturedSolve:
     graph = _GRAPHS.get(key)
     if graph is None:
         graph = _GRAPHS[key] = CapturedSolve(fn, specs, device, max_iters)
+        profiling.count("cg.graph_captures")
         while len(_GRAPHS) > GRAPH_CACHE_SIZE:
             _GRAPHS.popitem(last=False)
     _GRAPHS.move_to_end(key)

@@ -67,6 +67,8 @@ from ..factors.plane_eigen import (
     banded_plan, build_banded_groups, build_gather_plan, buckets_frame_table,
     plane_cost_grad_hess, plane_cost_grad_hess_buckets, rows_plan)
 from ..geometry.se3 import boxplus_pose
+from ..utils import profiling
+from ..utils.profiling import span
 from .dist_solve import (
     solve_damped_cg, solve_damped_cg_banded, solve_damped_cg_rows)
 
@@ -314,21 +316,28 @@ def _select_(keep, new, old):
 def _run(route: Route, R0, p0, max_iters, u_init, v_init, rel_tol):
     """The Nielsen loop over a route: one evaluation an iteration at the
     trial point, the accepted state selected on the device, one read of
-    `converged` an iteration."""
+    `converged` an iteration.  Traced: the lm.eval and lm.damped_solve
+    spans, and the rejected steps counted on the device (lm.rejects)."""
     W = R0.shape[0]
+    dev = R0.device
     R, p = R0, p0
-    state = route.cgh(R, p)
-    u = torch.full((), u_init, dtype=R0.dtype, device=R0.device)
-    v = torch.full((), v_init, dtype=R0.dtype, device=R0.device)
+    with span("lm.eval", dev):
+        state = route.cgh(R, p)
+    u = torch.full((), u_init, dtype=R0.dtype, device=dev)
+    v = torch.full((), v_init, dtype=R0.dtype, device=dev)
     it = 0
     for _ in range(max_iters):
-        dx, d = route.solve(state, u)
+        with span("lm.damped_solve", dev):
+            dx, d = route.solve(state, u)
         R_t, p_t = boxplus_pose(R, p, dx.reshape(W, 6))
         q1 = 0.5 * torch.dot(dx, u * d * dx - state[1].reshape(-1)) \
             / route.g_size
-        state_t = route.cgh(R_t, p_t)
+        with span("lm.eval", dev):
+            state_t = route.cgh(R_t, p_t)
         accept, u, v, converged = _nielsen_update(state[0], state_t[0], q1,
                                                   u, v, rel_tol)
+        if profiling.enabled():
+            profiling.count("lm.rejects", ~accept)
         R, p = torch.where(accept, R_t, R), torch.where(accept, p_t, p)
         state = _select_(accept, state_t, state)
         it += 1
@@ -362,9 +371,11 @@ def lm_damping_iter(
     JAX package's GatherPlan evaluation (LVBA_GATHER_M), one plan a
     bucket, never split (bucketed only; an aligned solve ignores it, as
     in the JAX package).  The result's `route` names the route taken."""
-    route = plan_route(buckets, R0.shape[0], reduced_solver, hessian,
-                       gather_tables)
-    return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)
+    with span("lm.solve", R0.device):
+        with span("lm.plan_route", R0.device):
+            route = plan_route(buckets, R0.shape[0], reduced_solver,
+                               hessian, gather_tables)
+        return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)
 
 
 def lm_damping_iter_split(
@@ -384,6 +395,8 @@ def lm_damping_iter_split(
     the compact group Grams and solve_damped_cg_banded.  The JAX package
     keeps its Nielsen scalars on the host; here they stay on the device,
     so the two differ by rounding only."""
-    route = plan_route(buckets, R0.shape[0], reduced_solver, hessian,
-                       split=True)
-    return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)
+    with span("lm.solve", R0.device):
+        with span("lm.plan_route", R0.device):
+            route = plan_route(buckets, R0.shape[0], reduced_solver,
+                               hessian, split=True)
+        return _run(route, R0, p0, max_iters, u_init, v_init, rel_tol)

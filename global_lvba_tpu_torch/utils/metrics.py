@@ -16,6 +16,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 class MetricsRegistry:
     def __init__(self):
@@ -38,7 +40,7 @@ class StageTimer:
     """Context-manager timer recording wall time plus memory observability
     per stage (the reference's check_mem, BALM/bavoxel.hpp:769-795): host
     VmRSS after the stage and, on a CUDA `device`, the allocator's
-    cumulative peak."""
+    cumulative peak.  Each stage is the tracer's span stage.<name>."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  device="cpu"):
@@ -49,7 +51,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"stage.{name}", self.device):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.registry.add(f"time/{name}_s", dt)

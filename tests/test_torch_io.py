@@ -426,10 +426,12 @@ def test_metrics_compute_mad_matches_jax():
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiling.device_trace(tmp_path / "trace", device="cpu"):
-        with profiling.annotate("region"):
+        with profiling.span("stage.region"):
             torch.ones(8).sum()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any(e.get("name") == "region" for e in trace["traceEvents"])
+    assert any(e.get("name") == "stage.region" for e in trace["traceEvents"])
+    assert not profiling.enabled()
+    profiling.reset()
 
 
 # ------------------------------------------------------------- robust ----
